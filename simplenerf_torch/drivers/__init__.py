@@ -1,0 +1,1 @@
+"""drivers of the PyTorch port (see the package docstring)."""

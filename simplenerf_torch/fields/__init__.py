@@ -1,0 +1,1 @@
+"""fields of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""render of the PyTorch port (see the package docstring)."""
