@@ -12,18 +12,20 @@ views layers, views head). It emits the raw linear head channels as
 What bounds it on an H100: arithmetic. The published 8x256 main MLP does
 2 * 589,952 FLOP per point against ~142 bytes of device-memory traffic per
 point in bf16 (126 B of `lo` in, 16 B of planes out), some 8,000 FLOP per
-byte, far above the card's ~295 FLOP/byte ridge. The design therefore keeps
-every activation on chip: a block owns a tile of rows, holds its `lo`/`hi`
-inputs and two ping-pong activation buffers in shared memory, and runs the
-whole layer chain without touching device memory between layers. The
-weights (about 1.2 MB in bf16) do not fit in one block's 227 KB of shared
-memory, so each layer streams its transposed weight through shared memory
-in 32-deep K-slabs, double-buffered with cp.async; all blocks read the same
-weights, which stay resident in the 50 MB L2. bf16 products run on the
-tensor cores (mma.sync m16n8k16, float32 accumulators); the float32 path is
-plain FMA on the same fragment layout (no TF32, which would break float32
-parity). Heads are float32 warp reductions, as the TPU kernel's lane
-reductions are.
+byte, far above the ~295 FLOP/byte at which the H100's published bf16
+peak and memory rate balance (SXM data sheet, 700 W). The design therefore keeps every activation
+on chip: a block owns a tile of rows (128 in bf16), holds its `lo`/`hi`
+inputs and one activation tile in shared memory, and runs the whole layer
+chain without touching device memory between layers. The weights (about
+1.2 MB in bf16) do not fit in one block's 227 KB of shared memory, so
+every layer streams its transposed weight through a 3-stage ring of
+K-slabs filled by cp.async; all blocks read the same weights, which stay
+resident in the 50 MB L2. bf16 products run on the tensor cores
+(mma.sync m16n8k16 with ldmatrix fragments, float32 accumulators); the
+float32 path is plain FMA (no TF32, which would break float32 parity).
+Heads are float32 warp reductions, as the TPU kernel's lane reductions
+are. `pack_program` turns the spec into the list of layers and heads the
+kernel walks.
 
 `fused_apply` launches the kernel for CUDA tensors and takes
 `fused_apply_reference` only for CPU tensors. It has no backward yet: under
@@ -228,13 +230,13 @@ def fused_apply_reference(spec: FusedSpec, kp: dict, lo, hi, hvx) -> tuple:
 # ---------------------------------------------------------------------------
 
 # Program layout shared with csrc/fused_mlp_fwd.cu (struct Program / Op).
-_HEADER_WORDS = 12
+_HEADER_WORDS = 13
 _OP_WORDS = 16
 _MAX_OPS = 40
 _OP_LAYER, _OP_HEAD = 0, 1
-_SRC_ACT0, _SRC_ACT1, _SRC_LO, _SRC_HI = 0, 1, 2, 3
+_SRC_ACT, _SRC_LO, _SRC_HI = 0, 1, 2
 _FLAG_RELU, _FLAG_HVX = 1, 2
-_SLAB_K = 32
+_STAGES = 3  # weight slabs in flight
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block can use
 
 
@@ -242,9 +244,9 @@ def _round16(k: int) -> int:
     return -(-k // 16) * 16
 
 
-def _block_rows(cdtype) -> int:
-    """Rows per block: 64 for bf16 (4 m16 tiles per warp), 32 for f32."""
-    return 64 if cdtype == torch.bfloat16 else 32
+def _tiling(cdtype) -> tuple[int, int]:
+    """(rows per block, slab depth): bf16 128 x 64, f32 64 x 32 (Traits in the .cu)."""
+    return (128, 64) if cdtype == torch.bfloat16 else (64, 32)
 
 
 def pack_program(spec: FusedSpec, kp: dict, n_rows: int):
@@ -253,8 +255,8 @@ def pack_program(spec: FusedSpec, kp: dict, n_rows: int):
     Every matmul weight (K, N) is stored transposed and zero-padded to
     (N, round16(K)) in one cdtype buffer; biases and the f32 head weights
     go to one float32 buffer. The program lists the layers and heads in
-    execution order, with where each layer reads its inputs and writes its
-    activation (two ping-pong buffers, the lo tile, the hi tile).
+    execution order, with the tiles each layer reads (the activation tile,
+    which it then overwrites, the lo tile, the hi tile).
     """
     cd = spec.cdtype
     device = kp["w0i"].device
@@ -280,56 +282,52 @@ def pack_program(spec: FusedSpec, kp: dict, n_rows: int):
 
     ops = []
 
-    def layer(segs, n, bias, flags, dst):
-        op = [_OP_LAYER, n, fvec(bias), flags, dst, len(segs)] + [0] * 10
+    def layer(segs, n, bias, flags):
+        op = [_OP_LAYER, n, fvec(bias), flags, len(segs)] + [0] * 11
         for s, (src, w) in enumerate(segs):
             w_off, kpad = mat(w)
-            op[6 + s], op[9 + s], op[12 + s] = src, w_off, kpad
+            op[5 + s], op[8 + s], op[11 + s] = src, w_off, kpad
         ops.append(op)
 
-    def head(src, wt, bias, plane):
+    def head(wt, bias, plane):
         n_out, k = wt.shape
-        op = [_OP_HEAD, n_out, fvec(bias), 0, 0, 1, src, 0, 0, fvec(wt), 0, 0, k, 0, 0, plane]
-        ops.append(op)
+        ops.append([_OP_HEAD, n_out, fvec(bias), 0, 1, _SRC_ACT, 0, 0, fvec(wt), 0, 0, k, 0, 0,
+                    plane, 0])
 
-    cur = _SRC_ACT0
-    layer([(_SRC_LO, kp["w0i"])], spec.width, kp["b0"], _FLAG_RELU, cur)
+    act = _SRC_ACT
+    layer([(_SRC_LO, kp["w0i"])], spec.width, kp["b0"], _FLAG_RELU)
     for i in range(1, spec.depth):
-        segs = [(cur, kp[f"w{i}"])]
+        segs = [(act, kp[f"w{i}"])]
         if (i - 1) in spec.skip_layers:
             segs.append((_SRC_LO, kp[f"w{i}i"]))
-        layer(segs, spec.width, kp[f"b{i}"], _FLAG_RELU, 1 - cur)
-        cur = 1 - cur
-    head(cur, kp["wpo_t"], kp["bpo"], 0)
+        layer(segs, spec.width, kp[f"b{i}"], _FLAG_RELU)
+    head(kp["wpo_t"], kp["bpo"], 0)
     if spec.has_views:
-        feat = 1 - cur
-        layer([(cur, kp["wf"])], spec.width, kp["bf"], 0, feat)
-        segs = [(feat, kp["wv0f"])]
+        layer([(act, kp["wf"])], spec.width, kp["bf"], 0)
+        segs = [(act, kp["wv0f"])]
         if spec.has_extra:
             segs.append((_SRC_HI, kp["wv0i"]))
-        layer(segs, spec.views_width, kp["bv0"],
-              _FLAG_RELU | (_FLAG_HVX if spec.has_hvx else 0), cur)
+        layer(segs, spec.views_width, kp["bv0"], _FLAG_RELU | (_FLAG_HVX if spec.has_hvx else 0))
         for i in range(1, spec.views_depth):
-            layer([(cur, kp[f"wv{i}"])], spec.views_width, kp[f"bv{i}"], _FLAG_RELU, 1 - cur)
-            cur = 1 - cur
-        head(cur, kp["wvo_t"], kp["bvo"], spec.out_p)
+            layer([(act, kp[f"wv{i}"])], spec.views_width, kp[f"bv{i}"], _FLAG_RELU)
+        head(kp["wvo_t"], kp["bvo"], spec.out_p)
     if len(ops) > _MAX_OPS:
         raise ValueError(f"{len(ops)} kernel ops exceed the program's {_MAX_OPS}")
 
     pad = 8 if cd == torch.bfloat16 else 4  # 16 bytes: conflict-free fragment reads
+    bm, slab_k = _tiling(cd)
     act_w = max(spec.width, spec.views_width if spec.has_views else 0)
     lo_kpad = _round16(spec.in_lo)
     hi_kpad = _round16(spec.in_hi) if spec.in_hi else 0
     act_ld, lo_ld = act_w + pad, lo_kpad + pad
     hi_ld = hi_kpad + pad if hi_kpad else 0
-    slab_ld = _SLAB_K + pad
+    slab_ld = slab_k + pad
     slab_rows = max(op[1] for op in ops if op[0] == _OP_LAYER)
     header = [len(ops), n_rows, spec.ns, spec.in_lo, spec.in_hi, lo_kpad, hi_kpad,
-              act_ld, lo_ld, hi_ld, slab_ld, slab_rows]
+              act_ld, lo_ld, hi_ld, slab_ld, slab_rows, slab_k]
     words = np.asarray(header + [w for op in ops for w in op], dtype=np.int32)
     esize = 2 if cd == torch.bfloat16 else 4
-    bm = _block_rows(cd)
-    smem = esize * (bm * (2 * act_ld + lo_ld + hi_ld) + 2 * slab_rows * slab_ld)
+    smem = esize * (bm * (act_ld + lo_ld + hi_ld) + _STAGES * slab_rows * slab_ld)
     return words, torch.cat(mats).contiguous(), torch.cat(fvals).contiguous(), smem
 
 

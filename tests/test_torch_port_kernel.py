@@ -102,28 +102,32 @@ def _run_program(spec, kp, lo, hi, hvx):
     """Execute `pack_program`'s output with PyTorch ops, as the kernel does."""
     n = lo.shape[0]
     words, wts, fpar, _ = fused_mlp.pack_program(spec, kp, n)
-    hdr, ops = words[:12], words[12:].reshape(-1, 16)
+    hw = fused_mlp._HEADER_WORDS
+    hdr, ops = words[:hw], words[hw:].reshape(-1, fused_mlp._OP_WORDS)
     assert hdr[0] == len(ops) and hdr[1] == n and hdr[2] == spec.ns
     cd = spec.cdtype
-    tiles = {2: torch.zeros((n, hdr[5]), dtype=cd), 3: torch.zeros((n, hdr[6]), dtype=cd)}
-    tiles[2][:, : hdr[3]] = lo
+    tiles = {
+        fused_mlp._SRC_LO: torch.zeros((n, hdr[5]), dtype=cd),
+        fused_mlp._SRC_HI: torch.zeros((n, hdr[6]), dtype=cd),
+    }
+    tiles[fused_mlp._SRC_LO][:, : hdr[3]] = lo
     if hdr[4]:
-        tiles[3][:, : hdr[4]] = hi
+        tiles[fused_mlp._SRC_HI][:, : hdr[4]] = hi
     planes = {}
-    for kind, width, b_off, flags, dst, nseg, *rest in ops.tolist():
+    for kind, width, b_off, flags, nseg, *rest in ops.tolist():
         src, w_off, kpad, plane = rest[0:3], rest[3:6], rest[6:9], rest[9]
-        if kind == 0:
+        if kind == fused_mlp._OP_LAYER:
             acc = sum(
                 tiles[src[s]].float()
                 @ wts[w_off[s] : w_off[s] + width * kpad[s]].reshape(width, kpad[s]).float().T
                 for s in range(nseg)
             )
             v = acc + fpar[b_off : b_off + width]
-            if flags & 2:
+            if flags & fused_mlp._FLAG_HVX:
                 v = v + hvx.repeat_interleave(spec.ns, 0)
-            if flags & 1:
+            if flags & fused_mlp._FLAG_RELU:
                 v = torch.relu(v)
-            tiles[dst] = v.to(cd)
+            tiles[fused_mlp._SRC_ACT] = v.to(cd)  # the kernel overwrites its one activation tile
         else:
             w = fpar[w_off[0] : w_off[0] + width * kpad[0]].reshape(width, kpad[0])
             for j in range(width):
