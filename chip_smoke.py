@@ -82,21 +82,13 @@ def kernel_operands(cfg, nr, ns, dtype, seed):
     """Seeded parameters and inputs of one fused evaluation, on the card."""
     import torch
 
-    from simplenerf_torch.fields import encoding, mlp
-    from simplenerf_torch.ops import fused_mlp
+    from simplenerf_torch.fields import mlp
 
     g = torch.Generator().manual_seed(seed)
     params = mlp.init(g, cfg, device="cuda")
     pts = (torch.rand((nr * ns, 3), generator=g) * 2 - 1).cuda()
     dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1).cuda()
-    spec = fused_mlp.make_spec(cfg, ns, dtype)
-    kp = fused_mlp.kernel_params(params, cfg)
-    lo, hi = mlp._trunk_inputs(cfg, pts, spec.cdtype)
-    hvx = None
-    if spec.has_hvx:
-        x, s, c = encoding.encode_parts(dirs, cfg.views_pe_degree)
-        hvx = mlp._mm(torch.cat([x, s, c], -1), fused_mlp.dirs_w(params, cfg), dtype).contiguous()
-    return spec, kp, lo, hi, hvx
+    return mlp.fused_operands(params, cfg, pts, dirs, ns, dtype)
 
 
 def check_kernels() -> dict:
@@ -196,10 +188,12 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
     tester.predict_frame(pose, intrinsic=K)  # warm-up (allocator, library handles)
     torch.cuda.synchronize()
     before = fused_mlp.fused_apply.launches
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pred = tester.predict_frame(pose, intrinsic=K)
     torch.cuda.synchronize()
     t_frame = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
     frame_launches = fused_mlp.fused_apply.launches - before
     launches = fused_mlp.fused_apply.launches
     chunks = -(-(H * W) // CHUNK_RAYS)
@@ -209,8 +203,8 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
         np.isfinite(pred[k]).all() and pred[k].shape == (H, W) for k in ("depth", "depth_ndc", "depth_var")
     ):
         fail("bad outputs for the full-resolution request")
-    print(f"serve: {H}x{W} request in {t_frame:.3f} s ({chunks} chunks, {frame_launches} kernel launches)",
-          flush=True)
+    print(f"serve: {H}x{W} request in {t_frame:.3f} s ({chunks} chunks, {frame_launches} kernel launches), "
+          f"peak device memory {peak_gb:.2f} GiB", flush=True)
 
     # A 64x64 crop of that frame (smaller only for a tiny rehearsal frame),
     # rendered again through the kernel and through the plain version

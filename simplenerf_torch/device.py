@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -21,7 +21,3 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the host"
         )
     return dev
-
-
-def optional_device(device: DeviceLike) -> Optional[torch.device]:
-    return None if device is None else torch.device(device)

@@ -309,20 +309,28 @@ def apply_fused(
 
     n = pts.shape[0]
     ns = view_dirs_tile
-    nr = n // ns
-    if nr * ns != n:
+    if n % ns:
         raise ValueError(f"{n} points do not split into rays of {ns} samples")
+    operands = fused_operands(params, cfg, pts, view_dirs, ns, dtype)
+    planes = fused_mlp.fused_apply(*operands)
+    return _fused_epilogue(cfg, operands[0].out_p, planes, noise_std, noise)
+
+
+def fused_operands(params: Params, cfg: MLPConfig, pts, view_dirs, ns: int, dtype) -> tuple:
+    """Arguments of `ops.fused_mlp.fused_apply`: (spec, kernel params, lo, hi, hvx).
+
+    pts (n, 3), view_dirs (n // ns, 3) or None; `hvx` is the per-ray dirs
+    contribution to the first views layer (None without view dirs).
+    """
+    from simplenerf_torch.ops import fused_mlp
 
     spec = fused_mlp.make_spec(cfg, ns, dtype)
     hvx = None
     if spec.has_hvx:
         xv, sv, cv = encoding.encode_parts(view_dirs, cfg.views_pe_degree)
         hvx = _mm(_cat_parts(xv, sv, cv), fused_mlp.dirs_w(params, cfg), dtype).contiguous()
-
-    kp = fused_mlp.kernel_params(params, cfg)
     lo, hi = _trunk_inputs(cfg, pts, spec.cdtype)
-    planes = fused_mlp.fused_apply(spec, kp, lo, hi, hvx)
-    return _fused_epilogue(cfg, spec.out_p, planes, noise_std, noise)
+    return spec, fused_mlp.kernel_params(params, cfg), lo, hi, hvx
 
 
 def _trunk_inputs(cfg: MLPConfig, pts: torch.Tensor, cdtype):

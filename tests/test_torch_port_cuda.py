@@ -51,16 +51,7 @@ def _operands(cfg, nr, ns, dtype, device, seed=0):
     params = mlp.init(g, cfg, device=device)
     pts = torch.randn((nr * ns, 3), generator=g).to(device)
     dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1).to(device)
-    spec = fused_mlp.make_spec(cfg, ns, dtype)
-    kp = fused_mlp.kernel_params(params, cfg)
-    lo, hi = mlp._trunk_inputs(cfg, pts, spec.cdtype)
-    hvx = None
-    if spec.has_hvx:
-        from simplenerf_torch.fields import encoding
-
-        x, s, c = encoding.encode_parts(dirs, cfg.views_pe_degree)
-        hvx = mlp._mm(torch.cat([x, s, c], -1), fused_mlp.dirs_w(params, cfg), dtype).contiguous()
-    return spec, kp, lo, hi, hvx
+    return mlp.fused_operands(params, cfg, pts, dirs, ns, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -20,7 +20,7 @@ torch = pytest.importorskip("torch")
 from simplenerf_tpu.fields import mlp as jmlp
 from simplenerf_tpu.ops import fused_mlp as jfused
 from simplenerf_torch import convert
-from simplenerf_torch.fields import encoding, mlp
+from simplenerf_torch.fields import mlp
 from simplenerf_torch.ops import fused_mlp
 
 SMALL = dict(
@@ -146,13 +146,7 @@ def test_packed_program_computes_plain_version(name, dtype_name):
     dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
     pts = torch.randn((NR * NS, 3), generator=g)
     dirs = torch.nn.functional.normalize(torch.randn((NR, 3), generator=g), dim=-1)
-    spec = fused_mlp.make_spec(cfg, NS, dtype)
-    kp = fused_mlp.kernel_params(params, cfg)
-    lo, hi = mlp._trunk_inputs(cfg, pts, spec.cdtype)
-    hvx = None
-    if spec.has_hvx:
-        x, s, c = encoding.encode_parts(dirs, cfg.views_pe_degree)
-        hvx = mlp._mm(torch.cat([x, s, c], -1), fused_mlp.dirs_w(params, cfg), dtype)
+    spec, kp, lo, hi, hvx = mlp.fused_operands(params, cfg, pts, dirs, NS, dtype)
     want = fused_mlp.fused_apply(spec, kp, lo, hi, hvx)  # CPU tensors: the plain version
     got = _run_program(spec, kp, lo, hi, hvx)
     for a, b in zip(got, want):

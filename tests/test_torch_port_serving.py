@@ -117,6 +117,14 @@ def test_predict_frame_matches_jax_tester(served, fused):
         np.testing.assert_allclose(got[k], want[k], rtol=2e-3, atol=1e-4, err_msg=k)
 
 
+def test_render_video_poses_stacks_frames(served):
+    tt = runner.load_scene_tester(served["run_dir"], "blobs", {}, device="cpu")
+    poses = served["raw"]["nerf_data"]["extrinsics"][1:3]
+    video = tt.render_video_poses(poses)
+    assert video.shape == (2, H, W, 3) and video.dtype == np.uint8
+    np.testing.assert_array_equal(video[1], tt.predict_frame(poses[1])["image"])
+
+
 def test_start_testing_writes_frames(served):
     out = served["root"] / "runs"
     test_cfg = {"train_num": 0, "test_num": 3}
