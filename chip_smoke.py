@@ -11,16 +11,18 @@ Phases (any failure raises and the script exits non-zero without a result):
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the published width (8x256 trunk, 1x128 views, PE 10/4), for the main,
      points-augmentation, Lambertian and visibility-head MLPs, 64 and 192
-     samples per ray, float32 and bfloat16;
+     samples per ray, float32 and bfloat16, on 1037 rays;
   4. serve: a seeded synthetic scene (189x252, 6 frames, 3 for training),
      the published bf16 recipe with seeded random weights in a checkpoint,
      `runner.start_testing` over its test frames, then one 756x1008 request
      through `Tester.predict_frame`; the launch counters must show the
      kernel served every chunk, and a 4096-ray crop of the frame is held
      against the plain path;
-  5. timing: each kernel at the coarse and fine chunk shapes of serving
-     (64k rays x 64 / 192 samples), CUDA events after warm-up, beside the
-     plain version and the card's bound.
+  5. chunks: each kernel at the chunk shapes serving gives it (64k rays x
+     64 / 192 samples for the 756x1008 frame, one test frame's chunk, and a
+     41,152-ray chunk), held against its plain version; at the 64k shapes
+     it is also timed with CUDA events after warm-up, beside the plain
+     version and the card's bound.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON.
 """
@@ -42,13 +44,21 @@ REPO = Path(__file__).resolve().parent
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 CHUNK_RAYS = 64 * 1024
-# Kernel vs plain version on the same inputs (raw head planes, O(1)):
-# float32 differs only in summation order; in bf16 an order difference can
-# flip one bf16 rounding of an activation (2^-8 relative), which propagates.
-KERNEL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
-# Served crop vs the plain path: rgb in [0, 1], NDC depth in [0, 1]. The
-# fine samples follow the coarse weights, so bf16 flips move them a little.
-CROP_TOL = 5e-2
+# Kernel vs plain version on the same inputs: max abs error over the raw
+# head planes, which are a few 1e-2 in size at this seeded init. float32
+# differs only in summation order; in bf16 an order difference can flip one
+# bf16 rounding of an activation (2^-8 relative), which propagates. Each
+# limit is a few times the largest sound reading; every broken variant of
+# tools/probe_fused_mlp.py reads above it (readings in PERF.md).
+KERNEL_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
+# Served crop vs the plain path, max abs error: rgb and acc per ray, sigma
+# and rgb per sample (a wrong plane at a sample of little weight shows only
+# there), and NDC depth, a ratio sum(w z) / (acc + 1e-6), on the rays whose
+# acc reaches ACC_FLOOR: on emptier rays a sigma at the ReLU's edge switches
+# a ray between empty (depth 0) and one sample's depth. At this seeded init
+# the coarse level's acc is ~0.06 and the fine level's is below 1e-3.
+CROP_TOL = 1e-3
+ACC_FLOOR = 1e-3
 
 
 def fail(msg: str):
@@ -91,6 +101,20 @@ def kernel_operands(cfg, nr, ns, dtype, seed):
     return mlp.fused_operands(params, cfg, pts, dirs, ns, dtype)
 
 
+def check_planes(label: str, dname: str, got, want) -> float:
+    """Max abs error of the kernel's planes against the plain version's; fails past KERNEL_TOL."""
+    import torch
+
+    err = torch.stack([(a - b).abs().max() for a, b in zip(got, want)]).nan_to_num(float("inf"))
+    err = err.max().item()
+    scale = max(b.abs().max().item() for b in want)
+    print(f"kernel fused_mlp_fwd {label} {dname}: max abs err {err:.3e} "
+          f"(tol {KERNEL_TOL[dname]:g}; planes up to {scale:.3e})", flush=True)
+    if not err <= KERNEL_TOL[dname]:
+        fail(f"fused_mlp_fwd disagrees with its plain version: {label} {dname}")
+    return err
+
+
 def check_kernels() -> dict:
     """Kernel vs plain version at the published width; returns max errors by dtype."""
     import torch
@@ -112,37 +136,28 @@ def check_kernels() -> dict:
                 dname = "bfloat16" if dtype == torch.bfloat16 else "float32"
                 ops = kernel_operands(cfg, nr, ns, dtype, seed=len(name) + ns)
                 got = fused_mlp.fused_apply(*ops)
-                torch.cuda.synchronize()
                 want = fused_mlp.fused_apply_reference(*ops)
-                err = max((a - b).abs().max().item() for a, b in zip(got, want))
-                finite = all(torch.isfinite(a).all().item() for a in got)
-                print(f"kernel fused_mlp_fwd {name} ns={ns} {dname}: max abs err {err:.3e} "
-                      f"(tol {KERNEL_TOL[dname]:g})", flush=True)
-                if not finite or not err <= KERNEL_TOL[dname]:
-                    fail(f"fused_mlp_fwd disagrees with its plain version: {name} ns={ns} {dname}")
+                err = check_planes(f"{name} {nr} rays x {ns}", dname, got, want)
                 worst[dname] = max(worst[dname], err)
     return worst
 
 
-def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
-    """The serving path through the user's entry points; returns its measurements.
-
-    The scene is h x w (bench.py's size); the single request is `scale`
-    times larger on each side (756x1008, the LLFF _down4 frame)."""
-    import numpy as np
+def make_scene(work: Path, h: int, w: int):
+    """The seeded synthetic scene (h x w, 6 frames, 3 for training; bench.py's
+    size), Configs.json for the published bf16 recipe, the train-mode
+    ModelConfigs.json and a checkpoint of seeded random weights, under `work`.
+    Returns (db, runs, run_dir, cfg, model_configs)."""
     import torch
 
     from simplenerf_torch import config
     from simplenerf_torch.data.factory import get_data_loader
     from simplenerf_torch.data.preprocessor import ScenePreprocessor
     from simplenerf_torch.data.synthetic import generate_scene
-    from simplenerf_torch.drivers import presets, runner
-    from simplenerf_torch.ops import fused_mlp
+    from simplenerf_torch.drivers import presets
     from simplenerf_torch.render import renderer
     from simplenerf_torch.training import checkpoints
 
     db, runs = work / "db", work / "runs"
-    t0 = time.perf_counter()
     generate_scene(db, scene_name="blobs", num_frames=6, h=h, w=w, num_train=3, seed=0)
     cfg = presets.simplenerf_config(compute_dtype="bfloat16", scene_id="blobs")
     run_dir = runs / "training/train0000"
@@ -154,6 +169,93 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
     render_cfg = config.render_config_from_dict(cfg)
     params = renderer.init(torch.Generator().manual_seed(0), render_cfg)
     checkpoints.save_checkpoint(run_dir / "blobs/saved_models", 0, params)
+    return db, runs, run_dir, cfg, mc
+
+
+def large_request(db: Path, run_dir: Path, cfg: dict, mc: dict, scale: int):
+    """A tester of the scene whose resolution is `scale` times larger on each
+    side, intrinsic scaled to match, and the first test pose: (tester, pose, K)."""
+    import numpy as np
+
+    from simplenerf_torch.data.factory import get_data_loader
+    from simplenerf_torch.drivers import runner
+
+    tester = runner.load_scene_tester(run_dir, "blobs", {})
+    h, w = mc["resolution"]
+    K = np.asarray(mc["intrinsic"], np.float64)
+    K[:2] *= scale
+    tester.preprocessor.model_configs = {**mc, "resolution": [h * scale, w * scale], "intrinsic": K.tolist()}
+    pose = get_data_loader(cfg, db, "test").load_data()["nerf_data"]["extrinsics"][0]
+    return tester, pose, K
+
+
+def center_crop(tester, pose, K, c: int = 64):
+    """The rays of the c x c pixels at the frame's centre: (rays, ys, xs)."""
+    import numpy as np
+    import torch
+
+    H, W = tester.preprocessor.model_configs["resolution"]
+    batch = tester.preprocessor.create_test_data(pose, intrinsic=K)
+    ys, xs = np.meshgrid(np.arange(H // 2, H // 2 + c), np.arange(W // 2, W // 2 + c), indexing="ij")
+    idx = torch.as_tensor((ys * W + xs).ravel(), device=batch["rays_o"].device)
+    return {k: v[idx] for k, v in batch.items()}, ys, xs
+
+
+def crop_errors(tester, crop: dict) -> tuple[dict, dict]:
+    """The crop rendered through the kernel and through the plain version
+    (fused_apply_reference in place of the wrapper). Returns (max abs
+    errors by quantity, the kernel path's outputs) and prints each level's
+    acc and its largest depth errors."""
+    import torch
+
+    from simplenerf_torch.ops import fused_mlp
+    from simplenerf_torch.render import renderer
+
+    def render():
+        return renderer.render_rays(tester.params, tester.render_cfg, crop, retraw=True)
+
+    with torch.no_grad():
+        kern = render()
+        wrapper = fused_mlp.fused_apply
+        fused_mlp.fused_apply = fused_mlp.fused_apply_reference
+        try:
+            plain = render()
+        finally:
+            fused_mlp.fused_apply = wrapper
+    err, n_lit = {}, 0
+    for level in ("coarse", "fine"):
+        for q in ("rgb", "acc", "raw_sigma", "raw_rgb"):
+            err[f"{q}_{level}"] = (kern[f"{q}_{level}"] - plain[f"{q}_{level}"]).abs().max().item()
+        acc = plain[f"acc_{level}"]
+        d = (kern[f"depth_ndc_{level}"] - plain[f"depth_ndc_{level}"]).abs()
+        lit = acc >= ACC_FLOOR
+        n_lit += int(lit.sum())
+        if lit.any():
+            err[f"depth_ndc_{level}"] = d[lit].max().item()
+        qs = torch.quantile(acc.float(), torch.tensor([0.0, 0.5, 1.0], device=acc.device)).tolist()
+        worst = torch.topk(d, 3).indices.tolist()
+        print(f"crop {level}: acc min {qs[0]:.3e} median {qs[1]:.3e} max {qs[2]:.3e}, "
+              f"{int(lit.sum())} rays with acc >= {ACC_FLOOR:g}; largest depth_ndc errors (acc: err) "
+              + ", ".join(f"{acc[i].item():.3e}: {d[i].item():.3e}" for i in worst), flush=True)
+    if not n_lit:
+        fail(f"no ray of the crop reaches acc {ACC_FLOOR:g}: its depth is not compared")
+    return {k: math.inf if math.isnan(v) else v for k, v in err.items()}, kern
+
+
+def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
+    """The serving path through the user's entry points; returns its measurements.
+
+    The scene is h x w (bench.py's size); the single request is `scale`
+    times larger on each side (756x1008, the LLFF _down4 frame)."""
+    import numpy as np
+    import torch
+
+    from simplenerf_torch.data import io
+    from simplenerf_torch.drivers import runner
+    from simplenerf_torch.ops import fused_mlp
+
+    t0 = time.perf_counter()
+    db, runs, run_dir, cfg, mc = make_scene(work, h, w)
     print(f"serve: scene + checkpoint set up in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # The main path: counters at 0 just before, read just after.
@@ -167,8 +269,6 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
     per_frame = -(-(h * w) // CHUNK_RAYS)
     if len(frames) != 3 or test_launches != 2 * per_frame * len(frames):
         fail(f"start_testing rendered {frames} with {test_launches} kernel launches")
-    from simplenerf_torch.data import io
-
     for f in frames:
         img = io.read_image(runs / f"testing/test0000/blobs/predicted_frames/{f:04}.png")
         depth = np.load(runs / f"testing/test0000/blobs/predicted_depths_ndc/{f:04}.npy")
@@ -177,14 +277,9 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
     print(f"serve: start_testing rendered frames {frames} ({h}x{w}) in {t_test:.2f} s, "
           f"{test_launches} kernel launches", flush=True)
 
-    # One full-resolution request: the LLFF _down4 size, intrinsic scaled to match.
-    tester = runner.load_scene_tester(run_dir, "blobs", {})
+    # One full-resolution request: the LLFF _down4 size.
+    tester, pose, K = large_request(db, run_dir, cfg, mc, scale)
     H, W = h * scale, w * scale
-    K = np.asarray(mc["intrinsic"], np.float64)
-    K[:2] *= scale
-    tester.preprocessor.model_configs = {**mc, "resolution": [H, W], "intrinsic": K.tolist()}
-    test_raw = get_data_loader(cfg, db, "test").load_data()["nerf_data"]
-    pose = test_raw["extrinsics"][0]
     tester.predict_frame(pose, intrinsic=K)  # warm-up (allocator, library handles)
     torch.cuda.synchronize()
     before = fused_mlp.fused_apply.launches
@@ -206,37 +301,15 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
     print(f"serve: {H}x{W} request in {t_frame:.3f} s ({chunks} chunks, {frame_launches} kernel launches), "
           f"peak device memory {peak_gb:.2f} GiB", flush=True)
 
-    # A 64x64 crop of that frame (smaller only for a tiny rehearsal frame),
-    # rendered again through the kernel and through the plain version
-    # (fused_apply_reference in place of the wrapper).
-    batch = tester.preprocessor.create_test_data(pose, intrinsic=K)
-    c = min(64, H // 2, W // 2)
-    ys, xs = np.meshgrid(np.arange(H // 2, H // 2 + c), np.arange(W // 2, W // 2 + c), indexing="ij")
-    idx = torch.as_tensor((ys * W + xs).ravel(), device=batch["rays_o"].device)
-    crop = {k: v[idx] for k, v in batch.items()}
-    with torch.no_grad():
-        kern = renderer.render_rays(tester.params, tester.render_cfg, crop, keep_per_sample=False)
-        wrapper = fused_mlp.fused_apply
-        fused_mlp.fused_apply = fused_mlp.fused_apply_reference
-        try:
-            plain = renderer.render_rays(tester.params, tester.render_cfg, crop, keep_per_sample=False)
-        finally:
-            fused_mlp.fused_apply = wrapper
+    # A 64x64 crop of that frame, rendered again through the kernel (it must
+    # give the served pixels) and through the plain version.
+    crop, ys, xs = center_crop(tester, pose, K)
+    crop_err, kern = crop_errors(tester, crop)
     served_rgb = pred["image"][ys, xs].reshape(-1, 3).astype(np.float64)
     kern_rgb = np.clip(np.round(np.clip(kern["rgb_fine"].cpu().numpy(), 0, 1) * 255), 0, 255)
     if np.abs(served_rgb - kern_rgb).max() > 1:
         fail("the crop re-rendered through the kernel differs from the served frame")
-    # Depth is compared as sum(w * z) = depth * (acc + 1e-6): random weights
-    # leave some rays nearly empty, where the normalised depth is a ratio of
-    # two tiny sums and amplifies any rounding difference.
-    crop_err = {
-        k: (kern[k] - plain[k]).abs().max().item()
-        for k in ("rgb_coarse", "rgb_fine", "acc_coarse", "acc_fine")
-    }
-    for level in ("coarse", "fine"):
-        wz_kern, wz_plain = (o[f"depth_ndc_{level}"] * (o[f"acc_{level}"] + 1e-6) for o in (kern, plain))
-        crop_err[f"wz_ndc_{level}"] = (wz_kern - wz_plain).abs().max().item()
-    print(f"serve: {c * c}-ray crop, kernel vs plain path, max abs err "
+    print(f"serve: {ys.size}-ray crop, kernel vs plain path, max err "
           + ", ".join(f"{k} {v:.3e}" for k, v in crop_err.items()) + f" (tol {CROP_TOL:g})", flush=True)
     if not max(crop_err.values()) <= CROP_TOL:
         fail("the served crop disagrees with the plain path")
@@ -244,20 +317,31 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
             "frames": len(frames), "crop_err": crop_err}
 
 
-def time_kernels() -> dict:
-    """Kernel and plain version at the serving chunk shapes (bf16, published main MLP)."""
+def chunk_kernels(test_rays: int) -> dict:
+    """Kernel vs plain version at the chunk shapes serving gives it (bf16,
+    published main MLP), then timed at the 756x1008 frame's two shapes.
+
+    The frame's chunks are 64k rays (render_in_chunks pads the last one); a
+    test frame's single chunk is `test_rays`; a 41,152-ray chunk (the
+    frame's unpadded remainder) adds one more large shape."""
     import torch
 
     from simplenerf_torch.fields.mlp import MLPConfig
     from simplenerf_torch.ops import fused_mlp
 
-    out = {}
-    for level, ns in (("coarse", 64), ("fine", 192)):
-        spec, kp, lo, hi, hvx = ops = kernel_operands(MLPConfig(), CHUNK_RAYS, ns, torch.bfloat16, seed=ns)
+    out = {"max_abs_err": 0.0}
+    shapes = [("coarse", CHUNK_RAYS, 64), ("fine", CHUNK_RAYS, 192),
+              ("test coarse", test_rays, 64), ("test fine", test_rays, 192), ("tail", 41152, 192)]
+    saved = fused_mlp.fused_apply.launches
+    for level, nr, ns in shapes:
+        spec, kp, lo, hi, hvx = ops = kernel_operands(MLPConfig(), nr, ns, torch.bfloat16, seed=ns)
+        err = check_planes(f"main {nr} rays x {ns}", "bfloat16",
+                           fused_mlp.fused_apply(*ops), fused_mlp.fused_apply_reference(*ops))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if nr != CHUNK_RAYS:
+            continue
         rows = lo.shape[0]
-        saved = fused_mlp.fused_apply.launches
         ms = cuda_time_ms(lambda: fused_mlp.fused_apply(*ops), iters=10)
-        fused_mlp.fused_apply.launches = saved  # timing launches are not the main path's
         plain_ms = cuda_time_ms(lambda: fused_mlp.fused_apply_reference(*ops), iters=2)
         flops = spec.flops_per_point() * rows
         weights = sum(v.numel() for v in kp.values()) * 2  # read once, bf16
@@ -273,6 +357,7 @@ def time_kernels() -> dict:
               f"bound {bound_ms:.3f} ms", flush=True)
         del ops, lo, hi, hvx, kp
         torch.cuda.empty_cache()
+    fused_mlp.fused_apply.launches = saved  # these launches are not the main path's
     return out
 
 
@@ -305,9 +390,10 @@ def main() -> int:
             print(f"build: ptxas {line.strip()}", flush=True)
 
     worst = check_kernels()
+    h, w = 189, 252
     with tempfile.TemporaryDirectory() as tmp:
-        served = serve(Path(tmp))
-    timing = time_kernels()
+        served = serve(Path(tmp), h, w)
+    timing = chunk_kernels(test_rays=min(CHUNK_RAYS, -(-(h * w) // 256) * 256))
 
     fine, coarse = timing["fine"], timing["coarse"]
     print(f"serve: {served['frame_s']:.3f} s per served 756x1008 frame; "
@@ -320,7 +406,7 @@ def main() -> int:
         "source": "simplenerf_torch/ops/csrc/fused_mlp_fwd.cu",
         "replaces": "simplenerf_tpu/ops/fused_mlp.py:448",
         "launches": served["launches"],
-        "max_abs_err": worst["bfloat16"],
+        "max_abs_err": max(worst["bfloat16"], timing["max_abs_err"]),
         "max_abs_err_f32": worst["float32"],
         "ms": fine["ms"],
         "plain_ms": fine["plain_ms"],

@@ -40,8 +40,9 @@ class RenderConfig:
     white_bkgd: bool = False
     # Matmul input precision for the MLPs ("float32" | "bfloat16").
     compute_dtype: str = "float32"
-    # Fused MLP kernel: "auto" (on for CUDA tensors, off on CPU), "on", or
-    # "off". The visibility2 path always uses the unfused MLP.
+    # Fused MLP kernel: always on for CUDA tensors ("off" raises there); on
+    # CPU "on" takes its plain version, "auto"/"off" the unfused MLP. The
+    # visibility2 path always uses the unfused MLP.
     fused_mlp: str = "auto"
 
     @property
@@ -126,7 +127,13 @@ def _other_view_dirs(cfg: RenderConfig, z_vals, rays_o, rays_d, rays_o2) -> torc
 
 
 def _use_fused(cfg: RenderConfig, device: torch.device) -> bool:
-    return cfg.fused_mlp == "on" or (cfg.fused_mlp == "auto" and device.type == "cuda")
+    """On the card the field always goes through the kernel; on the CPU
+    "on" takes the kernel's plain version and "auto"/"off" the unfused MLP."""
+    if device.type == "cuda":
+        if cfg.fused_mlp == "off":
+            raise ValueError("fused_mlp='off' has no CUDA path: on the card the field runs the kernel")
+        return True
+    return cfg.fused_mlp == "on"
 
 
 def _composite_level(cfg: RenderConfig, net_out: dict, z_vals, rays: dict) -> dict:

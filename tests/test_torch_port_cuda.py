@@ -6,11 +6,13 @@ file imports no JAX, so on a machine without JAX it runs with
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -p no:cacheprovider
 
-Tolerances: float32 products on the card accumulate in another order than
-the plain version's matmul (~1e-6 relative per layer, amplified a little by
-depth), hence 1e-4 absolute on O(1) outputs. In bf16 an order difference can
-flip one bf16 rounding of an activation (2^-8 relative) and the flips
-propagate through the layers, hence 5e-2 on raw head planes of magnitude ~1.
+Tolerances, max abs error on the raw head planes: float32 products on the
+card accumulate in another order than the plain version's matmul, hence
+1e-5. In bf16 an order difference can flip one bf16 rounding of an
+activation (2^-8 relative) and the flips propagate through the layers,
+hence 2e-3. Each is a few times the largest error these cases read on the
+card, which `-s` prints, and well below what a broken kernel reads (see
+tools/probe_fused_mlp.py).
 """
 
 import pytest
@@ -35,7 +37,7 @@ CASES = {
     "published": dict(points_net_depth=8, points_net_width=256, views_net_width=128,
                       skip_layers=(4,)),
 }
-TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 
 
 @pytest.fixture
@@ -70,6 +72,8 @@ def test_kernel_matches_plain(cuda_device, name, ns, dtype):
     for j, (a, b) in enumerate(zip(got, want)):
         assert a.shape == (nr, ns)
         err = (a - b).abs().max().item()
+        print(f"{name} ns={ns} {dtype} plane {j}: max abs err {err:.3e}, plane up to "
+              f"{b.abs().max().item():.3e}")
         assert err <= TOL[dtype], f"{name} plane {j}: max abs err {err}"
 
 

@@ -231,3 +231,14 @@ def test_render_rays_lean_and_train_guard():
     assert lean["rgb_fine"].shape == (NR, 3)
     with pytest.raises(NotImplementedError):
         renderer.render_rays(params, tcfg, batch, train=True)
+
+
+@pytest.mark.parametrize("setting", ["auto", "on", "off"])
+def test_fused_switch_never_skips_the_card_kernel(setting):
+    _, tcfg = _render_cfgs(False, setting)
+    assert renderer._use_fused(tcfg, torch.device("cpu")) == (setting == "on")
+    if setting == "off":
+        with pytest.raises(ValueError, match="no CUDA path"):
+            renderer._use_fused(tcfg, torch.device("cuda"))
+    else:
+        assert renderer._use_fused(tcfg, torch.device("cuda"))
