@@ -1,36 +1,56 @@
 #!/usr/bin/env python3
-"""Chip smoke for simplenerf_torch: serve the published SimpleNeRF on one CUDA card.
+"""Chip smoke for simplenerf_torch: train and serve the published SimpleNeRF on one CUDA card.
 
 Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-Phases (any failure raises and the script exits non-zero without a result):
+Phases, in order (any failure raises and the script exits non-zero
+without a result):
   1. device: the card's name and power limit, as nvidia-smi reports them;
-  2. build: compile every CUDA source of the serving path with nvcc;
+  2. build: compile every CUDA source with nvcc, one process per source,
+     all started together;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the published width (8x256 trunk, 1x128 views, PE 10/4), for the main,
      points-augmentation, Lambertian and visibility-head MLPs, 64 and 192
-     samples per ray, float32 and bfloat16, on 1037 rays;
+     samples per ray, float32 and bfloat16, on 1037 rays: the forward's
+     planes, and the backward's every dW, db and dhvx; the coarse trio
+     through the ensemble kernels, forward and backward, at 1037 x 64;
+     then all of them at the training step's shapes (4096 x 64 trio,
+     4096 x 192 main);
   4. serve: a seeded synthetic scene (189x252, 6 frames, 3 for training),
      the published bf16 recipe with seeded random weights in a checkpoint,
      `runner.start_testing` over its test frames, then one 756x1008 request
      through `Tester.predict_frame`; the launch counters must show the
      kernel served every chunk, and a 4096-ray crop of the frame is held
      against the plain path;
-  5. chunks: each kernel at the chunk shapes serving gives it (64k rays x
-     64 / 192 samples for the 756x1008 frame, one test frame's chunk, and a
-     41,152-ray chunk), held against its plain version; at the 64k shapes
-     it is also timed with CUDA events after warm-up, beside the plain
-     version and the card's bound.
+  5. train: on the same scene, the published bf16 recipe with the
+     consistency ramp at 10 so that all nine losses carry weight,
+     `runner.start_training` for 40 steps: a checkpoint and
+     logs/scalars.jsonl appear, every loss is finite, MSE01 falls, and the
+     launch counters show one ensemble forward, one ensemble backward, one
+     forward and one backward per step; then one step's parameter
+     gradients through the kernels against the plain versions swapped in
+     (same params, batch and draws), in float32 and bfloat16;
+  6. chunks: the forward kernel at the chunk shapes serving gives it (64k
+     rays x 64 / 192 samples for the 756x1008 frame, one test frame's
+     chunk, and a 41,152-ray chunk), held against its plain version; at the
+     64k shapes it is also timed with CUDA events after warm-up, beside the
+     plain version and the card's bound;
+  7. timing: each kernel at the training step's shapes (CUDA events after
+     warm-up) beside its plain version and its bound, seconds per training
+     step (median of 40 after 3 of warm-up), rays/s, and a torch.profiler
+     breakdown of the step's device time by kernel.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -59,6 +79,25 @@ KERNEL_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 # the coarse level's acc is ~0.06 and the fine level's is below 1e-3.
 CROP_TOL = 1e-3
 ACC_FLOOR = 1e-3
+# Backward kernels vs plain versions: each gradient tensor's error as a
+# norm, ||got - want|| / ||want||, with one limit for the weights (every dW
+# and db, sums over all rows) and one for dhvx (per-ray sums over ns rows).
+# The two versions sum in other orders, so an activation within rounding of
+# 0 can fall on the other side of the ReLU and change that row's whole
+# cotangent below it (tools/probe_fused_mlp_bwd.py counts these flips and
+# shows they account for the float32 difference); a norm over the whole
+# tensor keeps one row small, where a largest-entry error does not. Sound
+# readings at most 9.8e-4 / 1.8e-4 (float32 weights / dhvx) and 5.6e-3 /
+# 2.6e-3 (bf16); a kernel that drops the ragged last 64 rows from dW reads
+# 2.5e-2 and more (PERF.md).
+GRAD_TOL = {"float32": {"weights": 3e-3, "dhvx": 1e-3},
+            "bfloat16": {"weights": 1.2e-2, "dhvx": 8e-3}}
+# One training step through the kernels vs through the plain versions:
+# every parameter's gradient, max abs error relative to its largest value.
+# The fine samples depend on the coarse weights, so the two runs' inputs
+# drift apart with the coarse kernels' rounding (readings: PERF.md).
+STEP_TOL = {"float32": 5e-4, "bfloat16": 1e-2}
+STEP_RAYS, COARSE_NS, FINE_NS = 4096, 64, 192
 
 
 def fail(msg: str):
@@ -101,45 +140,419 @@ def kernel_operands(cfg, nr, ns, dtype, seed):
     return mlp.fused_operands(params, cfg, pts, dirs, ns, dtype)
 
 
-def check_planes(label: str, dname: str, got, want) -> float:
+def check_planes(label: str, dname: str, got, want, kernel: str = "fused_mlp_fwd") -> float:
     """Max abs error of the kernel's planes against the plain version's; fails past KERNEL_TOL."""
     import torch
 
     err = torch.stack([(a - b).abs().max() for a, b in zip(got, want)]).nan_to_num(float("inf"))
     err = err.max().item()
     scale = max(b.abs().max().item() for b in want)
-    print(f"kernel fused_mlp_fwd {label} {dname}: max abs err {err:.3e} "
+    print(f"kernel {kernel} {label} {dname}: max abs err {err:.3e} "
           f"(tol {KERNEL_TOL[dname]:g}; planes up to {scale:.3e})", flush=True)
     if not err <= KERNEL_TOL[dname]:
-        fail(f"fused_mlp_fwd disagrees with its plain version: {label} {dname}")
+        fail(f"{kernel} disagrees with its plain version: {label} {dname}")
     return err
 
 
-def check_kernels() -> dict:
-    """Kernel vs plain version at the published width; returns max errors by dtype."""
+PUBLISHED = {
+    "main": {},
+    "points_aug": {"points_sigma_pe_degree": 3},
+    "lambertian": {"use_view_dirs": False, "view_dependent_rgb": False},
+    "visibility": {"predict_visibility": True},
+}
+TRIO = ("main", "points_aug", "lambertian")
+
+
+def dname_of(dtype) -> str:
+    import torch
+
+    return "bfloat16" if dtype == torch.bfloat16 else "float32"
+
+
+def rel_err(got, want) -> float:
+    """Max abs error relative to the plain version's largest value."""
+    err = (got.float() - want.float()).abs().max().nan_to_num(float("inf")).item()
+    return err / max(want.abs().max().item(), 1e-30)
+
+
+def norm_err(got, want) -> float:
+    """||got - want|| / ||want|| in float64; inf where got is not finite."""
+    err = (got.double() - want.double()).norm().nan_to_num(float("inf")).item()
+    return err / max(want.double().norm().item(), 1e-30)
+
+
+def grad_group(key: str) -> str:
+    return "dhvx" if "dhvx" in key else "weights"
+
+
+def check_grads(kernel: str, label: str, dname: str, got: dict, want: dict) -> dict:
+    """Norm errors of the gradients against GRAD_TOL, by group; fails past
+    it. Returns the worst norm error and the worst largest-entry error."""
+    errs = {k: norm_err(got[k], want[k]) for k in want}
+    for group, tol in GRAD_TOL[dname].items():
+        mine = {k: e for k, e in errs.items() if grad_group(k) == group}
+        if not mine:
+            continue
+        worst = max(mine, key=mine.get)
+        print(f"kernel {kernel} {label} {dname} {group}: worst norm err {mine[worst]:.3e} "
+              f"({worst}; tol {tol:g}), median {statistics.median(mine.values()):.3e} over "
+              f"{len(mine)} gradients", flush=True)
+        if not mine[worst] <= tol:
+            fail(f"{kernel} disagrees with its plain version: {label} {dname} {worst}")
+    return {"norm": max(errs.values()), "max_rel": max(rel_err(got[k], want[k]) for k in want)}
+
+
+def cotangents(n_planes: int, nr: int, ns: int, seed: int):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((n_planes, nr, ns), generator=g, device="cuda")
+
+
+def ensemble_operands(nr: int, ns: int, dtype, seed: int):
+    """Seeded coarse trio (published widths) and inputs on the card."""
+    import torch
+
+    from simplenerf_torch.fields import mlp
+
+    g = torch.Generator().manual_seed(seed)
+    members = []
+    for name in TRIO:
+        cfg = mlp.MLPConfig(**PUBLISHED[name])
+        members.append((mlp.init(g, cfg, device="cuda"), cfg))
+    pts = (torch.rand((nr * ns, 3), generator=g) * 2 - 1).cuda()
+    dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1).cuda()
+    return mlp.ensemble_operands(members, pts, dirs, ns, dtype)
+
+
+def single_check(name: str, nr: int, ns: int, dtype) -> dict:
+    """Forward and backward kernels of one MLP vs their plain versions."""
+    from simplenerf_torch.fields.mlp import MLPConfig
+    from simplenerf_torch.ops import fused_mlp
+
+    dname = dname_of(dtype)
+    ops = kernel_operands(MLPConfig(**PUBLISHED[name]), nr, ns, dtype, seed=len(name) + ns)
+    spec = ops[0]
+    label = f"{name} {nr} rays x {ns}"
+    fwd = check_planes(label, dname, fused_mlp.fused_apply(*ops), fused_mlp.fused_apply_reference(*ops))
+    dp = cotangents(spec.n_planes, nr, ns, seed=ns)
+    dkp, dhvx = fused_mlp.fused_bwd(*ops, dp)
+    want, want_hvx = fused_mlp.fused_bwd_reference(*ops, dp)
+    if spec.has_hvx:
+        dkp, want = {**dkp, "dhvx": dhvx}, {**want, "dhvx": want_hvx}
+    bwd = check_grads("fused_mlp_bwd", label, dname, dkp, want)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def ensemble_check(nr: int, ns: int, dtype) -> dict:
+    from simplenerf_torch.ops import fused_mlp
+
+    dname = dname_of(dtype)
+    ens, kps, lo, hvxs = ensemble_operands(nr, ns, dtype, seed=nr + ns)
+    label = f"trio {nr} rays x {ns}"
+    got = fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs)
+    want = fused_mlp.fused_apply_ensemble_reference(ens, kps, lo, hvxs)
+    fwd = check_planes(label, dname, got, want, kernel="fused_mlp_ens_fwd")
+    dp = cotangents(ens.n_planes, nr, ns, seed=ns + 1)
+    dkps, dhvxs = fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp)
+    wkps, whvxs = fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, dp)
+    got_all, want_all = {}, {}
+    for name, a, b in zip(TRIO, dkps, wkps):
+        got_all.update({f"{name}.{k}": v for k, v in a.items()})
+        want_all.update({f"{name}.{k}": v for k, v in b.items()})
+    for i, (a, b) in enumerate(zip(dhvxs, whvxs)):
+        got_all[f"dhvx{i}"], want_all[f"dhvx{i}"] = a, b
+    bwd = check_grads("fused_mlp_ens_bwd", label, dname, got_all, want_all)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def check_train_kernels() -> dict:
+    """Every kernel, forward and gradients, at the published width: 1037
+    rays for each MLP kind, then the training step's shapes. Returns the
+    worst errors by kernel and dtype; the launches made here are not the
+    main path's."""
+    import torch
+
+    from simplenerf_torch.ops import fused_mlp
+
+    saved = {f: f.launches for f in (fused_mlp.fused_apply, fused_mlp.fused_bwd,
+                                     fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd)}
+    worst: dict = {}  # (kernel, dtype name, "err" | "norm") -> worst reading
+
+    def keep(kernel, dtype, e):
+        errs = {"err": e} if isinstance(e, float) else {"err": e["max_rel"], "norm": e["norm"]}
+        for what, err in errs.items():
+            key = (kernel, dname_of(dtype), what)
+            worst[key] = max(worst.get(key, 0.0), err)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for name in PUBLISHED:
+            for ns in (COARSE_NS, FINE_NS):
+                e = single_check(name, 1037, ns, dtype)
+                keep("fused_mlp_fwd", dtype, e["fwd"])
+                keep("fused_mlp_bwd", dtype, e["bwd"])
+        for nr, ns in ((1037, COARSE_NS), (STEP_RAYS, COARSE_NS)):
+            e = ensemble_check(nr, ns, dtype)
+            keep("fused_mlp_ens_fwd", dtype, e["fwd"])
+            keep("fused_mlp_ens_bwd", dtype, e["bwd"])
+        e = single_check("main", STEP_RAYS, FINE_NS, dtype)
+        keep("fused_mlp_fwd", dtype, e["fwd"])
+        keep("fused_mlp_bwd", dtype, e["bwd"])
+        torch.cuda.empty_cache()
+    for f, n in saved.items():
+        f.launches = n
+    return worst
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The four kernels' plain versions in place of their launches."""
+    import torch
+
+    from simplenerf_torch.ops import fused_mlp as fm
+
+    saved = (fm._fwd, fm.fused_bwd, fm._ens_fwd, fm.fused_ens_bwd)
+    fm._fwd = lambda *a: torch.stack(fm.fused_apply_reference(*a))
+    fm.fused_bwd = fm.fused_bwd_reference
+    fm._ens_fwd = lambda *a: torch.stack(fm.fused_apply_ensemble_reference(*a))
+    fm.fused_ens_bwd = fm.fused_ens_bwd_reference
+    try:
+        yield
+    finally:
+        fm._fwd, fm.fused_bwd, fm._ens_fwd, fm.fused_ens_bwd = saved
+
+
+def train_config(**overrides) -> dict:
+    """The published bf16 recipe on the synthetic scene, consistency from step 10."""
+    from simplenerf_torch.drivers import presets
+
+    kw = dict(compute_dtype="bfloat16", scene_id="blobs", consistency_start_iter=10,
+              num_iterations=40)
+    kw.update(overrides)
+    cfg = presets.simplenerf_config(**kw)
+    cfg["log_interval"] = 10
+    return cfg
+
+
+def train(work: Path, db: Path) -> dict:
+    """The training path through `runner.start_training`; returns its launches."""
+    import numpy as np
+    import torch
+
+    from simplenerf_torch.drivers import runner
+    from simplenerf_torch.ops import fused_mlp
+
+    cfg = train_config()
+    steps = cfg["num_iterations"]
+    counters = (fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd, fused_mlp.fused_apply,
+                fused_mlp.fused_bwd)
+    # The main path: counters at 0 just before, read just after.
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    run_dir = runner.start_training(cfg, db, work / "runs")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in counters}
+    print(f"train: start_training, {steps} steps of the published bf16 recipe in {t_train:.1f} s "
+          f"incl. set-up; launches {launches}", flush=True)
+    if any(n != steps for n in launches.values()):
+        fail(f"expected {steps} launches of each kernel, got {launches}")
+    scene = run_dir / "blobs"
+    if not (scene / f"saved_models/Model_Iter{steps:06}.msgpack").exists():
+        fail("no checkpoint after training")
+    rows = [json.loads(line) for line in (scene / "logs/scalars.jsonl").read_text().splitlines()]
+    losses = [k for k in rows[-1] if k not in ("iter", "time", "lr", "rays_per_s")]
+    for r in rows:
+        print("train: " + ", ".join(f"{k} {r[k]:.4g}" for k in ["iter"] + losses), flush=True)
+    if len(losses) != 10 or not all(np.isfinite(r[k]) for r in rows for k in losses):
+        fail(f"losses missing or not finite: {losses}")
+    if not rows[-1]["MSE01"] < rows[0]["MSE01"]:
+        fail("MSE01 did not fall during training")
+    return {"launches": launches, "s": t_train, "run_dir": run_dir}
+
+
+def step_gradients(db: Path, dtype_name: str) -> float:
+    """One training step's parameter gradients through the kernels and
+    through the plain versions, from the same params, batch and draws."""
+    import torch
+
+    from simplenerf_torch.data.factory import get_data_loader
+    from simplenerf_torch.data.preprocessor import ScenePreprocessor
+    from simplenerf_torch.training.trainer import Trainer
+
+    cfg = train_config(compute_dtype=dtype_name)
+    cfg["resume_training"] = False
+    raw = get_data_loader(cfg, db, "train").load_data()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(cfg, Path(tmp), ScenePreprocessor(cfg, "train", raw))
+        it = 20  # the consistency losses carry weight
+        idx = trainer.train_pp.next_indices(it)
+
+        def grads():
+            for p in trainer.leaves:
+                p.grad = None
+            total, _ = trainer.loss(trainer.batch(*idx), it, generator=trainer.step_generator(it))
+            total.backward()
+            return [p.grad.clone() for p in trainer.leaves]
+
+        kern = grads()
+        with plain_versions():
+            plain = grads()
+    errs = [rel_err(a, b) for a, b in zip(kern, plain)]
+    worst = max(errs)
+    names = leaf_paths(trainer.params)
+    print(f"step gradients {dtype_name}: kernels vs plain versions, worst rel err {worst:.3e} "
+          f"({names[errs.index(worst)]} of {len(errs)} tensors; tol {STEP_TOL[dtype_name]:g}); "
+          f"median {statistics.median(errs):.3e}", flush=True)
+    if not worst <= STEP_TOL[dtype_name]:
+        fail(f"a training step's gradients disagree with the plain versions ({dtype_name})")
+    return worst
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """Names of a params tree's leaves in `checkpoints.flat_leaves` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_paths(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_paths(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_train_kernels() -> dict:
+    """Each kernel at the training step's shapes (bf16), CUDA events after
+    warm-up, beside its plain version and its bound."""
     import torch
 
     from simplenerf_torch.fields.mlp import MLPConfig
     from simplenerf_torch.ops import fused_mlp
 
-    configs = {
-        "main": MLPConfig(),
-        "points_aug": MLPConfig(points_sigma_pe_degree=3),
-        "lambertian": MLPConfig(use_view_dirs=False, view_dependent_rgb=False),
-        "visibility": MLPConfig(predict_visibility=True),
-    }
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    nr = 1037  # not a multiple of any power of two
-    for name, cfg in configs.items():
-        for ns in (64, 192):
-            for dtype in (torch.float32, torch.bfloat16):
-                dname = "bfloat16" if dtype == torch.bfloat16 else "float32"
-                ops = kernel_operands(cfg, nr, ns, dtype, seed=len(name) + ns)
-                got = fused_mlp.fused_apply(*ops)
-                want = fused_mlp.fused_apply_reference(*ops)
-                err = check_planes(f"{name} {nr} rays x {ns}", dname, got, want)
-                worst[dname] = max(worst[dname], err)
-    return worst
+    saved = {f: f.launches for f in (fused_mlp.fused_apply, fused_mlp.fused_bwd,
+                                     fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd)}
+    out = {}
+    bf16 = torch.bfloat16
+
+    def wbytes(kps):
+        return sum(v.numel() for kp in kps for v in kp.values()) * 2
+
+    # Fine: one MLP, 4096 x 192.
+    spec, kp, lo, hi, hvx = ops = kernel_operands(MLPConfig(), STEP_RAYS, FINE_NS, bf16, seed=3)
+    rows = lo.shape[0]
+    dp = cotangents(spec.n_planes, STEP_RAYS, FINE_NS, seed=4)
+    io = lo.numel() * 2 + hvx.numel() * 4
+    b_fwd = bound_ms(spec.flops_per_point() * rows, io + wbytes([kp]) + dp.numel() * 4)
+    b_bwd = bound_ms(spec.bwd_flops_per_point() * rows,
+                     io + wbytes([kp]) + dp.numel() * 4 + wbytes([kp]) * 2 + hvx.numel() * 4)
+    out["fused_mlp_fwd"] = dict(
+        shape=f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, bf16",
+        ms=cuda_time_ms(lambda: fused_mlp.fused_apply(*ops), iters=10),
+        plain_ms=cuda_time_ms(lambda: fused_mlp.fused_apply_reference(*ops), iters=3),
+        bound_ms=b_fwd[0], bound_by=b_fwd[1])
+    out["fused_mlp_bwd"] = dict(
+        shape=f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, bf16",
+        ms=cuda_time_ms(lambda: fused_mlp.fused_bwd(*ops, dp), iters=5),
+        plain_ms=cuda_time_ms(lambda: fused_mlp.fused_bwd_reference(*ops, dp), iters=2),
+        bound_ms=b_bwd[0], bound_by=b_bwd[1])
+    del ops, lo, hi, hvx, kp, dp
+    torch.cuda.empty_cache()
+
+    # Coarse: the trio through the ensemble, 4096 x 64.
+    ens, kps, lo, hvxs = ensemble_operands(STEP_RAYS, COARSE_NS, bf16, seed=5)
+    rows = lo.shape[0]
+    dp = cotangents(ens.n_planes, STEP_RAYS, COARSE_NS, seed=6)
+    io = lo.numel() * 2 + sum(h.numel() for h in hvxs) * 4
+    b_fwd = bound_ms(ens.flops_per_point() * rows, io + wbytes(kps) + dp.numel() * 4)
+    b_bwd = bound_ms(ens.bwd_flops_per_point() * rows,
+                     io + wbytes(kps) + dp.numel() * 4 + wbytes(kps) * 2 + io - lo.numel() * 2)
+    out["fused_mlp_ens_fwd"] = dict(
+        shape=f"coarse trio step: {STEP_RAYS} rays x {COARSE_NS} = {rows} points, bf16",
+        ms=cuda_time_ms(lambda: fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs), iters=10),
+        plain_ms=cuda_time_ms(lambda: fused_mlp.fused_apply_ensemble_reference(ens, kps, lo, hvxs),
+                              iters=3),
+        bound_ms=b_fwd[0], bound_by=b_fwd[1])
+    out["fused_mlp_ens_bwd"] = dict(
+        shape=f"coarse trio step: {STEP_RAYS} rays x {COARSE_NS} = {rows} points, bf16",
+        ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp), iters=5),
+        plain_ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, dp),
+                              iters=2),
+        bound_ms=b_bwd[0], bound_by=b_bwd[1])
+    for name, r in out.items():
+        print(f"time {name} ({r['shape']}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
+    for f, n in saved.items():
+        f.launches = n
+    return out
+
+
+def step_time(db: Path, warmup: int = 3, steps: int = 40) -> dict:
+    """Seconds per training step of the published bf16 recipe (host clock
+    around each step ending in a synchronisation; median after warm-up)."""
+    import torch
+
+    from simplenerf_torch.data.factory import get_data_loader
+    from simplenerf_torch.data.preprocessor import ScenePreprocessor
+    from simplenerf_torch.ops import fused_mlp
+    from simplenerf_torch.training.trainer import Trainer
+
+    saved = {f: f.launches for f in (fused_mlp.fused_apply, fused_mlp.fused_bwd,
+                                     fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd)}
+    cfg = train_config()
+    cfg["resume_training"] = False
+    raw = get_data_loader(cfg, db, "train").load_data()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(cfg, Path(tmp), ScenePreprocessor(cfg, "train", raw))
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        for it in range(warmup + steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_one_iter(it)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        busy = profile_steps(trainer, warmup + steps, 3)
+    for f, n in saved.items():
+        f.launches = n
+    s = statistics.median(times[warmup:])
+    rays = trainer.train_pp.num_rays + trainer.train_pp.num_rays_sparse_depth
+    print(f"train step: median {s * 1e3:.2f} ms over {steps} steps after {warmup} warm-up "
+          f"(min {min(times[warmup:]) * 1e3:.2f}, max {max(times[warmup:]) * 1e3:.2f}); "
+          f"{rays / s:.0f} rays/s; device busy {100 * busy['device_ms_per_step'] / (s * 1e3):.1f} % "
+          f"of the median step; peak device memory {peak_gb:.2f} GiB", flush=True)
+    return {"s_per_step": s, "rays_per_s": rays / s, "peak_gb": peak_gb, **busy}
+
+
+def profile_steps(trainer, start: int, steps: int) -> dict:
+    """Device time by kernel over `steps` training steps (torch.profiler's
+    CUDA kernel events; the profiler's own host cost makes its wall clock
+    no step time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for it in range(start, start + steps):
+            trainer.train_one_iter(it)
+        torch.cuda.synchronize()
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = kernels.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3 / steps
+            row[1] += 1
+    rows = sorted(((ms, n // steps, name) for name, (ms, n) in kernels.items()), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"profile: device kernel time per training step {busy_ms:.2f} ms over {steps} steps, "
+          f"{sum(r[1] for r in rows)} kernels per step; by kernel:", flush=True)
+    for ms, n, name in rows[:20]:
+        print(f"profile:   {ms:9.3f} ms  x{n:<5d} {name[:110]}", flush=True)
+    return {"device_ms_per_step": busy_ms, "kernels_per_step": sum(r[1] for r in rows)}
 
 
 def make_scene(work: Path, h: int, w: int):
@@ -361,6 +774,20 @@ def chunk_kernels(test_rays: int) -> dict:
     return out
 
 
+KERNELS = {  # name -> (source, TPU kernel it replaces)
+    "fused_mlp_fwd": ("simplenerf_torch/ops/csrc/fused_mlp_fwd.cu",
+                      "simplenerf_tpu/ops/fused_mlp.py:448"),
+    "fused_mlp_bwd": ("simplenerf_torch/ops/csrc/fused_mlp_bwd.cu",
+                      "simplenerf_tpu/ops/fused_mlp.py:491"),
+    "fused_mlp_ens_fwd": ("simplenerf_torch/ops/csrc/fused_mlp_fwd.cu",
+                          "simplenerf_tpu/ops/fused_mlp.py:802"),
+    "fused_mlp_ens_bwd": ("simplenerf_torch/ops/csrc/fused_mlp_bwd.cu",
+                          "simplenerf_tpu/ops/fused_mlp.py:848"),
+}
+WRAPPERS = {"fused_mlp_fwd": "fused_apply", "fused_mlp_bwd": "fused_bwd",
+            "fused_mlp_ens_fwd": "fused_apply_ensemble", "fused_mlp_ens_bwd": "fused_ens_bwd"}
+
+
 def main() -> int:
     if not (REPO / "simplenerf_torch").is_dir():
         print("chip_smoke.py needs the repository beside it (simplenerf_torch/ is missing)",
@@ -382,43 +809,64 @@ def main() -> int:
     from simplenerf_torch.ops import build
 
     t0 = time.perf_counter()
-    lib = build.build_library("fused_mlp_fwd")
-    build.load_library("fused_mlp_fwd")
-    print(f"build: fused_mlp_fwd in {time.perf_counter() - t0:.1f} s -> {lib.name}", flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: ptxas {line.strip()}", flush=True)
+    libs = build.build_all()
+    for name, lib in libs.items():
+        build.load_library(name)
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: {name} ptxas {line.strip()}", flush=True)
+    print(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.1f} s (parallel nvcc)", flush=True)
 
-    worst = check_kernels()
+    worst = check_train_kernels()
+    print(f"kernel checks done at {time.perf_counter() - t_start:.1f} s", flush=True)
     h, w = 189, 252
     with tempfile.TemporaryDirectory() as tmp:
-        served = serve(Path(tmp), h, w)
-    timing = chunk_kernels(test_rays=min(CHUNK_RAYS, -(-(h * w) // 256) * 256))
+        work = Path(tmp)
+        served = serve(work, h, w)
+        trained = train(work, work / "db")
+        step_err = {d: step_gradients(work / "db", d) for d in ("float32", "bfloat16")}
+        torch.cuda.empty_cache()
+        timing = chunk_kernels(test_rays=min(CHUNK_RAYS, -(-(h * w) // 256) * 256))
+        train_timing = time_train_kernels()
+        step = step_time(work / "db")
 
     fine, coarse = timing["fine"], timing["coarse"]
     print(f"serve: {served['frame_s']:.3f} s per served 756x1008 frame; "
           f"{served['test_s'] / served['frames']:.3f} s per 189x252 test frame incl. file output",
           flush=True)
+    print(f"train: {step['s_per_step']:.4f} s per step, {step['rays_per_s']:.0f} rays/s "
+          f"(4096 rays per step, published bf16 recipe)", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    kernels = [{
-        "name": "fused_mlp_fwd",
-        "route": "cuda",
-        "source": "simplenerf_torch/ops/csrc/fused_mlp_fwd.cu",
-        "replaces": "simplenerf_tpu/ops/fused_mlp.py:448",
-        "launches": served["launches"],
-        "max_abs_err": max(worst["bfloat16"], timing["max_abs_err"]),
-        "max_abs_err_f32": worst["float32"],
-        "ms": fine["ms"],
-        "plain_ms": fine["plain_ms"],
-        "bound_ms": fine["bound_ms"],
-        "bound_by": fine["bound_by"],
-        "library_ms": None,
-        "shape": f"fine chunk: {fine['rows']} points, bf16",
-        "coarse_chunk": {k: coarse[k] for k in ("rows", "ms", "plain_ms", "bound_ms")},
-    }]
-    if not all(math.isfinite(v) for v in (fine["ms"], fine["plain_ms"], fine["bound_ms"])):
-        fail("non-finite timing")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    key = ("fused_mlp_fwd", "bfloat16", "err")
+    worst[key] = max(worst[key], timing["max_abs_err"])
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        t = train_timing[name]
+        row = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": trained["launches"][WRAPPERS[name]],
+            "max_abs_err": worst[(name, "bfloat16", "err")],
+            "max_abs_err_f32": worst[(name, "float32", "err")],
+            "err_measure": ("planes: max abs error" if name.endswith("fwd")
+                            else "gradients: max abs error / the plain version's largest value"),
+        }
+        if name.endswith("bwd"):  # the held measure: ||got - want|| / ||want||
+            row["norm_err"] = worst[(name, "bfloat16", "norm")]
+            row["norm_err_f32"] = worst[(name, "float32", "norm")]
+        row.update({
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
+        })
+        if name == "fused_mlp_fwd":
+            row["launches_serve"] = served["launches"]
+            row["serve_chunks"] = {level: {k: timing[level][k] for k in
+                                           ("rows", "ms", "plain_ms", "bound_ms")}
+                                   for level in ("coarse", "fine")}
+        kernels.append(row)
+        if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
+            fail(f"non-finite timing for {name}")
+    print(json.dumps({"kernels": kernels, "train_step": {**step, "step_grad_rel_err": step_err}}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

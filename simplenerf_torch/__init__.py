@@ -1,15 +1,16 @@
-"""simplenerf_torch: SimpleNeRF served with PyTorch and hand-written CUDA kernels.
+"""simplenerf_torch: SimpleNeRF trained and served with PyTorch and hand-written CUDA kernels.
 
 The PyTorch port of `simplenerf_tpu`, which stays beside it as the
 reference. Each module keeps the name and place of its JAX counterpart
 (`fields/`, `ops/`, `render/`, `geometry/`, `data/`, `training/`,
 `drivers/`, `config.py`) and computes the same function, tested against it.
 
-This slice serves: test-time rendering of a trained model
-(`drivers.runner.start_testing` -> `training.tester.Tester.predict_frame`
--> `render.renderer.render_rays(train=False)`), with the field MLP forward
-running in the CUDA kernel of `ops/csrc/fused_mlp_fwd.cu`. Training comes
-in a later slice.
+Ported so far: training (`drivers.runner.start_training` ->
+`training.trainer.Trainer` -> `render.renderer.render_rays(train=True)`,
+`losses/`, flat Adam) and test-time rendering (`drivers.runner.start_testing`
+-> `training.tester.Tester.predict_frame`). The field MLPs run in CUDA
+kernels: forward and ensemble forward in `ops/csrc/fused_mlp_fwd.cu`, their
+backward in `ops/csrc/fused_mlp_bwd.cu`.
 
 Entry points run on the CUDA device unless the caller passes
 `device="cpu"`; on CPU tensors every kernel wrapper takes its plain PyTorch

@@ -1,13 +1,20 @@
-"""Scene preprocessing for serving: pose normalization, the scene digest
-(ModelConfigs), test-time ray batches and output reshaping.
+"""Scene preprocessing: pose normalization, the device-resident ray cache,
+epoch-permutation batch sampling, the scene digest (ModelConfigs),
+test-time ray batches and output reshaping.
 
-Port of the serving part of simplenerf_tpu/data/preprocessor.py
-(reference DataPreprocessor01: preprocess_poses, create_test_data, the
-model-configs digest). "test" mode builds full-image ray batches for any
-pose from a stored digest. "train" mode here runs only the pose, bounds and
-near/far preprocessing, so that `get_model_configs()` writes the same
-ModelConfigs.json as the JAX package; the ray cache, batch samplers and
-sparse-depth rasters come with the training slice.
+Port of simplenerf_tpu/data/preprocessor.py (reference DataPreprocessor01:
+preprocess_poses, create_cache, the sparse-depth raster and its NDC
+conversion, the batch sampler, create_test_data, the model-configs digest).
+"train" mode builds the whole-scene per-pixel ray cache on the device as
+flat (n*h*w, .) tensors; each iteration the host draws 2048 + 2048 indices
+from two epoch permutations (NeRF pool + sparse-depth pool, numpy streams
+identical to the JAX package's for the same seed) and `gather_batch`
+gathers the batch on the device. "test" mode builds full-image ray
+batches for any pose from a stored digest. Dense depth, the visibility
+prior, mip-NeRF radii and the validation mode are not ported yet and raise.
+
+As in the JAX package, the epoch sampler wraps into the next permutation
+at an epoch boundary instead of emitting a short batch.
 """
 
 from __future__ import annotations
@@ -19,11 +26,83 @@ import torch
 
 from simplenerf_torch.device import resolve_device
 from simplenerf_torch.geometry import poses as pose_lib
+from simplenerf_torch.geometry import projection
 from simplenerf_torch.geometry import rays as ray_lib
 
 
+class EpochSampler:
+    """Shuffled-permutation index stream with wrap-around (host-side)."""
+
+    def __init__(self, pool: np.ndarray, rng: np.random.Generator):
+        self.pool = np.asarray(pool)
+        self.rng = rng
+        self.perm = self.rng.permutation(self.pool)
+        self.cursor = 0
+
+    def reset_pool(self, pool: np.ndarray):
+        self.pool = np.asarray(pool)
+        self.perm = self.rng.permutation(self.pool)
+        self.cursor = 0
+
+    def next(self, count: int) -> np.ndarray:
+        out = []
+        remaining = count
+        while remaining > 0:
+            take = min(remaining, len(self.perm) - self.cursor)
+            out.append(self.perm[self.cursor : self.cursor + take])
+            self.cursor += take
+            remaining -= take
+            if self.cursor >= len(self.perm):
+                self.perm = self.rng.permutation(self.pool)
+                self.cursor = 0
+        return np.concatenate(out)
+
+    def skip(self, count: int):
+        """Advance the stream `count` draws without materializing them;
+        consumes the rng exactly as `next(count)` does."""
+        while count > 0:
+            take = min(count, len(self.perm) - self.cursor)
+            self.cursor += take
+            count -= take
+            if self.cursor >= len(self.perm):
+                self.perm = self.rng.permutation(self.pool)
+                self.cursor = 0
+
+
+def _build_ray_cache(images, intrinsics, c2ws, near: float, h: int, w: int, ndc: bool) -> dict:
+    """Per-pixel rays of every frame, flattened to (n*h*w, .) tensors on the
+    inputs' device."""
+    n = intrinsics.shape[0]
+    frames: dict = {}
+    for i in range(n):
+        rays_o, rays_d = ray_lib.get_rays(h, w, intrinsics[i], c2ws[i])
+        x, y = ray_lib.pixel_grid(h, w, device=images.device)
+        out = {"rays_o": rays_o, "rays_d": rays_d,
+               "pixel_id": torch.stack([torch.full_like(x, float(i)), x, y], dim=-1)}
+        if ndc:
+            out["rays_o_ndc"], out["rays_d_ndc"] = ray_lib.ndc_rays(
+                rays_o, rays_d, h, w, intrinsics[i, 0, 0], intrinsics[i, 1, 1], near
+            )
+        for k, v in out.items():
+            frames.setdefault(k, []).append(v.reshape(h * w, v.shape[-1]))
+    cache = {k: torch.cat(v) for k, v in frames.items()}
+    cache["view_dirs"] = ray_lib.get_view_dirs(cache["rays_d"])
+    cache["pixel_id"] = cache["pixel_id"].to(torch.int32)
+    cache["target_rgb"] = images.reshape(n * h * w, 3)
+    return cache
+
+
+def _area_downsample(images: np.ndarray, f: int) -> np.ndarray:
+    """Integer-factor area resize (each output pixel the mean of an f x f block)."""
+    n, h, w, c = images.shape
+    if h % f or w % f:
+        raise NotImplementedError(f"downsampling {h}x{w} by {f} needs sizes divisible by it")
+    return images.reshape(n, h // f, f, w // f, f, c).mean(axis=(2, 4))
+
+
 class ScenePreprocessor:
-    """Per-scene data pipeline; `device` is where test batches are built."""
+    """Per-scene data pipeline; `device` is where the ray cache and test
+    batches live."""
 
     def __init__(
         self,
@@ -32,6 +111,7 @@ class ScenePreprocessor:
         raw_data: Optional[dict] = None,
         model_configs: Optional[dict] = None,
         device=None,
+        seed: int = 0,
     ):
         self.configs = configs
         self.mode = mode.lower()
@@ -39,7 +119,11 @@ class ScenePreprocessor:
         self.ndc = dl["ndc"]
         self.bd_factor = dl.get("bd_factor")
         self.downsampling_factor = dl.get("downsampling_factor", 1)
+        self.num_rays = dl.get("num_rays", 2048)
+        self.sparse_depth_needed = "sparse_depth" in dl
         self.mip_nerf_needed = "mip_nerf" in dl
+        self.white_bkgd = configs.get("model", {}).get("white_bkgd", False)
+        self.rng = np.random.default_rng(seed)
         self.model_configs = model_configs
         self.device = resolve_device(device)
 
@@ -53,18 +137,24 @@ class ScenePreprocessor:
 
     # ------------------------------------------------------------------
     def _preprocess(self, raw: dict):
-        """Resolution, normalized poses, bounds and near/far of the train frames."""
+        """Images, normalized poses, bounds, near/far, the ray cache and the
+        batch samplers of the train frames."""
+        dl = self.configs["data_loader"]
+        for key in ("dense_depth", "visibility_prior", "mip_nerf"):
+            if key in dl:
+                raise NotImplementedError(f"training with {key!r} is not ported yet")
         nerf = raw["nerf_data"]
         self.frame_nums = np.asarray(raw["frame_nums"])
+        images = self._preprocess_images(nerf["images"])
         intrinsics = nerf["intrinsics"].astype(np.float32).copy()
         h, w = nerf["resolution"]
         if self.downsampling_factor > 1:
-            # Only the resolution and intrinsics enter the digest; the
-            # images themselves are resized with the training slice's cache.
             f = self.downsampling_factor
             h, w = h // f, w // f
+            images = _area_downsample(images, f)
             intrinsics[:, :2] /= f
         self.resolution = (int(h), int(w))
+        self.images = images.astype(np.float32)
 
         spherify = self.configs["data_loader"].get("spherify", False)
         pp = pose_lib.preprocess_poses(
@@ -92,6 +182,93 @@ class ScenePreprocessor:
             self.far = float(self.bounds[1])
             self.near_ndc, self.far_ndc = 0.0, 1.0
 
+        # Device-resident ray cache and the scene's common data.
+        dev = self.device
+        tensor = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+        self.common = {
+            "images": tensor(self.images),
+            "poses": tensor(self.poses),
+            "intrinsics": tensor(self.intrinsics),
+        }
+        self.cache = _build_ray_cache(
+            self.common["images"], self.common["intrinsics"], self.common["poses"], self.near,
+            *self.resolution, ndc=self.ndc,
+        )
+        self.num_frames = len(self.images)
+        self.sampler = EpochSampler(self._nerf_index_pool(iter_num=0), self.rng)
+        if self.sparse_depth_needed:
+            self._preprocess_sparse_depth(raw)
+        self._pack_cache()
+
+    def _preprocess_images(self, images: np.ndarray) -> np.ndarray:
+        images = images.astype(np.float32) / 255.0
+        if self.white_bkgd and images.shape[-1] == 4:
+            images = images[..., :3] * images[..., 3:] + (1.0 - images[..., 3:])
+        return images[..., :3]
+
+    def _pack_cache(self):
+        """Pack the f32 (N, C) cache planes into one `_packed` (N, sum C)
+        tensor, so `gather_batch` gathers a batch's rows once; the layout
+        is `packed_layout`, ((key, start, width), ...) in sorted key order.
+        The unpacked entries stay for the full-frame paths."""
+        keys = sorted(k for k, v in self.cache.items() if v.dtype == torch.float32 and v.ndim == 2)
+        layout, start = [], 0
+        for k in keys:
+            width = int(self.cache[k].shape[1])
+            layout.append((k, start, width))
+            start += width
+        self.packed_layout = tuple(layout)
+        if keys:
+            self.cache["_packed"] = torch.cat([self.cache[k] for k in keys], dim=1)
+
+    def _nerf_index_pool(self, iter_num: int) -> np.ndarray:
+        """All-pixel index pool, centre-cropped early in training (precrop,
+        DataPreprocessor01.generate_indices)."""
+        n = len(self.images)
+        h, w = self.resolution
+        dl = self.configs["data_loader"]
+        frac = dl.get("precrop_fraction", 1)
+        pc_iters = dl.get("precrop_iterations", -1)
+        indices = np.arange(n * h * w)
+        if frac < 1 and iter_num < pc_iters:
+            h1 = int(round(h / 2 * (1 - frac)))
+            h2 = int(round(h / 2 * (1 + frac)))
+            w1 = int(round(w / 2 * (1 - frac)))
+            w2 = int(round(w / 2 * (1 + frac)))
+            indices = indices.reshape(n, h, w)[:, h1:h2, w1:w2].ravel()
+        return indices
+
+    def _preprocess_sparse_depth(self, raw: dict):
+        """Per-pixel sparse-depth rasters (-1 where no point) and their pool."""
+        h, w = self.resolution
+        depths, errors = [], []
+        for fn in self.frame_nums:
+            depth = -np.ones((h, w), np.float32)
+            err = -np.ones((h, w), np.float32)
+            frame = raw.get("sparse_depth_data", {}).get(int(fn))
+            if frame is not None:
+                x = np.asarray(frame["x"]) / self.downsampling_factor
+                y = np.asarray(frame["y"]) / self.downsampling_factor
+                xi = np.clip(np.round(x), 0, w - 1).astype(int)
+                yi = np.clip(np.round(y), 0, h - 1).astype(int)
+                depth[yi, xi] = np.asarray(frame["depth"]) * self.sc
+                err[yi, xi] = np.asarray(frame["reprojection_error"])
+            depths.append(depth)
+            errors.append(err)
+        depths = np.stack(depths).reshape(-1, 1)
+        errors = np.stack(errors).reshape(-1, 1)
+        dev = self.device
+        self.cache["sparse_depth_values"] = torch.as_tensor(depths, device=dev)
+        self.cache["sparse_depth_errors"] = torch.as_tensor(errors, device=dev)
+        if self.ndc:
+            d = self.cache["sparse_depth_values"]
+            d_ndc = projection.depth_to_ndc(d, self.cache["rays_o"], self.cache["rays_d"], near=1.0)
+            self.cache["sparse_depth_values_ndc"] = torch.where(d == -1, -1.0, d_ndc)
+
+        sd_cfg = self.configs["data_loader"]["sparse_depth"]
+        self.num_rays_sparse_depth = sd_cfg.get("num_rays", 2048)
+        self.sparse_sampler = EpochSampler(np.where(depths[:, 0] > 0)[0], self.rng)
+
     def _create_model_configs(self) -> dict:
         cfg = {
             "resolution": list(self.resolution),
@@ -112,6 +289,51 @@ class ScenePreprocessor:
 
     def get_model_configs(self) -> dict:
         return self.model_configs
+
+    # ------------------------------------------------------------------
+    def next_indices(self, iter_num: int, image_num: Optional[int] = None):
+        """Host-side index draw: (indices, mask_nerf, mask_sd) numpy arrays.
+
+        With image_num set, yields every pixel of that frame."""
+        dl = self.configs["data_loader"]
+        if image_num is not None:
+            h, w = self.resolution
+            idx = np.where(self.frame_nums == image_num)[0].item()
+            indices = np.arange(h * w) + idx * h * w
+            mask_nerf = np.ones(len(indices), bool)
+            return indices.astype(np.int32), mask_nerf, np.zeros(len(indices), bool)
+
+        if iter_num == dl.get("precrop_iterations", -1):
+            self.sampler.reset_pool(self._nerf_index_pool(iter_num))
+        indices = self.sampler.next(self.num_rays)
+        n_nerf = len(indices)
+        if self.sparse_depth_needed and self.mode == "train":
+            indices = np.concatenate([indices, self.sparse_sampler.next(self.num_rays_sparse_depth)])
+        mask_nerf = np.zeros(len(indices), bool)
+        mask_nerf[:n_nerf] = True
+        return indices.astype(np.int32), mask_nerf, ~mask_nerf
+
+    def fast_forward(self, num_iters: int):
+        """Advance the batch samplers past `num_iters` training draws, so a
+        resumed run draws the batches an uninterrupted one would. The two
+        samplers share one rng, so the replay keeps next_indices' order."""
+        if self.mode != "train" or num_iters <= 0:
+            return
+        precrop_it = self.configs["data_loader"].get("precrop_iterations", -1)
+        for it in range(num_iters):
+            if it == precrop_it:
+                self.sampler.reset_pool(self._nerf_index_pool(it))
+            self.sampler.skip(self.num_rays)
+            if self.sparse_depth_needed:
+                self.sparse_sampler.skip(self.num_rays_sparse_depth)
+
+    def batch_constants(self) -> dict:
+        """Static per-scene scalars the gather step broadcasts per ray."""
+        consts = {"near": self.near, "far": self.far}
+        if self.ndc:
+            consts["near_ndc"] = self.near_ndc
+            consts["far_ndc"] = self.far_ndc
+        return consts
 
     # ------------------------------------------------------------------
     def create_test_data(
@@ -216,3 +438,32 @@ class ScenePreprocessor:
             vis = host(key).reshape(h, w, -1).transpose(2, 0, 1)
             out["visibility2"] = vis.astype(np.float32)
         return out
+
+
+def gather_batch(cache: dict, common: dict, consts: dict, indices, mask_nerf, mask_sd,
+                 packed_layout: tuple = ()) -> dict:
+    """Device-side gather of a training batch from the ray cache.
+
+    indices (nr,) int tensor on the cache's device. With `packed_layout`
+    (the preprocessor's) the f32 fields come from one gather of the
+    `_packed` rows, sliced per field; the other entries are gathered one by
+    one. Adds the per-ray constants, the masks and the scene's common data.
+    """
+    cache = dict(cache)
+    packed = cache.pop("_packed", None)
+    idx = indices.long()
+    batch = {}
+    if packed is not None and packed_layout:
+        rows = packed.index_select(0, idx)
+        for k, start, width in packed_layout:
+            batch[k] = rows[:, start : start + width]
+            cache.pop(k, None)
+    batch.update({k: v.index_select(0, idx) for k, v in cache.items()})
+    nr = idx.shape[0]
+    for name, value in consts.items():
+        batch[name] = torch.full((nr, 1), float(value), dtype=torch.float32, device=idx.device)
+    batch["indices_mask_nerf"] = mask_nerf
+    if mask_sd is not None:
+        batch["indices_mask_sparse_depth"] = mask_sd
+    batch["common"] = common
+    return batch

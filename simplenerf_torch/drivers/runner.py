@@ -1,11 +1,13 @@
-"""Experiment orchestration for serving: render every test frame of every scene.
+"""Experiment orchestration: train every scene, render every test frame.
 
-Port of the testing part of simplenerf_tpu/drivers/runner.py: resolves
-scene lists from the split CSVs, loads each scene's trained model from
-runs/training/trainNNNN/<scene>/, and renders its test frames (with the
-train frames as secondary poses when the model predicts visibility) into
-runs/testing/testNNNN/<scene>/. Existing outputs are skipped. Training,
-videos and QA come in later slices.
+Port of the training and testing parts of simplenerf_tpu/drivers/runner.py:
+resolves scene lists from the split CSVs, trains each scene into
+runs/training/trainNNNN/<scene>/ (configs, ModelConfigs.json, checkpoints,
+logs/scalars.jsonl), loads each scene's trained model and renders its test
+frames (with the train frames as secondary poses when the model predicts
+visibility) into runs/testing/testNNNN/<scene>/. Finished scenes and
+existing outputs are skipped. Videos, plots, QA and the device mesh come in
+later slices.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import numpy as np
 from simplenerf_torch import config as config_lib
 from simplenerf_torch.data import io
 from simplenerf_torch.data.factory import get_data_loader
+from simplenerf_torch.data.preprocessor import ScenePreprocessor
 from simplenerf_torch.training.tester import Tester
+from simplenerf_torch.training.trainer import Trainer
 
 
 def scene_key(configs: dict, scene_id) -> str:
@@ -36,6 +40,36 @@ def resolve_scene_ids(configs: dict, database_dirpath: Path, mode: str = "train"
     if "scene_name" in table:
         return sorted(set(table["scene_name"]))
     return sorted({int(s) for s in table["scene_num"]})
+
+
+def start_training(
+    train_configs: dict, database_dirpath: Path, output_dirpath: Path, device=None
+) -> Path:
+    """Train every scene; returns the train run directory."""
+    database_dirpath = Path(database_dirpath)
+    train_num = train_configs.get("train_num", 0)
+    run_dir = Path(output_dirpath) / f"training/train{train_num:04}"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    config_lib.save_configs(run_dir, train_configs)
+
+    for scene_id in resolve_scene_ids(train_configs, database_dirpath):
+        scene_cfg = copy.deepcopy(train_configs)
+        scene_cfg["data_loader"]["scene_id"] = scene_id
+        scene_dir = run_dir / scene_key(scene_cfg, scene_id)
+        done_marker = scene_dir / "saved_models/Model_Latest.msgpack"
+
+        raw = get_data_loader(scene_cfg, database_dirpath, "train").load_data()
+        train_pp = ScenePreprocessor(scene_cfg, "train", raw, device=device,
+                                     seed=scene_cfg.get("seed", 0))
+        scene_dir.mkdir(parents=True, exist_ok=True)
+        (scene_dir / "ModelConfigs.json").write_text(json.dumps(train_pp.get_model_configs(), indent=2))
+
+        trainer = Trainer(scene_cfg, scene_dir, train_pp)
+        if trainer.start_iter >= scene_cfg["num_iterations"] and done_marker.exists():
+            continue
+        trainer.train()
+        trainer.logger.close()
+    return run_dir
 
 
 def load_scene_tester(

@@ -13,8 +13,10 @@ Three evaluations of the same function:
 - `apply`: the "blocked" form (skip and views joins as sums of matmuls over
   row slices of the canonical weights, view dirs encoded once per ray);
 - `apply_fused`: the field through `ops.fused_mlp.fused_apply`, which
-  launches the CUDA kernel for CUDA tensors. It returns the plane layout
-  of `to_planes`.
+  launches the CUDA kernels (forward, and backward under autograd) for
+  CUDA tensors. It returns the plane layout of `to_planes`;
+  `apply_fused_ensemble` evaluates several MLPs at the same points through
+  `fused_apply_ensemble`, one plane dict per member.
 
 `dtype` is the matmul input precision (bfloat16 or float32); products
 accumulate in float32 and trunk activations are stored at `dtype`.
@@ -302,8 +304,9 @@ def apply_fused(
     Same function as `to_planes(apply(...))` (minus view_dirs2): pts (n, 3)
     grouped as nr = n / view_dirs_tile rays x ns = view_dirs_tile samples;
     view_dirs (nr, 3). The kernel emits raw linear head planes; noise and
-    activations are applied here on (nr, ns) planes. The kernel masks its
-    ragged last block itself, so nothing is padded.
+    activations are applied here on (nr, ns) planes. Sigma noise is the
+    standard-normal `noise` (nr, ns). The kernel masks its ragged last
+    block itself, so nothing is padded. Differentiable in `params`.
     """
     from simplenerf_torch.ops import fused_mlp
 
@@ -325,12 +328,69 @@ def fused_operands(params: Params, cfg: MLPConfig, pts, view_dirs, ns: int, dtyp
     from simplenerf_torch.ops import fused_mlp
 
     spec = fused_mlp.make_spec(cfg, ns, dtype)
-    hvx = None
-    if spec.has_hvx:
-        xv, sv, cv = encoding.encode_parts(view_dirs, cfg.views_pe_degree)
-        hvx = _mm(_cat_parts(xv, sv, cv), fused_mlp.dirs_w(params, cfg), dtype).contiguous()
+    hvx = _hvx(params, cfg, view_dirs, dtype) if spec.has_hvx else None
     lo, hi = _trunk_inputs(cfg, pts, spec.cdtype)
     return spec, fused_mlp.kernel_params(params, cfg), lo, hi, hvx
+
+
+def _hvx(params: Params, cfg: MLPConfig, view_dirs, dtype) -> torch.Tensor:
+    """Per-ray dirs contribution to the first views layer, (nr, Wv) f32."""
+    from simplenerf_torch.ops import fused_mlp
+
+    xv, sv, cv = encoding.encode_parts(view_dirs, cfg.views_pe_degree)
+    return _mm(_cat_parts(xv, sv, cv), fused_mlp.dirs_w(params, cfg), dtype).contiguous()
+
+
+def ensemble_operands(members: list, pts, view_dirs, ns: int, dtype) -> tuple:
+    """Arguments of `ops.fused_mlp.fused_apply_ensemble`: (ens, kps, lo, hvxs).
+
+    members: (params, cfg) pairs. One shared full-degree lo block
+    [x | sin f<D | cos f<D] (D the largest member degree) serves every
+    member; the members' joins are zero-row padded to it.
+    """
+    from simplenerf_torch.ops import fused_mlp
+
+    ens = fused_mlp.make_ensemble_spec([cfg for _, cfg in members], ns, dtype)
+    d_max = max(cfg.points_pe_degree for _, cfg in members)
+    kps = tuple(fused_mlp.kernel_params(p, c, shared_degree=d_max) for p, c in members)
+    hvxs = tuple(
+        _hvx(p, c, view_dirs, dtype) for (p, c), m in zip(members, ens.members) if m.has_hvx
+    )
+    x, s, c = encoding.encode_parts(pts, d_max)
+    cd = ens.cdtype
+    lo = x.to(cd) if s is None else torch.cat([x.to(cd), s.to(cd), c.to(cd)], dim=-1)
+    return ens, kps, lo.contiguous(), hvxs
+
+
+def apply_fused_ensemble(
+    members: list,
+    pts: torch.Tensor,
+    view_dirs: Optional[torch.Tensor] = None,
+    noise_std: float = 0.0,
+    noises: Optional[list] = None,
+    dtype=torch.float32,
+    view_dirs_tile: int = 1,
+) -> list:
+    """Evaluate several field MLPs at the same points in one fused kernel.
+
+    members: (params, cfg) pairs; pts (n, 3) grouped as nr = n / ns rays x
+    ns = view_dirs_tile samples; view_dirs (nr, 3) shared; noises: per-member
+    standard-normal sigma noise (nr, ns) or None. Returns one plane-layout
+    output dict per member, the same as `apply_fused` on each member.
+    """
+    from simplenerf_torch.ops import fused_mlp
+
+    ns = view_dirs_tile
+    if pts.shape[0] % ns:
+        raise ValueError(f"{pts.shape[0]} points do not split into rays of {ns} samples")
+    noises = noises if noises is not None else [None] * len(members)
+    ens, kps, lo, hvxs = ensemble_operands(members, pts, view_dirs, ns, dtype)
+    planes = fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs)
+    outs, pos = [], 0
+    for (_, cfg), m, noise in zip(members, ens.members, noises):
+        outs.append(_fused_epilogue(cfg, m.out_p, planes[pos : pos + m.n_planes], noise_std, noise))
+        pos += m.n_planes
+    return outs
 
 
 def _trunk_inputs(cfg: MLPConfig, pts: torch.Tensor, cdtype):

@@ -2,8 +2,10 @@
 
 Each library is one `.cu` file under `csrc/` with a plain C interface,
 compiled by `nvcc` for sm_90a into `build/kernels/` at the repository root
-(listed in .gitignore). The output name carries a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+(listed in .gitignore). The output name carries a hash of the source, the
+headers it may include (`csrc/*.cuh`) and the flags, so an edited source is
+rebuilt and an unchanged one is reused. `build_all` starts one nvcc per
+source at once.
 """
 
 from __future__ import annotations
@@ -23,16 +25,19 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of the entry points, per library.
 _SIGNATURES = {
     "fused_mlp_fwd": {
-        "snerf_fused_mlp_fwd": (
-            [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-            + [ctypes.c_void_p] * 6
-            + [ctypes.c_int, ctypes.c_void_p]
-        ),
+        "snerf_fused_mlp_fwd": [_I, _P, _I] + [_P] * 6 + [_I, _P],
+        "snerf_fused_mlp_ens_fwd": [_I, _P, _I] + [_P] * 5 + [_I, _P],
+    },
+    "fused_mlp_bwd": {
+        "snerf_fused_mlp_bwd": [_I, _P, _I] + [_P] * 8 + [_I] * 5 + [_P] * 7 + [_I, _P],
+        "snerf_fused_mlp_ens_bwd": [_I, _P, _I] + [_P] * 7 + [_I] * 5 + [_P] * 7 + [_I, _P],
     },
 }
+LIBRARIES = tuple(_SIGNATURES)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -48,31 +53,47 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    data = b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(data).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build_library(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a build of this exact source exists.
+def build_all(names=LIBRARIES) -> dict[str, Path]:
+    """Compile every csrc/<name>.cu that has no build of its exact source,
+    one nvcc process per source, all started together.
 
     The compiler's output (ptxas register and shared-memory report) is kept
-    beside the library as `<lib>.log`.
+    beside each library as `<lib>.log`.
     """
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    return out
+    outs = {name: library_path(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, out in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                             text=True))
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed for {name}:\n{log}")
+            continue
+        todo[name].with_suffix(".log").write_text(log)
+        os.replace(tmp, todo[name])  # atomic: concurrent builders never see a partial file
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outs
+
+
+def build_library(name: str) -> Path:
+    """Compile csrc/<name>.cu unless a build of this exact source exists."""
+    return build_all((name,))[name]
 
 
 def load_library(name: str) -> ctypes.CDLL:

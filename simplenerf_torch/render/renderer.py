@@ -1,13 +1,13 @@
-"""The SimpleNeRF render step: coarse stratified sampling, coarse MLP,
-importance sampling, fine MLP, compositing.
+"""The SimpleNeRF render step: coarse stratified sampling, the coarse MLPs,
+importance sampling, the fine MLPs, compositing.
 
-Port of simplenerf_tpu/render/renderer.py for the serving path. The output
-dict follows the reference key grammar `{prefix}{quantity}_{coarse|fine}`,
-with `raw_*` per-sample outputs when `retraw`.
-
-`train=True` (stratified jitter, sigma noise, the augmented models) comes
-with the training slice, which also brings the ensemble and backward
-kernels; here it raises.
+Port of simplenerf_tpu/render/renderer.py. The output dict follows the
+reference key grammar `{prefix}{quantity}_{coarse|fine}` with the prefixes
+'', 'points_augmentation_' and 'views_augmentation_', and `raw_*`
+per-sample outputs when `retraw`. `train=True` adds stratified jitter,
+sigma noise and the augmented models; a level with several members and no
+secondary-view visibility runs them as one ensemble (`_run_level_ensemble`,
+the coarse trio of the published recipe).
 """
 
 from __future__ import annotations
@@ -86,6 +86,8 @@ def _eval_mlp(
     view_dirs2: Optional[torch.Tensor],
     dtype,
     use_fused: bool,
+    noise_std: float = 0.0,
+    noise: Optional[torch.Tensor] = None,
 ) -> dict:
     """Flatten (nr, ns, 3) points into one batch, evaluate, return planes:
     sigma (nr, ns), rgb (3, nr, ns), visibility (nr, ns), visibility2
@@ -93,6 +95,7 @@ def _eval_mlp(
     path, which needs per-sample directions."""
     nr, ns = pts.shape[:2]
     flat_pts = pts.reshape(nr * ns, 3)
+    kw = dict(noise_std=noise_std, noise=noise, dtype=dtype)
     if view_dirs2 is not None:
         k = view_dirs2.shape[-2]
         flat_dirs = None
@@ -100,14 +103,13 @@ def _eval_mlp(
             flat_dirs = view_dirs[:, None, :].expand(pts.shape).reshape(nr * ns, 3)
         raw = mlp_lib.apply(
             params, mcfg, flat_pts,
-            view_dirs=flat_dirs, view_dirs2=view_dirs2.reshape(nr * ns, k, 3), dtype=dtype,
+            view_dirs=flat_dirs, view_dirs2=view_dirs2.reshape(nr * ns, k, 3), **kw,
         )
         return mlp_lib.to_planes(raw, nr, ns)
     dirs = view_dirs if mcfg.use_view_dirs else None
     if use_fused:
-        return mlp_lib.apply_fused(params, mcfg, flat_pts, view_dirs=dirs, dtype=dtype,
-                                   view_dirs_tile=ns)
-    raw = mlp_lib.apply(params, mcfg, flat_pts, view_dirs=dirs, dtype=dtype, view_dirs_tile=ns)
+        return mlp_lib.apply_fused(params, mcfg, flat_pts, view_dirs=dirs, view_dirs_tile=ns, **kw)
+    raw = mlp_lib.apply(params, mcfg, flat_pts, view_dirs=dirs, view_dirs_tile=ns, **kw)
     return mlp_lib.to_planes(raw, nr, ns)
 
 
@@ -151,6 +153,31 @@ def _composite_level(cfg: RenderConfig, net_out: dict, z_vals, rays: dict) -> di
     )
 
 
+def _points(cfg: RenderConfig, rays: dict, z_vals):
+    o_key = "rays_o_ndc" if cfg.ndc else "rays_o"
+    d_key = "rays_d_ndc" if cfg.ndc else "rays_d"
+    return rays[o_key][..., None, :] + rays[d_key][..., None, :] * z_vals[..., :, None]
+
+
+def _run_level_ensemble(
+    cfg: RenderConfig, params: Params, members: list, z_vals, rays: dict, train: bool
+) -> list:
+    """Evaluate all of a level's MLPs at shared z values in one ensemble
+    kernel (mlp.apply_fused_ensemble); composite each member."""
+    pts = _points(cfg, rays, z_vals)
+    nr, ns = pts.shape[:2]
+    nets = mlp_lib.apply_fused_ensemble(
+        [(params[name], mcfg) for name, _, mcfg, _ in members],
+        pts.reshape(nr * ns, 3),
+        view_dirs=rays.get("view_dirs"),
+        noise_std=cfg.raw_noise_std if train else 0.0,
+        noises=[noise for _, _, _, noise in members],
+        dtype=cfg.dtype,
+        view_dirs_tile=ns,
+    )
+    return [(_composite_level(cfg, net, z_vals, rays), net) for net in nets]
+
+
 def _run_level(
     cfg: RenderConfig,
     params: Params,
@@ -159,11 +186,11 @@ def _run_level(
     z_vals: torch.Tensor,
     rays: dict,
     sec_views_vis: bool,
+    train: bool = False,
+    noise: Optional[torch.Tensor] = None,
 ) -> tuple[dict, dict]:
     """Evaluate one MLP at the given z values and composite."""
-    o_key = "rays_o_ndc" if cfg.ndc else "rays_o"
-    d_key = "rays_d_ndc" if cfg.ndc else "rays_d"
-    pts = rays[o_key][..., None, :] + rays[d_key][..., None, :] * z_vals[..., :, None]
+    pts = _points(cfg, rays, z_vals)
 
     view_dirs2 = None
     if mcfg.predict_visibility and sec_views_vis and "rays_o2" in rays:
@@ -177,8 +204,18 @@ def _run_level(
         view_dirs2,
         cfg.dtype,
         use_fused=_use_fused(cfg, pts.device),
+        noise_std=cfg.raw_noise_std if train else 0.0,
+        noise=noise,
     )
     return _composite_level(cfg, net_out, z_vals, rays), net_out
+
+
+_LEVEL_MEMBERS = {
+    "coarse": (("coarse", ""), ("points_aug_coarse", "points_augmentation_"),
+               ("views_aug_coarse", "views_augmentation_")),
+    "fine": (("fine", ""), ("points_aug_fine", "points_augmentation_"),
+             ("views_aug_fine", "views_augmentation_")),
+}
 
 
 def render_rays(
@@ -189,47 +226,88 @@ def render_rays(
     sec_views_vis: bool = False,
     retraw: Optional[bool] = None,
     keep_per_sample: bool = True,
+    generator: Optional[torch.Generator] = None,
+    u_coarse: Optional[torch.Tensor] = None,
+    u_fine: Optional[torch.Tensor] = None,
+    noise: Optional[dict] = None,
 ) -> dict:
-    """Render a batch of rays through the coarse/fine hierarchy (eval mode).
+    """Render a batch of rays through the SimpleNeRF hierarchy.
 
     rays: dict with 'rays_o', 'rays_d', 'view_dirs', 'near', 'far' (nr, 1)
     (+ '_ndc' variants when cfg.ndc, + optional 'rays_o2' (nr, k, 3)).
+    `train` enables stratified jitter, sigma noise, stochastic importance
+    sampling and the augmented models (the reference's training graph).
+    Draws come from `generator` (on the rays' device; in this order: coarse
+    jitter, each coarse member's noise, fine uniforms, each fine member's
+    noise), or are given: `u_coarse` (nr, ns_c), `u_fine` (nr, ns_f) and
+    `noise` {MLP name: standard-normal (nr, ns)}.
+
     Returns the reference-keyed output dict. With keep_per_sample=False,
     per-sample tensors (alpha/weights/visibility/z_vals/raw) are dropped to
     keep full-image renders lean.
     """
-    if train:
-        raise NotImplementedError(
-            "train=True (jitter, sigma noise, augmented models) comes with the training slice"
-        )
     if retraw is None:
         retraw = train
+    noise = noise or {}
     out: dict = {}
 
     near = rays["near_ndc"] if cfg.ndc else rays["near"]
     far = rays["far_ndc"] if cfg.ndc else rays["far"]
+    nr = near.shape[0]
+    device = near.device
+    perturb = cfg.perturb and train
 
-    def emit(level: str, composited: dict, net_out: dict):
+    def emit(prefix: str, level: str, composited: dict, net_out: dict):
         for k, v in composited.items():
-            out[f"{k}_{level}"] = v
+            out[f"{prefix}{k}_{level}"] = v
         if retraw:
             for k, v in net_out.items():
-                out[f"raw_{k}_{level}"] = v.permute(1, 2, 0) if k == "rgb" else v
+                out[f"{prefix}raw_{k}_{level}"] = v.permute(1, 2, 0) if k == "rgb" else v
+
+    def run(level: str, z_vals):
+        members = []
+        for name, prefix in _LEVEL_MEMBERS[level]:
+            mcfg = getattr(cfg, f"{name}_mlp")
+            if mcfg is None or (prefix and not train):
+                continue
+            n = noise.get(name)
+            if n is None and train and cfg.raw_noise_std > 0.0 and generator is not None:
+                n = torch.randn((nr, z_vals.shape[-1]), generator=generator, device=device)
+            members.append((name, prefix, mcfg, n))
+        needs_vis2 = (
+            sec_views_vis
+            and "rays_o2" in rays
+            and any(mcfg.predict_visibility for _, _, mcfg, _ in members)
+        )
+        if len(members) > 1 and not needs_vis2 and _use_fused(cfg, device):
+            results = _run_level_ensemble(cfg, params, members, z_vals, rays, train)
+        else:
+            results = [
+                _run_level(cfg, params, name, mcfg, z_vals, rays, sec_views_vis, train, n)
+                for name, _, mcfg, n in members
+            ]
+        weights = None
+        for (name, prefix, _, _), (comp, net) in zip(members, results):
+            if not prefix:
+                weights = comp["weights"]
+            emit(prefix, level, comp, net)
+        return weights
 
     weights_coarse = None
     z_coarse = None
     if cfg.coarse_mlp is not None:
-        z_coarse = sampling.stratified_z_vals(near, far, cfg.coarse_mlp.num_samples, cfg.lindisp)
+        z_coarse = sampling.stratified_z_vals(
+            near, far, cfg.coarse_mlp.num_samples, cfg.lindisp, perturb, generator, u_coarse
+        )
         out["z_vals_coarse"] = z_coarse
-        comp, net = _run_level(cfg, params, "coarse", cfg.coarse_mlp, z_coarse, rays, sec_views_vis)
-        weights_coarse = comp["weights"]
-        emit("coarse", comp, net)
+        weights_coarse = run("coarse", z_coarse)
 
     if cfg.fine_mlp is not None:
-        z_fine = sampling.fine_z_vals(z_coarse, weights_coarse, cfg.fine_mlp.num_samples)
+        z_fine = sampling.fine_z_vals(
+            z_coarse, weights_coarse, cfg.fine_mlp.num_samples, perturb, generator, u_fine
+        )
         out["z_vals_fine"] = z_fine
-        comp, net = _run_level(cfg, params, "fine", cfg.fine_mlp, z_fine, rays, sec_views_vis)
-        emit("fine", comp, net)
+        run("fine", z_fine)
 
     if not keep_per_sample:
         drop = [

@@ -2,8 +2,9 @@
 
 Reference behavior: SimpleNeRF01.get_z_vals_coarse, get_z_vals_fine and
 sample_pdf, as ported in simplenerf_tpu/render/sampling.py. Random draws are
-explicit: a `torch.Generator`, or the uniforms themselves (`u`) so that a
-test can hand both frameworks the same numbers.
+explicit: a `torch.Generator` on the tensors' device (the draws are made
+there, not on the host), or the uniforms themselves (`u`) so that a test
+can hand both frameworks the same numbers.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def stratified_z_vals(
         upper = torch.cat([mids, z[..., -1:]], dim=-1)
         lower = torch.cat([z[..., :1], mids], dim=-1)
         if u is None:
-            u = torch.rand(z.shape, generator=generator, dtype=z.dtype).to(z.device)
+            u = torch.rand(z.shape, generator=generator, dtype=z.dtype, device=z.device)
         z = lower + (upper - lower) * u
     return z
 
@@ -71,7 +72,7 @@ def sample_pdf(
             u = torch.linspace(0.0, 1.0, num_samples, dtype=cdf.dtype, device=cdf.device)
             u = u.expand(shape)
         else:
-            u = torch.rand(shape, generator=generator, dtype=cdf.dtype).to(cdf.device)
+            u = torch.rand(shape, generator=generator, dtype=cdf.dtype, device=cdf.device)
     u = u.contiguous()
 
     m = cdf.shape[-1]

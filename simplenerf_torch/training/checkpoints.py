@@ -8,6 +8,12 @@ reference naming (`Model_IterNNNNNN` + a `Model_Latest` pointer).
 
 Loading checks the saved tree against a target tree (structure and shapes):
 the same architecture-drift guard as the JAX package's target pytree.
+
+The optimizer state has the JAX package's flat-Adam layout,
+{"0": {"count", "mu", "nu"}, "1": {"count"}} (optax's adam state and its
+schedule count): mu and nu are flat float32 vectors in
+`jax.flatten_util.ravel_pytree` order of the params (dict keys sorted,
+lists in order; `flat_leaves`), so Adam moments cross between the packages.
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ def _from_state(target: Any, state: Any, device, path: str = "params") -> Any:
 def save_checkpoint(output_dir: Path, iteration: int, params: Any, opt_state: Any = None) -> Path:
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    state = {"iteration": int(iteration), "params": _to_state(params), "opt_state": _to_state(opt_state)}
+    opt = opt_state_to_state(opt_state) if opt_state is not None else None
+    state = {"iteration": int(iteration), "params": _to_state(params), "opt_state": opt}
     path = output_dir / f"Model_Iter{iteration:06}.msgpack"
     path.write_bytes(msgpack_codec.packb(state))
     latest = output_dir / "Model_Latest.msgpack"
@@ -64,6 +71,41 @@ def save_checkpoint(output_dir: Path, iteration: int, params: Any, opt_state: An
 def latest_checkpoint(output_dir: Path) -> Optional[Path]:
     latest = Path(output_dir) / "Model_Latest.msgpack"
     return latest if latest.exists() else None
+
+
+def flat_leaves(tree: Any) -> list:
+    """The leaves of a params tree in ravel_pytree order: dict keys sorted,
+    lists in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in flat_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in flat_leaves(v)]
+    return [tree]
+
+
+def opt_state_to_state(opt_state: dict) -> dict:
+    """{"count": int, "mu", "nu": flat tensors} -> the JAX checkpoint layout."""
+    count = np.asarray(int(opt_state["count"]), np.int32)
+    return {
+        "0": {"count": count, "mu": _to_state(opt_state["mu"]), "nu": _to_state(opt_state["nu"])},
+        "1": {"count": count.copy()},
+    }
+
+
+def opt_state_from_state(state: Any, size: int, device) -> dict:
+    """The JAX checkpoint layout -> {"count", "mu", "nu"} on `device`, checked
+    against the flat params size."""
+    adam = state["0"] if isinstance(state, dict) else None
+    if adam is None or not {"count", "mu", "nu"} <= set(adam):
+        raise ValueError("checkpoint optimizer state is not the flat-Adam layout")
+    mu, nu = np.asarray(adam["mu"], np.float32), np.asarray(adam["nu"], np.float32)
+    if mu.shape != (size,) or nu.shape != (size,):
+        raise ValueError(f"checkpoint Adam moments {mu.shape} != flat params ({size},)")
+    return {
+        "count": int(np.asarray(adam["count"])),
+        "mu": torch.as_tensor(mu, device=device),
+        "nu": torch.as_tensor(nu, device=device),
+    }
 
 
 def load_checkpoint(path: Path, params_target: Any, device="cpu"):

@@ -16,7 +16,8 @@ from simplenerf_torch.device import resolve_device
 from simplenerf_torch.training import msgpack_codec
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ["jax", "flax", "optax", "simplenerf_tpu", "pandas", "imageio", "msgpack", "cv2"]
+FORBIDDEN = ["jax", "flax", "optax", "simplenerf_tpu", "pandas", "imageio", "msgpack", "cv2",
+             "matplotlib"]
 
 
 def test_port_imports_without_jax_or_host_libraries():

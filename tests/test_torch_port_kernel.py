@@ -166,3 +166,132 @@ def test_wrapper_rejects_other_devices():
     lo = torch.zeros((NR * NS, spec.in_lo), device="meta")
     with pytest.raises(ValueError):
         fused_mlp.fused_apply(spec, {}, lo, None, None)
+
+
+def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
+    """Execute `pack_bwd_program`'s output with PyTorch ops, tile by tile and
+    task by task, as the backward kernels do: (per-member dkp, dhvx stack)."""
+    n = lo.shape[0]
+    plan = fused_mlp.pack_bwd_program(spec, kp, n)
+    hdr = plan.header.tolist()
+    ns, in_lo, in_hi, lo_kpad, hi_kpad = hdr[2:7]
+    members = spec.members if isinstance(spec, fused_mlp.EnsembleSpec) else (spec,)
+    cd = members[0].cdtype
+    bm, _ = fused_mlp._tiling(cd)
+    stash = torch.zeros(plan.stash_cols * n, dtype=cd)
+    g32 = torch.zeros((max(plan.n_hvx, 1), n, max(plan.hvx_w, 1)))
+    n_tiles = -(-n // bm)
+    parts = torch.zeros((n_tiles, plan.part_w))
+    dp = d_planes.reshape(d_planes.shape[0], n)
+
+    def slot(off, w):
+        return stash[off * n : (off + w) * n].view(n, w)
+
+    def weight(off, rows, kpad):
+        return plan.wts[off : off + rows * kpad].view(rows, kpad).float()
+
+    for t in range(n_tiles):
+        rows = slice(t * bm, min(n, (t + 1) * bm))
+        tiles = {fused_mlp._SRC_LO: torch.zeros((rows.stop - rows.start, lo_kpad), dtype=cd)}
+        tiles[fused_mlp._SRC_LO][:, :in_lo] = lo[rows]
+        if in_hi:
+            tiles[fused_mlp._SRC_HI] = torch.zeros((rows.stop - rows.start, hi_kpad), dtype=cd)
+            tiles[fused_mlp._SRC_HI][:, :in_hi] = hi[rows]
+        acc = None
+        for op in plan.ops.tolist():
+            kind, width, b_off, flags, nseg = op[:5]
+            src, w_off, kpad = op[5:8], op[8:11], op[11:14]
+            plane, hvx_slot, out_slot, gn, mask, hn, hw_off, part, g32_slot, part2 = op[14:]
+            if kind == fused_mlp._F_IN:
+                slot(out_slot, gn)[rows] = tiles[src[0]][:, :gn]
+                continue
+            if kind == fused_mlp._F_LAYER:
+                v = sum(tiles[src[s]].float()[:, : kpad[s]] @ weight(w_off[s], width, kpad[s]).T
+                        for s in range(nseg)) + plan.fpar[b_off : b_off + width]
+                if flags & fused_mlp._FLAG_HVX:
+                    v = v + hvxs[hvx_slot].repeat_interleave(ns, 0)[rows]
+                if flags & fused_mlp._FLAG_RELU:
+                    v = torch.relu(v)
+                tiles[fused_mlp._SRC_ACT] = v.to(cd)
+                slot(out_slot, width)[rows] = v.to(cd)
+                continue
+            d = dp[plane : plane + hn, rows]
+            if kind == fused_mlp._B_HEAD:
+                parts[t, part : part + hn * gn] = (d @ slot(mask, gn)[rows].float()).reshape(-1)
+                parts[t, part2 : part2 + hn] = d.sum(1)
+                continue
+            v = torch.zeros((rows.stop - rows.start, gn)) if flags & fused_mlp._FLAG_ZERO else acc
+            if hn:
+                v = v + d.T @ plan.fpar[hw_off : hw_off + hn * gn].view(hn, gn)
+            if flags & fused_mlp._FLAG_RELU:
+                v = v * (slot(mask, gn)[rows].float() > 0)
+            if g32_slot >= 0:
+                g32[g32_slot, rows] = v
+            tiles[fused_mlp._SRC_ACT] = v.to(cd)
+            slot(out_slot, gn)[rows] = v.to(cd)
+            parts[t, part : part + gn] = v.sum(0)
+            if nseg:
+                acc = v.to(cd).float() @ weight(w_off[0], width, kpad[0]).T
+
+    dw = torch.zeros(plan.dw_total)
+    for a_slot, a_w, g_slot, g_w, k_in, n_out, off, i0, j0 in plan.tasks.tolist():
+        a = slot(a_slot, a_w).float()[:, i0 : min(i0 + 128, k_in)]
+        gm = slot(g_slot, g_w).float()[:, j0 : min(j0 + 128, n_out)]
+        view = dw[off : off + k_in * n_out].view(k_in, n_out)
+        view[i0 : i0 + a.shape[1], j0 : j0 + gm.shape[1]] = a.T @ gm
+    dhvx = g32[: plan.n_hvx].reshape(plan.n_hvx, n // ns, ns, g32.shape[-1]).sum(2)
+    return fused_mlp.unpack_grads(plan, dw, parts.sum(0)), dhvx
+
+
+def _assert_grads_close(got, want, tol):
+    for k in want:
+        scale = want[k].abs().max().item()
+        err = (got[k] - want[k]).abs().max().item()
+        assert err <= tol * max(scale, 1e-30), f"{k}: err {err} vs scale {scale}"
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(CASES) + ["published"])
+def test_packed_bwd_program_computes_plain_version(name, dtype_name):
+    kw = {**SMALL, **CASES.get(name, dict(points_net_depth=8, points_net_width=256,
+                                          views_net_width=128, skip_layers=(4,)))}
+    cfg = mlp.MLPConfig(**kw)
+    g = torch.Generator().manual_seed(1)
+    params = mlp.init(g, cfg)
+    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+    nr, ns = 37, 7  # rows straddle the 64/128-row tiles
+    pts = torch.randn((nr * ns, 3), generator=g)
+    dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1)
+    spec, kp, lo, hi, hvx = mlp.fused_operands(params, cfg, pts, dirs, ns, dtype)
+    d_planes = torch.randn((spec.n_planes, nr, ns), generator=g)
+    want, want_hvx = fused_mlp.fused_bwd_reference(spec, kp, lo, hi, hvx, d_planes)
+    (got,), got_hvx = _run_bwd_program(spec, kp, lo, hi, [hvx] if hvx is not None else [], d_planes)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    _assert_grads_close(got, want, tol)
+    if hvx is not None:
+        _assert_grads_close({"h": got_hvx[0]}, {"h": want_hvx}, tol)
+    assert fused_mlp.pack_bwd_program(spec, kp, nr * ns).smem <= fused_mlp._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_packed_ensemble_programs_compute_plain_versions(dtype_name):
+    g = torch.Generator().manual_seed(2)
+    members = []
+    for name in ("main", "points_aug", "lambertian"):
+        cfg = mlp.MLPConfig(**{**SMALL, **CASES[name]})
+        members.append((mlp.init(g, cfg), cfg))
+    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+    nr, ns = 21, 9
+    pts = torch.randn((nr * ns, 3), generator=g)
+    dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1)
+    ens, kps, lo, hvxs = mlp.ensemble_operands(members, pts, dirs, ns, dtype)
+    d_planes = torch.randn((ens.n_planes, nr, ns), generator=g)
+    want, want_hvx = fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, d_planes)
+    got, got_hvx = _run_bwd_program(ens, kps, lo, None, hvxs, d_planes)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        _assert_grads_close(a, b, tol)
+    for a, b in zip(got_hvx, want_hvx):
+        _assert_grads_close({"h": a}, {"h": b}, tol)
+    words, _, _, smem = fused_mlp.pack_program(ens, kps, nr * ns)
+    assert words[0] <= fused_mlp._MAX_OPS and smem <= fused_mlp._SMEM_LIMIT

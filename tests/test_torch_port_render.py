@@ -4,6 +4,8 @@ All in float32 on the CPU, with the same numpy inputs and (for the full
 render) the same JAX-initialized parameters on both sides.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,9 @@ from simplenerf_tpu.render import renderer as jrenderer
 from simplenerf_tpu.render import sampling as jsampling
 from simplenerf_tpu.render import volume as jvolume
 from simplenerf_torch import convert
+from simplenerf_torch.fields import mlp
 from simplenerf_torch.fields.mlp import MLPConfig
+from simplenerf_torch.ops import fused_mlp
 from simplenerf_torch.geometry import poses, projection, rays
 from simplenerf_torch.render import renderer, sampling, volume
 
@@ -223,14 +227,45 @@ def test_render_rays_matches_jax(ndc, fused, vis):
 
 
 def test_render_rays_lean_and_train_guard():
+    """Eval renders drop per-sample outputs on request; train renders add the
+    augmented members only in train mode, and the sigma noise enters before
+    the ReLU."""
     jcfg, tcfg = _render_cfgs(False, "off")
+    aug = dict(MLP_KW, num_samples=NSC)
+    tcfg = dataclasses.replace(
+        tcfg, raw_noise_std=0.5,
+        points_aug_coarse_mlp=MLPConfig(points_sigma_pe_degree=2, **aug),
+        views_aug_coarse_mlp=MLPConfig(use_view_dirs=False, view_dependent_rgb=False, **aug),
+    )
     params = renderer.init(torch.Generator().manual_seed(0), tcfg)
     batch = {k: T(v) for k, v in _batch(False).items()}
     lean = renderer.render_rays(params, tcfg, batch, keep_per_sample=False)
     assert not any(k.startswith("z_vals") or "weights" in k or "alpha" in k for k in lean)
     assert lean["rgb_fine"].shape == (NR, 3)
-    with pytest.raises(NotImplementedError):
-        renderer.render_rays(params, tcfg, batch, train=True)
+    assert not any(k.startswith(("points_augmentation_", "views_augmentation_")) for k in lean)
+
+    clean = renderer.render_rays(params, tcfg, batch, train=True, noise={
+        name: torch.zeros((NR, NSC)) for name in ("coarse", "points_aug_coarse", "views_aug_coarse")
+    } | {"fine": torch.zeros((NR, NSC + NSF))})
+    for prefix in ("points_augmentation_", "views_augmentation_"):
+        assert clean[f"{prefix}rgb_coarse"].shape == (NR, 3)
+        assert clean[f"{prefix}raw_sigma_coarse"].shape == (NR, NSC)
+        assert f"{prefix}rgb_fine" not in clean
+    # Noise is added to the raw sigma, then the ReLU: where the noise-free
+    # sigma is 0 (ReLU clipped) a positive draw shows through, and
+    # everywhere sigma = relu(raw + 0.5 * noise).
+    noise = torch.randn((NR, NSC), generator=torch.Generator().manual_seed(1))
+    noisy = renderer.render_rays(params, tcfg, batch, train=True, u_coarse=None,
+                                 noise={"coarse": noise})
+    spec, kp, lo, hi, hvx = mlp.fused_operands(
+        params["coarse"], tcfg.coarse_mlp,
+        (batch["rays_o"][:, None] + batch["rays_d"][:, None] * clean["z_vals_coarse"][..., None])
+        .reshape(-1, 3), batch["view_dirs"], NSC, torch.float32)
+    raw = fused_mlp.fused_apply_reference(spec, kp, lo, hi, hvx)[0]
+    torch.testing.assert_close(noisy["raw_sigma_coarse"], torch.relu(raw + 0.5 * noise),
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(clean["raw_sigma_coarse"], torch.relu(raw), atol=1e-5, rtol=1e-5)
+    assert ((raw < 0) & (noisy["raw_sigma_coarse"] > 0)).any()
 
 
 @pytest.mark.parametrize("setting", ["auto", "on", "off"])

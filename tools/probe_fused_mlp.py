@@ -4,8 +4,8 @@ in time, and whether chip_smoke.py's check would catch it.
     python3 tools/probe_fused_mlp.py
 
 Needs one CUDA card. Each variant is simplenerf_torch/ops/csrc/fused_mlp_fwd.cu
-with one text edit, built with the port's nvcc flags into a temporary
-directory (all variants at once), then run at the fine serving chunk of the
+(with the header it includes) with one text edit, built with the port's nvcc
+flags into a temporary directory (all variants at once), then run at the fine serving chunk of the
 published model (64k rays x 192 samples, bf16, chip_smoke.py's seeded
 operands). For each it prints the time (CUDA events after one warm-up) and
 the max abs error of its planes against `fused_apply_reference`, beside
@@ -67,16 +67,27 @@ VARIANTS = {
 }
 
 
-def _build(out: Path, name: str, parts: list[str]) -> subprocess.Popen:
-    src = (build.CSRC / "fused_mlp_fwd.cu").read_text()
-    for part in parts:
-        for old, new in EDITS[part]:
-            if old not in src:
-                raise RuntimeError(f"probe edit for {part!r} no longer matches fused_mlp_fwd.cu")
-            src = src.replace(old, new)
+def _build(out: Path, name: str, parts: list[str], lib: str = "fused_mlp_fwd",
+           edits: dict = EDITS) -> subprocess.Popen:
+    """Start nvcc on csrc/<lib>.cu with the parts' edits applied: copies of
+    every csrc source go to out/<variant>/, each edit to the one file named
+    with it or else to every file that holds its text."""
     stem = "".join(c if c.isalnum() else "_" for c in name)
-    (out / f"{stem}.cu").write_text(src)
-    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out / f"lib{stem}.so"), str(out / f"{stem}.cu")]
+    src_dir = out / stem
+    src_dir.mkdir()
+    sources = {f.name: f.read_text() for f in build.CSRC.iterdir() if f.suffix in (".cu", ".cuh")}
+    for part in parts:
+        for edit in edits[part]:
+            fname, old, new = edit if len(edit) == 3 else (None, *edit)
+            hits = [f for f in sources if (fname in (None, f)) and old in sources[f]]
+            if not hits:
+                raise RuntimeError(f"probe edit for {part!r} no longer matches the kernel sources")
+            for f in hits:
+                sources[f] = sources[f].replace(old, new)
+    for f, text in sources.items():
+        (src_dir / f).write_text(text)
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out / f"lib{stem}.so"),
+           str(src_dir / f"{lib}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     proc.lib = out / f"lib{stem}.so"
     return proc
