@@ -9,7 +9,8 @@ Phases, in order (any failure raises and the script exits non-zero
 without a result):
   1. device: the card's name and power limit, as nvidia-smi reports them;
   2. build: compile every CUDA source with nvcc, one process per source,
-     all started together;
+     all started together, and print each kernel's ptxas registers and
+     spill bytes;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the published width (8x256 trunk, 1x128 views, PE 10/4), for the main,
      points-augmentation, Lambertian and visibility-head MLPs, 64 and 192
@@ -38,11 +39,14 @@ without a result):
      64k shapes it is also timed with CUDA events after warm-up, beside the
      plain version and the card's bound;
   7. timing: each kernel at the training step's shapes (CUDA events after
-     warm-up) beside its plain version and its bound, seconds per training
+     warm-up) beside its plain version and its bound, each backward's row
+     pass, weight pass and column sums apart (torch.profiler's kernel
+     events), seconds per training
      step (median of 40 after 3 of warm-up), rays/s, and a torch.profiler
      breakdown of the step's device time by kernel.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON.
+per-kernel JSON (a backward's row also has row_ms, weight_ms, sums_ms and
+its bf16 row kernel's ptxas registers and spill bytes, row_ptxas).
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -110,6 +115,38 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from nvcc's
+    -Xptxas -v output (bytes of spill stores and loads)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m[1])
+    return out
+
+
+def kernel_label(entry: str) -> str:
+    """A mangled kernel entry's name and operand type, e.g. 'fused_mlp_bwd_rows_kernel bf16':
+    the first of its length-prefixed names that ends in _kernel, and the template argument."""
+    pos = entry.find("_ZN") + 3
+    while (m := re.match(r"\d+", entry[pos:])) and pos > 2:
+        start = pos + len(m[0])
+        pos = start + int(m[0])
+        if entry[start:pos].endswith("_kernel"):
+            rest = entry[pos:]
+            return entry[start:pos] + (" bf16" if rest.startswith("I13__nv_bfloat16") else
+                                       " f32" if rest.startswith("If") else "")
+    return entry
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -419,6 +456,30 @@ def leaf_paths(tree, prefix: str = "") -> list:
     return [prefix[:-1]]
 
 
+def bwd_pass_ms(fn, calls: int = 3) -> dict:
+    """Device time per call of a backward kernel's three passes (row pass,
+    weight pass, column sums), from torch.profiler's kernel events over
+    `calls` calls after one warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"row_ms": 0.0, "weight_ms": 0.0, "sums_ms": 0.0}
+    parts = {"fused_mlp_bwd_rows_kernel": "row_ms", "fused_mlp_bwd_weights_kernel": "weight_ms",
+             "colsum_kernel": "sums_ms"}
+    for e in prof.events():
+        key = next((v for k, v in parts.items() if k in e.name), None)
+        if e.device_type == DeviceType.CUDA and key:
+            out[key] += e.time_range.elapsed_us() / 1e3 / calls
+    return out
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -457,7 +518,7 @@ def time_train_kernels() -> dict:
         shape=f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, bf16",
         ms=cuda_time_ms(lambda: fused_mlp.fused_bwd(*ops, dp), iters=5),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_bwd_reference(*ops, dp), iters=2),
-        bound_ms=b_bwd[0], bound_by=b_bwd[1])
+        bound_ms=b_bwd[0], bound_by=b_bwd[1], **bwd_pass_ms(lambda: fused_mlp.fused_bwd(*ops, dp)))
     del ops, lo, hi, hvx, kp, dp
     torch.cuda.empty_cache()
 
@@ -480,10 +541,13 @@ def time_train_kernels() -> dict:
         ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp), iters=5),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, dp),
                               iters=2),
-        bound_ms=b_bwd[0], bound_by=b_bwd[1])
+        bound_ms=b_bwd[0], bound_by=b_bwd[1],
+        **bwd_pass_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp)))
     for name, r in out.items():
-        print(f"time {name} ({r['shape']}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
+        passes = (f" (row pass {r['row_ms']:.3f}, weight pass {r['weight_ms']:.3f}, column sums "
+                  f"{r['sums_ms']:.3f} ms, profiler)" if "row_ms" in r else "")
+        print(f"time {name} ({r['shape']}): kernel {r['ms']:.3f} ms{passes}, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
     for f, n in saved.items():
         f.launches = n
     return out
@@ -810,11 +874,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = build.build_all()
+    ptxas = {}
     for name, lib in libs.items():
         build.load_library(name)
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {name} ptxas {line.strip()}", flush=True)
+        for entry, r in ptxas_report(lib.with_suffix(".log").read_text()).items():
+            if "registers" in r:
+                ptxas[kernel_label(entry)] = r
+                print(f"build: {name} ptxas {kernel_label(entry)}: {r['registers']} registers, "
+                      f"{r.get('spill_stores', 0)} / {r.get('spill_loads', 0)} B spill stores / loads",
+                      flush=True)
     print(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.1f} s (parallel nvcc)", flush=True)
 
     worst = check_train_kernels()
@@ -853,6 +921,8 @@ def main() -> int:
         if name.endswith("bwd"):  # the held measure: ||got - want|| / ||want||
             row["norm_err"] = worst[(name, "bfloat16", "norm")]
             row["norm_err_f32"] = worst[(name, "float32", "norm")]
+            row.update({k: t[k] for k in ("row_ms", "weight_ms", "sums_ms")})
+            row["row_ptxas"] = ptxas["fused_mlp_bwd_rows_kernel bf16"]
         row.update({
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],

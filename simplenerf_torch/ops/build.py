@@ -33,8 +33,8 @@ _SIGNATURES = {
         "snerf_fused_mlp_ens_fwd": [_I, _P, _I] + [_P] * 5 + [_I, _P],
     },
     "fused_mlp_bwd": {
-        "snerf_fused_mlp_bwd": [_I, _P, _I] + [_P] * 8 + [_I] * 5 + [_P] * 7 + [_I, _P],
-        "snerf_fused_mlp_ens_bwd": [_I, _P, _I] + [_P] * 7 + [_I] * 5 + [_P] * 7 + [_I, _P],
+        "snerf_fused_mlp_bwd": [_I, _P, _I] + [_P] * 8 + [_I] * 5 + [_P] * 8 + [_I, _P],
+        "snerf_fused_mlp_ens_bwd": [_I, _P, _I] + [_P] * 7 + [_I] * 5 + [_P] * 8 + [_I, _P],
     },
 }
 LIBRARIES = tuple(_SIGNATURES)

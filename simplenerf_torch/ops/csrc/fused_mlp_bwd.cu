@@ -17,14 +17,21 @@
 //   (a) row pass, one block per tile of rows (128 in bf16, 64 in f32): the
 //       forward is recomputed with the forward kernel's code (shared tiles,
 //       weight-slab ring, mma.sync), and each layer's rounded activation is
-//       stashed in device memory. Then the layers are walked backward:
-//       g = dh * [h > 0] in float32 (the mask on the stashed activation,
-//       copied back into the shared tile first),
-//       its per-tile column sum (db) and the heads' per-tile dW and db go to
-//       a partials row of the tile, round(g) is stored in the shared tile
-//       and stashed, and dh_prev = round(g) @ W^T runs on the tensor cores
-//       with the weight stored (K, N) streaming through the same ring. The
-//       views layer 0's float32 g is kept for dhvx.
+//       stashed in device memory. A ReLU layer's epilogue also packs its
+//       mask as bits in the order of the thread's accumulator fragment (two
+//       words a thread), and the layer that feeds a head sums the head's
+//       per-tile dW and db from the tile it just wrote. Then the layers are
+//       walked backward: g = dh * mask in float32 (the thread that packed
+//       the bits loads them back ahead of the epilogue that needs them; the
+//       head's contribution is added to the product's accumulators first),
+//       its per-tile column sum (db) goes to a partials row of the tile,
+//       round(g) is stored in the shared tile and stashed, and dh_prev =
+//       round(g) @ W^T runs on the tensor cores with the weight stored
+//       (K, N) streaming through the same ring. The views layer 0's float32
+//       g is kept for dhvx. What the backward adds to the forward's
+//       products is kept off the tensor cores' path (PERF.md): no mask is
+//       read back through shared memory, no partial re-reads the stash, and
+//       the stash goes out as streaming stores.
 //   (b) weight pass, one block per 128x128 tile of one dW and chunk of rows:
 //       dW = round(h_prev)^T @ round(g) over the chunk, both operands from
 //       the stash (ldmatrix.trans fragments, mma.sync, float32 accumulators;
@@ -33,9 +40,9 @@
 //       chunks, and g over each ray's ns rows (dhvx).
 // Every product rounds its operands to the compute type and accumulates in
 // float32, as the TPU kernel's products do, so storing round(g) loses
-// nothing. What bounds this design on the card (PERF.md): the stash, about
-// 2 x 4.9 KB per point in bf16 for the published MLP, written once and read
-// by the weight pass once per 128-wide output tile.
+// nothing. What bounds this design on the card (PERF.md): the products and
+// the stash, about 2 x 4.9 KB per point in bf16 for the published MLP,
+// written once and read by the weight pass once per 128-wide output tile.
 //
 // Plain C interface (ctypes): snerf_fused_mlp_bwd and snerf_fused_mlp_ens_bwd
 // return the first CUDA error of their launches, 0 on success.
@@ -44,16 +51,24 @@
 
 namespace {
 
-enum { F_IN = 0, F_LAYER = 1, B_HEAD = 2, B_LAYER = 3 };
+enum { F_IN = 0, F_LAYER = 1, B_LAYER = 3 };
+constexpr int kMaxHead = 4;  // head channels (the views head's rgb + visibility)
 
 // One step of the backward program (24 ints; built by ops/fused_mlp.py).
 // The first 16 ints mean what they mean in the forward kernel's Op.
 //   F_IN:    stash[out_slot] = the src[0] tile (gn columns).
 //   F_LAYER: a forward layer; its activation (n columns) also to stash[out_slot].
-//   B_HEAD:  partials: dW[j][k] = sum_rows stash[mask_slot][row][k] * dp[plane + j][row]
-//            at `part`, db[j] = sum_rows dp[plane + j][row] at `part2`.
+//            With RELU each thread packs the ReLU mask of its accumulator
+//            fragment into two words, bit set where the rounded activation
+//            is > 0, at masks[tile][mask_slot][thread].
+//            With head_nout > 0 it feeds a head, whose partials it forms from
+//            the rounded activation: dW[j][k] = sum_rows act[row][k] *
+//            dp[plane + j][row] at `part`, db[j] = sum_rows dp[plane + j][row]
+//            at `part2`.
 //   B_LAYER: g = ([ZERO] ? 0 : acc) [+ sum_j dp[plane + j] * fpar[head_w_off + j*gn + c]],
-//            times [stash[mask_slot] > 0] when RELU; db partial at `part`; round(g)
+//            times the mask bits masks[tile][mask_slot][thread] when RELU (the
+//            thread holds the same fragment elements of a layer of that
+//            width as the F_LAYER's epilogue did); db partial at `part`; round(g)
 //            to the tile and stash[out_slot]; float32 g to g32[g32_slot] when >= 0;
 //            then, when nseg = 1, acc = round(g) @ W^T (W stored (n, kpad)).
 struct BOp {
@@ -69,11 +84,11 @@ static_assert(sizeof(BOp) == 24 * sizeof(int), "BOp layout");
 struct BProgram {
   int n_ops, n_rows, ns, in_lo, in_hi, lo_kpad, hi_kpad;
   int act_ld, lo_ld, hi_ld, slab_ld, slab_rows, slab_k;
-  int part_w, hvx_w;
+  int part_w, hvx_w, n_masks;
   const BOp* ops;
   __device__ __forceinline__ const BOp& op(int i) const { return ops[i]; }
 };
-constexpr int kBHeaderWords = 15;
+constexpr int kBHeaderWords = 16;
 
 // Weight-pass task: the 128x128 tile (i0, j0) of dW (k_in, n_out) = A^T G,
 // A = stash slot a_slot (width a_w), G = stash slot g_slot (width g_w).
@@ -88,7 +103,10 @@ __device__ __forceinline__ T* slot_ptr(T* stash, int slot, int n_rows) {
   return stash + (size_t)slot * n_rows;
 }
 
-// Tile rows (ld apart) -> a stash slot of `width` columns, 16 bytes at a time.
+// Tile rows (ld apart) -> a stash slot of `width` columns, 16 bytes at a
+// time, as streaming stores (evict first), so that the stash (~7.7 GB at the
+// fine step) does not push out of the caches what the row pass reads again,
+// such as the weights every block's slab ring reads from L2 (PERF.md).
 template <typename T>
 __device__ void copy_tile_out(const T* tile, int ld, int width, T* dst, int row0, int n_rows,
                               int tid) {
@@ -97,70 +115,203 @@ __device__ void copy_tile_out(const T* tile, int ld, int width, T* dst, int row0
   for (int i = tid; i < total; i += Block<T>::kThreads) {
     const int r = i / per_row, q = i - r * per_row;
     if (row0 + r < n_rows)
-      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * width + q * kElems) =
-          *reinterpret_cast<const uint4*>(tile + r * ld + q * kElems);
+      __stcs(reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * width + q * kElems),
+             *reinterpret_cast<const uint4*>(tile + r * ld + q * kElems));
   }
 }
 
-// Stash slot rows of `width` columns -> tile rows (ld apart), 16 bytes at a time.
-template <typename T>
-__device__ void copy_tile_in(T* tile, int ld, int width, const T* src, int row0, int n_rows,
-                             int tid) {
-  constexpr int kElems = 16 / sizeof(T);
-  const int per_row = width / kElems, total = Block<T>::BM * per_row;
-  for (int i = tid; i < total; i += Block<T>::kThreads) {
-    const int r = i / per_row, q = i - r * per_row;
-    if (row0 + r < n_rows)
-      *reinterpret_cast<uint4*>(tile + r * ld + q * kElems) =
-          *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * width + q * kElems);
-  }
+template <typename T> __device__ __forceinline__ float rounded(float v);
+template <> __device__ __forceinline__ float rounded<float>(float v) { return v; }
+template <> __device__ __forceinline__ float rounded<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
-// B_HEAD: the head's per-tile dW and db partials, in float32.
+// The head's cotangent planes at the tile's rows into shared memory,
+// dsm[q][r] (BM apart), 0 past n_rows and for channels q >= hn. Read after
+// the next barrier.
 template <typename T>
-__device__ void head_partials(const BOp& op, const BProgram& p, const T* stash,
-                              const float* __restrict__ dplanes, float* part, int row0, int tid) {
+__device__ __forceinline__ void stage_head_rows(const BOp& op, const BProgram& p,
+                                                const float* __restrict__ dplanes, float* dsm,
+                                                int row0, int tid) {
   constexpr int BM = Block<T>::BM;
-  const int n_rows = p.n_rows, k = op.gn, hn = op.head_nout;
-  const T* act = slot_ptr(stash, op.mask_slot, n_rows);
-  const float* dp = dplanes + (size_t)op.plane * n_rows;
-  const int rows = min(BM, n_rows - row0);
-  for (int c = tid; c < k; c += Block<T>::kThreads) {
-    float sum[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int r = 0; r < rows; ++r) {
-      const float hv = to_float(act[(size_t)(row0 + r) * k + c]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (j < hn) sum[j] += hv * dp[(size_t)j * n_rows + row0 + r];
-    }
-    for (int j = 0; j < hn; ++j) part[op.part + j * k + c] = sum[j];
-  }
-  for (int j = tid; j < hn; j += Block<T>::kThreads) {
-    float sum = 0.f;
-    for (int r = 0; r < rows; ++r) sum += dp[(size_t)j * n_rows + row0 + r];
-    part[op.part2 + j] = sum;
+  const float* dp = dplanes + (size_t)op.plane * p.n_rows;
+  for (int i = tid; i < kMaxHead * BM; i += Block<T>::kThreads) {
+    const int q = i / BM, r = row0 + i - q * BM;
+    dsm[i] = q < op.head_nout && r < p.n_rows ? dp[(size_t)q * p.n_rows + r] : 0.f;
   }
 }
 
-// B_LAYER's epilogue: g from acc, into the tile (rounded) and g32; the
-// warp's column sums of g into red[warp_m][col]. With RELU the tile holds
-// this layer's stashed activation on entry: each element's mask is read
-// by the thread that then overwrites it with g.
+// Bit of fragment element (j, mt, h, e) in the thread's mask words: word j / 4.
+__device__ __forceinline__ int mask_bit(int j, int mt, int h) {
+  return (j & 3) * 8 + mt * 4 + h * 2;
+}
+
+// F_LAYER's epilogue: forward_epilogue's act = [ReLU](acc + bias [+ hvx]),
+// rounded into the tile; with RELU the ReLU mask of the thread's fragment,
+// bit set where the rounded value is > 0 (what the plain version tests on
+// the stored activation), to the thread's two words at `mask`.
+template <typename T>
+__device__ __forceinline__ void recompute_epilogue(const float (&acc)[Traits<T>::MT][kNT][4],
+                                                   const BOp& op, const BProgram& p,
+                                                   const Tiles<T>& s, const float* __restrict__ fpar,
+                                                   const float* __restrict__ hvx, uint2* mask,
+                                                   int row0, int tid) {
+  constexpr int MT = Traits<T>::MT;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int warp_m = warp / kWarpsN, warp_n = warp % kWarpsN;
+  const int wrow = warp_m * MT * 16;
+  const int n = op.n, flags = op.flags, act_ld = p.act_ld;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_rows = p.n_rows, ns = p.ns;
+  const float* bias = fpar + op.b_off;
+  if (flags & FLAG_HVX) hvx += (size_t)op.hvx_slot * (n_rows / ns) * n;
+  uint32_t bits[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const int col = (warp_n + kWarpsN * j) * 8 + 2 * t;
+    if (col >= n) continue;  // uniform across the warp: n is a multiple of 16
+    const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wrow + mt * 16 + g + 8 * h;
+        float v0 = acc[mt][j][2 * h] + b0;
+        float v1 = acc[mt][j][2 * h + 1] + b1;
+        if ((flags & FLAG_HVX) && row0 + r < n_rows) {
+          const float2 hv =
+              *reinterpret_cast<const float2*>(hvx + (size_t)((row0 + r) / ns) * n + col);
+          v0 += hv.x;
+          v1 += hv.y;
+        }
+        if (flags & FLAG_RELU) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+          const int b = mask_bit(j, mt, h);
+          bits[j >> 2] |= (rounded<T>(v0) > 0.f ? 1u : 0u) << b |
+                          (rounded<T>(v1) > 0.f ? 1u : 0u) << (b + 1);
+        }
+        store2(s.act + r * act_ld + col, v0, v1);
+      }
+    }
+  }
+  if (flags & FLAG_RELU) *mask = make_uint2(bits[0], bits[1]);
+}
+
+// The per-tile partials of the head that an F_LAYER feeds (head_nout
+// channels at `plane`, staged in dsm), from the rounded activation in the
+// tile after the barrier that follows the epilogue: each (row block sp of
+// BM / WM rows, column c) pair sums its rows, act[row][c] * dp[q][row] into
+// red[sp][q][c] and dp[q][row] into red_db[sp][q]. Every thread takes a
+// pair; nothing is held in registers across the epilogue.
+template <typename T>
+__device__ __forceinline__ void head_partials_tile(const BOp& op, const BProgram& p,
+                                                   const Tiles<T>& s, const float* dsm, float* red,
+                                                   int tid) {
+  constexpr int BM = Block<T>::BM, WM = Traits<T>::WM, kRows = BM / WM;
+  const int n = op.n, hn = op.head_nout, act_ld = p.act_ld;
+  for (int pr = tid; pr < WM * n; pr += Block<T>::kThreads) {
+    const int sp = pr / n, c = pr - sp * n;
+    float sw[kMaxHead], sb[kMaxHead];
+#pragma unroll
+    for (int q = 0; q < kMaxHead; ++q) sw[q] = sb[q] = 0.f;
+    const T* a = s.act + sp * kRows * act_ld + c;
+    const float* d = dsm + sp * kRows;
+#pragma unroll 4
+    for (int r = 0; r < kRows; ++r) {
+      const float v = to_float(a[r * act_ld]);
+#pragma unroll
+      for (int q = 0; q < kMaxHead; ++q) {
+        if (q >= hn) break;
+        const float dq = d[q * BM + r];
+        sw[q] += v * dq;
+        sb[q] += dq;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxHead; ++q) {
+      if (q >= hn) break;
+      red[(sp * kMaxHead + q) * 256 + c] = sw[q];
+      if (c == 0) red[WM * kMaxHead * 256 + sp * kMaxHead + q] = sb[q];
+    }
+  }
+}
+
+// After head_partials_tile and a barrier: the head's per-tile partials,
+// dW[q][c] at `part` and db[q] at `part2`, the row blocks' sums added in order.
+template <typename T>
+__device__ __forceinline__ void head_partials(const BOp& op, const float* red, float* part, int tid) {
+  constexpr int WM = Traits<T>::WM;
+  const int n = op.n, hn = op.head_nout;
+  for (int i = tid; i < hn * n; i += Block<T>::kThreads) {
+    const int q = i / n, c = i - q * n;
+    float sum = 0.f;
+#pragma unroll
+    for (int wm = 0; wm < WM; ++wm) sum += red[(wm * kMaxHead + q) * 256 + c];
+    part[op.part + i] = sum;
+  }
+  if (tid < hn) {
+    float sum = 0.f;
+#pragma unroll
+    for (int wm = 0; wm < WM; ++wm) sum += red[WM * kMaxHead * 256 + wm * kMaxHead + tid];
+    part[op.part2 + tid] = sum;
+  }
+}
+
+// acc += the head's contribution sum_q dp[q][row] * wt[q][col] (dp staged in dsm).
+template <typename T>
+__device__ __forceinline__ void add_head(float (&acc)[Traits<T>::MT][kNT][4], const BOp& op,
+                                         const float* __restrict__ fpar, const float* dsm, int tid) {
+  constexpr int MT = Traits<T>::MT, BM = Block<T>::BM;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int warp_m = warp / kWarpsN, warp_n = warp % kWarpsN;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = op.gn, hn = op.head_nout;
+  const float* hw = fpar + op.head_w_off;
+  const float* drow = dsm + warp_m * MT * 16 + g;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const int col = (warp_n + kWarpsN * j) * 8 + 2 * t;
+    if (col >= n) continue;
+    float w0[kMaxHead], w1[kMaxHead];
+#pragma unroll
+    for (int q = 0; q < kMaxHead; ++q) {
+      w0[q] = q < hn ? hw[q * n + col] : 0.f;
+      w1[q] = q < hn ? hw[q * n + col + 1] : 0.f;
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float h0 = 0.f, h1 = 0.f;
+#pragma unroll
+        for (int q = 0; q < kMaxHead; ++q) {
+          const float dq = drow[q * BM + mt * 16 + 8 * h];
+          h0 += dq * w0[q];
+          h1 += dq * w1[q];
+        }
+        acc[mt][j][2 * h] += h0;
+        acc[mt][j][2 * h + 1] += h1;
+      }
+  }
+}
+
+// B_LAYER's epilogue: g from acc (the head's contribution already added),
+// into the tile (rounded) and g32; the warp's column sums of g into
+// red[warp_m][col]. With RELU g takes the mask bits `mk` that this thread
+// packed in the layer's F_LAYER: it holds the same fragment elements of a
+// layer of the same width.
 template <typename T>
 __device__ __forceinline__ void backward_epilogue(const float (&acc)[Traits<T>::MT][kNT][4],
                                                   const BOp& op, const BProgram& p,
-                                                  const Tiles<T>& s, const float* __restrict__ fpar,
-                                                  const float* __restrict__ dplanes,
-                                                  float* g32, float* red, int row0, int tid) {
+                                                  const Tiles<T>& s, float* g32, float* red,
+                                                  uint2 mk, int row0, int tid) {
   constexpr int MT = Traits<T>::MT;
   const int warp = tid >> 5, lane = tid & 31;
   const int warp_m = warp / kWarpsN, warp_n = warp % kWarpsN;
   const int wrow = warp_m * MT * 16;
   const int g = lane >> 2, t = lane & 3;
   const int n = op.gn, flags = op.flags, n_rows = p.n_rows, act_ld = p.act_ld;
-  const int hn = op.head_nout;
-  const float* hw = fpar + op.head_w_off;
-  const float* dp = dplanes + (size_t)(hn > 0 ? op.plane : 0) * n_rows;
   float* g32p = op.g32_slot >= 0 ? g32 + (size_t)op.g32_slot * n_rows * n : nullptr;
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
@@ -175,25 +326,16 @@ __device__ __forceinline__ void backward_epilogue(const float (&acc)[Traits<T>::
         const int gr = row0 + r;
         float v0 = 0.f, v1 = 0.f;
         if (gr < n_rows) {
-          float h0 = 0.f, h1 = 0.f;
-          for (int q = 0; q < hn; ++q) {
-            const float d = dp[(size_t)q * n_rows + gr];
-            h0 += d * hw[q * n + col];
-            h1 += d * hw[q * n + col + 1];
-          }
-          if (flags & FLAG_ZERO) {
-            v0 = h0;
-            v1 = h1;
-          } else {
-            v0 = acc[mt][j][2 * h] + h0;
-            v1 = acc[mt][j][2 * h + 1] + h1;
-          }
+          v0 = acc[mt][j][2 * h];
+          v1 = acc[mt][j][2 * h + 1];
           if (flags & FLAG_RELU) {
-            const float2 hv = load2(s.act + r * act_ld + col);
-            if (!(hv.x > 0.f)) v0 = 0.f;
-            if (!(hv.y > 0.f)) v1 = 0.f;
+            const uint32_t w = j < 4 ? mk.x : mk.y;
+            const int b = mask_bit(j, mt, h);
+            if (!((w >> b) & 1u)) v0 = 0.f;
+            if (!((w >> (b + 1)) & 1u)) v1 = 0.f;
           }
-          if (g32p) store2(g32p + (size_t)gr * n + col, v0, v1);
+          if (g32p)  // streaming, as the stash
+            __stcs(reinterpret_cast<float2*>(g32p + (size_t)gr * n + col), make_float2(v0, v1));
         }
         store2(s.act + r * act_ld + col, v0, v1);
         s0 += v0;
@@ -217,12 +359,14 @@ __global__ void __launch_bounds__(Block<T>::kThreads, 1)
 fused_mlp_bwd_rows_kernel(const __grid_constant__ BProgram p, const T* __restrict__ lo,
                           const T* __restrict__ hi, const float* __restrict__ hvx,
                           const float* __restrict__ dplanes, const T* __restrict__ wts,
-                          const float* __restrict__ fpar, T* stash, float* g32, float* parts) {
+                          const float* __restrict__ fpar, T* stash, float* g32, uint2* masks,
+                          float* parts) {
   constexpr int BM = Block<T>::BM;
   constexpr int WM = Traits<T>::WM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Tiles<T> s;
   float* red = reinterpret_cast<float*>(carve_tiles(s, smem_raw, p));
+  float* dsm = red + WM * kMaxHead * (256 + 1);  // a head's dp rows (stage_head_rows)
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * BM;
@@ -232,6 +376,16 @@ fused_mlp_bwd_rows_kernel(const __grid_constant__ BProgram p, const T* __restric
   start_ring(s, wts, p, cur, tid);
   load_tile(s.lo, p.lo_ld, p.lo_kpad, lo, p.in_lo, row0, BM, n_rows, tid);
   if (p.in_hi > 0) load_tile(s.hi, p.hi_ld, p.hi_kpad, hi, p.in_hi, row0, BM, n_rows, tid);
+
+  // This block's mask words: [mask_slot][thread]. Each thread reads back only
+  // the words it wrote (program order: no barrier, no fence); plain loads,
+  // as the kernel writes them.
+  uint2* tile_masks = masks + (size_t)blockIdx.x * p.n_masks * Block<T>::kThreads + tid;
+  uint2 mk = make_uint2(0u, 0u);  // the next ReLU B_LAYER's words, loaded ahead of its epilogue
+  auto load_next_mask = [&](int i) {
+    if (i < p.n_ops && p.op(i).kind == B_LAYER && (p.op(i).flags & FLAG_RELU))
+      mk = tile_masks[p.op(i).mask_slot * Block<T>::kThreads];
+  };
 
   int it = 0;  // slabs consumed so far
   float acc[Traits<T>::MT][kNT][4];
@@ -244,21 +398,33 @@ fused_mlp_bwd_rows_kernel(const __grid_constant__ BProgram p, const T* __restric
       const T* tile = source(s, p, op.src[0], &ld);
       copy_tile_out(tile, ld, op.gn, slot_ptr(stash, op.out_slot, n_rows), row0, n_rows, tid);
     } else if (kind == F_LAYER) {
+      const bool head = op.head_nout > 0;
+      if (head) stage_head_rows<T>(op, p, dplanes, dsm, row0, tid);  // read after the product
       op_product(acc, op, p, s, wts, cur, it, tid);
-      forward_epilogue(acc, op, p, s, fpar, hvx, row0, tid);
+      uint2* mask = tile_masks + op.mask_slot * Block<T>::kThreads;
+      recompute_epilogue(acc, op, p, s, fpar, hvx, mask, row0, tid);
+      load_next_mask(i + 1);
       __syncthreads();
       copy_tile_out(s.act, p.act_ld, op.n, slot_ptr(stash, op.out_slot, n_rows), row0, n_rows, tid);
-    } else if (kind == B_HEAD) {
-      __syncthreads();  // the stashed activation is written
-      head_partials(op, p, stash, dplanes, part, row0, tid);
-    } else {
-      __syncthreads();  // every warp is done with the tile and with red
-      if (op.flags & FLAG_RELU) {  // the activation whose mask g takes
-        copy_tile_in(s.act, p.act_ld, op.gn, slot_ptr(stash, op.mask_slot, n_rows), row0, n_rows,
-                     tid);
+      if (head) {
+        head_partials_tile<T>(op, p, s, dsm, red, tid);
         __syncthreads();
+        head_partials<T>(op, red, part, tid);
       }
-      backward_epilogue(acc, op, p, s, fpar, dplanes, g32, red, row0, tid);
+    } else {
+      if (op.head_nout > 0) stage_head_rows<T>(op, p, dplanes, dsm, row0, tid);
+      __syncthreads();  // every warp is done with the tile and with red; dsm is staged
+      if (op.flags & FLAG_ZERO) {
+#pragma unroll
+        for (int mt = 0; mt < Traits<T>::MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < kNT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+      }
+      if (op.head_nout > 0) add_head<T>(acc, op, fpar, dsm, tid);
+      backward_epilogue(acc, op, p, s, g32, red, mk, row0, tid);
+      load_next_mask(i + 1);
       __syncthreads();
       const int gn = op.gn;
       copy_tile_out(s.act, p.act_ld, gn, slot_ptr(stash, op.out_slot, n_rows), row0, n_rows, tid);
@@ -432,7 +598,7 @@ int colsum(const float* in, float* out, int S, int L, int C, cudaStream_t stream
 
 struct Buffers {
   const void *ops, *lo, *hi, *hvx, *dplanes, *wts, *fpar, *tasks;
-  void *stash, *g32, *parts, *part_out, *dw_part, *dw_out, *dhvx;
+  void *stash, *g32, *masks, *parts, *part_out, *dw_part, *dw_out, *dhvx;
 };
 
 template <typename T>
@@ -449,7 +615,7 @@ int launch(BProgram p, const Buffers& b, int n_tasks, int n_chunks, int chunk_ro
       p, static_cast<const T*>(b.lo), static_cast<const T*>(b.hi),
       static_cast<const float*>(b.hvx), static_cast<const float*>(b.dplanes),
       static_cast<const T*>(b.wts), static_cast<const float*>(b.fpar), static_cast<T*>(b.stash),
-      static_cast<float*>(b.g32), static_cast<float*>(b.parts));
+      static_cast<float*>(b.g32), static_cast<uint2*>(b.masks), static_cast<float*>(b.parts));
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (n_tasks > 0) {
     fused_mlp_bwd_weights_kernel<T><<<dim3(n_tasks, n_chunks), kWThreads, 0, stream>>>(
@@ -484,19 +650,19 @@ int run(int dtype, const int* header, int n_header, const Buffers& b, int n_task
 }  // namespace
 
 // dtype: 1 = bfloat16 operands, 0 = float32. header: the program header
-// (15 ints, host memory); ops and tasks: device arrays of BOp and Task.
+// (16 ints, host memory); ops and tasks: device arrays of BOp and Task.
 // Workspace and outputs are allocated by the caller: stash (cdtype), g32,
-// parts (n_tiles x part_w), dw_part (n_chunks x dw_total) and the outputs
+// masks (n_tiles x n_masks x threads x 8 bytes), parts (n_tiles x part_w), dw_part (n_chunks x dw_total) and the outputs
 // part_out (part_w), dw_out (dw_total), dhvx (n_hvx_rows x hvx_w).
 extern "C" int snerf_fused_mlp_bwd(int dtype, const int* header, int n_header, const void* ops,
                                    const void* lo, const void* hi, const void* hvx,
                                    const void* dplanes, const void* wts, const void* fpar,
                                    const void* tasks, int n_tasks, int n_chunks, int chunk_rows,
                                    int dw_total, int n_hvx_rows, void* stash, void* g32,
-                                   void* parts, void* part_out, void* dw_part, void* dw_out,
-                                   void* dhvx, int smem, void* stream) {
+                                   void* masks, void* parts, void* part_out, void* dw_part,
+                                   void* dw_out, void* dhvx, int smem, void* stream) {
   const Buffers b{ops, lo, hi, hvx, dplanes, wts, fpar, tasks,
-                  stash, g32, parts, part_out, dw_part, dw_out, dhvx};
+                  stash, g32, masks, parts, part_out, dw_part, dw_out, dhvx};
   return run(dtype, header, n_header, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem,
              stream);
 }
@@ -507,11 +673,11 @@ extern "C" int snerf_fused_mlp_ens_bwd(int dtype, const int* header, int n_heade
                                        const void* lo, const void* hvx, const void* dplanes,
                                        const void* wts, const void* fpar, const void* tasks,
                                        int n_tasks, int n_chunks, int chunk_rows, int dw_total,
-                                       int n_hvx_rows, void* stash, void* g32, void* parts,
-                                       void* part_out, void* dw_part, void* dw_out, void* dhvx,
-                                       int smem, void* stream) {
+                                       int n_hvx_rows, void* stash, void* g32, void* masks,
+                                       void* parts, void* part_out, void* dw_part, void* dw_out,
+                                       void* dhvx, int smem, void* stream) {
   const Buffers b{ops, lo, nullptr, hvx, dplanes, wts, fpar, tasks,
-                  stash, g32, parts, part_out, dw_part, dw_out, dhvx};
+                  stash, g32, masks, parts, part_out, dw_part, dw_out, dhvx};
   return run(dtype, header, n_header, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem,
              stream);
 }

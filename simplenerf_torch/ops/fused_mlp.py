@@ -491,9 +491,10 @@ _FLAG_RELU, _FLAG_HVX, _FLAG_ZERO = 1, 2, 4
 _STAGES = 3  # weight slabs in flight
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block can use
 # Backward program: struct BProgram / BOp / Task in fused_mlp_bwd.cu.
-_BHEADER_WORDS = 15
+_BHEADER_WORDS = 16
 _BOP_WORDS = 24
-_F_IN, _F_LAYER, _B_HEAD, _B_LAYER = 0, 1, 2, 3
+_F_IN, _F_LAYER, _B_LAYER = 0, 1, 3
+_MAX_HEAD = 4  # head channels one op takes (kMaxHead in the .cu)
 _TASK_WORDS = 9
 _WTILE = 128  # weight-pass output tile
 _WEIGHT_BLOCKS = 4 * 132  # weight-pass blocks to aim for: four per SM
@@ -637,9 +638,11 @@ def pack_program(spec, kp, n_rows: int):
 class BwdPlan:
     """Backward kernel operands and where each gradient lands.
 
-    header: (15,) int32; ops: (n_ops, 24) int32; tasks: (n_tasks, 9) int32.
+    header: (16,) int32; ops: (n_ops, 24) int32; tasks: (n_tasks, 9) int32.
     The stash holds `stash_cols` column slots of n_rows rows each; partials
-    rows are `part_w` wide, dW partials `dw_total`. grads[mi][key] =
+    rows are `part_w` wide, dW partials `dw_total`. The ReLU masks take
+    `mask_words` int32 words: two per thread of a tile for each of its ReLU
+    layers (header[15] of them). grads[mi][key] =
     ("dw" | "part", offset, shape) into the reduced dW or partials vector.
     """
 
@@ -656,6 +659,7 @@ class BwdPlan:
     hvx_w: int
     n_hvx: int
     smem: int
+    mask_words: int
     grads: list
 
 
@@ -663,8 +667,10 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
     """Backward kernel operands for a FusedSpec + kp, or an EnsembleSpec + kps.
 
     The program runs each member's forward (stashing lo/hi and every layer's
-    rounded activation) and then its backward: per layer, from the top, the
-    f32 cotangent g (head contributions added, ReLU mask from the stash),
+    rounded activation; a ReLU layer also packs its mask as bits, and the
+    layer that feeds a head forms the head's per-tile dW and db partials)
+    and then its backward: per layer, from the top, the f32 cotangent g
+    (head contributions added, the layer's ReLU mask bits applied),
     its per-tile column sum (db), round(g) into the stash, and the product
     round(g) @ W^T with W stored (K, round16(N)). The weight pass then forms
     every dW = A^T G from two stash slots, 128 x 128 tiles at a time.
@@ -674,7 +680,7 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
     bm, _ = _tiling(cd)
     buf = _Buffers(cd, kps[0]["w0i"].device)
     ops, tasks, grads = [], [], []
-    sizes = {"stash": 0, "part": 0, "dw": 0}
+    sizes = {"stash": 0, "part": 0, "dw": 0, "mask": 0}
 
     def alloc(kind, n):
         off = sizes[kind]
@@ -724,16 +730,26 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
         g: dict = {}
         W, Wv = m.width, m.views_width
 
-        # Forward, stashing every activation.
-        h = []
+        def head_partials(key_w, key_b, pl, n_out, k):
+            """The fields of the F_LAYER whose activation (k wide) feeds a head."""
+            if n_out > _MAX_HEAD:
+                raise ValueError(f"a head of {n_out} channels; the kernel takes {_MAX_HEAD}")
+            pw, pb = alloc("part", n_out * k), alloc("part", n_out)
+            g[key_w], g[key_b] = ("part", pw, (n_out, k)), ("part", pb, (1, n_out))
+            return dict(plane=pl, head_nout=n_out, part=pw, part2=pb)
+
+        # Forward, stashing every activation; h/hv: stash slots, hm/hvm: mask slots.
+        h, hm = [], []
         for i in range(m.depth):
             segs = [(_SRC_LO, kp["w0i"])] if i == 0 else [(_SRC_ACT, kp[f"w{i}"])]
             if i > 0 and (i - 1) in m.skip_layers:
                 segs.append((_SRC_LO, kp[f"w{i}i"]))
             h.append(alloc("stash", W))
+            hm.append(alloc("mask", 1))
+            head = head_partials("wpo_t", "bpo", plane, m.out_p, W) if i == m.depth - 1 else {}
             op(_F_LAYER, segs=segs, n=W, b_off=buf.fvec(kp[f"b{i}"]), flags=_FLAG_RELU,
-               out_slot=h[-1])
-        hv = []
+               out_slot=h[-1], mask_slot=hm[-1], **head)
+        hv, hvm = [], []
         my_hvx = -1
         if m.has_views:
             f_slot = alloc("stash", W)
@@ -752,15 +768,14 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
                 else:
                     segs, flags = [(_SRC_ACT, kp[f"wv{i}"])], _FLAG_RELU
                 hv.append(alloc("stash", Wv))
+                hvm.append(alloc("mask", 1))
+                head = {}
+                if i == m.views_depth - 1:
+                    head = head_partials("wvo_t", "bvo", plane + m.out_p, m.out_v, Wv)
                 op(_F_LAYER, segs=segs, n=Wv, b_off=buf.fvec(kp[f"bv{i}"]), flags=flags,
-                   hvx_slot=max(my_hvx, 0), out_slot=hv[-1])
+                   hvx_slot=max(my_hvx, 0), out_slot=hv[-1], mask_slot=hvm[-1], **head)
 
         # Backward, from the top.
-        def head_partials(key_w, key_b, pl, n_out, act_slot, k):
-            pw, pb = alloc("part", n_out * k), alloc("part", n_out)
-            g[key_w], g[key_b] = ("part", pw, (n_out, k)), ("part", pb, (1, n_out))
-            op(_B_HEAD, plane=pl, head_nout=n_out, mask_slot=act_slot, gn=k, part=pw, part2=pb)
-
         def back(gn, relu, mask_slot, b_key, zero=False, head=None, prod=None, g32=-1):
             """One B_LAYER; returns its G slot. head = (plane, n_out, wt); prod = W (K, N)."""
             g_slot, pdb = alloc("stash", gn), alloc("part", gn)
@@ -776,10 +791,9 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
 
         if m.has_views:
             vplane = plane + m.out_p
-            head_partials("wvo_t", "bvo", vplane, m.out_v, hv[-1], Wv)
             for i in range(m.views_depth - 1, -1, -1):
                 top = i == m.views_depth - 1
-                gs = back(Wv, True, hv[i], f"bv{i}", zero=top,
+                gs = back(Wv, True, hvm[i], f"bv{i}", zero=top,
                           head=(vplane, m.out_v, kp["wvo_t"]) if top else None,
                           prod=kp[f"wv{i}"] if i else kp["wv0f"],
                           g32=my_hvx if i == 0 else -1)
@@ -791,10 +805,9 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
                         task(extra[1], extra[2], gs, Wv, m.in_hi, Wv, "wv0i", g)
             gs = back(W, False, -1, "bf", prod=kp["wf"])
             task(h[-1], W, gs, W, W, W, "wf", g)
-        head_partials("wpo_t", "bpo", plane, m.out_p, h[-1], W)
         for i in range(m.depth - 1, -1, -1):
             top = i == m.depth - 1
-            gs = back(W, True, h[i], f"b{i}", zero=top and not m.has_views,
+            gs = back(W, True, hm[i], f"b{i}", zero=top and not m.has_views,
                       head=(plane, m.out_p, kp["wpo_t"]) if top else None,
                       prod=kp[f"w{i}"] if i else None)
             if i:
@@ -811,7 +824,7 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
     header = np.asarray(
         [len(ops), n_rows, m0.ns, lay["in_lo"], lay["in_hi"], lay["lo_kpad"], lay["hi_kpad"],
          lay["act_ld"], lay["lo_ld"], lay["hi_ld"], lay["slab_ld"], lay["slab_rows"],
-         lay["slab_k"], sizes["part"], hvx_w], dtype=np.int32)
+         lay["slab_k"], sizes["part"], hvx_w, sizes["mask"]], dtype=np.int32)
     n_chunks = max(1, min(-(-_WEIGHT_BLOCKS // max(len(tasks), 1)), -(-n_rows // 256)))
     chunk_rows = -(-(-(-n_rows // n_chunks)) // 32) * 32
     n_chunks = -(-n_rows // chunk_rows)
@@ -822,7 +835,8 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
         tasks=np.asarray(tasks, dtype=np.int32).reshape(-1, _TASK_WORDS), wts=wts, fpar=fpar,
         stash_cols=sizes["stash"], part_w=sizes["part"], dw_total=sizes["dw"], n_chunks=n_chunks,
         chunk_rows=chunk_rows, hvx_w=hvx_w, n_hvx=hvx_slot,
-        smem=_smem(cd, lay, extra=wm * 256 * 4), grads=grads,
+        smem=_smem(cd, lay, extra=(wm * (256 + 1) + bm) * _MAX_HEAD * 4),
+        mask_words=-(-n_rows // bm) * sizes["mask"] * (32 * wm * 4) * 2, grads=grads,
     )
 
 
@@ -926,6 +940,7 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
     tasks = torch.from_numpy(plan.tasks).to(dev)
     stash = torch.empty(plan.stash_cols * n, dtype=cd, device=dev)
     g32 = f32(max(plan.n_hvx * n * plan.hvx_w, 1))
+    masks = torch.empty(max(plan.mask_words, 2), dtype=torch.int32, device=dev)
     parts, part_out = f32(n_tiles * plan.part_w), f32(plan.part_w)
     dw_part, dw_out = f32(max(plan.n_chunks * plan.dw_total, 1)), f32(max(plan.dw_total, 1))
     dhvx = f32(plan.n_hvx, n // ns, max(plan.hvx_w, 1))
@@ -935,8 +950,9 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
     args += [_ptr(hi)] if entry == "snerf_fused_mlp_bwd" else []
     args += [_ptr(hvx), _ptr(d_planes), _ptr(plan.wts), _ptr(plan.fpar), _ptr(tasks),
              len(plan.tasks), plan.n_chunks, plan.chunk_rows, plan.dw_total,
-             plan.n_hvx * (n // ns), _ptr(stash), _ptr(g32), _ptr(parts), _ptr(part_out),
-             _ptr(dw_part), _ptr(dw_out), _ptr(dhvx), ctypes.c_int(plan.smem), _stream(dev)]
+             plan.n_hvx * (n // ns), _ptr(stash), _ptr(g32), _ptr(masks), _ptr(parts),
+             _ptr(part_out), _ptr(dw_part), _ptr(dw_out), _ptr(dhvx), ctypes.c_int(plan.smem),
+             _stream(dev)]
     rc = getattr(lib, entry)(*args)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")

@@ -192,6 +192,7 @@ def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
 
     for t in range(n_tiles):
         rows = slice(t * bm, min(n, (t + 1) * bm))
+        masks = {}  # the tile's ReLU masks by mask slot, from each layer's rounded activation
         tiles = {fused_mlp._SRC_LO: torch.zeros((rows.stop - rows.start, lo_kpad), dtype=cd)}
         tiles[fused_mlp._SRC_LO][:, :in_lo] = lo[rows]
         if in_hi:
@@ -205,6 +206,7 @@ def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
             if kind == fused_mlp._F_IN:
                 slot(out_slot, gn)[rows] = tiles[src[0]][:, :gn]
                 continue
+            d = dp[plane : plane + hn, rows]
             if kind == fused_mlp._F_LAYER:
                 v = sum(tiles[src[s]].float()[:, : kpad[s]] @ weight(w_off[s], width, kpad[s]).T
                         for s in range(nseg)) + plan.fpar[b_off : b_off + width]
@@ -214,17 +216,17 @@ def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
                     v = torch.relu(v)
                 tiles[fused_mlp._SRC_ACT] = v.to(cd)
                 slot(out_slot, width)[rows] = v.to(cd)
-                continue
-            d = dp[plane : plane + hn, rows]
-            if kind == fused_mlp._B_HEAD:
-                parts[t, part : part + hn * gn] = (d @ slot(mask, gn)[rows].float()).reshape(-1)
-                parts[t, part2 : part2 + hn] = d.sum(1)
+                if flags & fused_mlp._FLAG_RELU:
+                    masks[mask] = v.to(cd).float() > 0
+                if hn:  # the head this layer feeds: partials of its rounded activation
+                    parts[t, part : part + hn * width] = (d @ v.to(cd).float()).reshape(-1)
+                    parts[t, part2 : part2 + hn] = d.sum(1)
                 continue
             v = torch.zeros((rows.stop - rows.start, gn)) if flags & fused_mlp._FLAG_ZERO else acc
             if hn:
                 v = v + d.T @ plan.fpar[hw_off : hw_off + hn * gn].view(hn, gn)
             if flags & fused_mlp._FLAG_RELU:
-                v = v * (slot(mask, gn)[rows].float() > 0)
+                v = v * masks[mask]
             if g32_slot >= 0:
                 g32[g32_slot, rows] = v
             tiles[fused_mlp._SRC_ACT] = v.to(cd)
@@ -273,18 +275,23 @@ def test_packed_bwd_program_computes_plain_version(name, dtype_name):
     assert fused_mlp.pack_bwd_program(spec, kp, nr * ns).smem <= fused_mlp._SMEM_LIMIT
 
 
-@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-def test_packed_ensemble_programs_compute_plain_versions(dtype_name):
-    g = torch.Generator().manual_seed(2)
+def _trio_operands(nr, ns, dtype, seed=2, **width):
+    g = torch.Generator().manual_seed(seed)
     members = []
     for name in ("main", "points_aug", "lambertian"):
-        cfg = mlp.MLPConfig(**{**SMALL, **CASES[name]})
+        cfg = mlp.MLPConfig(**{**SMALL, **CASES[name], **width})
         members.append((mlp.init(g, cfg), cfg))
-    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
-    nr, ns = 21, 9
     pts = torch.randn((nr * ns, 3), generator=g)
     dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1)
-    ens, kps, lo, hvxs = mlp.ensemble_operands(members, pts, dirs, ns, dtype)
+    return mlp.ensemble_operands(members, pts, dirs, ns, dtype)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_packed_ensemble_programs_compute_plain_versions(dtype_name):
+    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+    nr, ns = 21, 9
+    g = torch.Generator().manual_seed(3)
+    ens, kps, lo, hvxs = _trio_operands(nr, ns, dtype)
     d_planes = torch.randn((ens.n_planes, nr, ns), generator=g)
     want, want_hvx = fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, d_planes)
     got, got_hvx = _run_bwd_program(ens, kps, lo, None, hvxs, d_planes)
@@ -295,3 +302,55 @@ def test_packed_ensemble_programs_compute_plain_versions(dtype_name):
         _assert_grads_close({"h": a}, {"h": b}, tol)
     words, _, _, smem = fused_mlp.pack_program(ens, kps, nr * ns)
     assert words[0] <= fused_mlp._MAX_OPS and smem <= fused_mlp._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["single", "trio"])
+def test_bwd_program_offsets_disjoint_and_in_range(which, dtype_name):
+    """Every per-tile partial (layer db, head dW and db) of the packed backward
+    program has its own range inside the partials row, and every ReLU layer
+    its own mask slot, which its backward layer reads; the mask buffer holds
+    every thread's words of every tile, the ragged last one included."""
+    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+    nr, ns = 1037, 64  # 66,368 rows: a ragged last 128-row tile in bf16 (f32 tiles are 64)
+    published = dict(points_net_depth=8, points_net_width=256, views_net_width=128,
+                     skip_layers=(4,))
+    if which == "single":
+        cfg = mlp.MLPConfig(**{**SMALL, **published})
+        g = torch.Generator().manual_seed(1)
+        pts = torch.randn((nr * ns, 3), generator=g)
+        dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1)
+        spec, kp, *_ = mlp.fused_operands(mlp.init(g, cfg), cfg, pts, dirs, ns, dtype)
+    else:
+        spec, kp, _, _ = _trio_operands(nr, ns, dtype, **published)
+    n = nr * ns
+    plan = fused_mlp.pack_bwd_program(spec, kp, n)
+    bm, _ = fused_mlp._tiling(dtype)
+    assert (n % bm > 0) == (dtype == torch.bfloat16)
+    n_masks = int(plan.header[15])
+    ranges, relu_f, relu_b = [], {}, []
+    for op in plan.ops.tolist():
+        kind, width, flags = op[0], op[1], op[3]
+        gn, mask, hn, part, part2 = op[17], op[18], op[19], op[21], op[23]
+        if kind == fused_mlp._F_LAYER:
+            if hn:
+                ranges += [(part, part + hn * width), (part2, part2 + hn)]
+            if flags & fused_mlp._FLAG_RELU:
+                assert mask not in relu_f and 0 <= mask < n_masks
+                relu_f[mask] = width
+            else:
+                assert mask == -1
+        elif kind == fused_mlp._B_LAYER:
+            ranges.append((part, part + gn))
+            if flags & fused_mlp._FLAG_RELU:
+                relu_b.append((mask, gn))
+    assert len(relu_f) == n_masks
+    # each ReLU layer's mask is read back once, by a backward layer of its width
+    assert sorted(relu_b) == sorted(relu_f.items())
+    ranges.sort()
+    assert ranges[0][0] >= 0 and ranges[-1][1] <= plan.part_w
+    assert all(a[1] <= b[0] for a, b in zip(ranges, ranges[1:])), "partials overlap"
+    assert sum(b - a for a, b in ranges) == plan.part_w
+    threads = 4 * bm
+    last = ((-(-n // bm) - 1) * n_masks + n_masks - 1) * threads + threads - 1
+    assert 2 * (last + 1) == plan.mask_words

@@ -27,7 +27,8 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(REPO))
+if str(REPO) not in sys.path:  # a caller may have put another checkout first
+    sys.path.insert(0, str(REPO))
 
 import torch  # noqa: E402
 
