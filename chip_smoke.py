@@ -46,7 +46,12 @@ without a result):
      breakdown of the step's device time by kernel.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON (a backward's row also has row_ms, weight_ms, sums_ms and
-its bf16 row kernel's ptxas registers and spill bytes, row_ptxas).
+its bf16 row kernel's ptxas registers and spill bytes, row_ptxas; a
+forward's row has its bf16 kernel's ptxas, fwd_ptxas, and the share of its
+bound, bound_share = bound_ms / ms; the serving chunks carry the same).
+A forward's `time` line also counts the weight bytes its producer issues
+per launch (blocks x the packed slab image): a count, not a reading of
+the card's L2 traffic.
 """
 
 from __future__ import annotations
@@ -480,6 +485,15 @@ def bwd_pass_ms(fn, calls: int = 3) -> dict:
     return out
 
 
+def slab_gb(spec, rows: int) -> float:
+    """GB of weight slabs one bf16 forward launch issues: every 128-row block
+    copies the whole packed slab image once. A count of what the producer
+    asks for, not a measurement of L2 traffic."""
+    from simplenerf_torch.ops import fused_mlp
+
+    return -(-rows // 128) * fused_mlp.sm90_plan(spec).w_index.size * 2 / 1e9
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -513,7 +527,7 @@ def time_train_kernels() -> dict:
         shape=f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, bf16",
         ms=cuda_time_ms(lambda: fused_mlp.fused_apply(*ops), iters=10),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_apply_reference(*ops), iters=3),
-        bound_ms=b_fwd[0], bound_by=b_fwd[1])
+        bound_ms=b_fwd[0], bound_by=b_fwd[1], slab_gb=slab_gb(spec, rows))
     out["fused_mlp_bwd"] = dict(
         shape=f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, bf16",
         ms=cuda_time_ms(lambda: fused_mlp.fused_bwd(*ops, dp), iters=5),
@@ -535,7 +549,7 @@ def time_train_kernels() -> dict:
         ms=cuda_time_ms(lambda: fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs), iters=10),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_apply_ensemble_reference(ens, kps, lo, hvxs),
                               iters=3),
-        bound_ms=b_fwd[0], bound_by=b_fwd[1])
+        bound_ms=b_fwd[0], bound_by=b_fwd[1], slab_gb=slab_gb(ens, rows))
     out["fused_mlp_ens_bwd"] = dict(
         shape=f"coarse trio step: {STEP_RAYS} rays x {COARSE_NS} = {rows} points, bf16",
         ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp), iters=5),
@@ -544,10 +558,11 @@ def time_train_kernels() -> dict:
         bound_ms=b_bwd[0], bound_by=b_bwd[1],
         **bwd_pass_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp)))
     for name, r in out.items():
+        l2 = f", {r['slab_gb']:.2f} GB of weight slabs issued" if "slab_gb" in r else ""
         passes = (f" (row pass {r['row_ms']:.3f}, weight pass {r['weight_ms']:.3f}, column sums "
                   f"{r['sums_ms']:.3f} ms, profiler)" if "row_ms" in r else "")
         print(f"time {name} ({r['shape']}): kernel {r['ms']:.3f} ms{passes}, plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}){l2}", flush=True)
     for f, n in saved.items():
         f.launches = n
     return out
@@ -831,7 +846,8 @@ def chunk_kernels(test_rays: int) -> dict:
         }
         print(f"time fused_mlp_fwd {level} chunk ({CHUNK_RAYS} rays x {ns}, {rows} points, bf16): "
               f"kernel {ms:.3f} ms ({out[level]['tflops']:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-              f"bound {bound_ms:.3f} ms", flush=True)
+              f"bound {bound_ms:.3f} ms; {slab_gb(spec, rows):.2f} GB of weight slabs issued",
+              flush=True)
         del ops, lo, hi, hvx, kp
         torch.cuda.empty_cache()
     fused_mlp.fused_apply.launches = saved  # these launches are not the main path's
@@ -927,11 +943,15 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
         })
+        if name.endswith("fwd"):
+            row["fwd_ptxas"] = ptxas["fused_mlp_fwd_sm90_kernel"]
+            row["bound_share"] = t["bound_ms"] / t["ms"]
         if name == "fused_mlp_fwd":
             row["launches_serve"] = served["launches"]
-            row["serve_chunks"] = {level: {k: timing[level][k] for k in
-                                           ("rows", "ms", "plain_ms", "bound_ms")}
-                                   for level in ("coarse", "fine")}
+            row["serve_chunks"] = {
+                level: {**{k: timing[level][k] for k in ("rows", "ms", "plain_ms", "bound_ms")},
+                        "bound_share": timing[level]["bound_ms"] / timing[level]["ms"]}
+                for level in ("coarse", "fine")}
         kernels.append(row)
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             fail(f"non-finite timing for {name}")

@@ -6,37 +6,29 @@
 // members of an ensemble one after another, over n_rows points and writes
 // the raw linear head channels as float32 planes out[plane][row]
 // (row = ray * ns + sample). An ensemble's program appends each member's
-// ops: every member starts a new activation chain from the one shared lo
+// layers: every member starts a new activation chain from the one shared lo
 // tile (loaded once per block), its views-branch extra input reads that
 // same tile, its hvx layer names its slot of the stacked hvx, and its heads
 // write at the member's plane offset.
 //
 // What bounds it: arithmetic. The published 8x256 MLP does ~1.18 MFLOP per
 // point against ~142 bytes of device-memory traffic per point in bf16, so
-// the design keeps every activation on chip:
-//   * a block (16 warps over 128 rows in bf16, 8 warps over 64 rows in f32;
-//     4 column groups of warps) keeps its lo/hi inputs and one activation
-//     tile in shared memory for the whole layer chain; a layer accumulates
-//     in registers and overwrites the tile in place once every warp has
-//     read its input;
-//   * the weights do not fit in shared memory (about 1.2 MB in bf16), so
-//     every layer's transposed weight (N, Kpad) streams through a 3-stage
-//     ring of K-slabs (64 deep in bf16, 32 in f32) filled by cp.async. The
-//     ring runs on across layers, so the next layer's first slabs load
-//     during this layer's last ones. All blocks read the same weights,
-//     which stay resident in the 50 MB L2; the 128-row tile sets the L2
-//     traffic at 128 FLOP per weight byte;
-//   * bf16 products run on the tensor cores with mma.sync.m16n8k16 and
-//     float32 accumulators, their fragments loaded with ldmatrix.x4; the
-//     float32 path runs plain FMAs over the same fragment layout (no TF32,
-//     which would break float32 parity);
-//   * a warp owns 32 rows and the n8 column tiles warp_n, warp_n + 4, ...,
-//     so any width that is a multiple of 16 up to 256 works;
-//   * heads are float32 warp reductions of the activation row against the
-//     float32 head weight.
-// What still bounds it (H100 80GB HBM3 at 700 W, PERF.md): the epilogues,
-// heads and barriers run while the tensor cores wait, as one block fills
-// an SM; warpgroup MMAs and overlapping them is later work.
+// every activation stays on chip and the weights (about 1.2 MB in bf16,
+// more than shared memory holds) stream from L2 through a ring of K-slabs
+// that runs on across layers; a 128-row tile sets the L2 traffic at 128
+// FLOP per weight byte.
+//
+// Two engines, by operand type:
+//   * bfloat16: fused_mlp_fwd_sm90_kernel (fused_mlp_sm90.cuh): a producer
+//     warpgroup streams the slabs with cp.async.bulk into an mbarrier ring,
+//     two consumer warpgroups of 64 rows run the products as wgmma from
+//     shared-memory descriptors and fold the heads into their register
+//     epilogues; no block-wide barrier in the layer chain;
+//   * float32: fused_mlp_fwd_kernel<float> (fused_mlp_common.cuh), wgmma
+//     having no float32 form: 8 warps over 64 rows, plain FMAs over the
+//     mma fragment layout (no TF32, which would break float32 parity), a
+//     3-stage cp.async ring of 32-deep slabs, heads as warp reductions of
+//     the activation tile.
 // The ragged last block is masked: rows past n_rows read zeros and write
 // nothing. Per-ray `hvx` is read as hvx[slot][row / ns].
 //
@@ -44,6 +36,7 @@
 // return the CUDA error of the launch, 0 on success.
 
 #include "fused_mlp_common.cuh"
+#include "fused_mlp_sm90.cuh"
 
 namespace {
 
@@ -140,6 +133,64 @@ fused_mlp_fwd_kernel(const __grid_constant__ Program p, const T* __restrict__ lo
   }
 }
 
+// The bf16 engine: warpgroup 0 produces (one thread issues the bulk
+// copies), warpgroups 1 and 2 consume; the two roles never reconverge, so
+// setmaxnreg moves registers from the producer to the consumers
+// (128 x 40 + 256 x 232 = 64,512 of the SM's 65,536).
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+fused_mlp_fwd_sm90_kernel(const __grid_constant__ sm90::Program p,
+                          const __nv_bfloat16* __restrict__ lo, const __nv_bfloat16* __restrict__ hi,
+                          const float* __restrict__ hvx, const __nv_bfloat16* __restrict__ wts,
+                          const float* __restrict__ fpar, float* __restrict__ out) {
+  extern __shared__ __align__(1024) unsigned char sm90_smem[];
+  if (sm90::smem_u32(sm90_smem) & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
+  const sm90::Smem s = sm90::carve(sm90_smem, p);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      sm90::mbar_init(s.full + i, 1);   // the producer's expect_tx arrival
+      sm90::mbar_init(s.empty + i, 2);  // one arrival per consumer warpgroup
+    }
+    sm90::mbar_init(s.head_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(sm90::kProducerRegs));
+    if (threadIdx.x == 0) sm90::produce(p, s, wts, fpar);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(sm90::kConsumerRegs));
+    sm90::consume(p, sm90_smem, s, wg - 1, lo, hi, hvx, fpar, out);
+  }
+}
+
+int launch_sm90(const int* words, int n_words, const void* lo, const void* hi, const void* hvx,
+                const void* wts, const void* fpar, void* out, int smem, cudaStream_t stream) {
+  sm90::Program p;
+  if (n_words < sm90::kHeaderWords || n_words > static_cast<int>(sizeof(p) / sizeof(int)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  memset(&p, 0, sizeof(p));
+  memcpy(&p, words, sizeof(int) * n_words);
+  if (p.n_ops > sm90::kMaxOps || p.n_rows <= 0 || p.stages < 2 || p.stages > sm90::kMaxStages)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < p.n_ops; ++i) {
+    const int np = p.ops[i].n_pad;
+    if ((np != 64 && np != 128 && np != 256) || np * 128 > p.slot_bytes ||
+        p.ops[i].head_nout > sm90::kMaxHead)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = fused_mlp_fwd_sm90_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid = static_cast<unsigned>((p.n_rows + sm90::kBM - 1) / sm90::kBM);
+  kernel<<<grid, sm90::kThreads, smem, stream>>>(
+      p, static_cast<const __nv_bfloat16*>(lo), static_cast<const __nv_bfloat16*>(hi),
+      static_cast<const float*>(hvx), static_cast<const __nv_bfloat16*>(wts),
+      static_cast<const float*>(fpar), static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const Program& p, const void* lo, const void* hi, const void* hvx, const void* wts,
            const void* fpar, void* out, int smem, cudaStream_t stream) {
@@ -159,20 +210,21 @@ int launch(const Program& p, const void* lo, const void* hi, const void* hvx, co
 int run_program(int dtype, const int* words, int n_words, const void* lo, const void* hi,
                 const void* hvx, const void* wts, const void* fpar, void* out, int smem,
                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return launch_sm90(words, n_words, lo, hi, hvx, wts, fpar, out, smem, s);
   Program p;
   if (n_words < kHeaderWords || n_words > static_cast<int>(sizeof(Program) / sizeof(int)))
     return static_cast<int>(cudaErrorInvalidValue);
   memset(&p, 0, sizeof(p));
   memcpy(&p, words, sizeof(int) * n_words);
   if (p.n_ops > kMaxOps || p.n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, lo, hi, hvx, wts, fpar, out, smem, s);
   return launch<float>(p, lo, hi, hvx, wts, fpar, out, smem, s);
 }
 
 }  // namespace
 
-// dtype: 1 = bfloat16 operands, 0 = float32. words: the program (header + ops).
+// dtype: 1 = bfloat16 operands (the sm90 program), 0 = float32 (Program).
+// words: the program (header + ops).
 extern "C" int snerf_fused_mlp_fwd(int dtype, const int* words, int n_words, const void* lo,
                                    const void* hi, const void* hvx, const void* wts,
                                    const void* fpar, void* out, int smem, void* stream) {

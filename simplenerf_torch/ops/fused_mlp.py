@@ -20,16 +20,20 @@ What bounds them on an H100: arithmetic. The published 8x256 main MLP does
 2 * 589,952 FLOP per point forward against ~142 bytes of device-memory
 traffic per point in bf16, far above the ~295 FLOP/byte at which the
 H100's published bf16 peak and memory rate balance (SXM data sheet,
-700 W). The forward keeps every activation on chip: a block owns a tile
-of rows (128 in bf16), holds its lo/hi inputs and one activation tile in
-shared memory, and walks a program of layers and heads (`pack_program`)
-with each layer's transposed weight streaming through a ring of K-slabs
-that every block reads from L2. The backward (`pack_bwd_program`) runs the
-same program again, stashes the rounded activations and cotangents in
-device memory, and computes dW in a second pass over the stash; sums over
-rows are fixed-order reductions, so gradients do not change from run to
-run. bf16 products run on the tensor cores (mma.sync, float32
-accumulators); the float32 path is plain FMA (no TF32).
+700 W). The forward keeps every activation on chip: a block owns 128 rows,
+holds its lo/hi inputs and one activation tile in shared memory, and walks
+a program of layers (`pack_program`) with each layer's transposed weight
+streaming through a ring of K-slabs that every block reads from L2. In
+bf16 the weights are packed as the slabs' swizzled shared-memory image,
+copied by one producer thread with bulk copies, and two consumer
+warpgroups multiply with wgmma and fold the heads into their epilogues
+(csrc/fused_mlp_sm90.cuh); float32 keeps the first engine (plain FMAs, no
+TF32). The backward (`pack_bwd_program`) runs the forward program again,
+stashes the rounded activations and cotangents in device memory, and
+computes dW in a second pass over the stash; sums over rows are
+fixed-order reductions, so gradients do not change from run to run. Its
+bf16 products run on the tensor cores with mma.sync and float32
+accumulators.
 
 Each wrapper takes the plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors, and counts its launches:
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -575,12 +580,23 @@ def pack_program(spec, kp, n_rows: int):
     """Forward kernel operands: (program words int32 numpy, wts (cdtype), fpar (f32), smem bytes).
 
     `spec` is a FusedSpec with its kernel-param dict, or an EnsembleSpec with
-    a tuple of them. Every matmul weight (K, N) is stored transposed and
-    zero-padded to (N, round16(K)) in one cdtype buffer; biases and the f32
-    head weights go to one float32 buffer. The program lists the layers and
-    heads in execution order, member after member, with the tiles each layer
-    reads (the activation tile, which it then overwrites, the lo tile, the
-    hi tile); an ensemble member's extra input is the shared lo tile.
+    a tuple of them. The program lists the layers in execution order,
+    member after member, with the tiles each layer reads (the activation
+    tile, which it then overwrites, the lo tile, the hi tile); an ensemble
+    member's extra input is the shared lo tile. bf16: the program and slab
+    image of the wgmma engine (`_pack_sm90`); float32: `_pack_f32`.
+    """
+    if _members_of(spec, kp)[0][0].cdtype == torch.bfloat16:
+        return _pack_sm90(spec, kp, n_rows)
+    return _pack_f32(spec, kp, n_rows)
+
+
+def _pack_f32(spec, kp, n_rows: int):
+    """The float32 engine's program (struct Program / Op in fused_mlp_fwd.cu).
+
+    Every matmul weight (K, N) is stored transposed and zero-padded to
+    (N, round16(K)) in one buffer; biases and the head weights go to one
+    float32 buffer; heads are ops of their own after the layer they read.
     """
     members, kps, shared = _members_of(spec, kp)
     cd = members[0].cdtype
@@ -632,6 +648,205 @@ def pack_program(spec, kp, n_rows: int):
     words = np.asarray(header + [w for op in ops for w in op], dtype=np.int32)
     wts, fpar = buf.tensors()
     return words, wts, fpar, _smem(cd, lay)
+
+
+# Forward program of the bf16 engine: struct sm90::Program / sm90::Op in
+# csrc/fused_mlp_sm90.cuh.
+_SM90_HEADER_WORDS = 14
+_SM90_OP_WORDS = 16
+_SM90_KBLOCK = 64 * 128  # bytes of one 64-deep K block of a consumer's 64-row tile
+_SM90_STAGES = (4, 3)  # ring depths, the deepest that fits first
+_SM90_BARRIERS = 9 * 8  # full and empty per stage (4 + 4) and the heads' mbarrier
+_SM90_BIAS = 256  # floats of a layer's bias in a consumer's staging area (kBiasFloats)
+
+
+def _n_pad(n: int) -> int:
+    """The wgmma width a layer of n outputs runs at: 64, 128 or 256."""
+    return 64 if n <= 64 else 128 if n <= 128 else 256
+
+
+def _kblocks(k: int) -> int:
+    return -(-k // 64)
+
+
+def _slab_index(k: int, n: int, n_pad: int, base: int) -> np.ndarray:
+    """Source element of each element of a (K, N) = (k, n) weight's slabs,
+    -1 for padding. Slab kbi is n_pad rows of 128 bytes holding
+    W^T[:, 64 kbi : 64 kbi + 64], the 16-byte chunk c of row r stored at
+    chunk c ^ (r % 8) (the 128-byte swizzle of csrc/fused_mlp_sm90.cuh); the
+    weight's element (kk, r) is source element base + kk * n + r."""
+    kb = _kblocks(k)
+    kbi, r, kl = np.meshgrid(np.arange(kb), np.arange(n_pad), np.arange(64), indexing="ij")
+    kk = kbi * 64 + kl
+    pos = kbi * n_pad * 64 + r * 64 + ((kl // 8) ^ (r % 8)) * 8 + kl % 8
+    idx = np.full(kb * n_pad * 64, -1, dtype=np.int64)
+    idx[pos.reshape(-1)] = np.where((r < n) & (kk < k), base + kk * n + r, -1).reshape(-1)
+    return idx
+
+
+@dataclasses.dataclass(frozen=True)
+class Sm90Plan:
+    """The bf16 forward program of one spec, without its parameters.
+
+    words: the program (n_rows left 0); w_src / f_src: ((member, key), ...)
+    whose flattened values, concatenated with one zero after them, the
+    image indices w_index (the bf16 slab image) and f_index (the float32
+    buffer: head weights first, each row zero-padded to its layer's n_pad,
+    then each layer's bias padded to n_pad, then the head biases) gather
+    from; smem: shared-memory bytes of a block.
+    """
+
+    words: np.ndarray
+    w_src: tuple
+    w_index: np.ndarray
+    f_src: tuple
+    f_index: np.ndarray
+    smem: int
+
+
+def _sm90_shapes(m: FusedSpec) -> dict:
+    """(K, N) of every kernel parameter of a member, as `kernel_params` makes them."""
+    W, Wv = m.width, m.views_width
+    shapes = {"w0i": (m.in_lo, W), "b0": (1, W), "wpo_t": (m.out_p, W), "bpo": (1, m.out_p)}
+    for i in range(1, m.depth):
+        shapes[f"w{i}"], shapes[f"b{i}"] = (W, W), (1, W)
+        if (i - 1) in m.skip_layers:
+            shapes[f"w{i}i"] = (m.in_lo, W)
+    if m.has_views:
+        shapes.update(wf=(W, W), bf=(1, W), wv0f=(W, Wv), bv0=(1, Wv), wvo_t=(m.out_v, Wv),
+                      bvo=(1, m.out_v))
+        if m.has_extra:
+            shapes["wv0i"] = (m.in_hi, Wv)
+        for i in range(1, m.views_depth):
+            shapes[f"wv{i}"], shapes[f"bv{i}"] = (Wv, Wv), (1, Wv)
+    return shapes
+
+
+def sm90_plan(spec) -> Sm90Plan:
+    """The bf16 forward program of a FusedSpec or EnsembleSpec."""
+    members = list(spec.members) if isinstance(spec, EnsembleSpec) else [spec]
+    shared = isinstance(spec, EnsembleSpec)
+    m0 = members[0]
+    w_src, w_parts, w_size = [], [], [0]  # w_size: source elements so far
+    f_src, f_pos = [], [0]
+    heads, biases, head_biases = [], [], []  # (layer, source base, sizes...) of each
+    ops = []
+
+    def fsource(mi, key, size):
+        f_src.append((mi, key))
+        f_pos[0] += size
+        return f_pos[0] - size
+
+    def layer(mi, shapes, segs, n, bkey, flags, hvx_slot=0):
+        n_pad = _n_pad(n)
+        op = [n, n_pad, 0, flags, len(segs), 0, 0, 0, 0, 0, 0, hvx_slot, 0, 0, 0, 0]
+        for s, (src, key) in enumerate(segs):
+            k, nn = shapes[key]
+            w_parts.append(_slab_index(k, nn, n_pad, w_size[0]))
+            w_src.append((mi, key))
+            w_size[0] += k * nn
+            op[5 + s], op[8 + s] = src, _kblocks(k)
+        biases.append((len(ops), fsource(mi, bkey, n), n, n_pad))
+        ops.append(op)
+
+    def head(mi, shapes, wkey, bkey, plane):
+        n_out, k = shapes[wkey]
+        if n_out > _MAX_HEAD:
+            raise ValueError(f"a head of {n_out} channels; the kernel takes {_MAX_HEAD}")
+        op = ops[-1]
+        op[12], op[13] = plane, n_out
+        heads.append((len(ops) - 1, fsource(mi, wkey, n_out * k), n_out, k, op[1]))
+        head_biases.append((len(ops) - 1, fsource(mi, bkey, n_out), n_out))
+
+    extra_src = _SRC_LO if shared else _SRC_HI
+    plane, hvx_slot = 0, 0
+    for mi, m in enumerate(members):
+        sh = _sm90_shapes(m)
+        layer(mi, sh, [(_SRC_LO, "w0i")], m.width, "b0", _FLAG_RELU)
+        for i in range(1, m.depth):
+            segs = [(_SRC_ACT, f"w{i}")]
+            if (i - 1) in m.skip_layers:
+                segs.append((_SRC_LO, f"w{i}i"))
+            layer(mi, sh, segs, m.width, f"b{i}", _FLAG_RELU)
+        head(mi, sh, "wpo_t", "bpo", plane)
+        if m.has_views:
+            layer(mi, sh, [(_SRC_ACT, "wf")], m.width, "bf", 0)
+            segs = [(_SRC_ACT, "wv0f")] + ([(extra_src, "wv0i")] if m.has_extra else [])
+            layer(mi, sh, segs, m.views_width, "bv0", _FLAG_RELU | (_FLAG_HVX if m.has_hvx else 0),
+                  hvx_slot)
+            hvx_slot += int(m.has_hvx)
+            for i in range(1, m.views_depth):
+                layer(mi, sh, [(_SRC_ACT, f"wv{i}")], m.views_width, f"bv{i}", _FLAG_RELU)
+            head(mi, sh, "wvo_t", "bvo", plane + m.out_p)
+        plane += m.n_planes
+    if len(ops) > _MAX_OPS:
+        raise ValueError(f"{len(ops)} kernel layers exceed the program's {_MAX_OPS}")
+
+    # The float32 buffer: head weights (rows padded to n_pad), biases, head biases.
+    f_index = []
+    for oi, base, n_out, k, n_pad in heads:
+        ops[oi][14] = sum(x.size for x in f_index)
+        c = np.arange(n_pad)
+        f_index += [np.where(c < k, base + o * k + c, -1) for o in range(n_out)]
+    head_floats = sum(x.size for x in f_index)
+    for oi, base, n, n_pad in biases:
+        ops[oi][2] = sum(x.size for x in f_index)
+        c = np.arange(n_pad)
+        f_index.append(np.where(c < n, base + c, -1))
+    for oi, base, n_out in head_biases:
+        ops[oi][15] = sum(x.size for x in f_index)
+        c = np.arange(4)
+        f_index.append(np.where(c < n_out, base + c, -1))
+    w_index = np.concatenate(w_parts)
+    f_index = np.concatenate(f_index)
+    w_index[w_index < 0] = w_size[0]  # the zero after the weights
+    f_index[f_index < 0] = f_pos[0]
+
+    in_hi = 0 if shared else m0.in_hi
+    lo_kb, hi_kb = _kblocks(m0.in_lo), _kblocks(in_hi)
+    act_kb = max(op[1] for op in ops) // 64
+    slot = max(op[1] for op in ops) * 128
+    hvx_w = max((m.views_width for m in members if m.has_hvx), default=0)
+    hvx_rays = 63 // m0.ns + 2 if hvx_w else 0  # rays that 64 consecutive rows can touch
+
+    def smem(stages, rays):
+        return (stages * slot + 2 * (act_kb + lo_kb + hi_kb) * _SM90_KBLOCK
+                + -(-head_floats * 4 // 16) * 16 + 2 * 4 * (_SM90_BIAS + rays * hvx_w)
+                + _SM90_BARRIERS)
+
+    # The deepest ring first, then hvx rows staged in shared memory if they fit.
+    stages, rays = next(((s, r) for s in _SM90_STAGES for r in (hvx_rays, 0)
+                         if smem(s, r) <= _SMEM_LIMIT), (_SM90_STAGES[-1], 0))
+    header = [len(ops), 0, m0.ns, m0.in_lo, in_hi, lo_kb, hi_kb, act_kb, slot, stages,
+              head_floats, rays, _SM90_BIAS + rays * hvx_w, 0]
+    words = np.asarray(header + [w for op in ops for w in op], dtype=np.int32)
+    words.setflags(write=False)
+    return Sm90Plan(words=words, w_src=tuple(w_src), w_index=w_index, f_src=tuple(f_src),
+                    f_index=f_index, smem=smem(stages, rays))
+
+
+@functools.lru_cache(maxsize=64)
+def _sm90_on(spec, dev: torch.device) -> tuple:
+    """(plan, w_index, f_index): `sm90_plan(spec)` with its gather indices as
+    int32 tensors on `dev`, cached per spec and device."""
+    plan = sm90_plan(spec)
+    return (plan, *(torch.from_numpy(i.astype(np.int32)).to(dev) for i in (plan.w_index, plan.f_index)))
+
+
+def _pack_sm90(spec, kp, n_rows: int):
+    """The bf16 engine's operands: one gather each builds the slab image and
+    the float32 buffer from the concatenated parameters."""
+    _, kps, _ = _members_of(spec, kp)
+    plan, w_index, f_index = _sm90_on(spec, kps[0]["w0i"].device)
+    with torch.no_grad():
+        zero = kps[0]["b0"].new_zeros(1, dtype=torch.float32)
+        wsrc = torch.cat([kps[mi][k].reshape(-1).float() for mi, k in plan.w_src] + [zero])
+        fsrc = torch.cat([kps[mi][k].reshape(-1).float() for mi, k in plan.f_src] + [zero])
+        wts = wsrc.to(torch.bfloat16).index_select(0, w_index)
+        fpar = fsrc.index_select(0, f_index)
+    words = plan.words.copy()
+    words[1] = n_rows
+    return words, wts, fpar, plan.smem
 
 
 @dataclasses.dataclass

@@ -71,9 +71,11 @@ def _operands(cfg, nr, ns, dtype, device, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("ns", [5, 64, 192])
+@pytest.mark.parametrize("ns", [1, 5, 64, 192])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernel_matches_plain(cuda_device, name, ns, dtype):
+    """ns = 1 at the published width reads hvx from global memory in the
+    bf16 kernel (its rows do not fit beside the ring); the others stage it."""
     cfg = mlp.MLPConfig(**{**SMALL, **CASES[name]})
     nr = 6 if ns == 5 else 37  # ray counts that no block size divides
     spec, kp, lo, hi, hvx = _operands(cfg, nr, ns, dtype, cuda_device)
@@ -89,6 +91,28 @@ def test_kernel_matches_plain(cuda_device, name, ns, dtype):
         print(f"{name} ns={ns} {dtype} plane {j}: max abs err {err:.3e}, plane up to "
               f"{b.abs().max().item():.3e}")
         assert err <= TOL[dtype], f"{name} plane {j}: max abs err {err}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("widths", [(48, 64), (160, 128), (64, 80)],
+                         ids=["trunk48", "trunk160", "views80"])
+def test_kernel_pads_widths(cuda_device, widths, dtype):
+    """Widths that the bf16 engine pads to a wgmma width (48 -> 64,
+    160 -> 256, views 80 -> 128): the padded columns stay out of every
+    plane."""
+    width, views_width = widths
+    cfg = mlp.MLPConfig(**{**SMALL, "points_net_width": width, "views_net_width": views_width})
+    nr, ns = 37, 64
+    spec, kp, lo, hi, hvx = _operands(cfg, nr, ns, dtype, cuda_device)
+    before = fused_mlp.fused_apply.launches
+    got = fused_mlp.fused_apply(spec, kp, lo, hi, hvx)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_apply.launches == before + 1
+    want = fused_mlp.fused_apply_reference(spec, kp, lo, hi, hvx)
+    for j, (a, b) in enumerate(zip(got, want)):
+        err = (a - b).abs().max().item()
+        print(f"widths {widths} {dtype} plane {j}: max abs err {err:.3e}")
+        assert err <= TOL[dtype], f"widths {widths} plane {j}: max abs err {err}"
 
 
 def _norm_err(got, want) -> float:

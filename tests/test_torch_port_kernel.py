@@ -98,8 +98,87 @@ def test_kernel_params_and_dirs_w_match_jax(name):
         )
 
 
+def _unswizzle_slab(img, n_pad):
+    """The (n_pad, 64) block of W^T held by one slab image: element (n, k)
+    sits in row n's 16-byte chunk (k // 8) ^ (n % 8), as the kernel's
+    128-byte-swizzle descriptors read it."""
+    rows = img.reshape(n_pad, 8, 8)  # row, chunk as stored, element
+    n = torch.arange(n_pad)[:, None]
+    return rows[n, torch.arange(8)[None, :] ^ (n % 8)].reshape(n_pad, 64)
+
+
+def _sm90_layers(words):
+    """The bf16 program's header and its layers as dicts (struct sm90::Op)."""
+    hw = fused_mlp._SM90_HEADER_WORDS
+    hdr = words[:hw].tolist()
+    names = ("n", "n_pad", "b_off", "flags", "nseg", "src", "kb", "hvx_slot", "plane", "nout",
+             "head_w", "head_b")
+    layers = []
+    for op in words[hw:].reshape(-1, fused_mlp._SM90_OP_WORDS).tolist():
+        vals = op[:5] + [op[5:8], op[8:11]] + op[11:]
+        layers.append(dict(zip(names, vals)))
+    assert hdr[0] == len(layers)
+    return hdr, layers
+
+
+def _slabs(words, wts):
+    """Every segment's slabs in stream order: [(layer, segment, W^T padded (n_pad, 64 kb))]."""
+    _, layers = _sm90_layers(words)
+    out, pos = [], 0
+    for li, op in enumerate(layers):
+        for s in range(op["nseg"]):
+            blocks = []
+            for _ in range(op["kb"][s]):
+                blocks.append(_unswizzle_slab(wts[pos : pos + op["n_pad"] * 64], op["n_pad"]))
+                pos += op["n_pad"] * 64
+            out.append((li, s, torch.cat(blocks, 1)))
+    assert pos == wts.numel()
+    return out
+
+
+def _run_sm90_program(spec, kp, lo, hi, hvx):
+    """The bf16 program, its slab image read through the swizzle, as the kernel runs it."""
+    n = lo.shape[0]
+    words, wts, fpar, _ = fused_mlp.pack_program(spec, kp, n)
+    hdr, layers = _sm90_layers(words)
+    _, n_rows, ns, in_lo, in_hi, lo_kb, hi_kb, act_kb, slot, stages, head_floats, *_ = hdr
+    assert n_rows == n and ns == spec.ns
+    cd = torch.bfloat16
+    tiles = {fused_mlp._SRC_LO: torch.zeros((n, 64 * lo_kb), dtype=cd),
+             fused_mlp._SRC_HI: torch.zeros((n, 64 * hi_kb), dtype=cd)}
+    tiles[fused_mlp._SRC_LO][:, :in_lo] = lo
+    if in_hi:
+        tiles[fused_mlp._SRC_HI][:, :in_hi] = hi
+    slabs = iter(_slabs(words, wts))
+    hvxs = hvx if isinstance(hvx, (list, tuple)) else [hvx]
+    planes = {}
+    for li, op in enumerate(layers):
+        assert op["n_pad"] in (64, 128, 256) and op["n_pad"] * 128 <= slot
+        acc = 0
+        for s in range(op["nseg"]):
+            li2, s2, wt = next(slabs)
+            assert (li2, s2) == (li, s)
+            acc = acc + tiles[op["src"][s]][:, : wt.shape[1]].float() @ wt.float().T
+        v = acc + fpar[op["b_off"] : op["b_off"] + op["n_pad"]]
+        if op["flags"] & fused_mlp._FLAG_HVX:
+            v[:, : op["n"]] += hvxs[op["hvx_slot"]].repeat_interleave(ns, 0)
+        if op["flags"] & fused_mlp._FLAG_RELU:
+            v = torch.relu(v)
+        tiles[fused_mlp._SRC_ACT] = v.to(cd)  # the kernel overwrites its one activation tile
+        assert op["n_pad"] <= 64 * act_kb
+        if op["nout"]:
+            assert op["head_w"] + op["nout"] * op["n_pad"] <= head_floats
+            w = fpar[op["head_w"] : op["head_w"] + op["nout"] * op["n_pad"]].view(op["nout"], -1)
+            for j in range(op["nout"]):
+                planes[op["plane"] + j] = (v.to(cd).float() @ w[j]
+                                           + fpar[op["head_b"] + j]).reshape(-1, ns)
+    return tuple(planes[j] for j in range(len(planes)))
+
+
 def _run_program(spec, kp, lo, hi, hvx):
     """Execute `pack_program`'s output with PyTorch ops, as the kernel does."""
+    if spec.cdtype == torch.bfloat16:
+        return _run_sm90_program(spec, kp, lo, hi, hvx)
     n = lo.shape[0]
     words, wts, fpar, _ = fused_mlp.pack_program(spec, kp, n)
     hw = fused_mlp._HEADER_WORDS
@@ -113,9 +192,10 @@ def _run_program(spec, kp, lo, hi, hvx):
     tiles[fused_mlp._SRC_LO][:, : hdr[3]] = lo
     if hdr[4]:
         tiles[fused_mlp._SRC_HI][:, : hdr[4]] = hi
+    hvxs = hvx if isinstance(hvx, (list, tuple)) else [hvx]
     planes = {}
     for kind, width, b_off, flags, nseg, *rest in ops.tolist():
-        src, w_off, kpad, plane = rest[0:3], rest[3:6], rest[6:9], rest[9]
+        src, w_off, kpad, plane, hvx_slot = rest[0:3], rest[3:6], rest[6:9], rest[9], rest[10]
         if kind == fused_mlp._OP_LAYER:
             acc = sum(
                 tiles[src[s]].float()
@@ -124,35 +204,85 @@ def _run_program(spec, kp, lo, hi, hvx):
             )
             v = acc + fpar[b_off : b_off + width]
             if flags & fused_mlp._FLAG_HVX:
-                v = v + hvx.repeat_interleave(spec.ns, 0)
+                v = v + hvxs[hvx_slot].repeat_interleave(hdr[2], 0)
             if flags & fused_mlp._FLAG_RELU:
                 v = torch.relu(v)
             tiles[fused_mlp._SRC_ACT] = v.to(cd)  # the kernel overwrites its one activation tile
         else:
             w = fpar[w_off[0] : w_off[0] + width * kpad[0]].reshape(width, kpad[0])
             for j in range(width):
-                planes[plane + j] = (tiles[src[0]].float() @ w[j] + fpar[b_off + j]).reshape(-1, spec.ns)
-    return tuple(planes[j] for j in range(spec.n_planes))
+                planes[plane + j] = (tiles[src[0]].float() @ w[j] + fpar[b_off + j]).reshape(-1, hdr[2])
+    return tuple(planes[j] for j in range(len(planes)))
+
+
+PUBLISHED = dict(points_net_depth=8, points_net_width=256, views_net_width=128, skip_layers=(4,))
+
+
+def _program_operands(name, dtype_name, nr=NR, ns=NS):
+    """(spec, kp, lo, hi, hvx) of one case, or of the trio (kp a tuple, hvx a list)."""
+    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+    if name == "trio":
+        ens, kps, lo, hvxs = _trio_operands(nr, ns, dtype)
+        return ens, kps, lo, None, list(hvxs)
+    cfg = mlp.MLPConfig(**{**SMALL, **CASES.get(name, PUBLISHED)})
+    g = torch.Generator().manual_seed(1)
+    params = mlp.init(g, cfg)
+    pts = torch.randn((nr * ns, 3), generator=g)
+    dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1)
+    return mlp.fused_operands(params, cfg, pts, dirs, ns, dtype)
+
+
+def _plain_planes(spec, kp, lo, hi, hvx):
+    if isinstance(spec, fused_mlp.EnsembleSpec):
+        return fused_mlp.fused_apply_ensemble(spec, kp, lo, hvx)
+    return fused_mlp.fused_apply(spec, kp, lo, hi, hvx)  # CPU tensors: the plain version
+
+
+PROGRAMS = sorted(CASES) + ["published", "trio"]
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", sorted(CASES) + ["published"])
+@pytest.mark.parametrize("name", PROGRAMS)
 def test_packed_program_computes_plain_version(name, dtype_name):
-    kw = {**SMALL, **CASES.get(name, dict(points_net_depth=8, points_net_width=256,
-                                          views_net_width=128, skip_layers=(4,)))}
-    cfg = mlp.MLPConfig(**kw)
-    g = torch.Generator().manual_seed(1)
-    params = mlp.init(g, cfg)
-    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
-    pts = torch.randn((NR * NS, 3), generator=g)
-    dirs = torch.nn.functional.normalize(torch.randn((NR, 3), generator=g), dim=-1)
-    spec, kp, lo, hi, hvx = mlp.fused_operands(params, cfg, pts, dirs, NS, dtype)
-    want = fused_mlp.fused_apply(spec, kp, lo, hi, hvx)  # CPU tensors: the plain version
+    spec, kp, lo, hi, hvx = _program_operands(name, dtype_name)
+    want = _plain_planes(spec, kp, lo, hi, hvx)
     got = _run_program(spec, kp, lo, hi, hvx)
+    assert len(got) == len(want) == spec.n_planes
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
-    _, _, _, smem = fused_mlp.pack_program(spec, kp, NR * NS)
-    assert smem <= fused_mlp._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_slab_image_unswizzles_to_padded_weights(name):
+    """Every slab of the bf16 image, read back through the swizzle, is the
+    zero-padded W^T of the parameter it was packed from."""
+    spec, kp, lo, *_ = _program_operands(name, "bfloat16")
+    kps = kp if isinstance(kp, tuple) else (kp,)
+    words, wts, _, _ = fused_mlp.pack_program(spec, kp, lo.shape[0])
+    plan = fused_mlp.sm90_plan(spec)
+    slabs = _slabs(words, wts)
+    assert len(slabs) == len(plan.w_src)
+    for (li, s, wt), (mi, key) in zip(slabs, plan.w_src):
+        w = kps[mi][key].detach().float()  # (K, N)
+        k, n = w.shape
+        want = torch.zeros_like(wt, dtype=torch.float32)
+        want[:n, :k] = w.T.to(torch.bfloat16).float()
+        assert wt.shape[0] in (64, 128, 256) and wt.shape[1] % 64 == 0, (li, s, key)
+        assert wt.shape[0] >= n and wt.shape[1] >= k, (li, s, key)
+        torch.testing.assert_close(wt.float(), want, atol=0, rtol=0, msg=f"{key} of member {mi}")
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_program_fits_shared_memory(name, dtype_name):
+    spec, kp, lo, *_ = _program_operands(name, dtype_name)
+    words, _, _, smem = fused_mlp.pack_program(spec, kp, lo.shape[0])
+    assert words[0] <= fused_mlp._MAX_OPS
+    assert smem <= fused_mlp._SMEM_LIMIT == 227 * 1024
+    members = spec.members if isinstance(spec, fused_mlp.EnsembleSpec) else (spec,)
+    if dtype_name == "bfloat16":  # the deepest ring, and hvx rows staged where a member has them
+        hdr, _ = _sm90_layers(words)
+        assert hdr[9] == 4 and (hdr[11] > 0) == any(m.has_hvx for m in members)
 
 
 def test_published_flop_count():
@@ -354,3 +484,20 @@ def test_bwd_program_offsets_disjoint_and_in_range(which, dtype_name):
     threads = 4 * bm
     last = ((-(-n // bm) - 1) * n_masks + n_masks - 1) * threads + threads - 1
     assert 2 * (last + 1) == plan.mask_words
+
+
+@pytest.mark.parametrize("table", ["EDITS", "TIMING_EDITS"])
+def test_forward_probe_edits_match_the_kernel_sources(table):
+    """Every edit of tools/probe_fused_mlp.py still finds its text in the
+    kernel sources, so the probe builds each variant on the card."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "probe_fused_mlp.py"
+    spec = importlib.util.spec_from_file_location("probe_fused_mlp", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    edits = getattr(probe, table)
+    variants = probe.VARIANTS if table == "EDITS" else probe.TIMING
+    for name, parts in variants.items():
+        probe._edited_sources(parts, edits)  # raises on an edit that no longer matches

@@ -1,0 +1,115 @@
+"""The four fused-MLP kernels timed through their wrappers at the training
+step's shapes, one JSON line per run, so that two checkouts can be compared
+run by run.
+
+    python3 tools/time_fused_mlp.py                 # this checkout's kernels
+    python3 tools/time_fused_mlp.py --parent DIR    # DIR's package and kernels
+
+Needs one CUDA card. The operands are chip_smoke.py's (bf16, its seeds and
+shapes): the fine MLP at 4096 rays x 192 samples (seed 3, as chip_smoke.py
+times it, and seed 192, as tools/probe_fused_mlp.py times it) and the coarse
+trio at 4096 x 64 (seed 5). Each wrapper is timed three ways:
+
+  - CUDA events around `iters` calls after one warm-up, as chip_smoke.py
+    does (10 calls for a forward, 5 for a backward), and around 20 calls
+    for a forward, as the probe does;
+  - torch.profiler over 5 calls: per call, the device time of the kernel
+    itself (the events whose name holds "fused_mlp" or "colsum") and of
+    every device operation the call issues (the packing included).
+
+The fine forward is timed once before and once after three calls of the
+64k-ray x 192 serving chunk, the shape the probe times just before it.
+Run it alternately on two checkouts, one process each (parent / change /
+change / parent ...), to read each side's spread; unpack `git archive
+<commit>` into a gitignored directory such as build/parent for --parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+
+
+def profile_ms(fn, calls: int = 5) -> tuple[float, float]:
+    """(kernel ms, all device ms) per call of fn, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernel = total = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3 / calls
+            total += ms
+            if "fused_mlp" in e.name or "colsum" in e.name:
+                kernel += ms
+    return kernel, total
+
+
+def timings(fn, iters: tuple[int, ...]) -> dict:
+    import chip_smoke
+
+    out = {f"events_{n}": chip_smoke.cuda_time_ms(fn, iters=n) for n in iters}
+    out["kernel_ms"], out["device_ms"] = profile_ms(fn)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path,
+                    help="a checkout of an earlier commit whose package and kernels to time")
+    args = ap.parse_args()
+    import torch
+
+    import chip_smoke  # this checkout's: its helpers import the package lazily
+
+    if args.parent:
+        sys.path.insert(0, str(args.parent.resolve()))
+    from simplenerf_torch.fields.mlp import MLPConfig
+    from simplenerf_torch.ops import build, fused_mlp
+
+    if not torch.cuda.is_available():
+        raise SystemExit("the timing needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    bf16 = torch.bfloat16
+    nr, fine_ns, coarse_ns = chip_smoke.STEP_RAYS, chip_smoke.FINE_NS, chip_smoke.COARSE_NS
+    out = {"checkout": str(build.CSRC.parents[2]), "card": chip_smoke.card_line()}
+
+    ops = chip_smoke.kernel_operands(MLPConfig(), nr, fine_ns, bf16, seed=3)
+    alt = chip_smoke.kernel_operands(MLPConfig(), nr, fine_ns, bf16, seed=192)
+    dp = chip_smoke.cotangents(ops[0].n_planes, nr, fine_ns, seed=4)
+    out["fwd fine seed 3"] = timings(lambda: fused_mlp.fused_apply(*ops), (10, 20))
+    out["fwd fine seed 192"] = timings(lambda: fused_mlp.fused_apply(*alt), (10, 20))
+    out["bwd fine"] = timings(lambda: fused_mlp.fused_bwd(*ops, dp), (5,))
+
+    ens, kps, lo, hvxs = chip_smoke.ensemble_operands(nr, coarse_ns, bf16, seed=5)
+    edp = chip_smoke.cotangents(ens.n_planes, nr, coarse_ns, seed=6)
+    out["ens fwd trio"] = timings(lambda: fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs), (10, 20))
+    out["ens bwd trio"] = timings(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, edp), (5,))
+    del ens, kps, lo, hvxs, edp
+
+    serve = chip_smoke.kernel_operands(MLPConfig(), chip_smoke.CHUNK_RAYS, 192, bf16, seed=192)
+    for _ in range(3):
+        fused_mlp.fused_apply(*serve)
+    out["fwd fine seed 3, after serving chunks"] = timings(lambda: fused_mlp.fused_apply(*ops), (10, 20))
+    out["fwd fine seed 192, after serving chunks"] = timings(lambda: fused_mlp.fused_apply(*alt),
+                                                            (10, 20))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
