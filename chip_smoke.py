@@ -40,18 +40,27 @@ without a result):
      plain version and the card's bound;
   7. timing: each kernel at the training step's shapes (CUDA events after
      warm-up) beside its plain version and its bound, each backward's row
-     pass, weight pass and column sums apart (torch.profiler's kernel
-     events), seconds per training
-     step (median of 40 after 3 of warm-up), rays/s, and a torch.profiler
-     breakdown of the step's device time by kernel.
+     pass, weight pass and column sums apart and each of its three column
+     sums apart (torch.profiler's kernel events); for each backward the
+     weight pass's bound from the distinct stash slots it reads (beside
+     its FLOP bound), the stash bytes its producers issue, per-dW
+     torch.matmul on a seeded stash of the step's shape and torch.sum at
+     each column sum's shape; seconds per training step (median of 40
+     after 3 of warm-up), rays/s, and a torch.profiler breakdown of the
+     step's device time by kernel.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON (a backward's row also has row_ms, weight_ms, sums_ms and
-its bf16 row kernel's ptxas registers and spill bytes, row_ptxas; a
-forward's row has its bf16 kernel's ptxas, fwd_ptxas, and the share of its
-bound, bound_share = bound_ms / ms; the serving chunks carry the same).
-A forward's `time` line also counts the weight bytes its producer issues
-per launch (blocks x the packed slab image): a count, not a reading of
-the card's L2 traffic.
+per-kernel JSON (a backward's row also has row_ms, weight_ms, sums_ms,
+sums_parts_ms (partials, dW partials, dhvx), weight_library_ms and
+sums_library_ms (measured; the weight pass's and column sums' bounds are
+printed on its `time` lines), its bf16 row kernel's ptxas registers and
+spill bytes, row_ptxas, and the weight kernel's, weight_ptxas; a
+forward's row has its bf16 kernel's ptxas, fwd_ptxas, and the share of
+its bound, bound_share = bound_ms / ms; the serving chunks carry the
+same). A
+forward's `time` line also counts the weight bytes its producer issues
+per launch (blocks x the packed slab image), and a backward's the stash
+bytes its weight pass's producers issue: counts, not readings of the
+card's traffic.
 """
 
 from __future__ import annotations
@@ -461,10 +470,13 @@ def leaf_paths(tree, prefix: str = "") -> list:
     return [prefix[:-1]]
 
 
-def bwd_pass_ms(fn, calls: int = 3) -> dict:
+def bwd_pass_ms(fn, calls: int = 3, sums=(1, 1, 1)) -> dict:
     """Device time per call of a backward kernel's three passes (row pass,
     weight pass, column sums), from torch.profiler's kernel events over
-    `calls` calls after one warm-up."""
+    `calls` calls after one warm-up. `sums`: the launches of each of the
+    three column sums (partials, dW partials, dhvx) in a call, in launch
+    order (two where a sum is split into slices); sums_parts_ms gives each
+    sum apart, sums_ms their total."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -476,12 +488,21 @@ def bwd_pass_ms(fn, calls: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {"row_ms": 0.0, "weight_ms": 0.0, "sums_ms": 0.0}
-    parts = {"fused_mlp_bwd_rows_kernel": "row_ms", "fused_mlp_bwd_weights_kernel": "weight_ms",
-             "colsum_kernel": "sums_ms"}
+    parts = {"fused_mlp_bwd_rows_kernel": "row_ms", "fused_mlp_bwd_wgrad_kernel": "weight_ms",
+             "fused_mlp_bwd_weights_kernel": "weight_ms", "colsum_kernel": "sums_ms"}
+    colsums = []
     for e in prof.events():
         key = next((v for k, v in parts.items() if k in e.name), None)
         if e.device_type == DeviceType.CUDA and key:
-            out[key] += e.time_range.elapsed_us() / 1e3 / calls
+            ms = e.time_range.elapsed_us() / 1e3
+            out[key] += ms / calls
+            if key == "sums_ms":
+                colsums.append((e.time_range.start, ms))
+    colsums = [ms for _, ms in sorted(colsums)]
+    if len(colsums) == calls * sum(sums):  # else the profiler lost events: no split
+        owner = [i for i, n in enumerate(sums) for _ in range(n)] * calls
+        out["sums_parts_ms"] = [sum(ms for o, ms in zip(owner, colsums) if o == i) / calls
+                                for i in range(len(sums))]
     return out
 
 
@@ -499,9 +520,61 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def weight_pass_yardsticks(label: str, plan, rows: int, sum_shapes) -> dict:
+    """The backward's weight pass and column sums against what the card and
+    PyTorch would take for the same work, on a seeded stash of the step's
+    shape: the weight pass's bounds (the distinct stash slots it reads,
+    each once, over HBM's rate; its FLOP over the bf16 peak), the stash
+    bytes its producers issue (a count from the plan), one torch.matmul of
+    the two slots per dW (N calls), and torch.sum at each column sum's
+    shape (the same function, one call each)."""
+    import torch
+
+    maps = plan.maps
+    used = {int(j[m]) for j in plan.tasks.tolist() for m in (1, 4)}  # each job's A and G maps
+    slot_bytes = sum(int(maps[m][1]) for m in used) * rows * 2
+    flops = sum(2 * k * m * rows for *_, k, m, _off in plan.dws)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    stash = torch.randn(plan.stash_cols * rows, generator=g, device="cuda").to(torch.bfloat16)
+
+    def slot(c, w):
+        return stash[c * rows : (c + w) * rows].view(rows, w)
+
+    matmul_ms = cuda_time_ms(lambda: [torch.matmul(slot(a, aw).T, slot(gs, gw))
+                                      for a, aw, gs, gw, *_ in plan.dws], iters=3)
+    del stash
+    sums_ms = []
+    for S, L, C in sum_shapes:
+        x = torch.randn((S, L, C), generator=g, device="cuda")
+        sums_ms.append(cuda_time_ms(lambda: torch.sum(x, dim=1), iters=10))
+        del x
+    torch.cuda.empty_cache()
+    out = {"weight_bytes_gb": slot_bytes / 1e9, "weight_issued_gb": plan.wgrad_bytes / 1e9,
+           "weight_bound_ms": 1e3 * slot_bytes / PEAK_BYTES,
+           "weight_flop_bound_ms": 1e3 * flops / PEAK_FLOPS["bfloat16"],
+           "weight_library_ms": matmul_ms, "weight_library_calls": len(plan.dws),
+           "sums_library_ms": sums_ms,
+           "sums_bound_ms": [1e3 * 4 * S * C * (L + 1) / PEAK_BYTES for S, L, C in sum_shapes]}
+    print(f"time {label} weight pass yardsticks: {out['weight_bytes_gb']:.2f} GB of distinct stash "
+          f"slots, bound {out['weight_bound_ms']:.3f} ms (bytes; FLOP {out['weight_flop_bound_ms']:.3f} "
+          f"ms); {out['weight_issued_gb']:.2f} GB issued by its producers (a count from the plan); "
+          f"torch.matmul per dW ({len(plan.dws)} calls) {matmul_ms:.3f} ms; column sums at "
+          + ", ".join(f"{S}x{L}x{C}" for S, L, C in sum_shapes) + ": torch.sum "
+          + ", ".join(f"{ms:.3f}" for ms in sums_ms) + " ms, bounds "
+          + ", ".join(f"{ms:.3f}" for ms in out["sums_bound_ms"]) + " ms", flush=True)
+    return out
+
+
+def _sum_shapes(plan, rows: int, ns: int) -> list:
+    """(S, L, C) of a backward's three column sums: partials, dW partials, dhvx."""
+    return [(1, -(-rows // 128), plan.part_w), (1, plan.n_chunks, plan.dw_total),
+            (plan.n_hvx * (rows // ns), ns, plan.hvx_w)]
+
+
 def time_train_kernels() -> dict:
     """Each kernel at the training step's shapes (bf16), CUDA events after
-    warm-up, beside its plain version and its bound."""
+    warm-up, beside its plain version and its bound; each backward's passes
+    (profiler) beside the weight pass's and column sums' yardsticks."""
     import torch
 
     from simplenerf_torch.fields.mlp import MLPConfig
@@ -515,10 +588,14 @@ def time_train_kernels() -> dict:
     def wbytes(kps):
         return sum(v.numel() for kp in kps for v in kp.values()) * 2
 
+    def sum_launches(plan):
+        return tuple(2 if n > 1 else 1 for n in plan.slices)
+
     # Fine: one MLP, 4096 x 192.
     spec, kp, lo, hi, hvx = ops = kernel_operands(MLPConfig(), STEP_RAYS, FINE_NS, bf16, seed=3)
     rows = lo.shape[0]
     dp = cotangents(spec.n_planes, STEP_RAYS, FINE_NS, seed=4)
+    plan = fused_mlp.pack_bwd_program(spec, kp, rows)
     io = lo.numel() * 2 + hvx.numel() * 4
     b_fwd = bound_ms(spec.flops_per_point() * rows, io + wbytes([kp]) + dp.numel() * 4)
     b_bwd = bound_ms(spec.bwd_flops_per_point() * rows,
@@ -532,14 +609,19 @@ def time_train_kernels() -> dict:
         shape=f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, bf16",
         ms=cuda_time_ms(lambda: fused_mlp.fused_bwd(*ops, dp), iters=5),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_bwd_reference(*ops, dp), iters=2),
-        bound_ms=b_bwd[0], bound_by=b_bwd[1], **bwd_pass_ms(lambda: fused_mlp.fused_bwd(*ops, dp)))
+        bound_ms=b_bwd[0], bound_by=b_bwd[1],
+        **bwd_pass_ms(lambda: fused_mlp.fused_bwd(*ops, dp), sums=sum_launches(plan)))
     del ops, lo, hi, hvx, kp, dp
     torch.cuda.empty_cache()
+    out["fused_mlp_bwd"]["yardsticks"] = weight_pass_yardsticks(
+        "fused_mlp_bwd", plan, rows, _sum_shapes(plan, rows, FINE_NS))
+    del plan
 
     # Coarse: the trio through the ensemble, 4096 x 64.
     ens, kps, lo, hvxs = ensemble_operands(STEP_RAYS, COARSE_NS, bf16, seed=5)
     rows = lo.shape[0]
     dp = cotangents(ens.n_planes, STEP_RAYS, COARSE_NS, seed=6)
+    plan = fused_mlp.pack_bwd_program(ens, kps, rows)
     io = lo.numel() * 2 + sum(h.numel() for h in hvxs) * 4
     b_fwd = bound_ms(ens.flops_per_point() * rows, io + wbytes(kps) + dp.numel() * 4)
     b_bwd = bound_ms(ens.bwd_flops_per_point() * rows,
@@ -556,11 +638,22 @@ def time_train_kernels() -> dict:
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, dp),
                               iters=2),
         bound_ms=b_bwd[0], bound_by=b_bwd[1],
-        **bwd_pass_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp)))
+        **bwd_pass_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp),
+                      sums=sum_launches(plan)))
+    del ens, kps, lo, hvxs, dp
+    torch.cuda.empty_cache()
+    out["fused_mlp_ens_bwd"]["yardsticks"] = weight_pass_yardsticks(
+        "fused_mlp_ens_bwd", plan, rows, _sum_shapes(plan, rows, COARSE_NS))
+    del plan
     for name, r in out.items():
         l2 = f", {r['slab_gb']:.2f} GB of weight slabs issued" if "slab_gb" in r else ""
-        passes = (f" (row pass {r['row_ms']:.3f}, weight pass {r['weight_ms']:.3f}, column sums "
-                  f"{r['sums_ms']:.3f} ms, profiler)" if "row_ms" in r else "")
+        passes = ""
+        if "row_ms" in r:
+            parts = r.get("sums_parts_ms")
+            split = (" (partials, dW partials, dhvx " + ", ".join(f"{ms:.3f}" for ms in parts) + ")"
+                     if parts else "")
+            passes = (f" (row pass {r['row_ms']:.3f}, weight pass {r['weight_ms']:.3f}, column sums "
+                      f"{r['sums_ms']:.3f}{split} ms, profiler)")
         print(f"time {name} ({r['shape']}): kernel {r['ms']:.3f} ms{passes}, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}){l2}", flush=True)
     for f, n in saved.items():
@@ -937,8 +1030,12 @@ def main() -> int:
         if name.endswith("bwd"):  # the held measure: ||got - want|| / ||want||
             row["norm_err"] = worst[(name, "bfloat16", "norm")]
             row["norm_err_f32"] = worst[(name, "float32", "norm")]
-            row.update({k: t[k] for k in ("row_ms", "weight_ms", "sums_ms")})
+            row.update({k: t[k] for k in ("row_ms", "weight_ms", "sums_ms", "sums_parts_ms")
+                        if k in t})
+            ys = t["yardsticks"]  # measured here; the bounds stay on the `time` lines
+            row.update({k: ys[k] for k in ("weight_library_ms", "sums_library_ms")})
             row["row_ptxas"] = ptxas["fused_mlp_bwd_rows_kernel bf16"]
+            row["weight_ptxas"] = ptxas.get("fused_mlp_bwd_wgrad_kernel")
         row.update({
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],

@@ -32,22 +32,36 @@
 //       products is kept off the tensor cores' path (PERF.md): no mask is
 //       read back through shared memory, no partial re-reads the stash, and
 //       the stash goes out as streaming stores.
-//   (b) weight pass, one block per 128x128 tile of one dW and chunk of rows:
-//       dW = round(h_prev)^T @ round(g) over the chunk, both operands from
-//       the stash (ldmatrix.trans fragments, mma.sync, float32 accumulators;
-//       float32 operands as plain FMAs), into a partials row per chunk;
+//   (b) weight pass: dW = round(h_prev)^T @ round(g) over a chunk of rows,
+//       both operands from the stash, into a partials row per chunk. bf16:
+//       fused_mlp_bwd_wgrad_kernel (fused_mlp_wgrad_sm90.cuh), panels of a
+//       dW fed by TMA boxes, wgmma with both operands MN-major, the two
+//       panels of a 256-row dW as a cluster of two that reads G in step, so
+//       each stash slot crosses from device memory about once per launch;
+//       float32:
+//       one block per 128x128 tile of one dW and chunk (cp.async stages,
+//       plain FMAs);
 //   (c) fixed-order column sums: partials over tiles, dW partials over
-//       chunks, and g over each ray's ns rows (dhvx).
+//       chunks, and g over each ray's ns rows (dhvx). Each sum splits its
+//       rows into a fixed number of slices (ops/fused_mlp.py
+//       `_colsum_slices`) so that the card is full at every shape; each
+//       thread sums 4 columns of one slice in row order with 16-byte loads,
+//       and a second launch adds the slices in order.
 // Every product rounds its operands to the compute type and accumulates in
 // float32, as the TPU kernel's products do, so storing round(g) loses
 // nothing. What bounds this design on the card (PERF.md): the products and
 // the stash, about 2 x 4.9 KB per point in bf16 for the published MLP,
-// written once and read by the weight pass once per 128-wide output tile.
+// written once by the row pass and read once by the weight pass.
 //
 // Plain C interface (ctypes): snerf_fused_mlp_bwd and snerf_fused_mlp_ens_bwd
-// return the first CUDA error of their launches, 0 on success.
+// (and snerf_wgrad, snerf_colsum: the weight pass and the column sums
+// alone) return the first CUDA error of their launches, 0 on success.
+
+#include <type_traits>
+#include <vector>
 
 #include "fused_mlp_common.cuh"
+#include "fused_mlp_wgrad_sm90.cuh"
 
 namespace {
 
@@ -90,8 +104,8 @@ struct BProgram {
 };
 constexpr int kBHeaderWords = 16;
 
-// Weight-pass task: the 128x128 tile (i0, j0) of dW (k_in, n_out) = A^T G,
-// A = stash slot a_slot (width a_w), G = stash slot g_slot (width g_w).
+// Float32 weight-pass task: the 128x128 tile (i0, j0) of dW (k_in, n_out) =
+// A^T G, A = stash slot a_slot (width a_w), G = stash slot g_slot (width g_w).
 struct Task {
   int a_slot, a_w, g_slot, g_w, k_in, n_out, dw_off, i0, j0;
 };
@@ -439,9 +453,9 @@ fused_mlp_bwd_rows_kernel(const __grid_constant__ BProgram p, const T* __restric
   }
 }
 
-// Weight pass: rows of the chunk in stages of KC, double-buffered by cp.async.
+// Float32 weight pass: rows of the chunk in stages of KC, double-buffered by
+// cp.async (the bf16 weight pass is fused_mlp_bwd_wgrad_kernel).
 template <typename T> struct WTraits;
-template <> struct WTraits<__nv_bfloat16> { static constexpr int KC = 32; };
 template <> struct WTraits<float> { static constexpr int KC = 16; };
 constexpr int kWTile = 128, kWThreads = 256;
 
@@ -462,35 +476,6 @@ __device__ __forceinline__ void load_stage(T* dst, int ld, const T* src, int wid
 }
 
 // acc[mt][jt] += A_stage^T G_stage for the warp's 32 x 64 part of the tile.
-__device__ __forceinline__ void stage_product(float (&acc)[2][8][4], const __nv_bfloat16* a,
-                                              const __nv_bfloat16* gm, int ld, int warp_m,
-                                              int warp_n, int lane) {
-  const int r8 = lane & 7, mi = lane >> 3;
-#pragma unroll
-  for (int kk = 0; kk < WTraits<__nv_bfloat16>::KC; kk += 16) {
-    uint32_t af[2][4], bf[4][4];
-    // A^T fragments from A stored (rows, i): matrix mi covers i + (mi & 1) * 8,
-    // rows kk + (mi >> 1) * 8; transposed on load.
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      ldmatrix_x4_trans(af[mt], a + (kk + (mi >> 1) * 8 + r8) * ld + warp_m * 32 + mt * 16 +
-                                    (mi & 1) * 8);
-    // G fragments from G stored (rows, j): matrix mi covers rows kk + (mi & 1) * 8,
-    // columns j + (mi >> 1) * 8 (two n8 tiles).
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp)
-      ldmatrix_x4_trans(bf[jp], gm + (kk + (mi & 1) * 8 + r8) * ld + warp_n * 64 + jp * 16 +
-                                    (mi >> 1) * 8);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        mma_bf16(acc[mt][2 * jp], af[mt], bf[jp][0], bf[jp][1]);
-        mma_bf16(acc[mt][2 * jp + 1], af[mt], bf[jp][2], bf[jp][3]);
-      }
-  }
-}
-
 __device__ __forceinline__ void stage_product(float (&acc)[2][8][4], const float* a,
                                               const float* gm, int ld, int warp_m, int warp_n,
                                               int lane) {
@@ -576,29 +561,136 @@ fused_mlp_bwd_weights_kernel(const Task* __restrict__ tasks, const T* __restrict
       }
 }
 
-// out[s][c] = sum_{i < L} in[s][i][c], i in order.
+// The first `slices` ranges of `per` rows of in[s] (rows C floats apart),
+// each summed in row order: out[s][slice][c]. Thread t takes V columns of
+// one (slice, s), t = (slice * S + s) * (C / V) + column group, so a warp
+// reads consecutive columns.
+template <int V>
 __global__ void colsum_kernel(const float* __restrict__ in, float* __restrict__ out, int S, int L,
-                              int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  for (int s = blockIdx.y; s < S; s += gridDim.y) {
-    const float* src = in + (size_t)s * L * C + c;
+                              int C, int slices, int per) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  const int groups = C / V;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)slices * S * groups) return;
+  const int g = static_cast<int>(t % groups);
+  const long long rest = t / groups;
+  const int s = static_cast<int>(rest % S), sl = static_cast<int>(rest / S);
+  const int i0 = sl * per, i1 = min(L, i0 + per);
+  const Vec* src = reinterpret_cast<const Vec*>(in + ((size_t)s * L + i0) * C) + g;
+  const size_t step = C / V;
+  if constexpr (V == 4) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = i0; i < i1; ++i, src += step) {
+      const float4 v = __ldcs(src);  // read once: streaming
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    reinterpret_cast<float4*>(out + ((size_t)s * slices + sl) * C)[g] = sum;
+  } else {
     float sum = 0.f;
-    for (int i = 0; i < L; ++i) sum += src[(size_t)i * C];
-    out[(size_t)s * C + c] = sum;
+    for (int i = i0; i < i1; ++i, src += step) sum += __ldcs(src);
+    out[((size_t)s * slices + sl) * C + g] = sum;
   }
 }
 
-int colsum(const float* in, float* out, int S, int L, int C, cudaStream_t stream) {
+int colsum_launch(const float* in, float* out, int S, int L, int C, int slices, int per,
+                  cudaStream_t stream) {
+  const bool vec = C % 4 == 0 && (reinterpret_cast<uintptr_t>(in) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const long long threads = (long long)slices * S * (vec ? C / 4 : C);
+  const unsigned blocks = static_cast<unsigned>((threads + 255) / 256);
+  if (vec)
+    colsum_kernel<4><<<blocks, 256, 0, stream>>>(in, out, S, L, C, slices, per);
+  else
+    colsum_kernel<1><<<blocks, 256, 0, stream>>>(in, out, S, L, C, slices, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[s][c] = sum_{i < L} in[s][i][c] in a fixed order: with slices > 1 the
+// rows go in `slices` ranges of ceil(L / slices) rows, each summed in order
+// into scratch (S x slices x C floats), then the slices in order.
+int colsum(const float* in, float* out, int S, int L, int C, int slices, float* scratch,
+           cudaStream_t stream) {
   if (S <= 0 || C <= 0) return 0;
-  const dim3 grid((C + 255) / 256, min(S, 65535));
-  colsum_kernel<<<grid, 256, 0, stream>>>(in, out, S, L, C);
+  if (slices < 1 || (slices > 1 && (scratch == nullptr || L < slices)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (slices == 1) return colsum_launch(in, out, S, L, C, 1, L, stream);
+  const int rc = colsum_launch(in, scratch, S, L, C, slices, (L + slices - 1) / slices, stream);
+  if (rc) return rc;
+  return colsum_launch(scratch, out, S, slices, C, 1, slices, stream);
+}
+
+// The weight pass's tensor maps: for each of n_maps stash slots, int64
+// (element offset in the stash, width, n_rows, row stride in bytes) ->
+// a CUtensorMap of dims (width, n_rows), 64 x 64 boxes, 128-byte swizzle,
+// zeros past the dims, into `out`, the kernel's parameter.
+// cuTensorMapEncodeTiled is reached through the runtime's driver entry
+// point, so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+int encode_maps(const __nv_bfloat16* stash, const long long* maps, int n_maps, wgrad::Maps* out) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (n_maps > wgrad::kMaxMaps) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < n_maps; ++i) {
+    const long long* m = maps + 4 * i;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(m[1]), static_cast<cuuint64_t>(m[2])};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(m[3])};
+    const cuuint32_t box[2] = {wgrad::kBox, wgrad::kBox}, elem[2] = {1, 1};
+    const CUresult r = encode(&out->map[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                              const_cast<__nv_bfloat16*>(stash + m[0]), dims, strides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+// The bf16 weight pass: the maps, then one CTA per job (clusters of two).
+int wgrad_launch(const void* stash, const long long* maps, int n_maps, const void* jobs, int n_jobs,
+                 int n_rows, int chunk_rows, int dw_total, float* dw_part, cudaStream_t stream) {
+  if (n_jobs <= 0) return 0;
+  if (chunk_rows % wgrad::kBox) return static_cast<int>(cudaErrorInvalidValue);
+  wgrad::Maps params;  // 16 KB; the launch copies it into the kernel's parameters
+  int rc = encode_maps(static_cast<const __nv_bfloat16*>(stash), maps, n_maps, &params);
+  if (rc) return rc;
+  auto kernel = wgrad::fused_mlp_bwd_wgrad_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         wgrad::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(n_jobs + 1) / 2 * 2, wgrad::kThreads, wgrad::kSmemBytes, stream>>>(
+      static_cast<const wgrad::Job*>(jobs), n_jobs, params, n_rows, chunk_rows, dw_total, dw_part);
   return static_cast<int>(cudaGetLastError());
 }
 
 struct Buffers {
   const void *ops, *lo, *hi, *hvx, *dplanes, *wts, *fpar, *tasks;
   void *stash, *g32, *masks, *parts, *part_out, *dw_part, *dw_out, *dhvx;
+  const long long* maps;  // bf16: the weight pass's tensor-map parameters (host)
+  int n_maps;
+  const int* slices;      // the three column sums' slices (host)
+  void* scratch;          // the column sums' slice sums
 };
 
 template <typename T>
@@ -617,20 +709,26 @@ int launch(BProgram p, const Buffers& b, int n_tasks, int n_chunks, int chunk_ro
       static_cast<const T*>(b.wts), static_cast<const float*>(b.fpar), static_cast<T*>(b.stash),
       static_cast<float*>(b.g32), static_cast<uint2*>(b.masks), static_cast<float*>(b.parts));
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if (n_tasks > 0) {
-    fused_mlp_bwd_weights_kernel<T><<<dim3(n_tasks, n_chunks), kWThreads, 0, stream>>>(
-        static_cast<const Task*>(b.tasks), static_cast<const T*>(b.stash), p.n_rows, chunk_rows,
-        dw_total, static_cast<float*>(b.dw_part));
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  int rc = 0;
+  if (std::is_same<T, __nv_bfloat16>::value) {
+    rc = wgrad_launch(b.stash, b.maps, b.n_maps, b.tasks, n_tasks, p.n_rows, chunk_rows,
+                      dw_total, static_cast<float*>(b.dw_part), stream);
+  } else if (n_tasks > 0) {
+    fused_mlp_bwd_weights_kernel<float><<<dim3(n_tasks, n_chunks), kWThreads, 0, stream>>>(
+        static_cast<const Task*>(b.tasks), static_cast<const float*>(b.stash), p.n_rows,
+        chunk_rows, dw_total, static_cast<float*>(b.dw_part));
+    rc = static_cast<int>(cudaGetLastError());
   }
-  int rc = colsum(static_cast<const float*>(b.parts), static_cast<float*>(b.part_out), 1, n_tiles,
-                  p.part_w, stream);
+  if (rc) return rc;
+  float* scratch = static_cast<float*>(b.scratch);
+  rc = colsum(static_cast<const float*>(b.parts), static_cast<float*>(b.part_out), 1, n_tiles,
+              p.part_w, b.slices[0], scratch, stream);
   if (rc) return rc;
   rc = colsum(static_cast<const float*>(b.dw_part), static_cast<float*>(b.dw_out), 1, n_chunks,
-              dw_total, stream);
+              dw_total, b.slices[1], scratch, stream);
   if (rc) return rc;
   return colsum(static_cast<const float*>(b.g32), static_cast<float*>(b.dhvx), n_hvx_rows, p.ns,
-                p.hvx_w, stream);
+                p.hvx_w, b.slices[2], scratch, stream);
 }
 
 int run(int dtype, const int* header, int n_header, const Buffers& b, int n_tasks, int n_chunks,
@@ -650,19 +748,26 @@ int run(int dtype, const int* header, int n_header, const Buffers& b, int n_task
 }  // namespace
 
 // dtype: 1 = bfloat16 operands, 0 = float32. header: the program header
-// (16 ints, host memory); ops and tasks: device arrays of BOp and Task.
+// (16 ints, host memory); ops: a device array of BOp; tasks: of Task
+// (float32) or wgrad::Job (bf16, n_tasks jobs).
 // Workspace and outputs are allocated by the caller: stash (cdtype), g32,
-// masks (n_tiles x n_masks x threads x 8 bytes), parts (n_tiles x part_w), dw_part (n_chunks x dw_total) and the outputs
-// part_out (part_w), dw_out (dw_total), dhvx (n_hvx_rows x hvx_w).
+// masks (n_tiles x n_masks x threads x 8 bytes), parts (n_tiles x part_w),
+// dw_part (n_chunks x dw_total), the outputs part_out (part_w), dw_out
+// (dw_total), dhvx (n_hvx_rows x hvx_w); for bf16 the tensor maps' host
+// parameters `maps` (n_maps x 4 int64, n_maps <= wgrad::kMaxMaps); the
+// column sums' slices (3 ints, host) and their scratch (the largest
+// S x slices x C of the three where slices > 1).
 extern "C" int snerf_fused_mlp_bwd(int dtype, const int* header, int n_header, const void* ops,
                                    const void* lo, const void* hi, const void* hvx,
                                    const void* dplanes, const void* wts, const void* fpar,
                                    const void* tasks, int n_tasks, int n_chunks, int chunk_rows,
                                    int dw_total, int n_hvx_rows, void* stash, void* g32,
                                    void* masks, void* parts, void* part_out, void* dw_part,
-                                   void* dw_out, void* dhvx, int smem, void* stream) {
-  const Buffers b{ops, lo, hi, hvx, dplanes, wts, fpar, tasks,
-                  stash, g32, masks, parts, part_out, dw_part, dw_out, dhvx};
+                                   void* dw_out, void* dhvx, const long long* maps, int n_maps,
+                                   const int* slices, void* scratch, int smem, void* stream) {
+  const Buffers b{ops,   lo,    hi,       hvx,     dplanes, wts,    fpar,   tasks,
+                  stash, g32,   masks,    parts,   part_out, dw_part, dw_out, dhvx,
+                  maps,  n_maps, slices,  scratch};
   return run(dtype, header, n_header, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem,
              stream);
 }
@@ -675,9 +780,32 @@ extern "C" int snerf_fused_mlp_ens_bwd(int dtype, const int* header, int n_heade
                                        int n_tasks, int n_chunks, int chunk_rows, int dw_total,
                                        int n_hvx_rows, void* stash, void* g32, void* masks,
                                        void* parts, void* part_out, void* dw_part, void* dw_out,
-                                       void* dhvx, int smem, void* stream) {
-  const Buffers b{ops, lo, nullptr, hvx, dplanes, wts, fpar, tasks,
-                  stash, g32, masks, parts, part_out, dw_part, dw_out, dhvx};
+                                       void* dhvx, const long long* maps, int n_maps,
+                                       const int* slices, void* scratch, int smem, void* stream) {
+  const Buffers b{ops,   lo,    nullptr,  hvx,     dplanes, wts,    fpar,   tasks,
+                  stash, g32,   masks,    parts,   part_out, dw_part, dw_out, dhvx,
+                  maps,  n_maps, slices,  scratch};
   return run(dtype, header, n_header, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem,
              stream);
+}
+
+// The bf16 weight pass alone, on a stash the caller filled, then the column
+// sum of its partials over the chunks: dw_out (dw_total).
+extern "C" int snerf_wgrad(const void* stash, const long long* maps, int n_maps, const void* jobs,
+                           int n_jobs, int n_rows, int chunk_rows, int n_chunks, int dw_total,
+                           void* dw_part, void* dw_out, int slices, void* scratch, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc = wgrad_launch(stash, maps, n_maps, jobs, n_jobs, n_rows, chunk_rows,
+                              dw_total, static_cast<float*>(dw_part), s);
+  if (rc) return rc;
+  return colsum(static_cast<const float*>(dw_part), static_cast<float*>(dw_out), 1, n_chunks,
+                dw_total, slices, static_cast<float*>(scratch), s);
+}
+
+// out[s][c] = sum_{i < L} in[s][i][c] (in: S x L x C floats), the column
+// sums of the backward alone.
+extern "C" int snerf_colsum(const void* in, void* out, int S, int L, int C, int slices,
+                            void* scratch, void* stream) {
+  return colsum(static_cast<const float*>(in), static_cast<float*>(out), S, L, C, slices,
+                static_cast<float*>(scratch), static_cast<cudaStream_t>(stream));
 }

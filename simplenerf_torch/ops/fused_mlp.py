@@ -31,14 +31,18 @@ warpgroups multiply with wgmma and fold the heads into their epilogues
 TF32). The backward (`pack_bwd_program`) runs the forward program again,
 stashes the rounded activations and cotangents in device memory, and
 computes dW in a second pass over the stash; sums over rows are
-fixed-order reductions, so gradients do not change from run to run. Its
-bf16 products run on the tensor cores with mma.sync and float32
-accumulators.
+fixed-order reductions, so gradients do not change from run to run. The
+row pass's bf16 products run on the tensor cores with mma.sync; the bf16
+weight pass is bound by the stash bytes it reads, and reads whole dW
+panels through TMA boxes into wgmma, the two panels of a dW in one
+cluster (`_wgrad_plan`, csrc/fused_mlp_wgrad_sm90.cuh).
 
 Each wrapper takes the plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors, and counts its launches:
 `fused_apply.launches`, `fused_bwd.launches`,
-`fused_apply_ensemble.launches`, `fused_ens_bwd.launches`. Under autograd
+`fused_apply_ensemble.launches`, `fused_ens_bwd.launches` (and, for the
+weight pass and the column sums alone, `wgrad.launches` and
+`column_sums.launches`). Under autograd
 `fused_apply` and `fused_apply_ensemble` differentiate through the
 backward wrappers; the points carry no gradient.
 """
@@ -500,9 +504,21 @@ _BHEADER_WORDS = 16
 _BOP_WORDS = 24
 _F_IN, _F_LAYER, _B_LAYER = 0, 1, 3
 _MAX_HEAD = 4  # head channels one op takes (kMaxHead in the .cu)
-_TASK_WORDS = 9
-_WTILE = 128  # weight-pass output tile
-_WEIGHT_BLOCKS = 4 * 132  # weight-pass blocks to aim for: four per SM
+_TASK_WORDS = 9  # a float32 weight-pass task
+_WTILE = 128  # float32 weight-pass output tile
+_WEIGHT_BLOCKS = 4 * 132  # float32 weight-pass blocks to aim for: four per SM
+# bf16 weight pass: struct wgrad::Job and the constants of fused_mlp_wgrad_sm90.cuh.
+_JOB_WORDS = 9
+_WGRAD_MAX_MAPS = 128  # tensor maps the kernel's parameter holds (kMaxMaps)
+_WBOX = 64  # rows and columns of one TMA box
+_WBOX_BYTES = _WBOX * _WBOX * 2
+_WGRAD_STAGES = 4
+_WGRAD_SMEM = _WGRAD_STAGES * 6 * _WBOX_BYTES + 2 * _WGRAD_STAGES * 8  # two A and four G boxes
+_SMS = 132  # streaming multiprocessors of an H100 SXM; the bf16 weight pass runs one CTA on each
+_WGRAD_WAVES = (2, 4)  # the weight pass's grid: this many waves of _SMS CTAs, at least and at most
+_WGRAD_FULL = 0.95  # a last wave this full is full enough
+_COLSUM_THREADS = _SMS * 1024  # threads a column sum aims for (half of the card's resident threads)
+_COLSUM_MIN_ROWS = 16  # rows one thread sums at least, where a sum is split into slices
 
 
 def _round16(k: int) -> int:
@@ -853,12 +869,18 @@ def _pack_sm90(spec, kp, n_rows: int):
 class BwdPlan:
     """Backward kernel operands and where each gradient lands.
 
-    header: (16,) int32; ops: (n_ops, 24) int32; tasks: (n_tasks, 9) int32.
-    The stash holds `stash_cols` column slots of n_rows rows each; partials
-    rows are `part_w` wide, dW partials `dw_total`. The ReLU masks take
-    `mask_words` int32 words: two per thread of a tile for each of its ReLU
-    layers (header[15] of them). grads[mi][key] =
+    header: (16,) int32; ops: (n_ops, 24) int32; tasks: the weight pass's
+    work, (n_tasks, 9) int32 float32 tiles or (n_jobs, 9) int32 bf16 jobs
+    (`_wgrad_plan`). The stash holds `stash_cols` column slots of n_rows
+    rows each; partials rows are `part_w` wide, dW partials `dw_total`. The
+    ReLU masks take `mask_words` int32 words: two per thread of a tile for
+    each of its ReLU layers (header[15] of them). grads[mi][key] =
     ("dw" | "part", offset, shape) into the reduced dW or partials vector.
+    bf16: `maps` (n_maps, 4) int64 are the weight pass's tensor maps and
+    `wgrad_bytes` the stash bytes its producers issue (`WgradPlan`). dws:
+    every dW as (a_slot, a_w, g_slot, g_w, k_in, n_out, dw_off).
+    `slices`: the three column sums' slices (partials, dW partials, dhvx;
+    `_colsum_slices`), `scratch` the floats their slice sums take.
     """
 
     header: np.ndarray
@@ -876,6 +898,132 @@ class BwdPlan:
     smem: int
     mask_words: int
     grads: list
+    maps: np.ndarray
+    wgrad_bytes: int
+    slices: tuple
+    scratch: int
+    dws: list
+
+
+def _colsum_slices(S: int, L: int, C: int) -> tuple[int, int]:
+    """(slices, rows per slice) of the column sum out[s] = sum_{i < L} in[s][i]
+    (csrc/fused_mlp_bwd.cu `colsum`): the rows go in `slices` ranges of
+    `per` rows, each summed in row order by threads of 4 columns, then the
+    slices in order. Enough slices that the sum fills the card, none shorter
+    than _COLSUM_MIN_ROWS rows, and none empty; the same for every launch at
+    a shape, so the bits are the same."""
+    groups = max(S * (C // 4 if C % 4 == 0 else C), 1)
+    slices = max(1, min(_COLSUM_THREADS // groups, L // _COLSUM_MIN_ROWS))
+    per = -(-L // slices) if L else 0
+    slices = -(-L // per) if per else 1
+    return slices, -(-L // slices) if L else 0
+
+
+def _colsum_scratch(shapes) -> int:
+    """Floats of slice sums the column sums at `shapes` ((S, L, C) each) need."""
+    return max([S * _colsum_slices(S, L, C)[0] * C for S, L, C in shapes
+                if _colsum_slices(S, L, C)[0] > 1] + [1])
+
+
+@dataclasses.dataclass
+class WgradPlan:
+    """The bf16 weight pass's work (struct wgrad::Job in
+    csrc/fused_mlp_wgrad_sm90.cuh), for stash slots of n_rows rows.
+
+    jobs: (n_jobs, 9) int32, one CTA each, clusters of two consecutive
+    jobs; maps: (n_maps, 4) int64
+    tensor-map parameters, one per slot read: (element offset of the slot
+    in the stash, width, n_rows, row stride in bytes); the maps' boxes are
+    64 x 64. Each chunk of `chunk_rows` rows (a multiple of 64) writes one
+    dW partials row. `issued`: the stash bytes the producers ask for (a
+    box's rows and columns past the slot left out: the copy engine reads
+    none of them).
+    """
+
+    jobs: np.ndarray
+    maps: np.ndarray
+    n_chunks: int
+    chunk_rows: int
+    issued: int
+
+
+def _wgrad_chunks(n_rows: int, per_chunk: int) -> tuple[int, int]:
+    """(n_chunks, chunk_rows): rows split into chunks of a multiple of 64
+    rows, so that the grid (per_chunk CTAs a chunk, one CTA a SM) is
+    _WGRAD_WAVES waves of _SMS CTAs: the fewest chunks whose last wave is
+    at least _WGRAD_FULL full, else the fullest last wave. More chunks
+    than needed only add dW partials to write and sum."""
+    best = None
+    lo, hi = (-(-w * _SMS // max(per_chunk, 1)) for w in _WGRAD_WAVES)
+    for c in range(max(lo, 1), max(hi, 1) + 1):
+        rows = max(-(-(-(-n_rows // c)) // _WBOX) * _WBOX, _WBOX)
+        n = -(-n_rows // rows)
+        slots = -(-n * per_chunk // _SMS) * _SMS
+        full = n * per_chunk / slots
+        if full >= _WGRAD_FULL:
+            return n, rows
+        if best is None or full > best[0]:
+            best = (full, n, rows)
+    return best[1], best[2]
+
+
+def _wgrad_plan(dws, n_rows: int) -> WgradPlan:
+    """The bf16 weight pass for dW = A[:, :k_in]^T G[:, :n_out] of every
+    (a_slot, a_w, g_slot, g_w, k_in, n_out, dw_off) in `dws`, with A and G
+    stash slots (column offsets and widths; a slot is an (n_rows, width)
+    array at stash + slot * n_rows).
+
+    A dW is cut into panels of 128 rows (two consumers of 64, one A box
+    each; a panel of <= 64 rows gives both consumers its one A box and half
+    of G's boxes), each a CTA that loads all of its boxes. The kernel runs
+    consecutive jobs (2i, 2i + 1) as a cluster of two, which starts them
+    together: the two panels of a dW of more than 128 rows on one chunk
+    are such a pair (they read the same G, and the second read finds it
+    in L2); every other panel is paired with the next one.
+    """
+    maps, map_of = [], {}
+
+    def map_index(slot, width):
+        if slot not in map_of:
+            map_of[slot] = len(maps)
+            maps.append([slot * n_rows, width, n_rows, width * 2])
+        return map_of[slot]
+
+    pairs, singles = [], []  # job words without the chunk; pairs: two panels of one dW each
+    for a_slot, a_w, g_slot, g_w, k_in, n_out, off in dws:
+        panels = [[map_index(a_slot, a_w), i0, min(2, -(-(k_in - i0) // _WBOX)),
+                   map_index(g_slot, g_w), -(-n_out // _WBOX), off, k_in, n_out]
+                  for i0 in range(0, k_in, 2 * _WBOX)]
+        (pairs if len(panels) == 2 else singles).extend(panels)
+    if len(maps) > _WGRAD_MAX_MAPS:
+        raise ValueError(f"the weight pass reads {len(maps)} stash slots; its kernel takes at most "
+                         f"{_WGRAD_MAX_MAPS} tensor maps")
+    n_chunks, chunk_rows = _wgrad_chunks(n_rows, len(pairs) + len(singles))
+    jobs, pending = [], []
+    for c in range(n_chunks):
+        jobs += [[c] + w for w in pairs]  # an even count: each pair is one cluster
+        for w in singles:
+            pending.append([c] + w)
+            if len(pending) == 2:
+                jobs += pending
+                pending = []
+    jobs += pending
+    jobs = np.asarray(jobs, dtype=np.int32).reshape(-1, _JOB_WORDS)
+    maps = np.asarray(maps, dtype=np.int64).reshape(-1, 4)
+    return WgradPlan(jobs=jobs, maps=maps, n_chunks=n_chunks, chunk_rows=chunk_rows,
+                     issued=_wgrad_issued(jobs, maps, n_rows, chunk_rows))
+
+
+def _wgrad_issued(jobs: np.ndarray, maps: np.ndarray, n_rows: int, chunk_rows: int) -> int:
+    """Stash bytes the jobs' producers issue, as `produce` in
+    csrc/fused_mlp_wgrad_sm90.cuh asks for them: each CTA its A boxes and
+    all of G's. Only a box's part inside the slot counts."""
+    total = 0
+    for chunk, a_map, i0, n_a, g_map, n_g, *_ in jobs.tolist():
+        rows = min(n_rows, (chunk + 1) * chunk_rows) - chunk * chunk_rows
+        boxes = [(a_map, i0 + b * _WBOX) for b in range(n_a)] + [(g_map, b * _WBOX) for b in range(n_g)]
+        total += sum(rows * max(0, min(_WBOX, int(maps[m][1]) - c0)) * 2 for m, c0 in boxes)
+    return total
 
 
 def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
@@ -888,7 +1036,9 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
     (head contributions added, the layer's ReLU mask bits applied),
     its per-tile column sum (db), round(g) into the stash, and the product
     round(g) @ W^T with W stored (K, round16(N)). The weight pass then forms
-    every dW = A^T G from two stash slots, 128 x 128 tiles at a time.
+    every dW = A^T G from two stash slots: float32 in 128 x 128 tiles, bf16
+    in the panels of `_wgrad_plan`. The column sums' slices follow
+    `_colsum_slices`.
     """
     members, kps, shared = _members_of(spec, kp)
     cd = members[0].cdtype
@@ -920,9 +1070,7 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
     def task(a_slot, a_w, g_slot, g_w, k_in, n_out, key, g):
         off = alloc("dw", k_in * n_out)
         g[key] = ("dw", off, (k_in, n_out))
-        for i0 in range(0, k_in, _WTILE):
-            for j0 in range(0, n_out, _WTILE):
-                tasks.append([a_slot, a_w, g_slot, g_w, k_in, n_out, off, i0, j0])
+        tasks.append([a_slot, a_w, g_slot, g_w, k_in, n_out, off])
 
     m0 = members[0]
     lo_kpad = _round16(m0.in_lo)
@@ -1040,18 +1188,31 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
         [len(ops), n_rows, m0.ns, lay["in_lo"], lay["in_hi"], lay["lo_kpad"], lay["hi_kpad"],
          lay["act_ld"], lay["lo_ld"], lay["hi_ld"], lay["slab_ld"], lay["slab_rows"],
          lay["slab_k"], sizes["part"], hvx_w, sizes["mask"]], dtype=np.int32)
-    n_chunks = max(1, min(-(-_WEIGHT_BLOCKS // max(len(tasks), 1)), -(-n_rows // 256)))
-    chunk_rows = -(-(-(-n_rows // n_chunks)) // 32) * 32
-    n_chunks = -(-n_rows // chunk_rows)
+    if cd == torch.bfloat16:
+        wp = _wgrad_plan(tasks, n_rows)
+        n_chunks, chunk_rows, jobs, maps, issued = (wp.n_chunks, wp.chunk_rows, wp.jobs, wp.maps,
+                                                     wp.issued)
+    else:
+        n_chunks = max(1, min(-(-_WEIGHT_BLOCKS // max(len(tasks), 1)), -(-n_rows // 256)))
+        chunk_rows = -(-(-(-n_rows // n_chunks)) // 32) * 32
+        n_chunks = -(-n_rows // chunk_rows)
+        jobs = [t + [i0, j0] for t in tasks for i0 in range(0, t[4], _WTILE)
+                for j0 in range(0, t[5], _WTILE)]
+        jobs = np.asarray(jobs, dtype=np.int32).reshape(-1, _TASK_WORDS)
+        maps, issued = np.zeros((0, 4), dtype=np.int64), 0
+    sums = [(1, -(-n_rows // bm), sizes["part"]), (1, n_chunks, sizes["dw"]),
+            (hvx_slot * (n_rows // m0.ns), m0.ns, hvx_w)]
     wm = 4 if cd == torch.bfloat16 else 2
     wts, fpar = buf.tensors()
     return BwdPlan(
         header=header, ops=np.asarray(ops, dtype=np.int32).reshape(-1, _BOP_WORDS),
-        tasks=np.asarray(tasks, dtype=np.int32).reshape(-1, _TASK_WORDS), wts=wts, fpar=fpar,
+        tasks=jobs, wts=wts, fpar=fpar,
         stash_cols=sizes["stash"], part_w=sizes["part"], dw_total=sizes["dw"], n_chunks=n_chunks,
         chunk_rows=chunk_rows, hvx_w=hvx_w, n_hvx=hvx_slot,
         smem=_smem(cd, lay, extra=(wm * (256 + 1) + bm) * _MAX_HEAD * 4),
         mask_words=-(-n_rows // bm) * sizes["mask"] * (32 * wm * 4) * 2, grads=grads,
+        maps=maps, wgrad_bytes=issued, slices=tuple(_colsum_slices(*x)[0] for x in sums),
+        scratch=_colsum_scratch(sums), dws=tasks,
     )
 
 
@@ -1159,6 +1320,8 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
     parts, part_out = f32(n_tiles * plan.part_w), f32(plan.part_w)
     dw_part, dw_out = f32(max(plan.n_chunks * plan.dw_total, 1)), f32(max(plan.dw_total, 1))
     dhvx = f32(plan.n_hvx, n // ns, max(plan.hvx_w, 1))
+    scratch = f32(plan.scratch)
+    slices = np.asarray(plan.slices, dtype=np.int32)
     lib = build.load_library("fused_mlp_bwd")
     args = [1 if cd == torch.bfloat16 else 0, plan.header.ctypes.data_as(ctypes.c_void_p),
             int(plan.header.size), _ptr(ops), _ptr(lo)]
@@ -1166,12 +1329,95 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
     args += [_ptr(hvx), _ptr(d_planes), _ptr(plan.wts), _ptr(plan.fpar), _ptr(tasks),
              len(plan.tasks), plan.n_chunks, plan.chunk_rows, plan.dw_total,
              plan.n_hvx * (n // ns), _ptr(stash), _ptr(g32), _ptr(masks), _ptr(parts),
-             _ptr(part_out), _ptr(dw_part), _ptr(dw_out), _ptr(dhvx), ctypes.c_int(plan.smem),
+             _ptr(part_out), _ptr(dw_part), _ptr(dw_out), _ptr(dhvx),
+             plan.maps.ctypes.data_as(ctypes.c_void_p), len(plan.maps),
+             slices.ctypes.data_as(ctypes.c_void_p), _ptr(scratch), ctypes.c_int(plan.smem),
              _stream(dev)]
     rc = getattr(lib, entry)(*args)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     return unpack_grads(plan, dw_out, part_out), dhvx
+
+
+def wgrad(slots, dws) -> list:
+    """The bf16 weight pass alone: [A[:, :k_in]^T G[:, :n_out]] in float32
+    for every (a, g, k_in, n_out) of `dws`, with A = slots[a] and G =
+    slots[g], (n_rows, width) bf16 matrices (width a multiple of 16).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (`_wgrad_plan`'s jobs on a stash of the slots, then the column sum of
+    its partials over the chunks) or raise.
+    """
+    if slots[0].device.type == "cpu":
+        return [slots[a][:, :k].float().T @ slots[g][:, :m].float() for a, g, k, m in dws]
+    n, dev = slots[0].shape[0], slots[0].device
+    widths = [x.shape[1] for x in slots]
+    for x in slots:
+        if x.dtype != torch.bfloat16 or x.device != dev or x.dim() != 2 or x.shape[0] != n:
+            raise ValueError("slots must be (n_rows, width) bf16 tensors on one device")
+    if any(w % 16 for w in widths) or not n:
+        raise ValueError(f"slot widths {widths} must be multiples of 16, rows > 0")
+    cols = np.cumsum([0] + widths).tolist()
+    stash = torch.cat([x.contiguous().reshape(-1) for x in slots])
+    tasks, offs, total = [], [], 0
+    for a, g, k, m in dws:
+        if not (0 < k <= widths[a] and 0 < m <= widths[g] and m % 2 == 0):
+            raise ValueError(f"dW ({k}, {m}) does not fit slots of widths {widths[a]}, {widths[g]}")
+        tasks.append([cols[a], widths[a], cols[g], widths[g], k, m, total])
+        offs.append(total)
+        total += k * m
+    dw = _launch_wgrad(stash, n, _wgrad_plan(tasks, n), total)
+    wgrad.launches += 1
+    return [dw[o : o + k * m].view(k, m) for o, (_, _, k, m) in zip(offs, dws)]
+
+
+def _launch_wgrad(stash: torch.Tensor, n_rows: int, plan: WgradPlan, dw_total: int) -> torch.Tensor:
+    """Run a WgradPlan's jobs on a bf16 stash, then the column sum of their
+    partials: the reduced dW vector (dw_total,) float32."""
+    from simplenerf_torch.ops import build
+
+    dev = stash.device
+    jobs = torch.from_numpy(plan.jobs).to(dev)
+    dw_part = torch.empty(plan.n_chunks * dw_total, dtype=torch.float32, device=dev)
+    dw = torch.empty(dw_total, dtype=torch.float32, device=dev)
+    slices, _ = _colsum_slices(1, plan.n_chunks, dw_total)
+    scratch = torch.empty(_colsum_scratch([(1, plan.n_chunks, dw_total)]), dtype=torch.float32,
+                          device=dev)
+    rc = build.load_library("fused_mlp_bwd").snerf_wgrad(
+        _ptr(stash), plan.maps.ctypes.data_as(ctypes.c_void_p), len(plan.maps), _ptr(jobs),
+        len(plan.jobs), n_rows, plan.chunk_rows, plan.n_chunks, dw_total, _ptr(dw_part), _ptr(dw),
+        slices, _ptr(scratch), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"snerf_wgrad kernel launch failed: CUDA error {rc}")
+    return dw
+
+
+def column_sums(x: torch.Tensor) -> torch.Tensor:
+    """(S, L, C) float32 -> (S, C), the sum over L in the backward's fixed
+    order (`_colsum_slices`). CPU tensors take the plain version
+    (torch.sum); CUDA tensors launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return x.sum(1)
+    from simplenerf_torch.ops import build
+
+    if x.dtype != torch.float32 or x.dim() != 3:
+        raise ValueError(f"expected an (S, L, C) float32 tensor, got {tuple(x.shape)} {x.dtype}")
+    x = x.contiguous()
+    S, L, C = x.shape
+    slices, _ = _colsum_slices(S, L, C)
+    out = torch.empty((S, C), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(_colsum_scratch([(S, L, C)]), dtype=torch.float32, device=x.device)
+    rc = build.load_library("fused_mlp_bwd").snerf_colsum(
+        _ptr(x), _ptr(out), S, L, C, slices, _ptr(scratch), _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"snerf_colsum kernel launch failed: CUDA error {rc}")
+    if S and C:
+        column_sums.launches += 1
+    return out
+
+
+wgrad.launches = 0
+column_sums.launches = 0
 
 
 def _stacked_cotangents(n_planes: int, d_planes, nr: int, ns: int, device) -> torch.Tensor:

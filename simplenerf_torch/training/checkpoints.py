@@ -18,6 +18,7 @@ lists in order; `flat_leaves`), so Adam moments cross between the packages.
 
 from __future__ import annotations
 
+import warnings
 from pathlib import Path
 from typing import Any, Optional
 
@@ -92,20 +93,36 @@ def opt_state_to_state(opt_state: dict) -> dict:
     }
 
 
-def opt_state_from_state(state: Any, size: int, device) -> dict:
+def opt_state_from_state(state: Any, params: Any, device) -> Optional[dict]:
     """The JAX checkpoint layout -> {"count", "mu", "nu"} on `device`, checked
-    against the flat params size."""
-    adam = state["0"] if isinstance(state, dict) else None
-    if adam is None or not {"count", "mu", "nu"} <= set(adam):
-        raise ValueError("checkpoint optimizer state is not the flat-Adam layout")
-    mu, nu = np.asarray(adam["mu"], np.float32), np.asarray(adam["nu"], np.float32)
-    if mu.shape != (size,) or nu.shape != (size,):
-        raise ValueError(f"checkpoint Adam moments {mu.shape} != flat params ({size},)")
-    return {
-        "count": int(np.asarray(adam["count"])),
-        "mu": torch.as_tensor(mu, device=device),
-        "nu": torch.as_tensor(nu, device=device),
-    }
+    against the params tree.
+
+    As the JAX package's `load_checkpoint` does: moments saved as per-leaf
+    trees (checkpoints from before the flat-vector Adam) are restored through
+    the params tree and ravelled in `flat_leaves` order, with a warning (Adam
+    is elementwise, so the flat state is the same state); a layout that
+    cannot be read gives None, with a warning, and the caller keeps fresh
+    optimizer state.
+    """
+    size = sum(p.numel() for p in flat_leaves(params))
+    try:
+        adam = state["0"]
+        count = int(np.asarray(adam["count"]))
+        if isinstance(adam["mu"], dict) and isinstance(adam["nu"], dict):
+            mu, nu = (torch.cat([leaf.reshape(-1) for leaf in flat_leaves(
+                _from_state(params, adam[k], torch.device(device), f"opt_state.{k}"))]).float()
+                for k in ("mu", "nu"))
+            warnings.warn("migrated per-leaf Adam checkpoint state to the flat-vector layout")
+        else:
+            mu, nu = (torch.as_tensor(np.asarray(adam[k], np.float32), device=device)
+                      for k in ("mu", "nu"))
+        if mu.shape != (size,) or nu.shape != (size,):
+            raise ValueError(f"checkpoint Adam moments {tuple(mu.shape)} != flat params ({size},)")
+    except (ValueError, KeyError, TypeError, IndexError):
+        warnings.warn("checkpoint optimizer state layout is unrecognizable; "
+                      "resuming with FRESH optimizer state (Adam moments reset)")
+        return None
+    return {"count": count, "mu": mu, "nu": nu}
 
 
 def load_checkpoint(path: Path, params_target: Any, device="cpu"):

@@ -124,8 +124,9 @@ class Trainer:
                 )
                 self.set_params(params)
                 if raw_opt is not None:
-                    size = sum(p.numel() for p in self.leaves)
-                    self.opt_state = checkpoints.opt_state_from_state(raw_opt, size, self.device)
+                    opt = checkpoints.opt_state_from_state(raw_opt, self.params, self.device)
+                    if opt is not None:  # else fresh state (warned)
+                        self.opt_state = opt
                 # Replay the host-side sampler streams: the resumed run draws
                 # the batches an uninterrupted run would.
                 self.train_pp.fast_forward(self.start_iter)

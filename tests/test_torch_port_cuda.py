@@ -149,8 +149,10 @@ def test_backward_kernel_matches_plain(cuda_device, name, ns, dtype):
         dkp["dhvx"], want["dhvx"] = dhvx, want_hvx
     _grad_errors(f"bwd {name} ns={ns}", dkp, want, dtype)
     # Twice on the same inputs: the fixed-order sums give the same bits.
-    again, _ = fused_mlp.fused_bwd(spec, kp, lo, hi, hvx, d_planes)
+    again, again_hvx = fused_mlp.fused_bwd(spec, kp, lo, hi, hvx, d_planes)
     assert all(torch.equal(again[k], dkp[k]) for k in again)
+    if spec.has_hvx:
+        assert torch.equal(again_hvx, dhvx)
 
 
 def _ensemble(nr, ns, dtype, device, seed=0):
@@ -191,6 +193,70 @@ def test_ensemble_kernels_match_plain(cuda_device, ns, dtype):
     assert len(dhvxs) == len(want_hvxs) == len(ens.hvx_members)
     for a, b in zip(dhvxs, want_hvxs):
         _grad_errors(f"ens bwd ns={ns}", {"dhvx": a}, {"dhvx": b}, dtype)
+    again, again_hvx = fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, d_planes)
+    for a, b in zip(again, dkps):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    assert all(torch.equal(a, b) for a, b in zip(again_hvx, dhvxs))
+
+
+# The bf16 weight pass alone (fused_mlp.wgrad): slots of these widths, and
+# dW = A[:, :k_in]^T G[:, :n_out] over them. "lo" is 64 wide with k_in 63
+# (w0i, a skip's w{i}i); a 256-wide pair of A and G with a lo dW on the same
+# G is a skip join; 48 and 144 pad G to one and three boxes.
+WGRAD_CASES = {
+    "published skip": ([64, 256, 256], [(1, 2, 256, 256), (0, 2, 63, 256), (0, 1, 63, 256)]),
+    "views": ([256, 128, 64], [(0, 1, 256, 128), (2, 1, 63, 128)]),
+    "width 48": ([48, 48, 64], [(0, 1, 48, 48), (2, 1, 63, 48)]),
+    "width 144": ([144, 144, 64], [(0, 1, 144, 144), (2, 0, 63, 144), (1, 1, 144, 144)]),
+}
+# Float32 sums of the same bf16 products in another order: max abs error
+# over the largest |value| of each dW.
+WGRAD_TOL = 1e-5
+
+
+def _slots(widths, n, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((n, w), generator=g, device=device).to(torch.bfloat16) for w in widths]
+
+
+@pytest.mark.parametrize("n", [37, 5000, 66_368])
+@pytest.mark.parametrize("case", sorted(WGRAD_CASES))
+def test_wgrad_matches_plain(cuda_device, case, n):
+    """37 rows: fewer than one 64-row stage; 5000 and 66,368: a ragged last
+    stage, and chunks of which the last is short."""
+    widths, dws = WGRAD_CASES[case]
+    slots = _slots(widths, n, cuda_device, seed=n)
+    before = fused_mlp.wgrad.launches
+    got = fused_mlp.wgrad(slots, dws)
+    torch.cuda.synchronize()
+    assert fused_mlp.wgrad.launches == before + 1
+    want = fused_mlp.wgrad([x.cpu() for x in slots], dws)
+    for (a, g, k, m), x, y in zip(dws, got, want):
+        err = (x.cpu() - y).abs().max().item() / max(y.abs().max().item(), 1e-30)
+        print(f"wgrad {case} n={n} dW ({k}, {m}): max abs err / largest {err:.3e}")
+        assert x.shape == (k, m) and err <= WGRAD_TOL, f"dW ({k}, {m}) of slots {a}, {g}: {err}"
+    again = fused_mlp.wgrad(slots, dws)
+    assert all(torch.equal(x, y) for x, y in zip(again, got)), "two launches differ"
+
+
+@pytest.mark.parametrize("shape", [(1, 6181, 3076), (1, 2048, 9228), (1, 23, 589_312),
+                                   (4096, 192, 128), (3, 191, 130), (2, 1, 12), (5, 40, 7)])
+def test_column_sums_match_torch_sum(cuda_device, shape):
+    """The step's partials, dW-partials and dhvx shapes (some made ragged),
+    a column count no 16-byte load divides, one row: each column's error
+    against torch.sum within 1e-5 of its sum of |x|, and the same bits on
+    a second launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=cuda_device)
+    before = fused_mlp.column_sums.launches
+    got = fused_mlp.column_sums(x)
+    torch.cuda.synchronize()
+    assert fused_mlp.column_sums.launches == before + 1
+    want = x.double().sum(1)
+    err = ((got.double() - want).abs() / x.double().abs().sum(1).clamp_min(1e-30)).max().item()
+    print(f"column sums {shape}: largest error / sum |x| {err:.3e}")
+    assert got.shape == (shape[0], shape[2]) and err <= 1e-5
+    assert torch.equal(fused_mlp.column_sums(x), got), "two launches differ"
 
 
 def test_autograd_runs_both_kernels(cuda_device):

@@ -365,14 +365,58 @@ def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
             if nseg:
                 acc = v.to(cd).float() @ weight(w_off[0], width, kpad[0]).T
 
-    dw = torch.zeros(plan.dw_total)
-    for a_slot, a_w, g_slot, g_w, k_in, n_out, off, i0, j0 in plan.tasks.tolist():
-        a = slot(a_slot, a_w).float()[:, i0 : min(i0 + 128, k_in)]
-        gm = slot(g_slot, g_w).float()[:, j0 : min(j0 + 128, n_out)]
-        view = dw[off : off + k_in * n_out].view(k_in, n_out)
-        view[i0 : i0 + a.shape[1], j0 : j0 + gm.shape[1]] = a.T @ gm
+    if cd == torch.bfloat16:
+        dw = _run_wgrad_jobs(stash, n, plan.tasks, plan.maps, plan.chunk_rows, plan.n_chunks,
+                             plan.dw_total)
+    else:
+        dw = torch.zeros(plan.dw_total)
+        for a_slot, a_w, g_slot, g_w, k_in, n_out, off, i0, j0 in plan.tasks.tolist():
+            a = slot(a_slot, a_w).float()[:, i0 : min(i0 + 128, k_in)]
+            gm = slot(g_slot, g_w).float()[:, j0 : min(j0 + 128, n_out)]
+            view = dw[off : off + k_in * n_out].view(k_in, n_out)
+            view[i0 : i0 + a.shape[1], j0 : j0 + gm.shape[1]] = a.T @ gm
     dhvx = g32[: plan.n_hvx].reshape(plan.n_hvx, n // ns, ns, g32.shape[-1]).sum(2)
     return fused_mlp.unpack_grads(plan, dw, parts.sum(0)), dhvx
+
+
+def _run_wgrad_jobs(stash, n, jobs, maps, chunk_rows, n_chunks, dw_total):
+    """The bf16 weight pass's jobs, as fused_mlp_bwd_wgrad_kernel runs them:
+    each CTA's two consumers (their A box and G boxes), one partials row per
+    chunk; then the chunks summed in order. Each dW element must be written
+    by exactly one consumer per chunk."""
+    box = fused_mlp._WBOX
+    part = torch.zeros((n_chunks, dw_total))
+    written = torch.zeros((n_chunks, dw_total), dtype=torch.int32)
+
+    def boxes(m, c0, nb, rows):  # nb boxes of map m from column c0, zeros past the slot
+        off, width = int(maps[m][0]), int(maps[m][1])
+        view = stash[off : off + width * n].view(n, width)[rows].float()
+        out = torch.zeros((view.shape[0], nb * box))
+        cols = max(0, min(nb * box, width - c0))
+        out[:, :cols] = view[:, c0 : c0 + cols]
+        return out
+
+    for chunk, a_map, i0, n_a, g_map, n_g, dw_off, k_in, n_out in jobs.tolist():
+        rows = slice(chunk * chunk_rows, min(n, (chunk + 1) * chunk_rows))
+        for c in range(2):
+            ab, gb0, gn = c, 0, n_g
+            if n_a == 1:
+                h = (n_g + 1) // 2
+                ab, gb0, gn = 0, (h if c else 0), (n_g - h if c else h)
+            if gn == 0:
+                continue
+            val = boxes(a_map, i0 + ab * box, 1, rows).T @ boxes(g_map, gb0 * box, gn, rows)
+            row0, col0 = i0 + ab * box, gb0 * box
+            r, q = max(0, min(box, k_in - row0)), max(0, min(gn * box, n_out - col0))
+            part[chunk, dw_off : dw_off + k_in * n_out].view(k_in, n_out)[
+                row0 : row0 + r, col0 : col0 + q] = val[:r, :q]
+            written[chunk, dw_off : dw_off + k_in * n_out].view(k_in, n_out)[
+                row0 : row0 + r, col0 : col0 + q] += 1
+    assert (written == 1).all(), "a dW element is written by no consumer or by two"
+    dw = torch.zeros(dw_total)
+    for chunk in range(n_chunks):
+        dw += part[chunk]
+    return dw
 
 
 def _assert_grads_close(got, want, tol):
@@ -501,3 +545,61 @@ def test_forward_probe_edits_match_the_kernel_sources(table):
     variants = probe.VARIANTS if table == "EDITS" else probe.TIMING
     for name, parts in variants.items():
         probe._edited_sources(parts, edits)  # raises on an edit that no longer matches
+
+
+@pytest.mark.parametrize("table", ["EDITS", "TIMING_EDITS"])
+def test_backward_probe_edits_match_the_kernel_sources(table, monkeypatch):
+    """Every edit of tools/probe_fused_mlp_bwd.py still finds its text in the
+    kernel sources, so the probe builds each variant on the card."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    tools = Path(__file__).resolve().parents[1] / "tools"
+    monkeypatch.setattr(sys, "argv", ["probe_fused_mlp_bwd.py"])
+    monkeypatch.syspath_prepend(str(tools))
+    spec = importlib.util.spec_from_file_location("probe_fused_mlp_bwd", tools / "probe_fused_mlp_bwd.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    from probe_fused_mlp import _edited_sources
+
+    edits = getattr(probe, table)
+    variants = probe.VARIANTS if table == "EDITS" else {**probe.TIMING, **probe.WGRAD_TIMING}
+    for name, parts in variants.items():
+        if "(v3)" not in name:  # the "(v3)" parts split an earlier row pass (--parent)
+            _edited_sources(parts, edits)  # raises on an edit that no longer matches
+
+
+@pytest.mark.parametrize("n", [37, 1000, 4165])
+def test_wgrad_plan_matches_jax_dw_product(n):
+    """The bf16 weight pass's jobs (run as the kernel runs them) and the
+    port's plain `wgrad` against the JAX backward kernel's dW product
+    (`_mm_tn`: bf16 operands, float32 sums) on the same numpy inputs:
+    a skip join's 256 x 256 and lo dWs sharing G, the views' 256 x 128, a
+    48-wide and a 144-wide dW (one and three G boxes), rows fewer than one
+    64-row stage, a ragged stage, several chunks."""
+    import types
+
+    widths = [64, 256, 256, 128, 48, 144]
+    dws = [(1, 2, 256, 256), (0, 2, 63, 256), (0, 1, 63, 256), (2, 3, 256, 128),
+           (4, 4, 48, 48), (5, 1, 144, 256)]
+    rng = np.random.default_rng(n)
+    slots = [rng.standard_normal((n, w)).astype(np.float32) for w in widths]
+    tslots = [torch.from_numpy(x).to(torch.bfloat16) for x in slots]
+    cols = np.cumsum([0] + widths).tolist()
+    tasks, total = [], 0
+    for a, g, k, m in dws:
+        tasks.append([cols[a], widths[a], cols[g], widths[g], k, m, total])
+        total += k * m
+    plan = fused_mlp._wgrad_plan(tasks, n)
+    stash = torch.cat([x.reshape(-1) for x in tslots])
+    dw = _run_wgrad_jobs(stash, n, plan.jobs, plan.maps, plan.chunk_rows, plan.n_chunks, total)
+    plain = fused_mlp.wgrad(tslots, dws)
+    spec = types.SimpleNamespace(cdtype=jnp.bfloat16)
+    for (a, g, k, m), (*_, off), got in zip(dws, tasks, plain):
+        want = np.asarray(jfused._mm_tn(jnp.asarray(slots[a][:, :k]), jnp.asarray(slots[g][:, :m]),
+                                        spec))
+        scale = np.abs(want).max()
+        jobs = dw[off : off + k * m].view(k, m).numpy()
+        assert np.abs(jobs - want).max() <= 1e-5 * scale, f"dW ({k}, {m}) by the jobs"
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * scale, f"dW ({k}, {m}) plain"

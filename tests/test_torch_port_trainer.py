@@ -126,6 +126,74 @@ def test_jax_checkpoint_resumes_in_the_port(jax_run):
         np.testing.assert_array_equal(a, b)
 
 
+def _resume_with_opt_state(jax_run, out, opt_state):
+    """A port Trainer resumed from the JAX run's checkpoint with its
+    optimizer state replaced by `opt_state`, written with the port's codec."""
+    from simplenerf_torch.training import msgpack_codec
+
+    raw = msgpack_codec.restore((jax_run["out"] / "saved_models/Model_Latest.msgpack").read_bytes())
+    raw["opt_state"] = opt_state
+    (out / "saved_models").mkdir(parents=True)
+    (out / f"saved_models/Model_Iter{STEPS:06}.msgpack").write_bytes(msgpack_codec.packb(raw))
+    (out / "saved_models/Model_Latest.msgpack").symlink_to(f"Model_Iter{STEPS:06}.msgpack")
+    cfg = copy.deepcopy(jax_run["cfg"])
+    cfg["resume_training"] = True
+    return _port_trainer(jax_run, out, cfg=cfg)
+
+
+def test_resume_migrates_per_leaf_adam_checkpoint(jax_run, tmp_path):
+    """A checkpoint whose Adam moments are per-leaf trees (the layout before
+    the flat-vector Adam) resumes with the moments ravelled in flat_leaves
+    order and a warning, and then trains as the flat-state resume does."""
+    cfg = copy.deepcopy(jax_run["cfg"])
+    cfg["resume_training"] = True
+    flat = _port_trainer(jax_run, jax_run["out"], cfg=cfg)
+    count = np.asarray(STEPS, np.int32)
+
+    def per_leaf(vec):  # the flat moments cut into a params-shaped state tree
+        leaves, pos = [], 0
+        for p in flat.leaves:
+            leaves.append(vec[pos : pos + p.numel()].reshape(p.shape))
+            pos += p.numel()
+        it = iter(leaves)
+
+        def tree(t):
+            if isinstance(t, dict):
+                return {str(k): tree(t[k]) for k in sorted(t)}
+            if isinstance(t, (list, tuple)):
+                return {str(i): tree(v) for i, v in enumerate(t)}
+            return next(it)
+
+        return tree(flat.params)
+
+    state = {"0": {"count": count, "mu": per_leaf(jax_run["mu"]), "nu": per_leaf(jax_run["nu"])},
+             "1": {"count": count.copy()}}
+    with pytest.warns(UserWarning, match="migrated per-leaf Adam"):
+        mig = _resume_with_opt_state(jax_run, tmp_path, state)
+    assert mig.start_iter == flat.start_iter == STEPS
+    for k in ("mu", "nu"):
+        np.testing.assert_array_equal(mig.opt_state[k].numpy(), flat.opt_state[k].numpy())
+    assert mig.opt_state["count"] == flat.opt_state["count"] == STEPS
+    mig.train_one_iter(STEPS)
+    flat.train_one_iter(STEPS)
+    for a, b in zip(mig.leaves, flat.leaves):
+        np.testing.assert_array_equal(a.detach().numpy(), b.detach().numpy())
+
+
+def test_resume_with_unreadable_adam_state_starts_fresh(jax_run, tmp_path):
+    """An optimizer state the port cannot read resumes the params with fresh
+    Adam state and a warning, as the JAX package does."""
+    count = np.asarray(STEPS, np.int32)
+    state = {"0": {"count": count, "mu": np.zeros(5, np.float32), "nu": np.zeros(5, np.float32)},
+             "1": {"count": count.copy()}}
+    with pytest.warns(UserWarning, match="FRESH optimizer state"):
+        t = _resume_with_opt_state(jax_run, tmp_path, state)
+    assert t.start_iter == STEPS and t.opt_state["count"] == 0
+    assert not t.opt_state["mu"].any() and not t.opt_state["nu"].any()
+    got = np.concatenate([p.detach().numpy().reshape(-1) for p in t.leaves])
+    np.testing.assert_array_equal(got, _flat(jax_run["params"]))
+
+
 def test_port_checkpoint_loads_into_jax(jax_run, tmp_path):
     t = _port_trainer(jax_run, tmp_path)
     t.set_params(convert.params_from_numpy(jax_run["init"]))

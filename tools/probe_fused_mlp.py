@@ -134,9 +134,10 @@ def _applies(parts: list[str], edits: dict) -> bool:
 
 
 def _build(out: Path, name: str, parts: list[str], lib: str = "fused_mlp_fwd",
-           edits: dict = EDITS) -> subprocess.Popen:
+           edits: dict = EDITS, flags: tuple = ()) -> subprocess.Popen:
     """Start nvcc on csrc/<lib>.cu with the parts' edits applied, the sources
-    copied to out/<variant>/; the library goes to `proc.lib`."""
+    copied to out/<variant>/, and the port's flags plus `flags`; the library
+    goes to `proc.lib`."""
     from simplenerf_torch.ops import build
 
     stem = "".join(c if c.isalnum() else "_" for c in name)
@@ -144,7 +145,7 @@ def _build(out: Path, name: str, parts: list[str], lib: str = "fused_mlp_fwd",
     src_dir.mkdir()
     for f, text in _edited_sources(parts, edits).items():
         (src_dir / f).write_text(text)
-    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out / f"lib{stem}.so"),
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", str(out / f"lib{stem}.so"),
            str(src_dir / f"{lib}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     proc.lib = out / f"lib{stem}.so"

@@ -15,7 +15,9 @@ trio at 4096 x 64 (seed 5). Each wrapper is timed three ways:
     for a forward, as the probe does;
   - torch.profiler over 5 calls: per call, the device time of the kernel
     itself (the events whose name holds "fused_mlp" or "colsum") and of
-    every device operation the call issues (the packing included).
+    every device operation the call issues (the packing included); for a
+    backward also its passes over 3 calls (chip_smoke.bwd_pass_ms: row
+    pass, weight pass, column sums, and each column sum apart).
 
 The fine forward is timed once before and once after three calls of the
 64k-ray x 192 serving chunk, the shape the probe times just before it.
@@ -58,11 +60,16 @@ def profile_ms(fn, calls: int = 5) -> tuple[float, float]:
     return kernel, total
 
 
-def timings(fn, iters: tuple[int, ...]) -> dict:
+def timings(fn, iters: tuple[int, ...], plan=None) -> dict:
+    """Event and profiler times of fn; with a backward's plan, also its
+    passes (row, weight, column sums, each column sum apart)."""
     import chip_smoke
 
     out = {f"events_{n}": chip_smoke.cuda_time_ms(fn, iters=n) for n in iters}
     out["kernel_ms"], out["device_ms"] = profile_ms(fn)
+    if plan is not None:  # a parent's plan may have no slices: one launch a sum
+        sums = tuple(2 if n > 1 else 1 for n in getattr(plan, "slices", (1, 1, 1)))
+        out.update(chip_smoke.bwd_pass_ms(fn, sums=sums))
     return out
 
 
@@ -93,12 +100,14 @@ def main() -> int:
     dp = chip_smoke.cotangents(ops[0].n_planes, nr, fine_ns, seed=4)
     out["fwd fine seed 3"] = timings(lambda: fused_mlp.fused_apply(*ops), (10, 20))
     out["fwd fine seed 192"] = timings(lambda: fused_mlp.fused_apply(*alt), (10, 20))
-    out["bwd fine"] = timings(lambda: fused_mlp.fused_bwd(*ops, dp), (5,))
+    out["bwd fine"] = timings(lambda: fused_mlp.fused_bwd(*ops, dp), (5,),
+                             fused_mlp.pack_bwd_program(*ops[:2], nr * fine_ns))
 
     ens, kps, lo, hvxs = chip_smoke.ensemble_operands(nr, coarse_ns, bf16, seed=5)
     edp = chip_smoke.cotangents(ens.n_planes, nr, coarse_ns, seed=6)
     out["ens fwd trio"] = timings(lambda: fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs), (10, 20))
-    out["ens bwd trio"] = timings(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, edp), (5,))
+    out["ens bwd trio"] = timings(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, edp), (5,),
+                                 fused_mlp.pack_bwd_program(ens, kps, nr * coarse_ns))
     del ens, kps, lo, hvxs, edp
 
     serve = chip_smoke.kernel_operands(MLPConfig(), chip_smoke.CHUNK_RAYS, 192, bf16, seed=192)
