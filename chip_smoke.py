@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke for simplenerf_torch: train and serve the published SimpleNeRF on one CUDA card.
+"""Chip smoke for simplenerf_torch: train, serve and run the LLFF experiment's flow on one CUDA card.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -33,12 +33,26 @@ without a result):
      forward and one backward per step; then one step's parameter
      gradients through the kernels against the plain versions swapped in
      (same params, batch and draws), in float32 and bfloat16;
-  6. chunks: the forward kernel at the chunk shapes serving gives it (64k
+  6. pipeline: the LLFF experiment's flow, `drivers.llff.run` (what
+     `python -m simplenerf_torch.drivers.llff` runs), on a fresh copy of
+     the scene with the published bf16 recipe: 20 training steps with
+     validation renders and loss maps every 10 and a torch.profiler window
+     over steps 12-13, `start_testing` with QA (the scene's GT depths,
+     VM02 masks from `qa.masks.generate_visibility_masks`), both videos
+     along a 4-pose spiral from `dataset_tools.video_poses`; the forward
+     kernel's launches during validation must be 2 per chunk per frame per
+     round, every validation output must exist and be finite, a
+     validation frame's fine rgb must agree with the Tester's render at
+     its pose and with the plain versions (1e-3), every QA family must be
+     scored (LPIPS may be skipped without its package), each video must
+     have 4 PNG frames and the trace must hold device kernels; its
+     readings go on a `{"pipeline": ...}` line before the kernels' line;
+  7. chunks: the forward kernel at the chunk shapes serving gives it (64k
      rays x 64 / 192 samples for the 756x1008 frame, one test frame's
      chunk, and a 41,152-ray chunk), held against its plain version; at the
      64k shapes it is also timed with CUDA events after warm-up, beside the
      plain version and the card's bound;
-  7. timing: each kernel at the training step's shapes (CUDA events after
+  8. timing: each kernel at the training step's shapes (CUDA events after
      warm-up) beside its plain version and its bound, each backward's row
      pass, weight pass and column sums apart and each of its three column
      sums apart (torch.profiler's kernel events); for each backward the
@@ -49,7 +63,8 @@ without a result):
      after 3 of warm-up), rays/s, and a torch.profiler breakdown of the
      step's device time by kernel.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON (a backward's row also has row_ms, weight_ms, sums_ms,
+per-kernel JSON (`launches` from the 40-step training run,
+`launches_pipeline` from phase 6's; a backward's row also has row_ms, weight_ms, sums_ms,
 sums_parts_ms (partials, dW partials, dhvx), weight_library_ms and
 sums_library_ms (measured; the weight pass's and column sums' bounds are
 printed on its `time` lines), its bf16 row kernel's ptxas registers and
@@ -69,6 +84,7 @@ import contextlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -729,9 +745,12 @@ def profile_steps(trainer, start: int, steps: int) -> dict:
 
 def make_scene(work: Path, h: int, w: int):
     """The seeded synthetic scene (h x w, 6 frames, 3 for training; bench.py's
-    size), Configs.json for the published bf16 recipe, the train-mode
-    ModelConfigs.json and a checkpoint of seeded random weights, under `work`.
+    size), its analytic depths as <work>/gt_depths/blobs/NNNN.npy (the
+    pseudo-GT depths of the QA depth families), Configs.json for the
+    published bf16 recipe, the train-mode ModelConfigs.json and a checkpoint
+    of seeded random weights, under `work`.
     Returns (db, runs, run_dir, cfg, model_configs)."""
+    import numpy as np
     import torch
 
     from simplenerf_torch import config
@@ -743,7 +762,10 @@ def make_scene(work: Path, h: int, w: int):
     from simplenerf_torch.training import checkpoints
 
     db, runs = work / "db", work / "runs"
-    generate_scene(db, scene_name="blobs", num_frames=6, h=h, w=w, num_train=3, seed=0)
+    gt = generate_scene(db, scene_name="blobs", num_frames=6, h=h, w=w, num_train=3, seed=0)
+    (work / "gt_depths/blobs").mkdir(parents=True, exist_ok=True)
+    for f, depth in enumerate(gt["depths"]):
+        np.save(work / f"gt_depths/blobs/{f:04}.npy", depth)
     cfg = presets.simplenerf_config(compute_dtype="bfloat16", scene_id="blobs")
     run_dir = runs / "training/train0000"
     config.save_configs(run_dir, cfg)
@@ -846,11 +868,12 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
     # The main path: counters at 0 just before, read just after.
     fused_mlp.fused_apply.launches = 0
     t0 = time.perf_counter()
-    rendered = runner.start_testing({"train_num": 0, "test_num": 0}, db, runs, run_qa=False)
+    if runner.start_testing({"train_num": 0, "test_num": 0}, db, runs, run_qa=False) != {}:
+        fail("start_testing without QA returned scores")
     torch.cuda.synchronize()
     t_test = time.perf_counter() - t0
     test_launches = fused_mlp.fused_apply.launches
-    frames = rendered["blobs"]
+    frames = sorted(int(p.stem) for p in (runs / "testing/test0000/blobs/predicted_frames").glob("*.png"))
     per_frame = -(-(h * w) // CHUNK_RAYS)
     if len(frames) != 3 or test_launches != 2 * per_frame * len(frames):
         fail(f"start_testing rendered {frames} with {test_launches} kernel launches")
@@ -900,6 +923,230 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
         fail("the served crop disagrees with the plain path")
     return {"launches": launches, "frame_s": t_frame, "test_s": t_test,
             "frames": len(frames), "crop_err": crop_err}
+
+
+PIPE_STEPS, PIPE_VAL_INTERVAL, VIDEO_POSES = 20, 10, 4
+
+
+@contextlib.contextmanager
+def timed_calls(owner, attr: str):
+    """Wrap owner.<attr> so that each call appends {"s", "fwd_launches",
+    "args", "kwargs"} to the yielded list: host seconds between
+    synchronisations and the forward kernel's launches during the call."""
+    import torch
+
+    from simplenerf_torch.ops import fused_mlp
+
+    orig, log = getattr(owner, attr), []
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        n0, t0 = fused_mlp.fused_apply.launches, time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append({"s": time.perf_counter() - t0, "fwd_launches": fused_mlp.fused_apply.launches - n0,
+                    "args": args, "kwargs": kwargs})
+        return out
+
+    setattr(owner, attr, wrapper)
+    try:
+        yield log
+    finally:
+        setattr(owner, attr, orig)
+
+
+def pipeline(work: Path, card: str, h: int = 189, w: int = 252) -> dict:
+    """The LLFF experiment's flow, `drivers.llff.run` (what `llff.main` runs),
+    on a fresh copy of the seeded synthetic scene that `make_scene` wrote
+    under `work` with the published bf16 recipe: 20 training steps with
+    validation every 10 (loss maps on), a torch.profiler window over steps
+    12-13, then testing with QA (the scene's GT depths, VM02 masks from the
+    port's generate_visibility_masks) and both videos along a 4-pose spiral
+    from the port's create_spiral_video_poses. Checks every output; returns
+    its readings."""
+    import numpy as np
+    import torch
+
+    from simplenerf_torch.data import io
+    from simplenerf_torch.data.preprocessor import gather_batch
+    from simplenerf_torch.data.factory import get_data_loader
+    from simplenerf_torch.dataset_tools import video_poses
+    from simplenerf_torch.drivers import llff, runner
+    from simplenerf_torch.ops import fused_mlp
+    from simplenerf_torch.qa.masks import generate_visibility_masks
+    from simplenerf_torch.qa.runner import ALL_METRICS, QARunner
+    from simplenerf_torch.training.trainer import Trainer, render_in_chunks
+
+    t0 = time.perf_counter()
+    db, runs, gt_depths = work / "pipeline/db", work / "pipeline/runs", work / "gt_depths"
+    shutil.copytree(work / "db", db)
+    train_cfg, test_cfg = llff.build_configs(2, ["blobs"], PIPE_STEPS, "bfloat16", 0)
+    train_cfg.update(validation_interval=PIPE_VAL_INTERVAL, validation_save_loss_maps=True,
+                     log_interval=10, profiling={"start_iter": 12, "num_iters": 2})
+    scene_dir = db / "all/database_data/blobs"
+    extrinsics = np.loadtxt(scene_dir / "CameraExtrinsics.csv", delimiter=",").reshape(-1, 4, 4)
+    intrinsics = np.loadtxt(scene_dir / "CameraIntrinsics_down4.csv", delimiter=",").reshape(-1, 3, 3)
+    scene_cfg = {**train_cfg, "data_loader": {**train_cfg["data_loader"], "scene_id": "blobs"}}
+    split = {mode: [int(f) for f in get_data_loader(scene_cfg, db, mode).get_frame_nums()]
+             for mode in ("train", "validation", "test")}
+
+    def frame(f):
+        return {"frame": io.read_image(scene_dir / f"rgb_down4/{f:04}.png"),
+                "depth": np.load(gt_depths / f"blobs/{f:04}.npy"),
+                "extrinsic": extrinsics[f], "intrinsic": intrinsics[f]}
+
+    generate_visibility_masks(db / "all/visibility_masks/VM02", "blobs",
+                              {f: frame(f) for f in split["train"]},
+                              {f: frame(f) for f in split["test"]})
+    bds = np.loadtxt(scene_dir / "DepthBounds.csv", delimiter=",")
+    spiral = video_poses.create_spiral_video_poses(extrinsics[split["train"]],
+                                                   [bds.min(), bds.max()],
+                                                   num_frames=VIDEO_POSES - 1)
+    video_poses.save_video_poses(db, "blobs", spiral)
+    print(f"pipeline: scene copied, VM02 masks and a {len(spiral)}-pose spiral in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    counters = (fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd, fused_mlp.fused_apply,
+                fused_mlp.fused_bwd)
+    with timed_calls(Trainer, "run_validation") as val_log, \
+            timed_calls(QARunner, "run") as qa_log, \
+            timed_calls(runner, "start_training") as train_log, \
+            timed_calls(runner, "start_testing") as test_log, \
+            timed_calls(runner, "start_testing_videos") as video_log:
+        # The main path: counters at 0 just before, read just after.
+        for f in counters:
+            f.launches = 0
+        t0 = time.perf_counter()
+        scores = llff.run(train_cfg, test_cfg, db, runs, gt_depth_dir=gt_depths)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        launches = {f.__name__: f.launches for f in counters}
+    print(f"pipeline: llff.run in {t_run:.1f} s (start_training {train_log[0]['s']:.1f} s, "
+          f"start_testing {test_log[0]['s']:.1f} s, videos "
+          + ", ".join(f"{c['s']:.1f}" for c in video_log) + f" s); launches {launches}; "
+          f"QA scores {scores}", flush=True)
+    if not all(launches.values()):
+        fail(f"a kernel of the path was not launched: {launches}")
+
+    # Validation: two rounds over 3 train + 1 validation frames, one chunk each.
+    run_num = llff.VIEWS_TO_SET[2][1]
+    scene = runs / f"training/train{run_num:04}/blobs"
+    rounds = list(range(PIPE_VAL_INTERVAL, PIPE_STEPS + 1, PIPE_VAL_INTERVAL))
+    frames = split["train"] + split["validation"]
+    chunks = -(-(h * w) // CHUNK_RAYS)
+    val_launches = sum(c["fwd_launches"] for c in val_log)
+    if len(val_log) != len(rounds) or val_launches != 2 * chunks * len(frames) * len(rounds):
+        fail(f"{len(val_log)} validation rounds made {val_launches} forward launches, expected "
+             f"{2 * chunks * len(frames) * len(rounds)} in {len(rounds)}")
+    samples = scene / "samples"
+    map_names = None
+    for it in rounds:
+        for f in frames:
+            for level in ("coarse", "fine"):
+                for rel in (f"predicted_frames/{f:04}_{level}_Iter{it:05}.png",
+                            f"predicted_depths/{f:04}_{level}_Iter{it:05}.npy",
+                            f"predicted_depths/{f:04}_{level}_ndc_Iter{it:05}.npy",
+                            f"predicted_depths_variance/{f:04}_{level}_Iter{it:05}.npy",
+                            f"predicted_depths_variance/{f:04}_{level}_ndc_Iter{it:05}.npy"):
+                    if not (samples / rel).exists():
+                        fail(f"validation output missing: {rel}")
+                    if rel.endswith(".npy") and not np.isfinite(np.load(samples / rel)).all():
+                        fail(f"validation output not finite: {rel}")
+            mine = sorted(p.name.split(f"_{f:04}_Iter")[0]
+                          for p in samples.glob(f"Losses/*_{f:04}_Iter{it:05}.npy"))
+            if map_names is None:
+                map_names = mine
+            if mine != map_names or not {"MSE01_coarse", "MSE01_fine"} <= set(mine):
+                fail(f"loss maps of frame {f} at {it}: {mine}")
+            for name in mine:
+                m = np.load(samples / f"Losses/{name}_{f:04}_Iter{it:05}.npy")
+                if m.shape != (h, w) or not np.isfinite(m).all():
+                    fail(f"loss map {name} of frame {f} at {it} is bad")
+    scalars = [json.loads(r) for r in (scene / "logs/scalars.jsonl").read_text().splitlines()]
+    # Seconds from the logger's start to each training log row (steps 1-10
+    # take the first call's set-up; 11-20 hold the trace window).
+    log_s = {r["iter"]: r["time"] for r in scalars if "rays_per_s" in r}
+    val_psnr = {k: r[k] for r in scalars for k in r if k.endswith("/psnr")}
+    if set(val_psnr) != {"validation/train_images/psnr", "validation/val_images/psnr"} or \
+            not all(math.isfinite(v) for v in val_psnr.values()):
+        fail(f"validation scalars missing or not finite: {val_psnr}")
+
+    # A validation frame re-rendered as the last round rendered it (its PNG),
+    # held against Tester.predict_frame's render at the same pose and against
+    # the plain versions. No launch here counts for the path.
+    saved = {f: f.launches for f in counters}
+    trainer = val_log[-1]["args"][0]
+    pp, f0 = trainer.train_pp, frames[0]
+    idx, mask, _ = pp.next_indices(0, image_num=f0)
+    batch = gather_batch(pp.cache, pp.common, pp.batch_constants(),
+                         torch.as_tensor(idx, device=pp.device), torch.as_tensor(mask, device=pp.device),
+                         None)
+    chunk = train_cfg["validation_chunk_size"]
+    with torch.no_grad():
+        val_rgb = render_in_chunks(trainer._eval_step_vis, trainer.params, batch, chunk)["rgb_fine"]
+        with plain_versions():
+            plain_rgb = render_in_chunks(trainer._eval_step_vis, trainer.params, batch, chunk)["rgb_fine"]
+    png = io.read_image(samples / f"predicted_frames/{f0:04}_fine_Iter{rounds[-1]:05}.png").astype(int)
+    mine = np.round(np.clip(val_rgb.float().cpu().numpy(), 0, 1) * 255).reshape(h, w, 3)
+    if np.abs(png - mine).max() > 1:
+        fail("the re-rendered validation frame differs from the one validation wrote")
+    tester = runner.load_scene_tester(runs / f"training/train{run_num:04}", "blobs", test_cfg)
+    test_batch = tester.preprocessor.create_test_data(extrinsics[f0], intrinsic=intrinsics[f0])
+    test_rgb = render_in_chunks(tester._eval_step, tester.params, test_batch, tester.chunk)["rgb_fine"]
+    tester_err = (val_rgb.float() - test_rgb.float()).abs().max().item()
+    plain_err = (val_rgb.float() - plain_rgb.float()).abs().max().item()
+    for f, n in saved.items():
+        f.launches = n
+    print(f"pipeline: validation frame {f0} fine rgb vs Tester.predict_frame's render at its pose "
+          f"max abs err {tester_err:.3e}, vs the plain versions {plain_err:.3e} (tol {CROP_TOL:g})",
+          flush=True)
+    if not tester_err <= CROP_TOL:
+        fail("a validation frame disagrees with Tester.predict_frame at its pose")
+    if not plain_err <= CROP_TOL:
+        fail("a validation frame through the kernels disagrees with the plain versions")
+
+    # QA: every family scored and finite, or skipped with its reason; the
+    # LPIPS pair only when the lpips package is missing.
+    test_dir = runs / f"testing/test{run_num:04}"
+    qa = json.loads((test_dir / "QA_Scores.json").read_text())
+    skipped = qa.get("skipped", {})
+    for name in ALL_METRICS:
+        if name in qa:
+            ok = math.isfinite(qa[name])
+        else:  # with masks and GT depths, only LPIPS may lack its package
+            ok = name.endswith("LPIPS") and bool(skipped.get(name))
+        if not ok:
+            fail(f"QA family {name}: score {qa.get(name)}, skipped {skipped.get(name)!r}")
+    for name in ("PredictedVideo", "StaticCameraVideo"):
+        got = sorted(p.name for p in (test_dir / f"blobs/{name}").glob("*.png"))
+        if got != [f"{i:04}.png" for i in range(VIDEO_POSES)]:
+            fail(f"{name} has frames {got}, expected {VIDEO_POSES}")
+    traces = list((scene / "profile").glob("*.json"))
+    if not traces:
+        fail("the profiling window wrote no trace")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    device_events = sum(e.get("cat") == "kernel" for e in events)
+    if not device_events:
+        fail("the trace holds no kernel of the device")
+
+    out = {
+        "s_per_validation_round": [c["s"] for c in val_log],
+        "validation_fwd_launches": val_launches,
+        "qa_s_per_scene": qa_log[0]["s"] / len(qa_log[0]["args"][0].scene_names),
+        "s_per_video_frame": {("static" if c["kwargs"].get("static_camera") else "spiral"):
+                              c["s"] / VIDEO_POSES for c in video_log},
+        "llff_run_s": t_run, "start_training_s": train_log[0]["s"],
+        "start_testing_s": test_log[0]["s"], "videos_s": [c["s"] for c in video_log],
+        "train_log_s": log_s,
+        "launches": launches, "trace_kernel_events": device_events,
+        "tester_err": tester_err, "plain_err": plain_err,
+        "qa": {k: v for k, v in qa.items() if k != "skipped"}, "qa_skipped": skipped, "card": card,
+    }
+    print(f"pipeline: {', '.join(f'{s:.3f}' for s in out['s_per_validation_round'])} s per validation "
+          f"round ({len(frames)} frames), {out['qa_s_per_scene']:.3f} s of QA per scene, "
+          f"s per video frame {out['s_per_video_frame']}; {device_events} kernel events in the trace",
+          flush=True)
+    return out
 
 
 def chunk_kernels(test_rays: int) -> dict:
@@ -1001,6 +1248,7 @@ def main() -> int:
         work = Path(tmp)
         served = serve(work, h, w)
         trained = train(work, work / "db")
+        piped = pipeline(work, card, h, w)
         step_err = {d: step_gradients(work / "db", d) for d in ("float32", "bfloat16")}
         torch.cuda.empty_cache()
         timing = chunk_kernels(test_rays=min(CHUNK_RAYS, -(-(h * w) // 256) * 256))
@@ -1022,6 +1270,7 @@ def main() -> int:
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": trained["launches"][WRAPPERS[name]],
+            "launches_pipeline": piped["launches"][WRAPPERS[name]],
             "max_abs_err": worst[(name, "bfloat16", "err")],
             "max_abs_err_f32": worst[(name, "float32", "err")],
             "err_measure": ("planes: max abs error" if name.endswith("fwd")
@@ -1052,6 +1301,7 @@ def main() -> int:
         kernels.append(row)
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             fail(f"non-finite timing for {name}")
+    print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"kernels": kernels, "train_step": {**step, "step_grad_rel_err": step_err}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,16 @@
 The PyTorch port of `simplenerf_tpu`, which stays beside it as the
 reference. Each module keeps the name and place of its JAX counterpart
 (`fields/`, `ops/`, `render/`, `geometry/`, `data/`, `training/`,
-`drivers/`, `config.py`) and computes the same function, tested against it.
+`drivers/`, `qa/`, `dataset_tools/`, `config.py`) and computes the same
+function, tested against it.
 
-Ported so far: training (`drivers.runner.start_training` ->
-`training.trainer.Trainer` -> `render.renderer.render_rays(train=True)`,
-`losses/`, flat Adam) and test-time rendering (`drivers.runner.start_testing`
--> `training.tester.Tester.predict_frame`). The field MLPs run in CUDA
+Ported so far: training with validation renders, traces and plots
+(`drivers.runner.start_training` -> `training.trainer.Trainer` ->
+`render.renderer.render_rays(train=True)`, `losses/`, flat Adam), test-time
+rendering with QA (`drivers.runner.start_testing` ->
+`training.tester.Tester.predict_frame`, `qa.runner.QARunner`), videos
+(`drivers.runner.start_testing_videos`) and the LLFF experiment driver
+(`python -m simplenerf_torch.drivers.llff`). The field MLPs run in CUDA
 kernels: forward and ensemble forward in `ops/csrc/fused_mlp_fwd.cu`, their
 backward in `ops/csrc/fused_mlp_bwd.cu`.
 

@@ -1,4 +1,4 @@
-"""Image, array and CSV IO helpers (stdlib PNG codec and csv; no imageio or pandas)."""
+"""Image, array, video-frame and CSV IO helpers (stdlib PNG codec and csv; no imageio or pandas)."""
 
 from __future__ import annotations
 
@@ -65,3 +65,17 @@ def write_depth(path: Path, depth: np.ndarray, as_png: bool = True) -> None:
         lo, hi = float(np.min(depth)), float(np.max(depth))
         vis = (depth - lo) / (hi - lo) if hi > lo else np.zeros_like(depth)
         write_image(path.with_suffix(".png"), np.round(vis * 255).astype(np.uint8))
+
+
+def write_video(path: Path, frames: np.ndarray) -> Path:
+    """Write an (n, h, w, 3) uint8 stack as per-frame PNGs
+    <path without suffix>/NNNN.png; returns that directory.
+
+    The JAX package writes an mp4 through imageio's ffmpeg and falls back to
+    this layout; with no video encoder on hand, the port always takes it.
+    """
+    frames_dir = Path(path).with_suffix("")
+    frames_dir.mkdir(parents=True, exist_ok=True)
+    for i, frame in enumerate(frames):
+        (frames_dir / f"{i:04}.png").write_bytes(png.encode(np.asarray(frame)))
+    return frames_dir

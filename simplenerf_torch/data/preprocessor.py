@@ -9,9 +9,12 @@ conversion, the batch sampler, create_test_data, the model-configs digest).
 flat (n*h*w, .) tensors; each iteration the host draws 2048 + 2048 indices
 from two epoch permutations (NeRF pool + sparse-depth pool, numpy streams
 identical to the JAX package's for the same seed) and `gather_batch`
-gathers the batch on the device. "test" mode builds full-image ray
-batches for any pose from a stored digest. Dense depth, the visibility
-prior, mip-NeRF radii and the validation mode are not ported yet and raise.
+gathers the batch on the device. "validation" mode builds the same ray
+cache for the validation frames, with their poses normalized by the train
+scene's digest (`model_configs`), and is read whole frame by whole frame.
+"test" mode builds full-image ray batches for any pose from a stored
+digest. Dense depth, the visibility prior and mip-NeRF radii are not
+ported yet and raise.
 
 As in the JAX package, the epoch sampler wraps into the next permutation
 at an epoch boundary instead of emitting a short batch.
@@ -127,18 +130,21 @@ class ScenePreprocessor:
         self.model_configs = model_configs
         self.device = resolve_device(device)
 
-        if self.mode == "train":
+        if self.mode in ("train", "validation"):
             if raw_data is None:
-                raise ValueError("train mode needs the scene's raw data")
+                raise ValueError(f"{self.mode} mode needs the scene's raw data")
+            if self.mode == "validation" and model_configs is None:
+                raise ValueError("validation mode needs the train scene's model_configs")
             self._preprocess(raw_data)
-            self.model_configs = self._create_model_configs()
+            if self.mode == "train":
+                self.model_configs = self._create_model_configs()
         elif self.mode != "test":
-            raise NotImplementedError(f"{mode!r} mode comes with the training slice")
+            raise ValueError(f"unknown preprocessor mode {mode!r}: train, validation or test")
 
     # ------------------------------------------------------------------
     def _preprocess(self, raw: dict):
         """Images, normalized poses, bounds, near/far, the ray cache and the
-        batch samplers of the train frames."""
+        batch samplers of the mode's frames."""
         dl = self.configs["data_loader"]
         for key in ("dense_depth", "visibility_prior", "mip_nerf"):
             if key in dl:
@@ -157,16 +163,30 @@ class ScenePreprocessor:
         self.images = images.astype(np.float32)
 
         spherify = self.configs["data_loader"].get("spherify", False)
-        pp = pose_lib.preprocess_poses(
-            nerf["extrinsics"],
-            bounds=nerf["bounds"],
-            bd_factor=self.bd_factor,
-            recenter=self.configs["data_loader"].get("recenter_camera_poses", True),
-            train_mode=True,
-            spherify=spherify,
-        )
-        self.sc = pp["sc"]
-        self.average_pose = pp["average_pose"]
+        if self.mode == "train":
+            pp = pose_lib.preprocess_poses(
+                nerf["extrinsics"],
+                bounds=nerf["bounds"],
+                bd_factor=self.bd_factor,
+                recenter=self.configs["data_loader"].get("recenter_camera_poses", True),
+                train_mode=True,
+                spherify=spherify,
+            )
+            self.sc = pp["sc"]
+            self.average_pose = pp["average_pose"]
+        else:  # validation: the train scene's normalization
+            mc = self.model_configs
+            pp = pose_lib.preprocess_poses(
+                nerf["extrinsics"],
+                bounds=nerf["bounds"],
+                translation_scale=mc["translation_scale"],
+                avg_pose=np.array(mc["average_pose"]),
+                train_mode=False,
+                spherify=spherify,
+                spherify_transform=mc.get("spherify_transform"),
+            )
+            self.sc = mc["translation_scale"]
+            self.average_pose = np.array(mc["average_pose"])
         self.spherify_transform = pp.get("spherify_transform")
         self.render_poses = pp.get("render_poses")
         self.poses = pp["poses"]
@@ -196,9 +216,12 @@ class ScenePreprocessor:
         )
         self.num_frames = len(self.images)
         self.sampler = EpochSampler(self._nerf_index_pool(iter_num=0), self.rng)
-        if self.sparse_depth_needed:
-            self._preprocess_sparse_depth(raw)
-        self._pack_cache()
+        if self.mode == "train":
+            if self.sparse_depth_needed:
+                self._preprocess_sparse_depth(raw)
+            self._pack_cache()
+        else:  # read whole frames only; no packed copy of the cache
+            self.packed_layout = ()
 
     def _preprocess_images(self, images: np.ndarray) -> np.ndarray:
         images = images.astype(np.float32) / 255.0
@@ -392,8 +415,11 @@ class ScenePreprocessor:
             "far": full(mc["far"]),
         }
         if self.ndc:
+            # float32 focal lengths, as the ray cache and the JAX package
+            # take them: a train frame's test rays equal its cached rays.
+            tK = tensor(K)
             o_ndc, d_ndc = ray_lib.ndc_rays(
-                batch["rays_o"], batch["rays_d"], h, w, float(K[0, 0]), float(K[1, 1]), mc["near"]
+                batch["rays_o"], batch["rays_d"], h, w, tK[0, 0], tK[1, 1], mc["near"]
             )
             batch["rays_o_ndc"] = o_ndc
             batch["rays_d_ndc"] = d_ndc

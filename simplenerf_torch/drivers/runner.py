@@ -1,13 +1,13 @@
-"""Experiment orchestration: train every scene, render every test frame.
+"""Experiment orchestration: train -> test -> QA -> videos, per scene.
 
-Port of the training and testing parts of simplenerf_tpu/drivers/runner.py:
-resolves scene lists from the split CSVs, trains each scene into
-runs/training/trainNNNN/<scene>/ (configs, ModelConfigs.json, checkpoints,
-logs/scalars.jsonl), loads each scene's trained model and renders its test
-frames (with the train frames as secondary poses when the model predicts
-visibility) into runs/testing/testNNNN/<scene>/. Finished scenes and
-existing outputs are skipped. Videos, plots, QA and the device mesh come in
-later slices.
+Port of simplenerf_tpu/drivers/runner.py: resolves scene lists from the
+split CSVs, trains each scene into runs/training/trainNNNN/<scene>/
+(configs, ModelConfigs.json, checkpoints, logs, validation samples, plots),
+renders each scene's test frames (with the train frames as secondary poses
+when the model predicts visibility) into runs/testing/testNNNN/<scene>/,
+scores them with the QA suite in-process, and renders pose-path videos.
+Finished scenes and existing outputs are skipped. The RealEstate10K layout
+and the device mesh are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from simplenerf_torch import config as config_lib
 from simplenerf_torch.data import io
 from simplenerf_torch.data.factory import get_data_loader
 from simplenerf_torch.data.preprocessor import ScenePreprocessor
+from simplenerf_torch.qa.runner import QARunner
 from simplenerf_torch.training.tester import Tester
 from simplenerf_torch.training.trainer import Trainer
 
@@ -64,11 +65,24 @@ def start_training(
         scene_dir.mkdir(parents=True, exist_ok=True)
         (scene_dir / "ModelConfigs.json").write_text(json.dumps(train_pp.get_model_configs(), indent=2))
 
-        trainer = Trainer(scene_cfg, scene_dir, train_pp)
+        val_pp = None
+        if scene_cfg.get("validation_interval", 0):
+            try:
+                val_raw = get_data_loader(scene_cfg, database_dirpath, "validation").load_data()
+            except FileNotFoundError:  # no validation split: train frames only
+                val_raw = None
+            if val_raw is not None:
+                val_pp = ScenePreprocessor(scene_cfg, "validation", val_raw,
+                                           model_configs=train_pp.get_model_configs(),
+                                           device=device)
+
+        trainer = Trainer(scene_cfg, scene_dir, train_pp, val_pp=val_pp)
         if trainer.start_iter >= scene_cfg["num_iterations"] and done_marker.exists():
+            trainer.logger.close()
             continue
         trainer.train()
         trainer.logger.close()
+        trainer.logger.save_plots()
     return run_dir
 
 
@@ -103,14 +117,18 @@ def start_testing(
     database_dirpath: Path,
     output_dirpath: Path,
     run_qa: bool = True,
+    gt_depth_dirpath: Optional[Path] = None,
+    depth_scale="auto",
     device=None,
 ) -> dict:
-    """Render all test frames for every scene; returns {scene: [frame nums]}.
+    """Render all test frames of every scene, then run the QA suite.
 
-    QA scoring (`run_qa=True`) comes in a later slice and raises here.
+    Returns the QA scores {family: mean score} (`{}` with run_qa=False);
+    the frames are under testing/testNNNN/<scene>/predicted_frames/.
+    depth_scale: a float, {scene: float}, or "auto", which takes each
+    scene's 1/translation_scale from its training ModelConfigs: the
+    normalized-frame -> world-unit factor of the QA depth families.
     """
-    if run_qa:
-        raise NotImplementedError("QA scoring is not ported yet; call with run_qa=False")
     database_dirpath = Path(database_dirpath)
     test_num = test_configs.get("test_num", 0)
     train_num = test_configs.get("train_num", 0)
@@ -124,21 +142,24 @@ def start_testing(
     train_configs = config_lib.load_configs(train_run_dir / "Configs.json")
     scene_ids = test_configs.get("scene_names") or resolve_scene_ids(train_configs, database_dirpath)
 
-    rendered = {}
+    scene_names, train_frames, test_frames, scale_by_scene = [], {}, {}, {}
     for scene_id in scene_ids:
         key = scene_key(train_configs, scene_id)
+        if depth_scale == "auto":
+            mc = json.loads((train_run_dir / key / "ModelConfigs.json").read_text())
+            scale_by_scene[key] = 1.0 / float(mc.get("translation_scale", 1.0))
         tester = load_scene_tester(
             train_run_dir, scene_id, test_configs,
             checkpoint_name=test_configs.get("checkpoint_name"), device=device,
         )
         test_nums, test_loader = _scene_frames(database_dirpath, train_configs, scene_id, "test")
+        train_nums, train_loader = _scene_frames(database_dirpath, train_configs, scene_id, "train")
         raw = test_loader.load_data()
         extrinsics = raw["nerf_data"]["extrinsics"]
         intrinsics = raw["nerf_data"]["intrinsics"]
 
         secondary = None
         if tester.render_cfg.predict_visibility:
-            _, train_loader = _scene_frames(database_dirpath, train_configs, scene_id, "train")
             secondary = list(train_loader.load_data()["nerf_data"]["extrinsics"])
 
         frames_data = {
@@ -150,5 +171,65 @@ def start_testing(
             for i, frame_num in enumerate(test_nums)
         }
         tester.test_scene(test_dir / key, frames_data)
-        rendered[key] = [int(f) for f in np.asarray(test_nums)]
-    return rendered
+        scene_names.append(key)
+        train_frames[key] = [int(f) for f in train_nums]
+        test_frames[key] = [int(f) for f in test_nums]
+
+    if not run_qa:
+        return {}
+    loader_name = train_configs["data_loader"]["data_loader_name"]
+    return QARunner(
+        database_dirpath,
+        test_dir,
+        scene_names,
+        train_frames,
+        test_frames,
+        resolution_suffix=train_configs["data_loader"]["resolution_suffix"],
+        masks_dirname=test_configs.get("qa_masks_dirname"),
+        gt_depth_dirpath=gt_depth_dirpath,
+        depth_scale=scale_by_scene if depth_scale == "auto" else depth_scale,
+        database_subdir="test" if loader_name.startswith("RealEstate") else "all",
+    ).run()
+
+
+def start_testing_videos(
+    test_configs: dict,
+    database_dirpath: Path,
+    output_dirpath: Path,
+    video_poses_dirname: str = "video_poses01",
+    static_camera: bool = False,
+    device=None,
+) -> None:
+    """Render each scene's pose-path video from
+    all/database_data/<scene>/<video_poses_dirname>/VideoPoses.csv into
+    testing/testNNNN/<scene>/PredictedVideo/NNNN.png (io.write_video's
+    layout). static_camera keeps the ray camera at the path's first pose
+    and sweeps only the shading view direction, into StaticCameraVideo/.
+    A scene without a pose file, or whose video is complete, is skipped."""
+    database_dirpath = Path(database_dirpath)
+    test_num = test_configs.get("test_num", 0)
+    train_num = test_configs.get("train_num", 0)
+    test_dir = Path(output_dirpath) / f"testing/test{test_num:04}"
+    train_run_dir = Path(output_dirpath) / f"training/train{train_num:04}"
+    train_configs = config_lib.load_configs(train_run_dir / "Configs.json")
+    if train_configs["data_loader"]["data_loader_name"].startswith("RealEstate"):
+        raise NotImplementedError("RealEstate10K videos are not ported yet")
+    scene_ids = test_configs.get("scene_names") or resolve_scene_ids(train_configs, database_dirpath)
+
+    for scene_id in scene_ids:
+        key = scene_key(train_configs, scene_id)
+        poses_path = database_dirpath / f"all/database_data/{key}/{video_poses_dirname}/VideoPoses.csv"
+        if not poses_path.exists():
+            continue
+        poses = np.loadtxt(poses_path, delimiter=",").reshape(-1, 4, 4)
+        name = "StaticCameraVideo" if static_camera else "PredictedVideo"
+        out_path = test_dir / key / f"{name}.mp4"
+        if (out_path.with_suffix("") / f"{len(poses) - 1:04}.png").exists():
+            continue
+        tester = load_scene_tester(train_run_dir, scene_id, test_configs, device=device)
+        if static_camera:
+            fixed = np.tile(poses[:1], (len(poses), 1, 1))
+            frames = tester.render_video_poses(fixed, view_poses=poses)
+        else:
+            frames = tester.render_video_poses(poses)
+        io.write_video(out_path, frames)

@@ -54,7 +54,9 @@ def patch_rmse(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
 
 def closest_other_frame(poses: torch.Tensor) -> torch.Tensor:
     """Index of the nearest other camera of each frame (the reference's
-    second-smallest distance, `kthvalue(distances, 2)`); ties don't matter."""
+    second-smallest distance, `kthvalue(distances, 2)`); ties don't matter.
+    A single frame (a one-frame validation set) is its own match, as the
+    JAX package's clamped index gives."""
     origins = poses[:, :3, 3]
     d2 = torch.square(origins[:, None, :] - origins[None, :, :]).sum(-1)
-    return torch.argsort(d2, dim=1, stable=True)[:, 1]
+    return torch.argsort(d2, dim=1, stable=True)[:, min(1, poses.shape[0] - 1)]

@@ -11,8 +11,12 @@ state checkpoints in the JAX package's layout.
 Each step draws its randomness (jitter, importance uniforms, sigma noise)
 from a generator on the device seeded from (seed, iteration), and the
 host-side samplers are replayed on resume, so a resumed run equals an
-uninterrupted one. Validation renders, CUDA-graph multi-step calls and
-profiler traces are not ported yet.
+uninterrupted one. At `validation_interval` the trainer renders every
+train (and validation) frame in eval mode and saves frames, depths, loss
+maps and scalars under <run>/samples and the log; a `profiling`
+{start_iter, num_iters} block traces that window of steps into
+<run>/profile. Steps run one launch sequence each: there is no CUDA-graph
+counterpart of the JAX package's multi-step scan.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from simplenerf_torch import config as config_lib
+from simplenerf_torch.data import io
 from simplenerf_torch.data.preprocessor import ScenePreprocessor, gather_batch
 from simplenerf_torch.losses import LossComputer, LossContext
 from simplenerf_torch.render import renderer
@@ -97,9 +102,6 @@ class Trainer:
         val_pp: Optional[ScenePreprocessor] = None,
         compute_dtype: Optional[str] = None,
     ):
-        if configs.get("validation_interval", 0):
-            raise NotImplementedError("validation renders are not ported yet; "
-                                      "set validation_interval to 0")
         self.configs = configs
         self.output_dir = Path(output_dir)
         self.train_pp = train_pp
@@ -135,6 +137,15 @@ class Trainer:
         self.steps_per_call = int(configs.get("steps_per_call", 1))
         self._consts = self.train_pp.batch_constants()
         self._layout = getattr(self.train_pp, "packed_layout", ())
+        self._eval_step = build_eval_renderer(self.render_cfg)
+        # Train frames are validated with sec_views_vis, like the
+        # reference's `self.model(..., sec_views_vis=train_data)`; only a
+        # visibility head makes that a different render.
+        self._eval_step_vis = (
+            build_eval_renderer(self.render_cfg, sec_views_vis=True)
+            if self.render_cfg.predict_visibility
+            else self._eval_step
+        )
 
     def set_params(self, params):
         """Take `params` (a canonical tree) as the trained parameters, with a
@@ -197,8 +208,15 @@ class Trainer:
 
     def train(self, num_iterations: Optional[int] = None) -> dict:
         num_iterations = num_iterations or self.configs["num_iterations"]
+        val_interval = self.configs.get("validation_interval", 0)
         save_interval = self.configs.get("model_save_interval", 10000)
         log_interval = self.configs.get("log_interval", 100)
+        # Optional trace window {"start_iter": N, "num_iters": K}: steps
+        # N..N+K-1 under torch.profiler, written to <run>/profile.
+        prof_cfg = self.configs.get("profiling") or {}
+        prof_start = int(prof_cfg.get("start_iter", -1))
+        prof_iters = int(prof_cfg.get("num_iters", 0))
+        prof_ctx = None
         values: dict = {}
         t_last = time.time()
         iters_since_log = 0
@@ -207,23 +225,37 @@ class Trainer:
         timer = profiling.StepTimer(rays_per_step=rays_per_iter)
         timer.tick(0)
         it = self.start_iter
-        while it < num_iterations:
-            chunk = max(1, min(self.steps_per_call, self._next_boundary(it, num_iterations) - it))
-            values = self.train_many(it, chunk)
-            it += chunk
-            iters_since_log += chunk
-            if it % log_interval == 0 or it == num_iterations:
-                values = {k: float(v) for k, v in values.items()}  # synchronizes
-                dt = time.time() - t_last
-                timer.tick(iters_since_log)
-                scalars = dict(values)
-                scalars["lr"] = float(self.lr_schedule(it - 1))
-                scalars["rays_per_s"] = rays_per_iter * iters_since_log / max(dt, 1e-9)
-                self.logger.log_scalars(it, scalars)
-                t_last = time.time()
-                iters_since_log = 0
-            if it % save_interval == 0 or it == num_iterations:
-                self.save_checkpoint(it)
+        try:
+            while it < num_iterations:
+                if prof_iters and it == prof_start and prof_ctx is None:
+                    prof_ctx = profiling.trace(self.output_dir / "profile", self.device)
+                    prof_ctx.__enter__()
+                chunk = max(1, min(self.steps_per_call, self._next_boundary(it, num_iterations) - it))
+                if prof_ctx is not None:
+                    chunk = max(1, min(chunk, prof_start + prof_iters - it))
+                values = self.train_many(it, chunk)
+                it += chunk
+                iters_since_log += chunk
+                if prof_ctx is not None and it >= prof_start + prof_iters:
+                    prof_ctx.__exit__(None, None, None)
+                    prof_ctx = None
+                if it % log_interval == 0 or it == num_iterations:
+                    values = {k: float(v) for k, v in values.items()}  # synchronizes
+                    dt = time.time() - t_last
+                    timer.tick(iters_since_log)
+                    scalars = dict(values)
+                    scalars["lr"] = float(self.lr_schedule(it - 1))
+                    scalars["rays_per_s"] = rays_per_iter * iters_since_log / max(dt, 1e-9)
+                    self.logger.log_scalars(it, scalars)
+                    t_last = time.time()
+                    iters_since_log = 0
+                if val_interval and it % val_interval == 0:
+                    self.run_validation(it)
+                if it % save_interval == 0 or it == num_iterations:
+                    self.save_checkpoint(it)
+        finally:
+            if prof_ctx is not None:  # the run ended inside the trace window
+                prof_ctx.__exit__(None, None, None)
         if timer.stats():
             timer.dump(self.output_dir / "logs/step_timing.json")
         return values
@@ -232,6 +264,96 @@ class Trainer:
         checkpoints.save_checkpoint(
             self.output_dir / "saved_models", iteration, self.params, self.opt_state
         )
+
+    @torch.no_grad()
+    def run_validation(self, iteration: int):
+        """Reference-style validation, as the JAX Trainer's `run_validation`.
+
+        Renders every frame of the train preprocessor (and of `val_pp`) in
+        eval mode, computes the full configured loss set on each rendered
+        frame (losses whose inputs exist only in training batches give 0),
+        saves per-level frames, depths and depth variances (and their NDC
+        variants) under <run>/samples, the predicted visibilities when a
+        visibility head exists, and with `validation_save_loss_maps` every
+        per-ray loss map as (h, w) npy + png under samples/Losses. Logs the
+        per-loss means over frames as validation/{train,val}_images/<loss>
+        and the mean of the per-frame PSNRs as .../psnr."""
+        chunk = self.configs.get("validation_chunk_size", 64 * 1024)
+        save_loss_maps = bool(self.configs.get("validation_save_loss_maps", False))
+        weights = self.loss_computer.weights_vector(iteration).tolist()
+        samples_dir = self.output_dir / "samples"
+        jobs = [("train_images", self.train_pp, True)]
+        if self.val_pp is not None:
+            jobs.append(("val_images", self.val_pp, False))
+
+        def host(t):
+            return t.detach().float().cpu().numpy()
+
+        for tag, pp, is_train_data in jobs:
+            h, w = pp.resolution
+            eval_step = self._eval_step_vis if is_train_data else self._eval_step
+            frame_nums = [int(f) for f in pp.frame_nums]
+            totals: dict = {}
+            psnr_sum = 0.0
+            for frame_num in frame_nums:
+                indices, mask_nerf, _ = pp.next_indices(0, image_num=frame_num)
+                batch = gather_batch(
+                    pp.cache, pp.common, pp.batch_constants(),
+                    torch.as_tensor(indices, device=pp.device),
+                    torch.as_tensor(mask_nerf, device=pp.device), None,
+                )
+                outputs = render_in_chunks(eval_step, self.params, batch, chunk)
+                maps: dict = {}
+                if save_loss_maps:
+                    _, values, maps = self.loss_computer.compute(
+                        batch, outputs, weights, return_loss_maps=True)
+                else:
+                    _, values = self.loss_computer.compute(batch, outputs, weights)
+                for name, v in values.items():
+                    totals[name] = totals.get(name, 0.0) + float(v)
+                finest = "fine" if "rgb_fine" in outputs else "coarse"
+                target = pp.images[np.where(pp.frame_nums == frame_num)[0].item()]
+                pred = host(outputs[f"rgb_{finest}"]).reshape(h, w, 3)
+                frame_mse = float(np.mean((pred - target) ** 2))
+                # Mean of per-frame PSNRs (the QA suite's aggregation), not
+                # the PSNR of the mean MSE.
+                psnr_sum += -10.0 * np.log10(max(frame_mse, 1e-12))
+
+                stem = f"{frame_num:04}_{{}}_Iter{iteration:05}"
+                for mode in ("coarse", "fine"):
+                    if f"rgb_{mode}" not in outputs:
+                        continue
+                    name = stem.format(mode)
+                    pred = host(outputs[f"rgb_{mode}"]).reshape(h, w, 3)
+                    io.write_image(samples_dir / f"predicted_frames/{name}.png",
+                                   np.round(np.clip(pred, 0, 1) * 255).astype(np.uint8))
+                    io.write_depth(samples_dir / f"predicted_depths/{name}",
+                                   host(outputs[f"depth_{mode}"]).reshape(h, w))
+                    io.write_depth(samples_dir / f"predicted_depths_variance/{name}",
+                                   host(outputs[f"depth_var_{mode}"]).reshape(h, w))
+                    for ndc_key, sub in ((f"depth_ndc_{mode}", "predicted_depths"),
+                                         (f"depth_var_ndc_{mode}", "predicted_depths_variance")):
+                        if ndc_key in outputs:
+                            io.write_depth(samples_dir / f"{sub}/{stem.format(mode + '_ndc')}",
+                                           host(outputs[ndc_key]).reshape(h, w))
+                    vis2_key = f"visibility2_{mode}"
+                    if vis2_key in outputs:
+                        vis2 = host(outputs[vis2_key])
+                        others = [f for f in frame_nums if f != frame_num]
+                        for j, sec in enumerate(others[: vis2.shape[1]]):
+                            io.write_depth(
+                                samples_dir / f"predicted_visibilities/"
+                                f"{frame_num:04}_{sec:04}_{mode}_Iter{iteration:05}",
+                                vis2[:, j].reshape(h, w),
+                            )
+                for map_name, loss_map in maps.items():
+                    io.write_depth(samples_dir / f"Losses/{map_name}_{frame_num:04}_Iter{iteration:05}",
+                                   host(loss_map).reshape(h, w))
+
+            n = max(len(frame_nums), 1)
+            scalars = {f"validation/{tag}/{k}": v / n for k, v in totals.items()}
+            scalars[f"validation/{tag}/psnr"] = psnr_sum / n
+            self.logger.log_scalars(iteration, scalars)
 
 
 RAY_KEYS = (

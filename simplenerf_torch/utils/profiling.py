@@ -1,17 +1,46 @@
-"""Per-step timing.
+"""Tracing and per-step timing.
 
-Port of `StepTimer` of simplenerf_tpu/utils/profiling.py: rolling step-time
-statistics on the host clock between completions. On the card the caller
-ticks after work that ends in a synchronisation (the trainer reads its loss
-values at log boundaries). Profiler traces are not ported yet.
+Port of simplenerf_tpu/utils/profiling.py. `trace` captures a
+torch.profiler window (the trainer's `profiling` config block) and writes
+it as a Chrome trace; `StepTimer` keeps rolling step-time statistics on
+the host clock between completions. On the card the caller ticks after
+work that ends in a synchronisation (the trainer reads its loss values at
+log boundaries).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import time
 from pathlib import Path
 from typing import Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: Path, device=None):
+    """Profile the body with torch.profiler and write the Chrome trace
+    `<logdir>/trace_<pid>_<ns>.json` (open it in Perfetto or chrome://tracing).
+
+    CPU and CUDA activities when `device` is a CUDA device, CPU alone
+    otherwise. A profiler that cannot start raises: unlike the JAX
+    package's `trace`, which passes silently, so that a trace never lacks
+    the device without a word.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    logdir = Path(logdir)
+    logdir.mkdir(parents=True, exist_ok=True)
+    cuda = torch.device(device).type == "cuda" if device is not None else False
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(logdir / f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 class StepTimer:

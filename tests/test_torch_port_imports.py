@@ -17,7 +17,7 @@ from simplenerf_torch.training import msgpack_codec
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ["jax", "flax", "optax", "simplenerf_tpu", "pandas", "imageio", "msgpack", "cv2",
-             "matplotlib"]
+             "matplotlib", "tensorboard", "lpips"]
 
 
 def test_port_imports_without_jax_or_host_libraries():

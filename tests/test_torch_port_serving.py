@@ -128,21 +128,28 @@ def test_render_video_poses_stacks_frames(served):
 def test_start_testing_writes_frames(served):
     out = served["root"] / "runs"
     test_cfg = {"train_num": 0, "test_num": 3}
-    with pytest.raises(NotImplementedError):
-        runner.start_testing(test_cfg, served["db"], out, run_qa=True, device="cpu")
-    rendered = runner.start_testing(test_cfg, served["db"], out, run_qa=False, device="cpu")
-    frames = rendered["blobs"]
-    assert frames == [1, 3]
+    # Without QA, as the JAX package: no scores.
+    assert runner.start_testing(test_cfg, served["db"], out, run_qa=False, device="cpu") == {}
     scene_dir = out / "testing/test0003/blobs"
+    frames = sorted(int(p.stem) for p in (scene_dir / "predicted_frames").glob("*.png"))
+    assert frames == [1, 3]
     for f in frames:
         img = io.read_image(scene_dir / f"predicted_frames/{f:04}.png")
         assert img.shape == (H, W, 3)
         depth = np.load(scene_dir / f"predicted_depths_ndc/{f:04}.npy")
         assert depth.shape == (H, W) and np.isfinite(depth).all()
-    # Skip-if-exists: a second run renders nothing new and keeps the files.
+    # Skip-if-exists: a second run renders nothing new and keeps the files;
+    # with QA it scores the frames (no masks or GT depths here: the RGB
+    # families) and writes QA_Scores.json, the skipped families named.
     stamp = (scene_dir / "predicted_frames/0001.png").stat().st_mtime_ns
-    runner.start_testing(test_cfg, served["db"], out, run_qa=False, device="cpu")
+    scores = runner.start_testing(test_cfg, served["db"], out, run_qa=True, device="cpu")
     assert (scene_dir / "predicted_frames/0001.png").stat().st_mtime_ns == stamp
+    assert set(scores) == {"RMSE", "PSNR", "SSIM"}
+    assert all(np.isfinite(v) for v in scores.values())
+    saved = json.loads((out / "testing/test0003/QA_Scores.json").read_text())
+    assert {k: saved[k] for k in scores} == scores
+    assert len(saved["skipped"]) == 14 - len(scores)
+    assert (out / "testing/test0003/QA_Scores/PSNR_FrameWise.csv").exists()
 
 
 def test_port_checkpoint_loads_in_jax(served, tmp_path):
