@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke for simplenerf_torch: train, serve and run the LLFF experiment's flow on one CUDA card.
+"""Chip smoke for simplenerf_torch: train, serve and run the LLFF and RealEstate10K experiments' flows and the visibility priors on one CUDA card.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -18,7 +18,8 @@ without a result):
      planes, and the backward's every dW, db and dhvx; the coarse trio
      through the ensemble kernels, forward and backward, at 1037 x 64;
      then all of them at the training step's shapes (4096 x 64 trio,
-     4096 x 192 main);
+     4096 x 192 main), with the priors phase's visibility-head fine MLP
+     and trio (views heads of 4 beside 3) at the same shapes;
   4. serve: a seeded synthetic scene (189x252, 6 frames, 3 for training),
      the published bf16 recipe with seeded random weights in a checkpoint,
      `runner.start_testing` over its test frames, then one 756x1008 request
@@ -47,12 +48,37 @@ without a result):
      scored (LPIPS may be skipped without its package), each video must
      have 4 PNG frames and the trace must hold device kernels; its
      readings go on a `{"pipeline": ...}` line before the kernels' line;
-  7. chunks: the forward kernel at the chunk shapes serving gives it (64k
+  7. realestate: the RealEstate10K experiment, `drivers.realestate.run`
+     (what `python -m simplenerf_torch.drivers.realestate` runs), on a
+     seeded RE10K-layout scene from `generate_realestate_scene` (20 frames
+     of 54x96, 3 for training, 3 test frames) with `build_configs(3)`'s
+     published bf16 recipe cut to 20 steps, QA against GT depths and VM02
+     masks under test/visibility_masks/, and a 4-pose video from
+     train_test_sets/set02/video_poses01/00000.csv: 20 launches of each
+     kernel in training, the forward's launches in testing and the video
+     counted, ModelConfigs bounds [1, 100] / 0.75, finite losses, every QA
+     family scored, a test frame against the plain versions (1e-3), the
+     video's frames written; a `{"realestate": ...}` line;
+  8. priors: on a copy of the serve scene with dense depths and 3 x 2
+     visibility-prior masks written (`synthetic.write_scene_priors`), the
+     published bf16 recipe with a visibility head on the coarse and fine
+     main MLPs, DenseDepthMSE01, VisibilityLoss01 and
+     VisibilityPriorLoss01 and the dense-depth, visibility-prior and
+     mip-NeRF data (`presets.with_visibility_priors`), 20 steps of
+     `runner.start_training` with a validation round at 20: 20 launches of
+     each kernel in training, the fine and trio programs' views heads 4
+     channels wide, DenseDepthMSE01 and VisibilityLoss01 finite and > 0,
+     VisibilityPriorLoss01 0 in every step (the train step renders no
+     secondary views, as in the JAX package) and finite in validation,
+     the secondary-view visibility path on a train frame, and one step's
+     gradients (visibility head included) through the kernels against the
+     plain versions in float32 and bf16; a `{"priors": ...}` line;
+  9. chunks: the forward kernel at the chunk shapes serving gives it (64k
      rays x 64 / 192 samples for the 756x1008 frame, one test frame's
      chunk, and a 41,152-ray chunk), held against its plain version; at the
      64k shapes it is also timed with CUDA events after warm-up, beside the
      plain version and the card's bound;
-  8. timing: each kernel at the training step's shapes (CUDA events after
+  10. timing: each kernel at the training step's shapes (CUDA events after
      warm-up) beside its plain version and its bound, each backward's row
      pass, weight pass and column sums apart and each of its three column
      sums apart (torch.profiler's kernel events); for each backward the
@@ -64,7 +90,8 @@ without a result):
      step's device time by kernel.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON (`launches` from the 40-step training run,
-`launches_pipeline` from phase 6's; a backward's row also has row_ms, weight_ms, sums_ms,
+`launches_pipeline`, `launches_realestate` and `launches_priors` from
+phases 6, 7 and 8; a backward's row also has row_ms, weight_ms, sums_ms,
 sums_parts_ms (partials, dW partials, dhvx), weight_library_ms and
 sums_library_ms (measured; the weight pass's and column sums' bounds are
 printed on its `time` lines), its bf16 row kernel's ptxas registers and
@@ -228,6 +255,7 @@ PUBLISHED = {
     "visibility": {"predict_visibility": True},
 }
 TRIO = ("main", "points_aug", "lambertian")
+VIS_TRIO = ("visibility", "points_aug", "lambertian")
 
 
 def dname_of(dtype) -> str:
@@ -276,7 +304,7 @@ def cotangents(n_planes: int, nr: int, ns: int, seed: int):
     return torch.randn((n_planes, nr, ns), generator=g, device="cuda")
 
 
-def ensemble_operands(nr: int, ns: int, dtype, seed: int):
+def ensemble_operands(nr: int, ns: int, dtype, seed: int, trio=None):
     """Seeded coarse trio (published widths) and inputs on the card."""
     import torch
 
@@ -284,7 +312,7 @@ def ensemble_operands(nr: int, ns: int, dtype, seed: int):
 
     g = torch.Generator().manual_seed(seed)
     members = []
-    for name in TRIO:
+    for name in trio or TRIO:
         cfg = mlp.MLPConfig(**PUBLISHED[name])
         members.append((mlp.init(g, cfg, device="cuda"), cfg))
     pts = (torch.rand((nr * ns, 3), generator=g) * 2 - 1).cuda()
@@ -311,12 +339,12 @@ def single_check(name: str, nr: int, ns: int, dtype) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
-def ensemble_check(nr: int, ns: int, dtype) -> dict:
+def ensemble_check(nr: int, ns: int, dtype, trio=TRIO) -> dict:
     from simplenerf_torch.ops import fused_mlp
 
     dname = dname_of(dtype)
-    ens, kps, lo, hvxs = ensemble_operands(nr, ns, dtype, seed=nr + ns)
-    label = f"trio {nr} rays x {ns}"
+    ens, kps, lo, hvxs = ensemble_operands(nr, ns, dtype, seed=nr + ns, trio=trio)
+    label = f"{'trio' if trio == TRIO else 'visibility trio'} {nr} rays x {ns}"
     got = fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs)
     want = fused_mlp.fused_apply_ensemble_reference(ens, kps, lo, hvxs)
     fwd = check_planes(label, dname, got, want, kernel="fused_mlp_ens_fwd")
@@ -324,7 +352,7 @@ def ensemble_check(nr: int, ns: int, dtype) -> dict:
     dkps, dhvxs = fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp)
     wkps, whvxs = fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, dp)
     got_all, want_all = {}, {}
-    for name, a, b in zip(TRIO, dkps, wkps):
+    for name, a, b in zip(trio, dkps, wkps):
         got_all.update({f"{name}.{k}": v for k, v in a.items()})
         want_all.update({f"{name}.{k}": v for k, v in b.items()})
     for i, (a, b) in enumerate(zip(dhvxs, whvxs)):
@@ -362,9 +390,14 @@ def check_train_kernels() -> dict:
             e = ensemble_check(nr, ns, dtype)
             keep("fused_mlp_ens_fwd", dtype, e["fwd"])
             keep("fused_mlp_ens_bwd", dtype, e["bwd"])
-        e = single_check("main", STEP_RAYS, FINE_NS, dtype)
-        keep("fused_mlp_fwd", dtype, e["fwd"])
-        keep("fused_mlp_bwd", dtype, e["bwd"])
+        for name in ("main", "visibility"):  # the published step; the priors phase's
+            e = single_check(name, STEP_RAYS, FINE_NS, dtype)
+            keep("fused_mlp_fwd", dtype, e["fwd"])
+            keep("fused_mlp_bwd", dtype, e["bwd"])
+        # The priors phase's coarse trio: a 4-channel views head beside 3.
+        e = ensemble_check(STEP_RAYS, COARSE_NS, dtype, trio=VIS_TRIO)
+        keep("fused_mlp_ens_fwd", dtype, e["fwd"])
+        keep("fused_mlp_ens_bwd", dtype, e["bwd"])
         torch.cuda.empty_cache()
     for f, n in saved.items():
         f.launches = n
@@ -439,16 +472,20 @@ def train(work: Path, db: Path) -> dict:
     return {"launches": launches, "s": t_train, "run_dir": run_dir}
 
 
-def step_gradients(db: Path, dtype_name: str) -> float:
+def step_gradients(db: Path, dtype_name: str, make_config=None, label: str = "") -> dict:
     """One training step's parameter gradients through the kernels and
-    through the plain versions, from the same params, batch and draws."""
+    through the plain versions, from the same params, batch and draws.
+    Every gradient is held as max abs error over the plain version's largest
+    value; with a `make_config` (another path's recipe) also as
+    ||got - want|| / ||want||, both against STEP_TOL. Returns the worst
+    error, its tensor and the errors of the views heads (`views_out`)."""
     import torch
 
     from simplenerf_torch.data.factory import get_data_loader
     from simplenerf_torch.data.preprocessor import ScenePreprocessor
     from simplenerf_torch.training.trainer import Trainer
 
-    cfg = train_config(compute_dtype=dtype_name)
+    cfg = (make_config or train_config)(compute_dtype=dtype_name)
     cfg["resume_training"] = False
     raw = get_data_loader(cfg, db, "train").load_data()
     with tempfile.TemporaryDirectory() as tmp:
@@ -467,14 +504,18 @@ def step_gradients(db: Path, dtype_name: str) -> float:
         with plain_versions():
             plain = grads()
     errs = [rel_err(a, b) for a, b in zip(kern, plain)]
+    if make_config is not None:
+        errs = [max(e, norm_err(a, b)) for e, a, b in zip(errs, kern, plain)]
     worst = max(errs)
     names = leaf_paths(trainer.params)
-    print(f"step gradients {dtype_name}: kernels vs plain versions, worst rel err {worst:.3e} "
+    print(f"step gradients{label} {dtype_name}: kernels vs plain versions, worst "
+          f"{'rel / norm' if make_config else 'rel'} err {worst:.3e} "
           f"({names[errs.index(worst)]} of {len(errs)} tensors; tol {STEP_TOL[dtype_name]:g}); "
           f"median {statistics.median(errs):.3e}", flush=True)
     if not worst <= STEP_TOL[dtype_name]:
-        fail(f"a training step's gradients disagree with the plain versions ({dtype_name})")
-    return worst
+        fail(f"a training step's gradients disagree with the plain versions ({dtype_name}{label})")
+    return {"worst": worst, "worst_tensor": names[errs.index(worst)],
+            "views_out": {n: e for n, e in zip(names, errs) if "views_out" in n}}
 
 
 def leaf_paths(tree, prefix: str = "") -> list:
@@ -1149,6 +1190,305 @@ def pipeline(work: Path, card: str, h: int = 189, w: int = 252) -> dict:
     return out
 
 
+RE_STEPS, RE_FRAMES, RE_H, RE_W = 20, 20, 54, 96
+
+
+def realestate(work: Path, card: str) -> dict:
+    """The RealEstate10K experiment, `drivers.realestate.run` (what
+    `realestate.main` runs), on a seeded RE10K-layout scene from the port's
+    `generate_realestate_scene` (20 frames of RE_H x RE_W, 3 for training,
+    3 in the test CSV): the published bf16 recipe of `build_configs(3)` cut
+    to 20 steps, testing with QA against the scene's GT depths and VM02
+    masks under test/visibility_masks/, and one 4-pose video from the set
+    directory's pose CSV. Checks every output; returns its readings."""
+    import numpy as np
+    import torch
+
+    from simplenerf_torch.data import io
+    from simplenerf_torch.data.synthetic import generate_realestate_scene
+    from simplenerf_torch.dataset_tools import video_poses
+    from simplenerf_torch.drivers import realestate as re_driver, runner
+    from simplenerf_torch.ops import fused_mlp
+    from simplenerf_torch.qa.masks import generate_visibility_masks
+    from simplenerf_torch.qa.runner import ALL_METRICS, QARunner
+    from simplenerf_torch.training.trainer import render_in_chunks
+
+    t0 = time.perf_counter()
+    db, runs, gt_depths = work / "re10k/db", work / "re10k/runs", work / "re10k/gt_depths"
+    gt = generate_realestate_scene(db, scene_num=0, num_frames=RE_FRAMES, h=RE_H, w=RE_W,
+                                   num_train=3, seed=0, max_test_frames=3)
+    train_f, test_f = [int(f) for f in gt["train_frames"]], [int(f) for f in gt["test_frames"]]
+    (gt_depths / "00000").mkdir(parents=True)
+    for f in test_f:
+        np.save(gt_depths / f"00000/{f:04}.npy", gt["depths"][f])
+
+    def frame(f):
+        return {"frame": np.round(gt["images"][f] * 255).astype(np.uint8), "depth": gt["depths"][f],
+                "extrinsic": gt["extrinsics"][f], "intrinsic": gt["intrinsic"]}
+
+    generate_visibility_masks(db / "test/visibility_masks/VM02", "00000",
+                              {f: frame(f) for f in train_f}, {f: frame(f) for f in test_f})
+    set_num, run_num = re_driver.VIEWS_TO_SET[3]
+    poses = video_poses.create_spiral_video_poses(gt["extrinsics"][train_f], [1.0, 100.0],
+                                                  num_frames=VIDEO_POSES - 1)
+    pose_dir = db / f"train_test_sets/set{set_num:02}/video_poses01"
+    pose_dir.mkdir(parents=True)
+    np.savetxt(pose_dir / "00000.csv", poses.reshape(len(poses), 16), delimiter=",")
+    t_setup = time.perf_counter() - t0
+    print(f"realestate: {RE_FRAMES}-frame {RE_H}x{RE_W} scene, GT depths, VM02 masks and a "
+          f"{len(poses)}-pose video CSV in {t_setup:.1f} s", flush=True)
+
+    train_cfg, test_cfg = re_driver.build_configs(3, [0], RE_STEPS, "bfloat16", 0)
+    train_cfg["log_interval"] = 10
+    counters = (fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd, fused_mlp.fused_apply,
+                fused_mlp.fused_bwd)
+    with timed_calls(QARunner, "run") as qa_log, \
+            timed_calls(runner, "start_training") as train_log, \
+            timed_calls(runner, "start_testing") as test_log, \
+            timed_calls(runner, "start_testing_videos") as video_log:
+        # The main path: counters at 0 just before, read just after.
+        for f in counters:
+            f.launches = 0
+        t0 = time.perf_counter()
+        scores = re_driver.run(train_cfg, test_cfg, db, runs, gt_depth_dir=gt_depths)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        launches = {f.__name__: f.launches for f in counters}
+    eval_launches = {"test": test_log[0]["fwd_launches"], "video": video_log[0]["fwd_launches"]}
+    train_launches = {**launches, "fused_apply": launches["fused_apply"] - sum(eval_launches.values())}
+    print(f"realestate: realestate.run in {t_run:.1f} s (start_training {train_log[0]['s']:.1f} s, "
+          f"start_testing {test_log[0]['s']:.1f} s, video {video_log[0]['s']:.1f} s); training "
+          f"launches {train_launches}, forward launches in testing and the video {eval_launches}; "
+          f"QA scores {scores}", flush=True)
+    if any(n != RE_STEPS for n in train_launches.values()):
+        fail(f"expected {RE_STEPS} training launches of each kernel, got {train_launches}")
+    chunks = -(-(RE_H * RE_W) // CHUNK_RAYS)
+    want_eval = {"test": 2 * chunks * len(test_f), "video": 2 * chunks * VIDEO_POSES}
+    if eval_launches != want_eval:
+        fail(f"forward launches in testing and the video {eval_launches}, expected {want_eval}")
+
+    scene = runs / f"training/train{run_num:04}/00000"
+    mc = json.loads((scene / "ModelConfigs.json").read_text())
+    if not np.allclose(mc["bounds"], np.array([1.0, 100.0]) / 0.75):
+        fail(f"RealEstate10K bounds {mc['bounds']}, expected [1, 100] / 0.75")
+    rows = [json.loads(r) for r in (scene / "logs/scalars.jsonl").read_text().splitlines()]
+    losses = {k: r[k] for r in rows for k in r if k not in ("iter", "time", "lr", "rays_per_s")}
+    if len(losses) != 10 or not all(math.isfinite(v) for v in losses.values()):
+        fail(f"RealEstate10K training losses missing or not finite: {losses}")
+    test_dir = runs / f"testing/test{run_num:04}"
+    qa = json.loads((test_dir / "QA_Scores.json").read_text())
+    skipped = qa.get("skipped", {})
+    for name in ALL_METRICS:
+        ok = math.isfinite(qa[name]) if name in qa else name.endswith("LPIPS") and bool(skipped.get(name))
+        if not ok:
+            fail(f"RealEstate10K QA family {name}: score {qa.get(name)}, skipped {skipped.get(name)!r}")
+    got = sorted(p.name for p in (test_dir / "00000/PredictedVideo").glob("*.png"))
+    if got != [f"{i:04}.png" for i in range(VIDEO_POSES)]:
+        fail(f"the RealEstate10K video has frames {got}, expected {VIDEO_POSES}")
+
+    # One test frame rendered again through the kernels (it must give the
+    # written PNG) and through the plain versions. No launch here counts.
+    saved = {f: f.launches for f in counters}
+    tester = runner.load_scene_tester(runs / f"training/train{run_num:04}", 0, test_cfg)
+    f0 = test_f[0]
+    batch = tester.preprocessor.create_test_data(gt["extrinsics"][f0], intrinsic=gt["intrinsic"])
+    kern = render_in_chunks(tester._eval_step, tester.params, batch, tester.chunk)["rgb_fine"]
+    with plain_versions():
+        plain = render_in_chunks(tester._eval_step, tester.params, batch, tester.chunk)["rgb_fine"]
+    for f, n in saved.items():
+        f.launches = n
+    plain_err = (kern.float() - plain.float()).abs().max().item()
+    png = io.read_image(test_dir / f"00000/predicted_frames/{f0:04}.png").astype(int)
+    mine = np.round(np.clip(kern.float().cpu().numpy(), 0, 1) * 255).reshape(RE_H, RE_W, 3)
+    print(f"realestate: test frame {f0} fine rgb, kernels vs plain versions max abs err "
+          f"{plain_err:.3e} (tol {CROP_TOL:g})", flush=True)
+    if np.abs(png - mine).max() > 1:
+        fail("the re-rendered RealEstate10K test frame differs from the one testing wrote")
+    if not plain_err <= CROP_TOL:
+        fail("a RealEstate10K test frame through the kernels disagrees with the plain versions")
+    out = {
+        "scene": f"{RE_FRAMES} frames {RE_H}x{RE_W}", "setup_s": t_setup, "run_s": t_run,
+        "train_s": train_log[0]["s"], "s_per_test_frame": test_log[0]["s"] / len(test_f),
+        "qa_s": qa_log[0]["s"], "s_per_video_frame": video_log[0]["s"] / VIDEO_POSES,
+        "launches": launches, "train_launches": train_launches, "eval_launches": eval_launches,
+        "plain_err": plain_err, "qa": {k: v for k, v in qa.items() if k != "skipped"},
+        "qa_skipped": skipped, "bounds": mc["bounds"], "card": card,
+    }
+    print(f"realestate: {out['train_s']:.2f} s of training, {out['s_per_test_frame']:.3f} s per test "
+          f"frame, {out['qa_s']:.3f} s of QA, {out['s_per_video_frame']:.3f} s per video frame",
+          flush=True)
+    return out
+
+
+PRIORS_STEPS, PRIORS_VAL_CHUNK = 20, 16 * 1024
+
+
+def priors_config(**overrides) -> dict:
+    """The published recipe (train_config) with a visibility head on the
+    coarse and fine main MLPs, the dense-depth and visibility losses and
+    their prior data, 20 steps, one validation round at 20 with loss maps."""
+    from simplenerf_torch.drivers import presets
+
+    cfg = presets.with_visibility_priors(train_config(**{"num_iterations": PRIORS_STEPS, **overrides}))
+    cfg.update(validation_interval=PRIORS_STEPS, validation_save_loss_maps=True,
+               validation_chunk_size=PRIORS_VAL_CHUNK)
+    return cfg
+
+
+@contextlib.contextmanager
+def recorded(owner, attr: str, keep):
+    """Wrap owner.<attr> so that each call appends keep(args, result) to the
+    yielded list."""
+    orig, log = getattr(owner, attr), []
+
+    def wrapper(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        log.append(keep(args, out))
+        return out
+
+    setattr(owner, attr, wrapper)
+    try:
+        yield log
+    finally:
+        setattr(owner, attr, orig)
+
+
+def priors(work: Path, card: str) -> dict:
+    """Visibility heads and the prior losses in training: on a copy of the
+    serve phase's scene with dense depths (the analytic depths) and
+    visibility-prior masks (the port's qa.masks splat, 3 x 2 between the
+    train frames) written, `runner.start_training` of priors_config for 20
+    steps with one validation round at 20. Checks the launches, the views
+    head widths the kernels were given, one step's gradients against the
+    plain versions, the loss values, and the secondary-view visibility path
+    on a train frame; returns the readings."""
+    import numpy as np
+    import torch
+
+    from simplenerf_torch.data import io
+    from simplenerf_torch.data.factory import get_data_loader
+    from simplenerf_torch.data.preprocessor import gather_batch
+    from simplenerf_torch.data.synthetic import write_scene_priors
+    from simplenerf_torch.drivers import runner
+    from simplenerf_torch.losses.visibility import make_visibility_prior_loss
+    from simplenerf_torch.ops import fused_mlp
+    from simplenerf_torch.training.trainer import Trainer, build_eval_renderer, render_in_chunks
+
+    t0 = time.perf_counter()
+    db, runs = work / "priors/db", work / "priors/runs"
+    shutil.copytree(work / "db", db)
+    scene_dir = db / "all/database_data/blobs"
+    extrinsics = np.loadtxt(scene_dir / "CameraExtrinsics.csv", delimiter=",").reshape(-1, 4, 4)
+    K = np.loadtxt(scene_dir / "CameraIntrinsics_down4.csv", delimiter=",").reshape(-1, 3, 3)[0]
+    cfg = priors_config()
+    scene_cfg = {**cfg, "data_loader": {**cfg["data_loader"], "scene_id": "blobs"}}
+    train_f = [int(f) for f in get_data_loader(scene_cfg, db, "train").get_frame_nums()]
+    images = {f: io.read_image(scene_dir / f"rgb_down4/{f:04}.png") for f in train_f}
+    depths = {f: np.load(work / f"gt_depths/blobs/{f:04}.npy") for f in train_f}
+    write_scene_priors(db, "blobs", train_f, images, depths, extrinsics, K)
+    t_setup = time.perf_counter() - t0
+    print(f"priors: scene copied, dense depths and {len(train_f) * (len(train_f) - 1)} visibility-"
+          f"prior masks written in {t_setup:.1f} s", flush=True)
+
+    counters = (fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd, fused_mlp.fused_apply,
+                fused_mlp.fused_bwd)
+    with timed_calls(Trainer, "run_validation") as val_log, \
+            recorded(fused_mlp, "_launch_fwd",
+                     lambda a, _: tuple(m.out_v for m in getattr(a[0], "members", (a[0],)))) as widths, \
+            recorded(Trainer, "step", lambda a, v: float(v["VisibilityPriorLoss01"])) as prior_losses:
+        # The main path: counters at 0 just before, read just after.
+        for f in counters:
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_dir = runner.start_training(cfg, db, runs)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches = {f.__name__: f.launches for f in counters}
+    val_launches = sum(c["fwd_launches"] for c in val_log)
+    train_launches = {**launches, "fused_apply": launches["fused_apply"] - val_launches}
+    print(f"priors: start_training, {PRIORS_STEPS} steps with visibility heads and the prior losses "
+          f"in {t_train:.1f} s incl. set-up (validation {val_log[0]['s']:.2f} s); training launches "
+          f"{train_launches}, {val_launches} forward launches in validation; views head widths the "
+          f"kernels were given {sorted(set(widths))}; peak device memory {peak_gb:.2f} GiB", flush=True)
+    if len(val_log) != 1 or any(n != PRIORS_STEPS for n in train_launches.values()):
+        fail(f"expected {PRIORS_STEPS} training launches of each kernel and one validation round, "
+             f"got {train_launches} and {len(val_log)}")
+    if set(widths) != {(4,), (4, 3, 0)}:
+        fail(f"views head widths {sorted(set(widths))}: the fine and trio programs need a 4-channel head")
+    if len(prior_losses) != PRIORS_STEPS or any(v != 0.0 for v in prior_losses):
+        fail(f"VisibilityPriorLoss01 in training {prior_losses}: the JAX package's train step gives 0")
+    scene = run_dir / "blobs"
+    rows = [json.loads(r) for r in (scene / "logs/scalars.jsonl").read_text().splitlines()]
+    train_rows = [r for r in rows if "rays_per_s" in r]
+    for r in train_rows:
+        for k in ("DenseDepthMSE01", "VisibilityLoss01"):
+            if not (math.isfinite(r[k]) and r[k] > 0):
+                fail(f"{k} at step {r['iter']} is {r[k]}")
+    val = {k: v for r in rows for k, v in r.items() if k.startswith("validation/")}
+    for tag in ("train_images", "val_images"):
+        v = val.get(f"validation/{tag}/VisibilityPriorLoss01")
+        if v is None or not math.isfinite(v):
+            fail(f"VisibilityPriorLoss01 in the validation scalars: {v}")
+    losses_dir = scene / "samples/Losses"
+    for name in ("DenseDepthMSE01_coarse", "DenseDepthMSE01_fine"):
+        if not list(losses_dir.glob(f"{name}_*_Iter{PRIORS_STEPS:05}.npy")):
+            fail(f"no {name} loss map in validation")
+
+    # The secondary-view visibility path (the unfused MLP per secondary
+    # view), which neither validation nor the Tester takes: a train frame's
+    # rays with the other train frames' origins, its visibility2 and
+    # VisibilityPriorLoss01 against the prior masks. No launch here counts.
+    saved = {f: f.launches for f in counters}
+    trainer = val_log[0]["args"][0]
+    pp, f0 = trainer.train_pp, train_f[0]
+    idx, mask, _ = pp.next_indices(0, image_num=f0)
+    batch = gather_batch(pp.cache, pp.common, pp.batch_constants(),
+                         torch.as_tensor(idx, device=pp.device), torch.as_tensor(mask, device=pp.device),
+                         None)
+    tester = runner.load_scene_tester(run_dir, "blobs", {})
+    others = [extrinsics[f] for f in train_f if f != f0]
+    batch["rays_o2"] = tester.preprocessor.create_test_data(extrinsics[f0], secondary_poses=others,
+                                                            intrinsic=K)["rays_o2"]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = render_in_chunks(build_eval_renderer(trainer.render_cfg, sec_views_vis=True),
+                               trainer.params, batch, PRIORS_VAL_CHUNK)
+    torch.cuda.synchronize()
+    t_vis2 = time.perf_counter() - t0
+    vis2_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    for f, n in saved.items():
+        f.launches = n
+    prior_loss = float(make_visibility_prior_loss()(batch, out))
+    vis2 = out["visibility2_fine"]
+    print(f"priors: secondary-view visibility of train frame {f0} ({vis2.shape[0]} rays x "
+          f"{vis2.shape[1]} views) in {t_vis2:.2f} s, peak device memory {vis2_peak_gb:.2f} GiB; "
+          f"VisibilityPriorLoss01 {prior_loss:.4g}", flush=True)
+    if vis2.shape != (pp.resolution[0] * pp.resolution[1], len(others)) or \
+            not bool(((vis2 >= 0) & (vis2 <= 1)).all()) or not (math.isfinite(prior_loss) and prior_loss > 0):
+        fail(f"the secondary-view visibility path: visibility2 {tuple(vis2.shape)}, loss {prior_loss}")
+
+    t0 = time.perf_counter()
+    step_err = {d: step_gradients(db, d, make_config=priors_config, label=" (priors)")
+                for d in ("float32", "bfloat16")}
+    t_grads = time.perf_counter() - t0
+    out = {
+        "setup_s": t_setup, "train_s": t_train, "validation_s": val_log[0]["s"],
+        "peak_gb": peak_gb, "launches": launches, "train_launches": train_launches,
+        "val_fwd_launches": val_launches, "views_head_widths": sorted(set(widths)),
+        "losses": {k: train_rows[-1][k] for k in ("DenseDepthMSE01", "VisibilityLoss01",
+                                                  "VisibilityPriorLoss01")},
+        "validation_VisibilityPriorLoss01": {t: val[f"validation/{t}/VisibilityPriorLoss01"]
+                                             for t in ("train_images", "val_images")},
+        "vis2_s": t_vis2, "vis2_peak_gb": vis2_peak_gb, "vis2_prior_loss": prior_loss,
+        "step_grad_err": step_err, "step_grads_s": t_grads, "card": card,
+    }
+    return out
+
+
 def chunk_kernels(test_rays: int) -> dict:
     """Kernel vs plain version at the chunk shapes serving gives it (bf16,
     published main MLP), then timed at the 756x1008 frame's two shapes.
@@ -1249,7 +1589,9 @@ def main() -> int:
         served = serve(work, h, w)
         trained = train(work, work / "db")
         piped = pipeline(work, card, h, w)
-        step_err = {d: step_gradients(work / "db", d) for d in ("float32", "bfloat16")}
+        re10k = realestate(work, card)
+        prior = priors(work, card)
+        step_err = {d: step_gradients(work / "db", d)["worst"] for d in ("float32", "bfloat16")}
         torch.cuda.empty_cache()
         timing = chunk_kernels(test_rays=min(CHUNK_RAYS, -(-(h * w) // 256) * 256))
         train_timing = time_train_kernels()
@@ -1271,6 +1613,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": trained["launches"][WRAPPERS[name]],
             "launches_pipeline": piped["launches"][WRAPPERS[name]],
+            "launches_realestate": re10k["launches"][WRAPPERS[name]],
+            "launches_priors": prior["launches"][WRAPPERS[name]],
             "max_abs_err": worst[(name, "bfloat16", "err")],
             "max_abs_err_f32": worst[(name, "float32", "err")],
             "err_measure": ("planes: max abs error" if name.endswith("fwd")
@@ -1302,6 +1646,8 @@ def main() -> int:
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             fail(f"non-finite timing for {name}")
     print(json.dumps({"pipeline": piped}), flush=True)
+    print(json.dumps({"realestate": re10k}), flush=True)
+    print(json.dumps({"priors": prior}), flush=True)
     print(json.dumps({"kernels": kernels, "train_step": {**step, "step_grad_rel_err": step_err}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,5 +13,7 @@ def get_data_loader(configs: dict, data_dirpath: Path, mode: Optional[str]):
 
         return NerfLlffDataLoader(configs, data_dirpath, mode)
     if name.startswith("RealEstate"):
-        raise NotImplementedError("the RealEstate10K loader is not ported yet")
+        from simplenerf_torch.data.realestate import RealEstateDataLoader
+
+        return RealEstateDataLoader(configs, data_dirpath, mode)
     raise ValueError(f"Unknown data loader: {name}")

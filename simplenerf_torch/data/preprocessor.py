@@ -13,8 +13,9 @@ gathers the batch on the device. "validation" mode builds the same ray
 cache for the validation frames, with their poses normalized by the train
 scene's digest (`model_configs`), and is read whole frame by whole frame.
 "test" mode builds full-image ray batches for any pose from a stored
-digest. Dense depth, the visibility prior and mip-NeRF radii are not
-ported yet and raise.
+digest. The train cache also holds the dense-depth planes, the
+visibility-prior masks and weights and the mip-NeRF radii where the
+configuration asks for them.
 
 As in the JAX package, the epoch sampler wraps into the next permutation
 at an epoch boundary instead of emitting a short batch.
@@ -95,12 +96,35 @@ def _build_ray_cache(images, intrinsics, c2ws, near: float, h: int, w: int, ndc:
     return cache
 
 
-def _area_downsample(images: np.ndarray, f: int) -> np.ndarray:
-    """Integer-factor area resize (each output pixel the mean of an f x f block)."""
-    n, h, w, c = images.shape
-    if h % f or w % f:
-        raise NotImplementedError(f"downsampling {h}x{w} by {f} needs sizes divisible by it")
-    return images.reshape(n, h // f, f, w // f, f, c).mean(axis=(2, 4))
+def _area_weights(src: int, dst: int) -> np.ndarray:
+    """(dst, src) area-resize weights along one axis, as OpenCV's INTER_AREA
+    tables them for a shrink (computeResizeAreaTab): output cell d covers
+    source span [d*s, (d+1)*s), s = src/dst, each source pixel weighted by
+    its covered fraction over the cell's width, the weights float32."""
+    scale = src / dst
+    tab = np.zeros((dst, src), np.float64)
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, src - f1)
+        s2 = min(int(np.floor(f2)), src - 1)
+        s1 = min(int(np.ceil(f1)), s2)
+        if s1 - f1 > 1e-3:
+            tab[d, s1 - 1] = np.float32((s1 - f1) / cell)
+        tab[d, s1:s2] = np.float32(1.0 / cell)
+        if f2 - s2 > 1e-3:
+            tab[d, s2] = np.float32(min(f2 - s2, 1.0, cell) / cell)
+    return tab
+
+
+def area_downsample(images: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(n, H, W, c) float images shrunk to (n, h, w, c) by area averaging:
+    OpenCV's INTER_AREA, which the JAX package calls, for integer and
+    non-integer ratios alike (separable fractional-coverage weights)."""
+    wy = _area_weights(images.shape[1], h)
+    wx = _area_weights(images.shape[2], w)
+    out = np.einsum("yY,nYXc,xX->nyxc", wy, images.astype(np.float64), wx, optimize=True)
+    return out.astype(np.float32)
 
 
 class ScenePreprocessor:
@@ -124,6 +148,8 @@ class ScenePreprocessor:
         self.downsampling_factor = dl.get("downsampling_factor", 1)
         self.num_rays = dl.get("num_rays", 2048)
         self.sparse_depth_needed = "sparse_depth" in dl
+        self.dense_depth_needed = "dense_depth" in dl
+        self.visibility_prior_needed = "visibility_prior" in dl
         self.mip_nerf_needed = "mip_nerf" in dl
         self.white_bkgd = configs.get("model", {}).get("white_bkgd", False)
         self.rng = np.random.default_rng(seed)
@@ -145,10 +171,6 @@ class ScenePreprocessor:
     def _preprocess(self, raw: dict):
         """Images, normalized poses, bounds, near/far, the ray cache and the
         batch samplers of the mode's frames."""
-        dl = self.configs["data_loader"]
-        for key in ("dense_depth", "visibility_prior", "mip_nerf"):
-            if key in dl:
-                raise NotImplementedError(f"training with {key!r} is not ported yet")
         nerf = raw["nerf_data"]
         self.frame_nums = np.asarray(raw["frame_nums"])
         images = self._preprocess_images(nerf["images"])
@@ -157,7 +179,7 @@ class ScenePreprocessor:
         if self.downsampling_factor > 1:
             f = self.downsampling_factor
             h, w = h // f, w // f
-            images = _area_downsample(images, f)
+            images = area_downsample(images, h, w)
             intrinsics[:, :2] /= f
         self.resolution = (int(h), int(w))
         self.images = images.astype(np.float32)
@@ -214,11 +236,24 @@ class ScenePreprocessor:
             self.common["images"], self.common["intrinsics"], self.common["poses"], self.near,
             *self.resolution, ndc=self.ndc,
         )
-        self.num_frames = len(self.images)
+        n = self.num_frames = len(self.images)
+        if self.mip_nerf_needed:
+            # Mip-NeRF pixel cone radii, cached like every per-pixel field
+            # (reference preprocess_mip_nerf_data).
+            h, w = self.resolution
+            rd = self.cache["rays_d"].reshape(n, h, w, 3)
+            self.cache["radii"] = ray_lib.get_radii(rd).reshape(n * h * w, 1)
+            if self.ndc:
+                ro = self.cache["rays_o_ndc"].reshape(n, h, w, 3)
+                self.cache["radii_ndc"] = ray_lib.get_radii_ndc(ro).reshape(n * h * w, 1)
         self.sampler = EpochSampler(self._nerf_index_pool(iter_num=0), self.rng)
         if self.mode == "train":
             if self.sparse_depth_needed:
                 self._preprocess_sparse_depth(raw)
+            if self.dense_depth_needed:
+                self._preprocess_dense_depth(raw)
+            if self.visibility_prior_needed:
+                self._preprocess_visibility_prior(raw)
             self._pack_cache()
         else:  # read whole frames only; no packed copy of the cache
             self.packed_layout = ()
@@ -291,6 +326,30 @@ class ScenePreprocessor:
         sd_cfg = self.configs["data_loader"]["sparse_depth"]
         self.num_rays_sparse_depth = sd_cfg.get("num_rays", 2048)
         self.sparse_sampler = EpochSampler(np.where(depths[:, 0] > 0)[0], self.rng)
+
+    def _preprocess_dense_depth(self, raw: dict):
+        """Per-pixel dense depths (scaled into the normalized frame), their
+        weights, and in NDC scenes the NDC depths with -1 kept."""
+        dd = raw["dense_depth_data"]
+        dev = self.device
+        depths = (dd["depth_values"] * self.sc).astype(np.float32).reshape(-1, 1)
+        weights = dd["depth_weights"].astype(np.float32).reshape(-1, 1)
+        d = self.cache["dense_depth_values"] = torch.as_tensor(depths, device=dev)
+        self.cache["dense_depth_weights"] = torch.as_tensor(weights, device=dev)
+        if self.ndc:
+            d_ndc = projection.depth_to_ndc(d, self.cache["rays_o"], self.cache["rays_d"], near=self.near)
+            self.cache["dense_depth_values_ndc"] = torch.where(d == -1, -1.0, d_ndc)
+
+    def _preprocess_visibility_prior(self, raw: dict):
+        """Prior masks and weights (n, n-1, h, w) laid out per ray as
+        (n*h*w, n-1): column j of a ray is its frame's j-th other frame."""
+        vp = raw["visibility_prior_data"]
+        n = self.num_frames
+        for key in ("masks", "weights"):
+            if key in vp:
+                plane = np.transpose(vp[key].astype(np.float32), (0, 2, 3, 1)).reshape(-1, n - 1)
+                self.cache[f"visibility_prior_{key}"] = torch.as_tensor(
+                    np.ascontiguousarray(plane), device=self.device)
 
     def _create_model_configs(self) -> dict:
         cfg = {
@@ -486,6 +545,11 @@ def gather_batch(cache: dict, common: dict, consts: dict, indices, mask_nerf, ma
             cache.pop(k, None)
     batch.update({k: v.index_select(0, idx) for k, v in cache.items()})
     nr = idx.shape[0]
+    for key in ("radii", "radii_ndc"):
+        # Radii exist only for NeRF rays; sparse-depth rows carry the
+        # reference's -1 fill (load_mip_nerf_cached_batch).
+        if key in batch:
+            batch[key] = torch.where(mask_nerf[:, None], batch[key], -1.0)
     for name, value in consts.items():
         batch[name] = torch.full((nr, 1), float(value), dtype=torch.float32, device=idx.device)
     batch["indices_mask_nerf"] = mask_nerf

@@ -314,3 +314,195 @@ def generate_scene(
         "test_frames": np.array(test_frames),
         "field": field,
     }
+
+
+def generate_realestate_scene(
+    root: Path,
+    scene_num: int = 0,
+    num_frames: int = 50,
+    h: int = 48,
+    w: int = 64,
+    set_num: int = 2,
+    num_train: int = 3,
+    num_extrapolation_frames: int = 5,
+    seed: int = 7,
+    sparse_points_per_frame: int = 96,
+    textured: bool = False,
+    sparse_mode: str = "uniform",
+    sparse_depth_noise: float = 0.01,
+    sparse_px_sigma: float = 1.0,
+    sparse_outlier_frac: float = 0.05,
+    max_test_frames: int | None = None,
+) -> dict:
+    """Write a synthetic scene in the RealEstate10K on-disk layout.
+
+    Layout (reference RealEstateDataLoader01 and the RealEstate QA
+    scripts): scenes are 5-digit numbers under test/database_data/, images
+    under rgb/ with no resolution suffix, 50-frame video clips, fixed depth
+    bounds [1, 100], sparse depth under
+    test/estimated_depths/<dirname>/<scene>/estimated_depths/. The
+    train/test split follows the reference's sparse recipe
+    (TrainTestCreator01): train = sorted prefix of [10, 20, 30, 0, 40],
+    test = the interior frames plus ±num_extrapolation_frames beyond the
+    ends, validation = every len(test)//len(train)-th test frame.
+
+    The camera is a video-style forward dolly (RE10K clips are walkthrough
+    videos); the geometry is the LLFF generator's analytic blob field.
+    `max_test_frames` thins only the test CSV; images and cameras of every
+    frame are still written.
+    """
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    scene_key = f"{scene_num:05}"
+    scene_dir = root / f"test/database_data/{scene_key}"
+    (scene_dir / "rgb").mkdir(parents=True, exist_ok=True)
+
+    field = _blob_field(rng, textured=textured)
+    focal = 0.9 * w
+    intrinsic = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1.0]])
+
+    images, depths, extrinsics = [], [], []
+    for i in range(num_frames):
+        # Gentle dolly: slide sideways and slightly forward with a slow yaw,
+        # like a real-estate walkthrough clip.
+        s = (i - (num_frames - 1) / 2) / max(num_frames - 1, 1)
+        t = np.array([0.9 * s, 0.12 * np.sin(2 * np.pi * s), 0.3 * s])
+        yaw = 0.12 * s
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        rot = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        w2c = np.eye(4)
+        w2c[:3, :3] = rot
+        w2c[:3, 3] = -rot @ t
+        extrinsics.append(w2c)
+        image, depth = render_analytic(h, w, intrinsic, w2c, field)
+        images.append(image)
+        depths.append(depth)
+
+    images = np.stack(images)
+    depths = np.stack(depths)
+    extrinsics = np.stack(extrinsics)
+
+    for i in range(num_frames):
+        io.write_image(scene_dir / f"rgb/{i:04}.png", np.round(images[i] * 255).astype(np.uint8))
+    np.savetxt(scene_dir / "CameraExtrinsics.csv", extrinsics.reshape(num_frames, 16), delimiter=",")
+    np.savetxt(
+        scene_dir / "CameraIntrinsics.csv",
+        np.tile(intrinsic.reshape(1, 9), (num_frames, 1)),
+        delimiter=",",
+    )
+
+    # Reference sparse split, scaled only by num_frames when a fixture uses
+    # fewer than the real 50.
+    base = [10, 20, 30, 0, 40]
+    if num_frames != 50:
+        base = [round(f * (num_frames - 1) / 49) for f in base]
+    train_frames = sorted(base[:num_train])
+    lo, hi = min(train_frames), max(train_frames)
+    test_frames = [
+        f for f in range(num_frames)
+        if f not in train_frames
+        and ((lo < f < hi) or (abs(lo - f) <= num_extrapolation_frames)
+             or (abs(f - hi) <= num_extrapolation_frames))
+    ]
+    val_frames = test_frames[:: max(len(test_frames) // max(len(train_frames), 1), 1)]
+    test_csv_frames = test_frames
+    if max_test_frames is not None and len(test_frames) > max_test_frames:
+        test_csv_frames = test_frames[:: -(-len(test_frames) // max_test_frames)][:max_test_frames]
+
+    sets_dir = root / f"train_test_sets/set{set_num:02}"
+    sets_dir.mkdir(parents=True, exist_ok=True)
+    for name, frames in (
+        ("TrainVideosData", train_frames),
+        ("ValidationVideosData", val_frames),
+        ("TestVideosData", test_csv_frames),
+    ):
+        # Rows of other scenes stay; regenerating a scene replaces its rows.
+        csv_path = sets_dir / f"{name}.csv"
+        scenes, nums = [], []
+        if csv_path.exists():
+            old = io.read_csv(csv_path)
+            keep = [i for i, s in enumerate(old["scene_num"]) if int(s) != scene_num]
+            scenes = [old["scene_num"][i] for i in keep]
+            nums = [old["pred_frame_num"][i] for i in keep]
+        io.write_csv(csv_path, {
+            "scene_num": scenes + [scene_num] * len(frames),
+            "pred_frame_num": nums + [int(f) for f in frames],
+        })
+
+    # Sparse depth CSVs (no resolution suffix in this database).
+    sd_dir = root / f"test/estimated_depths/DE02/{scene_key}/estimated_depths"
+    sd_dir.mkdir(parents=True, exist_ok=True)
+    centers = np.stack(
+        [-extrinsics[i, :3, :3].T @ extrinsics[i, :3, 3] for i in train_frames]
+    )
+    baseline = float(np.mean(np.linalg.norm(np.diff(centers, axis=0), axis=-1))) \
+        if len(centers) > 1 else 0.2
+    for i in train_frames:
+        if sparse_mode == "colmap":
+            xs, ys, d, err, weight = _colmap_like_sparse(
+                rng, images[i], depths[i], focal, baseline,
+                sparse_points_per_frame, sparse_px_sigma, sparse_outlier_frac,
+            )
+        else:
+            xs = rng.integers(0, w, sparse_points_per_frame)
+            ys = rng.integers(0, h, sparse_points_per_frame)
+            d = depths[i, ys, xs] * (1 + sparse_depth_noise * rng.standard_normal(sparse_points_per_frame))
+            err = np.abs(rng.standard_normal(sparse_points_per_frame)) * 0.5
+            weight = 2 * np.exp(-((err / (np.mean(err) + 1e-12)) ** 2))
+        io.write_csv(sd_dir / f"{i:04}.csv",
+                     {"x": xs, "y": ys, "depth": d, "reprojection_error": err, "weight": weight})
+
+    return {
+        "images": images,
+        "depths": depths,
+        "extrinsics": extrinsics,
+        "intrinsic": intrinsic,
+        "train_frames": np.array(train_frames),
+        "val_frames": np.array(val_frames),
+        "test_frames": np.array(test_csv_frames),
+        "field": field,
+    }
+
+
+def write_scene_priors(
+    root: Path,
+    scene_name: str,
+    frames,
+    images: np.ndarray,
+    depths: np.ndarray,
+    extrinsics: np.ndarray,
+    intrinsic: np.ndarray,
+    dense_dirname: str = "DE_GT",
+    masks_dirname: str = "VP_GT",
+    resolution_suffix: str = "_down4",
+) -> None:
+    """Write a scene's dense-depth and visibility priors in the LLFF layout,
+    from ground truth, for `frames` (the train frames):
+
+    - all/estimated_depths/<dense_dirname>/<scene>/estimated_depths<suffix>/NNNN.npy,
+      the frame's depth;
+    - all/visibility_prior/<masks_dirname>/<scene>/visibility_masks/AAAA_BBBB.png
+      for every ordered pair of frames: 255 where a pixel of frame A is
+      visible in frame B (frame B splatted into A at its depth,
+      `qa.masks.MaskComputer`), else 0.
+
+    images (n, h, w, 3) in [0, 1] or uint8, depths (n, h, w) and extrinsics
+    (n, 4, 4) are indexed by frame number; intrinsic (3, 3) is shared.
+    """
+    from simplenerf_torch.qa.masks import MaskComputer
+
+    root = Path(root)
+    dense = root / f"all/estimated_depths/{dense_dirname}/{scene_name}/estimated_depths{resolution_suffix}"
+    masks = root / f"all/visibility_prior/{masks_dirname}/{scene_name}/visibility_masks"
+    dense.mkdir(parents=True, exist_ok=True)
+    masks.mkdir(parents=True, exist_ok=True)
+    computer = MaskComputer()
+    frames = [int(f) for f in frames]
+    for f1 in frames:
+        np.save(dense / f"{f1:04}.npy", np.asarray(depths[f1], np.float32))
+        for f2 in frames:
+            if f2 == f1:
+                continue
+            visible = computer.compute_mask(images[f2], depths[f2], depths[f1], extrinsics[f2],
+                                            extrinsics[f1], intrinsic, intrinsic)
+            io.write_image(masks / f"{f1:04}_{f2:04}.png", visible.astype(np.uint8) * 255)

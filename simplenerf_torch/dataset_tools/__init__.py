@@ -1,1 +1,1 @@
-"""dataset_tools of the PyTorch port: render-path pose creators."""
+"""dataset_tools of the PyTorch port: split creators, render-path pose creators, extractors."""

@@ -197,3 +197,27 @@ def tiny_synthetic_config(**overrides) -> dict:
         cfg["model"]["points_augmentation"]["coarse_mlp"]["views_positional_encoding_degree"] = 2
         cfg["model"]["views_augmentation"]["coarse_mlp"]["points_positional_encoding_degree"] = 6
     return cfg
+
+
+def with_visibility_priors(cfg: dict, dense_dirname: str = "DE_GT",
+                           masks_dirname: str = "VP_GT") -> dict:
+    """`cfg` with the visibility heads and the prior losses on: a visibility
+    head on the coarse and fine main MLPs, the DenseDepthMSE01,
+    VisibilityLoss01 and VisibilityPriorLoss01 losses, and the dense-depth,
+    visibility-prior masks and mip-NeRF radii data (the priors
+    `synthetic.write_scene_priors` writes). The training step renders no
+    secondary views, so VisibilityPriorLoss01 is 0 there and counts only in
+    validation, as in the JAX package."""
+    cfg = copy.deepcopy(cfg)
+    for level in ("coarse_mlp", "fine_mlp"):
+        cfg["model"][level]["predict_visibility"] = True
+    dl = cfg["data_loader"]
+    dl["dense_depth"] = {"dirname": dense_dirname}
+    dl["visibility_prior"] = {"load_masks": True, "masks_dirname": masks_dirname}
+    dl["mip_nerf"] = {}
+    cfg["losses"] += [
+        {"name": "DenseDepthMSE01", "weight": 0.1},
+        {"name": "VisibilityLoss01", "weight": 0.1},
+        {"name": "VisibilityPriorLoss01", "weight": 0.001},
+    ]
+    return cfg

@@ -6,8 +6,9 @@ split CSVs, trains each scene into runs/training/trainNNNN/<scene>/
 renders each scene's test frames (with the train frames as secondary poses
 when the model predicts visibility) into runs/testing/testNNNN/<scene>/,
 scores them with the QA suite in-process, and renders pose-path videos.
-Finished scenes and existing outputs are skipped. The RealEstate10K layout
-and the device mesh are not ported yet.
+Finished scenes and existing outputs are skipped. Both database layouts
+are read: NeRF-LLFF (all/) and RealEstate10K (test/). The device mesh is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -201,8 +202,9 @@ def start_testing_videos(
     device=None,
 ) -> None:
     """Render each scene's pose-path video from
-    all/database_data/<scene>/<video_poses_dirname>/VideoPoses.csv into
-    testing/testNNNN/<scene>/PredictedVideo/NNNN.png (io.write_video's
+    all/database_data/<scene>/<video_poses_dirname>/VideoPoses.csv
+    (RealEstate10K: train_test_sets/setNN/<video_poses_dirname>/<scene>.csv)
+    into testing/testNNNN/<scene>/PredictedVideo/NNNN.png (io.write_video's
     layout). static_camera keeps the ray camera at the path's first pose
     and sweeps only the shading view direction, into StaticCameraVideo/.
     A scene without a pose file, or whose video is complete, is skipped."""
@@ -212,13 +214,21 @@ def start_testing_videos(
     test_dir = Path(output_dirpath) / f"testing/test{test_num:04}"
     train_run_dir = Path(output_dirpath) / f"training/train{train_num:04}"
     train_configs = config_lib.load_configs(train_run_dir / "Configs.json")
-    if train_configs["data_loader"]["data_loader_name"].startswith("RealEstate"):
-        raise NotImplementedError("RealEstate10K videos are not ported yet")
     scene_ids = test_configs.get("scene_names") or resolve_scene_ids(train_configs, database_dirpath)
 
+    realestate = train_configs["data_loader"]["data_loader_name"].startswith("RealEstate")
     for scene_id in scene_ids:
         key = scene_key(train_configs, scene_id)
-        poses_path = database_dirpath / f"all/database_data/{key}/{video_poses_dirname}/VideoPoses.csv"
+        if realestate:
+            # RE10K keeps per-scene video pose CSVs under the set directory
+            # (reference RealEstateTrainerTester01).
+            set_num = test_configs.get("test_set_num", train_configs["data_loader"]["train_set_num"])
+            base = database_dirpath / f"train_test_sets/set{set_num:02}/{video_poses_dirname}"
+            poses_path = base / f"{key}.csv"
+            if not poses_path.exists():
+                poses_path = base / f"{scene_id}.csv"
+        else:
+            poses_path = database_dirpath / f"all/database_data/{key}/{video_poses_dirname}/VideoPoses.csv"
         if not poses_path.exists():
             continue
         poses = np.loadtxt(poses_path, delimiter=",").reshape(-1, 4, 4)

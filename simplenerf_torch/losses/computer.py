@@ -2,8 +2,7 @@
 
 Port of simplenerf_tpu/losses/computer.py (reference LossComputer01): a
 static registry of loss builders; per-iteration weights (constant or
-stepwise `iter_weights` schedules) are computed on the host. The dense-depth
-and visibility losses are not ported yet: their builders raise.
+stepwise `iter_weights` schedules) are computed on the host.
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from simplenerf_torch.losses import consistency, depth_supervision, photometric
+from simplenerf_torch.losses import consistency, depth_supervision, photometric, visibility
 
 LossFn = Callable[[dict, dict], torch.Tensor]
 
@@ -26,14 +25,6 @@ class LossContext:
     points_aug_fine: bool = False
     views_aug_fine: bool = False
     sparse_depth_enabled: bool = True
-
-
-def _later_slice(name: str):
-    def build():
-        raise NotImplementedError(f"{name} is not ported yet; it comes with a later slice "
-                                  "(dense depth and the visibility losses)")
-
-    return build
 
 
 def build_loss(name: str, loss_cfg: dict, ctx: LossContext) -> LossFn:
@@ -53,7 +44,7 @@ def build_loss(name: str, loss_cfg: dict, ctx: LossContext) -> LossFn:
         "SparseDepthMSE03": lambda: depth_supervision.make_sparse_depth_loss(
             "views_augmentation_", ctx.views_aug_fine
         ),
-        "DenseDepthMSE01": _later_slice("DenseDepthMSE01"),
+        "DenseDepthMSE01": depth_supervision.make_dense_depth_loss,
         "PointsAugmentationDepthLoss01": lambda: consistency.make_plain_depth_consistency(
             "points_augmentation_", ctx.points_aug_fine
         ),
@@ -70,8 +61,8 @@ def build_loss(name: str, loss_cfg: dict, ctx: LossContext) -> LossFn:
         "CoarseFineConsistencyLoss02": lambda: consistency.make_reliable_coarse_fine_consistency(
             patch, thr, ctx.sparse_depth_enabled, clip, hub, arb
         ),
-        "VisibilityLoss01": _later_slice("VisibilityLoss01"),
-        "VisibilityPriorLoss01": _later_slice("VisibilityPriorLoss01"),
+        "VisibilityLoss01": visibility.make_visibility_loss,
+        "VisibilityPriorLoss01": visibility.make_visibility_prior_loss,
     }
     if name not in builders:
         raise ValueError(f"Unknown loss function: {name}")

@@ -155,10 +155,10 @@ def test_backward_kernel_matches_plain(cuda_device, name, ns, dtype):
         assert torch.equal(again_hvx, dhvx)
 
 
-def _ensemble(nr, ns, dtype, device, seed=0):
+def _ensemble(nr, ns, dtype, device, seed=0, trio=TRIO):
     g = torch.Generator().manual_seed(seed)
     members = []
-    for name in TRIO:
+    for name in trio:
         cfg = mlp.MLPConfig(**{**SMALL, **CASES[name]})
         members.append((mlp.init(g, cfg, device=device), cfg))
     pts = torch.randn((nr * ns, 3), generator=g).to(device)
@@ -169,8 +169,24 @@ def _ensemble(nr, ns, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("ns", [5, 64])
 def test_ensemble_kernels_match_plain(cuda_device, ns, dtype):
+    _check_ensemble(TRIO, ns, dtype, cuda_device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ns", [5, 64])
+def test_visibility_trio_kernels_match_plain(cuda_device, ns, dtype):
+    """The coarse trio with a visibility head on its main member: a views
+    head of 4 channels beside the points-augmentation member's 3."""
+    trio = ("visibility", "points_aug", "lambertian")
+    ens = _ensemble(1, ns, dtype, cuda_device, trio=trio)[0]
+    assert [m.out_v for m in ens.members] == [4, 3, 0]
+    _check_ensemble(trio, ns, dtype, cuda_device)
+
+
+def _check_ensemble(trio, ns, dtype, cuda_device):
+    """Both ensemble kernels of `trio` against their plain versions."""
     nr = 6 if ns == 5 else 37
-    ens, kps, lo, hvxs = _ensemble(nr, ns, dtype, cuda_device)
+    ens, kps, lo, hvxs = _ensemble(nr, ns, dtype, cuda_device, trio=trio)
     before = fused_mlp.fused_apply_ensemble.launches
     got = fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs)
     torch.cuda.synchronize()
@@ -188,7 +204,7 @@ def test_ensemble_kernels_match_plain(cuda_device, ns, dtype):
     torch.cuda.synchronize()
     assert fused_mlp.fused_ens_bwd.launches == before + 1
     want_kps, want_hvxs = fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, d_planes)
-    for name, dkp, wkp in zip(TRIO, dkps, want_kps):
+    for name, dkp, wkp in zip(trio, dkps, want_kps):
         _grad_errors(f"ens bwd {name} ns={ns}", dkp, wkp, dtype)
     assert len(dhvxs) == len(want_hvxs) == len(ens.hvx_members)
     for a, b in zip(dhvxs, want_hvxs):
@@ -308,3 +324,79 @@ def test_sampling_draws_with_a_card_generator(cuda_device):
     assert z.is_cuda and fine.is_cuda and fine.shape == (7, 40)
     g2 = torch.Generator(device=cuda_device).manual_seed(3)
     torch.testing.assert_close(sampling.stratified_z_vals(near, far, 16, perturb=True, generator=g2), z)
+
+
+# One training step's gradients through the kernels against the plain
+# versions, every parameter as ||got - want|| / ||want||: chip_smoke.py's
+# step limits. The fine samples depend on the coarse weights, so the two
+# runs' inputs drift apart with the coarse kernels' rounding.
+STEP_TOL = {torch.float32: 5e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_visibility_training_step_gradients_match_plain(cuda_device, tmp_path, monkeypatch, dtype):
+    """A training step with visibility heads on the coarse and fine main
+    MLPs and the dense-depth and visibility losses on their prior data:
+    the visibility head's weights among the gradients."""
+    from simplenerf_torch.data.factory import get_data_loader
+    from simplenerf_torch.data.preprocessor import ScenePreprocessor
+    from simplenerf_torch.data.synthetic import generate_scene, write_scene_priors
+    from simplenerf_torch.drivers import presets
+    from simplenerf_torch.training.trainer import Trainer
+
+    gt = generate_scene(tmp_path / "db", num_frames=5, h=24, w=32, num_train=3, seed=3)
+    write_scene_priors(tmp_path / "db", "blobs", gt["train_frames"], gt["images"], gt["depths"],
+                       gt["extrinsics"], gt["intrinsic"])
+    cfg = presets.with_visibility_priors(presets.tiny_synthetic_config(
+        num_rays=256, sparse_depth_rays=128, consistency_start_iter=1,
+        compute_dtype="bfloat16" if dtype == torch.bfloat16 else "float32"))
+    cfg["model"]["fused_mlp"] = "on"
+    cfg["resume_training"] = False
+    raw = get_data_loader(cfg, tmp_path / "db", "train").load_data()
+    trainer = Trainer(cfg, tmp_path / "run", ScenePreprocessor(cfg, "train", raw, device=cuda_device))
+    idx = trainer.train_pp.next_indices(2)
+    widths = []
+    launch = fused_mlp._launch_fwd
+
+    def spy(spec, *args):
+        widths.append([m.out_v for m in getattr(spec, "members", (spec,))])
+        return launch(spec, *args)
+
+    def grads():
+        for p in trainer.leaves:
+            p.grad = None
+        total, values = trainer.loss(trainer.batch(*idx), 2, generator=trainer.step_generator(2))
+        total.backward()
+        assert float(values["VisibilityLoss01"]) > 0 and float(values["DenseDepthMSE01"]) > 0
+        return [p.grad.clone() for p in trainer.leaves]
+
+    monkeypatch.setattr(fused_mlp, "_launch_fwd", spy)
+    counts = [f.launches for f in (fused_mlp.fused_apply, fused_mlp.fused_bwd,
+                                   fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd)]
+    kern = grads()
+    torch.cuda.synchronize()
+    after = [f.launches for f in (fused_mlp.fused_apply, fused_mlp.fused_bwd,
+                                  fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd)]
+    assert [b - a for a, b in zip(counts, after)] == [1, 1, 1, 1]
+    assert sorted(widths) == [[4], [4, 3, 0]]  # the fine MLP, the coarse trio
+    monkeypatch.setattr(fused_mlp, "_fwd", lambda *a: torch.stack(fused_mlp.fused_apply_reference(*a)))
+    monkeypatch.setattr(fused_mlp, "fused_bwd", fused_mlp.fused_bwd_reference)
+    monkeypatch.setattr(fused_mlp, "_ens_fwd",
+                        lambda *a: torch.stack(fused_mlp.fused_apply_ensemble_reference(*a)))
+    monkeypatch.setattr(fused_mlp, "fused_ens_bwd", fused_mlp.fused_ens_bwd_reference)
+    plain = grads()
+    names = _leaf_names(trainer.params)
+    assert any("views_out" in n for n in names)
+    errs = {n: _norm_err(a, b) for n, a, b in zip(names, kern, plain)}
+    worst = max(errs, key=errs.get)
+    print(f"visibility step {dtype}: worst norm err {errs[worst]:.3e} ({worst})")
+    assert errs[worst] <= STEP_TOL[dtype], worst
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf names of a params tree in `checkpoints.flat_leaves` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]

@@ -136,3 +136,27 @@ def test_msgpack_matches_flax():
            "s": "y" * 70000, "u": 2**40, "n": -(2**40)}
     assert msgpack_codec.packb(big) == _flax_bytes(fser, big)
     _assert_tree_equal(msgpack_codec.restore(_flax_bytes(fser, big)), big)
+
+
+NEW_MODULES = ["simplenerf_torch.losses.visibility", "simplenerf_torch.data.realestate",
+               "simplenerf_torch.drivers.realestate", "simplenerf_torch.dataset_tools.splits",
+               "simplenerf_torch.dataset_tools.extractors", "simplenerf_torch.priors.colmap"]
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_prior_and_realestate_modules_stand_alone(module):
+    """Each module of the dense-depth, visibility, RealEstate10K and prior
+    tools slice imports alone without the JAX package, pandas or OpenCV,
+    and its source imports none of them."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    source = (REPO / (module.replace(".", "/") + ".py")).read_text()
+    for name in ("jax", "simplenerf_tpu", "pandas", "cv2", "imageio"):
+        assert f"import {name}" not in source and f"from {name}" not in source, name
