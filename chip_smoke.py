@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke for simplenerf_torch: train, serve and run the LLFF and RealEstate10K experiments' flows and the visibility priors on one CUDA card.
+"""Chip smoke for simplenerf_torch: train (in one process and ray-sharded over ranks), serve and run the LLFF and RealEstate10K experiments' flows and the visibility priors on one CUDA card.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -34,7 +34,21 @@ without a result):
      forward and one backward per step; then one step's parameter
      gradients through the kernels against the plain versions swapped in
      (same params, batch and draws), in float32 and bfloat16;
-  6. pipeline: the LLFF experiment's flow, `drivers.llff.run` (what
+  6. parallel: ray-sharded training on the same scene with the same
+     recipe, 6 steps each: (a) the in-process Trainer without a mesh;
+     (b) one NCCL rank, a subprocess of tools/multiprocess_worker_torch.py
+     with torchrun's environment, through
+     `parallel.initialize_distributed`, `make_mesh` and
+     `runner.start_training(mesh=)`; (c) two gloo ranks of it sharing the
+     card (NCCL refuses two ranks on one device), rank 0 rendering the
+     2048 NeRF rows and rank 1 the 2048 sparse-depth rows. Step 1's flat
+     gradient (max abs error over the largest) and every step's loss
+     values (relative) of (b) and (c) must meet (a) within the bf16 step
+     tolerance, with whether (b) is equal to the bit printed; every
+     subprocess must exit 0 and each rank's counters read one launch of
+     each kernel per step; a `{"parallel": ...}` line (s per step of
+     each, the bytes all_reduce_sum reduces per step, the worst errors);
+  7. pipeline: the LLFF experiment's flow, `drivers.llff.run` (what
      `python -m simplenerf_torch.drivers.llff` runs), on a fresh copy of
      the scene with the published bf16 recipe: 20 training steps with
      validation renders and loss maps every 10 and a torch.profiler window
@@ -46,9 +60,11 @@ without a result):
      validation frame's fine rgb must agree with the Tester's render at
      its pose and with the plain versions (1e-3), every QA family must be
      scored (LPIPS may be skipped without its package), each video must
-     have 4 PNG frames and the trace must hold device kernels; its
+     have 4 PNG frames and the trace must hold device kernels; one test
+     frame's VM02 masks through the native splat and through its numpy
+     plain version, timed, both equal to the masks written; its
      readings go on a `{"pipeline": ...}` line before the kernels' line;
-  7. realestate: the RealEstate10K experiment, `drivers.realestate.run`
+  8. realestate: the RealEstate10K experiment, `drivers.realestate.run`
      (what `python -m simplenerf_torch.drivers.realestate` runs), on a
      seeded RE10K-layout scene from `generate_realestate_scene` (20 frames
      of 54x96, 3 for training, 3 test frames) with `build_configs(3)`'s
@@ -59,7 +75,7 @@ without a result):
      counted, ModelConfigs bounds [1, 100] / 0.75, finite losses, every QA
      family scored, a test frame against the plain versions (1e-3), the
      video's frames written; a `{"realestate": ...}` line;
-  8. priors: on a copy of the serve scene with dense depths and 3 x 2
+  9. priors: on a copy of the serve scene with dense depths and 3 x 2
      visibility-prior masks written (`synthetic.write_scene_priors`), the
      published bf16 recipe with a visibility head on the coarse and fine
      main MLPs, DenseDepthMSE01, VisibilityLoss01 and
@@ -73,12 +89,12 @@ without a result):
      the secondary-view visibility path on a train frame, and one step's
      gradients (visibility head included) through the kernels against the
      plain versions in float32 and bf16; a `{"priors": ...}` line;
-  9. chunks: the forward kernel at the chunk shapes serving gives it (64k
+  10. chunks: the forward kernel at the chunk shapes serving gives it (64k
      rays x 64 / 192 samples for the 756x1008 frame, one test frame's
      chunk, and a 41,152-ray chunk), held against its plain version; at the
      64k shapes it is also timed with CUDA events after warm-up, beside the
      plain version and the card's bound;
-  10. timing: each kernel at the training step's shapes (CUDA events after
+  11. timing: each kernel at the training step's shapes (CUDA events after
      warm-up) beside its plain version and its bound, each backward's row
      pass, weight pass and column sums apart and each of its three column
      sums apart (torch.profiler's kernel events); for each backward the
@@ -90,8 +106,9 @@ without a result):
      step's device time by kernel.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON (`launches` from the 40-step training run,
+`launches_parallel` from phase 6, summed over its ranks of (b) and (c),
 `launches_pipeline`, `launches_realestate` and `launches_priors` from
-phases 6, 7 and 8; a backward's row also has row_ms, weight_ms, sums_ms,
+phases 7, 8 and 9; a backward's row also has row_ms, weight_ms, sums_ms,
 sums_parts_ms (partials, dW partials, dhvx), weight_library_ms and
 sums_library_ms (measured; the weight pass's and column sums' bounds are
 printed on its `time` lines), its bf16 row kernel's ptxas registers and
@@ -110,6 +127,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -966,6 +984,162 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
             "frames": len(frames), "crop_err": crop_err}
 
 
+PAR_STEPS = 6
+WORKER = REPO / "tools/multiprocess_worker_torch.py"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(work: Path, cfg_path: Path, db: Path, world: int, *extra: str) -> list:
+    """`world` ranks of tools/multiprocess_worker_torch.py through
+    `runner.start_training(mesh=)`, PAR_STEPS steps, with torchrun's
+    environment; every rank must exit 0. Returns each rank's dump."""
+    import numpy as np
+
+    port = str(free_port())
+    procs = []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(WORKER), "--config", str(cfg_path), "--db", str(db),
+                 "--out", str(work), "--steps", str(PAR_STEPS), "--dump", str(work / "run"),
+                 *extra],
+                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0 or f"RANK {rank} OK" not in log:
+            print(log[-6000:], file=sys.stderr, flush=True)
+            fail(f"rank {rank} of {world} exited {p.returncode}")
+    return [dict(np.load(work / f"run.rank{r}.npz")) for r in range(world)]
+
+
+def parallel(work: Path, card: str, device: str = "cuda") -> dict:
+    """Ray-sharded training on the serve scene, the published bf16 recipe of
+    phase `train`, PAR_STEPS steps: (a) the in-process Trainer without a
+    mesh; (b) one NCCL rank in a subprocess through initialize_distributed,
+    make_mesh and runner.start_training(mesh=); (c) two gloo ranks sharing
+    the card, rank 0 rendering the 2048 NeRF rows and rank 1 the 2048
+    sparse-depth rows. Step 1's flat gradient and every step's loss values
+    of (b) and (c) are held against (a); each rank's counters must read one
+    launch of each kernel per step. Returns the phase's readings."""
+    import numpy as np
+    import torch
+
+    from simplenerf_torch.data.factory import get_data_loader
+    from simplenerf_torch.data.preprocessor import ScenePreprocessor
+    from simplenerf_torch.training.trainer import Trainer
+
+    db, pdir = work / "db", work / "parallel"
+    cfg = train_config(num_iterations=PAR_STEPS)
+    cfg["resume_training"] = False
+    dl = cfg["data_loader"]
+    rays = dl["num_rays"] + dl["sparse_depth"]["num_rays"]
+    pdir.mkdir(parents=True, exist_ok=True)
+    cfg_path = pdir / "cfg.json"
+    cfg_path.write_text(json.dumps(cfg))
+
+    # (a) The reference: one process, no mesh.
+    t0 = time.perf_counter()
+    raw = get_data_loader(cfg, db, "train").load_data()
+    pp = ScenePreprocessor(cfg, "train", raw, device=device, seed=cfg.get("seed", 0))
+    trainer = Trainer(cfg, pdir / "a", pp)
+    grads = []
+    gradient = trainer.opt.gradient
+    trainer.opt.gradient = lambda leaves: grads.append(gradient(leaves)) or grads[-1]
+    ref, ends = [], []
+    for it in range(PAR_STEPS):
+        ref.append({k: float(v) for k, v in trainer.train_one_iter(it).items()})  # synchronizes
+        ends.append(time.perf_counter())
+    ref_grad = grads[0].cpu().numpy()
+    n_params, n_values = ref_grad.size, len(ref[0])
+    trainer.logger.close()
+    del trainer, pp, grads
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    s_a = statistics.median(np.diff(ends))
+    print(f"parallel (a): {PAR_STEPS} steps in-process in {time.perf_counter() - t0:.1f} s incl. "
+          f"set-up, {s_a:.4f} s per step", flush=True)
+
+    def held(label: str, dump: dict) -> dict:
+        got_grad = dump["grad1"]
+        grad_err = float(np.abs(got_grad - ref_grad).max() / np.abs(ref_grad).max())
+        names = [str(n) for n in dump["names"]]
+        if dump["values"].shape != (PAR_STEPS, n_values) or set(names) != set(ref[0]):
+            fail(f"parallel {label}: loss values {dump['values'].shape} {names}")
+        loss_err = 0.0
+        for step, row in enumerate(dump["values"]):
+            for k, v in zip(names, row):
+                want = ref[step][k]
+                if not math.isfinite(v):
+                    fail(f"parallel {label}: {k} not finite at step {step + 1}")
+                loss_err = max(loss_err, abs(v - want) / max(abs(want), 1e-12))
+        launches = json.loads(str(dump["launches"]))
+        return {"grad_err": grad_err, "grad_equal": bool(np.array_equal(got_grad, ref_grad)),
+                "loss_err": loss_err,
+                "losses_equal": all(ref[s][k] == v for s, row in enumerate(dump["values"])
+                                    for k, v in zip(names, row)),
+                "launches": launches, "s_per_step": float(np.median(np.diff(dump["t"])))}
+
+    # (b) One NCCL rank through the mesh path of start_training.
+    t0 = time.perf_counter()
+    b_dev = () if device == "cuda" else ("--device", device)
+    (b,) = run_ranks(pdir / "b", cfg_path, db, 1, *b_dev)
+    t_b = time.perf_counter() - t0
+    # (c) Two gloo ranks on the one card (NCCL refuses two ranks per device).
+    t0 = time.perf_counter()
+    c_dev = ("--device", "cuda:0", "--backend", "gloo") if device == "cuda" else ("--device", device)
+    c = run_ranks(pdir / "c", cfg_path, db, 2, *c_dev)
+    t_c = time.perf_counter() - t0
+    for d in c[1:]:
+        for k in ("params", "mu", "nu", "grad1", "values"):
+            if not np.array_equal(d[k], c[0][k]):
+                fail(f"parallel (c): the ranks' {k} differ")
+    readings = {"b": held("(b)", b), "c": [held(f"(c) rank {r}", d) for r, d in enumerate(c)]}
+    tol = STEP_TOL["bfloat16"]
+    for label, r in [("(b)", readings["b"])] + [(f"(c) rank {i}", x) for i, x in enumerate(readings["c"])]:
+        print(f"parallel {label}: step 1 gradient max abs err / largest {r['grad_err']:.3e} "
+              f"(equal to the bit: {r['grad_equal']}), loss values worst rel err {r['loss_err']:.3e} "
+              f"(equal: {r['losses_equal']}; tol {tol:g}), {r['s_per_step']:.4f} s per step, "
+              f"launches {r['launches']}", flush=True)
+        if not (r["grad_err"] <= tol and r["loss_err"] <= tol):
+            fail(f"parallel {label} disagrees with the one-process run")
+        if any(n != PAR_STEPS for n in r["launches"].values()):
+            fail(f"parallel {label}: expected {PAR_STEPS} launches of each kernel, got {r['launches']}")
+    launches = {k: readings["b"]["launches"][k] + sum(r["launches"][k] for r in readings["c"])
+                for k in readings["b"]["launches"]}
+    out = {
+        "steps": PAR_STEPS, "rays_per_step": rays, "rows_per_rank_c": rays // 2,
+        "s_per_step": {"a": s_a, "b": readings["b"]["s_per_step"],
+                       "c": [r["s_per_step"] for r in readings["c"]]},
+        "s_subprocess": {"b": t_b, "c": t_c},
+        "all_reduce_bytes_per_step": 4 * (n_params + n_values),
+        "grad_err": {"b": readings["b"]["grad_err"], "c": readings["c"][0]["grad_err"]},
+        "loss_err": {"b": readings["b"]["loss_err"], "c": readings["c"][0]["loss_err"]},
+        "equal_to_the_bit_b": {"grad": readings["b"]["grad_equal"],
+                               "losses": readings["b"]["losses_equal"]},
+        "launches": launches, "card": card,
+        "note": "(c) is two gloo ranks on one card (host-staged reduction): not a scaling number",
+    }
+    print(f"parallel: (b) in {t_b:.1f} s, (c) in {t_c:.1f} s incl. start-up; all_reduce_sum moves "
+          f"{out['all_reduce_bytes_per_step']} B per step per rank; launches {launches}", flush=True)
+    return out
+
+
+
+
 PIPE_STEPS, PIPE_VAL_INTERVAL, VIDEO_POSES = 20, 10, 4
 
 
@@ -1014,7 +1188,7 @@ def pipeline(work: Path, card: str, h: int = 189, w: int = 252) -> dict:
     from simplenerf_torch.dataset_tools import video_poses
     from simplenerf_torch.drivers import llff, runner
     from simplenerf_torch.ops import fused_mlp
-    from simplenerf_torch.qa.masks import generate_visibility_masks
+    from simplenerf_torch.qa.masks import MaskComputer, generate_visibility_masks
     from simplenerf_torch.qa.runner import ALL_METRICS, QARunner
     from simplenerf_torch.training.trainer import Trainer, render_in_chunks
 
@@ -1036,9 +1210,27 @@ def pipeline(work: Path, card: str, h: int = 189, w: int = 252) -> dict:
                 "depth": np.load(gt_depths / f"blobs/{f:04}.npy"),
                 "extrinsic": extrinsics[f], "intrinsic": intrinsics[f]}
 
-    generate_visibility_masks(db / "all/visibility_masks/VM02", "blobs",
-                              {f: frame(f) for f in split["train"]},
-                              {f: frame(f) for f in split["test"]})
+    train_frames = {f: frame(f) for f in split["train"]}
+    test_frames = {f: frame(f) for f in split["test"]}
+    generate_visibility_masks(db / "all/visibility_masks/VM02", "blobs", train_frames, test_frames)
+    # One test frame's VM02 masks through the native splat and through its
+    # numpy plain version, each timed; both equal the files just written.
+    f_test = split["test"][0]
+    test = test_frames[f_test]
+    splat = {"frame": f_test, "views": len(train_frames), "pixels": h * w}
+    for label, computer in (("native", MaskComputer()), ("plain", MaskComputer(plain=True))):
+        t1 = time.perf_counter()
+        got = [computer.compute_mask(fr["frame"], fr["depth"], test["depth"], fr["extrinsic"],
+                                     test["extrinsic"], fr["intrinsic"], test["intrinsic"])
+               for fr in train_frames.values()]
+        splat[f"{label}_s"] = time.perf_counter() - t1
+        for f, m in zip(train_frames, got):
+            saved = np.load(db / f"all/visibility_masks/VM02/blobs/visibility_masks/{f_test:04}_{f:04}.npy")
+            if not np.array_equal(m, saved):
+                fail(f"VM02 mask {f_test:04}_{f:04} through the {label} splat differs from the file")
+    print(f"pipeline: VM02 masks of test frame {f_test} ({len(train_frames)} views, {h}x{w}): "
+          f"native splat {splat['native_s']:.3f} s, numpy plain version {splat['plain_s']:.3f} s, "
+          f"equal", flush=True)
     bds = np.loadtxt(scene_dir / "DepthBounds.csv", delimiter=",")
     spiral = video_poses.create_spiral_video_poses(extrinsics[split["train"]],
                                                    [bds.min(), bds.max()],
@@ -1180,7 +1372,7 @@ def pipeline(work: Path, card: str, h: int = 189, w: int = 252) -> dict:
         "start_testing_s": test_log[0]["s"], "videos_s": [c["s"] for c in video_log],
         "train_log_s": log_s,
         "launches": launches, "trace_kernel_events": device_events,
-        "tester_err": tester_err, "plain_err": plain_err,
+        "tester_err": tester_err, "plain_err": plain_err, "vm02_splat": splat,
         "qa": {k: v for k, v in qa.items() if k != "skipped"}, "qa_skipped": skipped, "card": card,
     }
     print(f"pipeline: {', '.join(f'{s:.3f}' for s in out['s_per_validation_round'])} s per validation "
@@ -1588,6 +1780,8 @@ def main() -> int:
         work = Path(tmp)
         served = serve(work, h, w)
         trained = train(work, work / "db")
+        torch.cuda.empty_cache()
+        par = parallel(work, card)
         piped = pipeline(work, card, h, w)
         re10k = realestate(work, card)
         prior = priors(work, card)
@@ -1615,6 +1809,7 @@ def main() -> int:
             "launches_pipeline": piped["launches"][WRAPPERS[name]],
             "launches_realestate": re10k["launches"][WRAPPERS[name]],
             "launches_priors": prior["launches"][WRAPPERS[name]],
+            "launches_parallel": par["launches"][WRAPPERS[name]],
             "max_abs_err": worst[(name, "bfloat16", "err")],
             "max_abs_err_f32": worst[(name, "float32", "err")],
             "err_measure": ("planes: max abs error" if name.endswith("fwd")
@@ -1645,6 +1840,7 @@ def main() -> int:
         kernels.append(row)
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             fail(f"non-finite timing for {name}")
+    print(json.dumps({"parallel": par}), flush=True)
     print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"realestate": re10k}), flush=True)
     print(json.dumps({"priors": prior}), flush=True)

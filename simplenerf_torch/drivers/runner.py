@@ -7,8 +7,9 @@ renders each scene's test frames (with the train frames as secondary poses
 when the model predicts visibility) into runs/testing/testNNNN/<scene>/,
 scores them with the QA suite in-process, and renders pose-path videos.
 Finished scenes and existing outputs are skipped. Both database layouts
-are read: NeRF-LLFF (all/) and RealEstate10K (test/). The device mesh is
-not ported yet.
+are read: NeRF-LLFF (all/) and RealEstate10K (test/). `start_training`
+takes a ray-sharded mesh (parallel.make_mesh) for a job of several
+processes; each process then trains into its own `output_dirpath`.
 """
 
 from __future__ import annotations
@@ -45,9 +46,13 @@ def resolve_scene_ids(configs: dict, database_dirpath: Path, mode: str = "train"
 
 
 def start_training(
-    train_configs: dict, database_dirpath: Path, output_dirpath: Path, device=None
+    train_configs: dict, database_dirpath: Path, output_dirpath: Path, device=None, mesh=None
 ) -> Path:
-    """Train every scene; returns the train run directory."""
+    """Train every scene; returns the train run directory. With a `mesh`
+    each step is sharded over its ranks' rays (the device defaults to the
+    mesh's)."""
+    if mesh is not None and device is None:
+        device = mesh.device
     database_dirpath = Path(database_dirpath)
     train_num = train_configs.get("train_num", 0)
     run_dir = Path(output_dirpath) / f"training/train{train_num:04}"
@@ -77,7 +82,7 @@ def start_training(
                                            model_configs=train_pp.get_model_configs(),
                                            device=device)
 
-        trainer = Trainer(scene_cfg, scene_dir, train_pp, val_pp=val_pp)
+        trainer = Trainer(scene_cfg, scene_dir, train_pp, val_pp=val_pp, mesh=mesh)
         if trainer.start_iter >= scene_cfg["num_iterations"] and done_marker.exists():
             trainer.logger.close()
             continue

@@ -11,21 +11,41 @@ from __future__ import annotations
 import torch
 
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def global_count(batch: dict, key: str):
+    """The whole batch's count for `key` (a mask's name, or "rows") when
+    `batch` holds one rank's rows of a ray-sharded batch: the Trainer puts
+    the counts, known on the host before the step, in
+    `batch["global_counts"]`. None for a whole batch."""
+    counts = batch.get("global_counts")
+    return None if counts is None else counts[key]
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor, count=None) -> torch.Tensor:
     """Mean of `values` where mask is True; 0 if the mask is empty (the
-    reference's `x[mask].mean()` with its empty-selection guard)."""
-    mask = mask.to(values.dtype)
-    count = mask.sum()
-    return torch.where(count > 0, (values * mask).sum() / count.clamp(min=1.0), 0.0)
+    reference's `x[mask].mean()` with its empty-selection guard).
+
+    With `count`, the mask's count over the whole batch (`global_count`),
+    `values` are one rank's rows: the rank's share sum(values * mask) /
+    count, 0 where the whole batch's mask is empty."""
+    return mean_over_mask_count(values, mask, mask, count)
 
 
 def mean_over_mask_count(values: torch.Tensor, zero_mask: torch.Tensor,
-                         count_mask: torch.Tensor) -> torch.Tensor:
+                         count_mask: torch.Tensor, count=None) -> torch.Tensor:
     """sum(values * zero_mask) / count(count_mask): the arbitrated depth
-    losses zero the unselected rays but normalize by the NeRF-ray count."""
-    count = count_mask.to(values.dtype).sum()
+    losses zero the unselected rays but normalize by the NeRF-ray count.
+    `count` as in `masked_mean`."""
     total = (values * zero_mask.to(values.dtype)).sum()
-    return torch.where(count > 0, total / count.clamp(min=1.0), 0.0)
+    if count is None:
+        count = count_mask.to(values.dtype).sum()
+        return torch.where(count > 0, total / count.clamp(min=1.0), 0.0)
+    return total / count if count > 0 else torch.zeros_like(total)
+
+
+def row_mean(values: torch.Tensor, count=None) -> torch.Tensor:
+    """Mean of per-ray `values` (nr,); with `count`, the whole batch's row
+    count, the rank's share sum(values) / count."""
+    return values.mean() if count is None else values.sum() / count
 
 
 def gather_patches(images: torch.Tensor, image_ids: torch.Tensor, x: torch.Tensor,

@@ -23,8 +23,10 @@ from simplenerf_torch.geometry import projection
 from simplenerf_torch.losses.common import (
     closest_other_frame,
     gather_patches,
+    global_count,
     mean_over_mask_count,
     patch_rmse,
+    row_mean,
 )
 
 _PLAIN_MAP_NAMES = {
@@ -53,7 +55,7 @@ def make_plain_depth_consistency(prefix: str, aug_fine_present: bool = False):
             main_key, aug_key = f"depth_{level}", f"{prefix}depth_{level}"
             if main_key in outputs and aug_key in outputs:
                 sq = torch.square(outputs[main_key] - outputs[aug_key])
-                total = total + sq.mean()
+                total = total + row_mean(sq, global_count(batch, "rows"))
                 maps[f"{map_name}_{level}"] = sq
         return (total, maps) if return_maps else total
 
@@ -67,7 +69,7 @@ def make_plain_coarse_fine_consistency():
         if "depth_coarse" not in outputs or "depth_fine" not in outputs:
             return (_zero(outputs), {}) if return_maps else _zero(outputs)
         sq = torch.square(outputs["depth_coarse"] - outputs["depth_fine"])
-        value = sq.mean()
+        value = row_mean(sq, global_count(batch, "rows"))
         return (value, {"CoarseFineConsistencyLoss01": sq}) if return_maps else value
 
     return loss_fn
@@ -141,8 +143,9 @@ def reliable_depth_consistency(depth1, depth2, batch: dict, patch_size, rmse_thr
     sq12 = _teaching_sq(depth1 - depth2.detach(), batch, depth_huber)
     sq21 = _teaching_sq(depth2 - depth1.detach(), batch, depth_huber)
     sel1, sel2 = mask2 & nerf_mask, mask1 & nerf_mask
-    loss1 = mean_over_mask_count(sq12, sel1, nerf_mask)
-    loss2 = mean_over_mask_count(sq21, sel2, nerf_mask)
+    count = global_count(batch, "indices_mask_nerf")
+    loss1 = mean_over_mask_count(sq12, sel1, nerf_mask, count)
+    loss2 = mean_over_mask_count(sq21, sel2, nerf_mask, count)
     return loss1 + loss2, sq12 * sel1.to(sq12.dtype), sq21 * sel2.to(sq21.dtype)
 
 
@@ -191,7 +194,8 @@ def make_reliable_coarse_fine_consistency(patch_size=(5, 5), rmse_threshold: flo
         if sparse_depth_enabled and "indices_mask_sparse_depth" in batch:
             sd_mask = batch["indices_mask_sparse_depth"]
             sq = _teaching_sq(dc - df.detach(), batch, depth_huber)
-            total = total + mean_over_mask_count(sq, sd_mask, sd_mask)
+            total = total + mean_over_mask_count(
+                sq, sd_mask, sd_mask, global_count(batch, "indices_mask_sparse_depth"))
             map_coarse = map_coarse + sq * sd_mask.to(sq.dtype)
         if return_maps:
             return total, {

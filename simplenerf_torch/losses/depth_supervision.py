@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from simplenerf_torch.losses.common import masked_mean
+from simplenerf_torch.losses.common import global_count, masked_mean
 
 
 def _zero(outputs: dict):
@@ -36,7 +36,8 @@ def make_sparse_depth_loss(prefix: str = "", aug_fine_present: bool = False):
             pred = outputs["depth_fine"] if "depth_fine" in outputs else outputs["depth_coarse"]
         else:
             pred = outputs["depth_fine"] if aug_fine_present else outputs[f"{prefix}depth_coarse"]
-        value = masked_mean(torch.square(pred - target), batch["indices_mask_sparse_depth"])
+        value = masked_mean(torch.square(pred - target), batch["indices_mask_sparse_depth"],
+                            global_count(batch, "indices_mask_sparse_depth"))
         return (value, {}) if return_maps else value
 
     return loss_fn
@@ -49,6 +50,7 @@ def make_dense_depth_loss():
         if "dense_depth_values" not in batch:
             return (_zero(outputs), {}) if return_maps else _zero(outputs)
         mask = batch["indices_mask_nerf"]
+        count = global_count(batch, "indices_mask_nerf")
         target = batch["dense_depth_values"][:, 0]
         total = 0.0
         maps = {}
@@ -56,7 +58,7 @@ def make_dense_depth_loss():
             key = f"depth_{level}"
             if key in outputs:
                 sq = torch.square(outputs[key] - target)
-                total = total + masked_mean(sq, mask)
+                total = total + masked_mean(sq, mask, count)
                 maps[f"DenseDepthMSE01_{level}"] = sq * mask.to(sq.dtype)
         return (total, maps) if return_maps else total
 

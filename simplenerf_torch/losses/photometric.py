@@ -10,14 +10,14 @@ from __future__ import annotations
 
 import torch
 
-from simplenerf_torch.losses.common import masked_mean
+from simplenerf_torch.losses.common import global_count, masked_mean
 
 _MAP_NAMES = {"": "MSE01", "points_augmentation_": "MSE02", "views_augmentation_": "MSE03"}
 
 
-def _rgb_mse(pred, target, mask):
+def _rgb_mse(pred, target, mask, count):
     per_ray = torch.mean(torch.square(pred - target), dim=-1)
-    return masked_mean(per_ray, mask), per_ray * mask.to(per_ray.dtype)
+    return masked_mean(per_ray, mask, count), per_ray * mask.to(per_ray.dtype)
 
 
 def make_photometric_loss(prefix: str = ""):
@@ -32,7 +32,8 @@ def make_photometric_loss(prefix: str = ""):
             key = f"{prefix}rgb_{level}"
             if key in outputs:
                 value, per_ray = _rgb_mse(outputs[key], batch["target_rgb"],
-                                          batch["indices_mask_nerf"])
+                                          batch["indices_mask_nerf"],
+                                          global_count(batch, "indices_mask_nerf"))
                 total = total + value
                 maps[f"{map_name}_{level}"] = per_ray
         return (total, maps) if return_maps else total

@@ -19,13 +19,14 @@ from __future__ import annotations
 
 import torch
 
-from simplenerf_torch.losses.common import masked_mean
+from simplenerf_torch.losses.common import global_count, masked_mean, row_mean
 
 
 def make_visibility_loss():
     def loss_fn(batch: dict, outputs: dict, return_maps: bool = False):
         total = 0.0
         maps = {}
+        rows = global_count(batch, "rows")
         for level in ("coarse", "fine"):
             pred_key, target_key = f"raw_visibility_{level}", f"visibility_{level}"
             if pred_key in outputs and target_key in outputs:
@@ -33,7 +34,7 @@ def make_visibility_loss():
                 target = outputs[target_key]  # (nr, ns) transmittance
                 map1 = torch.mean(torch.abs(pred - target.detach()), dim=1)
                 map2 = torch.mean(torch.abs(pred.detach() - target), dim=1)
-                total = total + map1.mean() + map2.mean()
+                total = total + row_mean(map1, rows) + row_mean(map2, rows)
                 maps[f"VisibilityLoss01_{level}"] = map1 + map2
         return (total, maps) if return_maps else total
 
@@ -57,7 +58,7 @@ def make_visibility_prior_loss():
             else:
                 prior = torch.ones_like(vis2)
             per_ray = torch.sum(prior * (1.0 - vis2), dim=-1)
-            total = total + masked_mean(per_ray, mask)
+            total = total + masked_mean(per_ray, mask, global_count(batch, "indices_mask_nerf"))
             maps[f"VisibilityPriorLoss01_{level}"] = per_ray * mask.to(per_ray.dtype)
         return (total, maps) if return_maps else total
 

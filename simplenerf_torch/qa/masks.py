@@ -8,8 +8,11 @@ test camera lands on it with a consistent depth:
 - `MaskComputer`: visible iff the splat mask is set AND
   |warped_depth - test_depth| < threshold * max(train_depth), threshold
   0.05.
-The splat is the JAX package's numpy path (np.add.at), its only path here;
-this is offline host tooling, run once per scene.
+The splat's scatter-accumulate runs in the native C++ op
+(`simplenerf_torch.native`, built at first use; it raises without a
+compiler); its numpy body (np.add.at) is the plain version, taken only
+with `plain=True`, which tests hold the op against. This is offline host
+tooling, run once per scene.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 
+from simplenerf_torch import native
 from simplenerf_torch.qa.metrics import combine_visibility_masks
 
 
@@ -48,16 +52,32 @@ def bilinear_splat(
     trans_pos: np.ndarray,
     depth1: np.ndarray,
     mask1: Optional[np.ndarray] = None,
+    plain: bool = False,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Scatter `values` (h, w, c) to positions `trans_pos` (h, w, 2) with
     bilinear weights, down-weighted by depth so near surfaces win.
 
     Positions are shifted by one pixel onto an (h+2, w+2) canvas whose
-    border collects the splats that fall outside, then cropped."""
-    h, w, c = values.shape
+    border collects the splats that fall outside, then cropped. The
+    scatter runs in the native op, or with `plain` in numpy."""
     if mask1 is None:
-        mask1 = np.ones((h, w), bool)
+        mask1 = np.ones(values.shape[:2], bool)
+    if plain:
+        acc, acc_w = _splat_accumulate_plain(values, trans_pos, depth1, mask1)
+    else:
+        acc, acc_w = native.bilinear_splat_accumulate(values, trans_pos, depth1, mask1)
+    cropped = acc[1:-1, 1:-1]
+    cropped_w = acc_w[1:-1, 1:-1]
+    valid = cropped_w > 0
+    with np.errstate(invalid="ignore"):
+        out = np.where(valid[..., None], cropped / cropped_w[..., None], 0)
+    return out, valid
 
+
+def _splat_accumulate_plain(values, trans_pos, depth1, mask1):
+    """The numpy scatter-accumulate (the JAX package's np.add.at path):
+    (acc (h+2, w+2, c), acc_w (h+2, w+2))."""
+    h, w, c = values.shape
     pos = trans_pos + 1
     floor = np.floor(pos).astype(int)
     ceil = np.ceil(pos).astype(int)
@@ -95,13 +115,7 @@ def bilinear_splat(
         weight = prox[key] * mask1 / depth_weights
         np.add.at(acc, corners[key], values * weight[..., None])
         np.add.at(acc_w, corners[key], weight)
-
-    cropped = acc[1:-1, 1:-1]
-    cropped_w = acc_w[1:-1, 1:-1]
-    valid = cropped_w > 0
-    with np.errstate(invalid="ignore"):
-        out = np.where(valid[..., None], cropped / cropped_w[..., None], 0)
-    return out, valid
+    return acc, acc_w
 
 
 def forward_warp(
@@ -112,20 +126,26 @@ def forward_warp(
     intrinsic1: np.ndarray,
     intrinsic2: Optional[np.ndarray] = None,
     mask1: Optional[np.ndarray] = None,
+    plain: bool = False,
 ):
-    """Warp frame1 into view 2. Returns (warped_frame, mask, warped_depth)."""
+    """Warp frame1 into view 2. Returns (warped_frame, mask, warped_depth).
+    `plain`: the splat's numpy plain version."""
     trans_points = compute_transformed_points(depth1, transformation1, transformation2, intrinsic1, intrinsic2)
     trans_coords = trans_points[..., :2] / trans_points[..., 2:3]
     trans_depth = trans_points[..., 2]
 
-    warped, mask2 = bilinear_splat(frame1.astype(float), trans_coords, trans_depth, mask1)
-    warped_depth, _ = bilinear_splat(trans_depth[..., None], trans_coords, trans_depth, mask1)
+    warped, mask2 = bilinear_splat(frame1.astype(float), trans_coords, trans_depth, mask1, plain)
+    warped_depth, _ = bilinear_splat(trans_depth[..., None], trans_coords, trans_depth, mask1,
+                                     plain)
     return warped, mask2, warped_depth[..., 0]
 
 
 class MaskComputer:
-    def __init__(self, depth_error_threshold: float = 0.05):
+    """`plain`: splat with the numpy plain version (tests, chip_smoke)."""
+
+    def __init__(self, depth_error_threshold: float = 0.05, plain: bool = False):
         self.depth_error_threshold = depth_error_threshold
+        self.plain = plain
 
     def compute_mask(
         self,
@@ -139,7 +159,8 @@ class MaskComputer:
     ) -> np.ndarray:
         threshold = self.depth_error_threshold * depth_train.max()
         _, warp_mask, warped_depth = forward_warp(
-            frame_train, depth_train, extrinsic_train, extrinsic_test, intrinsic_train, intrinsic_test
+            frame_train, depth_train, extrinsic_train, extrinsic_test, intrinsic_train, intrinsic_test,
+            plain=self.plain,
         )
         return warp_mask & (np.abs(warped_depth - depth_test) < threshold)
 

@@ -218,6 +218,38 @@ _LEVEL_MEMBERS = {
 }
 
 
+def step_draws(cfg: RenderConfig, nr: int, generator: torch.Generator, device,
+               u_coarse: Optional[torch.Tensor] = None, u_fine: Optional[torch.Tensor] = None,
+               noise: Optional[dict] = None) -> dict:
+    """A train step's random draws for `nr` rays from `generator`, in
+    render_rays' order: coarse jitter, each coarse member's sigma noise,
+    fine uniforms, each fine member's sigma noise. Draws already given are
+    kept and take nothing from the generator. Returns render_rays' keywords
+    {u_coarse, u_fine, noise}: with a ray-sharded batch, each rank draws at
+    the global ray count and keeps its rows, so the job draws the numbers
+    of the one-process step."""
+    noise = dict(noise or {})
+    ns = 0
+
+    def members_noise(level: str):
+        for name, _ in _LEVEL_MEMBERS[level]:
+            if getattr(cfg, f"{name}_mlp") is not None and name not in noise and cfg.raw_noise_std > 0.0:
+                noise[name] = torch.randn((nr, ns), generator=generator, device=device)
+
+    if cfg.coarse_mlp is not None:
+        ns = cfg.coarse_mlp.num_samples
+        if cfg.perturb and u_coarse is None:
+            u_coarse = torch.rand((nr, ns), generator=generator, dtype=torch.float32, device=device)
+        members_noise("coarse")
+    if cfg.fine_mlp is not None:
+        if cfg.perturb and u_fine is None:
+            u_fine = torch.rand((nr, cfg.fine_mlp.num_samples), generator=generator,
+                                dtype=torch.float32, device=device)
+        ns += cfg.fine_mlp.num_samples
+        members_noise("fine")
+    return {"u_coarse": u_coarse, "u_fine": u_fine, "noise": noise}
+
+
 def render_rays(
     params: Params,
     cfg: RenderConfig,
@@ -237,10 +269,9 @@ def render_rays(
     (+ '_ndc' variants when cfg.ndc, + optional 'rays_o2' (nr, k, 3)).
     `train` enables stratified jitter, sigma noise, stochastic importance
     sampling and the augmented models (the reference's training graph).
-    Draws come from `generator` (on the rays' device; in this order: coarse
-    jitter, each coarse member's noise, fine uniforms, each fine member's
-    noise), or are given: `u_coarse` (nr, ns_c), `u_fine` (nr, ns_f) and
-    `noise` {MLP name: standard-normal (nr, ns)}.
+    Draws are given, `u_coarse` (nr, ns_c), `u_fine` (nr, ns_f) and
+    `noise` {MLP name: standard-normal (nr, ns)}, or come from `generator`
+    (on the rays' device) through `step_draws`.
 
     Returns the reference-keyed output dict. With keep_per_sample=False,
     per-sample tensors (alpha/weights/visibility/z_vals/raw) are dropped to
@@ -248,7 +279,6 @@ def render_rays(
     """
     if retraw is None:
         retraw = train
-    noise = noise or {}
     out: dict = {}
 
     near = rays["near_ndc"] if cfg.ndc else rays["near"]
@@ -256,6 +286,10 @@ def render_rays(
     nr = near.shape[0]
     device = near.device
     perturb = cfg.perturb and train
+    if train and generator is not None:
+        draws = step_draws(cfg, nr, generator, device, u_coarse, u_fine, noise)
+        u_coarse, u_fine, noise = draws["u_coarse"], draws["u_fine"], draws["noise"]
+    noise = noise or {}
 
     def emit(prefix: str, level: str, composited: dict, net_out: dict):
         for k, v in composited.items():
@@ -270,10 +304,7 @@ def render_rays(
             mcfg = getattr(cfg, f"{name}_mlp")
             if mcfg is None or (prefix and not train):
                 continue
-            n = noise.get(name)
-            if n is None and train and cfg.raw_noise_std > 0.0 and generator is not None:
-                n = torch.randn((nr, z_vals.shape[-1]), generator=generator, device=device)
-            members.append((name, prefix, mcfg, n))
+            members.append((name, prefix, mcfg, noise.get(name)))
         needs_vis2 = (
             sec_views_vis
             and "rays_o2" in rays
@@ -297,14 +328,14 @@ def render_rays(
     z_coarse = None
     if cfg.coarse_mlp is not None:
         z_coarse = sampling.stratified_z_vals(
-            near, far, cfg.coarse_mlp.num_samples, cfg.lindisp, perturb, generator, u_coarse
+            near, far, cfg.coarse_mlp.num_samples, cfg.lindisp, perturb, u=u_coarse
         )
         out["z_vals_coarse"] = z_coarse
         weights_coarse = run("coarse", z_coarse)
 
     if cfg.fine_mlp is not None:
         z_fine = sampling.fine_z_vals(
-            z_coarse, weights_coarse, cfg.fine_mlp.num_samples, perturb, generator, u_fine
+            z_coarse, weights_coarse, cfg.fine_mlp.num_samples, perturb, u=u_fine
         )
         out["z_vals_fine"] = z_fine
         run("fine", z_fine)

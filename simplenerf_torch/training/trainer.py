@@ -17,6 +17,16 @@ maps and scalars under <run>/samples and the log; a `profiling`
 {start_iter, num_iters} block traces that window of steps into
 <run>/profile. Steps run one launch sequence each: there is no CUDA-graph
 counterpart of the JAX package's multi-step scan.
+
+With a `mesh` (parallel.make_mesh) the step is ray-sharded over the job's
+processes, as the JAX Trainer's is over its mesh: every rank draws the
+global indices and the global draws, renders its rows
+(`parallel.process_local_rows`), divides its loss sums by the whole
+batch's counts, and one all-reduce SUM of the flat gradient (FlatAdam)
+gives each rank the one-process gradient; the loss values are summed the
+same way. Parameters and Adam state are broadcast from rank 0 after init
+or resume. Each process runs the same Trainer on an output directory of
+its own (checkpoints, logs); processes must not share one.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from simplenerf_torch import config as config_lib
 from simplenerf_torch.data import io
 from simplenerf_torch.data.preprocessor import ScenePreprocessor, gather_batch
 from simplenerf_torch.losses import LossComputer, LossContext
+from simplenerf_torch.parallel import mesh as mesh_lib
 from simplenerf_torch.render import renderer
 from simplenerf_torch.training import checkpoints
 from simplenerf_torch.training.logger import TrainLogger
@@ -55,11 +66,15 @@ class FlatAdam:
     mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu; bias correction
     with count + 1; the step is -lr(count) * mu_hat / (sqrt(nu_hat) + eps)
     with lr taken before the count is incremented. Parameters are updated
-    in place.
+    in place. With a `mesh`, the flat gradient is summed over its ranks
+    first (the JAX step's gradient psum): each rank's loss is its share of
+    the global loss, so the sum, not the mean, is the global gradient.
     """
 
-    def __init__(self, lr_schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    def __init__(self, lr_schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         self.lr_schedule, self.b1, self.b2, self.eps = lr_schedule, b1, b2, eps
+        self.mesh = mesh
 
     def init(self, leaves: list) -> dict:
         size = sum(p.numel() for p in leaves)
@@ -67,9 +82,15 @@ class FlatAdam:
         return {"count": 0, "mu": torch.zeros(size, device=dev), "nu": torch.zeros(size, device=dev)}
 
     @torch.no_grad()
-    def step(self, leaves: list, state: dict) -> dict:
+    def gradient(self, leaves: list) -> torch.Tensor:
+        """The step's flat gradient, summed over the mesh's ranks."""
         g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                        for p in leaves])
+        return mesh_lib.all_reduce_sum(self.mesh, g)
+
+    @torch.no_grad()
+    def step(self, leaves: list, state: dict) -> dict:
+        g = self.gradient(leaves)
         b1, b2 = self.b1, self.b2
         mu = (1 - b1) * g + b1 * state["mu"]
         nu = (1 - b2) * torch.square(g) + b2 * state["nu"]
@@ -101,18 +122,21 @@ class Trainer:
         train_pp: ScenePreprocessor,
         val_pp: Optional[ScenePreprocessor] = None,
         compute_dtype: Optional[str] = None,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ):
         self.configs = configs
         self.output_dir = Path(output_dir)
         self.train_pp = train_pp
         self.val_pp = val_pp
         self.device = train_pp.device
+        self.mesh = mesh
 
         self.render_cfg = config_lib.render_config_from_dict(configs, compute_dtype)
         self.loss_computer = LossComputer(configs["losses"], loss_context_from_configs(configs))
         opt_cfg = configs["optimizer"]
         self.lr_schedule = make_lr_schedule(opt_cfg, configs.get("num_iterations", 0))
-        self.opt = FlatAdam(self.lr_schedule, opt_cfg.get("beta1", 0.9), opt_cfg.get("beta2", 0.999))
+        self.opt = FlatAdam(self.lr_schedule, opt_cfg.get("beta1", 0.9), opt_cfg.get("beta2", 0.999),
+                            mesh=mesh)
 
         self.seed = int(configs.get("seed", 0))
         init = renderer.init(torch.Generator().manual_seed(self.seed), self.render_cfg, self.device)
@@ -129,9 +153,14 @@ class Trainer:
                     opt = checkpoints.opt_state_from_state(raw_opt, self.params, self.device)
                     if opt is not None:  # else fresh state (warned)
                         self.opt_state = opt
-                # Replay the host-side sampler streams: the resumed run draws
-                # the batches an uninterrupted run would.
-                self.train_pp.fast_forward(self.start_iter)
+        # Every rank goes on from rank 0's iteration, parameters and Adam
+        # state, whatever its own directory held.
+        self.start_iter = mesh_lib.replicate(mesh, self.start_iter)
+        mesh_lib.replicate(mesh, self.leaves)
+        self.opt_state = mesh_lib.replicate(mesh, self.opt_state)
+        # Replay the host-side sampler streams: the resumed run draws the
+        # batches an uninterrupted run would.
+        self.train_pp.fast_forward(self.start_iter)
 
         self.logger = TrainLogger(self.output_dir / "logs")
         self.steps_per_call = int(configs.get("steps_per_call", 1))
@@ -173,16 +202,31 @@ class Trainer:
         return self.loss_computer.compute(batch, outputs, weights)
 
     def step(self, iter_num: int, indices, mask_nerf, mask_sd, **draws) -> dict:
-        """One train step on the given ray indices; returns the loss values
-        (device tensors). Draws default to the step's generator."""
+        """One train step on the given (global) ray indices; returns the
+        loss values (device tensors). Draws default to the step's
+        generator, drawn for the whole batch. The rank renders its rows of
+        the batch and of the draws, divides by the whole batch's counts, and
+        the loss values are summed over the ranks: without a mesh, or in a
+        world of one, the rows are the batch and the sums are no-ops."""
         if not draws:
             draws = {"generator": self.step_generator(iter_num)}
         for p in self.leaves:
             p.grad = None
-        total, values = self.loss(self.batch(indices, mask_nerf, mask_sd), iter_num, **draws)
+        counts = {"rows": len(indices), "indices_mask_nerf": int(mask_nerf.sum()),
+                  "indices_mask_sparse_depth": int(mask_sd.sum())}
+        generator = draws.pop("generator", None)
+        if generator is not None:
+            draws = renderer.step_draws(self.render_cfg, len(indices), generator, self.device, **draws)
+        indices, mask_nerf, mask_sd, draws = mesh_lib.shard_ray_batch(
+            self.mesh, (indices, mask_nerf, mask_sd, draws))
+        batch = self.batch(indices, mask_nerf, mask_sd)
+        batch["global_counts"] = counts
+        total, values = self.loss(batch, iter_num, **draws)
         total.backward()
         self.opt_state = self.opt.step(self.leaves, self.opt_state)
-        return {k: v.detach() if torch.is_tensor(v) else v for k, v in values.items()}
+        stacked = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=self.device).detach()
+                               for v in values.values()])
+        return dict(zip(values, mesh_lib.all_reduce_sum(self.mesh, stacked).unbind()))
 
     def train_one_iter(self, iter_num: int) -> dict:
         return self.step(iter_num, *self.train_pp.next_indices(iter_num))

@@ -143,11 +143,7 @@ NEW_MODULES = ["simplenerf_torch.losses.visibility", "simplenerf_torch.data.real
                "simplenerf_torch.dataset_tools.extractors", "simplenerf_torch.priors.colmap"]
 
 
-@pytest.mark.parametrize("module", NEW_MODULES)
-def test_prior_and_realestate_modules_stand_alone(module):
-    """Each module of the dense-depth, visibility, RealEstate10K and prior
-    tools slice imports alone without the JAX package, pandas or OpenCV,
-    and its source imports none of them."""
+def _assert_stands_alone(module: str):
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -157,6 +153,24 @@ def test_prior_and_realestate_modules_stand_alone(module):
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
-    source = (REPO / (module.replace(".", "/") + ".py")).read_text()
+    path = REPO / module.replace(".", "/")
+    source = (path / "__init__.py" if path.is_dir() else path.with_suffix(".py")).read_text()
     for name in ("jax", "simplenerf_tpu", "pandas", "cv2", "imageio"):
         assert f"import {name}" not in source and f"from {name}" not in source, name
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_prior_and_realestate_modules_stand_alone(module):
+    """Each module of the dense-depth, visibility, RealEstate10K and prior
+    tools slice imports alone without the JAX package, pandas or OpenCV,
+    and its source imports none of them."""
+    _assert_stands_alone(module)
+
+
+@pytest.mark.parametrize("module", ["simplenerf_torch.parallel", "simplenerf_torch.parallel.mesh",
+                                    "simplenerf_torch.native"])
+def test_parallel_and_native_modules_stand_alone(module):
+    """The ray-sharded mesh and the native splat import alone without JAX
+    or the JAX package (whose counterparts import JAX), and their sources
+    import none of them."""
+    _assert_stands_alone(module)

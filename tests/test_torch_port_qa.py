@@ -3,8 +3,9 @@
 - each of the 14 QA metric functions on seeded frames and depths, equal to
   the JAX package's at 1e-12 (the same numpy and scipy code); LPIPS is
   None on both sides without the `lpips` package;
-- the visibility-mask splat, forward warp and MaskComputer, equal to the
-  JAX package's numpy path;
+- the visibility-mask splat, forward warp and MaskComputer through the
+  port's numpy plain version, equal to the JAX package's numpy path (the
+  native splat against both: tests/test_torch_port_native.py);
 - QARunner: the frame-wise and scene-wise CSVs and QA_Scores.json agree
   with the JAX runner's on the same prediction directory, and scored
   frames are not scored again;
@@ -113,7 +114,7 @@ def test_bilinear_splat_matches_jax_numpy_path(numpy_splat):
     np.testing.assert_array_equal(pts, jmasks.compute_transformed_points(depth, E1, E2, K))
     coords, z = pts[..., :2] / pts[..., 2:3], pts[..., 2]
     for m in (None, mask1):
-        got = masks.bilinear_splat(frame.astype(float), coords.copy(), z, m)
+        got = masks.bilinear_splat(frame.astype(float), coords.copy(), z, m, plain=True)
         want = jmasks.bilinear_splat(frame.astype(float), coords.copy(), z, m)
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
@@ -122,7 +123,7 @@ def test_bilinear_splat_matches_jax_numpy_path(numpy_splat):
 
 def test_forward_warp_matches_jax_numpy_path(numpy_splat):
     frame, depth, E1, E2, K, mask1 = _warp_inputs(1)
-    got = masks.forward_warp(frame, depth, E1, E2, K, mask1=mask1)
+    got = masks.forward_warp(frame, depth, E1, E2, K, mask1=mask1, plain=True)
     want = jmasks.forward_warp(frame, depth, E1, E2, K, mask1=mask1)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
@@ -131,7 +132,7 @@ def test_forward_warp_matches_jax_numpy_path(numpy_splat):
 def test_mask_computer_matches_jax_numpy_path(numpy_splat, tmp_path):
     frame, depth, E1, E2, K, _ = _warp_inputs(2)
     depth_test = depth * np.random.default_rng(3).uniform(0.97, 1.03, depth.shape)
-    got = masks.MaskComputer(0.05).compute_mask(frame, depth, depth_test, E1, E2, K, K)
+    got = masks.MaskComputer(0.05, plain=True).compute_mask(frame, depth, depth_test, E1, E2, K, K)
     want = jmasks.MaskComputer(0.05).compute_mask(frame, depth, depth_test, E1, E2, K, K)
     np.testing.assert_array_equal(got, want)
     assert 0.05 < got.mean() < 0.95

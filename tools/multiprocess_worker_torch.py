@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""One rank of a ray-sharded training job of simplenerf_torch.
+
+Launched once per rank with torchrun's environment (RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR, MASTER_PORT); the parallel tests
+(tests/test_torch_port_parallel.py) launch it on the CPU with gloo and
+chip_smoke.py's phase `parallel` on the card. Imports torch and the port
+only. Each rank joins through `parallel.initialize_distributed`, builds
+`parallel.make_mesh()` and trains up to `--steps` through
+`runner.start_training(cfg, db, <out>/rank<r>, mesh=mesh)`, the entry
+point a user calls; where the config resumes, it goes on from the
+checkpoint under <out>/rank<r> (a test starts from given parameters by
+writing one there at iteration 0).
+
+Every rank writes `<dump>.rank<r>.npz`: the flat parameters, Adam's mu,
+nu and count after the last step, step 1's flat gradient (summed over the
+ranks), each step's loss values (`names`, `values`), each step's end on
+the host clock, and the four kernels' launch counters over the run.
+
+    RANK=0 WORLD_SIZE=1 LOCAL_RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=29500 \\
+        python tools/multiprocess_worker_torch.py --config cfg.json --db DB \\
+        --out OUT --steps 6 --dump OUT/run
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from simplenerf_torch import parallel  # noqa: E402
+from simplenerf_torch.drivers import runner  # noqa: E402
+from simplenerf_torch.ops import fused_mlp  # noqa: E402
+from simplenerf_torch.training import trainer as trainer_lib  # noqa: E402
+
+COUNTERS = ("fused_apply_ensemble", "fused_ens_bwd", "fused_apply", "fused_bwd")
+
+
+def record_optimizer(rec: dict):
+    """Keep step 1's flat gradient, the state after the last step and each
+    step's end time from every FlatAdam of this process."""
+    gradient, step = trainer_lib.FlatAdam.gradient, trainer_lib.FlatAdam.step
+
+    def recorded_gradient(self, leaves):
+        g = gradient(self, leaves)
+        if "grad1" not in rec:
+            rec["grad1"] = g.detach().cpu().numpy().copy()
+        return g
+
+    def recorded_step(self, leaves, state):
+        new = step(self, leaves, state)
+        rec["leaves"], rec["state"] = leaves, new
+        rec.setdefault("t", []).append(time.perf_counter())
+        return new
+
+    trainer_lib.FlatAdam.gradient = recorded_gradient
+    trainer_lib.FlatAdam.step = recorded_step
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", type=Path, required=True, help="the run's config (JSON)")
+    ap.add_argument("--db", type=Path, required=True, help="the scene database")
+    ap.add_argument("--out", type=Path, required=True, help="ranks train into <out>/rank<r>")
+    ap.add_argument("--steps", type=int, required=True, help="train up to this iteration")
+    ap.add_argument("--dump", type=Path, required=True, help="writes <dump>.rank<r>.npz")
+    ap.add_argument("--device", default=None, help="cpu, cuda or cuda:<i> (default: the card)")
+    ap.add_argument("--backend", default=None, help="gloo or nccl (default: by device)")
+    args = ap.parse_args()
+
+    device = parallel.initialize_distributed(args.device, backend=args.backend)
+    if device is None:
+        raise SystemExit("no torchrun environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
+    mesh = parallel.make_mesh()
+    cfg = json.loads(args.config.read_text())
+    out = args.out / f"rank{mesh.rank}"
+    rec: dict = {}
+    record_optimizer(rec)
+    for name in COUNTERS:
+        getattr(fused_mlp, name).launches = 0
+
+    cfg["num_iterations"] = args.steps
+    cfg["log_interval"] = 1
+    run_dir = runner.start_training(cfg, args.db, out, mesh=mesh)
+    (log,) = run_dir.glob("*/logs/scalars.jsonl")  # one scene
+    rows = [r for r in map(json.loads, log.read_text().splitlines()) if "TotalLoss" in r]
+    names = [k for k in rows[0] if k not in ("iter", "time", "lr", "rays_per_s")]
+    values = [[r[k] for k in names] for r in rows]
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    state = rec["state"]
+    np.savez(
+        f"{args.dump}.rank{mesh.rank}.npz",
+        params=torch.cat([p.detach().reshape(-1) for p in rec["leaves"]]).cpu().numpy(),
+        mu=state["mu"].cpu().numpy(), nu=state["nu"].cpu().numpy(), count=state["count"],
+        grad1=rec.get("grad1", np.zeros(0, np.float32)), names=np.array(names),
+        values=np.array(values, np.float64), t=np.array(rec["t"]),
+        launches=json.dumps({n: getattr(fused_mlp, n).launches for n in COUNTERS}),
+        world_size=mesh.world_size,
+    )
+    torch.distributed.destroy_process_group()
+    print(f"RANK {mesh.rank} OK", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
