@@ -563,7 +563,8 @@ def bwd_pass_ms(fn, calls: int = 3, sums=(1, 1, 1)) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {"row_ms": 0.0, "weight_ms": 0.0, "sums_ms": 0.0}
-    parts = {"fused_mlp_bwd_rows_kernel": "row_ms", "fused_mlp_bwd_wgrad_kernel": "weight_ms",
+    parts = {"fused_mlp_bwd_rows_kernel": "row_ms", "fused_mlp_bwd_rows_sm90_kernel": "row_ms",
+             "fused_mlp_bwd_wgrad_kernel": "weight_ms",
              "fused_mlp_bwd_weights_kernel": "weight_ms", "colsum_kernel": "sums_ms"}
     colsums = []
     for e in prof.events():

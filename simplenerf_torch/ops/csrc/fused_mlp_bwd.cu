@@ -15,9 +15,13 @@
 // a block, so the work is split in two passes with fixed-order reductions
 // (the same result on every run; no atomics):
 //   (a) row pass, one block per tile of rows (128 in bf16, 64 in f32): the
-//       forward is recomputed with the forward kernel's code (shared tiles,
-//       weight-slab ring, mma.sync), and each layer's rounded activation is
-//       stashed in device memory. A ReLU layer's epilogue also packs its
+//       forward is recomputed, and each layer's rounded activation is
+//       stashed in device memory. bf16: fused_mlp_bwd_rows_sm90_kernel
+//       (fused_mlp_bwd_sm90.cuh), the forward's warp-specialised engine
+//       (bulk-copied slab ring, wgmma) run forward and back, its stash
+//       leaving by TMA stores; float32 (and what follows): the forward
+//       kernel's first engine (shared tiles, cp.async weight-slab ring,
+//       plain FMAs). A ReLU layer's epilogue also packs its
 //       mask as bits in the order of the thread's accumulator fragment (two
 //       words a thread), and the layer that feeds a head sums the head's
 //       per-tile dW and db from the tile it just wrote. Then the layers are
@@ -61,6 +65,7 @@
 #include <vector>
 
 #include "fused_mlp_common.cuh"
+#include "fused_mlp_bwd_sm90.cuh"
 #include "fused_mlp_wgrad_sm90.cuh"
 
 namespace {
@@ -136,9 +141,6 @@ __device__ void copy_tile_out(const T* tile, int ld, int width, T* dst, int row0
 
 template <typename T> __device__ __forceinline__ float rounded(float v);
 template <> __device__ __forceinline__ float rounded<float>(float v) { return v; }
-template <> __device__ __forceinline__ float rounded<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // The head's cotangent planes at the tile's rows into shared memory,
 // dsm[q][r] (BM apart), 0 past n_rows and for channels q >= hn. Read after
@@ -453,6 +455,45 @@ fused_mlp_bwd_rows_kernel(const __grid_constant__ BProgram p, const T* __restric
   }
 }
 
+// The bf16 row pass (fused_mlp_bwd_sm90.cuh): warpgroup 0 produces (one
+// thread issues the bulk copies), warpgroups 1 and 2 consume; the roles
+// never reconverge, so setmaxnreg moves registers from the producer to the
+// consumers (128 x 40 + 256 x 232 = 64,512 of the SM's 65,536).
+__global__ void __launch_bounds__(bwd90::kThreads, 1)
+fused_mlp_bwd_rows_sm90_kernel(const __grid_constant__ bwd90::Program p,
+                               const __grid_constant__ wgrad::Maps maps,
+                               const __nv_bfloat16* __restrict__ lo,
+                               const __nv_bfloat16* __restrict__ hi, const float* __restrict__ hvx,
+                               const float* __restrict__ dplanes,
+                               const __nv_bfloat16* __restrict__ wts,
+                               const float* __restrict__ fpar, __nv_bfloat16* stash, float* g32,
+                               uint4* masks, float* parts) {
+  extern __shared__ __align__(1024) unsigned char bwd90_smem[];
+  if (sm90::smem_u32(bwd90_smem) & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
+  const bwd90::Smem s = bwd90::carve(bwd90_smem, p);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      bwd90::mbar_init(s.full + i, 1);   // the producer's expect_tx arrival
+      bwd90::mbar_init(s.empty + i, 2);  // one arrival per consumer warpgroup
+    }
+    for (int i = 0; i < 2; ++i) {
+      bwd90::mbar_init(s.xfull + i, bwd90::kConsumerThreads);   // consumer 1's threads
+      bwd90::mbar_init(s.xempty + i, bwd90::kConsumerThreads);  // consumer 0's threads
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(sm90::kProducerRegs));
+    if (threadIdx.x == 0) bwd90::produce(p, s, wts);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(sm90::kConsumerRegs));
+    bwd90::consume(p, maps, bwd90_smem, s, wg - 1, lo, hi, hvx, dplanes, fpar, stash, g32, masks,
+                   parts);
+  }
+}
+
 // Float32 weight pass: rows of the chunk in stages of KC, double-buffered by
 // cp.async (the bf16 weight pass is fused_mlp_bwd_wgrad_kernel).
 template <typename T> struct WTraits;
@@ -693,9 +734,26 @@ struct Buffers {
   void* scratch;          // the column sums' slice sums
 };
 
-template <typename T>
-int launch(BProgram p, const Buffers& b, int n_tasks, int n_chunks, int chunk_rows, int dw_total,
-           int n_hvx_rows, int smem, cudaStream_t stream) {
+// The three column sums after the weight pass: partials over the tiles, dW
+// partials over the chunks, g32 over each ray's ns rows (dhvx).
+int column_sums(const Buffers& b, int n_tiles, int part_w, int n_chunks, int dw_total,
+                int n_hvx_rows, int ns, int hvx_w, cudaStream_t stream) {
+  float* scratch = static_cast<float*>(b.scratch);
+  int rc = colsum(static_cast<const float*>(b.parts), static_cast<float*>(b.part_out), 1, n_tiles,
+                  part_w, b.slices[0], scratch, stream);
+  if (rc) return rc;
+  rc = colsum(static_cast<const float*>(b.dw_part), static_cast<float*>(b.dw_out), 1, n_chunks,
+              dw_total, b.slices[1], scratch, stream);
+  if (rc) return rc;
+  return colsum(static_cast<const float*>(b.g32), static_cast<float*>(b.dhvx), n_hvx_rows, ns,
+                hvx_w, b.slices[2], scratch, stream);
+}
+
+// The float32 backward: the row pass, the weight pass in 128 x 128 tiles,
+// the column sums.
+int launch_f32(BProgram p, const Buffers& b, int n_tasks, int n_chunks, int chunk_rows,
+               int dw_total, int n_hvx_rows, int smem, cudaStream_t stream) {
+  using T = float;
   constexpr int BM = Block<T>::BM;
   if (p.slab_k != Traits<T>::kSlabK) return static_cast<int>(cudaErrorInvalidValue);
   p.ops = static_cast<const BOp*>(b.ops);
@@ -709,52 +767,84 @@ int launch(BProgram p, const Buffers& b, int n_tasks, int n_chunks, int chunk_ro
       static_cast<const T*>(b.wts), static_cast<const float*>(b.fpar), static_cast<T*>(b.stash),
       static_cast<float*>(b.g32), static_cast<uint2*>(b.masks), static_cast<float*>(b.parts));
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  int rc = 0;
-  if (std::is_same<T, __nv_bfloat16>::value) {
-    rc = wgrad_launch(b.stash, b.maps, b.n_maps, b.tasks, n_tasks, p.n_rows, chunk_rows,
-                      dw_total, static_cast<float*>(b.dw_part), stream);
-  } else if (n_tasks > 0) {
+  if (n_tasks > 0) {
     fused_mlp_bwd_weights_kernel<float><<<dim3(n_tasks, n_chunks), kWThreads, 0, stream>>>(
         static_cast<const Task*>(b.tasks), static_cast<const float*>(b.stash), p.n_rows,
         chunk_rows, dw_total, static_cast<float*>(b.dw_part));
-    rc = static_cast<int>(cudaGetLastError());
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
+  return column_sums(b, n_tiles, p.part_w, n_chunks, dw_total, n_hvx_rows, p.ns, p.hvx_w, stream);
+}
+
+// The bf16 backward: the row pass (its program `words`: the bwd90 header and
+// ops; its tensor maps the first n_maps of b.maps, the weight pass's the
+// rest), the weight pass, the column sums.
+int launch_bf16(const int* words, int n_words, const Buffers& b, int n_tasks, int n_chunks,
+                int chunk_rows, int dw_total, int n_hvx_rows, int smem, cudaStream_t stream) {
+  bwd90::Program p;
+  if (n_words < bwd90::kHeaderWords || n_words > static_cast<int>(sizeof(p) / sizeof(int)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  memset(&p, 0, sizeof(p));
+  memcpy(&p, words, sizeof(int) * n_words);
+  if (p.n_ops > bwd90::kMaxOps || p.n_rows <= 0 || p.stages < 2 || p.stages > bwd90::kMaxStages ||
+      p.n_maps > b.n_maps || p.n_maps > wgrad::kMaxMaps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < p.n_ops; ++i) {
+    const bwd90::Op& op = p.ops[i];
+    if (op.kind == bwd90::F_IN) continue;
+    if ((op.n_pad != 64 && op.n_pad != 128 && op.n_pad != 256) || op.n_pad * 128 > p.slot_bytes ||
+        op.head_nout > bwd90::kMaxHead || op.map >= p.n_maps)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  wgrad::Maps maps;  // 16 KB; the launch copies it into the kernel's parameters
+  int rc = encode_maps(static_cast<const __nv_bfloat16*>(b.stash), b.maps, p.n_maps, &maps);
   if (rc) return rc;
-  float* scratch = static_cast<float*>(b.scratch);
-  rc = colsum(static_cast<const float*>(b.parts), static_cast<float*>(b.part_out), 1, n_tiles,
-              p.part_w, b.slices[0], scratch, stream);
+  auto rows = fused_mlp_bwd_rows_sm90_kernel;
+  cudaError_t err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = (p.n_rows + bwd90::kBM - 1) / bwd90::kBM;
+  rows<<<n_tiles, bwd90::kThreads, smem, stream>>>(
+      p, maps, static_cast<const __nv_bfloat16*>(b.lo), static_cast<const __nv_bfloat16*>(b.hi),
+      static_cast<const float*>(b.hvx), static_cast<const float*>(b.dplanes),
+      static_cast<const __nv_bfloat16*>(b.wts), static_cast<const float*>(b.fpar),
+      static_cast<__nv_bfloat16*>(b.stash), static_cast<float*>(b.g32), static_cast<uint4*>(b.masks),
+      static_cast<float*>(b.parts));
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  rc = wgrad_launch(b.stash, b.maps + 4 * p.n_maps, b.n_maps - p.n_maps, b.tasks, n_tasks, p.n_rows,
+                    chunk_rows, dw_total, static_cast<float*>(b.dw_part), stream);
   if (rc) return rc;
-  rc = colsum(static_cast<const float*>(b.dw_part), static_cast<float*>(b.dw_out), 1, n_chunks,
-              dw_total, b.slices[1], scratch, stream);
-  if (rc) return rc;
-  return colsum(static_cast<const float*>(b.g32), static_cast<float*>(b.dhvx), n_hvx_rows, p.ns,
-                p.hvx_w, b.slices[2], scratch, stream);
+  return column_sums(b, n_tiles, p.part_w, n_chunks, dw_total, n_hvx_rows, p.ns, p.hvx_w, stream);
 }
 
 int run(int dtype, const int* header, int n_header, const Buffers& b, int n_tasks, int n_chunks,
         int chunk_rows, int dw_total, int n_hvx_rows, int smem, void* stream) {
+  if (n_chunks <= 0 || chunk_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_bf16(header, n_header, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows,
+                       smem, s);
   if (n_header != kBHeaderWords) return static_cast<int>(cudaErrorInvalidValue);
   BProgram p;
   memset(&p, 0, sizeof(p));
   memcpy(&p, header, sizeof(int) * kBHeaderWords);
-  if (p.n_rows <= 0 || n_chunks <= 0 || chunk_rows <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(p, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem, s);
-  return launch<float>(p, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem, s);
+  if (p.n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_f32(p, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem, s);
 }
 
 }  // namespace
 
-// dtype: 1 = bfloat16 operands, 0 = float32. header: the program header
-// (16 ints, host memory); ops: a device array of BOp; tasks: of Task
-// (float32) or wgrad::Job (bf16, n_tasks jobs).
+// dtype: 1 = bfloat16 operands, 0 = float32. header: float32, the program
+// header (16 ints, host memory) with ops a device array of BOp; bf16, the
+// row pass's whole program (struct bwd90::Program's header and ops, host
+// memory; ops unused). tasks: of Task (float32) or wgrad::Job (bf16,
+// n_tasks jobs).
 // Workspace and outputs are allocated by the caller: stash (cdtype), g32,
-// masks (n_tiles x n_masks x threads x 8 bytes), parts (n_tiles x part_w),
+// masks (n_tiles x n_masks x threads x 8 bytes in float32, x 256 consumer
+// threads x 16 bytes in bf16), parts (n_tiles x part_w),
 // dw_part (n_chunks x dw_total), the outputs part_out (part_w), dw_out
 // (dw_total), dhvx (n_hvx_rows x hvx_w); for bf16 the tensor maps' host
-// parameters `maps` (n_maps x 4 int64, n_maps <= wgrad::kMaxMaps); the
+// parameters `maps` (n_maps x 4 int64: the row pass's stash slots, as many
+// as its header names, then the weight pass's); the
 // column sums' slices (3 ints, host) and their scratch (the largest
 // S x slices x C of the three where slices > 1).
 extern "C" int snerf_fused_mlp_bwd(int dtype, const int* header, int n_header, const void* ops,

@@ -32,7 +32,10 @@ TF32). The backward (`pack_bwd_program`) runs the forward program again,
 stashes the rounded activations and cotangents in device memory, and
 computes dW in a second pass over the stash; sums over rows are
 fixed-order reductions, so gradients do not change from run to run. The
-row pass's bf16 products run on the tensor cores with mma.sync; the bf16
+bf16 row pass runs the forward's warp-specialised engine forward and back,
+with a slab image of every backward product's weight beside the forward's
+and the stash leaving by TMA stores (`bwd90_plan`,
+csrc/fused_mlp_bwd_sm90.cuh); the bf16
 weight pass is bound by the stash bytes it reads, and reads whole dW
 panels through TMA boxes into wgmma, the two panels of a dW in one
 cluster (`_wgrad_plan`, csrc/fused_mlp_wgrad_sm90.cuh).
@@ -869,12 +872,16 @@ def _pack_sm90(spec, kp, n_rows: int):
 class BwdPlan:
     """Backward kernel operands and where each gradient lands.
 
-    header: (16,) int32; ops: (n_ops, 24) int32; tasks: the weight pass's
+    header: (16,) int32; ops: (n_ops, 24) int32, the float32 row kernel's
+    program (struct BProgram / BOp); bf16 runs `rows90`, its translation
+    (`bwd90_plan`), and then wts / fpar are that program's slab image and
+    float32 buffer. tasks: the weight pass's
     work, (n_tasks, 9) int32 float32 tiles or (n_jobs, 9) int32 bf16 jobs
     (`_wgrad_plan`). The stash holds `stash_cols` column slots of n_rows
     rows each; partials rows are `part_w` wide, dW partials `dw_total`. The
-    ReLU masks take `mask_words` int32 words: two per thread of a tile for
-    each of its ReLU layers (header[15] of them). grads[mi][key] =
+    ReLU masks take `mask_words` int32 words: two per thread of a tile
+    (float32), four per consumer thread (bf16), for each of its ReLU
+    layers (header[15] of them). grads[mi][key] =
     ("dw" | "part", offset, shape) into the reduced dW or partials vector.
     bf16: `maps` (n_maps, 4) int64 are the weight pass's tensor maps and
     `wgrad_bytes` the stash bytes its producers issue (`WgradPlan`). dws:
@@ -903,6 +910,7 @@ class BwdPlan:
     slices: tuple
     scratch: int
     dws: list
+    rows90: Optional["Bwd90Plan"] = None
 
 
 def _colsum_slices(S: int, L: int, C: int) -> tuple[int, int]:
@@ -1202,18 +1210,184 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
         maps, issued = np.zeros((0, 4), dtype=np.int64), 0
     sums = [(1, -(-n_rows // bm), sizes["part"]), (1, n_chunks, sizes["dw"]),
             (hvx_slot * (n_rows // m0.ns), m0.ns, hvx_w)]
-    wm = 4 if cd == torch.bfloat16 else 2
+    ops = np.asarray(ops, dtype=np.int32).reshape(-1, _BOP_WORDS)
     wts, fpar = buf.tensors()
+    rows90 = None
+    if cd == torch.bfloat16:
+        key = header.copy()
+        key[1] = 0
+        rows90, w_index, f_index = _bwd90_on(key.tobytes(), ops.tobytes(), wts.numel(),
+                                             fpar.numel(), wts.device)
+        with torch.no_grad():
+            wts = torch.cat([wts, wts.new_zeros(1)]).index_select(0, w_index)
+            fpar = torch.cat([fpar, fpar.new_zeros(1)]).index_select(0, f_index)
+        smem, mask_words = rows90.smem, -(-n_rows // bm) * sizes["mask"] * _BWD90_MASK_THREADS * 4
+    else:
+        wm = 2
+        smem = _smem(cd, lay, extra=(wm * (256 + 1) + bm) * _MAX_HEAD * 4)
+        mask_words = -(-n_rows // bm) * sizes["mask"] * (32 * wm * 4) * 2
     return BwdPlan(
-        header=header, ops=np.asarray(ops, dtype=np.int32).reshape(-1, _BOP_WORDS),
-        tasks=jobs, wts=wts, fpar=fpar,
+        header=header, ops=ops, tasks=jobs, wts=wts, fpar=fpar,
         stash_cols=sizes["stash"], part_w=sizes["part"], dw_total=sizes["dw"], n_chunks=n_chunks,
-        chunk_rows=chunk_rows, hvx_w=hvx_w, n_hvx=hvx_slot,
-        smem=_smem(cd, lay, extra=(wm * (256 + 1) + bm) * _MAX_HEAD * 4),
-        mask_words=-(-n_rows // bm) * sizes["mask"] * (32 * wm * 4) * 2, grads=grads,
-        maps=maps, wgrad_bytes=issued, slices=tuple(_colsum_slices(*x)[0] for x in sums),
-        scratch=_colsum_scratch(sums), dws=tasks,
+        chunk_rows=chunk_rows, hvx_w=hvx_w, n_hvx=hvx_slot, smem=smem, mask_words=mask_words,
+        grads=grads, maps=maps, wgrad_bytes=issued,
+        slices=tuple(_colsum_slices(*x)[0] for x in sums), scratch=_colsum_scratch(sums), dws=tasks,
+        rows90=rows90,
     )
+
+
+# The bf16 row pass: struct bwd90::Program / bwd90::Op in
+# csrc/fused_mlp_bwd_sm90.cuh.
+_BWD90_HEADER_WORDS = 16
+_BWD90_OP_WORDS = 24
+_BWD90_MAX_OPS = 64
+_BWD90_STAGES = (4, 3, 2)  # ring depths, the deepest that fits first
+_BWD90_DP = 64 * _MAX_HEAD  # floats of a consumer's staged dp rows (kDpFloats)
+_BWD90_RED = 2 * 4 * 256  # floats of one buffer of per-warp column sums (kRedFloats)
+_BWD90_XFER = _MAX_HEAD * 256 + _MAX_HEAD  # floats of one hand-over buffer (kXferFloats)
+_BWD90_BARRIERS = (2 * 4 + 4) * 8  # full and empty per stage (4 + 4), two hand-overs (2 + 2)
+_BWD90_MASK_THREADS = 256  # consumer threads of a tile, one uint4 of mask words each
+
+
+@dataclasses.dataclass(frozen=True)
+class Bwd90Plan:
+    """The bf16 row pass's program, translated from a BwdPlan's ops.
+
+    words: the program (n_rows left 0); w_index: the slab image as a
+    gather from the ops' weight buffer with one zero after it (every
+    forward op's W^T and every backward product's W, (out rows, depth),
+    in 64-deep slabs of n_pad rows, 128-byte swizzled); f_index: its
+    float32 buffer as a gather from the ops' (each bias padded to n_pad,
+    then each head's weights [q][n_pad] for the backward op that adds
+    them); maps: (stash slot, width) of each op's tensor map; smem: bytes
+    of a block.
+    """
+
+    words: np.ndarray
+    w_index: np.ndarray
+    f_index: np.ndarray
+    maps: tuple
+    smem: int
+
+
+def _slab_gather(w_off: int, n: int, kpad: int) -> tuple[np.ndarray, int]:
+    """(gather index, slabs) of the slabs of a matrix stored (n, kpad) at
+    w_off: slab kbi is n_pad rows of 128 bytes holding columns 64 kbi ..
+    64 kbi + 63, the 16-byte chunk c of row r at chunk c ^ (r % 8); -1 for
+    padding."""
+    n_pad, kb = _n_pad(n), _kblocks(kpad)
+    kbi, r, kl = np.meshgrid(np.arange(kb), np.arange(n_pad), np.arange(64), indexing="ij")
+    d = kbi * 64 + kl
+    pos = kbi * n_pad * 64 + r * 64 + ((kl // 8) ^ (r % 8)) * 8 + kl % 8
+    idx = np.full(kb * n_pad * 64, -1, dtype=np.int64)
+    idx[pos.reshape(-1)] = np.where((r < n) & (d < kpad), w_off + r * kpad + d, -1).reshape(-1)
+    return idx, kb
+
+
+def bwd90_plan(header: np.ndarray, ops: np.ndarray) -> Bwd90Plan:
+    """The bf16 row pass's program from a BwdPlan's header and ops.
+
+    A forward op keeps its product and epilogue. A backward op of the row
+    kernel is the product of the BOp before it (round(g) @ W^T, W stored
+    (K, round16(N)) in the ops' buffer), or zeros at the top of a chain,
+    followed by its own epilogue: so the product and the epilogue of one op
+    share a width, as in the forward engine.
+    """
+    hdr = [int(v) for v in header]
+    ns, in_lo, in_hi, part_w, hvx_w, n_masks = hdr[2], hdr[3], hdr[4], hdr[13], hdr[14], hdr[15]
+    w_parts, f_parts, maps, out = [], [], [], []
+    f_size = [0]
+
+    def fvec(idx):
+        f_parts.append(idx)
+        f_size[0] += idx.size
+        return f_size[0] - idx.size
+
+    def slabs(w_off, n, kpad):
+        idx, kb = _slab_gather(w_off, n, kpad)
+        w_parts.append(idx)
+        return kb
+
+    def stash_map(slot, width):
+        maps.append((slot, width))
+        return len(maps) - 1
+
+    pending = None  # the product the next backward op runs: (w_off, n, kpad)
+    for w in ops.tolist():
+        kind, n, b_off, flags, nseg = w[:5]
+        src, w_off, kpad = w[5:8], w[8:11], w[11:14]
+        plane, hvx_slot, out_slot, gn, mask_slot, hn, hw_off, part, g32_slot, part2 = w[14:24]
+        op = [0] * _BWD90_OP_WORDS
+        if kind == _F_IN:
+            op[0], op[1], op[6] = _F_IN, gn, src[0]
+        elif kind == _F_LAYER:
+            if pending is not None:
+                raise ValueError("a forward op after a backward product")
+            n_pad = _n_pad(n)
+            c = np.arange(n_pad)
+            op[:6] = [_F_LAYER, n, n_pad, fvec(np.where(c < n, b_off + c, -1)), flags, nseg]
+            for s_ in range(nseg):
+                op[6 + s_], op[9 + s_] = src[s_], slabs(w_off[s_], n, kpad[s_])
+            op[12], op[16], op[17], op[19], op[20] = hvx_slot, plane, hn, part, part2
+        else:
+            if (pending is None) != bool(flags & _FLAG_ZERO):
+                raise ValueError("a backward op's product does not match its chain")
+            n_pad = _n_pad(gn)
+            op[:5] = [_B_LAYER, gn, n_pad, 0, flags & ~_FLAG_ZERO]
+            if pending is not None:
+                p_off, p_n, p_kpad = pending
+                if p_n != gn:
+                    raise ValueError(f"a product of width {p_n} feeds a layer of width {gn}")
+                op[5], op[6], op[9] = 1, _SRC_ACT, slabs(p_off, p_n, p_kpad)
+            if hn:
+                c = np.arange(n_pad)
+                op[18] = fvec(np.concatenate([np.where(c < gn, hw_off + q * gn + c, -1)
+                                              for q in range(hn)]))
+            op[16], op[17], op[19] = plane, hn, part
+            pending = (w_off[0], n, kpad[0]) if nseg else None
+        op[13], op[14], op[15] = out_slot, stash_map(out_slot, op[1]), max(mask_slot, 0)
+        op[21] = g32_slot
+        out.append(op)
+    if len(out) > _BWD90_MAX_OPS:
+        raise ValueError(f"{len(out)} backward ops exceed the row kernel's {_BWD90_MAX_OPS}")
+    if len(maps) > _WGRAD_MAX_MAPS:
+        raise ValueError(f"{len(maps)} stash slots written; the row kernel takes {_WGRAD_MAX_MAPS}")
+    lo_kb, hi_kb = _kblocks(in_lo), _kblocks(in_hi)
+    act_kb = max(op[2] for op in out) // 64
+    slot = max(op[2] for op in out if op[5]) * 128
+    hvx_rays = 63 // ns + 2 if hvx_w else 0  # rays that 64 consecutive rows can touch
+
+    def smem(stages, rays):
+        return (stages * slot + 2 * (act_kb + lo_kb + hi_kb) * _SM90_KBLOCK
+                + 2 * 4 * (_SM90_BIAS + rays * hvx_w) + 2 * 4 * (_BWD90_DP + _BWD90_RED + _BWD90_XFER)
+                + _BWD90_BARRIERS)
+
+    fits = [(s_, r) for s_ in _BWD90_STAGES for r in (hvx_rays, 0) if smem(s_, r) <= _SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"the row kernel needs {smem(_BWD90_STAGES[-1], 0)} B of shared memory")
+    stages, rays = fits[0]
+    head = [len(out), 0, ns, in_lo, in_hi, lo_kb, hi_kb, act_kb, slot, stages, rays,
+            _SM90_BIAS + rays * hvx_w, part_w, n_masks, len(maps), hvx_w]
+    words = np.asarray(head + [v for op in out for v in op], dtype=np.int32)
+    words.setflags(write=False)
+    w_index = np.concatenate(w_parts)
+    f_index = np.concatenate(f_parts)
+    return Bwd90Plan(words=words, w_index=w_index, f_index=f_index, maps=tuple(maps),
+                     smem=smem(stages, rays))
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd90_on(header: bytes, ops: bytes, w_size: int, f_size: int, dev: torch.device) -> tuple:
+    """(plan, w_index, f_index): `bwd90_plan` of a program (n_rows left 0)
+    with its gathers as int64 tensors on `dev`, padding (-1) pointing at
+    the zero after each buffer (w_size, f_size its index)."""
+    plan = bwd90_plan(np.frombuffer(header, dtype=np.int32),
+                      np.frombuffer(ops, dtype=np.int32).reshape(-1, _BOP_WORDS))
+
+    def index(i, size):
+        return torch.from_numpy(np.where(i < 0, size, i)).to(dev)
+
+    return plan, index(plan.w_index, w_size), index(plan.f_index, f_size)
 
 
 def unpack_grads(plan: BwdPlan, dw, part) -> list:
@@ -1312,7 +1486,7 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    ops = torch.from_numpy(plan.ops).to(dev)
+    ops = torch.from_numpy(plan.ops).to(dev) if plan.rows90 is None else None  # bf16: in `header`
     tasks = torch.from_numpy(plan.tasks).to(dev)
     stash = torch.empty(plan.stash_cols * n, dtype=cd, device=dev)
     g32 = f32(max(plan.n_hvx * n * plan.hvx_w, 1))
@@ -1322,15 +1496,21 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
     dhvx = f32(plan.n_hvx, n // ns, max(plan.hvx_w, 1))
     scratch = f32(plan.scratch)
     slices = np.asarray(plan.slices, dtype=np.int32)
+    header, maps = plan.header, plan.maps
+    if plan.rows90 is not None:  # the bf16 row pass's program and its tensor maps, then the weight pass's
+        header = plan.rows90.words.copy()
+        header[1] = n
+        row_maps = [[slot * n, w, n, 2 * w] for slot, w in plan.rows90.maps]
+        maps = np.concatenate([np.asarray(row_maps, dtype=np.int64).reshape(-1, 4), plan.maps])
     lib = build.load_library("fused_mlp_bwd")
-    args = [1 if cd == torch.bfloat16 else 0, plan.header.ctypes.data_as(ctypes.c_void_p),
-            int(plan.header.size), _ptr(ops), _ptr(lo)]
+    args = [1 if cd == torch.bfloat16 else 0, header.ctypes.data_as(ctypes.c_void_p),
+            int(header.size), _ptr(ops), _ptr(lo)]
     args += [_ptr(hi)] if entry == "snerf_fused_mlp_bwd" else []
     args += [_ptr(hvx), _ptr(d_planes), _ptr(plan.wts), _ptr(plan.fpar), _ptr(tasks),
              len(plan.tasks), plan.n_chunks, plan.chunk_rows, plan.dw_total,
              plan.n_hvx * (n // ns), _ptr(stash), _ptr(g32), _ptr(masks), _ptr(parts),
              _ptr(part_out), _ptr(dw_part), _ptr(dw_out), _ptr(dhvx),
-             plan.maps.ctypes.data_as(ctypes.c_void_p), len(plan.maps),
+             maps.ctypes.data_as(ctypes.c_void_p), len(maps),
              slices.ctypes.data_as(ctypes.c_void_p), _ptr(scratch), ctypes.c_int(plan.smem),
              _stream(dev)]
     rc = getattr(lib, entry)(*args)

@@ -298,9 +298,107 @@ def test_wrapper_rejects_other_devices():
         fused_mlp.fused_apply(spec, {}, lo, None, None)
 
 
+def _bwd90_ops(words):
+    """The bf16 row program's header and ops as dicts (struct bwd90::Op)."""
+    hw, ow = fused_mlp._BWD90_HEADER_WORDS, fused_mlp._BWD90_OP_WORDS
+    names = ("kind", "n", "n_pad", "b_off", "flags", "nseg", "src", "kb", "hvx_slot", "out_slot",
+             "map", "mask_slot", "plane", "hn", "head_w", "part", "part2", "g32_slot")
+    ops = []
+    for op in words[hw:].reshape(-1, ow).tolist():
+        ops.append(dict(zip(names, op[:6] + [op[6:9], op[9:12]] + op[12:22])))
+    assert words[0] == len(ops)
+    return words[:hw].tolist(), ops
+
+
+def _bwd90_slabs(plan):
+    """Each op's segments as (n_pad, 64 kb) matrices read back through the
+    swizzle from the slab image, in the producer's order."""
+    _, ops = _bwd90_ops(plan.rows90.words)
+    pos, mats = 0, []
+    for op in ops:
+        segs = []
+        for s in range(op["nseg"]):
+            blocks = []
+            for _ in range(op["kb"][s]):
+                blocks.append(_unswizzle_slab(plan.wts[pos : pos + op["n_pad"] * 64], op["n_pad"]))
+                pos += op["n_pad"] * 64
+            segs.append(torch.cat(blocks, 1))
+        mats.append(segs)
+    assert pos == plan.wts.numel()
+    return mats
+
+
+def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
+    """The bf16 row pass's program, run as fused_mlp_bwd_rows_sm90_kernel
+    runs it, tile by tile: (stash, g32, per-tile partials)."""
+    hdr, ops = _bwd90_ops(plan.rows90.words)
+    ns, in_lo, in_hi, lo_kb, hi_kb, act_kb = hdr[2:8]
+    slot_bytes, part_w, n_maps = hdr[8], hdr[12], hdr[14]
+    assert part_w == plan.part_w and n_maps == len(plan.rows90.maps)
+    cd, bm = torch.bfloat16, 128
+    mats = _bwd90_slabs(plan)
+    stash = torch.zeros(plan.stash_cols * n, dtype=cd)
+    g32 = torch.zeros((max(plan.n_hvx, 1), n, max(plan.hvx_w, 1)))
+    n_tiles = -(-n // bm)
+    parts = torch.zeros((n_tiles, part_w))
+    fpar = plan.fpar
+
+    def slot(off, w):
+        return stash[off * n : (off + w) * n].view(n, w)
+
+    for t in range(n_tiles):
+        rows = slice(t * bm, min(n, (t + 1) * bm))
+        r = rows.stop - rows.start
+        tiles = {fused_mlp._SRC_LO: torch.zeros((r, 64 * lo_kb), dtype=cd),
+                 fused_mlp._SRC_HI: torch.zeros((r, 64 * hi_kb), dtype=cd)}
+        tiles[fused_mlp._SRC_LO][:, :in_lo] = lo[rows]
+        if in_hi:
+            tiles[fused_mlp._SRC_HI][:, :in_hi] = hi[rows]
+        masks = {}
+        for op, segs in zip(ops, mats):
+            kind, width, n_pad, flags = op["kind"], op["n"], op["n_pad"], op["flags"]
+            assert plan.rows90.maps[op["map"]] == (op["out_slot"], width)
+            if kind == fused_mlp._F_IN:
+                slot(op["out_slot"], width)[rows] = tiles[op["src"][0]][:, :width]
+                continue
+            assert n_pad in (64, 128, 256) and n_pad * 128 <= slot_bytes and n_pad <= 64 * act_kb
+            acc = torch.zeros((r, n_pad))
+            for s, w in enumerate(segs):
+                acc = acc + tiles[op["src"][s]][:, : w.shape[1]].float() @ w.float().T
+            d = dp[op["plane"] : op["plane"] + op["hn"], rows]
+            if kind == fused_mlp._F_LAYER:
+                v = acc + fpar[op["b_off"] : op["b_off"] + n_pad]
+                if flags & fused_mlp._FLAG_HVX:
+                    v[:, :width] += hvxs[op["hvx_slot"]].repeat_interleave(ns, 0)[rows]
+                if flags & fused_mlp._FLAG_RELU:
+                    v = torch.relu(v)
+                    masks[op["mask_slot"]] = v.to(cd).float() > 0
+                tiles[fused_mlp._SRC_ACT] = v.to(cd)
+                slot(op["out_slot"], width)[rows] = v.to(cd)[:, :width]
+                if op["hn"]:  # the head this layer feeds: partials of its rounded activation
+                    hn = op["hn"]
+                    parts[t, op["part"] : op["part"] + hn * width] = (
+                        d @ v.to(cd).float()[:, :width]).reshape(-1)
+                    parts[t, op["part2"] : op["part2"] + hn] = d.sum(1)
+                continue
+            assert op["nseg"] <= 1
+            if op["hn"]:
+                hw = fpar[op["head_w"] : op["head_w"] + op["hn"] * n_pad].view(op["hn"], n_pad)
+                acc = acc + d.T @ hw
+            if flags & fused_mlp._FLAG_RELU:
+                acc = acc * masks[op["mask_slot"]][:, :n_pad]
+            if op["g32_slot"] >= 0:
+                g32[op["g32_slot"], rows] = acc[:, :width]
+            tiles[fused_mlp._SRC_ACT] = acc.to(cd)
+            slot(op["out_slot"], width)[rows] = acc.to(cd)[:, :width]
+            parts[t, op["part"] : op["part"] + width] = acc[:, :width].sum(0)
+    return stash, g32, parts
+
+
 def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
     """Execute `pack_bwd_program`'s output with PyTorch ops, tile by tile and
-    task by task, as the backward kernels do: (per-member dkp, dhvx stack)."""
+    task by task, as the backward kernels do: (per-member dkp, dhvx stack).
+    bf16 runs the row program of `bwd90_plan` (`_run_bwd90_rows`)."""
     n = lo.shape[0]
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
     hdr = plan.header.tolist()
@@ -320,7 +418,9 @@ def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
     def weight(off, rows, kpad):
         return plan.wts[off : off + rows * kpad].view(rows, kpad).float()
 
-    for t in range(n_tiles):
+    if cd == torch.bfloat16:
+        stash, g32, parts = _run_bwd90_rows(plan, n, lo, hi, hvxs, dp)
+    for t in range(n_tiles if cd == torch.float32 else 0):
         rows = slice(t * bm, min(n, (t + 1) * bm))
         masks = {}  # the tile's ReLU masks by mask slot, from each layer's rounded activation
         tiles = {fused_mlp._SRC_LO: torch.zeros((rows.stop - rows.start, lo_kpad), dtype=cd)}
@@ -525,9 +625,11 @@ def test_bwd_program_offsets_disjoint_and_in_range(which, dtype_name):
     assert ranges[0][0] >= 0 and ranges[-1][1] <= plan.part_w
     assert all(a[1] <= b[0] for a, b in zip(ranges, ranges[1:])), "partials overlap"
     assert sum(b - a for a, b in ranges) == plan.part_w
-    threads = 4 * bm
+    # float32: two words for each of a tile's 256 threads; bf16: a uint4 for
+    # each of its 256 consumer threads (the wgmma fragment of 128 values)
+    threads, words = (256, 4) if dtype == torch.bfloat16 else (4 * bm, 2)
     last = ((-(-n // bm) - 1) * n_masks + n_masks - 1) * threads + threads - 1
-    assert 2 * (last + 1) == plan.mask_words
+    assert words * (last + 1) == plan.mask_words
 
 
 @pytest.mark.parametrize("table", ["EDITS", "TIMING_EDITS"])
@@ -566,7 +668,7 @@ def test_backward_probe_edits_match_the_kernel_sources(table, monkeypatch):
     edits = getattr(probe, table)
     variants = probe.VARIANTS if table == "EDITS" else {**probe.TIMING, **probe.WGRAD_TIMING}
     for name, parts in variants.items():
-        if "(v3)" not in name:  # the "(v3)" parts split an earlier row pass (--parent)
+        if not any(e in name for e in probe._EARLIER):  # earlier row passes' splits (--parent)
             _edited_sources(parts, edits)  # raises on an edit that no longer matches
 
 

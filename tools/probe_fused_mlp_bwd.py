@@ -17,24 +17,37 @@ main MLP at 1037 rays x 64 (bf16) and x 192 samples (float32 and bf16; 1037
 x 64 and x 192 leave a ragged last tile of 64 rows) and at the fine training
 step's shape (4096 x 192, bf16): every dW, db and dhvx as ||got - want|| /
 ||want|| against chip_smoke.py's GRAD_TOL for its group. Each variant runs
-in a process of its own, built with -DSNERF_WGRAD_WATCHDOG (the weight
-pass's waits then trap after ~2 s), so that one whose barriers never
-complete ends with a CUDA error there and counts as failing, without
-hanging the probe or spoiling the next variant. The weight pass's variants
-break its MN-major descriptor (leading and stride byte offsets swapped),
-the k16 advance (by columns instead of rows), its ring protocol (the
-consumers' empty-barrier arrivals dropped) and its A strip (64 columns
-off); the column sums' variant drops one slice. The unedited kernel must
-pass every check and every broken variant must fail one; the script exits
-1 otherwise.
+in a process of its own, built with -DSNERF_WGRAD_WATCHDOG (the bf16 row
+pass's and the weight pass's mbarrier waits then trap after ~2 s), so that
+one whose barriers never complete ends with a CUDA error there and counts
+as failing, without hanging the probe or spoiling the next variant. The
+bf16 row pass's variants (fused_mlp_bwd_sm90.cuh) take each mask bit from
+the neighbouring element of the wgmma fragment, read the mask words of the
+ReLU layer before, step every slab descriptor one k16 step off, drop
+consumer 1's releases of the ring (the watchdog's trap), skip the stash
+stores of each tile's last 64 rows, leave one warp out of each db partial
+and consumer 1's sums out of the heads' partials. The float32 row pass's
+(fused_mlp_bwd.cu) break its mask bits, its mask words, a head's
+contribution, its head partials and its db. The weight pass's break its
+MN-major descriptor (leading and stride byte offsets swapped), the k16
+advance (by columns instead of rows), its ring protocol (the consumers'
+empty-barrier arrivals dropped) and its A strip (64 columns off); the
+column sums' variant drops one slice. The unedited kernel must pass every
+check and every broken variant must fail one; the script exits 1
+otherwise.
 
 Row-pass split: timing-only variants that launch the row pass alone (the
-weight pass and the column sums edited out), each with one part of the row
-pass removed, timed per launch by CUDA events around the library call at
-the training step's shapes: the fine MLP (4096 x 192, bf16) and the coarse
-trio through the ensemble program (4096 x 64, bf16). A time difference
-bounds what the removed part costs, as the parts overlap. Each row kernel's
-ptxas registers and spill bytes are printed beside its times.
+weight pass and the column sums edited out), whole and with parts of the
+bf16 row pass removed or changed (the stash stores, the heads' partials,
+the backward ops' epilogues, the forward ops' mask words; the products
+alone, with no epilogue, stash or partials; the stash as 16-byte stores
+from the tile instead of TMA stores), timed per launch by CUDA events
+around the library call at the training step's shapes: the fine MLP (4096
+x 192, bf16) and the coarse trio through the ensemble program (4096 x 64,
+bf16). A time difference bounds what the removed part costs, as the parts
+overlap. Each row kernel's ptxas registers and spill bytes are printed
+beside its times. With --parent the "(PR 9)" and "(v3)" splits, which
+match earlier row passes, are timed instead.
 
 Weight-pass split: the weight pass's device time (torch.profiler) in the
 same backward calls, whole, with its loads only (no products) and with its
@@ -97,10 +110,24 @@ from simplenerf_torch.fields.mlp import MLPConfig  # noqa: E402
 from simplenerf_torch.ops import build, fused_mlp  # noqa: E402
 
 _BWD = "fused_mlp_bwd.cu"
+_ROWS = "fused_mlp_bwd_sm90.cuh"
 _WG = "fused_mlp_wgrad_sm90.cuh"
 _WG_PRODUCTS = "for (int kk = 0; kk < 4; ++kk) Mma<N>::run(acc, da + kk * kK16Step, db + kk * kK16Step, 1);"
+_RELEASE = "if (prev >= 0 && x.t == 0) mbar_arrive(x.s.empty + prev);"
+_TMA = "    if (t == 0) {\n      for (int b = 0; b * 64 < width; ++b) tma_store("
 # Part -> [(file, text in it, text in its place)].
 EDITS = {
+    "row mask bit": [(_ROWS, "(words[j >> 3] >> (4 * (j & 7) + e)) & 1u",
+                      "(words[j >> 3] >> (4 * (j & 7) + (e ^ 1))) & 1u")],
+    "row mask layer": [(_ROWS, "tmask[op.mask_slot * kMaskThreads]",
+                        "tmask[max(op.mask_slot - 1, 0) * kMaskThreads]")],
+    "row k16": [(_ROWS, "Mma<N>::run(acc, da + 2 * kk, db + 2 * kk,",
+                 "Mma<N>::run(acc, da + 2 * kk, db + 2 * ((kk + 1) & 3),")],
+    "row release": [(_ROWS, _RELEASE, _RELEASE.replace("x.t == 0", "x.t == 0 && x.c == 0"))],
+    "row stash tail": [(_ROWS, _TMA, _TMA.replace("if (t == 0)", "if (t == 0 && row0 % 128 == 0)"))],
+    "row db warp": [(_ROWS, "for (int w = 0; w < 4; ++w) {\n      const float2 v",
+                     "for (int w = 1; w < 4; ++w) {\n      const float2 v")],
+    "row head hand-over": [(_ROWS, "dst[0] = w0[q] + o.x;", "dst[0] = w0[q];")],
     "relu mask": [(_BWD, "if (!((w >> b) & 1u)) v0 = 0.f;\n            if (!((w >> (b + 1)) & 1u)) v1 = 0.f;",
                    "")],
     "mask column": [(_BWD, "if (!((w >> b) & 1u)) v0 = 0.f;\n            if (!((w >> (b + 1)) & 1u)) v1 = 0.f;",
@@ -137,9 +164,16 @@ EDITS = {
 }
 VARIANTS = {
     "full kernel": [],
-    "without the ReLU mask": ["relu mask"],
-    "with each mask bit from the neighbouring column": ["mask column"],
-    "with the mask words of the previous ReLU layer": ["mask layer"],
+    "bf16 row pass: each mask bit from the neighbouring wgmma fragment element": ["row mask bit"],
+    "bf16 row pass: the mask words of the previous ReLU layer": ["row mask layer"],
+    "bf16 row pass: every slab descriptor one k16 step off": ["row k16"],
+    "bf16 row pass: consumer 1's ring releases dropped (trap)": ["row release"],
+    "bf16 row pass: the stash stores of each tile's last 64 rows skipped": ["row stash tail"],
+    "bf16 row pass: db partials without one warp": ["row db warp"],
+    "bf16 row pass: head partials without consumer 1's rows": ["row head hand-over"],
+    "float32 row pass: without the ReLU mask": ["relu mask"],
+    "float32 row pass: each mask bit from the neighbouring column": ["mask column"],
+    "float32 row pass: the mask words of the previous ReLU layer": ["mask layer"],
     "g read one row late in the weight pass": ["g one row late"],
     "without the first weight's dW (wv0f)": ["first dW"],
     "weight pass: descriptor leading and stride offsets swapped": ["desc swap"],
@@ -147,21 +181,33 @@ VARIANTS = {
     "weight pass: the consumers' empty-barrier arrivals dropped": ["empty arrival"],
     "weight pass: the A strip 64 columns off": ["a strip"],
     "column sums: one slice dropped": ["colsum slice"],
-    "without a head's contribution to even columns": ["head add"],
-    "with half of each layer's db": ["db"],
+    "float32 row pass: without a head's contribution to even columns": ["head add"],
+    "float32 row pass: half of each layer's db": ["db"],
     "without the ragged last 128-row tile in dW": ["ragged tail"],
-    "head partials without one row-warp": ["head row-warp"],
+    "float32 row pass: head partials without one row-warp": ["head row-warp"],
 }
 SHAPES = [(1037, 64, torch.bfloat16), (1037, 192, torch.float32), (1037, 192, torch.bfloat16),
           (chip_smoke.STEP_RAYS, 192, torch.bfloat16)]
 
 # Timing-only parts: the row pass alone, and parts of it removed or changed.
-# The "(v3)" parts match the earlier row pass (mask copied back into the
+# The "(v3)" parts match the row pass before PR 4 (mask copied back into the
 # shared tile, head partials re-read from the stash, stash copies with
-# write-back stores); the others match this one.
+# write-back stores), the "(PR 9)" parts the mma.sync row pass of PRs 4-9;
+# the others match this one.
 _STASH = "      __stcs(reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * width + q * kElems),"
 _STASH_V3 = "      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * width + q * kElems) ="
+_ROWS_ONLY = "static_cast<float*>(b.parts));\n  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);\n  rc = wgrad_launch("
+_F_EPILOGUE = "  f_epilogue<N>(acc, op, x, cst, hvx, tmask + op.mask_slot * kMaskThreads);"
+_B_EPILOGUE = "  named_sync(1 + x.c);  // every reader of the tile (stash stores, head partials) is done"
+_HEAD_PARTIALS = "  if (op.head_nout) head_partials(op, x, part);"
 TIMING_EDITS = {
+    "bf16 rows only": [(_BWD, _ROWS_ONLY, "static_cast<float*>(b.parts));\n  return static_cast<int>(cudaGetLastError());\n  rc = wgrad_launch(")],
+    "no stash stores": [(_ROWS, _TMA, _TMA.replace("if (t == 0)", "if (false)"))],
+    "no head partials": [(_ROWS, _HEAD_PARTIALS, _HEAD_PARTIALS.replace("op.head_nout", "false"))],
+    "no backward epilogue": [(_ROWS, _B_EPILOGUE, _B_EPILOGUE + "\n  if (true) return;")],
+    "no mask words": [(_ROWS, "  if (relu) *mask = make_uint4(", "  if (false) *mask = make_uint4(")],
+    "no forward epilogue": [(_ROWS, _F_EPILOGUE, "  fence_acc(acc);")],
+    "16-byte stash stores": [(_ROWS, "constexpr bool kBulkStash = true;", "constexpr bool kBulkStash = false;")],
     "rows only": [(_BWD, "static_cast<float*>(b.g32), static_cast<uint2*>(b.masks), static_cast<float*>(b.parts));\n"
                          "  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);",
                    "static_cast<float*>(b.g32), static_cast<uint2*>(b.masks), static_cast<float*>(b.parts));\n"
@@ -190,23 +236,33 @@ TIMING_EDITS = {
                              "    mbar_arrive(full + s);\n    if (false) load_stage(")],
 }
 _V3 = ["mask reload (v3)", "head partials (v3)", "head add (v3)", "stash stores (v3)"]
+_NO_EPILOGUES = ["bf16 rows only", "no stash stores", "no head partials", "no backward epilogue",
+                 "no forward epilogue"]
 TIMING = {
-    "row pass": ["rows only"],
+    "row pass": ["bf16 rows only"],
+    "row pass without stash stores": ["bf16 rows only", "no stash stores"],
+    "row pass without head partials": ["bf16 rows only", "no head partials"],
+    "row pass without the backward ops' epilogues": ["bf16 rows only", "no backward epilogue"],
+    "row pass without the forward ops' mask words": ["bf16 rows only", "no mask words"],
+    "row pass, products only": _NO_EPILOGUES,
+    "row pass with 16-byte stash stores": ["bf16 rows only", "16-byte stash stores"],
+    "row pass (PR 9)": ["rows only"],
     "row pass without mask reloads (v3)": ["rows only", "mask reload (v3)"],
     "row pass without head partials (v3)": ["rows only", "head partials (v3)"],
     "row pass without the epilogue's head add (v3)": ["rows only", "head add (v3)"],
     "row pass without stash stores (v3)": ["rows only", "stash stores (v3)"],
     "row pass without all four (v3)": ["rows only", *_V3],
     "row pass with streaming stash stores (v3)": ["rows only", "streaming stores (v3)"],
-    "row pass without mask words": ["rows only", "mask words"],
-    "row pass without head partials": ["rows only", "head partials"],
-    "row pass without the epilogue's head add": ["rows only", "head add"],
-    "row pass without stash stores": ["rows only", "stash stores"],
-    "row pass without all four": ["rows only", "mask words", "head partials", "head add",
-                                  "stash stores"],
-    "row pass with write-back stash stores": ["rows only", "write-back stores"],
-    "row pass, stash stores to an L2 window": ["rows only", "L2 window"],
+    "row pass without mask words (PR 9)": ["rows only", "mask words"],
+    "row pass without head partials (PR 9)": ["rows only", "head partials"],
+    "row pass without the epilogue's head add (PR 9)": ["rows only", "head add"],
+    "row pass without stash stores (PR 9)": ["rows only", "stash stores"],
+    "row pass without all four (PR 9)": ["rows only", "mask words", "head partials", "head add",
+                                         "stash stores"],
+    "row pass with write-back stash stores (PR 9)": ["rows only", "write-back stores"],
+    "row pass, stash stores to an L2 window (PR 9)": ["rows only", "L2 window"],
 }
+_EARLIER = ("(v3)", "(PR 9)")  # splits of earlier row passes, timed with --parent
 # Weight-pass split: the whole backward runs; the weight pass's own device time is read.
 WGRAD_TIMING = {
     "weight pass": [],
@@ -499,7 +555,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"{chip_smoke.card_line()}; kernel sources {build.CSRC}", flush=True)
     broken = {} if ARGS.timing or ARGS.parent else VARIANTS
-    timing = {name: parts for name, parts in TIMING.items() if _applies(parts, TIMING_EDITS)}
+    timing = {name: parts for name, parts in TIMING.items()
+              if any(e in name for e in _EARLIER) == bool(ARGS.parent) and _applies(parts, TIMING_EDITS)}
     wtiming = {name: parts for name, parts in WGRAD_TIMING.items() if _applies(parts, TIMING_EDITS)}
     skipped = [name for name in [*TIMING, *WGRAD_TIMING] if name not in {**timing, **wtiming}]
     if skipped:
