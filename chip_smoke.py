@@ -111,8 +111,11 @@ per-kernel JSON (`launches` from the 40-step training run,
 phases 7, 8 and 9; a backward's row also has row_ms, weight_ms, sums_ms,
 sums_parts_ms (partials, dW partials, dhvx), weight_library_ms and
 sums_library_ms (measured; the weight pass's and column sums' bounds are
-printed on its `time` lines), its bf16 row kernel's ptxas registers and
-spill bytes, row_ptxas, and the weight kernel's, weight_ptxas; a
+printed on its `time` lines), the row pass's own bound, row_bound_ms
+(the larger of its FLOP, the forward again and dX, at the bf16 peak and
+the stash it writes at HBM's rate), row_bound_by and row_bound_share =
+row_bound_ms / row_ms, its bf16 row kernel's ptxas registers and spill
+bytes, row_ptxas, and the weight kernel's, weight_ptxas; a
 forward's row has its bf16 kernel's ptxas, fwd_ptxas, and the share of
 its bound, bound_share = bound_ms / ms; the serving chunks carry the
 same). A
@@ -676,6 +679,7 @@ def time_train_kernels() -> dict:
     b_fwd = bound_ms(spec.flops_per_point() * rows, io + wbytes([kp]) + dp.numel() * 4)
     b_bwd = bound_ms(spec.bwd_flops_per_point() * rows,
                      io + wbytes([kp]) + dp.numel() * 4 + wbytes([kp]) * 2 + hvx.numel() * 4)
+    b_row = bound_ms(spec.row_flops_per_point() * rows, plan.stash_cols * rows * 2)
     out["fused_mlp_fwd"] = dict(
         shape=f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, bf16",
         ms=cuda_time_ms(lambda: fused_mlp.fused_apply(*ops), iters=10),
@@ -685,7 +689,7 @@ def time_train_kernels() -> dict:
         shape=f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, bf16",
         ms=cuda_time_ms(lambda: fused_mlp.fused_bwd(*ops, dp), iters=5),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_bwd_reference(*ops, dp), iters=2),
-        bound_ms=b_bwd[0], bound_by=b_bwd[1],
+        bound_ms=b_bwd[0], bound_by=b_bwd[1], row_bound_ms=b_row[0], row_bound_by=b_row[1],
         **bwd_pass_ms(lambda: fused_mlp.fused_bwd(*ops, dp), sums=sum_launches(plan)))
     del ops, lo, hi, hvx, kp, dp
     torch.cuda.empty_cache()
@@ -702,6 +706,7 @@ def time_train_kernels() -> dict:
     b_fwd = bound_ms(ens.flops_per_point() * rows, io + wbytes(kps) + dp.numel() * 4)
     b_bwd = bound_ms(ens.bwd_flops_per_point() * rows,
                      io + wbytes(kps) + dp.numel() * 4 + wbytes(kps) * 2 + io - lo.numel() * 2)
+    b_row = bound_ms(ens.row_flops_per_point() * rows, plan.stash_cols * rows * 2)
     out["fused_mlp_ens_fwd"] = dict(
         shape=f"coarse trio step: {STEP_RAYS} rays x {COARSE_NS} = {rows} points, bf16",
         ms=cuda_time_ms(lambda: fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs), iters=10),
@@ -713,7 +718,7 @@ def time_train_kernels() -> dict:
         ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp), iters=5),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, dp),
                               iters=2),
-        bound_ms=b_bwd[0], bound_by=b_bwd[1],
+        bound_ms=b_bwd[0], bound_by=b_bwd[1], row_bound_ms=b_row[0], row_bound_by=b_row[1],
         **bwd_pass_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp),
                       sums=sum_launches(plan)))
     del ens, kps, lo, hvxs, dp
@@ -728,7 +733,8 @@ def time_train_kernels() -> dict:
             parts = r.get("sums_parts_ms")
             split = (" (partials, dW partials, dhvx " + ", ".join(f"{ms:.3f}" for ms in parts) + ")"
                      if parts else "")
-            passes = (f" (row pass {r['row_ms']:.3f}, weight pass {r['weight_ms']:.3f}, column sums "
+            passes = (f" (row pass {r['row_ms']:.3f}, bound {r['row_bound_ms']:.3f} ms "
+                      f"({r['row_bound_by']}); weight pass {r['weight_ms']:.3f}, column sums "
                       f"{r['sums_ms']:.3f}{split} ms, profiler)")
         print(f"time {name} ({r['shape']}): kernel {r['ms']:.3f} ms{passes}, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}){l2}", flush=True)
@@ -1823,7 +1829,9 @@ def main() -> int:
                         if k in t})
             ys = t["yardsticks"]  # measured here; the bounds stay on the `time` lines
             row.update({k: ys[k] for k in ("weight_library_ms", "sums_library_ms")})
-            row["row_ptxas"] = ptxas["fused_mlp_bwd_rows_kernel bf16"]
+            row.update(row_bound_ms=t["row_bound_ms"], row_bound_by=t["row_bound_by"],
+                       row_bound_share=t["row_bound_ms"] / t["row_ms"])
+            row["row_ptxas"] = ptxas["fused_mlp_bwd_rows_sm90_kernel"]
             row["weight_ptxas"] = ptxas.get("fused_mlp_bwd_wgrad_kernel")
         row.update({
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

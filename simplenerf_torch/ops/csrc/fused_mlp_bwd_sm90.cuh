@@ -199,12 +199,16 @@ __device__ __forceinline__ const unsigned char* source(const Tiles& tl, int src)
 // ---- TMA stores ----
 
 // One 64 x 64 box of the swizzled tile to `map` at (column c0, row r0);
-// rows and columns past the map's dims are not written.
+// rows and columns past the map's dims are not written. The stash is read
+// only by the weight pass, after this kernel: evict-first in L2, so that it
+// does not push out the weight slabs every block reads.
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, int c0, int r0, const void* src) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
   asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%1, %2}], [%3], %4;\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
-      "r"(c0), "r"(r0), "r"(smem_u32(src))
+      "r"(c0), "r"(r0), "r"(smem_u32(src)), "l"(policy)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
@@ -541,7 +545,9 @@ __device__ __forceinline__ void b_layer(const Op& op, Ctx& x, const float* __res
       if (ok1) __stcs(reinterpret_cast<float2*>(g + (size_t)r1 * n + col), make_float2(acc[4 * j + 2], acc[4 * j + 3]));
     }
   }
-  // round(g) to the tile; the warp's column sums of g to its red row.
+  // round(g) to the tile; the warp's column sums of g to its red row (the
+  // thread's two rows, then xor-shuffles over the eight lanes of a column;
+  // a butterfly that halves the shuffles measured slower: PERF.md).
   float* red = x.s.red + (x.k & 1) * kRedFloats + (x.c * 4 + warp) * 256;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {

@@ -153,6 +153,10 @@ class FusedSpec:
         """The recompute VJP: the forward again, dW, and dX except into lo/hi."""
         return 2 * (3 * self.macs_per_point() - self._input_macs())
 
+    def row_flops_per_point(self) -> int:
+        """The backward's row pass: the forward again and dX (its dW is the weight pass's)."""
+        return 2 * (2 * self.macs_per_point() - self._input_macs())
+
 
 def make_spec(cfg, ns: int, dtype, shared_pe_degree: Optional[int] = None) -> FusedSpec:
     """Static spec for one `fields.mlp.MLPConfig` evaluation.
@@ -214,6 +218,9 @@ class EnsembleSpec:
 
     def bwd_flops_per_point(self) -> int:
         return sum(m.bwd_flops_per_point() for m in self.members)
+
+    def row_flops_per_point(self) -> int:
+        return sum(m.row_flops_per_point() for m in self.members)
 
 
 def make_ensemble_spec(cfgs, ns: int, dtype) -> EnsembleSpec:
@@ -1238,8 +1245,15 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
 
 # The bf16 row pass: struct bwd90::Program / bwd90::Op in
 # csrc/fused_mlp_bwd_sm90.cuh.
-_BWD90_HEADER_WORDS = 16
-_BWD90_OP_WORDS = 24
+_BWD90_HEADER = ("n_ops", "n_rows", "ns", "in_lo", "in_hi", "lo_kb", "hi_kb", "act_kb",
+                 "slot_bytes", "stages", "hvx_rays", "cst_floats", "part_w", "n_masks", "n_maps",
+                 "hvx_w")
+_BWD90_OP = ("kind", "n", "n_pad", "b_off", "flags", "nseg", "src", "kb", "hvx_slot", "out_slot",
+             "map", "mask_slot", "plane", "head_nout", "head_w", "part", "part2", "g32_slot",
+             "reserved")  # src, kb: _BWD90_MAX_SEG ints each; reserved: 2
+_BWD90_MAX_SEG = 3
+_BWD90_HEADER_WORDS = len(_BWD90_HEADER)
+_BWD90_OP_WORDS = len(_BWD90_OP) + 2 * (_BWD90_MAX_SEG - 1) + 1
 _BWD90_MAX_OPS = 64
 _BWD90_STAGES = (4, 3, 2)  # ring depths, the deepest that fits first
 _BWD90_DP = 64 * _MAX_HEAD  # floats of a consumer's staged dp rows (kDpFloats)
@@ -1308,53 +1322,51 @@ def bwd90_plan(header: np.ndarray, ops: np.ndarray) -> Bwd90Plan:
         w_parts.append(idx)
         return kb
 
-    def stash_map(slot, width):
-        maps.append((slot, width))
-        return len(maps) - 1
-
     pending = None  # the product the next backward op runs: (w_off, n, kpad)
     for w in ops.tolist():
         kind, n, b_off, flags, nseg = w[:5]
         src, w_off, kpad = w[5:8], w[8:11], w[11:14]
         plane, hvx_slot, out_slot, gn, mask_slot, hn, hw_off, part, g32_slot, part2 = w[14:24]
-        op = [0] * _BWD90_OP_WORDS
+        op = dict.fromkeys(_BWD90_OP, 0)
+        op.update(reserved=[0, 0], kind=kind, out_slot=out_slot, map=len(maps), mask_slot=max(mask_slot, 0),
+                  g32_slot=g32_slot, src=[0] * _BWD90_MAX_SEG, kb=[0] * _BWD90_MAX_SEG)
         if kind == _F_IN:
-            op[0], op[1], op[6] = _F_IN, gn, src[0]
+            op["n"], op["src"][0] = gn, src[0]
         elif kind == _F_LAYER:
             if pending is not None:
                 raise ValueError("a forward op after a backward product")
             n_pad = _n_pad(n)
             c = np.arange(n_pad)
-            op[:6] = [_F_LAYER, n, n_pad, fvec(np.where(c < n, b_off + c, -1)), flags, nseg]
+            op.update(n=n, n_pad=n_pad, b_off=fvec(np.where(c < n, b_off + c, -1)), flags=flags,
+                      nseg=nseg, hvx_slot=hvx_slot, plane=plane, head_nout=hn, part=part,
+                      part2=part2)
             for s_ in range(nseg):
-                op[6 + s_], op[9 + s_] = src[s_], slabs(w_off[s_], n, kpad[s_])
-            op[12], op[16], op[17], op[19], op[20] = hvx_slot, plane, hn, part, part2
+                op["src"][s_], op["kb"][s_] = src[s_], slabs(w_off[s_], n, kpad[s_])
         else:
             if (pending is None) != bool(flags & _FLAG_ZERO):
                 raise ValueError("a backward op's product does not match its chain")
             n_pad = _n_pad(gn)
-            op[:5] = [_B_LAYER, gn, n_pad, 0, flags & ~_FLAG_ZERO]
+            op.update(n=gn, n_pad=n_pad, flags=flags & ~_FLAG_ZERO, plane=plane, head_nout=hn,
+                      part=part)
             if pending is not None:
                 p_off, p_n, p_kpad = pending
                 if p_n != gn:
                     raise ValueError(f"a product of width {p_n} feeds a layer of width {gn}")
-                op[5], op[6], op[9] = 1, _SRC_ACT, slabs(p_off, p_n, p_kpad)
+                op["nseg"], op["src"][0], op["kb"][0] = 1, _SRC_ACT, slabs(p_off, p_n, p_kpad)
             if hn:
                 c = np.arange(n_pad)
-                op[18] = fvec(np.concatenate([np.where(c < gn, hw_off + q * gn + c, -1)
-                                              for q in range(hn)]))
-            op[16], op[17], op[19] = plane, hn, part
+                op["head_w"] = fvec(np.concatenate([np.where(c < gn, hw_off + q * gn + c, -1)
+                                                    for q in range(hn)]))
             pending = (w_off[0], n, kpad[0]) if nseg else None
-        op[13], op[14], op[15] = out_slot, stash_map(out_slot, op[1]), max(mask_slot, 0)
-        op[21] = g32_slot
+        maps.append((out_slot, op["n"]))
         out.append(op)
     if len(out) > _BWD90_MAX_OPS:
         raise ValueError(f"{len(out)} backward ops exceed the row kernel's {_BWD90_MAX_OPS}")
     if len(maps) > _WGRAD_MAX_MAPS:
         raise ValueError(f"{len(maps)} stash slots written; the row kernel takes {_WGRAD_MAX_MAPS}")
     lo_kb, hi_kb = _kblocks(in_lo), _kblocks(in_hi)
-    act_kb = max(op[2] for op in out) // 64
-    slot = max(op[2] for op in out if op[5]) * 128
+    act_kb = max(op["n_pad"] for op in out) // 64
+    slot = max(op["n_pad"] for op in out if op["nseg"]) * 128
     hvx_rays = 63 // ns + 2 if hvx_w else 0  # rays that 64 consecutive rows can touch
 
     def smem(stages, rays):
@@ -1366,14 +1378,17 @@ def bwd90_plan(header: np.ndarray, ops: np.ndarray) -> Bwd90Plan:
     if not fits:
         raise ValueError(f"the row kernel needs {smem(_BWD90_STAGES[-1], 0)} B of shared memory")
     stages, rays = fits[0]
-    head = [len(out), 0, ns, in_lo, in_hi, lo_kb, hi_kb, act_kb, slot, stages, rays,
-            _SM90_BIAS + rays * hvx_w, part_w, n_masks, len(maps), hvx_w]
-    words = np.asarray(head + [v for op in out for v in op], dtype=np.int32)
+    head = dict(n_ops=len(out), n_rows=0, ns=ns, in_lo=in_lo, in_hi=in_hi, lo_kb=lo_kb,
+                hi_kb=hi_kb, act_kb=act_kb, slot_bytes=slot, stages=stages, hvx_rays=rays,
+                cst_floats=_SM90_BIAS + rays * hvx_w, part_w=part_w, n_masks=n_masks,
+                n_maps=len(maps), hvx_w=hvx_w)
+    words = [head[k] for k in _BWD90_HEADER]
+    for op in out:
+        words += [v for k in _BWD90_OP for v in (op[k] if isinstance(op[k], list) else [op[k]])]
+    words = np.asarray(words, dtype=np.int32)
     words.setflags(write=False)
-    w_index = np.concatenate(w_parts)
-    f_index = np.concatenate(f_parts)
-    return Bwd90Plan(words=words, w_index=w_index, f_index=f_index, maps=tuple(maps),
-                     smem=smem(stages, rays))
+    return Bwd90Plan(words=words, w_index=np.concatenate(w_parts), f_index=np.concatenate(f_parts),
+                     maps=tuple(maps), smem=smem(stages, rays))
 
 
 @functools.lru_cache(maxsize=64)

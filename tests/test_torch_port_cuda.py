@@ -215,6 +215,88 @@ def _check_ensemble(trio, ns, dtype, cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(again_hvx, dhvxs))
 
 
+def _check_bwd(label, spec, kp, lo, hi, hvx, nr, ns, dtype, device, seed=1):
+    """One backward launch against the plain backward, then a second launch
+    on the same inputs, which must give the same bits."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    d_planes = torch.randn((spec.n_planes, nr, ns), generator=g, device=device)
+    before = fused_mlp.fused_bwd.launches
+    dkp, dhvx = fused_mlp.fused_bwd(spec, kp, lo, hi, hvx, d_planes)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_bwd.launches == before + 1
+    want, want_hvx = fused_mlp.fused_bwd_reference(spec, kp, lo, hi, hvx, d_planes)
+    got = dict(dkp)
+    if spec.has_hvx:
+        got["dhvx"], want["dhvx"] = dhvx, want_hvx
+    _grad_errors(label, got, want, dtype)
+    again, again_hvx = fused_mlp.fused_bwd(spec, kp, lo, hi, hvx, d_planes)
+    assert all(torch.equal(again[k], dkp[k]) for k in dkp), "two launches differ"
+    if spec.has_hvx:
+        assert torch.equal(again_hvx, dhvx), "two launches differ in dhvx"
+
+
+# The bf16 row pass (fused_mlp_bwd_rows_sm90_kernel): 128-row blocks of two
+# 64-row consumers, so row counts that leave a block's second consumer
+# ragged or empty, one sample per ray (each row its own hvx row), the widths
+# its wgmma pads (48 -> 64, 160 -> 256, views 80 -> 128), the published
+# widths at the per-rank shapes of two-rank training (2048 rays), the trio.
+@pytest.mark.parametrize("rows", [37, 1037, 5000])
+@pytest.mark.parametrize("name", ["main", "published"])
+def test_bwd_row_pass_ragged_rows(cuda_device, name, rows):
+    cfg = mlp.MLPConfig(**{**SMALL, **CASES[name]})
+    spec, kp, lo, hi, hvx = _operands(cfg, rows, 1, torch.bfloat16, cuda_device, seed=rows)
+    _check_bwd(f"rows {name} {rows} x 1", spec, kp, lo, hi, hvx, rows, 1, torch.bfloat16,
+               cuda_device)
+
+
+@pytest.mark.parametrize("widths", [(48, 64), (160, 128), (64, 80)],
+                         ids=["trunk48", "trunk160", "views80"])
+def test_bwd_row_pass_pads_widths(cuda_device, widths):
+    width, views_width = widths
+    cfg = mlp.MLPConfig(**{**SMALL, "points_net_width": width, "views_net_width": views_width})
+    nr, ns = 37, 64
+    spec, kp, lo, hi, hvx = _operands(cfg, nr, ns, torch.bfloat16, cuda_device)
+    _check_bwd(f"rows widths {widths}", spec, kp, lo, hi, hvx, nr, ns, torch.bfloat16, cuda_device)
+
+
+@pytest.mark.parametrize("name", ["published", "visibility"])
+def test_bwd_row_pass_two_rank_fine_shape(cuda_device, name):
+    """A rank's fine backward in two-rank training: 2048 rays x 192."""
+    published = CASES["published"]
+    cfg = mlp.MLPConfig(**{**SMALL, **published, **CASES[name]})
+    spec, kp, lo, hi, hvx = _operands(cfg, 2048, 192, torch.bfloat16, cuda_device)
+    _check_bwd(f"rows {name} 2048 x 192", spec, kp, lo, hi, hvx, 2048, 192, torch.bfloat16,
+               cuda_device)
+
+
+@pytest.mark.parametrize("trio", [TRIO, ("visibility", "points_aug", "lambertian")],
+                         ids=["trio", "visibility_trio"])
+def test_bwd_row_pass_two_rank_trio_shape(cuda_device, trio):
+    """A rank's coarse trio backward in two-rank training at the published
+    widths: 2048 rays x 64, each member's gradients and dhvx."""
+    g = torch.Generator().manual_seed(7)
+    members = []
+    for name in trio:
+        cfg = mlp.MLPConfig(**{**SMALL, **CASES["published"], **CASES[name]})
+        members.append((mlp.init(g, cfg, device=cuda_device), cfg))
+    nr, ns = 2048, 64
+    pts = torch.randn((nr * ns, 3), generator=g).to(cuda_device)
+    dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1).to(cuda_device)
+    ens, kps, lo, hvxs = mlp.ensemble_operands(members, pts, dirs, ns, torch.bfloat16)
+    gd = torch.Generator(device=cuda_device).manual_seed(8)
+    d_planes = torch.randn((ens.n_planes, nr, ns), generator=gd, device=cuda_device)
+    dkps, dhvxs = fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, d_planes)
+    want_kps, want_hvxs = fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, d_planes)
+    for name, dkp, wkp in zip(trio, dkps, want_kps):
+        _grad_errors(f"rows trio {name} 2048 x 64", dkp, wkp, torch.bfloat16)
+    for a, b in zip(dhvxs, want_hvxs):
+        _grad_errors("rows trio 2048 x 64", {"dhvx": a}, {"dhvx": b}, torch.bfloat16)
+    again, again_hvx = fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, d_planes)
+    for a, b in zip(again, dkps):
+        assert all(torch.equal(a[k], b[k]) for k in b), "two launches differ"
+    assert all(torch.equal(a, b) for a, b in zip(again_hvx, dhvxs))
+
+
 # The bf16 weight pass alone (fused_mlp.wgrad): slots of these widths, and
 # dW = A[:, :k_in]^T G[:, :n_out] over them. "lo" is 64 wide with k_in 63
 # (w0i, a skip's w{i}i); a 256-wide pair of A and G with a lo dW on the same

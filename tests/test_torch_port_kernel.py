@@ -10,6 +10,10 @@ checked here too, by executing the packed program with PyTorch ops: the
 kernel itself runs only on the card (tests/test_torch_port_cuda.py).
 """
 
+import dataclasses
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -301,11 +305,15 @@ def test_wrapper_rejects_other_devices():
 def _bwd90_ops(words):
     """The bf16 row program's header and ops as dicts (struct bwd90::Op)."""
     hw, ow = fused_mlp._BWD90_HEADER_WORDS, fused_mlp._BWD90_OP_WORDS
-    names = ("kind", "n", "n_pad", "b_off", "flags", "nseg", "src", "kb", "hvx_slot", "out_slot",
-             "map", "mask_slot", "plane", "hn", "head_w", "part", "part2", "g32_slot")
+    sizes = {"src": fused_mlp._BWD90_MAX_SEG, "kb": fused_mlp._BWD90_MAX_SEG, "reserved": 2}
     ops = []
-    for op in words[hw:].reshape(-1, ow).tolist():
-        ops.append(dict(zip(names, op[:6] + [op[6:9], op[9:12]] + op[12:22])))
+    for words_ in words[hw:].reshape(-1, ow).tolist():
+        op, pos = {}, 0
+        for name in fused_mlp._BWD90_OP:
+            k = sizes.get(name, 1)
+            op[name] = words_[pos : pos + k] if name in sizes else words_[pos]
+            pos += k
+        ops.append(op)
     assert words[0] == len(ops)
     return words[:hw].tolist(), ops
 
@@ -365,7 +373,7 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
             acc = torch.zeros((r, n_pad))
             for s, w in enumerate(segs):
                 acc = acc + tiles[op["src"][s]][:, : w.shape[1]].float() @ w.float().T
-            d = dp[op["plane"] : op["plane"] + op["hn"], rows]
+            d = dp[op["plane"] : op["plane"] + op["head_nout"], rows]
             if kind == fused_mlp._F_LAYER:
                 v = acc + fpar[op["b_off"] : op["b_off"] + n_pad]
                 if flags & fused_mlp._FLAG_HVX:
@@ -375,15 +383,15 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
                     masks[op["mask_slot"]] = v.to(cd).float() > 0
                 tiles[fused_mlp._SRC_ACT] = v.to(cd)
                 slot(op["out_slot"], width)[rows] = v.to(cd)[:, :width]
-                if op["hn"]:  # the head this layer feeds: partials of its rounded activation
-                    hn = op["hn"]
+                if op["head_nout"]:  # the head this layer feeds: partials of its rounded activation
+                    hn = op["head_nout"]
                     parts[t, op["part"] : op["part"] + hn * width] = (
                         d @ v.to(cd).float()[:, :width]).reshape(-1)
                     parts[t, op["part2"] : op["part2"] + hn] = d.sum(1)
                 continue
             assert op["nseg"] <= 1
-            if op["hn"]:
-                hw = fpar[op["head_w"] : op["head_w"] + op["hn"] * n_pad].view(op["hn"], n_pad)
+            if op["head_nout"]:
+                hw = fpar[op["head_w"] : op["head_w"] + op["head_nout"] * n_pad].view(op["head_nout"], n_pad)
                 acc = acc + d.T @ hw
             if flags & fused_mlp._FLAG_RELU:
                 acc = acc * masks[op["mask_slot"]][:, :n_pad]
@@ -630,6 +638,159 @@ def test_bwd_program_offsets_disjoint_and_in_range(which, dtype_name):
     threads, words = (256, 4) if dtype == torch.bfloat16 else (4 * bm, 2)
     last = ((-(-n // bm) - 1) * n_masks + n_masks - 1) * threads + threads - 1
     assert words * (last + 1) == plan.mask_words
+
+
+BWD90_CASES = {"main": {}, "published": PUBLISHED, "trunk48": dict(points_net_width=48),
+               "trunk160": dict(points_net_width=160), "views80": dict(views_net_width=80),
+               "trio": None}
+
+
+def _bwd90_operands(name, nr=NR, ns=NS):
+    """(spec, kp, lo, hi, hvx list, d_planes) in bf16 for one BWD90_CASES entry."""
+    if name == "trio":
+        spec, kp, lo, hi, hvx = _program_operands("trio", "bfloat16", nr, ns)
+    else:
+        cfg = mlp.MLPConfig(**{**SMALL, **BWD90_CASES[name]})
+        g = torch.Generator().manual_seed(4)
+        params = mlp.init(g, cfg)
+        pts = torch.randn((nr * ns, 3), generator=g)
+        dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1)
+        spec, kp, lo, hi, hvx = mlp.fused_operands(params, cfg, pts, dirs, ns, torch.bfloat16)
+        hvx = [hvx] if hvx is not None else []
+    g = torch.Generator().manual_seed(5)
+    return spec, kp, lo, hi, hvx, torch.randn((spec.n_planes, nr, ns), generator=g)
+
+
+def _f32_twin(spec):
+    if isinstance(spec, fused_mlp.EnsembleSpec):
+        return fused_mlp.EnsembleSpec(members=tuple(_f32_twin(m) for m in spec.members))
+    return dataclasses.replace(spec, dtype="float32")
+
+
+@pytest.mark.parametrize("name", sorted(BWD90_CASES))
+def test_bwd90_slab_image_unswizzles_to_padded_weights(name):
+    """Every slab of the bf16 row pass's image, read back through the
+    swizzle, is its op's weight zero-padded to (n_pad, 64 kb): a forward
+    op's W^T, a backward op's W (the product of the op before it), as the
+    float32 program stores them at the same offsets."""
+    spec, kp, lo, *_ = _bwd90_operands(name)
+    n = lo.shape[0]
+    plan = fused_mlp.pack_bwd_program(spec, kp, n)
+    twin = fused_mlp.pack_bwd_program(_f32_twin(spec), kp, n)  # same ops, float32 weights
+    assert np.array_equal(plan.ops, twin.ops)
+    _, ops = _bwd90_ops(plan.rows90.words)
+    old = twin.ops.tolist()
+    for i, (op, segs) in enumerate(zip(ops, _bwd90_slabs(plan))):
+        for s, got in enumerate(segs):
+            w = old[i] if op["kind"] == fused_mlp._F_LAYER else old[i - 1]  # B: the op before's W
+            assert op["kind"] != fused_mlp._B_LAYER or (w[0] == fused_mlp._B_LAYER and w[4] == 1)
+            rows, w_off, kpad = w[1], w[8 + s], w[11 + s]
+            want = torch.zeros((op["n_pad"], 64 * op["kb"][s]))
+            want[:rows, :kpad] = twin.wts[w_off : w_off + rows * kpad].view(rows, kpad)
+            assert got.shape == want.shape, (i, s)
+            torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(), atol=0, rtol=0,
+                                       msg=f"op {i} segment {s}")
+
+
+def _cuh_ints(text: str, names: dict) -> dict:
+    """The `constexpr int` / `bool` constants of a header, evaluated in order."""
+    vals = dict(names)
+    for decl in re.findall(r"constexpr (?:int|bool) ([^;]+);", text):
+        for item in re.split(r",\s*(?=k\w+ =)", decl):
+            name, expr = item.split(" = ", 1)
+            vals[name.strip()] = eval(expr.replace("true", "True").replace("false", "False"), {},
+                                      vals)
+    return vals
+
+
+def _cuh_fields(text: str, struct: str, vals: dict) -> list:
+    """The int fields of a struct, arrays expanded: [(name, count), ...]."""
+    body = re.search(r"struct " + struct + r" \{(.*?)\};", text, re.S).group(1)
+    fields = []
+    for decl in re.findall(r"int ([^;]+);", body):
+        for item in decl.split(","):
+            m = re.fullmatch(r"\s*(\w+)(?:\[(\w+)\])?\s*", item)
+            fields.append((m[1], eval(m[2], {}, vals) if m[2] else 1))
+    return fields
+
+
+def test_bwd90_header_constants_match_the_cuh():
+    """The row program's layout and shared-memory constants in
+    ops/fused_mlp.py are csrc/fused_mlp_bwd_sm90.cuh's."""
+    csrc = Path(fused_mlp.__file__).resolve().parent / "csrc"
+    base = _cuh_ints((csrc / "fused_mlp_sm90.cuh").read_text(), {})
+    text = (csrc / "fused_mlp_bwd_sm90.cuh").read_text()
+    k = _cuh_ints(text, {"kRows": base["kRows"], "kBM": base["kBM"],
+                         "kBlockBytes": base["kBlockBytes"]})
+    assert k["kMaxOps"] == fused_mlp._BWD90_MAX_OPS and k["kMaxSeg"] == fused_mlp._BWD90_MAX_SEG
+    assert k["kHeaderWords"] == fused_mlp._BWD90_HEADER_WORDS
+    assert k["kOpWords"] == fused_mlp._BWD90_OP_WORDS
+    assert k["kMaxStages"] == max(fused_mlp._BWD90_STAGES) and k["kMaxHead"] == fused_mlp._MAX_HEAD
+    assert k["kBiasFloats"] == fused_mlp._SM90_BIAS and k["kBlockBytes"] == fused_mlp._SM90_KBLOCK
+    assert (k["kDpFloats"], k["kRedFloats"], k["kXferFloats"]) == (
+        fused_mlp._BWD90_DP, fused_mlp._BWD90_RED, fused_mlp._BWD90_XFER)
+    assert k["kBarriers"] * 8 == fused_mlp._BWD90_BARRIERS
+    assert k["kMaskThreads"] == fused_mlp._BWD90_MASK_THREADS
+    op = _cuh_fields(text, "Op", k)
+    assert [name for name, _ in op] == list(fused_mlp._BWD90_OP)
+    assert sum(c for _, c in op) == fused_mlp._BWD90_OP_WORDS
+    header = _cuh_fields(text, "Program", k)
+    assert [name for name, _ in header] == list(fused_mlp._BWD90_HEADER)
+    enums = dict(re.findall(r"(\w+) = (\d+)", re.search(r"enum \{ F_IN[^}]*\}", text).group(0)))
+    assert (int(enums["F_IN"]), int(enums["F_LAYER"]), int(enums["B_LAYER"])) == (
+        fused_mlp._F_IN, fused_mlp._F_LAYER, fused_mlp._B_LAYER)
+
+
+@pytest.mark.parametrize("trio", [None, ("main", "points_aug", "lambertian"),
+                                  ("visibility", "points_aug", "lambertian")],
+                         ids=["fine", "trio", "visibility_trio"])
+def test_bwd90_plan_fits_shared_memory(trio):
+    """The published fine MLP, the coarse trio and the trio with the
+    4-channel visibility head: the row pass's regions sum to its plan's
+    bytes, inside a Hopper block's 227 KB, with a ring of 3 slabs of
+    32 KB (4 do not fit) and the hvx rows staged."""
+    nr, ns = 5, 64
+    if trio is None:
+        spec, kp, lo, *_ = _program_operands("published", "bfloat16", nr, ns)
+    else:
+        g = torch.Generator().manual_seed(1)
+        members = []
+        for name in trio:
+            cfg = mlp.MLPConfig(**{**SMALL, **PUBLISHED, **CASES[name]})
+            members.append((mlp.init(g, cfg), cfg))
+        pts = torch.randn((nr * ns, 3), generator=g)
+        dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1)
+        spec, kp, lo, _ = mlp.ensemble_operands(members, pts, dirs, ns, torch.bfloat16)
+    plan = fused_mlp.pack_bwd_program(spec, kp, lo.shape[0])
+    hdr, ops = _bwd90_ops(plan.rows90.words)
+    h = dict(zip(fused_mlp._BWD90_HEADER, hdr))
+    assert h["stages"] == 3 and h["slot_bytes"] == 256 * 128 and h["hvx_rays"] > 0
+    regions = (h["stages"] * h["slot_bytes"]
+               + 2 * (h["act_kb"] + h["lo_kb"] + h["hi_kb"]) * fused_mlp._SM90_KBLOCK
+               + 2 * 4 * (h["cst_floats"] + fused_mlp._BWD90_DP + fused_mlp._BWD90_RED
+                          + fused_mlp._BWD90_XFER) + fused_mlp._BWD90_BARRIERS)
+    assert plan.smem == regions <= fused_mlp._SMEM_LIMIT
+    assert regions + 32 * 1024 > fused_mlp._SMEM_LIMIT  # a fourth slab does not fit
+    assert len(ops) <= fused_mlp._BWD90_MAX_OPS and h["n_maps"] == len(ops)
+    heads = [op["head_nout"] for op in ops if op["kind"] == fused_mlp._B_LAYER and op["head_nout"]]
+    # 4 channels: the Lambertian member's points head (sigma and rgb), the
+    # visibility member's views head (rgb and visibility)
+    assert max(heads) == (3 if trio is None else 4)
+    if trio and trio[0] == "visibility":
+        assert heads.count(4) == 2
+
+
+@pytest.mark.parametrize("name", ["trunk48", "trunk160", "views80"])
+def test_packed_bwd90_program_pads_widths(name):
+    """The bf16 row program at widths its wgmma pads (48 -> 64, 160 -> 256,
+    views 80 -> 128), run as the kernel runs it, against the plain backward."""
+    spec, kp, lo, hi, hvx, d_planes = _bwd90_operands(name, nr=37, ns=7)
+    want, want_hvx = fused_mlp.fused_bwd_reference(spec, kp, lo, hi, hvx[0] if hvx else None,
+                                                   d_planes)
+    (got,), got_hvx = _run_bwd_program(spec, kp, lo, hi, hvx, d_planes)
+    _assert_grads_close(got, want, 2e-2)
+    if hvx:
+        _assert_grads_close({"h": got_hvx[0]}, {"h": want_hvx}, 2e-2)
 
 
 @pytest.mark.parametrize("table", ["EDITS", "TIMING_EDITS"])
