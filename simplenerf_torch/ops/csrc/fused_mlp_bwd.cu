@@ -476,10 +476,8 @@ fused_mlp_bwd_rows_sm90_kernel(const __grid_constant__ bwd90::Program p,
       bwd90::mbar_init(s.full + i, 1);   // the producer's expect_tx arrival
       bwd90::mbar_init(s.empty + i, 2);  // one arrival per consumer warpgroup
     }
-    for (int i = 0; i < 2; ++i) {
-      bwd90::mbar_init(s.xfull + i, bwd90::kConsumerThreads);   // consumer 1's threads
-      bwd90::mbar_init(s.xempty + i, bwd90::kConsumerThreads);  // consumer 0's threads
-    }
+    bwd90::mbar_init(s.xfull, bwd90::kConsumerThreads);   // consumer 1's threads
+    bwd90::mbar_init(s.xempty, bwd90::kConsumerThreads);  // consumer 0's threads
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();

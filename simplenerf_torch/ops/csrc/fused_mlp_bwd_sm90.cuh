@@ -55,9 +55,9 @@
 // the same): the ring (stages x the widest op's n_pad x 128); per consumer
 // an activation tile of act_kb x 8 KB, a lo tile and a hi tile; per
 // consumer a staging area (bias, hvx rows) and a head's dp rows (64 x 4
-// floats); the column sums' per-warp rows and the hand-over buffers, two
-// of each; 12 mbarriers. The published fine MLP: 3 x 32 + 2 x 40 + 4 + 2
-// + 16 + 8.2 KB = 206.3 KB of the 227 KB (4 stages do not fit).
+// floats); the column sums' per-warp rows; the hand-over buffer; 10
+// mbarriers. The published fine MLP: 4 x 32 + 2 x 40 + 4 + 2 + 8 + 4 KB =
+// 226.1 KB of the 227 KB.
 
 #pragma once
 
@@ -81,9 +81,9 @@ constexpr int kHeaderWords = 16;
 constexpr int kOpWords = 24;
 constexpr int kBiasFloats = 256;                    // a layer's bias at the head of the staging area
 constexpr int kDpFloats = kRows * kMaxHead;         // a consumer's dp rows, [row][channel]
-constexpr int kRedFloats = 2 * 4 * 256;             // one buffer: [consumer][warp][column]
-constexpr int kXferFloats = kMaxHead * 256 + kMaxHead;  // one buffer: a head's dW row block, db
-constexpr int kBarriers = 2 * kMaxStages + 4;
+constexpr int kRedFloats = 2 * 4 * 256;             // [consumer][warp][column]
+constexpr int kXferFloats = kMaxHead * 256 + kMaxHead;  // a head's dW row block, db
+constexpr int kBarriers = 2 * kMaxStages + 2;
 constexpr int kConsumerThreads = 128;
 constexpr int kMaskThreads = 2 * kConsumerThreads;  // mask words: one uint4 per consumer thread
 constexpr bool kBulkStash = true;                   // stash by TMA stores (else 16-byte stores)
@@ -147,11 +147,11 @@ struct Smem {
   unsigned char* ring;
   float* cst;   // two consumers' staging areas, cst_floats apart
   float* dsm;   // two consumers' dp rows, kDpFloats apart
-  float* red;   // two buffers of kRedFloats
-  float* xfer;  // two buffers of kXferFloats
+  float* red;   // kRedFloats
+  float* xfer;  // kXferFloats
   uint64_t* full;
   uint64_t* empty;
-  uint64_t* xfull;   // consumer 1's sums are in the buffer (128 arrivals)
+  uint64_t* xfull;   // consumer 1's sums are in xfer (128 arrivals)
   uint64_t* xempty;  // consumer 0 has read them (128 arrivals)
 };
 
@@ -174,13 +174,13 @@ __device__ __forceinline__ Smem carve(unsigned char* base, const Program& p) {
   s.dsm = reinterpret_cast<float*>(q);
   q += 2 * kDpFloats * 4;
   s.red = reinterpret_cast<float*>(q);
-  q += 2 * kRedFloats * 4;
+  q += kRedFloats * 4;
   s.xfer = reinterpret_cast<float*>(q);
-  q += 2 * kXferFloats * 4;
+  q += kXferFloats * 4;
   s.full = reinterpret_cast<uint64_t*>(q);
   s.empty = s.full + kMaxStages;
   s.xfull = s.empty + kMaxStages;
-  s.xempty = s.xfull + 2;
+  s.xempty = s.xfull + 1;
   return s;
 }
 
@@ -308,16 +308,15 @@ __device__ __forceinline__ void product(float (&acc)[N / 2], const Op& op, Ctx& 
   if (prev >= 0 && x.t == 0) mbar_arrive(x.s.empty + prev);
 }
 
-// Consumer 1 hands its sums to consumer 0 (buffer k & 1): before writing,
-// it waits until consumer 0 has read the buffer's last use.
+// Consumer 1 hands its sums to consumer 0 (the k-th hand-over): before
+// writing, it waits until consumer 0 has read the one before.
 __device__ __forceinline__ float* hand_over_begin(Ctx& x) {
-  const int b = x.k & 1, use = x.k >> 1;
-  if (x.c == 1 && use > 0) mbar_wait(x.s.xempty + b, (use - 1) & 1);
-  if (x.c == 0) mbar_wait(x.s.xfull + b, use & 1);
-  return x.s.xfer + b * kXferFloats;
+  if (x.c == 1 && x.k > 0) mbar_wait(x.s.xempty, (x.k - 1) & 1);
+  if (x.c == 0) mbar_wait(x.s.xfull, x.k & 1);
+  return x.s.xfer;
 }
 __device__ __forceinline__ void hand_over_end(Ctx& x) {
-  mbar_arrive((x.c == 1 ? x.s.xfull : x.s.xempty) + (x.k & 1));
+  mbar_arrive(x.c == 1 ? x.s.xfull : x.s.xempty);
   ++x.k;
 }
 
@@ -548,7 +547,7 @@ __device__ __forceinline__ void b_layer(const Op& op, Ctx& x, const float* __res
   // round(g) to the tile; the warp's column sums of g to its red row (the
   // thread's two rows, then xor-shuffles over the eight lanes of a column;
   // a butterfly that halves the shuffles measured slower: PERF.md).
-  float* red = x.s.red + (x.k & 1) * kRedFloats + (x.c * 4 + warp) * 256;
+  float* red = x.s.red + (x.c * 4 + warp) * 256;  // free: every reader passed the barrier above
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const int col = 8 * j + 2 * q;
@@ -572,7 +571,7 @@ __device__ __forceinline__ void b_layer(const Op& op, Ctx& x, const float* __res
   const bool active = col < n;
   float2 s = make_float2(0.f, 0.f);
   if (active) {
-    const float* mine = x.s.red + (x.k & 1) * kRedFloats + x.c * 4 * 256 + col;
+    const float* mine = x.s.red + x.c * 4 * 256 + col;
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
       const float2 v = *reinterpret_cast<const float2*>(mine + w * 256);

@@ -1257,9 +1257,9 @@ _BWD90_OP_WORDS = len(_BWD90_OP) + 2 * (_BWD90_MAX_SEG - 1) + 1
 _BWD90_MAX_OPS = 64
 _BWD90_STAGES = (4, 3, 2)  # ring depths, the deepest that fits first
 _BWD90_DP = 64 * _MAX_HEAD  # floats of a consumer's staged dp rows (kDpFloats)
-_BWD90_RED = 2 * 4 * 256  # floats of one buffer of per-warp column sums (kRedFloats)
-_BWD90_XFER = _MAX_HEAD * 256 + _MAX_HEAD  # floats of one hand-over buffer (kXferFloats)
-_BWD90_BARRIERS = (2 * 4 + 4) * 8  # full and empty per stage (4 + 4), two hand-overs (2 + 2)
+_BWD90_RED = 2 * 4 * 256  # floats of the per-warp column sums (kRedFloats)
+_BWD90_XFER = _MAX_HEAD * 256 + _MAX_HEAD  # floats of the hand-over buffer (kXferFloats)
+_BWD90_BARRIERS = (2 * 4 + 2) * 8  # full and empty per stage (4 + 4), the hand-over's (1 + 1)
 _BWD90_MASK_THREADS = 256  # consumer threads of a tile, one uint4 of mask words each
 
 
@@ -1371,7 +1371,7 @@ def bwd90_plan(header: np.ndarray, ops: np.ndarray) -> Bwd90Plan:
 
     def smem(stages, rays):
         return (stages * slot + 2 * (act_kb + lo_kb + hi_kb) * _SM90_KBLOCK
-                + 2 * 4 * (_SM90_BIAS + rays * hvx_w) + 2 * 4 * (_BWD90_DP + _BWD90_RED + _BWD90_XFER)
+                + 2 * 4 * (_SM90_BIAS + rays * hvx_w + _BWD90_DP) + 4 * (_BWD90_RED + _BWD90_XFER)
                 + _BWD90_BARRIERS)
 
     fits = [(s_, r) for s_ in _BWD90_STAGES for r in (hvx_rays, 0) if smem(s_, r) <= _SMEM_LIMIT]
