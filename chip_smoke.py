@@ -214,7 +214,7 @@ def ptxas_report(log: str) -> dict:
 
 
 def kernel_label(entry: str) -> str:
-    """A mangled kernel entry's name and operand type, e.g. 'fused_mlp_bwd_rows_kernel bf16':
+    """A mangled kernel entry's name and operand type, e.g. 'fused_mlp_bwd_rows_kernel f32':
     the first of its length-prefixed names that ends in _kernel, and the template argument."""
     pos = entry.find("_ZN") + 3
     while (m := re.match(r"\d+", entry[pos:])) and pos > 2:

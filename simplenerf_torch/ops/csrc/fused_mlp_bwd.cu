@@ -23,7 +23,7 @@
 //       kernel's first engine (shared tiles, cp.async weight-slab ring,
 //       plain FMAs). A ReLU layer's epilogue also packs its
 //       mask as bits in the order of the thread's accumulator fragment (two
-//       words a thread), and the layer that feeds a head sums the head's
+//       words a thread in float32, four in bf16), and the layer that feeds a head sums the head's
 //       per-tile dW and db from the tile it just wrote. Then the layers are
 //       walked backward: g = dh * mask in float32 (the thread that packed
 //       the bits loads them back ahead of the epilogue that needs them; the
@@ -466,8 +466,8 @@ fused_mlp_bwd_rows_sm90_kernel(const __grid_constant__ bwd90::Program p,
                                const __nv_bfloat16* __restrict__ hi, const float* __restrict__ hvx,
                                const float* __restrict__ dplanes,
                                const __nv_bfloat16* __restrict__ wts,
-                               const float* __restrict__ fpar, __nv_bfloat16* stash, float* g32,
-                               uint4* masks, float* parts) {
+                               const float* __restrict__ fpar, float* g32, uint4* masks,
+                               float* parts) {
   extern __shared__ __align__(1024) unsigned char bwd90_smem[];
   if (sm90::smem_u32(bwd90_smem) & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
   const bwd90::Smem s = bwd90::carve(bwd90_smem, p);
@@ -487,8 +487,7 @@ fused_mlp_bwd_rows_sm90_kernel(const __grid_constant__ bwd90::Program p,
     if (threadIdx.x == 0) bwd90::produce(p, s, wts);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(sm90::kConsumerRegs));
-    bwd90::consume(p, maps, bwd90_smem, s, wg - 1, lo, hi, hvx, dplanes, fpar, stash, g32, masks,
-                   parts);
+    bwd90::consume(p, maps, bwd90_smem, s, wg - 1, lo, hi, hvx, dplanes, fpar, g32, masks, parts);
   }
 }
 
@@ -805,8 +804,7 @@ int launch_bf16(const int* words, int n_words, const Buffers& b, int n_tasks, in
       p, maps, static_cast<const __nv_bfloat16*>(b.lo), static_cast<const __nv_bfloat16*>(b.hi),
       static_cast<const float*>(b.hvx), static_cast<const float*>(b.dplanes),
       static_cast<const __nv_bfloat16*>(b.wts), static_cast<const float*>(b.fpar),
-      static_cast<__nv_bfloat16*>(b.stash), static_cast<float*>(b.g32), static_cast<uint4*>(b.masks),
-      static_cast<float*>(b.parts));
+      static_cast<float*>(b.g32), static_cast<uint4*>(b.masks), static_cast<float*>(b.parts));
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   rc = wgrad_launch(b.stash, b.maps + 4 * p.n_maps, b.n_maps - p.n_maps, b.tasks, n_tasks, p.n_rows,
                     chunk_rows, dw_total, static_cast<float*>(b.dw_part), stream);

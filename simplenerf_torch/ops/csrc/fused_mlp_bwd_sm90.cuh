@@ -9,11 +9,16 @@
 // What bounds it: per point of the published fine MLP the forward again
 // and dX, (589,952 + 557,696) multiply-adds, 1.81 TFLOP at the training
 // step (1.83 ms at the bf16 peak), and the stash it writes for the weight
-// pass, 7.55 GB (2.25 ms at 3.35 TB/s): bytes, by a little. Behind both
-// stands the weight stream: every 128-row block reads the forward's and
-// the backward's slab images (~2.3 MB) from L2, 128 FLOP per weight byte.
-// So the design keeps the tensor cores fed from L2 and takes everything
-// else off their path, as the forward's engine (fused_mlp_sm90.cuh) does:
+// pass, 7.75 GB (2.31 ms at 3.35 TB/s): bytes, by a little. Every 128-row
+// block also reads the forward's and the backward's slab images (~2.3 MB)
+// from L2. So the design keeps the tensor cores fed from L2 and takes
+// everything else off their path, as the forward's engine
+// (fused_mlp_sm90.cuh) does. On the card (PERF.md) the products alone
+// take 2.3 ms and the epilogues, which both consumers run at once while
+// the tensor cores wait, most of the rest: a lag between the consumers
+// would need a layer's slabs more in the ring than shared memory holds,
+// and a slab multicast to a cluster of two blocks, which halves the L2
+// reads, measured slower. The parts:
 //   * 384 threads: warpgroup 0 produces (setmaxnreg 40; one thread issues
 //     every slab, forward and backward, by cp.async.bulk into a full/empty
 //     mbarrier ring that runs on across ops and ensemble members);
@@ -44,12 +49,13 @@
 //   * a head's per-tile dW and db come from the rounded tile and the
 //     staged dp rows, each thread summing a column pair over its 64 rows;
 //   * every sum over rows keeps a fixed order: a consumer's 64 rows, then
-//     consumer 1 hands its sums to consumer 0 through shared memory (a
-//     double-buffered mbarrier handshake, not a block barrier), which adds
-//     them to its own and writes the block's partials row;
+//     consumer 1 hands its sums to consumer 0 through shared memory (an
+//     mbarrier handshake, not a block barrier), which adds them to its own
+//     and writes the block's partials row;
 //   * the stash leaves through TMA stores from the swizzled tile (one
 //     thread, one 64 x 64 box per K block, rows past n_rows clipped by the
-//     tensor map), waited on (.read) before the tile is written again.
+//     tensor map, evict-first in L2), waited on (.read) before the tile is
+//     written again.
 //
 // Shared memory (bytes, from a 1024-aligned base; `bwd90_plan` computes
 // the same): the ring (stages x the widest op's n_pad x 128); per consumer
@@ -78,7 +84,7 @@ constexpr int kMaxSeg = 3;
 constexpr int kMaxStages = 4;
 constexpr int kMaxHead = 4;
 constexpr int kHeaderWords = 16;
-constexpr int kOpWords = 24;
+constexpr int kOpWords = 22;
 constexpr int kBiasFloats = 256;                    // a layer's bias at the head of the staging area
 constexpr int kDpFloats = kRows * kMaxHead;         // a consumer's dp rows, [row][channel]
 constexpr int kRedFloats = 2 * 4 * 256;             // [consumer][warp][column]
@@ -86,13 +92,12 @@ constexpr int kXferFloats = kMaxHead * 256 + kMaxHead;  // a head's dW row block
 constexpr int kBarriers = 2 * kMaxStages + 2;
 constexpr int kConsumerThreads = 128;
 constexpr int kMaskThreads = 2 * kConsumerThreads;  // mask words: one uint4 per consumer thread
-constexpr bool kBulkStash = true;                   // stash by TMA stores (else 16-byte stores)
 
 enum { F_IN = 0, F_LAYER = 1, B_LAYER = 3 };
 enum { SRC_ACT = 0, SRC_LO = 1, SRC_HI = 2 };
 enum { FLAG_RELU = 1, FLAG_HVX = 2 };
 
-// One op (24 ints; built by ops/fused_mlp.py `bwd90_plan`). Every op with a
+// One op (22 ints; built by ops/fused_mlp.py `bwd90_plan`). Every op with a
 // stash slot writes its n columns there (stash + out_slot * n_rows; tensor
 // map `map`).
 //   F_IN:    the src[0] tile to the stash.
@@ -111,7 +116,6 @@ struct Op {
   int src[kMaxSeg];
   int kb[kMaxSeg];
   int hvx_slot, out_slot, map, mask_slot, plane, head_nout, head_w, part, part2, g32_slot;
-  int reserved[2];
 };
 
 // hvx_rays > 0: an hvx layer stages the hvx rows of its consumer's rays;
@@ -218,24 +222,15 @@ __device__ __forceinline__ void bulk_wait_read() {
 }
 __device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
-// The consumer's 64 rows of a tile (`width` columns) to stash slot `dst`
-// (the op's tensor map `map`). After the tile's named barrier.
+// The consumer's 64 rows of a tile (`width` columns) to the op's stash
+// slot, its tensor map `map`: one thread's TMA stores, one box per K block,
+// after the tile's named barrier. (16-byte stores from every thread
+// measured slower: PERF.md.)
 __device__ __forceinline__ void stash_out(const unsigned char* tile, int width, const CUtensorMap* map,
-                                          __nv_bfloat16* __restrict__ dst, int row0, int n_rows,
-                                          int t) {
-  if (kBulkStash) {
-    if (t == 0) {
-      for (int b = 0; b * 64 < width; ++b) tma_store(map, b * 64, row0, tile + b * kBlockBytes);
-      bulk_commit();
-    }
-    return;
-  }
-  const int per_row = width >> 3, total = kRows * per_row;
-  for (int i = t; i < total; i += kConsumerThreads) {
-    const int r = i / per_row, cc = i - r * per_row;
-    if (row0 + r < n_rows)
-      __stcs(reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * width + cc * 8),
-             *reinterpret_cast<const uint4*>(tile + tile_off(r, cc * 8)));
+                                          int row0, int t) {
+  if (t == 0) {
+    for (int b = 0; b * 64 < width; ++b) tma_store(map, b * 64, row0, tile + b * kBlockBytes);
+    bulk_commit();
   }
 }
 
@@ -456,7 +451,7 @@ template <int N>
 __device__ __forceinline__ void f_layer(const Op& op, Ctx& x, const float* __restrict__ fpar,
                                         const float* __restrict__ hvx,
                                         const float* __restrict__ dplanes, uint4* tmask,
-                                        __nv_bfloat16* stash, float* __restrict__ part) {
+                                        float* __restrict__ part) {
   const Program& p = *x.p;
   float* cst = x.s.cst + x.c * p.cst_floats;
   stage_consts(op, p, cst, fpar, hvx, x.row0, x.t);
@@ -464,13 +459,12 @@ __device__ __forceinline__ void f_layer(const Op& op, Ctx& x, const float* __res
   float acc[N / 2];
   product<N>(acc, op, x);
   cp_commit_wait();
-  if (kBulkStash && x.t == 0) bulk_wait_read();  // the last stash store has read the tile
+  if (x.t == 0) bulk_wait_read();  // the last stash store has read the tile
   named_sync(1 + x.c);  // staged constants landed; every reader of the tile is done
   f_epilogue<N>(acc, op, x, cst, hvx, tmask + op.mask_slot * kMaskThreads);
   fence_proxy_async();  // the tile's generic stores, before the stash's TMA and the next wgmma read them
   named_sync(1 + x.c);
-  stash_out(x.tl.act, op.n, &x.maps->map[op.map], stash + (size_t)op.out_slot * p.n_rows, x.row0,
-            p.n_rows, x.t);
+  stash_out(x.tl.act, op.n, &x.maps->map[op.map], x.row0, x.t);
   if (op.head_nout) head_partials(op, x, part);
 }
 
@@ -480,8 +474,7 @@ __device__ __forceinline__ void f_layer(const Op& op, Ctx& x, const float* __res
 template <int N>
 __device__ __forceinline__ void b_layer(const Op& op, Ctx& x, const float* __restrict__ fpar,
                                         const float* __restrict__ dplanes, const uint4* tmask,
-                                        float* __restrict__ g32, __nv_bfloat16* stash,
-                                        float* __restrict__ part) {
+                                        float* __restrict__ g32, float* __restrict__ part) {
   const Program& p = *x.p;
   const int warp = x.t >> 5, lane = x.t & 31, q = lane & 3;
   const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;
@@ -505,7 +498,7 @@ __device__ __forceinline__ void b_layer(const Op& op, Ctx& x, const float* __res
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
   }
-  if (kBulkStash && x.t == 0) bulk_wait_read();  // the last stash store has read the tile
+  if (x.t == 0) bulk_wait_read();  // the last stash store has read the tile
   named_sync(1 + x.c);  // every reader of the tile (stash stores, head partials) is done
   if (hn) {
     const float* hw = fpar + op.head_w;
@@ -563,8 +556,7 @@ __device__ __forceinline__ void b_layer(const Op& op, Ctx& x, const float* __res
   }
   fence_proxy_async();
   named_sync(1 + x.c);  // the tile and the consumer's red rows are complete
-  stash_out(x.tl.act, n, &x.maps->map[op.map], stash + (size_t)op.out_slot * n_rows, x.row0, n_rows,
-            x.t);
+  stash_out(x.tl.act, n, &x.maps->map[op.map], x.row0, x.t);
   // db: thread t takes columns 2t and 2t + 1, the four warps' rows in
   // order, then consumer 0 adds consumer 1's.
   const int col = 2 * x.t;
@@ -598,8 +590,8 @@ __device__ __forceinline__ void consume(const Program& p, const wgrad::Maps& map
                                         const __nv_bfloat16* __restrict__ hi,
                                         const float* __restrict__ hvx,
                                         const float* __restrict__ dplanes,
-                                        const float* __restrict__ fpar, __nv_bfloat16* stash,
-                                        float* __restrict__ g32, uint4* masks,
+                                        const float* __restrict__ fpar, float* __restrict__ g32,
+                                        uint4* masks,
                                         float* __restrict__ parts) {
   Ctx x;
   x.p = &p;
@@ -619,25 +611,24 @@ __device__ __forceinline__ void consume(const Program& p, const wgrad::Maps& map
   for (int i = 0; i < p.n_ops; ++i) {
     const Op& op = p.ops[i];
     if (op.kind == F_IN) {
-      stash_out(source(x.tl, op.src[0]), op.n, &maps.map[op.map], stash + (size_t)op.out_slot * p.n_rows,
-                x.row0, p.n_rows, x.t);
+      stash_out(source(x.tl, op.src[0]), op.n, &maps.map[op.map], x.row0, x.t);
     } else if (op.kind == F_LAYER) {
       if (op.n_pad == 256)
-        f_layer<256>(op, x, fpar, hvx, dplanes, tmask, stash, part);
+        f_layer<256>(op, x, fpar, hvx, dplanes, tmask, part);
       else if (op.n_pad == 128)
-        f_layer<128>(op, x, fpar, hvx, dplanes, tmask, stash, part);
+        f_layer<128>(op, x, fpar, hvx, dplanes, tmask, part);
       else
-        f_layer<64>(op, x, fpar, hvx, dplanes, tmask, stash, part);
+        f_layer<64>(op, x, fpar, hvx, dplanes, tmask, part);
     } else {
       if (op.n_pad == 256)
-        b_layer<256>(op, x, fpar, dplanes, tmask, g32, stash, part);
+        b_layer<256>(op, x, fpar, dplanes, tmask, g32, part);
       else if (op.n_pad == 128)
-        b_layer<128>(op, x, fpar, dplanes, tmask, g32, stash, part);
+        b_layer<128>(op, x, fpar, dplanes, tmask, g32, part);
       else
-        b_layer<64>(op, x, fpar, dplanes, tmask, g32, stash, part);
+        b_layer<64>(op, x, fpar, dplanes, tmask, g32, part);
     }
   }
-  if (kBulkStash && x.t == 0) bulk_wait_all();
+  if (x.t == 0) bulk_wait_all();  // the stash is in device memory before the block ends
 }
 
 }  // namespace bwd90

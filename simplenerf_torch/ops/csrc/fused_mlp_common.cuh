@@ -1,6 +1,8 @@
-// Device code shared by the fused MLP kernels for Hopper (sm_90a):
+// Device code of the float32 fused MLP kernels for Hopper (sm_90a):
 // fused_mlp_fwd.cu (forward, single MLP and ensemble) and fused_mlp_bwd.cu
-// (backward, single MLP and ensemble).
+// (backward's row pass, single MLP and ensemble). The bf16 kernels run on
+// wgmma: fused_mlp_sm90.cuh (forward), fused_mlp_bwd_sm90.cuh (the
+// backward's row pass), fused_mlp_wgrad_sm90.cuh (its weight pass).
 //
 // A kernel walks a program of ops built by simplenerf_torch/ops/fused_mlp.py.
 // An op that multiplies reads up to three shared-memory tiles of the block's
@@ -8,8 +10,8 @@
 // weight stored transposed as (n, kpad) rows in one weight buffer; the
 // weights stream through a ring of K-slabs filled by cp.async. The ring runs
 // on across ops, so the next op's first slabs load during this op's last
-// ones. Products run on the tensor cores (mma.sync m16n8k16, ldmatrix
-// fragments, float32 accumulators) in bf16 and as plain FMAs in float32.
+// ones. Products run as plain FMAs (no TF32, which would break float32
+// parity).
 
 #pragma once
 
@@ -31,7 +33,6 @@ enum { FLAG_RELU = 1, FLAG_HVX = 2, FLAG_ZERO = 4 };
 // Per operand type: m16 tiles per warp (MT), row groups of warps (WM),
 // slab depth; a block is WM x kWarpsN warps over BM = 16 * MT * WM rows.
 template <typename T> struct Traits;
-template <> struct Traits<__nv_bfloat16> { static constexpr int MT = 2, WM = 4, kSlabK = 64; };
 template <> struct Traits<float> { static constexpr int MT = 2, WM = 2, kSlabK = 32; };
 template <typename T> struct Block {
   static constexpr int kThreads = 32 * Traits<T>::WM * kWarpsN;
@@ -39,25 +40,12 @@ template <typename T> struct Block {
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T zero_val();
 template <> __device__ __forceinline__ float zero_val<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero_val<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -69,72 +57,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc += A[warp rows, ka0:ka0+kc] @ slab^T for the warp's column tiles.
-// `a` points at the warp's first row; the slab holds W^T rows (n, ldw).
-// Fragment ownership (m16n8 accumulator): lane holds rows g and g+8,
-// columns 2t and 2t+1 of each tile (g = lane / 4, t = lane % 4).
-template <int MT>
-__device__ __forceinline__ void slab_product(float (&acc)[MT][kNT][4], const __nv_bfloat16* a,
-                                             int lda, int ka0, const __nv_bfloat16* w, int ldw,
-                                             int kc, int n, int warp_n, int lane) {
-  // ldmatrix.x4 addresses: lane l feeds row (l % 8) of 8x8 matrix l / 8.
-  // A: matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
-  // (rows 8-15, k 8-15) = fragment registers a0..a3.
-  const int r8 = lane & 7, mi = lane >> 3;
-  const __nv_bfloat16* a_lane = a + ((mi & 1) * 8 + r8) * lda + ka0 + (mi >> 1) * 8;
-  // B: a pair of column tiles (nt0, nt1 = nt0 + 4): matrices (nt0, k 0-7),
-  // (nt0, k 8-15), (nt1, k 0-7), (nt1, k 8-15) = b0, b1 of nt0 then of nt1.
-  // Lanes of an nt1 past n read nt0's rows (in the slab) and are not used.
-  const int k_half = (mi & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < Traits<__nv_bfloat16>::kSlabK; kk += 16) {
-    if (kk >= kc) break;
-    // Every fragment of the k-step is requested before the first product,
-    // so the loads' latencies overlap.
-    uint32_t af[MT][4], bf[kNT / 2][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(af[mt], a_lane + mt * 16 * lda + kk);
-#pragma unroll
-    for (int jp = 0; jp < kNT / 2; ++jp) {
-      const int nt0 = warp_n + kWarpsN * 2 * jp, nt1 = nt0 + kWarpsN;
-      const int nt = (mi >> 1) && nt1 * 8 < n ? nt1 : nt0;
-      if (nt0 * 8 < n) ldmatrix_x4(bf[jp], w + (nt * 8 + r8) * ldw + kk + k_half);
-    }
-#pragma unroll
-    for (int jp = 0; jp < kNT / 2; ++jp) {
-      const int nt0 = warp_n + kWarpsN * 2 * jp, nt1 = nt0 + kWarpsN;
-      if (nt0 * 8 >= n) continue;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][2 * jp], af[mt], bf[jp][0], bf[jp][1]);
-      if (nt1 * 8 < n) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][2 * jp + 1], af[mt], bf[jp][2], bf[jp][3]);
-      }
-    }
-  }
 }
 
 template <int MT>

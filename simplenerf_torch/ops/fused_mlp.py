@@ -695,18 +695,20 @@ def _kblocks(k: int) -> int:
     return -(-k // 64)
 
 
-def _slab_index(k: int, n: int, n_pad: int, base: int) -> np.ndarray:
+def _slab_index(k: int, n: int, n_pad: int, base: int, strides=None) -> np.ndarray:
     """Source element of each element of a (K, N) = (k, n) weight's slabs,
     -1 for padding. Slab kbi is n_pad rows of 128 bytes holding
     W^T[:, 64 kbi : 64 kbi + 64], the 16-byte chunk c of row r stored at
     chunk c ^ (r % 8) (the 128-byte swizzle of csrc/fused_mlp_sm90.cuh); the
-    weight's element (kk, r) is source element base + kk * n + r."""
+    weight's element (kk, r) is source element base + kk * n + r, or
+    base + kk * strides[0] + r * strides[1]."""
+    sk, sr = strides or (n, 1)
     kb = _kblocks(k)
     kbi, r, kl = np.meshgrid(np.arange(kb), np.arange(n_pad), np.arange(64), indexing="ij")
     kk = kbi * 64 + kl
     pos = kbi * n_pad * 64 + r * 64 + ((kl // 8) ^ (r % 8)) * 8 + kl % 8
     idx = np.full(kb * n_pad * 64, -1, dtype=np.int64)
-    idx[pos.reshape(-1)] = np.where((r < n) & (kk < k), base + kk * n + r, -1).reshape(-1)
+    idx[pos.reshape(-1)] = np.where((r < n) & (kk < k), base + kk * sk + r * sr, -1).reshape(-1)
     return idx
 
 
@@ -1249,11 +1251,11 @@ _BWD90_HEADER = ("n_ops", "n_rows", "ns", "in_lo", "in_hi", "lo_kb", "hi_kb", "a
                  "slot_bytes", "stages", "hvx_rays", "cst_floats", "part_w", "n_masks", "n_maps",
                  "hvx_w")
 _BWD90_OP = ("kind", "n", "n_pad", "b_off", "flags", "nseg", "src", "kb", "hvx_slot", "out_slot",
-             "map", "mask_slot", "plane", "head_nout", "head_w", "part", "part2", "g32_slot",
-             "reserved")  # src, kb: _BWD90_MAX_SEG ints each; reserved: 2
+             "map", "mask_slot", "plane", "head_nout", "head_w", "part", "part2",
+             "g32_slot")  # src, kb: _BWD90_MAX_SEG ints each
 _BWD90_MAX_SEG = 3
 _BWD90_HEADER_WORDS = len(_BWD90_HEADER)
-_BWD90_OP_WORDS = len(_BWD90_OP) + 2 * (_BWD90_MAX_SEG - 1) + 1
+_BWD90_OP_WORDS = len(_BWD90_OP) + 2 * (_BWD90_MAX_SEG - 1)
 _BWD90_MAX_OPS = 64
 _BWD90_STAGES = (4, 3, 2)  # ring depths, the deepest that fits first
 _BWD90_DP = 64 * _MAX_HEAD  # floats of a consumer's staged dp rows (kDpFloats)
@@ -1284,20 +1286,6 @@ class Bwd90Plan:
     smem: int
 
 
-def _slab_gather(w_off: int, n: int, kpad: int) -> tuple[np.ndarray, int]:
-    """(gather index, slabs) of the slabs of a matrix stored (n, kpad) at
-    w_off: slab kbi is n_pad rows of 128 bytes holding columns 64 kbi ..
-    64 kbi + 63, the 16-byte chunk c of row r at chunk c ^ (r % 8); -1 for
-    padding."""
-    n_pad, kb = _n_pad(n), _kblocks(kpad)
-    kbi, r, kl = np.meshgrid(np.arange(kb), np.arange(n_pad), np.arange(64), indexing="ij")
-    d = kbi * 64 + kl
-    pos = kbi * n_pad * 64 + r * 64 + ((kl // 8) ^ (r % 8)) * 8 + kl % 8
-    idx = np.full(kb * n_pad * 64, -1, dtype=np.int64)
-    idx[pos.reshape(-1)] = np.where((r < n) & (d < kpad), w_off + r * kpad + d, -1).reshape(-1)
-    return idx, kb
-
-
 def bwd90_plan(header: np.ndarray, ops: np.ndarray) -> Bwd90Plan:
     """The bf16 row pass's program from a BwdPlan's header and ops.
 
@@ -1318,9 +1306,10 @@ def bwd90_plan(header: np.ndarray, ops: np.ndarray) -> Bwd90Plan:
         return f_size[0] - idx.size
 
     def slabs(w_off, n, kpad):
-        idx, kb = _slab_gather(w_off, n, kpad)
-        w_parts.append(idx)
-        return kb
+        """The slabs of a matrix the ops' buffer stores (n, kpad) at w_off: its
+        rows are the product's outputs."""
+        w_parts.append(_slab_index(kpad, n, _n_pad(n), w_off, strides=(1, kpad)))
+        return _kblocks(kpad)
 
     pending = None  # the product the next backward op runs: (w_off, n, kpad)
     for w in ops.tolist():
@@ -1328,7 +1317,7 @@ def bwd90_plan(header: np.ndarray, ops: np.ndarray) -> Bwd90Plan:
         src, w_off, kpad = w[5:8], w[8:11], w[11:14]
         plane, hvx_slot, out_slot, gn, mask_slot, hn, hw_off, part, g32_slot, part2 = w[14:24]
         op = dict.fromkeys(_BWD90_OP, 0)
-        op.update(reserved=[0, 0], kind=kind, out_slot=out_slot, map=len(maps), mask_slot=max(mask_slot, 0),
+        op.update(kind=kind, out_slot=out_slot, map=len(maps), mask_slot=max(mask_slot, 0),
                   g32_slot=g32_slot, src=[0] * _BWD90_MAX_SEG, kb=[0] * _BWD90_MAX_SEG)
         if kind == _F_IN:
             op["n"], op["src"][0] = gn, src[0]

@@ -305,7 +305,7 @@ def test_wrapper_rejects_other_devices():
 def _bwd90_ops(words):
     """The bf16 row program's header and ops as dicts (struct bwd90::Op)."""
     hw, ow = fused_mlp._BWD90_HEADER_WORDS, fused_mlp._BWD90_OP_WORDS
-    sizes = {"src": fused_mlp._BWD90_MAX_SEG, "kb": fused_mlp._BWD90_MAX_SEG, "reserved": 2}
+    sizes = {"src": fused_mlp._BWD90_MAX_SEG, "kb": fused_mlp._BWD90_MAX_SEG}
     ops = []
     for words_ in words[hw:].reshape(-1, ow).tolist():
         op, pos = {}, 0
@@ -403,22 +403,18 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
     return stash, g32, parts
 
 
-def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
-    """Execute `pack_bwd_program`'s output with PyTorch ops, tile by tile and
-    task by task, as the backward kernels do: (per-member dkp, dhvx stack).
-    bf16 runs the row program of `bwd90_plan` (`_run_bwd90_rows`)."""
-    n = lo.shape[0]
-    plan = fused_mlp.pack_bwd_program(spec, kp, n)
+def _run_f32_rows(plan, n, lo, hi, hvxs, dp):
+    """The float32 row pass's program (struct BProgram / BOp), run as
+    fused_mlp_bwd_rows_kernel<float> runs it, tile by tile: (stash, g32,
+    per-tile partials)."""
     hdr = plan.header.tolist()
     ns, in_lo, in_hi, lo_kpad, hi_kpad = hdr[2:7]
-    members = spec.members if isinstance(spec, fused_mlp.EnsembleSpec) else (spec,)
-    cd = members[0].cdtype
+    cd = torch.float32
     bm, _ = fused_mlp._tiling(cd)
     stash = torch.zeros(plan.stash_cols * n, dtype=cd)
     g32 = torch.zeros((max(plan.n_hvx, 1), n, max(plan.hvx_w, 1)))
     n_tiles = -(-n // bm)
     parts = torch.zeros((n_tiles, plan.part_w))
-    dp = d_planes.reshape(d_planes.shape[0], n)
 
     def slot(off, w):
         return stash[off * n : (off + w) * n].view(n, w)
@@ -426,9 +422,7 @@ def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
     def weight(off, rows, kpad):
         return plan.wts[off : off + rows * kpad].view(rows, kpad).float()
 
-    if cd == torch.bfloat16:
-        stash, g32, parts = _run_bwd90_rows(plan, n, lo, hi, hvxs, dp)
-    for t in range(n_tiles if cd == torch.float32 else 0):
+    for t in range(n_tiles):
         rows = slice(t * bm, min(n, (t + 1) * bm))
         masks = {}  # the tile's ReLU masks by mask slot, from each layer's rounded activation
         tiles = {fused_mlp._SRC_LO: torch.zeros((rows.stop - rows.start, lo_kpad), dtype=cd)}
@@ -472,8 +466,26 @@ def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
             parts[t, part : part + gn] = v.sum(0)
             if nseg:
                 acc = v.to(cd).float() @ weight(w_off[0], width, kpad[0]).T
+    return stash, g32, parts
 
-    if cd == torch.bfloat16:
+
+def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
+    """Execute `pack_bwd_program`'s output with PyTorch ops, tile by tile and
+    task by task, as the backward kernels do: (per-member dkp, dhvx stack).
+    The row pass: bf16 the program of `bwd90_plan` (`_run_bwd90_rows`),
+    float32 the BOp program (`_run_f32_rows`)."""
+    n = lo.shape[0]
+    plan = fused_mlp.pack_bwd_program(spec, kp, n)
+    ns = int(plan.header[2])
+    members = spec.members if isinstance(spec, fused_mlp.EnsembleSpec) else (spec,)
+    bf16 = members[0].cdtype == torch.bfloat16
+    dp = d_planes.reshape(d_planes.shape[0], n)
+    stash, g32, parts = (_run_bwd90_rows if bf16 else _run_f32_rows)(plan, n, lo, hi, hvxs, dp)
+
+    def slot(off, w):
+        return stash[off * n : (off + w) * n].view(n, w)
+
+    if bf16:
         dw = _run_wgrad_jobs(stash, n, plan.tasks, plan.maps, plan.chunk_rows, plan.n_chunks,
                              plan.dw_total)
     else:

@@ -39,9 +39,10 @@ otherwise.
 Row-pass split: timing-only variants that launch the row pass alone (the
 weight pass and the column sums edited out), whole and with parts of the
 bf16 row pass removed or changed (the stash stores, the heads' partials,
-the backward ops' epilogues, the forward ops' mask words; the products
-alone, with no epilogue, stash or partials; the stash as 16-byte stores
-from the tile instead of TMA stores), timed per launch by CUDA events
+the backward ops' epilogues, or their db shuffles, db hand-over or masks,
+the forward ops' mask words; the products alone, with no epilogue, stash
+or partials, kept by one data-dependent store; the stash's TMA stores
+without their evict-first hint), timed per launch by CUDA events
 around the library call at the training step's shapes: the fine MLP (4096
 x 192, bf16) and the coarse trio through the ensemble program (4096 x 64,
 bf16). A time difference bounds what the removed part costs, as the parts
@@ -114,7 +115,7 @@ _ROWS = "fused_mlp_bwd_sm90.cuh"
 _WG = "fused_mlp_wgrad_sm90.cuh"
 _WG_PRODUCTS = "for (int kk = 0; kk < 4; ++kk) Mma<N>::run(acc, da + kk * kK16Step, db + kk * kK16Step, 1);"
 _RELEASE = "if (prev >= 0 && x.t == 0) mbar_arrive(x.s.empty + prev);"
-_TMA = "    if (t == 0) {\n      for (int b = 0; b * 64 < width; ++b) tma_store("
+_TMA = "  if (t == 0) {\n    for (int b = 0; b * 64 < width; ++b) tma_store("
 # Part -> [(file, text in it, text in its place)].
 EDITS = {
     "row mask bit": [(_ROWS, "(words[j >> 3] >> (4 * (j & 7) + e)) & 1u",
@@ -210,7 +211,14 @@ TIMING_EDITS = {
     "no backward epilogue": [(_ROWS, _B_EPILOGUE, _B_EPILOGUE + "\n  " + _KEEP + "\n  if (true) return;")],
     "no mask words": [(_ROWS, "  if (relu) *mask = make_uint4(", "  if (false) *mask = make_uint4(")],
     "no forward epilogue": [(_ROWS, _F_EPILOGUE, "  " + _KEEP)],
-    "16-byte stash stores": [(_ROWS, "constexpr bool kBulkStash = true;", "constexpr bool kBulkStash = false;")],
+    "no db shuffles": [(_ROWS, "    for (int o = 4; o < 32; o <<= 1) {\n      s0 += __shfl_xor_sync",
+                        "    for (int o = 4; o < 4; o <<= 1) {\n      s0 += __shfl_xor_sync")],
+    "no db hand-over": [(_ROWS, "  float* buf = hand_over_begin(x);\n  if (active) {",
+                         "  float* buf = x.s.xfer;\n  if (false) {"),
+                        (_ROWS, "      part[op.part + col + 1] = s.y + o.y;\n    }\n  }\n  hand_over_end(x);",
+                         "      part[op.part + col + 1] = s.y + o.y;\n    }\n  }\n  ++x.k;")],
+    "no mask apply": [(_ROWS, "const bool on = ((words[j >> 3] >> (4 * (j & 7) + e)) & 1u) && (e < 2 ? ok0 : ok1);",
+                       "const bool on = true;")],
     "no evict-first hint": [(_ROWS, "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%1, %2}], [%3], %4;",
                              "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];")],
     "rows only": [(_BWD, "static_cast<float*>(b.g32), static_cast<uint2*>(b.masks), static_cast<float*>(b.parts));\n"
@@ -250,7 +258,9 @@ TIMING = {
     "row pass without the backward ops' epilogues": ["bf16 rows only", "no backward epilogue"],
     "row pass without the forward ops' mask words": ["bf16 rows only", "no mask words"],
     "row pass, products only": _NO_EPILOGUES,
-    "row pass with 16-byte stash stores": ["bf16 rows only", "16-byte stash stores"],
+    "row pass without the db shuffles": ["bf16 rows only", "no db shuffles"],
+    "row pass without the db hand-over": ["bf16 rows only", "no db hand-over"],
+    "row pass without the backward ops' masks": ["bf16 rows only", "no mask apply"],
     "row pass, TMA stash stores without the evict-first hint": ["bf16 rows only", "no evict-first hint"],
     "row pass (PR 9)": ["rows only"],
     "row pass without mask reloads (v3)": ["rows only", "mask reload (v3)"],
