@@ -47,7 +47,7 @@ around the library call at the training step's shapes: the fine MLP (4096
 x 192, bf16) and the coarse trio through the ensemble program (4096 x 64,
 bf16). A time difference bounds what the removed part costs, as the parts
 overlap. Each row kernel's ptxas registers and spill bytes are printed
-beside its times. With --parent the "(PR 9)" and "(v3)" splits, which
+beside its times. With --parent the "(mma.sync)" and "(v3)" splits, which
 match earlier row passes, are timed instead.
 
 Weight-pass split: the weight pass's device time (torch.profiler) in the
@@ -191,10 +191,10 @@ SHAPES = [(1037, 64, torch.bfloat16), (1037, 192, torch.float32), (1037, 192, to
           (chip_smoke.STEP_RAYS, 192, torch.bfloat16)]
 
 # Timing-only parts: the row pass alone, and parts of it removed or changed.
-# The "(v3)" parts match the row pass before PR 4 (mask copied back into the
+# The "(v3)" parts match the first row pass (mask copied back into the
 # shared tile, head partials re-read from the stash, stash copies with
-# write-back stores), the "(PR 9)" parts the mma.sync row pass of PRs 4-9;
-# the others match this one.
+# write-back stores), the "(mma.sync)" parts the mma.sync row pass that the
+# wgmma one replaced; the others match this one.
 _STASH = "      __stcs(reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * width + q * kElems),"
 _STASH_V3 = "      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * width + q * kElems) ="
 _ROWS_ONLY = "static_cast<float*>(b.parts));\n  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);\n  rc = wgrad_launch("
@@ -262,23 +262,23 @@ TIMING = {
     "row pass without the db hand-over": ["bf16 rows only", "no db hand-over"],
     "row pass without the backward ops' masks": ["bf16 rows only", "no mask apply"],
     "row pass, TMA stash stores without the evict-first hint": ["bf16 rows only", "no evict-first hint"],
-    "row pass (PR 9)": ["rows only"],
+    "row pass (mma.sync)": ["rows only"],
     "row pass without mask reloads (v3)": ["rows only", "mask reload (v3)"],
     "row pass without head partials (v3)": ["rows only", "head partials (v3)"],
     "row pass without the epilogue's head add (v3)": ["rows only", "head add (v3)"],
     "row pass without stash stores (v3)": ["rows only", "stash stores (v3)"],
     "row pass without all four (v3)": ["rows only", *_V3],
     "row pass with streaming stash stores (v3)": ["rows only", "streaming stores (v3)"],
-    "row pass without mask words (PR 9)": ["rows only", "mask words"],
-    "row pass without head partials (PR 9)": ["rows only", "head partials"],
-    "row pass without the epilogue's head add (PR 9)": ["rows only", "head add"],
-    "row pass without stash stores (PR 9)": ["rows only", "stash stores"],
-    "row pass without all four (PR 9)": ["rows only", "mask words", "head partials", "head add",
+    "row pass without mask words (mma.sync)": ["rows only", "mask words"],
+    "row pass without head partials (mma.sync)": ["rows only", "head partials"],
+    "row pass without the epilogue's head add (mma.sync)": ["rows only", "head add"],
+    "row pass without stash stores (mma.sync)": ["rows only", "stash stores"],
+    "row pass without all four (mma.sync)": ["rows only", "mask words", "head partials", "head add",
                                          "stash stores"],
-    "row pass with write-back stash stores (PR 9)": ["rows only", "write-back stores"],
-    "row pass, stash stores to an L2 window (PR 9)": ["rows only", "L2 window"],
+    "row pass with write-back stash stores (mma.sync)": ["rows only", "write-back stores"],
+    "row pass, stash stores to an L2 window (mma.sync)": ["rows only", "L2 window"],
 }
-_EARLIER = ("(v3)", "(PR 9)")  # splits of earlier row passes, timed with --parent
+_EARLIER = ("(v3)", "(mma.sync)")  # splits of earlier row passes, timed with --parent
 # Weight-pass split: the whole backward runs; the weight pass's own device time is read.
 WGRAD_TIMING = {
     "weight pass": [],
