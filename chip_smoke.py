@@ -113,7 +113,9 @@ sums_parts_ms (partials, dW partials, dhvx), weight_library_ms and
 sums_library_ms (measured; the weight pass's and column sums' bounds are
 printed on its `time` lines), the row pass's own bound, row_bound_ms
 (the larger of its FLOP, the forward again and dX, at the bf16 peak and
-the stash it writes at HBM's rate), row_bound_by and row_bound_share =
+the bytes it must move at HBM's rate: its inputs read once, the stash
+slots the weight pass reads, the g32 planes and the partials written
+once; `row_pass_bytes`), row_bound_by and row_bound_share =
 row_bound_ms / row_ms, its bf16 row kernel's ptxas registers and spill
 bytes, row_ptxas, and the weight kernel's, weight_ptxas; a
 forward's row has its bf16 kernel's ptxas, fwd_ptxas, and the share of
@@ -599,6 +601,18 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def row_pass_bytes(plan, rows: int, inputs) -> int:
+    """Bytes the backward's row pass must move: each input tensor read once
+    and each output written once, the stash slots the weight pass reads
+    (2 bytes a value), the g32 planes of dhvx and the per-tile partials
+    rows (4). Its mask words are its own scratch, written and read back by
+    the same block."""
+    slots = {s: w for a, aw, g, gw, *_ in plan.dws for s, w in ((a, aw), (g, gw))}
+    outputs = (sum(slots.values()) * rows * 2 + plan.n_hvx * rows * plan.hvx_w * 4
+               + -(-rows // 128) * plan.part_w * 4)
+    return outputs + sum(t.numel() * t.element_size() for t in inputs if t is not None)
+
+
 def weight_pass_yardsticks(label: str, plan, rows: int, sum_shapes) -> dict:
     """The backward's weight pass and column sums against what the card and
     PyTorch would take for the same work, on a seeded stash of the step's
@@ -679,7 +693,8 @@ def time_train_kernels() -> dict:
     b_fwd = bound_ms(spec.flops_per_point() * rows, io + wbytes([kp]) + dp.numel() * 4)
     b_bwd = bound_ms(spec.bwd_flops_per_point() * rows,
                      io + wbytes([kp]) + dp.numel() * 4 + wbytes([kp]) * 2 + hvx.numel() * 4)
-    b_row = bound_ms(spec.row_flops_per_point() * rows, plan.stash_cols * rows * 2)
+    b_row = bound_ms(spec.row_flops_per_point() * rows,
+                     row_pass_bytes(plan, rows, (lo, hi, hvx, dp, plan.wts, plan.fpar)))
     out["fused_mlp_fwd"] = dict(
         shape=f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, bf16",
         ms=cuda_time_ms(lambda: fused_mlp.fused_apply(*ops), iters=10),
@@ -706,7 +721,8 @@ def time_train_kernels() -> dict:
     b_fwd = bound_ms(ens.flops_per_point() * rows, io + wbytes(kps) + dp.numel() * 4)
     b_bwd = bound_ms(ens.bwd_flops_per_point() * rows,
                      io + wbytes(kps) + dp.numel() * 4 + wbytes(kps) * 2 + io - lo.numel() * 2)
-    b_row = bound_ms(ens.row_flops_per_point() * rows, plan.stash_cols * rows * 2)
+    b_row = bound_ms(ens.row_flops_per_point() * rows,
+                     row_pass_bytes(plan, rows, (lo, *hvxs, dp, plan.wts, plan.fpar)))
     out["fused_mlp_ens_fwd"] = dict(
         shape=f"coarse trio step: {STEP_RAYS} rays x {COARSE_NS} = {rows} points, bf16",
         ms=cuda_time_ms(lambda: fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs), iters=10),

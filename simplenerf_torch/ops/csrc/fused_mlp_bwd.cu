@@ -788,9 +788,10 @@ int launch_bf16(const int* words, int n_words, const Buffers& b, int n_tasks, in
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < p.n_ops; ++i) {
     const bwd90::Op& op = p.ops[i];
+    if (op.map < -1 || op.map >= p.n_maps) return static_cast<int>(cudaErrorInvalidValue);
     if (op.kind == bwd90::F_IN) continue;
     if ((op.n_pad != 64 && op.n_pad != 128 && op.n_pad != 256) || op.n_pad * 128 > p.slot_bytes ||
-        op.head_nout > bwd90::kMaxHead || op.map >= p.n_maps)
+        op.head_nout > bwd90::kMaxHead)
       return static_cast<int>(cudaErrorInvalidValue);
   }
   wgrad::Maps maps;  // 16 KB; the launch copies it into the kernel's parameters

@@ -8,8 +8,11 @@
 //
 // What bounds it: per point of the published fine MLP the forward again
 // and dX, (589,952 + 557,696) multiply-adds, 1.81 TFLOP at the training
-// step (1.83 ms at the bf16 peak), and the stash it writes for the weight
-// pass, 7.75 GB (2.31 ms at 3.35 TB/s): bytes, by a little. Every 128-row
+// step (1.83 ms at the bf16 peak), and the bytes it must move, 8.14 GB
+// (2.43 ms at 3.35 TB/s; chip_smoke.py `row_pass_bytes`): the stash slots
+// the weight pass reads, 7.55 GB, the g32 planes for dhvx, 0.40 GB, its
+// inputs and partials. Bytes, by a little; a slot that only feeds a head
+// is not stored (map -1), as nothing reads it. Every 128-row
 // block also reads the forward's and the backward's slab images (~2.3 MB)
 // from L2. So the design keeps the tensor cores fed from L2 and takes
 // everything else off their path, as the forward's engine
@@ -97,9 +100,9 @@ enum { F_IN = 0, F_LAYER = 1, B_LAYER = 3 };
 enum { SRC_ACT = 0, SRC_LO = 1, SRC_HI = 2 };
 enum { FLAG_RELU = 1, FLAG_HVX = 2 };
 
-// One op (22 ints; built by ops/fused_mlp.py `bwd90_plan`). Every op with a
-// stash slot writes its n columns there (stash + out_slot * n_rows; tensor
-// map `map`).
+// One op (22 ints; built by ops/fused_mlp.py `bwd90_plan`). Every op whose
+// stash slot the weight pass reads writes its n columns there (stash +
+// out_slot * n_rows; tensor map `map`, -1 for a slot it does not read).
 //   F_IN:    the src[0] tile to the stash.
 //   F_LAYER: act = f(sum_s src[s] @ W_s + bias [+ hvx[hvx_slot]]), n real
 //            columns of n_pad, kb[s] slabs per segment; with RELU its mask
@@ -223,13 +226,15 @@ __device__ __forceinline__ void bulk_wait_read() {
 __device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
 // The consumer's 64 rows of a tile (`width` columns) to the op's stash
-// slot, its tensor map `map`: one thread's TMA stores, one box per K block,
-// after the tile's named barrier. (16-byte stores from every thread
-// measured slower: PERF.md.)
-__device__ __forceinline__ void stash_out(const unsigned char* tile, int width, const CUtensorMap* map,
-                                          int row0, int t) {
+// slot, its tensor map maps.map[map]: one thread's TMA stores, one box per
+// K block, after the tile's named barrier; none for map -1, a slot that the
+// weight pass does not read. (16-byte stores from every thread measured
+// slower: PERF.md.)
+__device__ __forceinline__ void stash_out(const unsigned char* tile, int width, const wgrad::Maps& maps,
+                                          int map, int row0, int t) {
+  if (map < 0) return;
   if (t == 0) {
-    for (int b = 0; b * 64 < width; ++b) tma_store(map, b * 64, row0, tile + b * kBlockBytes);
+    for (int b = 0; b * 64 < width; ++b) tma_store(&maps.map[map], b * 64, row0, tile + b * kBlockBytes);
     bulk_commit();
   }
 }
@@ -442,6 +447,7 @@ __device__ __forceinline__ void head_partials(const Op& op, Ctx& x, float* __res
     if (x.t < hn) part[op.part2 + x.t] = my_db + buf[kMaxHead * 256 + x.t];
   }
   hand_over_end(x);
+  named_sync(1 + x.c);  // every thread has read dsm: the next head's stage_dp may overwrite it
 }
 
 // A forward op: its bias (and hvx rows, and a head's dp rows) staged while
@@ -464,7 +470,7 @@ __device__ __forceinline__ void f_layer(const Op& op, Ctx& x, const float* __res
   f_epilogue<N>(acc, op, x, cst, hvx, tmask + op.mask_slot * kMaskThreads);
   fence_proxy_async();  // the tile's generic stores, before the stash's TMA and the next wgmma read them
   named_sync(1 + x.c);
-  stash_out(x.tl.act, op.n, &x.maps->map[op.map], x.row0, x.t);
+  stash_out(x.tl.act, op.n, *x.maps, op.map, x.row0, x.t);
   if (op.head_nout) head_partials(op, x, part);
 }
 
@@ -556,7 +562,7 @@ __device__ __forceinline__ void b_layer(const Op& op, Ctx& x, const float* __res
   }
   fence_proxy_async();
   named_sync(1 + x.c);  // the tile and the consumer's red rows are complete
-  stash_out(x.tl.act, n, &x.maps->map[op.map], x.row0, x.t);
+  stash_out(x.tl.act, n, *x.maps, op.map, x.row0, x.t);
   // db: thread t takes columns 2t and 2t + 1, the four warps' rows in
   // order, then consumer 0 adds consumer 1's.
   const int col = 2 * x.t;
@@ -611,7 +617,7 @@ __device__ __forceinline__ void consume(const Program& p, const wgrad::Maps& map
   for (int i = 0; i < p.n_ops; ++i) {
     const Op& op = p.ops[i];
     if (op.kind == F_IN) {
-      stash_out(source(x.tl, op.src[0]), op.n, &maps.map[op.map], x.row0, x.t);
+      stash_out(source(x.tl, op.src[0]), op.n, maps, op.map, x.row0, x.t);
     } else if (op.kind == F_LAYER) {
       if (op.n_pad == 256)
         f_layer<256>(op, x, fpar, hvx, dplanes, tmask, part);

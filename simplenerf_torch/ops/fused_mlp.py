@@ -884,26 +884,28 @@ class BwdPlan:
     header: (16,) int32; ops: (n_ops, 24) int32, the float32 row kernel's
     program (struct BProgram / BOp); bf16 runs `rows90`, its translation
     (`bwd90_plan`), and then wts / fpar are that program's slab image and
-    float32 buffer. tasks: the weight pass's
-    work, (n_tasks, 9) int32 float32 tiles or (n_jobs, 9) int32 bf16 jobs
-    (`_wgrad_plan`). The stash holds `stash_cols` column slots of n_rows
-    rows each; partials rows are `part_w` wide, dW partials `dw_total`. The
-    ReLU masks take `mask_words` int32 words: two per thread of a tile
-    (float32), four per consumer thread (bf16), for each of its ReLU
-    layers (header[15] of them). grads[mi][key] =
-    ("dw" | "part", offset, shape) into the reduced dW or partials vector.
-    bf16: `maps` (n_maps, 4) int64 are the weight pass's tensor maps and
-    `wgrad_bytes` the stash bytes its producers issue (`WgradPlan`). dws:
-    every dW as (a_slot, a_w, g_slot, g_w, k_in, n_out, dw_off).
-    `slices`: the three column sums' slices (partials, dW partials, dhvx;
-    `_colsum_slices`), `scratch` the floats their slice sums take.
+    float32 buffer. wts / fpar are gathered per call from the kernel
+    parameters that w_src / f_src name ((member, key) each; `_Gather`);
+    the rest depends on the spec and the row count only and is cached
+    (`_bwd_on`), with dev_tasks (and, float32, dev_ops) on the device.
+    tasks: the weight pass's work, (n_tasks, 9) int32 float32 tiles or
+    (n_jobs, 9) int32 bf16 jobs (`_wgrad_plan`). The stash holds
+    `stash_cols` column slots of n_rows rows each; partials rows are
+    `part_w` wide, dW partials `dw_total`. The ReLU masks take `mask_words`
+    int32 words: two per thread of a tile (float32), four per consumer
+    thread (bf16), for each of its ReLU layers (header[15] of them).
+    grads[mi][key] = ("dw" | "part", offset, shape) into the reduced dW or
+    partials vector. bf16: `maps` (n_maps, 4) int64 are the weight pass's
+    tensor maps and `wgrad_bytes` the stash bytes its producers issue
+    (`WgradPlan`). dws: every dW as (a_slot, a_w, g_slot, g_w, k_in, n_out,
+    dw_off). `slices`: the three column sums' slices (partials, dW
+    partials, dhvx; `_colsum_slices`), `scratch` the floats their slice
+    sums take.
     """
 
     header: np.ndarray
     ops: np.ndarray
     tasks: np.ndarray
-    wts: torch.Tensor
-    fpar: torch.Tensor
     stash_cols: int
     part_w: int
     dw_total: int
@@ -919,7 +921,13 @@ class BwdPlan:
     slices: tuple
     scratch: int
     dws: list
+    w_src: tuple
+    f_src: tuple
     rows90: Optional["Bwd90Plan"] = None
+    wts: Optional[torch.Tensor] = None
+    fpar: Optional[torch.Tensor] = None
+    dev_tasks: Optional[torch.Tensor] = None
+    dev_ops: Optional[torch.Tensor] = None
 
 
 def _colsum_slices(S: int, L: int, C: int) -> tuple[int, int]:
@@ -1043,8 +1051,78 @@ def _wgrad_issued(jobs: np.ndarray, maps: np.ndarray, n_rows: int, chunk_rows: i
     return total
 
 
+class _Gather:
+    """A program's weight buffer and float32 buffer as gathers from its
+    kernel parameters, made without them: w_src / f_src name the parameters
+    ((member, key) each) whose flattened values, concatenated with one zero
+    after them, `w_index` / `f_index` gather from (-1: the zero)."""
+
+    def __init__(self):
+        self.w_src, self.w_parts, self.w_size, self.w_len = [], [], 0, 0
+        self.f_src, self.f_size = [], 0
+
+    def mat(self, src, shape, transpose: bool = True) -> tuple[int, int]:
+        """Store the (K, N) parameter `src` as W^T (N, K) [or W (K, N)], rows
+        zero-padded to 16 columns: (offset, kpad)."""
+        k, n = shape
+        rows, cols = (n, k) if transpose else (k, n)
+        kpad = _round16(cols)
+        r, c = np.meshgrid(np.arange(rows), np.arange(kpad), indexing="ij")
+        pos = c * n + r if transpose else r * n + c
+        self.w_parts.append(np.where(c < cols, self.w_size + pos, -1).reshape(-1))
+        self.w_src.append(src)
+        self.w_size += k * n
+        self.w_len += rows * kpad
+        return self.w_len - rows * kpad, kpad
+
+    def fvec(self, src, size: int) -> int:
+        """Store the parameter `src` (size values) as it is: its offset."""
+        self.f_src.append(src)
+        self.f_size += size
+        return self.f_size - size
+
+
+
+def _gather(kps, srcs, index: torch.Tensor, dtype) -> torch.Tensor:
+    """One buffer of a program: the flattened parameters `srcs` names, one
+    zero after them, gathered by `index`."""
+    with torch.no_grad():
+        flat = [kps[mi][k].detach().reshape(-1).to(dtype) for mi, k in srcs]
+        flat.append(kps[0]["b0"].new_zeros(1, dtype=dtype))
+        return torch.cat(flat).index_select(0, index)
+
+
 def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
-    """Backward kernel operands for a FusedSpec + kp, or an EnsembleSpec + kps.
+    """Backward kernel operands for a FusedSpec + kp, or an EnsembleSpec + kps:
+    the cached plan of the spec at n_rows (`_bwd_on`) with its weight and
+    float32 buffers gathered from the parameters, one gather each."""
+    members, kps, _ = _members_of(spec, kp)
+    plan, w_index, f_index, tasks, ops = _bwd_on(spec, n_rows, kps[0]["w0i"].device)
+    cd = members[0].cdtype
+    return dataclasses.replace(plan, wts=_gather(kps, plan.w_src, w_index, cd),
+                               fpar=_gather(kps, plan.f_src, f_index, torch.float32),
+                               dev_tasks=tasks, dev_ops=ops)
+
+
+@functools.lru_cache(maxsize=16)
+def _bwd_on(spec, n_rows: int, dev: torch.device) -> tuple:
+    """(plan, w_index, f_index, tasks, ops): `_bwd_plan(spec, n_rows)` with
+    its gathers, its weight-pass tasks and, float32, its ops on `dev`,
+    cached per spec, row count and device."""
+    plan, w_index, f_index = _bwd_plan(spec, n_rows)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (plan, up(w_index.astype(np.int32)), up(f_index.astype(np.int32)), up(plan.tasks),
+            None if plan.rows90 is not None else up(plan.ops))
+
+
+def _bwd_plan(spec, n_rows: int) -> tuple:
+    """(plan without wts / fpar, w_index, f_index): the backward's program of
+    a FusedSpec or EnsembleSpec at n_rows, its buffers as gathers from the
+    concatenated parameters (`_Gather`; bf16: the row pass's slab image and
+    float32 buffer, `bwd90_plan`).
 
     The program runs each member's forward (stashing lo/hi and every layer's
     rounded activation; a ReLU layer also packs its mask as bits, and the
@@ -1057,10 +1135,11 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
     in the panels of `_wgrad_plan`. The column sums' slices follow
     `_colsum_slices`.
     """
-    members, kps, shared = _members_of(spec, kp)
+    members = list(spec.members) if isinstance(spec, EnsembleSpec) else [spec]
+    shared = isinstance(spec, EnsembleSpec)
     cd = members[0].cdtype
     bm, _ = _tiling(cd)
-    buf = _Buffers(cd, kps[0]["w0i"].device)
+    buf = _Gather()
     ops, tasks, grads = [], [], []
     sizes = {"stash": 0, "part": 0, "dw": 0, "mask": 0}
 
@@ -1076,8 +1155,8 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
                          ("out_slot", 16), ("gn", 17), ("mask_slot", 18), ("head_nout", 19),
                          ("head_w_off", 20), ("part", 21), ("g32_slot", 22), ("part2", 23)):
             w[idx] = f.get(key, -1 if key in ("mask_slot", "g32_slot") else 0)
-        for s, (src, mat) in enumerate(f.get("segs", ())):
-            w_off, kpad = buf.mat(mat, transpose=f.get("transpose", True))
+        for s, (src, key) in enumerate(f.get("segs", ())):
+            w_off, kpad = buf.mat((mi, key), sh[key], transpose=f.get("transpose", True))
             w[5 + s], w[8 + s], w[11 + s] = src, w_off, kpad
         w[4] = len(f.get("segs", ()))
         if kind == _F_IN:
@@ -1102,7 +1181,12 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
 
     plane, hvx_slot = 0, 0
     hvx_w = max((m.views_width for m in members if m.has_hvx), default=0)
-    for m, kp in zip(members, kps):
+    for mi, m in enumerate(members):
+        sh = _sm90_shapes(m)
+
+        def fvec(key):
+            return buf.fvec((mi, key), sh[key][0] * sh[key][1])
+
         if m.has_hvx and m.views_width != hvx_w:
             raise ValueError("the ensemble's hvx members must share one views width")
         if m.has_views and m.views_depth < 1:
@@ -1121,51 +1205,51 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
         # Forward, stashing every activation; h/hv: stash slots, hm/hvm: mask slots.
         h, hm = [], []
         for i in range(m.depth):
-            segs = [(_SRC_LO, kp["w0i"])] if i == 0 else [(_SRC_ACT, kp[f"w{i}"])]
+            segs = [(_SRC_LO, "w0i")] if i == 0 else [(_SRC_ACT, f"w{i}")]
             if i > 0 and (i - 1) in m.skip_layers:
-                segs.append((_SRC_LO, kp[f"w{i}i"]))
+                segs.append((_SRC_LO, f"w{i}i"))
             h.append(alloc("stash", W))
             hm.append(alloc("mask", 1))
             head = head_partials("wpo_t", "bpo", plane, m.out_p, W) if i == m.depth - 1 else {}
-            op(_F_LAYER, segs=segs, n=W, b_off=buf.fvec(kp[f"b{i}"]), flags=_FLAG_RELU,
+            op(_F_LAYER, segs=segs, n=W, b_off=fvec(f"b{i}"), flags=_FLAG_RELU,
                out_slot=h[-1], mask_slot=hm[-1], **head)
         hv, hvm = [], []
         my_hvx = -1
         if m.has_views:
             f_slot = alloc("stash", W)
-            op(_F_LAYER, segs=[(_SRC_ACT, kp["wf"])], n=W, b_off=buf.fvec(kp["bf"]), flags=0,
+            op(_F_LAYER, segs=[(_SRC_ACT, "wf")], n=W, b_off=fvec("bf"), flags=0,
                out_slot=f_slot)
             for i in range(m.views_depth):
                 if i == 0:
-                    segs = [(_SRC_ACT, kp["wv0f"])]
+                    segs = [(_SRC_ACT, "wv0f")]
                     if m.has_extra:
-                        segs.append((extra[0], kp["wv0i"]))
+                        segs.append((extra[0], "wv0i"))
                     flags = _FLAG_RELU
                     if m.has_hvx:
                         flags |= _FLAG_HVX
                         my_hvx = hvx_slot
                         hvx_slot += 1
                 else:
-                    segs, flags = [(_SRC_ACT, kp[f"wv{i}"])], _FLAG_RELU
+                    segs, flags = [(_SRC_ACT, f"wv{i}")], _FLAG_RELU
                 hv.append(alloc("stash", Wv))
                 hvm.append(alloc("mask", 1))
                 head = {}
                 if i == m.views_depth - 1:
                     head = head_partials("wvo_t", "bvo", plane + m.out_p, m.out_v, Wv)
-                op(_F_LAYER, segs=segs, n=Wv, b_off=buf.fvec(kp[f"bv{i}"]), flags=flags,
+                op(_F_LAYER, segs=segs, n=Wv, b_off=fvec(f"bv{i}"), flags=flags,
                    hvx_slot=max(my_hvx, 0), out_slot=hv[-1], mask_slot=hvm[-1], **head)
 
         # Backward, from the top.
         def back(gn, relu, mask_slot, b_key, zero=False, head=None, prod=None, g32=-1):
-            """One B_LAYER; returns its G slot. head = (plane, n_out, wt); prod = W (K, N)."""
+            """One B_LAYER; returns its G slot. head = (plane, n_out, wt key); prod = W's key, (K, N)."""
             g_slot, pdb = alloc("stash", gn), alloc("part", gn)
             g[b_key] = ("part", pdb, (1, gn))
             f = dict(gn=gn, flags=(_FLAG_RELU if relu else 0) | (_FLAG_ZERO if zero else 0),
                      mask_slot=mask_slot, out_slot=g_slot, part=pdb, g32_slot=g32)
             if head is not None:
-                f.update(plane=head[0], head_nout=head[1], head_w_off=buf.fvec(head[2]))
+                f.update(plane=head[0], head_nout=head[1], head_w_off=fvec(head[2]))
             if prod is not None:
-                f.update(segs=[(_SRC_ACT, prod)], transpose=False, n=prod.shape[0])
+                f.update(segs=[(_SRC_ACT, prod)], transpose=False, n=sh[prod][0])
             op(_B_LAYER, **f)
             return g_slot
 
@@ -1174,8 +1258,8 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
             for i in range(m.views_depth - 1, -1, -1):
                 top = i == m.views_depth - 1
                 gs = back(Wv, True, hvm[i], f"bv{i}", zero=top,
-                          head=(vplane, m.out_v, kp["wvo_t"]) if top else None,
-                          prod=kp[f"wv{i}"] if i else kp["wv0f"],
+                          head=(vplane, m.out_v, "wvo_t") if top else None,
+                          prod=f"wv{i}" if i else "wv0f",
                           g32=my_hvx if i == 0 else -1)
                 if i:
                     task(hv[i - 1], Wv, gs, Wv, Wv, Wv, f"wv{i}", g)
@@ -1183,13 +1267,13 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
                     task(f_slot, W, gs, Wv, W, Wv, "wv0f", g)
                     if m.has_extra:
                         task(extra[1], extra[2], gs, Wv, m.in_hi, Wv, "wv0i", g)
-            gs = back(W, False, -1, "bf", prod=kp["wf"])
+            gs = back(W, False, -1, "bf", prod="wf")
             task(h[-1], W, gs, W, W, W, "wf", g)
         for i in range(m.depth - 1, -1, -1):
             top = i == m.depth - 1
             gs = back(W, True, hm[i], f"b{i}", zero=top and not m.has_views,
-                      head=(plane, m.out_p, kp["wpo_t"]) if top else None,
-                      prod=kp[f"w{i}"] if i else None)
+                      head=(plane, m.out_p, "wpo_t") if top else None,
+                      prod=f"w{i}" if i else None)
             if i:
                 task(h[i - 1], W, gs, W, W, W, f"w{i}", g)
                 if (i - 1) in m.skip_layers:
@@ -1220,29 +1304,30 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
     sums = [(1, -(-n_rows // bm), sizes["part"]), (1, n_chunks, sizes["dw"]),
             (hvx_slot * (n_rows // m0.ns), m0.ns, hvx_w)]
     ops = np.asarray(ops, dtype=np.int32).reshape(-1, _BOP_WORDS)
-    wts, fpar = buf.tensors()
+    w_index, f_index = np.concatenate(buf.w_parts), np.arange(buf.f_size)
     rows90 = None
     if cd == torch.bfloat16:
         key = header.copy()
         key[1] = 0
-        rows90, w_index, f_index = _bwd90_on(key.tobytes(), ops.tobytes(), wts.numel(),
-                                             fpar.numel(), wts.device)
-        with torch.no_grad():
-            wts = torch.cat([wts, wts.new_zeros(1)]).index_select(0, w_index)
-            fpar = torch.cat([fpar, fpar.new_zeros(1)]).index_select(0, f_index)
+        rows90 = bwd90_plan(key, ops, {s for t in tasks for s in (t[0], t[2])})
+        w_index = np.where(rows90.w_index < 0, -1, w_index[rows90.w_index])
+        f_index = rows90.f_index
         smem, mask_words = rows90.smem, -(-n_rows // bm) * sizes["mask"] * _BWD90_MASK_THREADS * 4
     else:
         wm = 2
         smem = _smem(cd, lay, extra=(wm * (256 + 1) + bm) * _MAX_HEAD * 4)
         mask_words = -(-n_rows // bm) * sizes["mask"] * (32 * wm * 4) * 2
-    return BwdPlan(
-        header=header, ops=ops, tasks=jobs, wts=wts, fpar=fpar,
+    w_index = np.where(w_index < 0, buf.w_size, w_index)
+    f_index = np.where(f_index < 0, buf.f_size, f_index)
+    plan = BwdPlan(
+        header=header, ops=ops, tasks=jobs,
         stash_cols=sizes["stash"], part_w=sizes["part"], dw_total=sizes["dw"], n_chunks=n_chunks,
         chunk_rows=chunk_rows, hvx_w=hvx_w, n_hvx=hvx_slot, smem=smem, mask_words=mask_words,
         grads=grads, maps=maps, wgrad_bytes=issued,
         slices=tuple(_colsum_slices(*x)[0] for x in sums), scratch=_colsum_scratch(sums), dws=tasks,
-        rows90=rows90,
+        w_src=tuple(buf.w_src), f_src=tuple(buf.f_src), rows90=rows90,
     )
+    return plan, w_index, f_index
 
 
 # The bf16 row pass: struct bwd90::Program / bwd90::Op in
@@ -1275,8 +1360,9 @@ class Bwd90Plan:
     in 64-deep slabs of n_pad rows, 128-byte swizzled); f_index: its
     float32 buffer as a gather from the ops' (each bias padded to n_pad,
     then each head's weights [q][n_pad] for the backward op that adds
-    them); maps: (stash slot, width) of each op's tensor map; smem: bytes
-    of a block.
+    them); maps: (stash slot, width) of the tensor map of each op whose
+    slot the weight pass reads (the others' map is -1: the kernel stores
+    no stash for them); smem: bytes of a block.
     """
 
     words: np.ndarray
@@ -1286,8 +1372,9 @@ class Bwd90Plan:
     smem: int
 
 
-def bwd90_plan(header: np.ndarray, ops: np.ndarray) -> Bwd90Plan:
-    """The bf16 row pass's program from a BwdPlan's header and ops.
+def bwd90_plan(header: np.ndarray, ops: np.ndarray, read) -> Bwd90Plan:
+    """The bf16 row pass's program from a BwdPlan's header and ops; `read`:
+    the stash slots the weight pass reads.
 
     A forward op keeps its product and epilogue. A backward op of the row
     kernel is the product of the BOp before it (round(g) @ W^T, W stored
@@ -1317,7 +1404,7 @@ def bwd90_plan(header: np.ndarray, ops: np.ndarray) -> Bwd90Plan:
         src, w_off, kpad = w[5:8], w[8:11], w[11:14]
         plane, hvx_slot, out_slot, gn, mask_slot, hn, hw_off, part, g32_slot, part2 = w[14:24]
         op = dict.fromkeys(_BWD90_OP, 0)
-        op.update(kind=kind, out_slot=out_slot, map=len(maps), mask_slot=max(mask_slot, 0),
+        op.update(kind=kind, out_slot=out_slot, map=-1, mask_slot=max(mask_slot, 0),
                   g32_slot=g32_slot, src=[0] * _BWD90_MAX_SEG, kb=[0] * _BWD90_MAX_SEG)
         if kind == _F_IN:
             op["n"], op["src"][0] = gn, src[0]
@@ -1347,7 +1434,9 @@ def bwd90_plan(header: np.ndarray, ops: np.ndarray) -> Bwd90Plan:
                 op["head_w"] = fvec(np.concatenate([np.where(c < gn, hw_off + q * gn + c, -1)
                                                     for q in range(hn)]))
             pending = (w_off[0], n, kpad[0]) if nseg else None
-        maps.append((out_slot, op["n"]))
+        if out_slot in read:
+            op["map"] = len(maps)
+            maps.append((out_slot, op["n"]))
         out.append(op)
     if len(out) > _BWD90_MAX_OPS:
         raise ValueError(f"{len(out)} backward ops exceed the row kernel's {_BWD90_MAX_OPS}")
@@ -1378,20 +1467,6 @@ def bwd90_plan(header: np.ndarray, ops: np.ndarray) -> Bwd90Plan:
     words.setflags(write=False)
     return Bwd90Plan(words=words, w_index=np.concatenate(w_parts), f_index=np.concatenate(f_parts),
                      maps=tuple(maps), smem=smem(stages, rays))
-
-
-@functools.lru_cache(maxsize=64)
-def _bwd90_on(header: bytes, ops: bytes, w_size: int, f_size: int, dev: torch.device) -> tuple:
-    """(plan, w_index, f_index): `bwd90_plan` of a program (n_rows left 0)
-    with its gathers as int64 tensors on `dev`, padding (-1) pointing at
-    the zero after each buffer (w_size, f_size its index)."""
-    plan = bwd90_plan(np.frombuffer(header, dtype=np.int32),
-                      np.frombuffer(ops, dtype=np.int32).reshape(-1, _BOP_WORDS))
-
-    def index(i, size):
-        return torch.from_numpy(np.where(i < 0, size, i)).to(dev)
-
-    return plan, index(plan.w_index, w_size), index(plan.f_index, f_size)
 
 
 def unpack_grads(plan: BwdPlan, dw, part) -> list:
@@ -1490,8 +1565,6 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    ops = torch.from_numpy(plan.ops).to(dev) if plan.rows90 is None else None  # bf16: in `header`
-    tasks = torch.from_numpy(plan.tasks).to(dev)
     stash = torch.empty(plan.stash_cols * n, dtype=cd, device=dev)
     g32 = f32(max(plan.n_hvx * n * plan.hvx_w, 1))
     masks = torch.empty(max(plan.mask_words, 2), dtype=torch.int32, device=dev)
@@ -1508,9 +1581,9 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
         maps = np.concatenate([np.asarray(row_maps, dtype=np.int64).reshape(-1, 4), plan.maps])
     lib = build.load_library("fused_mlp_bwd")
     args = [1 if cd == torch.bfloat16 else 0, header.ctypes.data_as(ctypes.c_void_p),
-            int(header.size), _ptr(ops), _ptr(lo)]
+            int(header.size), _ptr(plan.dev_ops), _ptr(lo)]
     args += [_ptr(hi)] if entry == "snerf_fused_mlp_bwd" else []
-    args += [_ptr(hvx), _ptr(d_planes), _ptr(plan.wts), _ptr(plan.fpar), _ptr(tasks),
+    args += [_ptr(hvx), _ptr(d_planes), _ptr(plan.wts), _ptr(plan.fpar), _ptr(plan.dev_tasks),
              len(plan.tasks), plan.n_chunks, plan.chunk_rows, plan.dw_total,
              plan.n_hvx * (n // ns), _ptr(stash), _ptr(g32), _ptr(masks), _ptr(parts),
              _ptr(part_out), _ptr(dw_part), _ptr(dw_out), _ptr(dhvx),

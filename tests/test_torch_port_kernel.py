@@ -338,7 +338,8 @@ def _bwd90_slabs(plan):
 
 def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
     """The bf16 row pass's program, run as fused_mlp_bwd_rows_sm90_kernel
-    runs it, tile by tile: (stash, g32, per-tile partials)."""
+    runs it, tile by tile: (stash, g32, per-tile partials). An op with no
+    tensor map stores no stash: its slot stays zero."""
     hdr, ops = _bwd90_ops(plan.rows90.words)
     ns, in_lo, in_hi, lo_kb, hi_kb, act_kb = hdr[2:8]
     slot_bytes, part_w, n_maps = hdr[8], hdr[12], hdr[14]
@@ -354,6 +355,11 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
     def slot(off, w):
         return stash[off * n : (off + w) * n].view(n, w)
 
+    def store(op, rows, v):
+        if op["map"] >= 0:
+            assert plan.rows90.maps[op["map"]] == (op["out_slot"], op["n"])
+            slot(op["out_slot"], op["n"])[rows] = v[:, : op["n"]]
+
     for t in range(n_tiles):
         rows = slice(t * bm, min(n, (t + 1) * bm))
         r = rows.stop - rows.start
@@ -365,9 +371,8 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
         masks = {}
         for op, segs in zip(ops, mats):
             kind, width, n_pad, flags = op["kind"], op["n"], op["n_pad"], op["flags"]
-            assert plan.rows90.maps[op["map"]] == (op["out_slot"], width)
             if kind == fused_mlp._F_IN:
-                slot(op["out_slot"], width)[rows] = tiles[op["src"][0]][:, :width]
+                store(op, rows, tiles[op["src"][0]])
                 continue
             assert n_pad in (64, 128, 256) and n_pad * 128 <= slot_bytes and n_pad <= 64 * act_kb
             acc = torch.zeros((r, n_pad))
@@ -382,7 +387,7 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
                     v = torch.relu(v)
                     masks[op["mask_slot"]] = v.to(cd).float() > 0
                 tiles[fused_mlp._SRC_ACT] = v.to(cd)
-                slot(op["out_slot"], width)[rows] = v.to(cd)[:, :width]
+                store(op, rows, v.to(cd))
                 if op["head_nout"]:  # the head this layer feeds: partials of its rounded activation
                     hn = op["head_nout"]
                     parts[t, op["part"] : op["part"] + hn * width] = (
@@ -398,7 +403,7 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
             if op["g32_slot"] >= 0:
                 g32[op["g32_slot"], rows] = acc[:, :width]
             tiles[fused_mlp._SRC_ACT] = acc.to(cd)
-            slot(op["out_slot"], width)[rows] = acc.to(cd)[:, :width]
+            store(op, rows, acc.to(cd))
             parts[t, op["part"] : op["part"] + width] = acc[:, :width].sum(0)
     return stash, g32, parts
 
@@ -704,6 +709,66 @@ def test_bwd90_slab_image_unswizzles_to_padded_weights(name):
                                        msg=f"op {i} segment {s}")
 
 
+@pytest.mark.parametrize("name", sorted(BWD90_CASES))
+def test_bwd90_maps_are_the_slots_the_weight_pass_reads(name):
+    """The bf16 row pass stores a stash slot (has a tensor map for it) iff
+    the weight pass reads it, each such slot once; the slots it skips are
+    the activations that feed only a head, whose dW the row pass forms."""
+    spec, kp, lo, *_ = _bwd90_operands(name)
+    plan = fused_mlp.pack_bwd_program(spec, kp, lo.shape[0])
+    _, ops = _bwd90_ops(plan.rows90.words)
+    read = {s_: w for a, aw, g_, gw, *_ in plan.dws for s_, w in ((a, aw), (g_, gw))}
+    mapped = [(op["out_slot"], op["n"]) for op in ops if op["map"] >= 0]
+    assert [ops[i]["map"] for i in range(len(ops)) if ops[i]["map"] >= 0] == list(range(len(mapped)))
+    assert list(plan.rows90.maps) == mapped and dict(mapped) == read
+    skipped = [op for op in ops if op["map"] < 0]
+    assert skipped and all(op["kind"] == fused_mlp._F_LAYER and op["head_nout"] for op in skipped)
+
+
+@pytest.mark.parametrize("name", sorted(BWD90_CASES))
+def test_f32_bwd_buffer_holds_each_ops_padded_weight(name):
+    """The float32 backward's weight buffer, gathered from the parameters,
+    holds at each op's offsets what `_Buffers` stores for it: a forward op's
+    W^T, a backward op's W, rows zero-padded to 16 columns."""
+    spec, kp, lo, *_ = _bwd90_operands(name)
+    spec = _f32_twin(spec)
+    plan = fused_mlp.pack_bwd_program(spec, kp, lo.shape[0])
+    members, kps, _ = fused_mlp._members_of(spec, kp)
+    buf = fused_mlp._Buffers(torch.float32, "cpu")
+    srcs = iter(plan.w_src)
+    for op in plan.ops.tolist():
+        for s_ in range(op[4]):
+            mi, key = next(srcs)
+            assert buf.mat(kps[mi][key], transpose=op[0] == fused_mlp._F_LAYER) == (op[8 + s_],
+                                                                                   op[11 + s_])
+    assert next(srcs, None) is None
+    assert torch.equal(plan.wts, torch.cat(buf.mats))
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_bwd_plan_cached_per_spec_but_buffers_follow_the_weights(dtype_name):
+    """pack_bwd_program reuses the plan of a spec and row count, but gathers
+    its buffers from the parameters of each call: new weights give the
+    program of new weights, which runs to their plain backward."""
+    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+    spec, kp, lo, hi, hvx, d_planes = _bwd90_operands("main")
+    if dtype == torch.float32:
+        spec, lo, hi = _f32_twin(spec), lo.float(), hi.float() if hi is not None else None
+    a = fused_mlp.pack_bwd_program(spec, kp, lo.shape[0])
+    g = torch.Generator().manual_seed(9)
+    kp2 = {k: v + 0.1 * torch.randn(v.shape, generator=g) for k, v in kp.items()}
+    b = fused_mlp.pack_bwd_program(spec, kp2, lo.shape[0])
+    assert a.header is b.header and a.rows90 is b.rows90 and a.dev_tasks is b.dev_tasks
+    assert not torch.equal(a.wts, b.wts) and not torch.equal(a.fpar, b.fpar)
+    want, want_hvx = fused_mlp.fused_bwd_reference(spec, kp2, lo, hi, hvx[0] if hvx else None,
+                                                   d_planes)
+    (got,), got_hvx = _run_bwd_program(spec, kp2, lo, hi, hvx, d_planes)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    _assert_grads_close(got, want, tol)
+    if hvx:
+        _assert_grads_close({"h": got_hvx[0]}, {"h": want_hvx}, tol)
+
+
 def _cuh_ints(text: str, names: dict) -> dict:
     """The `constexpr int` / `bool` constants of a header, evaluated in order."""
     vals = dict(names)
@@ -782,7 +847,8 @@ def test_bwd90_plan_fits_shared_memory(trio):
                + 2 * 4 * (h["cst_floats"] + fused_mlp._BWD90_DP)
                + 4 * (fused_mlp._BWD90_RED + fused_mlp._BWD90_XFER) + fused_mlp._BWD90_BARRIERS)
     assert plan.smem == regions <= fused_mlp._SMEM_LIMIT
-    assert len(ops) <= fused_mlp._BWD90_MAX_OPS and h["n_maps"] == len(ops)
+    read = {s for a, _, g_, *_ in plan.dws for s in (a, g_)}
+    assert len(ops) <= fused_mlp._BWD90_MAX_OPS and h["n_maps"] == len(read) < len(ops)
     heads = [op["head_nout"] for op in ops if op["kind"] == fused_mlp._B_LAYER and op["head_nout"]]
     # 4 channels: the Lambertian member's points head (sigma and rgb), the
     # visibility member's views head (rgb and visibility)
@@ -840,8 +906,7 @@ def test_backward_probe_edits_match_the_kernel_sources(table, monkeypatch):
     edits = getattr(probe, table)
     variants = probe.VARIANTS if table == "EDITS" else {**probe.TIMING, **probe.WGRAD_TIMING}
     for name, parts in variants.items():
-        if not any(e in name for e in probe._EARLIER):  # earlier row passes' splits (--parent)
-            _edited_sources(parts, edits)  # raises on an edit that no longer matches
+        _edited_sources(parts, edits)  # raises on an edit that no longer matches
 
 
 @pytest.mark.parametrize("n", [37, 1000, 4165])

@@ -5,7 +5,7 @@ differs at all.
 
     python3 tools/probe_fused_mlp_bwd.py                 # broken variants, splits
     python3 tools/probe_fused_mlp_bwd.py --timing        # the splits only
-    python3 tools/probe_fused_mlp_bwd.py --parent DIR    # the splits of DIR's kernel
+    python3 DIR/tools/probe_fused_mlp_bwd.py --timing    # another checkout's, by its own probe
 
 Needs one CUDA card. Each variant is simplenerf_torch/ops/csrc/fused_mlp_bwd.cu
 (with the headers it includes) with text edits, built with the port's nvcc
@@ -47,8 +47,7 @@ around the library call at the training step's shapes: the fine MLP (4096
 x 192, bf16) and the coarse trio through the ensemble program (4096 x 64,
 bf16). A time difference bounds what the removed part costs, as the parts
 overlap. Each row kernel's ptxas registers and spill bytes are printed
-beside its times. With --parent the "(mma.sync)" and "(v3)" splits, which
-match earlier row passes, are timed instead.
+beside its times.
 
 Weight-pass split: the weight pass's device time (torch.profiler) in the
 same backward calls, whole, with its loads only (no products) and with its
@@ -59,9 +58,9 @@ as it runs, beside the stash bytes its producers issue (a count from the
 plan); the plan at other chunk counts; and one torch.matmul of the two
 slots per dW as the library's yardstick.
 
-A variant whose edits do not match the sources is skipped. `--parent DIR`
-builds and times the kernel of another checkout instead (its package,
-sources and wrappers; for example a `git archive` of an earlier commit).
+A variant whose edits do not match the sources is skipped. To time an
+earlier commit's kernel, unpack a `git archive` of it and run the probe of
+that checkout.
 
 Then, for the unedited kernel at 1037 x 192: the ReLU masks of the
 activations the kernel stashed against those of the plain version (the
@@ -91,9 +90,6 @@ sys.path.insert(0, str(REPO / "tools"))
 def _args():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--timing", action="store_true", help="only the row- and weight-pass splits")
-    ap.add_argument("--parent", type=Path,
-                    help="a checkout of an earlier commit whose kernel (and its wrappers) to time "
-                         "instead of this one's; implies --timing")
     ap.add_argument("--check", nargs=3, metavar=("NAME", "LIB", "CASES"),
                     help="(internal) check one built variant against saved cases, in this process")
     return ap.parse_args()
@@ -104,8 +100,6 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402  (this checkout's: its helpers import the package lazily)
 
-if ARGS.parent:  # the package, its kernel sources and wrappers from the other checkout
-    sys.path.insert(0, str(ARGS.parent.resolve()))
 from probe_fused_mlp import _build  # noqa: E402
 from simplenerf_torch.fields.mlp import MLPConfig  # noqa: E402
 from simplenerf_torch.ops import build, fused_mlp  # noqa: E402
@@ -191,12 +185,6 @@ SHAPES = [(1037, 64, torch.bfloat16), (1037, 192, torch.float32), (1037, 192, to
           (chip_smoke.STEP_RAYS, 192, torch.bfloat16)]
 
 # Timing-only parts: the row pass alone, and parts of it removed or changed.
-# The "(v3)" parts match the first row pass (mask copied back into the
-# shared tile, head partials re-read from the stash, stash copies with
-# write-back stores), the "(mma.sync)" parts the mma.sync row pass that the
-# wgmma one replaced; the others match this one.
-_STASH = "      __stcs(reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * width + q * kElems),"
-_STASH_V3 = "      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * width + q * kElems) ="
 _ROWS_ONLY = "static_cast<float*>(b.parts));\n  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);\n  rc = wgrad_launch("
 _F_EPILOGUE = "  f_epilogue<N>(acc, op, x, cst, hvx, tmask + op.mask_slot * kMaskThreads);"
 _B_EPILOGUE = "  named_sync(1 + x.c);  // every reader of the tile (stash stores, head partials) is done"
@@ -221,34 +209,10 @@ TIMING_EDITS = {
                        "const bool on = true;")],
     "no evict-first hint": [(_ROWS, "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%1, %2}], [%3], %4;",
                              "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];")],
-    "rows only": [(_BWD, "static_cast<float*>(b.g32), static_cast<uint2*>(b.masks), static_cast<float*>(b.parts));\n"
-                         "  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);",
-                   "static_cast<float*>(b.g32), static_cast<uint2*>(b.masks), static_cast<float*>(b.parts));\n"
-                   "  return static_cast<int>(cudaGetLastError());")],
-    "mask reload (v3)": [(_BWD, "if (op.flags & FLAG_RELU) {  // the activation whose mask g takes",
-                          "if (false) {")],
-    "head partials (v3)": [(_BWD, "      head_partials(op, p, stash, dplanes, part, row0, tid);", "")],
-    "head add (v3)": [(_BWD, "for (int q = 0; q < hn; ++q) {\n            const float d = dp[",
-                       "for (int q = 0; q < 0; ++q) {\n            const float d = dp[")],
-    "stash stores (v3)": [(_BWD, "    if (row0 + r < n_rows)\n" + _STASH_V3, "    if (false)\n" + _STASH_V3)],
-    "streaming stores (v3)": [(_BWD, _STASH_V3 + "\n          *reinterpret_cast<const uint4*>(tile + r * ld + q * kElems);",
-                               "      __stcs(reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * width + q * kElems),\n"
-                               "          *reinterpret_cast<const uint4*>(tile + r * ld + q * kElems));")],
-    "mask words": [(_BWD, "mk = tile_masks[p.op(i).mask_slot * Block<T>::kThreads];",
-                    "mk = make_uint2(~0u, ~0u);"),
-                   (_BWD, "if (flags & FLAG_RELU) *mask = make_uint2(bits[0], bits[1]);", "")],
-    "head partials": [(_BWD, "const bool head = op.head_nout > 0;", "const bool head = false;")],
-    "head add": [(_BWD, "if (op.head_nout > 0) add_head<T>(", "if (false) add_head<T>(")],
-    "stash stores": [(_BWD, "    if (row0 + r < n_rows)\n" + _STASH, "    if (false)\n" + _STASH)],
-    "write-back stores": [(_BWD, _STASH + "\n             *reinterpret_cast<const uint4*>(tile + r * ld + q * kElems));",
-                           _STASH_V3 + "\n             *reinterpret_cast<const uint4*>(tile + r * ld + q * kElems);")],
-    # every tile's rows to one 64 KB window of each slot, which stays in L2
-    "L2 window": [(_BWD, _STASH, _STASH.replace("(row0 + r)", "r"))],
     "wgrad loads only": [(_WG, _WG_PRODUCTS, "")],
     "wgrad products only": [(_WG, "    mbar_expect_tx(full + s, bytes);\n    load_stage(",
                              "    mbar_arrive(full + s);\n    if (false) load_stage(")],
 }
-_V3 = ["mask reload (v3)", "head partials (v3)", "head add (v3)", "stash stores (v3)"]
 _NO_EPILOGUES = ["bf16 rows only", "no stash stores", "no head partials", "no backward epilogue",
                  "no forward epilogue"]
 TIMING = {
@@ -262,23 +226,7 @@ TIMING = {
     "row pass without the db hand-over": ["bf16 rows only", "no db hand-over"],
     "row pass without the backward ops' masks": ["bf16 rows only", "no mask apply"],
     "row pass, TMA stash stores without the evict-first hint": ["bf16 rows only", "no evict-first hint"],
-    "row pass (mma.sync)": ["rows only"],
-    "row pass without mask reloads (v3)": ["rows only", "mask reload (v3)"],
-    "row pass without head partials (v3)": ["rows only", "head partials (v3)"],
-    "row pass without the epilogue's head add (v3)": ["rows only", "head add (v3)"],
-    "row pass without stash stores (v3)": ["rows only", "stash stores (v3)"],
-    "row pass without all four (v3)": ["rows only", *_V3],
-    "row pass with streaming stash stores (v3)": ["rows only", "streaming stores (v3)"],
-    "row pass without mask words (mma.sync)": ["rows only", "mask words"],
-    "row pass without head partials (mma.sync)": ["rows only", "head partials"],
-    "row pass without the epilogue's head add (mma.sync)": ["rows only", "head add"],
-    "row pass without stash stores (mma.sync)": ["rows only", "stash stores"],
-    "row pass without all four (mma.sync)": ["rows only", "mask words", "head partials", "head add",
-                                         "stash stores"],
-    "row pass with write-back stash stores (mma.sync)": ["rows only", "write-back stores"],
-    "row pass, stash stores to an L2 window (mma.sync)": ["rows only", "L2 window"],
 }
-_EARLIER = ("(v3)", "(mma.sync)")  # splits of earlier row passes, timed with --parent
 # Weight-pass split: the whole backward runs; the weight pass's own device time is read.
 WGRAD_TIMING = {
     "weight pass": [],
@@ -379,7 +327,10 @@ class _Recorder:
 
 def stashed_activations(ops, dp):
     """Run the kernel; return its gradients and the activations it stashed,
-    as (trunk list, feature, views list) shaped like the plain version's."""
+    as (trunk list, feature, views list) shaped like the plain version's.
+    The bf16 row pass stores no slot for a layer that only feeds a head (the
+    last views layer): that one is recomputed from the kernel's stashed
+    trunk by the plain version."""
     spec, kp, lo, hi, hvx = ops
     n = lo.shape[0]
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
@@ -393,7 +344,13 @@ def stashed_activations(ops, dp):
     layers = [(int(w[16]), int(w[1])) for w in plan.ops if w[0] == fused_mlp._F_LAYER]  # (slot, n)
     acts = [stash[s * n : (s + w) * n].view(n, w) for s, w in layers]
     d = spec.depth
-    return (dkp, dhvx), (acts[:d], acts[d], acts[d + 1 :])
+    hs, f, hvs = acts[:d], acts[d], acts[d + 1 :]
+    if plan.rows90 is not None:
+        stored = {s for s, _ in plan.rows90.maps}
+        assert all(s in stored for s, _ in layers[: d + 1])
+        _, again = fused_mlp._views_forward(spec, kp, hs[-1], hi, hvx)
+        hvs = [a if s in stored else b for (s, _), a, b in zip(layers[d + 1 :], hvs, again)]
+    return (dkp, dhvx), (hs, f, hvs)
 
 
 def explain(ops, dp, dname: str) -> None:
@@ -570,9 +527,8 @@ def main() -> int:
         raise SystemExit("the probe needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"{chip_smoke.card_line()}; kernel sources {build.CSRC}", flush=True)
-    broken = {} if ARGS.timing or ARGS.parent else VARIANTS
-    timing = {name: parts for name, parts in TIMING.items()
-              if any(e in name for e in _EARLIER) == bool(ARGS.parent) and _applies(parts, TIMING_EDITS)}
+    broken = {} if ARGS.timing else VARIANTS
+    timing = {name: parts for name, parts in TIMING.items() if _applies(parts, TIMING_EDITS)}
     wtiming = {name: parts for name, parts in WGRAD_TIMING.items() if _applies(parts, TIMING_EDITS)}
     skipped = [name for name in [*TIMING, *WGRAD_TIMING] if name not in {**timing, **wtiming}]
     if skipped:

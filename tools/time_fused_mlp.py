@@ -13,6 +13,10 @@ trio at 4096 x 64 (seed 5). Each wrapper is timed three ways:
   - CUDA events around `iters` calls after one warm-up, as chip_smoke.py
     does (10 calls for a forward, 5 for a backward), and around 20 calls
     for a forward, as the probe does;
+  - the host's time per call until the wrapper returns (`host_ms`, the
+    perf counter around the same calls, no synchronisation inside the
+    loop): above the device time, the wrapper is bound by the host (a
+    wrapper that synchronises inside waits for the card there too);
   - torch.profiler over 5 calls: per call, the device time of the kernel
     itself (the events whose name holds "fused_mlp" or "colsum") and of
     every device operation the call issues (the packing included); for a
@@ -60,12 +64,29 @@ def profile_ms(fn, calls: int = 5) -> tuple[float, float]:
     return kernel, total
 
 
+def host_ms(fn, iters: int) -> float:
+    """Host milliseconds per call of fn until it returns, after a warm-up."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = 1e3 * (time.perf_counter() - start) / iters
+    torch.cuda.synchronize()
+    return ms
+
+
 def timings(fn, iters: tuple[int, ...], plan=None) -> dict:
     """Event and profiler times of fn; with a backward's plan, also its
     passes (row, weight, column sums, each column sum apart)."""
     import chip_smoke
 
     out = {f"events_{n}": chip_smoke.cuda_time_ms(fn, iters=n) for n in iters}
+    out["host_ms"] = host_ms(fn, iters[0])
     out["kernel_ms"], out["device_ms"] = profile_ms(fn)
     if plan is not None:  # a parent's plan may have no slices: one launch a sum
         sums = tuple(2 if n > 1 else 1 for n in getattr(plan, "slices", (1, 1, 1)))
