@@ -28,18 +28,26 @@ without a result):
      against the plain path;
   5. train: on the same scene, the published bf16 recipe with the
      consistency ramp at 10 so that all nine losses carry weight,
-     `runner.start_training` for 40 steps: a checkpoint and
-     logs/scalars.jsonl appear, every loss is finite, MSE01 falls, and the
-     launch counters show one ensemble forward, one ensemble backward, one
-     forward and one backward per step; then one step's parameter
-     gradients through the kernels against the plain versions swapped in
-     (same params, batch and draws), in float32 and bfloat16;
+     `runner.start_training` for 40 steps in 4 chunks of 10
+     (`steps_per_call`: each chunk replays one CUDA graph of the step,
+     captured after the first step): a checkpoint and logs/scalars.jsonl
+     appear, every loss is finite, MSE01 falls, and the launch counters
+     show one ensemble forward, one ensemble backward, one forward and one
+     backward per step; then 10 steps through the graph against 10 through
+     the loop from the same initialization and draws, twice: parameters,
+     Adam's mu, nu and count and the loss values, equal to the bit or no
+     further from the loop than a second loop run is (both printed); then
+     one step's parameter gradients through the kernels against the plain
+     versions swapped in (same params, batch and draws), in float32 and
+     bfloat16;
   6. parallel: ray-sharded training on the same scene with the same
      recipe, 6 steps each: (a) the in-process Trainer without a mesh;
      (b) one NCCL rank, a subprocess of tools/multiprocess_worker_torch.py
      with torchrun's environment, through
      `parallel.initialize_distributed`, `make_mesh` and
-     `runner.start_training(mesh=)`; (c) two gloo ranks of it sharing the
+     `runner.start_training(mesh=)`, its 6 steps one chunk through the CUDA
+     graph (`--steps-per-call 6`: step 6's loss values held, and the
+     parameters' equality to (a)'s printed); (c) two gloo ranks of it sharing the
      card (NCCL refuses two ranks on one device), rank 0 rendering the
      2048 NeRF rows and rank 1 the 2048 sparse-depth rows. Step 1's flat
      gradient (max abs error over the largest) and every step's loss
@@ -101,9 +109,14 @@ without a result):
      weight pass's bound from the distinct stash slots it reads (beside
      its FLOP bound), the stash bytes its producers issue, per-dW
      torch.matmul on a seeded stash of the step's shape and torch.sum at
-     each column sum's shape; seconds per training step (median of 40
-     after 3 of warm-up), rays/s, and a torch.profiler breakdown of the
-     step's device time by kernel.
+     each column sum's shape; seconds per training step through the loop
+     (median of 40 after 3 of warm-up) and through the CUDA graph (median
+     of 5 calls of `train_many(k=40)` after one that captures), rays/s,
+     each one's device busy share from a torch.profiler breakdown of the
+     step's device time by kernel (3 loop steps, 10 replayed steps: the
+     replays must run each kernel of ops/csrc as often per step as the
+     loop), peak device memory allocated and reserved, and the capture's
+     time.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON (`launches` from the 40-step training run,
 `launches_parallel` from phase 6, summed over its ranks of (b) and (c),
@@ -458,7 +471,9 @@ def train_config(**overrides) -> dict:
 
 
 def train(work: Path, db: Path) -> dict:
-    """The training path through `runner.start_training`; returns its launches."""
+    """The training path through `runner.start_training`, in chunks of
+    TRAIN_CHUNK steps (each a CUDA graph's replays, the first of the first
+    chunk its warm-up); returns its launches."""
     import numpy as np
     import torch
 
@@ -466,6 +481,7 @@ def train(work: Path, db: Path) -> dict:
     from simplenerf_torch.ops import fused_mlp
 
     cfg = train_config()
+    cfg["steps_per_call"] = TRAIN_CHUNK
     steps = cfg["num_iterations"]
     counters = (fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd, fused_mlp.fused_apply,
                 fused_mlp.fused_bwd)
@@ -477,8 +493,9 @@ def train(work: Path, db: Path) -> dict:
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     launches = {f.__name__: f.launches for f in counters}
-    print(f"train: start_training, {steps} steps of the published bf16 recipe in {t_train:.1f} s "
-          f"incl. set-up; launches {launches}", flush=True)
+    print(f"train: start_training, {steps} steps of the published bf16 recipe in chunks of "
+          f"{TRAIN_CHUNK} in {t_train:.1f} s incl. set-up and capture; launches {launches}",
+          flush=True)
     if any(n != steps for n in launches.values()):
         fail(f"expected {steps} launches of each kernel, got {launches}")
     scene = run_dir / "blobs"
@@ -493,6 +510,69 @@ def train(work: Path, db: Path) -> dict:
     if not rows[-1]["MSE01"] < rows[0]["MSE01"]:
         fail("MSE01 did not fall during training")
     return {"launches": launches, "s": t_train, "run_dir": run_dir}
+
+
+TRAIN_CHUNK = 10
+GRAPH_STEPS = 10
+
+
+def graph_vs_loop(db: Path) -> dict:
+    """GRAPH_STEPS steps of the published bf16 recipe from one
+    initialization with the same draws, in three fresh Trainers: twice
+    through the loop (`train_one_iter`), once through the CUDA graph
+    (`train_many` in two calls of half the steps: a warm-up step, the
+    capture and replays, then replays of the same graph). The parameters,
+    Adam's mu, nu and count and every loss value at both halves' ends are
+    held as the largest absolute difference from the first loop run: the
+    graph's may be no larger than the second loop run's. Both, and whether
+    each is equal to the bit, are printed."""
+    import torch
+
+    from simplenerf_torch.data.factory import get_data_loader
+    from simplenerf_torch.data.preprocessor import ScenePreprocessor
+    from simplenerf_torch.ops import fused_mlp
+    from simplenerf_torch.training.trainer import Trainer
+
+    saved = fused_mlp.launch_counts()
+    cfg = train_config()
+    cfg["resume_training"] = False
+    raw = get_data_loader(cfg, db, "train").load_data()
+    half = GRAPH_STEPS // 2
+
+    def run(graph: bool) -> dict:
+        with tempfile.TemporaryDirectory() as tmp:
+            t = Trainer(cfg, Path(tmp), ScenePreprocessor(cfg, "train", raw))
+            if graph:
+                values = [t.train_many(0, half), t.train_many(half, GRAPH_STEPS - half)]
+            else:
+                values = [t.train_one_iter(it) for it in range(GRAPH_STEPS)]
+                values = [values[half - 1], values[-1]]
+            state = {"params": torch.cat([p.detach().reshape(-1) for p in t.leaves]),
+                     "mu": t.opt_state["mu"], "nu": t.opt_state["nu"],
+                     "count": torch.tensor([float(t.opt_state["count"])]),
+                     "values": torch.stack([v[k] for v in values for k in sorted(v)])}
+            state = {k: v.detach().float().cpu() for k, v in state.items()}
+            t.logger.close()
+        torch.cuda.empty_cache()
+        return state
+
+    a, b, g = run(False), run(False), run(True)
+    fused_mlp.add_launches({k: n - fused_mlp.launch_counts()[k] for k, n in saved.items()})
+    out = {}
+    for k in a:
+        if not all(torch.isfinite(x[k]).all() for x in (a, b, g)):
+            fail(f"graph vs loop: {k} not finite")
+        out[k] = {"graph_max_abs_diff": float((g[k] - a[k]).abs().max()),
+                  "loop_max_abs_diff": float((b[k] - a[k]).abs().max()),
+                  "graph_equal": bool(torch.equal(g[k], a[k])),
+                  "loop_equal": bool(torch.equal(b[k], a[k]))}
+        r = out[k]
+        print(f"graph vs loop, {GRAPH_STEPS} steps: {k}: graph equal to the loop to the bit: "
+              f"{r['graph_equal']} (max abs diff {r['graph_max_abs_diff']:.3e}); a second loop "
+              f"run: {r['loop_equal']} ({r['loop_max_abs_diff']:.3e})", flush=True)
+        if r["graph_max_abs_diff"] > r["loop_max_abs_diff"]:
+            fail(f"graph vs loop: {k} differs from the loop by more than the loop from itself")
+    return out
 
 
 def step_gradients(db: Path, dtype_name: str, make_config=None, label: str = "") -> dict:
@@ -759,9 +839,17 @@ def time_train_kernels() -> dict:
     return out
 
 
-def step_time(db: Path, warmup: int = 3, steps: int = 40) -> dict:
-    """Seconds per training step of the published bf16 recipe (host clock
-    around each step ending in a synchronisation; median after warm-up)."""
+def step_time(db: Path, warmup: int = 3, steps: int = 40, graph_calls: int = 5) -> dict:
+    """Seconds per training step of the published bf16 recipe, through the
+    loop and through the CUDA graph, each in a fresh Trainer: the loop's
+    host clock around each `train_one_iter` ending in a synchronisation
+    (median of `steps` after `warmup`); the graph's around each call of
+    `train_many(it, steps)` (a warm-up call that captures, then the median
+    of `graph_calls` calls, per step). Beside each: a torch.profiler window
+    (3 loop steps, 10 replayed steps: device time and busy share, kernels
+    per step) and the peak device memory allocated and reserved; the
+    graph's capture time. The replayed window must run each kernel of
+    ops/csrc as many times per step as the loop's window."""
     import torch
 
     from simplenerf_torch.data.factory import get_data_loader
@@ -769,46 +857,86 @@ def step_time(db: Path, warmup: int = 3, steps: int = 40) -> dict:
     from simplenerf_torch.ops import fused_mlp
     from simplenerf_torch.training.trainer import Trainer
 
-    saved = {f: f.launches for f in (fused_mlp.fused_apply, fused_mlp.fused_bwd,
-                                     fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd)}
+    saved = fused_mlp.launch_counts()
     cfg = train_config()
     cfg["resume_training"] = False
     raw = get_data_loader(cfg, db, "train").load_data()
-    with tempfile.TemporaryDirectory() as tmp:
-        trainer = Trainer(cfg, Path(tmp), ScenePreprocessor(cfg, "train", raw))
-        times = []
+    out = {}
+    for mode in ("loop", "graph"):
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for it in range(warmup + steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trainer.train_one_iter(it)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        busy = profile_steps(trainer, warmup + steps, 3)
-    for f, n in saved.items():
-        f.launches = n
-    s = statistics.median(times[warmup:])
-    rays = trainer.train_pp.num_rays + trainer.train_pp.num_rays_sparse_depth
-    print(f"train step: median {s * 1e3:.2f} ms over {steps} steps after {warmup} warm-up "
-          f"(min {min(times[warmup:]) * 1e3:.2f}, max {max(times[warmup:]) * 1e3:.2f}); "
-          f"{rays / s:.0f} rays/s; device busy {100 * busy['device_ms_per_step'] / (s * 1e3):.1f} % "
-          f"of the median step; peak device memory {peak_gb:.2f} GiB", flush=True)
-    return {"s_per_step": s, "rays_per_s": rays / s, "peak_gb": peak_gb, **busy}
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(cfg, Path(tmp), ScenePreprocessor(cfg, "train", raw))
+            rays = trainer.train_pp.num_rays + trainer.train_pp.num_rays_sparse_depth
+            times = []
+            if mode == "loop":
+                for it in range(warmup + steps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trainer.train_one_iter(it)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                times, it = times[warmup:], warmup + steps
+                first_s = capture_s = None
+            else:
+                it = 0
+                for _ in range(1 + graph_calls):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trainer.train_many(it, steps)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) / steps)
+                    it += steps
+                first_s, times = times[0] * steps, times[1:]
+                capture_s = trainer._graph.capture_s
+            peak_gb = torch.cuda.max_memory_allocated() / 2**30
+            reserved_gb = torch.cuda.max_memory_reserved() / 2**30
+            prof = profile_steps(trainer, it, 3 if mode == "loop" else 10, graph=mode == "graph")
+            trainer.logger.close()
+            del trainer
+        s = statistics.median(times)
+        row = {"s_per_step": s, "rays_per_s": rays / s, "steps_timed": len(times),
+               "min_s": min(times), "max_s": max(times), "peak_gb": peak_gb,
+               "reserved_gb": reserved_gb, "busy": prof["device_ms_per_step"] / (s * 1e3), **prof}
+        if mode == "graph":
+            row.update(first_call_s=first_s, capture_s=capture_s)
+        out[mode] = row
+        print(f"train step ({mode}): median {s * 1e3:.2f} ms over {len(times)} "
+              f"{'steps' if mode == 'loop' else 'calls of ' + str(steps) + ' steps'} after "
+              f"{'3 steps' if mode == 'loop' else 'one call'} of warm-up (min {min(times) * 1e3:.2f}, "
+              f"max {max(times) * 1e3:.2f}); {rays / s:.0f} rays/s; device busy "
+              f"{100 * row['busy']:.1f} % of the median step; peak device memory {peak_gb:.2f} GiB "
+              f"allocated, {reserved_gb:.2f} GiB reserved"
+              + (f"; first call {first_s:.2f} s, capture {capture_s:.3f} s" if mode == "graph" else ""),
+              flush=True)
+    fused_mlp.add_launches({k: n - fused_mlp.launch_counts()[k] for k, n in saved.items()})
+    loop_k, graph_k = out["loop"]["csrc_kernels"], out["graph"]["csrc_kernels"]
+    print(f"train step: ops/csrc kernels per step, loop {loop_k}, replayed {graph_k}", flush=True)
+    if not loop_k or graph_k != loop_k:
+        fail("the replayed steps do not run the loop's kernels once per step each")
+    return out
 
 
-def profile_steps(trainer, start: int, steps: int) -> dict:
-    """Device time by kernel over `steps` training steps (torch.profiler's
-    CUDA kernel events; the profiler's own host cost makes its wall clock
-    no step time)."""
+CSRC_KERNEL = re.compile(r"fused_mlp_\w*kernel|colsum_kernel")
+
+
+def profile_steps(trainer, start: int, steps: int, graph: bool = False) -> dict:
+    """Device time by kernel over `steps` training steps from `start`, one
+    `train_one_iter` each or (`graph`) one `train_many` replaying a captured
+    graph (torch.profiler's CUDA kernel events; the profiler's own host cost
+    makes its wall clock no step time). `csrc_kernels`: the launches per
+    step of each kernel of ops/csrc, by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for it in range(start, start + steps):
-            trainer.train_one_iter(it)
+        if graph:
+            trainer.train_many(start, steps)
+        else:
+            for it in range(start, start + steps):
+                trainer.train_one_iter(it)
         torch.cuda.synchronize()
     kernels: dict = {}
     for e in prof.events():
@@ -816,13 +944,20 @@ def profile_steps(trainer, start: int, steps: int) -> dict:
             row = kernels.setdefault(e.name, [0.0, 0])
             row[0] += e.time_range.elapsed_us() / 1e3 / steps
             row[1] += 1
-    rows = sorted(((ms, n // steps, name) for name, (ms, n) in kernels.items()), reverse=True)
+    rows = sorted(((ms, n / steps, name) for name, (ms, n) in kernels.items()), reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"profile: device kernel time per training step {busy_ms:.2f} ms over {steps} steps, "
-          f"{sum(r[1] for r in rows)} kernels per step; by kernel:", flush=True)
+    csrc: dict = {}
+    for name, (_, n) in kernels.items():
+        m = CSRC_KERNEL.search(name)
+        if m:
+            csrc[m.group(0)] = csrc.get(m.group(0), 0) + n / steps
+    per_step = sum(r[1] for r in rows)
+    print(f"profile ({'graph replays' if graph else 'loop'}): device kernel time per training step "
+          f"{busy_ms:.2f} ms over {steps} steps, {per_step:g} kernels per step; by kernel:", flush=True)
     for ms, n, name in rows[:20]:
-        print(f"profile:   {ms:9.3f} ms  x{n:<5d} {name[:110]}", flush=True)
-    return {"device_ms_per_step": busy_ms, "kernels_per_step": sum(r[1] for r in rows)}
+        print(f"profile:   {ms:9.3f} ms  x{n:<7g} {name[:110]}", flush=True)
+    return {"device_ms_per_step": busy_ms, "kernels_per_step": per_step,
+            "csrc_kernels": dict(sorted(csrc.items()))}
 
 
 def make_scene(work: Path, h: int, w: int):
@@ -1087,6 +1222,7 @@ def parallel(work: Path, card: str, device: str = "cuda") -> dict:
         ref.append({k: float(v) for k, v in trainer.train_one_iter(it).items()})  # synchronizes
         ends.append(time.perf_counter())
     ref_grad = grads[0].cpu().numpy()
+    ref_params = torch.cat([p.detach().reshape(-1) for p in trainer.leaves]).cpu().numpy()
     n_params, n_values = ref_grad.size, len(ref[0])
     trainer.logger.close()
     del trainer, pp, grads
@@ -1096,30 +1232,37 @@ def parallel(work: Path, card: str, device: str = "cuda") -> dict:
     print(f"parallel (a): {PAR_STEPS} steps in-process in {time.perf_counter() - t0:.1f} s incl. "
           f"set-up, {s_a:.4f} s per step", flush=True)
 
-    def held(label: str, dump: dict) -> dict:
+    def held(label: str, dump: dict, chunk: int = 1) -> dict:
+        """Step 1's gradient and the loss values of every logged step (each
+        chunk's last) against (a)'s."""
         got_grad = dump["grad1"]
         grad_err = float(np.abs(got_grad - ref_grad).max() / np.abs(ref_grad).max())
         names = [str(n) for n in dump["names"]]
-        if dump["values"].shape != (PAR_STEPS, n_values) or set(names) != set(ref[0]):
-            fail(f"parallel {label}: loss values {dump['values'].shape} {names}")
+        iters = [int(i) for i in dump["iters"]]
+        if (iters != list(range(chunk, PAR_STEPS + 1, chunk)) or set(names) != set(ref[0])
+                or dump["values"].shape != (len(iters), n_values)):
+            fail(f"parallel {label}: loss values {dump['values'].shape} at {iters} {names}")
         loss_err = 0.0
-        for step, row in enumerate(dump["values"]):
+        for it, row in zip(iters, dump["values"]):
             for k, v in zip(names, row):
-                want = ref[step][k]
+                want = ref[it - 1][k]
                 if not math.isfinite(v):
-                    fail(f"parallel {label}: {k} not finite at step {step + 1}")
+                    fail(f"parallel {label}: {k} not finite at step {it}")
                 loss_err = max(loss_err, abs(v - want) / max(abs(want), 1e-12))
         launches = json.loads(str(dump["launches"]))
         return {"grad_err": grad_err, "grad_equal": bool(np.array_equal(got_grad, ref_grad)),
                 "loss_err": loss_err,
-                "losses_equal": all(ref[s][k] == v for s, row in enumerate(dump["values"])
+                "losses_equal": all(ref[it - 1][k] == v for it, row in zip(iters, dump["values"])
                                     for k, v in zip(names, row)),
+                "params_equal": bool(np.array_equal(dump["params"], ref_params)),
+                "params_max_abs_diff": float(np.abs(dump["params"] - ref_params).max()),
                 "launches": launches, "s_per_step": float(np.median(np.diff(dump["t"])))}
 
-    # (b) One NCCL rank through the mesh path of start_training.
+    # (b) One NCCL rank through the mesh path of start_training, its steps
+    # one chunk: on the card, a warm-up step and a CUDA graph's replays.
     t0 = time.perf_counter()
     b_dev = () if device == "cuda" else ("--device", device)
-    (b,) = run_ranks(pdir / "b", cfg_path, db, 1, *b_dev)
+    (b,) = run_ranks(pdir / "b", cfg_path, db, 1, *b_dev, "--steps-per-call", str(PAR_STEPS))
     t_b = time.perf_counter() - t0
     # (c) Two gloo ranks on the one card (NCCL refuses two ranks per device).
     t0 = time.perf_counter()
@@ -1130,13 +1273,15 @@ def parallel(work: Path, card: str, device: str = "cuda") -> dict:
         for k in ("params", "mu", "nu", "grad1", "values"):
             if not np.array_equal(d[k], c[0][k]):
                 fail(f"parallel (c): the ranks' {k} differ")
-    readings = {"b": held("(b)", b), "c": [held(f"(c) rank {r}", d) for r, d in enumerate(c)]}
+    readings = {"b": held("(b)", b, PAR_STEPS),
+                "c": [held(f"(c) rank {r}", d) for r, d in enumerate(c)]}
     tol = STEP_TOL["bfloat16"]
     for label, r in [("(b)", readings["b"])] + [(f"(c) rank {i}", x) for i, x in enumerate(readings["c"])]:
         print(f"parallel {label}: step 1 gradient max abs err / largest {r['grad_err']:.3e} "
               f"(equal to the bit: {r['grad_equal']}), loss values worst rel err {r['loss_err']:.3e} "
-              f"(equal: {r['losses_equal']}; tol {tol:g}), {r['s_per_step']:.4f} s per step, "
-              f"launches {r['launches']}", flush=True)
+              f"(equal: {r['losses_equal']}; tol {tol:g}), parameters after step {PAR_STEPS} equal "
+              f"to (a)'s: {r['params_equal']} (max abs diff {r['params_max_abs_diff']:.3e}), "
+              f"{r['s_per_step']:.4f} s per step, launches {r['launches']}", flush=True)
         if not (r["grad_err"] <= tol and r["loss_err"] <= tol):
             fail(f"parallel {label} disagrees with the one-process run")
         if any(n != PAR_STEPS for n in r["launches"].values()):
@@ -1152,7 +1297,8 @@ def parallel(work: Path, card: str, device: str = "cuda") -> dict:
         "grad_err": {"b": readings["b"]["grad_err"], "c": readings["c"][0]["grad_err"]},
         "loss_err": {"b": readings["b"]["loss_err"], "c": readings["c"][0]["loss_err"]},
         "equal_to_the_bit_b": {"grad": readings["b"]["grad_equal"],
-                               "losses": readings["b"]["losses_equal"]},
+                               "losses": readings["b"]["losses_equal"],
+                               "params": readings["b"]["params_equal"]},
         "launches": launches, "card": card,
         "note": "(c) is two gloo ranks on one card (host-staged reduction): not a scaling number",
     }
@@ -1610,7 +1756,7 @@ def priors(work: Path, card: str) -> dict:
     with timed_calls(Trainer, "run_validation") as val_log, \
             recorded(fused_mlp, "_launch_fwd",
                      lambda a, _: tuple(m.out_v for m in getattr(a[0], "members", (a[0],)))) as widths, \
-            recorded(Trainer, "step", lambda a, v: float(v["VisibilityPriorLoss01"])) as prior_losses:
+            recorded(Trainer, "body", lambda a, v: float(v["VisibilityPriorLoss01"])) as prior_losses:
         # The main path: counters at 0 just before, read just after.
         for f in counters:
             f.launches = 0
@@ -1804,6 +1950,8 @@ def main() -> int:
         served = serve(work, h, w)
         trained = train(work, work / "db")
         torch.cuda.empty_cache()
+        graph_check = graph_vs_loop(work / "db")
+        torch.cuda.empty_cache()
         par = parallel(work, card)
         piped = pipeline(work, card, h, w)
         re10k = realestate(work, card)
@@ -1818,8 +1966,11 @@ def main() -> int:
     print(f"serve: {served['frame_s']:.3f} s per served 756x1008 frame; "
           f"{served['test_s'] / served['frames']:.3f} s per 189x252 test frame incl. file output",
           flush=True)
-    print(f"train: {step['s_per_step']:.4f} s per step, {step['rays_per_s']:.0f} rays/s "
-          f"(4096 rays per step, published bf16 recipe)", flush=True)
+    for mode in ("loop", "graph"):
+        r = step[mode]
+        print(f"train ({mode}): {r['s_per_step']:.4f} s per step, {r['rays_per_s']:.0f} rays/s, "
+              f"device busy {100 * r['busy']:.1f} %, {r['reserved_gb']:.2f} GiB reserved "
+              f"(4096 rays per step, published bf16 recipe)", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     key = ("fused_mlp_fwd", "bfloat16", "err")
     worst[key] = max(worst[key], timing["max_abs_err"])
@@ -1869,7 +2020,8 @@ def main() -> int:
     print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"realestate": re10k}), flush=True)
     print(json.dumps({"priors": prior}), flush=True)
-    print(json.dumps({"kernels": kernels, "train_step": {**step, "step_grad_rel_err": step_err}}),
+    print(json.dumps({"kernels": kernels, "train_step": {
+        **step, "graph_vs_loop": graph_check, "step_grad_rel_err": step_err, "card": card}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -7,10 +7,13 @@ degree-d encoding, which the points-augmentation model relies on.
 
 `encode_parts` gives the same channels in the "blocked" order
 [x | sin f0..f_{D-1} | cos f0..f_{D-1}] that the MLP and the kernel read;
-`blocked_to_reference_perm` maps between the two.
+`blocked_to_reference_perm` maps between the two; `take_rows` applies
+such a map to a weight's rows.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -65,3 +68,15 @@ def blocked_to_reference_perm(degree: int, input_dims: int = 3) -> list[int]:
     for i in range(degree):  # cos block
         perm.extend(d + 2 * d * i + d + j for j in range(d))
     return perm
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_on(rows: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(rows, dtype=torch.long, device=device)
+
+
+def take_rows(w: torch.Tensor, rows) -> torch.Tensor:
+    """w[rows] for host row indices (a `blocked_to_reference_perm`), with
+    the indices made once per device and kept there: a CUDA graph of the
+    train step cannot copy them from the host at each step."""
+    return w.index_select(0, _rows_on(tuple(rows), w.device))

@@ -181,10 +181,11 @@ def _finalize_heads(cfg, pts_out, h, params, enc_extra, enc_views, dtype,
         # rows, high-frequency rows (re-permuted to blocked order), dir rows.
         hv = _mm(_dense(h, params["feature"], dtype), wv0["w"][:wp], dtype)
         if e:
-            hv = hv + _mm(enc_extra, wv0["w"][wp : wp + e][_extra_rows_perm(cfg)], dtype)
+            hv = hv + _mm(enc_extra, encoding.take_rows(wv0["w"][wp : wp + e], _extra_rows_perm(cfg)),
+                          dtype)
         if cfg.use_view_dirs:
             perm = encoding.blocked_to_reference_perm(cfg.views_pe_degree)
-            contrib = _mm(enc_views, wv0["w"][wp + e :][perm], dtype)
+            contrib = _mm(enc_views, encoding.take_rows(wv0["w"][wp + e :], perm), dtype)
             if view_dirs_tile > 1:
                 contrib = contrib.repeat_interleave(view_dirs_tile, dim=0)
             hv = hv + contrib
@@ -241,13 +242,14 @@ def apply(
 
     w0_perm = encoding.blocked_to_reference_perm(ds)
     layer0 = params["pts"][0]
-    h = torch.relu(_mm(pts_in, layer0["w"][w0_perm], dtype) + layer0["b"]).to(dtype)
+    h = _mm(pts_in, encoding.take_rows(layer0["w"], w0_perm), dtype)
+    h = torch.relu(h + layer0["b"]).to(dtype)
     for i, layer in enumerate(params["pts"][1:], start=1):
         if (i - 1) in cfg.skip_layers:
             # Skip join as a matmul sum: encoded-points rows + hidden rows.
             p = cfg.points_input_dim
             pre = (
-                _mm(pts_in, layer["w"][:p][w0_perm], dtype)
+                _mm(pts_in, encoding.take_rows(layer["w"][:p], w0_perm), dtype)
                 + _mm(h, layer["w"][p:], dtype)
                 + layer["b"]
             )

@@ -23,7 +23,10 @@ def reproject(points: torch.Tensor, w2c_poses: torch.Tensor, intrinsic: torch.Te
     origins = w2c_poses[..., :3, 3]
     rotations = w2c_poses[..., :3, :3]
     dirs = points - origins
-    flip = torch.diag(torch.tensor(_REPROJECT_FLIP, dtype=points.dtype, device=points.device))
+    signs = torch.empty(3, dtype=points.dtype, device=points.device)
+    for i, sign in enumerate(_REPROJECT_FLIP):  # fill_ launches with the value: no host copy
+        signs[i].fill_(sign)
+    flip = torch.diag(signs)
     cam = torch.einsum("ij,...kj,...k->...i", flip, rotations, dirs)
     pix = cam @ intrinsic.T
     return pix[..., :2] / pix[..., 2:3]

@@ -45,7 +45,7 @@ kernel (or raises) for CUDA tensors, and counts its launches:
 `fused_apply.launches`, `fused_bwd.launches`,
 `fused_apply_ensemble.launches`, `fused_ens_bwd.launches` (and, for the
 weight pass and the column sums alone, `wgrad.launches` and
-`column_sums.launches`). Under autograd
+`column_sums.launches`; all of them: `launch_counts`). Under autograd
 `fused_apply` and `fused_apply_ensemble` differentiate through the
 backward wrappers; the points carry no gradient.
 """
@@ -269,12 +269,12 @@ def kernel_params(params, cfg, shared_degree: Optional[int] = None) -> dict:
 
     kp: dict = {}
     w0 = params["pts"][0]
-    kp["w0i"] = pad_lo(w0["w"][perm_lo])
+    kp["w0i"] = pad_lo(encoding.take_rows(w0["w"], perm_lo))
     kp["b0"] = w0["b"][None]
     for i in range(1, cfg.points_net_depth):
         layer = params["pts"][i]
         if (i - 1) in cfg.skip_layers:
-            kp[f"w{i}i"] = pad_lo(layer["w"][:p][perm_lo])
+            kp[f"w{i}i"] = pad_lo(encoding.take_rows(layer["w"][:p], perm_lo))
             kp[f"w{i}"] = layer["w"][p:]
         else:
             kp[f"w{i}"] = layer["w"]
@@ -290,7 +290,7 @@ def kernel_params(params, cfg, shared_degree: Optional[int] = None) -> dict:
         kp["wv0f"] = wv0["w"][:wp]
         kp["bv0"] = wv0["b"][None]
         if e:
-            kp["wv0i"] = pad_hi(wv0["w"][wp : wp + e][_extra_rows_perm(cfg)])
+            kp["wv0i"] = pad_hi(encoding.take_rows(wv0["w"][wp : wp + e], _extra_rows_perm(cfg)))
         for i in range(1, cfg.views_net_depth):
             kp[f"wv{i}"] = params["views"][i]["w"]
             kp[f"bv{i}"] = params["views"][i]["b"][None]
@@ -303,7 +303,7 @@ def dirs_w(params, cfg):
     """Blocked dirs-rows of the first views-branch weight (for hvx)."""
     wp, e = cfg.points_net_width, cfg.extra_views_dim
     perm = encoding.blocked_to_reference_perm(cfg.views_pe_degree)
-    return params["views"][0]["w"][wp + e :][perm]
+    return encoding.take_rows(params["views"][0]["w"][wp + e :], perm)
 
 
 # ---------------------------------------------------------------------------
@@ -1850,3 +1850,18 @@ def fused_apply_ensemble(ens: EnsembleSpec, kps, lo, hvxs) -> tuple:
 
 fused_apply_ensemble.launches = 0
 fused_ens_bwd.launches = 0
+
+
+_COUNTED = (fused_apply, fused_bwd, fused_apply_ensemble, fused_ens_bwd, wgrad, column_sums)
+
+
+def launch_counts() -> dict:
+    """Every counting wrapper's `launches`, by the wrapper's name."""
+    return {f.__name__: f.launches for f in _COUNTED}
+
+
+def add_launches(counts: dict):
+    """Add `counts` (by wrapper name) to the wrappers' `launches`: a CUDA
+    graph's replay launches what its capture counted."""
+    for f in _COUNTED:
+        f.launches += counts.get(f.__name__, 0)

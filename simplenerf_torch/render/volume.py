@@ -15,10 +15,28 @@ import torch
 from simplenerf_torch.geometry import projection
 
 
+class _CumprodNoZeros(torch.autograd.Function):
+    """torch.cumprod along the last axis of an input with no zero, with the
+    backward PyTorch's own takes for such an input, reversed_cumsum(out *
+    grad) / x, but without its host read of whether x has a zero, which a
+    CUDA graph of the train step cannot hold."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
-    """[1, x0, x0*x1, ...] along the last axis."""
+    """[1, x0, x0*x1, ...] along the last axis, for an `x` with no zero."""
     ones = torch.ones_like(x[..., :1])
-    return torch.cumprod(torch.cat([ones, x], dim=-1), dim=-1)[..., :-1]
+    return _CumprodNoZeros.apply(torch.cat([ones, x], dim=-1))[..., :-1]
 
 
 def composite(
@@ -49,7 +67,7 @@ def composite(
     deltas = (z_ext[..., 1:] - z_ext[..., :-1]) * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
 
     alpha = 1.0 - torch.exp(-sigma * deltas)
-    transmittance = exclusive_cumprod(1.0 - alpha + 1e-10)
+    transmittance = exclusive_cumprod(1.0 - alpha + 1e-10)  # >= 1e-10: no zero
     weights = alpha * transmittance
 
     rgb_map = torch.sum(weights[None, :, :] * rgb, dim=-1).T

@@ -1,12 +1,20 @@
-"""Training harness: one train step per iteration, driven by a host loop.
+"""Training harness: train steps driven by a host loop or replayed as one CUDA graph.
 
-Port of simplenerf_tpu/training/trainer.py. Per iteration the host draws
-ray indices and the loss-schedule weights; the device runs gather ->
-render (all MLPs, the coarse trio through the ensemble kernels and the
-fine MLP through the single-MLP kernels) -> the loss stack -> backward ->
-Adam. Adam runs over ONE flat float32 vector of all parameters in
-`jax.flatten_util.ravel_pytree` order, with optax's semantics, so its
-state checkpoints in the JAX package's layout.
+Port of simplenerf_tpu/training/trainer.py. A step is two parts. The host
+stage (`Trainer.stage`) draws the ray indices and masks, the loss-schedule
+weights, Adam's scalars and the step's render draws and writes them into
+persistent tensors on the device (`StepInputs`); the device body
+(`Trainer.body`) reads only those and runs gather -> render (all MLPs, the
+coarse trio through the ensemble kernels and the fine MLP through the
+single-MLP kernels) -> the loss stack -> backward -> Adam. Adam runs over
+ONE flat float32 vector of all parameters in `jax.flatten_util.ravel_pytree`
+order, with optax's semantics, in place, so its state checkpoints in the
+JAX package's layout.
+
+`train_one_iter` runs a stage and the body eagerly. On a card,
+`train_many(start, k)` with k > 1 replays one CUDA graph of the body, the
+counterpart of the JAX package's multi-step scan (`StepGraph`; the rules
+are in its docstring). Both run the one body on the same inputs.
 
 Each step draws its randomness (jitter, importance uniforms, sigma noise)
 from a generator on the device seeded from (seed, iteration), and the
@@ -15,8 +23,7 @@ uninterrupted one. At `validation_interval` the trainer renders every
 train (and validation) frame in eval mode and saves frames, depths, loss
 maps and scalars under <run>/samples and the log; a `profiling`
 {start_iter, num_iters} block traces that window of steps into
-<run>/profile. Steps run one launch sequence each: there is no CUDA-graph
-counterpart of the JAX package's multi-step scan.
+<run>/profile.
 
 With a `mesh` (parallel.make_mesh) the step is ray-sharded over the job's
 processes, as the JAX Trainer's is over its mesh: every rank draws the
@@ -42,6 +49,7 @@ from simplenerf_torch import config as config_lib
 from simplenerf_torch.data import io
 from simplenerf_torch.data.preprocessor import ScenePreprocessor, gather_batch
 from simplenerf_torch.losses import LossComputer, LossContext
+from simplenerf_torch.ops import fused_mlp
 from simplenerf_torch.parallel import mesh as mesh_lib
 from simplenerf_torch.render import renderer
 from simplenerf_torch.training import checkpoints
@@ -65,10 +73,14 @@ class FlatAdam:
     b1/b2 from the config, eps 1e-8, eps_root 0; moments
     mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu; bias correction
     with count + 1; the step is -lr(count) * mu_hat / (sqrt(nu_hat) + eps)
-    with lr taken before the count is incremented. Parameters are updated
-    in place. With a `mesh`, the flat gradient is summed over its ranks
-    first (the JAX step's gradient psum): each rank's loss is its share of
-    the global loss, so the sum, not the mean, is the global gradient.
+    with lr taken before the count is incremented. The host computes a
+    step's lr and bias corrections (`scalars`) and advances the count, a
+    host int; `step` reads the scalars from a device tensor and updates the
+    moments and the parameters in place, so a captured step replays with
+    each step's values. With a `mesh`, the flat gradient is summed over its
+    ranks first (the JAX step's gradient psum): each rank's loss is its
+    share of the global loss, so the sum, not the mean, is the global
+    gradient.
     """
 
     def __init__(self, lr_schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -81,6 +93,12 @@ class FlatAdam:
         dev = leaves[0].device
         return {"count": 0, "mu": torch.zeros(size, device=dev), "nu": torch.zeros(size, device=dev)}
 
+    def scalars(self, count: int) -> np.ndarray:
+        """The step after `count` steps: [lr(count), 1 - b1**(count + 1),
+        1 - b2**(count + 1)], computed in float64 and stored as float32."""
+        c = count + 1
+        return np.array([self.lr_schedule(count), 1 - self.b1**c, 1 - self.b2**c]).astype(np.float32)
+
     @torch.no_grad()
     def gradient(self, leaves: list) -> torch.Tensor:
         """The step's flat gradient, summed over the mesh's ranks."""
@@ -89,20 +107,21 @@ class FlatAdam:
         return mesh_lib.all_reduce_sum(self.mesh, g)
 
     @torch.no_grad()
-    def step(self, leaves: list, state: dict) -> dict:
+    def step(self, leaves: list, state: dict, scalars: torch.Tensor):
+        """One step in place on `state`'s moments and the parameters, with
+        `scalars` the device tensor of this step's `scalars(count)`. The
+        count is the host stage's (`Trainer.stage`)."""
         g = self.gradient(leaves)
         b1, b2 = self.b1, self.b2
-        mu = (1 - b1) * g + b1 * state["mu"]
-        nu = (1 - b2) * torch.square(g) + b2 * state["nu"]
-        count = state["count"] + 1
-        mu_hat = mu / (1 - b1**count)
-        nu_hat = nu / (1 - b2**count)
-        update = -self.lr_schedule(state["count"]) * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
+        mu, nu = state["mu"], state["nu"]
+        lr, bc1, bc2 = scalars.unbind()
+        torch.add((1 - b1) * g, b1 * mu, out=mu)
+        torch.add((1 - b2) * torch.square(g), b2 * nu, out=nu)
+        update = -lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps))
         pos = 0
         for p in leaves:
             p.add_(update[pos : pos + p.numel()].view_as(p))
             pos += p.numel()
-        return {"count": count, "mu": mu, "nu": nu}
 
 
 def _leaf_params(tree):
@@ -112,6 +131,107 @@ def _leaf_params(tree):
     if isinstance(tree, (list, tuple)):
         return [_leaf_params(v) for v in tree]
     return tree.detach().float().clone().requires_grad_()
+
+
+def _clone_draws(draws):
+    """A copy of render_rays' draws {u_coarse, u_fine, noise: {...}} (None kept)."""
+    if isinstance(draws, dict):
+        return {k: _clone_draws(v) for k, v in draws.items()}
+    return None if draws is None else draws.clone()
+
+
+def _copy_draws(dst, src):
+    """Copy the draws `src` into the buffers `dst` of the same structure."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_draws(dst[k], src[k])
+    elif dst is not None:
+        dst.copy_(src)
+
+
+class StepInputs:
+    """One train step's inputs in persistent tensors on the step's device.
+
+    The host stage (`Trainer.stage`) writes them before each step and the
+    step body (`Trainer.body`) reads them, so the loop and a CUDA graph of
+    the body run one body on the same inputs. The ray indices (int32) and
+    their masks (bool), the loss weights and Adam's scalars (float32) share
+    one byte buffer that one copy fills, non-blocking from pinned memory on
+    a card; the render draws have a buffer each. `counts` are the host ints
+    the loss stack branches on (`losses.common.global_count`).
+    """
+
+    def __init__(self, nr: int, n_losses: int, draws: dict, device: torch.device):
+        self.nr, self.n_losses = nr, n_losses
+        nbytes = 4 * (nr + n_losses + 3) + 2 * nr
+        self.dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        self.host = (torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                     if self.dev.is_cuda else self.dev)
+        self._copied = None  # an event after the last copy out of `host`
+        self.indices, self.weights, self.adam, self.mask_nerf, self.mask_sd = self._views(self.dev)
+        self.draws = _clone_draws(draws)
+        self.counts: dict = {}
+
+    def _views(self, buf: torch.Tensor) -> tuple:
+        a, b, c = 4 * self.nr, 4 * (self.nr + self.n_losses), 4 * (self.nr + self.n_losses + 3)
+        return (buf[:a].view(torch.int32), buf[a:b].view(torch.float32),
+                buf[b:c].view(torch.float32), buf[c : c + self.nr].view(torch.bool),
+                buf[c + self.nr :].view(torch.bool))
+
+    def write(self, indices, mask_nerf, mask_sd, weights, adam, draws: dict, counts: dict):
+        """Write a step's numpy arrays and its draws (tensors shaped as the
+        buffers) in stream order: the previous copy out of the pinned
+        buffer is waited for before the host overwrites it."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        for view, a in zip(self._views(self.host), (indices, weights, adam, mask_nerf, mask_sd)):
+            view.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        if self.host is not self.dev:
+            self.dev.copy_(self.host, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+        _copy_draws(self.draws, draws)
+        self.counts = counts
+
+
+def graph_capable(device: torch.device, mesh: Optional[mesh_lib.Mesh]) -> bool:
+    """Whether `Trainer.train_many` may replay a CUDA graph of the step:
+    on a card, without a mesh or on a mesh of one rank (see train_many)."""
+    return device.type == "cuda" and (mesh is None or mesh.world_size == 1)
+
+
+class StepGraph:
+    """A train step's device body as one CUDA graph.
+
+    Runs `fn` once eagerly on a side stream, as the step it was staged for
+    (the warm-up: it builds the kernels, caches their plans and those
+    plans' one-time copies, sets the kernels' shared-memory limits and
+    gives cuBLAS its workspace on that stream), then captures `fn` on the
+    same stream into the graph's private memory pool. `replay` runs the
+    captured body on the current stream; `out` is the body's output,
+    which each replay overwrites. The capture launches nothing, so the
+    kernels' launch counters (`fused_mlp.launch_counts`) are set back
+    after it and gain what it counted at each replay. `capture_s`: the
+    capture's host-clock seconds. A capture that fails raises.
+    """
+
+    def __init__(self, fn, device: torch.device):
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            fn()
+        self.graph = torch.cuda.CUDAGraph()
+        before = fused_mlp.launch_counts()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.out = fn()
+        self.capture_s = time.perf_counter() - t0
+        self.launches = {k: n - before[k] for k, n in fused_mlp.launch_counts().items()}
+        fused_mlp.add_launches({k: -n for k, n in self.launches.items()})
+
+    def replay(self):
+        self.graph.replay()
+        fused_mlp.add_launches(self.launches)
 
 
 class Trainer:
@@ -130,6 +250,10 @@ class Trainer:
         self.val_pp = val_pp
         self.device = train_pp.device
         self.mesh = mesh
+        self.use_graph = graph_capable(self.device, mesh)
+        self._graph: Optional[StepGraph] = None
+        self._graph_counts: dict = {}
+        self._inputs: Optional[StepInputs] = None
 
         self.render_cfg = config_lib.render_config_from_dict(configs, compute_dtype)
         self.loss_computer = LossComputer(configs["losses"], loss_context_from_configs(configs))
@@ -152,7 +276,9 @@ class Trainer:
                 if raw_opt is not None:
                     opt = checkpoints.opt_state_from_state(raw_opt, self.params, self.device)
                     if opt is not None:  # else fresh state (warned)
-                        self.opt_state = opt
+                        self.opt_state["count"] = opt["count"]
+                        self.opt_state["mu"].copy_(opt["mu"])
+                        self.opt_state["nu"].copy_(opt["nu"])
         # Every rank goes on from rank 0's iteration, parameters and Adam
         # state, whatever its own directory held.
         self.start_iter = mesh_lib.replicate(mesh, self.start_iter)
@@ -178,7 +304,9 @@ class Trainer:
 
     def set_params(self, params):
         """Take `params` (a canonical tree) as the trained parameters, with a
-        fresh optimizer state."""
+        fresh optimizer state; drops a captured step (`StepGraph`), which
+        holds the old tensors."""
+        self._graph = None
         self.params = _leaf_params(params)
         self.leaves = checkpoints.flat_leaves(self.params)
         self.opt_state = self.opt.init(self.leaves)
@@ -194,49 +322,99 @@ class Trainer:
         return gather_batch(pp.cache, pp.common, self._consts, t(indices), t(mask_nerf),
                             t(mask_sd), packed_layout=self._layout)
 
-    def loss(self, batch: dict, iter_num: int, **draws):
-        """Render the batch in train mode and apply the loss stack: (total,
-        values). `draws` go to `render_rays` (generator or explicit draws)."""
+    def _loss(self, batch: dict, weights: torch.Tensor, draws: dict):
         outputs = renderer.render_rays(self.params, self.render_cfg, batch, train=True, **draws)
-        weights = self.loss_computer.weights_vector(iter_num).tolist()
         return self.loss_computer.compute(batch, outputs, weights)
 
-    def step(self, iter_num: int, indices, mask_nerf, mask_sd, **draws) -> dict:
-        """One train step on the given (global) ray indices; returns the
-        loss values (device tensors). Draws default to the step's
-        generator, drawn for the whole batch. The rank renders its rows of
-        the batch and of the draws, divides by the whole batch's counts, and
-        the loss values are summed over the ranks: without a mesh, or in a
-        world of one, the rows are the batch and the sums are no-ops."""
-        if not draws:
-            draws = {"generator": self.step_generator(iter_num)}
-        for p in self.leaves:
-            p.grad = None
+    def loss(self, batch: dict, iter_num: int, **draws):
+        """Render the batch in train mode and apply the loss stack with the
+        weights of `iter_num`: (total, values). `draws` go to `render_rays`
+        (generator or explicit draws)."""
+        weights = torch.as_tensor(self.loss_computer.weights_vector(iter_num), device=self.device)
+        return self._loss(batch, weights, draws)
+
+    def stage(self, iter_num: int) -> StepInputs:
+        """The host stage of step `iter_num`: its global ray indices and
+        masks (`next_indices`), its loss weights, Adam's scalars at the
+        current count (then the count advances), its counts and its draws
+        from the step's generator, drawn for the whole batch, written into
+        the step's inputs."""
+        indices, mask_nerf, mask_sd = self.train_pp.next_indices(iter_num)
         counts = {"rows": len(indices), "indices_mask_nerf": int(mask_nerf.sum()),
                   "indices_mask_sparse_depth": int(mask_sd.sum())}
-        generator = draws.pop("generator", None)
-        if generator is not None:
-            draws = renderer.step_draws(self.render_cfg, len(indices), generator, self.device, **draws)
+        adam = self.opt.scalars(self.opt_state["count"])
+        self.opt_state["count"] += 1
+        draws = renderer.step_draws(self.render_cfg, len(indices), self.step_generator(iter_num),
+                                    self.device)
+        if self._inputs is None or self._inputs.nr != len(indices):
+            self._inputs = StepInputs(len(indices), len(self.loss_computer.specs), draws, self.device)
+        self._inputs.write(indices, mask_nerf, mask_sd,
+                           self.loss_computer.weights_vector(iter_num), adam, draws, counts)
+        return self._inputs
+
+    def body(self, inputs: StepInputs) -> dict:
+        """The device part of a step, read from `inputs` alone: gather ->
+        render -> the loss stack -> backward -> Adam, with no host read of
+        a device value, so that a CUDA graph can hold it. Returns the loss
+        values (0-dim device tensors, one stacked buffer). The rank renders
+        its rows of the batch and of the draws, divides by the whole
+        batch's counts, and the loss values are summed over the ranks:
+        without a mesh, or in a world of one, the rows are the batch and
+        the sums are no-ops."""
+        for p in self.leaves:
+            p.grad = None
         indices, mask_nerf, mask_sd, draws = mesh_lib.shard_ray_batch(
-            self.mesh, (indices, mask_nerf, mask_sd, draws))
+            self.mesh, (inputs.indices, inputs.mask_nerf, inputs.mask_sd, inputs.draws))
         batch = self.batch(indices, mask_nerf, mask_sd)
-        batch["global_counts"] = counts
-        total, values = self.loss(batch, iter_num, **draws)
+        batch["global_counts"] = inputs.counts
+        total, values = self._loss(batch, inputs.weights, draws)
         total.backward()
-        self.opt_state = self.opt.step(self.leaves, self.opt_state)
-        stacked = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=self.device).detach()
-                               for v in values.values()])
+        self.opt.step(self.leaves, self.opt_state, inputs.adam)
+        stacked = torch.stack([
+            (v if torch.is_tensor(v) else torch.full((), v, device=self.device)).detach().float()
+            for v in values.values()])
         return dict(zip(values, mesh_lib.all_reduce_sum(self.mesh, stacked).unbind()))
 
     def train_one_iter(self, iter_num: int) -> dict:
-        return self.step(iter_num, *self.train_pp.next_indices(iter_num))
+        """One step: its host stage, then its body, eagerly; returns the loss values."""
+        return self.body(self.stage(iter_num))
 
     def train_many(self, start_iter: int, k: int) -> dict:
-        """k steps in a plain loop; returns the last step's loss values."""
-        values = {}
-        for j in range(k):
-            values = self.train_one_iter(start_iter + j)
-        return values
+        """k steps from `start_iter`; returns the last step's loss values.
+
+        Where `graph_capable` holds (a card; no mesh, or a mesh of one
+        rank) and k > 1, the steps replay one CUDA graph of the step body,
+        the counterpart of the JAX Trainer's multi-step scan: the first such
+        call stages its first step and runs it as the capture's warm-up,
+        then captures the body (`StepGraph`); every other step, in this
+        call and in later ones, is a host stage and a replay, until
+        `set_params` drops the graph. A replay whose counts differ from the
+        capture's raises. The values returned are copies. The loop of
+        `train_one_iter` runs instead on the CPU, which has no graphs; for
+        k == 1, as the JAX Trainer runs a chunk of one through
+        `train_one_iter`; and on a mesh of more than one rank: gloo's
+        collectives cannot be captured, and NCCL's across ranks in a graph
+        need a card per rank. A capture or replay that fails raises: it
+        never falls back to the loop.
+        """
+        if k == 1 or not self.use_graph:
+            values = {}
+            for j in range(k):
+                values = self.train_one_iter(start_iter + j)
+            return values
+        first = start_iter
+        if self._graph is None:
+            inputs = self.stage(first)
+            self._graph = StepGraph(lambda: self.body(inputs), self.device)
+            self._graph_counts = dict(inputs.counts)
+            first += 1
+        for it in range(first, start_iter + k):
+            counts = self.stage(it).counts
+            if counts != self._graph_counts:
+                raise RuntimeError(f"step {it}: counts {counts} differ from the captured "
+                                   f"step's {self._graph_counts}")
+            self._graph.replay()
+        return {name: v.clone() for name, v in self._graph.out.items()}
 
     def _next_boundary(self, it: int, num_iterations: int) -> int:
         """Largest chunk from `it` that crosses no log/val/save boundary."""

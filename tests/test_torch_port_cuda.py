@@ -24,6 +24,15 @@ chip_smoke.py's: these cases read at most 1.2e-6 (float32) and 5.9e-3
 (bf16) on the card, chip_smoke.py's published-width cases up to 9.8e-4 and
 5.6e-3, and a kernel that drops a ragged last tile of rows reads 2.5e-2
 and more (tools/probe_fused_mlp_bwd.py; PERF.md).
+
+Training steps as one CUDA graph (`Trainer.train_many`, tiny preset with
+draws on, f32 and bf16): K replayed steps against K loop steps, a resumed
+graph run against an uninterrupted one and a recapture after `set_params`
+against a fresh Trainer, each parameters, Adam's mu, nu and count (and loss
+values) no further from the reference than a second reference run is, both
+printed (the two are expected equal to the bit); the capture's stash inside
+the graph's memory pool; the launch counters at one launch of each kernel
+per replayed step.
 """
 
 import pytest
@@ -482,3 +491,161 @@ def _leaf_names(tree, prefix=""):
     if isinstance(tree, (list, tuple)):
         return [n for i, v in enumerate(tree) for n in _leaf_names(v, f"{prefix}{i}.")]
     return [prefix[:-1]]
+
+
+# ---------------------------------------------------------------------------
+# K training steps as one CUDA graph (Trainer.train_many)
+# ---------------------------------------------------------------------------
+# The graph runs the loop's kernels on the loop's inputs, so its steps
+# should equal the loop's to the bit; each comparison holds the graph to
+# no larger a difference than a second run of its yardstick shows, and
+# prints both.
+
+GRAPH_K = 4
+COUNTED = ("fused_apply", "fused_bwd", "fused_apply_ensemble", "fused_ens_bwd")
+
+
+@pytest.fixture(scope="module")
+def graph_scene(tmp_path_factory):
+    from simplenerf_torch.data.synthetic import generate_scene
+
+    root = tmp_path_factory.mktemp("db")
+    generate_scene(root, num_frames=5, h=24, w=32, num_train=3, seed=3)
+    return root
+
+
+def _graph_trainer(scene, out, dtype: str = "bfloat16", **overrides):
+    """The tiny preset with draws on (jitter, importance uniforms, sigma
+    noise) and the consistency ramp at step 2, on the card."""
+    from simplenerf_torch.data.factory import get_data_loader
+    from simplenerf_torch.data.preprocessor import ScenePreprocessor
+    from simplenerf_torch.drivers import presets
+    from simplenerf_torch.training.trainer import Trainer
+
+    cfg = presets.tiny_synthetic_config(num_rays=256, sparse_depth_rays=128,
+                                        consistency_start_iter=2, compute_dtype=dtype)
+    cfg["resume_training"] = False
+    cfg.update(overrides)
+    raw = get_data_loader(cfg, scene, "train").load_data()
+    return Trainer(cfg, out, ScenePreprocessor(cfg, "train", raw, device="cuda"))
+
+
+def _train_state(t, values=None) -> dict:
+    torch.cuda.synchronize()
+    state = {"params": torch.cat([p.detach().reshape(-1) for p in t.leaves]),
+             "mu": t.opt_state["mu"], "nu": t.opt_state["nu"],
+             "count": torch.tensor([float(t.opt_state["count"])])}
+    if values is not None:
+        state["values"] = torch.stack([values[k].float() for k in sorted(values)])
+    return {k: v.detach().cpu().clone() for k, v in state.items()}
+
+
+def _held(label: str, got: dict, want: dict, again: dict):
+    """got against want, no further than `again` (want's yardstick) is."""
+    for k in want:
+        d = float((got[k] - want[k]).abs().max())
+        y = float((again[k] - want[k]).abs().max())
+        print(f"{label} {k}: equal to the bit {torch.equal(got[k], want[k])} ({d:.3e}); "
+              f"yardstick {torch.equal(again[k], want[k])} ({y:.3e})")
+        assert torch.isfinite(got[k]).all() and d <= y, k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+def test_graph_steps_equal_loop_steps(cuda_device, graph_scene, tmp_path, dtype):
+    def loop(out):
+        t = _graph_trainer(graph_scene, out, dtype)
+        for it in range(GRAPH_K):
+            values = t.train_one_iter(it)
+        return _train_state(t, values)
+
+    want, again = loop(tmp_path / "a"), loop(tmp_path / "b")
+    g = _graph_trainer(graph_scene, tmp_path / "g", dtype)
+    got = _train_state(g, g.train_many(0, GRAPH_K))
+    assert g._graph is not None and got["count"].item() == GRAPH_K
+    _held(f"graph vs loop {dtype}", got, want, again)
+
+
+def test_graph_run_resumed_in_the_middle_equals_the_uninterrupted_run(cuda_device, graph_scene,
+                                                                      tmp_path):
+    cfg = dict(steps_per_call=3, log_interval=3, model_save_interval=3, resume_training=True)
+
+    def whole(out):
+        t = _graph_trainer(graph_scene, out, **cfg)
+        t.train(6)
+        return _train_state(t)
+
+    want, again = whole(tmp_path / "a"), whole(tmp_path / "b")
+    _graph_trainer(graph_scene, tmp_path / "r", **cfg).train(3)
+    resumed = _graph_trainer(graph_scene, tmp_path / "r", **cfg)
+    assert resumed.start_iter == 3
+    resumed.train(6)
+    _held("resumed graph run", _train_state(resumed), want, again)
+
+
+def test_graph_keeps_each_stash_in_its_pool(cuda_device, graph_scene, tmp_path, monkeypatch):
+    """The bf16 backward's tensor maps hold the stash's address from the
+    capture: that stash lies in the graph's private pool, which keeps its
+    memory for the graph's lifetime, so every replay writes and reads the
+    stash at the address the maps hold. Replays call no wrapper."""
+    from simplenerf_torch.ops import build
+
+    t = _graph_trainer(graph_scene, tmp_path)
+    t.train_one_iter(0)
+    lib = build.load_library("fused_mlp_bwd")
+    seen = []
+    for entry, arg in (("snerf_fused_mlp_bwd", 16), ("snerf_fused_mlp_ens_bwd", 15)):
+        def spy(*args, _fn=getattr(lib, entry), _arg=arg):
+            seen.append(args[_arg].value)
+            return _fn(*args)
+
+        monkeypatch.setattr(lib, entry, spy)
+    t.train_many(1, 2)  # the warm-up step and the capture launch both backwards; one replay
+    assert len(seen) == 4
+    captured = seen[2:]
+    t.train_many(3, 3)
+    torch.cuda.synchronize()
+    assert len(seen) == 4
+    pool = tuple(t._graph.graph.pool())
+    segments = [s for s in torch.cuda.memory_snapshot() if tuple(s["segment_pool_id"]) == pool]
+    for ptr in captured:
+        assert any(s["address"] <= ptr < s["address"] + s["total_size"] for s in segments), ptr
+
+
+def test_graph_replays_count_one_launch_of_each_kernel_per_step(cuda_device, graph_scene, tmp_path):
+    t = _graph_trainer(graph_scene, tmp_path)
+    before = fused_mlp.launch_counts()
+    t.train_many(0, 2)  # a warm-up step, the capture (no launch) and one replay
+    mid = fused_mlp.launch_counts()
+    t.train_many(2, 5)
+    torch.cuda.synchronize()
+    after = fused_mlp.launch_counts()
+    assert {k: mid[k] - before[k] for k in COUNTED} == dict.fromkeys(COUNTED, 2)
+    assert {k: after[k] - mid[k] for k in COUNTED} == dict.fromkeys(COUNTED, 5)
+    assert after["wgrad"] == before["wgrad"] and after["column_sums"] == before["column_sums"]
+
+
+def test_set_params_drops_the_graph(cuda_device, graph_scene, tmp_path):
+    """After set_params a call captures anew and trains the new parameters,
+    as a fresh Trainer from them does; a stale graph would train the old
+    tensors and leave the new ones at their start."""
+    import copy
+
+    from simplenerf_torch.training import checkpoints
+
+    t = _graph_trainer(graph_scene, tmp_path / "t")
+    init = copy.deepcopy(t.params)
+    t.train_many(0, 3)
+    old = t._graph
+    t.set_params(init)
+    assert t._graph is None
+    got = _train_state(t, t.train_many(3, 3))
+    assert t._graph is not old
+
+    def fresh(out):
+        f = _graph_trainer(graph_scene, out)
+        f.train_pp.fast_forward(3)
+        return _train_state(f, f.train_many(3, 3))
+
+    start = torch.cat([p.detach().reshape(-1) for p in checkpoints.flat_leaves(init)]).cpu()
+    assert not torch.equal(got["params"], start)
+    _held("after set_params", got, fresh(tmp_path / "a"), fresh(tmp_path / "b"))

@@ -12,10 +12,15 @@ point a user calls; where the config resumes, it goes on from the
 checkpoint under <out>/rank<r> (a test starts from given parameters by
 writing one there at iteration 0).
 
+With `--steps-per-call k` the run goes in chunks of k steps, logged at
+each chunk's end; on a card, in a world of one, each chunk replays one
+CUDA graph of the step (`Trainer.train_many`).
+
 Every rank writes `<dump>.rank<r>.npz`: the flat parameters, Adam's mu,
 nu and count after the last step, step 1's flat gradient (summed over the
-ranks), each step's loss values (`names`, `values`), each step's end on
-the host clock, and the four kernels' launch counters over the run.
+ranks), the logged steps (`iters`) and their loss values (`names`,
+`values`), each step's host stage on the host clock (`t`), and the four
+kernels' launch counters over the run.
 
     RANK=0 WORLD_SIZE=1 LOCAL_RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=29500 \\
         python tools/multiprocess_worker_torch.py --config cfg.json --db DB \\
@@ -43,10 +48,12 @@ from simplenerf_torch.training import trainer as trainer_lib  # noqa: E402
 COUNTERS = ("fused_apply_ensemble", "fused_ens_bwd", "fused_apply", "fused_bwd")
 
 
-def record_optimizer(rec: dict):
-    """Keep step 1's flat gradient, the state after the last step and each
-    step's end time from every FlatAdam of this process."""
-    gradient, step = trainer_lib.FlatAdam.gradient, trainer_lib.FlatAdam.step
+def record_trainer(rec: dict):
+    """Keep, from this process's Trainer, step 1's flat gradient (step 1
+    runs eagerly in either path), the Trainer itself and each step's host
+    stage time."""
+    gradient, stage, train = (trainer_lib.FlatAdam.gradient, trainer_lib.Trainer.stage,
+                              trainer_lib.Trainer.train)
 
     def recorded_gradient(self, leaves):
         g = gradient(self, leaves)
@@ -54,14 +61,17 @@ def record_optimizer(rec: dict):
             rec["grad1"] = g.detach().cpu().numpy().copy()
         return g
 
-    def recorded_step(self, leaves, state):
-        new = step(self, leaves, state)
-        rec["leaves"], rec["state"] = leaves, new
+    def recorded_stage(self, iter_num):
         rec.setdefault("t", []).append(time.perf_counter())
-        return new
+        return stage(self, iter_num)
+
+    def recorded_train(self, *args, **kwargs):
+        rec["trainer"] = self
+        return train(self, *args, **kwargs)
 
     trainer_lib.FlatAdam.gradient = recorded_gradient
-    trainer_lib.FlatAdam.step = recorded_step
+    trainer_lib.Trainer.stage = recorded_stage
+    trainer_lib.Trainer.train = recorded_train
 
 
 def main() -> int:
@@ -73,6 +83,8 @@ def main() -> int:
     ap.add_argument("--dump", type=Path, required=True, help="writes <dump>.rank<r>.npz")
     ap.add_argument("--device", default=None, help="cpu, cuda or cuda:<i> (default: the card)")
     ap.add_argument("--backend", default=None, help="gloo or nccl (default: by device)")
+    ap.add_argument("--steps-per-call", type=int, default=1,
+                    help="train in chunks of this many steps, logged at each chunk's end")
     args = ap.parse_args()
 
     device = parallel.initialize_distributed(args.device, backend=args.backend)
@@ -82,12 +94,12 @@ def main() -> int:
     cfg = json.loads(args.config.read_text())
     out = args.out / f"rank{mesh.rank}"
     rec: dict = {}
-    record_optimizer(rec)
+    record_trainer(rec)
     for name in COUNTERS:
         getattr(fused_mlp, name).launches = 0
 
     cfg["num_iterations"] = args.steps
-    cfg["log_interval"] = 1
+    cfg["steps_per_call"] = cfg["log_interval"] = args.steps_per_call
     run_dir = runner.start_training(cfg, args.db, out, mesh=mesh)
     (log,) = run_dir.glob("*/logs/scalars.jsonl")  # one scene
     rows = [r for r in map(json.loads, log.read_text().splitlines()) if "TotalLoss" in r]
@@ -96,13 +108,15 @@ def main() -> int:
 
     if device.type == "cuda":
         torch.cuda.synchronize()
-    state = rec["state"]
+    trainer = rec["trainer"]
+    state = trainer.opt_state
     np.savez(
         f"{args.dump}.rank{mesh.rank}.npz",
-        params=torch.cat([p.detach().reshape(-1) for p in rec["leaves"]]).cpu().numpy(),
+        params=torch.cat([p.detach().reshape(-1) for p in trainer.leaves]).cpu().numpy(),
         mu=state["mu"].cpu().numpy(), nu=state["nu"].cpu().numpy(), count=state["count"],
         grad1=rec.get("grad1", np.zeros(0, np.float32)), names=np.array(names),
-        values=np.array(values, np.float64), t=np.array(rec["t"]),
+        iters=np.array([r["iter"] for r in rows]), values=np.array(values, np.float64),
+        t=np.array(rec["t"]),
         launches=json.dumps({n: getattr(fused_mlp, n).launches for n in COUNTERS}),
         world_size=mesh.world_size,
     )
