@@ -10,7 +10,9 @@ without a result):
   1. device: the card's name and power limit, as nvidia-smi reports them;
   2. build: compile every CUDA source with nvcc, one process per source,
      all started together, and print each kernel's ptxas registers and
-     spill bytes;
+     spill bytes and the HGMMA instructions in each kernel's SASS
+     (`cuobjdump -sass`): the forwards, the row passes (bf16 and float32)
+     and the bf16 weight pass must issue some;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the published width (8x256 trunk, 1x128 views, PE 10/4), for the main,
      points-augmentation, Lambertian and visibility-head MLPs, 64 and 192
@@ -19,7 +21,10 @@ without a result):
      through the ensemble kernels, forward and backward, at 1037 x 64;
      then all of them at the training step's shapes (4096 x 64 trio,
      4096 x 192 main), with the priors phase's visibility-head fine MLP
-     and trio (views heads of 4 beside 3) at the same shapes;
+     and trio (views heads of 4 beside 3) at the same shapes; there the
+     float32 kernels (3xTF32) are also held to the plain versions in
+     float64: their error at most YARDSTICK times the float32 plain
+     version's (planes and gradients; both printed);
   4. serve: a seeded synthetic scene (189x252, 6 frames, 3 for training),
      the published bf16 recipe with seeded random weights in a checkpoint,
      `runner.start_testing` over its test frames, then one 756x1008 request
@@ -102,21 +107,24 @@ without a result):
      chunk, and a 41,152-ray chunk), held against its plain version; at the
      64k shapes it is also timed with CUDA events after warm-up, beside the
      plain version and the card's bound;
-  11. timing: each kernel at the training step's shapes (CUDA events after
-     warm-up) beside its plain version and its bound, each backward's row
+  11. timing: each kernel at the training step's shapes, in bf16 and in
+     float32 (CUDA events after warm-up), beside its plain version and its
+     bound (float32: 3 x FLOP at the TF32 peak, the FMA bound beside it),
+     each backward's row
      pass, weight pass and column sums apart and each of its three column
      sums apart (torch.profiler's kernel events); for each backward the
      weight pass's bound from the distinct stash slots it reads (beside
      its FLOP bound), the stash bytes its producers issue, per-dW
      torch.matmul on a seeded stash of the step's shape and torch.sum at
-     each column sum's shape; seconds per training step through the loop
+     each column sum's shape; seconds per training step of the bf16 and of
+     the float32 recipe through the loop
      (median of 40 after 3 of warm-up) and through the CUDA graph (median
      of 5 calls of `train_many(k=40)` after one that captures), rays/s,
      each one's device busy share from a torch.profiler breakdown of the
      step's device time by kernel (3 loop steps, 10 replayed steps: the
      replays must run each kernel of ops/csrc as often per step as the
      loop), peak device memory allocated and reserved, and the capture's
-     time.
+     time; one float32 756x1008 frame through `Tester.predict_frame`.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON (`launches` from the 40-step training run,
 `launches_parallel` from phase 6, summed over its ranks of (b) and (c),
@@ -133,7 +141,10 @@ row_bound_ms / row_ms, its bf16 row kernel's ptxas registers and spill
 bytes, row_ptxas, and the weight kernel's, weight_ptxas; a
 forward's row has its bf16 kernel's ptxas, fwd_ptxas, and the share of
 its bound, bound_share = bound_ms / ms; the serving chunks carry the
-same). A
+same; the float32 readings carry the suffix _f32: ms, plain_ms, bound_ms
+(3xTF32), fma_bound_ms, the passes, the float32 kernels' ptxas and HGMMA
+counts, yardstick_f32, and the per-dW float32 torch.matmul beside the
+float32 weight pass). A
 forward's `time` line also counts the weight bytes its producer issues
 per launch (blocks x the packed slab image), and a backward's the stash
 bytes its weight pass's producers issue: counts, not readings of the
@@ -157,9 +168,12 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# Published peaks of one H100 SXM (dense): tensor-core bf16 and CUDA-core
-# float32 rates, and HBM3 bandwidth.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Published peaks of one H100 SXM (dense): tensor-core bf16 and TF32 and
+# CUDA-core float32 rates, and HBM3 bandwidth. A float32 kernel on the
+# tensor cores forms each product as three TF32 products (3xTF32), so its
+# bound is 3 x FLOP at the TF32 rate; its FMA bound, FLOP at the CUDA-core
+# rate, is printed beside it.
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 CHUNK_RAYS = 64 * 1024
 # Kernel vs plain version on the same inputs: max abs error over the raw
@@ -226,6 +240,27 @@ def ptxas_report(log: str) -> dict:
         if m and name:
             out.setdefault(name, {})["registers"] = int(m[1])
     return out
+
+
+def hgmma_counts(lib: Path) -> dict:
+    """{kernel label: HGMMA instructions} in a built library's SASS
+    (`cuobjdump -sass`): the tensor-core products each kernel issues."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = kernel_label(line.split("Function :")[1].strip())
+            out.setdefault(fn, 0)
+        elif fn and "HGMMA" in line:
+            out[fn] += 1
+    return out
+
+
+TENSOR_CORE_KERNELS = ("fused_mlp_fwd_sm90_kernel", "fused_mlp_fwd_tf32_kernel",
+                       "fused_mlp_bwd_rows_sm90_kernel", "fused_mlp_bwd_rows_tf32_kernel",
+                       "fused_mlp_bwd_wgrad_kernel")
 
 
 def kernel_label(entry: str) -> str:
@@ -356,8 +391,49 @@ def ensemble_operands(nr: int, ns: int, dtype, seed: int, trio=None):
     return mlp.ensemble_operands(members, pts, dirs, ns, dtype)
 
 
-def single_check(name: str, nr: int, ns: int, dtype) -> dict:
-    """Forward and backward kernels of one MLP vs their plain versions."""
+# The float32 kernels (3xTF32) against the plain version evaluated in
+# float64: the kernel's error may be at most YARDSTICK times the float32
+# plain version's (true float32 products) against the same float64 result,
+# planes as max abs error, gradients as the worst ||got - want|| / ||want||.
+# One TF32 product instead of three fails it (tools/probe_fused_mlp*.py).
+YARDSTICK = 4.0
+
+
+def _double(x):
+    import torch
+
+    if isinstance(x, dict):
+        return {k: _double(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_double(v) for v in x)
+    return x.double() if isinstance(x, torch.Tensor) else x
+
+
+def yardstick(kernel: str, label: str, got, plain, exact, grads: bool) -> dict:
+    """The kernel's and the float32 plain version's errors against the
+    float64 plain version; fails past YARDSTICK."""
+    import torch
+
+    def err(a) -> float:
+        if grads:
+            return max(norm_err(a[k], exact[k]) for k in exact)
+        return max((x.double() - y).abs().max().nan_to_num(float("inf")).item()
+                   for x, y in zip(a, exact))
+
+    k_err, p_err = err(got), err(plain)
+    ratio = k_err / max(p_err, 1e-300)
+    print(f"yardstick {kernel} {label} float32 vs float64: kernel {k_err:.3e}, float32 plain version "
+          f"{p_err:.3e}, ratio {ratio:.2f} (limit {YARDSTICK:g}; "
+          f"{'gradients, worst norm err' if grads else 'planes, max abs err'})", flush=True)
+    if not ratio <= YARDSTICK:
+        fail(f"{kernel} is further from float64 than {YARDSTICK:g} x the float32 plain version: {label}")
+    torch.cuda.empty_cache()
+    return {"kernel": k_err, "plain": p_err, "ratio": ratio}
+
+
+def single_check(name: str, nr: int, ns: int, dtype, exact: bool = False) -> dict:
+    """Forward and backward kernels of one MLP vs their plain versions;
+    with `exact` (float32) also against the float64 plain versions."""
     from simplenerf_torch.fields.mlp import MLPConfig
     from simplenerf_torch.ops import fused_mlp
 
@@ -365,17 +441,36 @@ def single_check(name: str, nr: int, ns: int, dtype) -> dict:
     ops = kernel_operands(MLPConfig(**PUBLISHED[name]), nr, ns, dtype, seed=len(name) + ns)
     spec = ops[0]
     label = f"{name} {nr} rays x {ns}"
-    fwd = check_planes(label, dname, fused_mlp.fused_apply(*ops), fused_mlp.fused_apply_reference(*ops))
+    planes, plain = fused_mlp.fused_apply(*ops), fused_mlp.fused_apply_reference(*ops)
+    fwd = check_planes(label, dname, planes, plain)
     dp = cotangents(spec.n_planes, nr, ns, seed=ns)
     dkp, dhvx = fused_mlp.fused_bwd(*ops, dp)
     want, want_hvx = fused_mlp.fused_bwd_reference(*ops, dp)
     if spec.has_hvx:
         dkp, want = {**dkp, "dhvx": dhvx}, {**want, "dhvx": want_hvx}
     bwd = check_grads("fused_mlp_bwd", label, dname, dkp, want)
-    return {"fwd": fwd, "bwd": bwd}
+    out = {"fwd": fwd, "bwd": bwd}
+    if exact:
+        ops64 = (fused_mlp.with_dtype(spec, "float64"), *_double(ops[1:]))
+        out["fwd_yardstick"] = yardstick("fused_mlp_fwd", label, planes, plain,
+                                         fused_mlp.fused_apply_reference(*ops64), grads=False)
+        w64, w64_hvx = fused_mlp.fused_bwd_reference(*ops64, dp.double())
+        if spec.has_hvx:
+            w64 = {**w64, "dhvx": w64_hvx}
+        out["bwd_yardstick"] = yardstick("fused_mlp_bwd", label, dkp, want, w64, grads=True)
+    return out
 
 
-def ensemble_check(nr: int, ns: int, dtype, trio=TRIO) -> dict:
+def _flat_grads(trio, dkps, dhvxs) -> dict:
+    out = {}
+    for name, a in zip(trio, dkps):
+        out.update({f"{name}.{k}": v for k, v in a.items()})
+    for i, a in enumerate(dhvxs):
+        out[f"dhvx{i}"] = a
+    return out
+
+
+def ensemble_check(nr: int, ns: int, dtype, trio=TRIO, exact: bool = False) -> dict:
     from simplenerf_torch.ops import fused_mlp
 
     dname = dname_of(dtype)
@@ -385,16 +480,17 @@ def ensemble_check(nr: int, ns: int, dtype, trio=TRIO) -> dict:
     want = fused_mlp.fused_apply_ensemble_reference(ens, kps, lo, hvxs)
     fwd = check_planes(label, dname, got, want, kernel="fused_mlp_ens_fwd")
     dp = cotangents(ens.n_planes, nr, ns, seed=ns + 1)
-    dkps, dhvxs = fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp)
-    wkps, whvxs = fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, dp)
-    got_all, want_all = {}, {}
-    for name, a, b in zip(trio, dkps, wkps):
-        got_all.update({f"{name}.{k}": v for k, v in a.items()})
-        want_all.update({f"{name}.{k}": v for k, v in b.items()})
-    for i, (a, b) in enumerate(zip(dhvxs, whvxs)):
-        got_all[f"dhvx{i}"], want_all[f"dhvx{i}"] = a, b
+    got_all = _flat_grads(trio, *fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp))
+    want_all = _flat_grads(trio, *fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, dp))
     bwd = check_grads("fused_mlp_ens_bwd", label, dname, got_all, want_all)
-    return {"fwd": fwd, "bwd": bwd}
+    out = {"fwd": fwd, "bwd": bwd}
+    if exact:
+        ops64 = (fused_mlp.with_dtype(ens, "float64"), *_double((kps, lo, hvxs)))
+        out["fwd_yardstick"] = yardstick("fused_mlp_ens_fwd", label, got, want,
+                                         fused_mlp.fused_apply_ensemble_reference(*ops64), grads=False)
+        w64 = _flat_grads(trio, *fused_mlp.fused_ens_bwd_reference(*ops64, dp.double()))
+        out["bwd_yardstick"] = yardstick("fused_mlp_ens_bwd", label, got_all, want_all, w64, grads=True)
+    return out
 
 
 def check_train_kernels() -> dict:
@@ -416,20 +512,32 @@ def check_train_kernels() -> dict:
             key = (kernel, dname_of(dtype), what)
             worst[key] = max(worst.get(key, 0.0), err)
 
+    def keep_exact(kernel, e):  # the float64 yardstick at the step's shapes, its worst ratio
+        key = (kernel, "float32", "yardstick")
+        if key not in worst or e["ratio"] > worst[key]["ratio"]:
+            worst[key] = e
+
     for dtype in (torch.float32, torch.bfloat16):
         for name in PUBLISHED:
             for ns in (COARSE_NS, FINE_NS):
                 e = single_check(name, 1037, ns, dtype)
                 keep("fused_mlp_fwd", dtype, e["fwd"])
                 keep("fused_mlp_bwd", dtype, e["bwd"])
+        exact = dtype == torch.float32
         for nr, ns in ((1037, COARSE_NS), (STEP_RAYS, COARSE_NS)):
-            e = ensemble_check(nr, ns, dtype)
+            e = ensemble_check(nr, ns, dtype, exact=exact and nr == STEP_RAYS)
             keep("fused_mlp_ens_fwd", dtype, e["fwd"])
             keep("fused_mlp_ens_bwd", dtype, e["bwd"])
+            if "fwd_yardstick" in e:
+                keep_exact("fused_mlp_ens_fwd", e["fwd_yardstick"])
+                keep_exact("fused_mlp_ens_bwd", e["bwd_yardstick"])
         for name in ("main", "visibility"):  # the published step; the priors phase's
-            e = single_check(name, STEP_RAYS, FINE_NS, dtype)
+            e = single_check(name, STEP_RAYS, FINE_NS, dtype, exact=exact and name == "main")
             keep("fused_mlp_fwd", dtype, e["fwd"])
             keep("fused_mlp_bwd", dtype, e["bwd"])
+            if "fwd_yardstick" in e:
+                keep_exact("fused_mlp_fwd", e["fwd_yardstick"])
+                keep_exact("fused_mlp_bwd", e["bwd_yardstick"])
         # The priors phase's coarse trio: a 4-channel views head beside 3.
         e = ensemble_check(STEP_RAYS, COARSE_NS, dtype, trio=VIS_TRIO)
         keep("fused_mlp_ens_fwd", dtype, e["fwd"])
@@ -649,6 +757,7 @@ def bwd_pass_ms(fn, calls: int = 3, sums=(1, 1, 1)) -> dict:
         torch.cuda.synchronize()
     out = {"row_ms": 0.0, "weight_ms": 0.0, "sums_ms": 0.0}
     parts = {"fused_mlp_bwd_rows_kernel": "row_ms", "fused_mlp_bwd_rows_sm90_kernel": "row_ms",
+             "fused_mlp_bwd_rows_tf32_kernel": "row_ms", "fused_mlp_tf32_split_kernel": "row_ms",
              "fused_mlp_bwd_wgrad_kernel": "weight_ms",
              "fused_mlp_bwd_weights_kernel": "weight_ms", "colsum_kernel": "sums_ms"}
     colsums = []
@@ -667,48 +776,66 @@ def bwd_pass_ms(fn, calls: int = 3, sums=(1, 1, 1)) -> dict:
     return out
 
 
-def slab_gb(spec, rows: int) -> float:
-    """GB of weight slabs one bf16 forward launch issues: every 128-row block
-    copies the whole packed slab image once. A count of what the producer
-    asks for, not a measurement of L2 traffic."""
+def slab_gb(spec, rows: int):
+    """GB of weight slabs one forward launch issues: every 128-row block
+    copies the whole packed slab image once (in float32 its big and small
+    TF32 halves, `fused_mlp.slab_bytes`). A count of what the producer asks
+    for, not a measurement of L2 traffic; None where the package counts none
+    (an earlier checkout's float32 engine)."""
     from simplenerf_torch.ops import fused_mlp
 
+    if hasattr(fused_mlp, "slab_bytes"):
+        return fused_mlp.slab_bytes(spec, rows) / 1e9
+    if spec.cdtype != fused_mlp.torch.bfloat16:
+        return None
     return -(-rows // 128) * fused_mlp.sm90_plan(spec).w_index.size * 2 / 1e9
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, dname: str = "bfloat16") -> tuple[float, str]:
+    """The least time of `flops` and `nbytes` on the card in the compute
+    type `dname` (float32: 3xTF32 on the tensor cores) and what bounds it."""
+    t_ops = (flops / PEAK_FLOPS["bfloat16"] if dname == "bfloat16"
+             else 3 * flops / PEAK_FLOPS["tf32"])
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def fma_bound_ms(flops: float) -> float:
+    """The least time of `flops` as float32 FMAs on the CUDA cores."""
+    return 1e3 * flops / PEAK_FLOPS["float32"]
 
 
 def row_pass_bytes(plan, rows: int, inputs) -> int:
     """Bytes the backward's row pass must move: each input tensor read once
     and each output written once, the stash slots the weight pass reads
-    (2 bytes a value), the g32 planes of dhvx and the per-tile partials
-    rows (4). Its mask words are its own scratch, written and read back by
-    the same block."""
+    (2 bytes a value in bf16, 4 in float32), the g32 planes of dhvx and the
+    per-tile partials rows (4). Its mask words are its own scratch, written
+    and read back by the same block."""
     slots = {s: w for a, aw, g, gw, *_ in plan.dws for s, w in ((a, aw), (g, gw))}
-    outputs = (sum(slots.values()) * rows * 2 + plan.n_hvx * rows * plan.hvx_w * 4
+    esize = plan.wts.element_size()
+    outputs = (sum(slots.values()) * rows * esize + plan.n_hvx * rows * plan.hvx_w * 4
                + -(-rows // 128) * plan.part_w * 4)
     return outputs + sum(t.numel() * t.element_size() for t in inputs if t is not None)
 
 
-def weight_pass_yardsticks(label: str, plan, rows: int, sum_shapes) -> dict:
+def weight_pass_yardsticks(label: str, plan, rows: int, sum_shapes, dname: str = "bfloat16") -> dict:
     """The backward's weight pass and column sums against what the card and
     PyTorch would take for the same work, on a seeded stash of the step's
-    shape: the weight pass's bounds (the distinct stash slots it reads,
-    each once, over HBM's rate; its FLOP over the bf16 peak), the stash
-    bytes its producers issue (a count from the plan), one torch.matmul of
-    the two slots per dW (N calls), and torch.sum at each column sum's
-    shape (the same function, one call each)."""
+    shape in the compute type: the weight pass's bounds (the distinct stash
+    slots it reads, each once, over HBM's rate; its FLOP over the peak of
+    the compute type, and in float32 also as FMAs), the stash bytes its
+    producers issue (bf16: a count from the plan), one torch.matmul of the
+    two slots per dW (N calls; float32 without TF32, PyTorch's default), and
+    torch.sum at each column sum's shape (the same function, one call each)."""
     import torch
 
-    maps = plan.maps
-    used = {int(j[m]) for j in plan.tasks.tolist() for m in (1, 4)}  # each job's A and G maps
-    slot_bytes = sum(int(maps[m][1]) for m in used) * rows * 2
+    cd = torch.bfloat16 if dname == "bfloat16" else torch.float32
+    esize = 2 if dname == "bfloat16" else 4
+    slots = {s: w for a, aw, g, gw, *_ in plan.dws for s, w in ((a, aw), (g, gw))}
+    slot_bytes = sum(slots.values()) * rows * esize
     flops = sum(2 * k * m * rows for *_, k, m, _off in plan.dws)
     g = torch.Generator(device="cuda").manual_seed(11)
-    stash = torch.randn(plan.stash_cols * rows, generator=g, device="cuda").to(torch.bfloat16)
+    stash = torch.randn(plan.stash_cols * rows, generator=g, device="cuda").to(cd)
 
     def slot(c, w):
         return stash[c * rows : (c + w) * rows].view(rows, w)
@@ -724,14 +851,18 @@ def weight_pass_yardsticks(label: str, plan, rows: int, sum_shapes) -> dict:
     torch.cuda.empty_cache()
     out = {"weight_bytes_gb": slot_bytes / 1e9, "weight_issued_gb": plan.wgrad_bytes / 1e9,
            "weight_bound_ms": 1e3 * slot_bytes / PEAK_BYTES,
-           "weight_flop_bound_ms": 1e3 * flops / PEAK_FLOPS["bfloat16"],
+           "weight_flop_bound_ms": bound_ms(flops, 0, dname)[0],
            "weight_library_ms": matmul_ms, "weight_library_calls": len(plan.dws),
            "sums_library_ms": sums_ms,
            "sums_bound_ms": [1e3 * 4 * S * C * (L + 1) / PEAK_BYTES for S, L, C in sum_shapes]}
-    print(f"time {label} weight pass yardsticks: {out['weight_bytes_gb']:.2f} GB of distinct stash "
-          f"slots, bound {out['weight_bound_ms']:.3f} ms (bytes; FLOP {out['weight_flop_bound_ms']:.3f} "
-          f"ms); {out['weight_issued_gb']:.2f} GB issued by its producers (a count from the plan); "
-          f"torch.matmul per dW ({len(plan.dws)} calls) {matmul_ms:.3f} ms; column sums at "
+    if dname == "float32":
+        out["weight_fma_bound_ms"] = fma_bound_ms(flops)
+    fma = f", as FMAs {out['weight_fma_bound_ms']:.3f} ms" if dname == "float32" else ""
+    print(f"time {label} {dname} weight pass yardsticks: {out['weight_bytes_gb']:.2f} GB of distinct "
+          f"stash slots, {1e3 * slot_bytes / PEAK_BYTES:.3f} ms at HBM's rate; FLOP bound "
+          f"{out['weight_flop_bound_ms']:.3f} ms{fma}; {out['weight_issued_gb']:.2f} GB issued by its "
+          f"producers (a count from the plan); torch.matmul per dW ({len(plan.dws)} calls) "
+          f"{matmul_ms:.3f} ms; column sums at "
           + ", ".join(f"{S}x{L}x{C}" for S, L, C in sum_shapes) + ": torch.sum "
           + ", ".join(f"{ms:.3f}" for ms in sums_ms) + " ms, bounds "
           + ", ".join(f"{ms:.3f}" for ms in out["sums_bound_ms"]) + " ms", flush=True)
@@ -744,10 +875,11 @@ def _sum_shapes(plan, rows: int, ns: int) -> list:
             (plan.n_hvx * (rows // ns), ns, plan.hvx_w)]
 
 
-def time_train_kernels() -> dict:
-    """Each kernel at the training step's shapes (bf16), CUDA events after
-    warm-up, beside its plain version and its bound; each backward's passes
-    (profiler) beside the weight pass's and column sums' yardsticks."""
+def time_train_kernels(dtype=None) -> dict:
+    """Each kernel at the training step's shapes in `dtype` (bf16 by
+    default), CUDA events after warm-up, beside its plain version and its
+    bound (float32: 3xTF32, with the FMA bound beside it); each backward's
+    passes (profiler) beside the weight pass's and column sums' yardsticks."""
     import torch
 
     from simplenerf_torch.fields.mlp import MLPConfig
@@ -756,91 +888,101 @@ def time_train_kernels() -> dict:
     saved = {f: f.launches for f in (fused_mlp.fused_apply, fused_mlp.fused_bwd,
                                      fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd)}
     out = {}
-    bf16 = torch.bfloat16
+    cd = dtype or torch.bfloat16
+    dname, esize = dname_of(cd), 2 if cd == torch.bfloat16 else 4
 
     def wbytes(kps):
-        return sum(v.numel() for kp in kps for v in kp.values()) * 2
+        return sum(v.numel() for kp in kps for v in kp.values()) * esize
 
     def sum_launches(plan):
-        return tuple(2 if n > 1 else 1 for n in plan.slices)
+        return tuple(2 if n > 1 else 1 for n in getattr(plan, "slices", (1, 1, 1)))
+
+    def bounds(flops, nbytes, prefix=""):
+        b = bound_ms(flops, nbytes, dname)
+        row = {f"{prefix}bound_ms": b[0], f"{prefix}bound_by": b[1]}
+        if dname == "float32":
+            row[f"{prefix}fma_bound_ms"] = fma_bound_ms(flops)
+        return row
 
     # Fine: one MLP, 4096 x 192.
-    spec, kp, lo, hi, hvx = ops = kernel_operands(MLPConfig(), STEP_RAYS, FINE_NS, bf16, seed=3)
+    spec, kp, lo, hi, hvx = ops = kernel_operands(MLPConfig(), STEP_RAYS, FINE_NS, cd, seed=3)
     rows = lo.shape[0]
     dp = cotangents(spec.n_planes, STEP_RAYS, FINE_NS, seed=4)
     plan = fused_mlp.pack_bwd_program(spec, kp, rows)
-    io = lo.numel() * 2 + hvx.numel() * 4
-    b_fwd = bound_ms(spec.flops_per_point() * rows, io + wbytes([kp]) + dp.numel() * 4)
-    b_bwd = bound_ms(spec.bwd_flops_per_point() * rows,
-                     io + wbytes([kp]) + dp.numel() * 4 + wbytes([kp]) * 2 + hvx.numel() * 4)
-    b_row = bound_ms(spec.row_flops_per_point() * rows,
-                     row_pass_bytes(plan, rows, (lo, hi, hvx, dp, plan.wts, plan.fpar)))
+    io = lo.numel() * esize + hvx.numel() * 4
+    shape = f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, {dname}"
     out["fused_mlp_fwd"] = dict(
-        shape=f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, bf16",
-        ms=cuda_time_ms(lambda: fused_mlp.fused_apply(*ops), iters=10),
+        shape=shape, ms=cuda_time_ms(lambda: fused_mlp.fused_apply(*ops), iters=10),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_apply_reference(*ops), iters=3),
-        bound_ms=b_fwd[0], bound_by=b_fwd[1], slab_gb=slab_gb(spec, rows))
+        slab_gb=slab_gb(spec, rows),
+        **bounds(spec.flops_per_point() * rows, io + wbytes([kp]) + dp.numel() * 4))
     out["fused_mlp_bwd"] = dict(
-        shape=f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, bf16",
-        ms=cuda_time_ms(lambda: fused_mlp.fused_bwd(*ops, dp), iters=5),
+        shape=shape, ms=cuda_time_ms(lambda: fused_mlp.fused_bwd(*ops, dp), iters=5),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_bwd_reference(*ops, dp), iters=2),
-        bound_ms=b_bwd[0], bound_by=b_bwd[1], row_bound_ms=b_row[0], row_bound_by=b_row[1],
+        **bounds(spec.bwd_flops_per_point() * rows,
+                 io + wbytes([kp]) + dp.numel() * 4 + wbytes([kp]) * 2 + hvx.numel() * 4),
+        **bounds(spec.row_flops_per_point() * rows,
+                 row_pass_bytes(plan, rows, (lo, hi, hvx, dp, plan.wts, plan.fpar)), "row_"),
         **bwd_pass_ms(lambda: fused_mlp.fused_bwd(*ops, dp), sums=sum_launches(plan)))
     del ops, lo, hi, hvx, kp, dp
     torch.cuda.empty_cache()
     out["fused_mlp_bwd"]["yardsticks"] = weight_pass_yardsticks(
-        "fused_mlp_bwd", plan, rows, _sum_shapes(plan, rows, FINE_NS))
+        "fused_mlp_bwd", plan, rows, _sum_shapes(plan, rows, FINE_NS), dname)
     del plan
 
     # Coarse: the trio through the ensemble, 4096 x 64.
-    ens, kps, lo, hvxs = ensemble_operands(STEP_RAYS, COARSE_NS, bf16, seed=5)
+    ens, kps, lo, hvxs = ensemble_operands(STEP_RAYS, COARSE_NS, cd, seed=5)
     rows = lo.shape[0]
     dp = cotangents(ens.n_planes, STEP_RAYS, COARSE_NS, seed=6)
     plan = fused_mlp.pack_bwd_program(ens, kps, rows)
-    io = lo.numel() * 2 + sum(h.numel() for h in hvxs) * 4
-    b_fwd = bound_ms(ens.flops_per_point() * rows, io + wbytes(kps) + dp.numel() * 4)
-    b_bwd = bound_ms(ens.bwd_flops_per_point() * rows,
-                     io + wbytes(kps) + dp.numel() * 4 + wbytes(kps) * 2 + io - lo.numel() * 2)
-    b_row = bound_ms(ens.row_flops_per_point() * rows,
-                     row_pass_bytes(plan, rows, (lo, *hvxs, dp, plan.wts, plan.fpar)))
+    io = lo.numel() * esize + sum(h.numel() for h in hvxs) * 4
+    shape = f"coarse trio step: {STEP_RAYS} rays x {COARSE_NS} = {rows} points, {dname}"
     out["fused_mlp_ens_fwd"] = dict(
-        shape=f"coarse trio step: {STEP_RAYS} rays x {COARSE_NS} = {rows} points, bf16",
+        shape=shape,
         ms=cuda_time_ms(lambda: fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs), iters=10),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_apply_ensemble_reference(ens, kps, lo, hvxs),
                               iters=3),
-        bound_ms=b_fwd[0], bound_by=b_fwd[1], slab_gb=slab_gb(ens, rows))
+        slab_gb=slab_gb(ens, rows),
+        **bounds(ens.flops_per_point() * rows, io + wbytes(kps) + dp.numel() * 4))
     out["fused_mlp_ens_bwd"] = dict(
-        shape=f"coarse trio step: {STEP_RAYS} rays x {COARSE_NS} = {rows} points, bf16",
+        shape=shape,
         ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp), iters=5),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, dp),
                               iters=2),
-        bound_ms=b_bwd[0], bound_by=b_bwd[1], row_bound_ms=b_row[0], row_bound_by=b_row[1],
+        **bounds(ens.bwd_flops_per_point() * rows,
+                 io + wbytes(kps) + dp.numel() * 4 + wbytes(kps) * 2 + io - lo.numel() * esize),
+        **bounds(ens.row_flops_per_point() * rows,
+                 row_pass_bytes(plan, rows, (lo, *hvxs, dp, plan.wts, plan.fpar)), "row_"),
         **bwd_pass_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp),
                       sums=sum_launches(plan)))
     del ens, kps, lo, hvxs, dp
     torch.cuda.empty_cache()
     out["fused_mlp_ens_bwd"]["yardsticks"] = weight_pass_yardsticks(
-        "fused_mlp_ens_bwd", plan, rows, _sum_shapes(plan, rows, COARSE_NS))
+        "fused_mlp_ens_bwd", plan, rows, _sum_shapes(plan, rows, COARSE_NS), dname)
     del plan
     for name, r in out.items():
-        l2 = f", {r['slab_gb']:.2f} GB of weight slabs issued" if "slab_gb" in r else ""
+        l2 = f", {r['slab_gb']:.2f} GB of weight slabs issued" if r.get("slab_gb") else ""
+        fma = f", FMA bound {r['fma_bound_ms']:.3f} ms" if "fma_bound_ms" in r else ""
         passes = ""
         if "row_ms" in r:
             parts = r.get("sums_parts_ms")
             split = (" (partials, dW partials, dhvx " + ", ".join(f"{ms:.3f}" for ms in parts) + ")"
                      if parts else "")
+            row_fma = f", FMA {r['row_fma_bound_ms']:.3f} ms" if "row_fma_bound_ms" in r else ""
             passes = (f" (row pass {r['row_ms']:.3f}, bound {r['row_bound_ms']:.3f} ms "
-                      f"({r['row_bound_by']}); weight pass {r['weight_ms']:.3f}, column sums "
+                      f"({r['row_bound_by']}){row_fma}; weight pass {r['weight_ms']:.3f}, column sums "
                       f"{r['sums_ms']:.3f}{split} ms, profiler)")
         print(f"time {name} ({r['shape']}): kernel {r['ms']:.3f} ms{passes}, plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}){l2}", flush=True)
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}){fma}{l2}",
+              flush=True)
     for f, n in saved.items():
         f.launches = n
     return out
 
 
-def step_time(db: Path, warmup: int = 3, steps: int = 40, graph_calls: int = 5) -> dict:
-    """Seconds per training step of the published bf16 recipe, through the
+def step_time(db: Path, warmup: int = 3, steps: int = 40, graph_calls: int = 5,
+              dname: str = "bfloat16") -> dict:
+    """Seconds per training step of the published recipe in `dname`, through the
     loop and through the CUDA graph, each in a fresh Trainer: the loop's
     host clock around each `train_one_iter` ending in a synchronisation
     (median of `steps` after `warmup`); the graph's around each call of
@@ -858,7 +1000,7 @@ def step_time(db: Path, warmup: int = 3, steps: int = 40, graph_calls: int = 5) 
     from simplenerf_torch.training.trainer import Trainer
 
     saved = fused_mlp.launch_counts()
-    cfg = train_config()
+    cfg = train_config(compute_dtype=dname)
     cfg["resume_training"] = False
     raw = get_data_loader(cfg, db, "train").load_data()
     out = {}
@@ -901,7 +1043,7 @@ def step_time(db: Path, warmup: int = 3, steps: int = 40, graph_calls: int = 5) 
         if mode == "graph":
             row.update(first_call_s=first_s, capture_s=capture_s)
         out[mode] = row
-        print(f"train step ({mode}): median {s * 1e3:.2f} ms over {len(times)} "
+        print(f"train step ({mode}, {dname}): median {s * 1e3:.2f} ms over {len(times)} "
               f"{'steps' if mode == 'loop' else 'calls of ' + str(steps) + ' steps'} after "
               f"{'3 steps' if mode == 'loop' else 'one call'} of warm-up (min {min(times) * 1e3:.2f}, "
               f"max {max(times) * 1e3:.2f}); {rays / s:.0f} rays/s; device busy "
@@ -911,7 +1053,8 @@ def step_time(db: Path, warmup: int = 3, steps: int = 40, graph_calls: int = 5) 
               flush=True)
     fused_mlp.add_launches({k: n - fused_mlp.launch_counts()[k] for k, n in saved.items()})
     loop_k, graph_k = out["loop"]["csrc_kernels"], out["graph"]["csrc_kernels"]
-    print(f"train step: ops/csrc kernels per step, loop {loop_k}, replayed {graph_k}", flush=True)
+    print(f"train step ({dname}): ops/csrc kernels per step, loop {loop_k}, replayed {graph_k}",
+          flush=True)
     if not loop_k or graph_k != loop_k:
         fail("the replayed steps do not run the loop's kernels once per step each")
     return out
@@ -960,11 +1103,11 @@ def profile_steps(trainer, start: int, steps: int, graph: bool = False) -> dict:
             "csrc_kernels": dict(sorted(csrc.items()))}
 
 
-def make_scene(work: Path, h: int, w: int):
+def make_scene(work: Path, h: int, w: int, dname: str = "bfloat16"):
     """The seeded synthetic scene (h x w, 6 frames, 3 for training; bench.py's
     size), its analytic depths as <work>/gt_depths/blobs/NNNN.npy (the
     pseudo-GT depths of the QA depth families), Configs.json for the
-    published bf16 recipe, the train-mode ModelConfigs.json and a checkpoint
+    published recipe in `dname`, the train-mode ModelConfigs.json and a checkpoint
     of seeded random weights, under `work`.
     Returns (db, runs, run_dir, cfg, model_configs)."""
     import numpy as np
@@ -983,7 +1126,7 @@ def make_scene(work: Path, h: int, w: int):
     (work / "gt_depths/blobs").mkdir(parents=True, exist_ok=True)
     for f, depth in enumerate(gt["depths"]):
         np.save(work / f"gt_depths/blobs/{f:04}.npy", depth)
-    cfg = presets.simplenerf_config(compute_dtype="bfloat16", scene_id="blobs")
+    cfg = presets.simplenerf_config(compute_dtype=dname, scene_id="blobs")
     run_dir = runs / "training/train0000"
     config.save_configs(run_dir, cfg)
     raw = get_data_loader(cfg, db, "train").load_data()
@@ -1011,6 +1154,36 @@ def large_request(db: Path, run_dir: Path, cfg: dict, mc: dict, scale: int):
     tester.preprocessor.model_configs = {**mc, "resolution": [h * scale, w * scale], "intrinsic": K.tolist()}
     pose = get_data_loader(cfg, db, "test").load_data()["nerf_data"]["extrinsics"][0]
     return tester, pose, K
+
+
+def frame_time(work: Path, dname: str, h: int = 189, w: int = 252, scale: int = 4) -> dict:
+    """One 756x1008 request through `Tester.predict_frame` of the published
+    recipe in `dname` on a fresh copy of the seeded scene under `work`, after
+    a warm-up frame: seconds, the forward's launches and peak memory."""
+    import numpy as np
+    import torch
+
+    from simplenerf_torch.ops import fused_mlp
+
+    db, _, run_dir, cfg, mc = make_scene(work, h, w, dname)
+    tester, pose, K = large_request(db, run_dir, cfg, mc, scale)
+    saved = fused_mlp.fused_apply.launches
+    tester.predict_frame(pose, intrinsic=K)
+    torch.cuda.synchronize()
+    before = fused_mlp.fused_apply.launches
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pred = tester.predict_frame(pose, intrinsic=K)
+    torch.cuda.synchronize()
+    t_frame = time.perf_counter() - t0
+    launches = fused_mlp.fused_apply.launches - before
+    fused_mlp.fused_apply.launches = saved  # these launches are not the main path's
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if pred["image"].shape != (h * scale, w * scale, 3) or not np.isfinite(pred["depth"]).all():
+        fail(f"bad outputs for the {dname} full-resolution request")
+    print(f"serve ({dname}): {h * scale}x{w * scale} request in {t_frame:.3f} s "
+          f"({launches} kernel launches), peak device memory {peak_gb:.2f} GiB", flush=True)
+    return {"frame_s": t_frame, "launches": launches, "peak_gb": peak_gb}
 
 
 def center_crop(tester, pose, K, c: int = 64):
@@ -1941,6 +2114,11 @@ def main() -> int:
                       f"{r.get('spill_stores', 0)} / {r.get('spill_loads', 0)} B spill stores / loads",
                       flush=True)
     print(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.1f} s (parallel nvcc)", flush=True)
+    hgmma = {k: n for lib in libs.values() for k, n in hgmma_counts(lib).items()}
+    print(f"build: HGMMA instructions in the SASS by kernel: {hgmma}", flush=True)
+    for name in TENSOR_CORE_KERNELS:
+        if not hgmma.get(name):
+            fail(f"{name} issues no HGMMA: its products are not on the tensor cores")
 
     worst = check_train_kernels()
     print(f"kernel checks done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1960,17 +2138,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         timing = chunk_kernels(test_rays=min(CHUNK_RAYS, -(-(h * w) // 256) * 256))
         train_timing = time_train_kernels()
+        train_timing_f32 = time_train_kernels(torch.float32)
         step = step_time(work / "db")
+        step_f32 = step_time(work / "db", dname="float32")
+        frame_f32 = frame_time(work / "frame_f32", "float32", h, w)
 
     fine, coarse = timing["fine"], timing["coarse"]
     print(f"serve: {served['frame_s']:.3f} s per served 756x1008 frame; "
           f"{served['test_s'] / served['frames']:.3f} s per 189x252 test frame incl. file output",
           flush=True)
-    for mode in ("loop", "graph"):
-        r = step[mode]
-        print(f"train ({mode}): {r['s_per_step']:.4f} s per step, {r['rays_per_s']:.0f} rays/s, "
-              f"device busy {100 * r['busy']:.1f} %, {r['reserved_gb']:.2f} GiB reserved "
-              f"(4096 rays per step, published bf16 recipe)", flush=True)
+    print(f"serve (float32): {frame_f32['frame_s']:.3f} s per served 756x1008 frame", flush=True)
+    for dname, st in (("bf16", step), ("float32", step_f32)):
+        for mode in ("loop", "graph"):
+            r = st[mode]
+            print(f"train ({mode}): {r['s_per_step']:.4f} s per step, {r['rays_per_s']:.0f} rays/s, "
+                  f"device busy {100 * r['busy']:.1f} %, {r['reserved_gb']:.2f} GiB reserved "
+                  f"(4096 rays per step, published {dname} recipe)", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     key = ("fused_mlp_fwd", "bfloat16", "err")
     worst[key] = max(worst[key], timing["max_abs_err"])
@@ -1986,6 +2169,7 @@ def main() -> int:
             "launches_parallel": par["launches"][WRAPPERS[name]],
             "max_abs_err": worst[(name, "bfloat16", "err")],
             "max_abs_err_f32": worst[(name, "float32", "err")],
+            "yardstick_f32": worst[(name, "float32", "yardstick")],
             "err_measure": ("planes: max abs error" if name.endswith("fwd")
                             else "gradients: max abs error / the plain version's largest value"),
         }
@@ -1999,6 +2183,8 @@ def main() -> int:
             row.update(row_bound_ms=t["row_bound_ms"], row_bound_by=t["row_bound_by"],
                        row_bound_share=t["row_bound_ms"] / t["row_ms"])
             row["row_ptxas"] = ptxas["fused_mlp_bwd_rows_sm90_kernel"]
+            row["row_ptxas_f32"] = ptxas["fused_mlp_bwd_rows_tf32_kernel"]
+            row["row_hgmma_f32"] = hgmma["fused_mlp_bwd_rows_tf32_kernel"]
             row["weight_ptxas"] = ptxas.get("fused_mlp_bwd_wgrad_kernel")
         row.update({
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -2006,7 +2192,17 @@ def main() -> int:
         })
         if name.endswith("fwd"):
             row["fwd_ptxas"] = ptxas["fused_mlp_fwd_sm90_kernel"]
+            row["fwd_ptxas_f32"] = ptxas["fused_mlp_fwd_tf32_kernel"]
+            row["hgmma_f32"] = hgmma["fused_mlp_fwd_tf32_kernel"]
             row["bound_share"] = t["bound_ms"] / t["ms"]
+        f = train_timing_f32[name]  # float32: the 3xTF32 bound, the FMA bound beside it
+        row.update({f"{k}_f32": f[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "fma_bound_ms", "row_ms", "weight_ms",
+            "sums_ms", "sums_parts_ms", "row_bound_ms", "row_bound_by", "row_fma_bound_ms") if k in f})
+        if name.endswith("bwd"):
+            row.update({f"{k}_f32": f["yardsticks"][k] for k in (
+                "weight_library_ms", "weight_flop_bound_ms", "weight_fma_bound_ms", "weight_bound_ms",
+                "sums_library_ms")})
         if name == "fused_mlp_fwd":
             row["launches_serve"] = served["launches"]
             row["serve_chunks"] = {
@@ -2014,14 +2210,16 @@ def main() -> int:
                         "bound_share": timing[level]["bound_ms"] / timing[level]["ms"]}
                 for level in ("coarse", "fine")}
         kernels.append(row)
-        if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
+        if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms", "ms_f32",
+                                                    "plain_ms_f32", "bound_ms_f32")):
             fail(f"non-finite timing for {name}")
     print(json.dumps({"parallel": par}), flush=True)
     print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"realestate": re10k}), flush=True)
     print(json.dumps({"priors": prior}), flush=True)
     print(json.dumps({"kernels": kernels, "train_step": {
-        **step, "graph_vs_loop": graph_check, "step_grad_rel_err": step_err, "card": card}}),
+        **step, "float32": step_f32, "frame_f32": frame_f32, "graph_vs_loop": graph_check,
+        "step_grad_rel_err": step_err, "card": card}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

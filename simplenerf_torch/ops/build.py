@@ -31,11 +31,12 @@ _SIGNATURES = {
     "fused_mlp_fwd": {
         "snerf_fused_mlp_fwd": [_I, _P, _I] + [_P] * 6 + [_I, _P],
         "snerf_fused_mlp_ens_fwd": [_I, _P, _I] + [_P] * 5 + [_I, _P],
+        "snerf_tf32_split": [_P, _P, ctypes.c_longlong, _P],
     },
     "fused_mlp_bwd": {
-        "snerf_fused_mlp_bwd": [_I, _P, _I] + [_P] * 8 + [_I] * 5 + [_P] * 9 + [_I] + [_P] * 2
+        "snerf_fused_mlp_bwd": [_I, _P, _I] + [_P] * 7 + [_I] * 5 + [_P] * 9 + [_I] + [_P] * 2
                                + [_I, _P],
-        "snerf_fused_mlp_ens_bwd": [_I, _P, _I] + [_P] * 7 + [_I] * 5 + [_P] * 9 + [_I]
+        "snerf_fused_mlp_ens_bwd": [_I, _P, _I] + [_P] * 6 + [_I] * 5 + [_P] * 9 + [_I]
                                    + [_P] * 2 + [_I, _P],
         "snerf_wgrad": [_P, _P, _I, _P] + [_I] * 5 + [_P, _P, _I, _P, _P],
         "snerf_colsum": [_P, _P] + [_I] * 4 + [_P, _P],

@@ -3,8 +3,8 @@
 // the CUDA counterparts of simplenerf_tpu/ops/fused_mlp.py `_bwd_kernel`
 // and `_ens_bwd_kernel` that recomputes the forward and walks the layers
 // back over one tile of rows. The weight pass (fused_mlp_wgrad_sm90.cuh),
-// the column sums and the float32 row pass (fused_mlp_common.cuh) are
-// separate.
+// the column sums and the float32 row pass (fused_mlp_bwd_tf32_sm90.cuh,
+// this engine on the 3xTF32 core) are separate.
 //
 // What bounds it: per point of the published fine MLP the forward again
 // and dX, (589,952 + 557,696) multiply-adds, 1.81 TFLOP at the training

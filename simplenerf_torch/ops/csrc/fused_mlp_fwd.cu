@@ -18,120 +18,30 @@
 // that runs on across layers; a 128-row tile sets the L2 traffic at 128
 // FLOP per weight byte.
 //
-// Two engines, by operand type:
+// Two engines, by operand type, one program (struct sm90::Program):
 //   * bfloat16: fused_mlp_fwd_sm90_kernel (fused_mlp_sm90.cuh): a producer
 //     warpgroup streams the slabs with cp.async.bulk into an mbarrier ring,
 //     two consumer warpgroups of 64 rows run the products as wgmma from
 //     shared-memory descriptors and fold the heads into their register
 //     epilogues; no block-wide barrier in the layer chain;
-//   * float32: fused_mlp_fwd_kernel<float> (fused_mlp_common.cuh), wgmma
-//     having no float32 form: 8 warps over 64 rows, plain FMAs over the
-//     mma fragment layout (no TF32, which would break float32 parity), a
-//     3-stage cp.async ring of 32-deep slabs, heads as warp reductions of
-//     the activation tile.
+//   * float32: fused_mlp_fwd_tf32_kernel (fused_mlp_tf32_sm90.cuh), the same
+//     engine on the tensor cores in 3xTF32 (each product as three TF32
+//     products of the operands' big and small halves, float32-accurate):
+//     64-row x 32-deep weight chunks, split on the card by
+//     fused_mlp_tf32_split_kernel (snerf_tf32_split) into big and small
+//     images, A split in registers.
 // The ragged last block is masked: rows past n_rows read zeros and write
 // nothing. Per-ray `hvx` is read as hvx[slot][row / ns].
 //
-// Plain C interface (ctypes): snerf_fused_mlp_fwd and snerf_fused_mlp_ens_fwd
-// return the CUDA error of the launch, 0 on success.
+// Plain C interface (ctypes): snerf_fused_mlp_fwd, snerf_fused_mlp_ens_fwd and
+// snerf_tf32_split return the CUDA error of the launch, 0 on success.
 
-#include "fused_mlp_common.cuh"
+#include <string.h>
+
 #include "fused_mlp_sm90.cuh"
+#include "fused_mlp_tf32_sm90.cuh"
 
 namespace {
-
-constexpr int kMaxOps = 40;
-
-enum { OP_LAYER = 0, OP_HEAD = 1 };
-
-// One step of the layer program (16 ints; built by ops/fused_mlp.py).
-// LAYER: act = f(sum_s src[s] @ W_s + bias [+ hvx[hvx_slot]]); W_s stored (n, kpad[s]).
-// HEAD (nseg 0):  out[plane + j][row] = sum_k act[row][k] * fpar[w_off[0] + j*kpad[0] + k] + fpar[b_off + j].
-struct Op {
-  int kind, n, b_off, flags, nseg;
-  int src[kMaxSeg];
-  int w_off[kMaxSeg];
-  int kpad[kMaxSeg];
-  int plane, hvx_slot;
-};
-
-struct Program {
-  int n_ops, n_rows, ns, in_lo, in_hi, lo_kpad, hi_kpad;
-  int act_ld, lo_ld, hi_ld, slab_ld, slab_rows, slab_k;
-  Op ops[kMaxOps];
-  __device__ __forceinline__ const Op& op(int i) const { return ops[i]; }
-};
-
-constexpr int kHeaderWords = 13;
-static_assert(sizeof(Op) == 16 * sizeof(int), "Op layout");
-static_assert(sizeof(Program) == (kHeaderWords + 16 * kMaxOps) * sizeof(int), "Program layout");
-
-template <typename T>
-__device__ void run_head(const Op& op, const Program& p, const Tiles<T>& s, const float* fpar,
-                         float* out, int row0, int tid) {
-  constexpr int BM = Block<T>::BM;
-  constexpr int kWarps = Block<T>::kThreads / 32;
-  const int warp = tid >> 5, lane = tid & 31;
-  __syncthreads();  // the tile was written by every warp's epilogue
-  constexpr int kPerLane = 256 / 32;  // head inputs are at most 256 wide
-  int lda;
-  const T* a = source(s, p, op.src[0], &lda);
-  const int k_len = op.kpad[0], n_out = op.n, n_rows = p.n_rows;
-  const float* w_head = fpar + op.w_off[0];
-  const float* b_head = fpar + op.b_off;
-  float* plane = out + (size_t)op.plane * n_rows;
-  for (int j = 0; j < n_out; ++j) {
-    // Lane l holds the head weights of k = l, l + 32, ...; rows go to warps.
-    float wl[kPerLane];
-#pragma unroll
-    for (int q = 0; q < kPerLane; ++q)
-      wl[q] = lane + 32 * q < k_len ? w_head[j * k_len + lane + 32 * q] : 0.f;
-    const float bias = b_head[j];
-#pragma unroll
-    for (int r = warp; r < BM; r += kWarps) {  // independent rows interleave their reductions
-      float sum = 0.f;
-#pragma unroll
-      for (int q = 0; q < kPerLane; ++q)
-        if (lane + 32 * q < k_len) sum += to_float(a[r * lda + lane + 32 * q]) * wl[q];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const int gr = row0 + r;
-      if (lane == 0 && gr < n_rows) plane[(size_t)j * n_rows + gr] = sum + bias;
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(Block<T>::kThreads, 1)
-fused_mlp_fwd_kernel(const __grid_constant__ Program p, const T* __restrict__ lo,
-                     const T* __restrict__ hi, const float* __restrict__ hvx,
-                     const T* __restrict__ wts, const float* __restrict__ fpar,
-                     float* __restrict__ out) {
-  constexpr int BM = Block<T>::BM;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Tiles<T> s;
-  carve_tiles(s, smem_raw, p);
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BM;
-  Cursor cur;
-  start_ring(s, wts, p, cur, tid);
-  load_tile(s.lo, p.lo_ld, p.lo_kpad, lo, p.in_lo, row0, BM, p.n_rows, tid);
-  if (p.in_hi > 0) load_tile(s.hi, p.hi_ld, p.hi_kpad, hi, p.in_hi, row0, BM, p.n_rows, tid);
-  // The first layer's slab loop synchronises before any tile is read.
-
-  int it = 0;  // slabs consumed so far
-  float acc[Traits<T>::MT][kNT][4];
-  for (int i = 0; i < p.n_ops; ++i) {
-    const Op& op = p.ops[i];
-    if (op.kind == OP_LAYER) {
-      op_product(acc, op, p, s, wts, cur, it, tid);
-      forward_epilogue(acc, op, p, s, fpar, hvx, row0, tid);
-    } else {
-      run_head<T>(op, p, s, fpar, out, row0, tid);
-    }
-  }
-}
 
 // The bf16 engine: warpgroup 0 produces (one thread issues the bulk
 // copies), warpgroups 1 and 2 consume; the two roles never reconverge, so
@@ -164,8 +74,44 @@ fused_mlp_fwd_sm90_kernel(const __grid_constant__ sm90::Program p,
   }
 }
 
-int launch_sm90(const int* words, int n_words, const void* lo, const void* hi, const void* hvx,
-                const void* wts, const void* fpar, void* out, int smem, cudaStream_t stream) {
+// The float32 engine: the same roles on the 3xTF32 core; wts is the split
+// image (snerf_tf32_split), one 16 KB slot per weight chunk.
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+fused_mlp_fwd_tf32_kernel(const __grid_constant__ sm90::Program p, const float* __restrict__ lo,
+                          const float* __restrict__ hi, const float* __restrict__ hvx,
+                          const float* __restrict__ wts, const float* __restrict__ fpar,
+                          float* __restrict__ out) {
+  extern __shared__ __align__(1024) unsigned char tf32_smem[];
+  if (sm90::smem_u32(tf32_smem) & 1023) __trap();  // the swizzle needs 1024-byte aligned slots
+  const sm90::Smem s = sm90::carve(tf32_smem, p);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      sm90::mbar_init(s.full + i, 1);
+      sm90::mbar_init(s.empty + i, 2);
+    }
+    sm90::mbar_init(s.head_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(sm90::kProducerRegs));
+    if (threadIdx.x == 0) {
+      if (p.head_floats) {
+        sm90::mbar_expect_tx(s.head_bar, p.head_floats * 4);
+        sm90::bulk_g2s(s.heads, fpar, p.head_floats * 4, s.head_bar);
+      }
+      tf32::produce(p, s.ring, s.full, s.empty, wts);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(sm90::kConsumerRegs));
+    tf32::consume_fwd(p, tf32_smem, s, wg - 1, lo, hi, hvx, fpar, out);
+  }
+}
+
+// dtype 1: the bf16 engine; 0: the float32 engine (3xTF32).
+int launch(int dtype, const int* words, int n_words, const void* lo, const void* hi, const void* hvx,
+           const void* wts, const void* fpar, void* out, int smem, cudaStream_t stream) {
   sm90::Program p;
   if (n_words < sm90::kHeaderWords || n_words > static_cast<int>(sizeof(p) / sizeof(int)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -175,60 +121,39 @@ int launch_sm90(const int* words, int n_words, const void* lo, const void* hi, c
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < p.n_ops; ++i) {
     const int np = p.ops[i].n_pad;
-    if ((np != 64 && np != 128 && np != 256) || np * 128 > p.slot_bytes ||
-        p.ops[i].head_nout > sm90::kMaxHead)
+    if ((np != 64 && np != 128 && np != 256) ||
+        (dtype == 1 ? np * 128 : tf32::kSlotBytes) > p.slot_bytes || p.ops[i].head_nout > sm90::kMaxHead)
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = fused_mlp_fwd_sm90_kernel;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = static_cast<unsigned>((p.n_rows + sm90::kBM - 1) / sm90::kBM);
-  kernel<<<grid, sm90::kThreads, smem, stream>>>(
-      p, static_cast<const __nv_bfloat16*>(lo), static_cast<const __nv_bfloat16*>(hi),
-      static_cast<const float*>(hvx), static_cast<const __nv_bfloat16*>(wts),
-      static_cast<const float*>(fpar), static_cast<float*>(out));
+  if (dtype == 1) {
+    auto kernel = fused_mlp_fwd_sm90_kernel;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, sm90::kThreads, smem, stream>>>(
+        p, static_cast<const __nv_bfloat16*>(lo), static_cast<const __nv_bfloat16*>(hi),
+        static_cast<const float*>(hvx), static_cast<const __nv_bfloat16*>(wts),
+        static_cast<const float*>(fpar), static_cast<float*>(out));
+  } else {
+    auto kernel = fused_mlp_fwd_tf32_kernel;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, sm90::kThreads, smem, stream>>>(
+        p, static_cast<const float*>(lo), static_cast<const float*>(hi), static_cast<const float*>(hvx),
+        static_cast<const float*>(wts), static_cast<const float*>(fpar), static_cast<float*>(out));
+  }
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch(const Program& p, const void* lo, const void* hi, const void* hvx, const void* wts,
-           const void* fpar, void* out, int smem, cudaStream_t stream) {
-  constexpr int BM = Block<T>::BM;
-  if (p.slab_k != Traits<T>::kSlabK) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = fused_mlp_fwd_kernel<T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = static_cast<unsigned>((p.n_rows + BM - 1) / BM);
-  kernel<<<grid, Block<T>::kThreads, smem, stream>>>(
-      p, static_cast<const T*>(lo), static_cast<const T*>(hi), static_cast<const float*>(hvx),
-      static_cast<const T*>(wts), static_cast<const float*>(fpar), static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int run_program(int dtype, const int* words, int n_words, const void* lo, const void* hi,
-                const void* hvx, const void* wts, const void* fpar, void* out, int smem,
-                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_sm90(words, n_words, lo, hi, hvx, wts, fpar, out, smem, s);
-  Program p;
-  if (n_words < kHeaderWords || n_words > static_cast<int>(sizeof(Program) / sizeof(int)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  memset(&p, 0, sizeof(p));
-  memcpy(&p, words, sizeof(int) * n_words);
-  if (p.n_ops > kMaxOps || p.n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<float>(p, lo, hi, hvx, wts, fpar, out, smem, s);
 }
 
 }  // namespace
 
-// dtype: 1 = bfloat16 operands (the sm90 program), 0 = float32 (Program).
-// words: the program (header + ops).
+// dtype: 1 = bfloat16 operands, 0 = float32 (wts: the split image).
+// words: the program (struct sm90::Program's header and ops).
 extern "C" int snerf_fused_mlp_fwd(int dtype, const int* words, int n_words, const void* lo,
                                    const void* hi, const void* hvx, const void* wts,
                                    const void* fpar, void* out, int smem, void* stream) {
-  return run_program(dtype, words, n_words, lo, hi, hvx, wts, fpar, out, smem, stream);
+  return launch(dtype, words, n_words, lo, hi, hvx, wts, fpar, out, smem,
+                static_cast<cudaStream_t>(stream));
 }
 
 // The ensemble: one program over the members, hi unused (the members' extra
@@ -236,5 +161,17 @@ extern "C" int snerf_fused_mlp_fwd(int dtype, const int* words, int n_words, con
 extern "C" int snerf_fused_mlp_ens_fwd(int dtype, const int* words, int n_words, const void* lo,
                                        const void* hvx, const void* wts, const void* fpar,
                                        void* out, int smem, void* stream) {
-  return run_program(dtype, words, n_words, lo, nullptr, hvx, wts, fpar, out, smem, stream);
+  return launch(dtype, words, n_words, lo, nullptr, hvx, wts, fpar, out, smem,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The float32 weight image (n floats, whole 8 KB chunks) -> each chunk's
+// big and small TF32 images, one after the other, in dst (2n floats).
+extern "C" int snerf_tf32_split(const void* src, void* dst, long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (n % tf32::kChunkFloats) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+  tf32::fused_mlp_tf32_split_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), static_cast<float*>(dst), n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // Warp-specialised engine of the bf16 fused MLP forward for Hopper (sm_90a):
 // the device code of fused_mlp_fwd_sm90_kernel in fused_mlp_fwd.cu. The
-// float32 forward and the backward kernels keep fused_mlp_common.cuh.
+// float32 forward runs the same engine on the 3xTF32 core of
+// fused_mlp_tf32_sm90.cuh; the backward's row passes are built on it too.
 //
 // A block of 384 threads owns 128 rows: warpgroup 0 produces, warpgroups 1
 // and 2 consume, 64 rows each. The producer gives up registers

@@ -23,29 +23,35 @@ H100's published bf16 peak and memory rate balance (SXM data sheet,
 700 W). The forward keeps every activation on chip: a block owns 128 rows,
 holds its lo/hi inputs and one activation tile in shared memory, and walks
 a program of layers (`pack_program`) with each layer's transposed weight
-streaming through a ring of K-slabs that every block reads from L2. In
-bf16 the weights are packed as the slabs' swizzled shared-memory image,
-copied by one producer thread with bulk copies, and two consumer
-warpgroups multiply with wgmma and fold the heads into their epilogues
-(csrc/fused_mlp_sm90.cuh); float32 keeps the first engine (plain FMAs, no
-TF32). The backward (`pack_bwd_program`) runs the forward program again,
-stashes the rounded activations and cotangents in device memory, and
-computes dW in a second pass over the stash; sums over rows are
-fixed-order reductions, so gradients do not change from run to run. The
-bf16 row pass runs the forward's warp-specialised engine forward and back,
-with a slab image of every backward product's weight beside the forward's
-and the stash leaving by TMA stores (`bwd90_plan`,
-csrc/fused_mlp_bwd_sm90.cuh); the bf16
+streaming through a ring in shared memory that every block reads from L2.
+The weights are packed as the ring's shared-memory image, copied by one
+producer thread with bulk copies, and two consumer warpgroups multiply
+with wgmma and fold the heads into their epilogues: bf16 in 64-deep
+swizzled slabs (csrc/fused_mlp_sm90.cuh); float32 on the same engine in
+3xTF32 (csrc/fused_mlp_tf32_sm90.cuh: 64-row x 32-deep chunks in a
+permuted K order, each split on the card into its big and small TF32
+images by `tf32_split`, three TF32 products per product). The backward
+(`pack_bwd_program`) runs the forward program again, stashes the rounded
+activations and cotangents in device memory, and computes dW in a second
+pass over the stash; sums over rows are fixed-order reductions, so
+gradients do not change from run to run. Its row pass runs the forward's
+engine forward and back, with an image of every backward product's weight
+beside the forward's (`bwd90_plan`): bf16 with the stash leaving by TMA
+stores (csrc/fused_mlp_bwd_sm90.cuh), float32 on the 3xTF32 core with the
+stash stored from registers (csrc/fused_mlp_bwd_tf32_sm90.cuh). The bf16
 weight pass is bound by the stash bytes it reads, and reads whole dW
 panels through TMA boxes into wgmma, the two panels of a dW in one
-cluster (`_wgrad_plan`, csrc/fused_mlp_wgrad_sm90.cuh).
+cluster (`_wgrad_plan`, csrc/fused_mlp_wgrad_sm90.cuh); the float32 one
+runs 128 x 128 tiles of plain FMAs.
 
 Each wrapper takes the plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors, and counts its launches:
 `fused_apply.launches`, `fused_bwd.launches`,
 `fused_apply_ensemble.launches`, `fused_ens_bwd.launches` (and, for the
 weight pass and the column sums alone, `wgrad.launches` and
-`column_sums.launches`; all of them: `launch_counts`). Under autograd
+`column_sums.launches`, and `tf32_split.launches`, the float32 weight
+images' split, which every float32 launch makes; all of them:
+`launch_counts`). Under autograd
 `fused_apply` and `fused_apply_ensemble` differentiate through the
 backward wrappers; the points carry no gradient.
 """
@@ -79,7 +85,7 @@ class FusedSpec:
     has_extra: bool  # high-freq channels routed to views branch (ds < d)
     has_hvx: bool  # per-ray hv_extra input present (use_view_dirs)
     ns: int  # samples per ray = plane width; 1 = per-point
-    dtype: str  # matmul input precision: "float32" | "bfloat16"
+    dtype: str  # matmul input precision: "float32" | "bfloat16" (| "float64": plain versions only)
     # Ensemble mode: every member reads ONE shared full-degree lo block
     # [x | sin f<D | cos f<D]; its joins carry zero rows for the frequencies
     # outside its own window (`kernel_params(shared_degree=D)`).
@@ -87,7 +93,13 @@ class FusedSpec:
 
     @property
     def cdtype(self) -> torch.dtype:
-        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+        return {"bfloat16": torch.bfloat16, "float64": torch.float64}.get(self.dtype, torch.float32)
+
+    @property
+    def acc_dtype(self) -> torch.dtype:
+        """The plain versions' accumulation type: float64 for a "float64"
+        spec (the float32 kernels' yardstick), else float32."""
+        return torch.float64 if self.dtype == "float64" else torch.float32
 
     @property
     def has_views(self) -> bool:
@@ -177,7 +189,7 @@ def make_spec(cfg, ns: int, dtype, shared_pe_degree: Optional[int] = None) -> Fu
         has_extra=cfg.extra_views_dim > 0,
         has_hvx=bool(cfg.use_view_dirs and cfg.view_dep_outputs),
         ns=ns,
-        dtype="bfloat16" if dtype == torch.bfloat16 else "float32",
+        dtype={torch.bfloat16: "bfloat16", torch.float64: "float64"}.get(dtype, "float32"),
         shared_pe_degree=shared_pe_degree,
     )
 
@@ -221,6 +233,14 @@ class EnsembleSpec:
 
     def row_flops_per_point(self) -> int:
         return sum(m.row_flops_per_point() for m in self.members)
+
+
+def with_dtype(spec, dtype: str):
+    """A FusedSpec or EnsembleSpec in another compute type; "float64" runs
+    the plain versions in float64 (no kernel takes it)."""
+    if isinstance(spec, EnsembleSpec):
+        return EnsembleSpec(members=tuple(with_dtype(m, dtype) for m in spec.members))
+    return dataclasses.replace(spec, dtype=dtype)
 
 
 def make_ensemble_spec(cfgs, ns: int, dtype) -> EnsembleSpec:
@@ -311,18 +331,23 @@ def dirs_w(params, cfg):
 # ---------------------------------------------------------------------------
 
 
+def _op(x, spec: FusedSpec):
+    """x rounded to the compute dtype, in the accumulation type."""
+    return x.to(spec.cdtype).to(spec.acc_dtype)
+
+
 def _mm(a, b, spec: FusedSpec):
-    return a.to(spec.cdtype).float() @ b.to(spec.cdtype).float()
+    return _op(a, spec) @ _op(b, spec)
 
 
 def _mm_tn(a, b, spec: FusedSpec):
     """a^T @ b with operands rounded to the compute dtype (for dW)."""
-    return a.to(spec.cdtype).float().T @ b.to(spec.cdtype).float()
+    return _op(a, spec).T @ _op(b, spec)
 
 
 def _mm_nt(a, b, spec: FusedSpec):
     """a @ b^T with operands rounded to the compute dtype (for dX)."""
-    return a.to(spec.cdtype).float() @ b.to(spec.cdtype).float().T
+    return _op(a, spec) @ _op(b, spec).T
 
 
 def _relu_mask(h):
@@ -331,18 +356,18 @@ def _relu_mask(h):
 
 def _head_planes(spec: FusedSpec, h, wt, b, n_out):
     """Head channel j: plane_j[r, s] = sum_k h[r*ns+s, k] * wt[j, k] + b[j], in f32."""
-    h3 = h.float().reshape(-1, spec.ns, h.shape[-1])
-    return [(h3 * wt[j].float()).sum(-1) + b[0, j] for j in range(n_out)]
+    h3 = h.to(spec.acc_dtype).reshape(-1, spec.ns, h.shape[-1])
+    return [(h3 * wt[j].to(spec.acc_dtype)).sum(-1) + b[0, j] for j in range(n_out)]
 
 
 def _head_backward(spec: FusedSpec, h, wt, d_planes):
     """VJP of `_head_planes`: (dh (N, W) f32, dwt (n_out, W) f32, db (1, n_out) f32)."""
-    h3 = h.float().reshape(-1, spec.ns, h.shape[-1])
+    h3 = h.to(spec.acc_dtype).reshape(-1, spec.ns, h.shape[-1])
     dh3 = torch.zeros_like(h3)
     dwt, db = [], []
     for j, dp in enumerate(d_planes):
         dp3 = dp.reshape(-1, spec.ns, 1)
-        dh3 = dh3 + dp3 * wt[j].float()
+        dh3 = dh3 + dp3 * wt[j].to(spec.acc_dtype)
         dwt.append((h3 * dp3).sum((0, 1)))
         db.append(dp.sum())
     return dh3.reshape(-1, h.shape[-1]), torch.stack(dwt), torch.stack(db)[None]
@@ -369,7 +394,7 @@ def _views_forward(spec: FusedSpec, kp: dict, h, hi, hvx):
     if spec.has_extra:
         acc = acc + _mm(hi, kp["wv0i"], spec)
     if hvx is not None:
-        acc = acc + hvx.float().repeat_interleave(spec.ns, dim=0)
+        acc = acc + hvx.to(spec.acc_dtype).repeat_interleave(spec.ns, dim=0)
     hvs = [torch.relu(acc).to(spec.cdtype)]
     for i in range(1, spec.views_depth):
         hvs.append(torch.relu(_mm(hvs[-1], kp[f"wv{i}"], spec) + kp[f"bv{i}"]).to(spec.cdtype))
@@ -399,7 +424,7 @@ def fused_bwd_reference(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes):
     or a sequence of (nr, ns) tensors, None for a plane no loss reads.
     """
     nr = lo.shape[0] // spec.ns
-    ref = torch.empty((nr, spec.ns), device=lo.device)
+    ref = torch.empty((nr, spec.ns), device=lo.device, dtype=spec.acc_dtype)
     dps = _cotangent_list(spec.n_planes, d_planes, ref)
     grads: dict = {}
 
@@ -448,13 +473,14 @@ def fused_bwd_reference(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes):
 
 
 def _cotangent_list(n_planes: int, d_planes, ref) -> list:
-    """Plane cotangents as n_planes f32 tensors shaped like `ref`; None -> zeros."""
+    """Plane cotangents as n_planes tensors shaped like `ref`, of its dtype
+    (float32, or float64 for the yardstick); None -> zeros."""
     if isinstance(d_planes, torch.Tensor):
         d_planes = d_planes.unbind(0)
     d_planes = list(d_planes)
     if len(d_planes) != n_planes:
         raise ValueError(f"{len(d_planes)} plane cotangents for {n_planes} planes")
-    return [torch.zeros_like(ref, dtype=torch.float32) if d is None else d.float().reshape(ref.shape)
+    return [torch.zeros_like(ref) if d is None else d.to(ref.dtype).reshape(ref.shape)
             for d in d_planes]
 
 
@@ -485,7 +511,8 @@ def fused_ens_bwd_reference(ens: EnsembleSpec, kps, lo, hvxs, d_planes):
     """The ensemble backward's function: (tuple of per-member dkp, tuple of
     dhvx in `hvx_members` order)."""
     nr = lo.shape[0] // ens.ns
-    dps = _cotangent_list(ens.n_planes, d_planes, torch.empty((nr, ens.ns), device=lo.device))
+    ref = torch.empty((nr, ens.ns), device=lo.device, dtype=ens.members[0].acc_dtype)
+    dps = _cotangent_list(ens.n_planes, d_planes, ref)
     dkps, dhvx = [], {}
     for mi, (m, kp, hvx, dp) in enumerate(
         zip(ens.members, kps, _member_hvx(ens, hvxs), _member_planes(ens, dps))
@@ -500,17 +527,16 @@ def fused_ens_bwd_reference(ens: EnsembleSpec, kps, lo, hvxs, d_planes):
 # Program packing (shared with csrc/fused_mlp_fwd.cu and csrc/fused_mlp_bwd.cu)
 # ---------------------------------------------------------------------------
 
-# Forward program: struct Program / Op in fused_mlp_fwd.cu.
-_HEADER_WORDS = 13
-_OP_WORDS = 16
-_MAX_OPS = 40
-_OP_LAYER, _OP_HEAD = 0, 1
+_MAX_OPS = 40  # layers of a forward program (sm90::kMaxOps)
 _SRC_ACT, _SRC_LO, _SRC_HI = 0, 1, 2
 _FLAG_RELU, _FLAG_HVX, _FLAG_ZERO = 1, 2, 4
-_STAGES = 3  # weight slabs in flight
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block can use
-# Backward program: struct BProgram / BOp / Task in fused_mlp_bwd.cu.
-_BHEADER_WORDS = 16
+# The backward's intermediate program (`_bwd_plan`), which `bwd90_plan`
+# translates for the row pass: a header of _BHEADER_WORDS and ops of
+# _BOP_WORDS; and the float32 weight pass's Task in fused_mlp_bwd.cu.
+_BHEADER = ("n_ops", "n_rows", "ns", "in_lo", "in_hi", "lo_kpad", "hi_kpad", "part_w", "hvx_w",
+            "n_masks")
+_BHEADER_WORDS = len(_BHEADER)
 _BOP_WORDS = 24
 _F_IN, _F_LAYER, _B_LAYER = 0, 1, 3
 _MAX_HEAD = 4  # head channels one op takes (kMaxHead in the .cu)
@@ -529,6 +555,17 @@ _WGRAD_WAVES = (2, 4)  # the weight pass's grid: this many waves of _SMS CTAs, a
 _WGRAD_FULL = 0.95  # a last wave this full is full enough
 _COLSUM_THREADS = _SMS * 1024  # threads a column sum aims for (half of the card's resident threads)
 _COLSUM_MIN_ROWS = 16  # rows one thread sums at least, where a sum is split into slices
+# The float32 engines' weight chunks (csrc/fused_mlp_tf32_sm90.cuh): 64
+# output rows x 32 deep, 8 KB; the ring's slot holds a chunk's big and small
+# TF32 images.
+_TF32_DEPTH = 32
+_TF32_CHUNK_ROWS = 64
+_TF32_CHUNK_FLOATS = _TF32_CHUNK_ROWS * _TF32_DEPTH
+_TF32_SLOT = 2 * _TF32_CHUNK_FLOATS * 4
+# The K row of an 8-deep group that its slot p holds in a float32 chunk: the
+# TF32 A fragment takes columns (t, t + 4) of a k8 step where the float32
+# tile's thread holds (2t, 2t + 1).
+_TF32_PERM = np.array([0, 2, 4, 6, 1, 3, 5, 7])
 
 
 def _round16(k: int) -> int:
@@ -536,8 +573,9 @@ def _round16(k: int) -> int:
 
 
 def _tiling(cdtype) -> tuple[int, int]:
-    """(rows per block, slab depth): bf16 128 x 64, f32 64 x 32 (Traits in the .cu)."""
-    return (128, 64) if cdtype == torch.bfloat16 else (64, 32)
+    """(rows per block, K depth of a weight slab or chunk): bf16 128 x 64,
+    float32 128 x 32; a 64-row consumer's K block is 8 KB in both."""
+    return (128, 64) if cdtype == torch.bfloat16 else (128, _TF32_DEPTH)
 
 
 def _members_of(spec, kp):
@@ -547,141 +585,38 @@ def _members_of(spec, kp):
     return [spec], [kp], False
 
 
-class _Buffers:
-    """The weight buffer (cdtype) and the float32 buffer of one program."""
-
-    def __init__(self, cd: torch.dtype, device):
-        self.cd, self.device = cd, device
-        self.mats, self.fvals = [], []
-        self.w_size = self.f_size = 0
-
-    def mat(self, w, transpose: bool = True) -> tuple[int, int]:
-        """Store w^T (N, K) [or w (K, N)] zero-padded to 16 columns: (offset, kpad)."""
-        rows = w.detach().t() if transpose else w.detach()
-        n, k = rows.shape
-        kpad = _round16(k)
-        buf = torch.zeros((n, kpad), dtype=self.cd, device=self.device)
-        buf[:, :k] = rows.to(self.cd)
-        off = self.w_size
-        self.mats.append(buf.reshape(-1))
-        self.w_size += n * kpad
-        return off, kpad
-
-    def fvec(self, v) -> int:
-        v = v.detach().reshape(-1).float()
-        off = self.f_size
-        self.fvals.append(v)
-        self.f_size += v.numel()
-        return off
-
-    def tensors(self):
-        wts = torch.cat(self.mats) if self.mats else torch.zeros(8, dtype=self.cd, device=self.device)
-        return wts.contiguous(), torch.cat(self.fvals).contiguous()
-
-
-def _layout(members, cd, shared: bool, weighted_ns: list) -> dict:
-    """Tile strides and widths of a program's header."""
-    pad = 8 if cd == torch.bfloat16 else 4  # 16 bytes: conflict-free fragment reads
-    _, slab_k = _tiling(cd)
-    m0 = members[0]
-    act_w = max(max(m.width, m.views_width if m.has_views else 0) for m in members)
-    lo_kpad = _round16(m0.in_lo)
-    in_hi = 0 if shared else m0.in_hi
-    hi_kpad = _round16(in_hi) if in_hi else 0
-    return dict(
-        in_lo=m0.in_lo, in_hi=in_hi, lo_kpad=lo_kpad, hi_kpad=hi_kpad,
-        act_ld=act_w + pad, lo_ld=lo_kpad + pad, hi_ld=hi_kpad + pad if hi_kpad else 0,
-        slab_ld=slab_k + pad, slab_rows=max(weighted_ns), slab_k=slab_k,
-    )
-
-
-def _smem(cd, lay: dict, extra: int = 0) -> int:
-    bm, _ = _tiling(cd)
-    esize = 2 if cd == torch.bfloat16 else 4
-    return extra + esize * (bm * (lay["act_ld"] + lay["lo_ld"] + lay["hi_ld"])
-                            + _STAGES * lay["slab_rows"] * lay["slab_ld"])
-
-
 def pack_program(spec, kp, n_rows: int):
-    """Forward kernel operands: (program words int32 numpy, wts (cdtype), fpar (f32), smem bytes).
+    """Forward kernel operands: (program words int32 numpy, wts, fpar (f32), smem bytes).
 
     `spec` is a FusedSpec with its kernel-param dict, or an EnsembleSpec with
-    a tuple of them. The program lists the layers in execution order,
-    member after member, with the tiles each layer reads (the activation
-    tile, which it then overwrites, the lo tile, the hi tile); an ensemble
-    member's extra input is the shared lo tile. bf16: the program and slab
-    image of the wgmma engine (`_pack_sm90`); float32: `_pack_f32`.
+    a tuple of them. The program (`sm90_plan`) lists the layers in execution
+    order, member after member, with the tiles each layer reads (the
+    activation tile, which it then overwrites, the lo tile, the hi tile); an
+    ensemble member's extra input is the shared lo tile. wts: the bf16 slab
+    image, or the float32 chunk image's split (`tf32_split`).
     """
-    if _members_of(spec, kp)[0][0].cdtype == torch.bfloat16:
-        return _pack_sm90(spec, kp, n_rows)
-    return _pack_f32(spec, kp, n_rows)
+    _, kps, _ = _members_of(spec, kp)
+    plan, w_index, f_index = _sm90_on(spec, kps[0]["w0i"].device)
+    with torch.no_grad():
+        zero = kps[0]["b0"].new_zeros(1, dtype=torch.float32)
+        wsrc = torch.cat([kps[mi][k].reshape(-1).float() for mi, k in plan.w_src] + [zero])
+        fsrc = torch.cat([kps[mi][k].reshape(-1).float() for mi, k in plan.f_src] + [zero])
+        if plan.f32:
+            wts = tf32_split(wsrc.index_select(0, w_index))
+        else:
+            wts = wsrc.to(torch.bfloat16).index_select(0, w_index)
+        fpar = fsrc.index_select(0, f_index)
+    words = plan.words.copy()
+    words[1] = n_rows
+    return words, wts, fpar, plan.smem
 
 
-def _pack_f32(spec, kp, n_rows: int):
-    """The float32 engine's program (struct Program / Op in fused_mlp_fwd.cu).
-
-    Every matmul weight (K, N) is stored transposed and zero-padded to
-    (N, round16(K)) in one buffer; biases and the head weights go to one
-    float32 buffer; heads are ops of their own after the layer they read.
-    """
-    members, kps, shared = _members_of(spec, kp)
-    cd = members[0].cdtype
-    buf = _Buffers(cd, kps[0]["w0i"].device)
-    ops = []
-
-    def layer(segs, n, bias, flags, hvx_slot=0):
-        op = [_OP_LAYER, n, buf.fvec(bias), flags, len(segs)] + [0] * 11
-        for s, (src, w) in enumerate(segs):
-            w_off, kpad = buf.mat(w)
-            op[5 + s], op[8 + s], op[11 + s] = src, w_off, kpad
-        op[15] = hvx_slot
-        ops.append(op)
-
-    def head(wt, bias, plane):
-        n_out, k = wt.shape
-        ops.append([_OP_HEAD, n_out, buf.fvec(bias), 0, 0, _SRC_ACT, 0, 0, buf.fvec(wt), 0, 0, k,
-                    0, 0, plane, 0])
-
-    extra_src = _SRC_LO if shared else _SRC_HI
-    plane, hvx_slot = 0, 0
-    for m, kp in zip(members, kps):
-        layer([(_SRC_LO, kp["w0i"])], m.width, kp["b0"], _FLAG_RELU)
-        for i in range(1, m.depth):
-            segs = [(_SRC_ACT, kp[f"w{i}"])]
-            if (i - 1) in m.skip_layers:
-                segs.append((_SRC_LO, kp[f"w{i}i"]))
-            layer(segs, m.width, kp[f"b{i}"], _FLAG_RELU)
-        head(kp["wpo_t"], kp["bpo"], plane)
-        if m.has_views:
-            layer([(_SRC_ACT, kp["wf"])], m.width, kp["bf"], 0)
-            segs = [(_SRC_ACT, kp["wv0f"])]
-            if m.has_extra:
-                segs.append((extra_src, kp["wv0i"]))
-            flags = _FLAG_RELU | (_FLAG_HVX if m.has_hvx else 0)
-            layer(segs, m.views_width, kp["bv0"], flags, hvx_slot)
-            hvx_slot += int(m.has_hvx)
-            for i in range(1, m.views_depth):
-                layer([(_SRC_ACT, kp[f"wv{i}"])], m.views_width, kp[f"bv{i}"], _FLAG_RELU)
-            head(kp["wvo_t"], kp["bvo"], plane + m.out_p)
-        plane += m.n_planes
-    if len(ops) > _MAX_OPS:
-        raise ValueError(f"{len(ops)} kernel ops exceed the program's {_MAX_OPS}")
-
-    lay = _layout(members, cd, shared, [op[1] for op in ops if op[4]])
-    header = [len(ops), n_rows, members[0].ns, lay["in_lo"], lay["in_hi"], lay["lo_kpad"],
-              lay["hi_kpad"], lay["act_ld"], lay["lo_ld"], lay["hi_ld"], lay["slab_ld"],
-              lay["slab_rows"], lay["slab_k"]]
-    words = np.asarray(header + [w for op in ops for w in op], dtype=np.int32)
-    wts, fpar = buf.tensors()
-    return words, wts, fpar, _smem(cd, lay)
-
-
-# Forward program of the bf16 engine: struct sm90::Program / sm90::Op in
+# The forward program of both engines: struct sm90::Program / sm90::Op in
 # csrc/fused_mlp_sm90.cuh.
 _SM90_HEADER_WORDS = 14
 _SM90_OP_WORDS = 16
-_SM90_KBLOCK = 64 * 128  # bytes of one 64-deep K block of a consumer's 64-row tile
-_SM90_STAGES = (4, 3)  # ring depths, the deepest that fits first
+_SM90_KBLOCK = 64 * 128  # bytes of one K block of a consumer's 64-row tile (64 bf16, 32 floats deep)
+_SM90_STAGES = (4, 3, 2)  # ring depths, the deepest that fits first
 _SM90_BARRIERS = 9 * 8  # full and empty per stage (4 + 4) and the heads' mbarrier
 _SM90_BIAS = 256  # floats of a layer's bias in a consumer's staging area (kBiasFloats)
 
@@ -691,37 +626,54 @@ def _n_pad(n: int) -> int:
     return 64 if n <= 64 else 128 if n <= 128 else 256
 
 
-def _kblocks(k: int) -> int:
-    return -(-k // 64)
+def _kblocks(k: int, depth: int = 64) -> int:
+    return -(-k // depth)
 
 
-def _slab_index(k: int, n: int, n_pad: int, base: int, strides=None) -> np.ndarray:
-    """Source element of each element of a (K, N) = (k, n) weight's slabs,
-    -1 for padding. Slab kbi is n_pad rows of 128 bytes holding
+def _slab_index(k: int, n: int, n_pad: int, base: int, strides=None, f32: bool = False) -> np.ndarray:
+    """Source element of each element of a (K, N) = (k, n) weight's image,
+    -1 for padding; the weight's element (kk, r) is source element
+    base + kk * n + r, or base + kk * strides[0] + r * strides[1].
+
+    bf16: slab kbi is n_pad rows of 128 bytes holding
     W^T[:, 64 kbi : 64 kbi + 64], the 16-byte chunk c of row r stored at
-    chunk c ^ (r % 8) (the 128-byte swizzle of csrc/fused_mlp_sm90.cuh); the
-    weight's element (kk, r) is source element base + kk * n + r, or
-    base + kk * strides[0] + r * strides[1]."""
+    chunk c ^ (r % 8) (the 128-byte swizzle of csrc/fused_mlp_sm90.cuh).
+    float32 (csrc/fused_mlp_tf32_sm90.cuh): each 32-deep slab kbi is n_pad /
+    64 chunks of 64 rows of 128 bytes, chunk ch holding
+    W^T[64 ch : 64 ch + 64, 32 kbi : 32 kbi + 32] in the same swizzle (four
+    floats a 16-byte chunk), its depth permuted: slot p of each 8-deep group
+    holds the group's K row _TF32_PERM[p % 8]."""
     sk, sr = strides or (n, 1)
-    kb = _kblocks(k)
-    kbi, r, kl = np.meshgrid(np.arange(kb), np.arange(n_pad), np.arange(64), indexing="ij")
-    kk = kbi * 64 + kl
-    pos = kbi * n_pad * 64 + r * 64 + ((kl // 8) ^ (r % 8)) * 8 + kl % 8
-    idx = np.full(kb * n_pad * 64, -1, dtype=np.int64)
-    idx[pos.reshape(-1)] = np.where((r < n) & (kk < k), base + kk * sk + r * sr, -1).reshape(-1)
+    if not f32:
+        kb = _kblocks(k)
+        kbi, r, kl = np.meshgrid(np.arange(kb), np.arange(n_pad), np.arange(64), indexing="ij")
+        kk = kbi * 64 + kl
+        pos = kbi * n_pad * 64 + r * 64 + ((kl // 8) ^ (r % 8)) * 8 + kl % 8
+        row = r
+    else:
+        kb, chunks = _kblocks(k, _TF32_DEPTH), n_pad // _TF32_CHUNK_ROWS
+        kbi, ch, r, sl = np.meshgrid(np.arange(kb), np.arange(chunks), np.arange(_TF32_CHUNK_ROWS),
+                                     np.arange(_TF32_DEPTH), indexing="ij")
+        kk = kbi * _TF32_DEPTH + sl // 8 * 8 + _TF32_PERM[sl % 8]
+        pos = (((kbi * chunks + ch) * _TF32_CHUNK_ROWS + r) * _TF32_DEPTH
+               + ((sl // 4) ^ (r % 8)) * 4 + sl % 4)
+        row = ch * _TF32_CHUNK_ROWS + r
+    idx = np.full(pos.size, -1, dtype=np.int64)
+    idx[pos.reshape(-1)] = np.where((row < n) & (kk < k), base + kk * sk + row * sr, -1).reshape(-1)
     return idx
 
 
 @dataclasses.dataclass(frozen=True)
 class Sm90Plan:
-    """The bf16 forward program of one spec, without its parameters.
+    """The forward program of one spec, without its parameters.
 
     words: the program (n_rows left 0); w_src / f_src: ((member, key), ...)
     whose flattened values, concatenated with one zero after them, the
-    image indices w_index (the bf16 slab image) and f_index (the float32
-    buffer: head weights first, each row zero-padded to its layer's n_pad,
-    then each layer's bias padded to n_pad, then the head biases) gather
-    from; smem: shared-memory bytes of a block.
+    image indices w_index (the bf16 slab image, or the float32 chunk image
+    before its split; `_slab_index`) and f_index (the float32 buffer: head
+    weights first, each row zero-padded to its layer's n_pad, then each
+    layer's bias padded to n_pad, then the head biases) gather from; smem:
+    shared-memory bytes of a block; f32: the float32 engine's program.
     """
 
     words: np.ndarray
@@ -730,6 +682,7 @@ class Sm90Plan:
     f_src: tuple
     f_index: np.ndarray
     smem: int
+    f32: bool = False
 
 
 def _sm90_shapes(m: FusedSpec) -> dict:
@@ -751,10 +704,14 @@ def _sm90_shapes(m: FusedSpec) -> dict:
 
 
 def sm90_plan(spec) -> Sm90Plan:
-    """The bf16 forward program of a FusedSpec or EnsembleSpec."""
+    """The forward program of a FusedSpec or EnsembleSpec: the bf16
+    engine's, or in float32 the 3xTF32 engine's (K blocks and slabs 32
+    deep, 16 KB slots of a chunk's two images)."""
     members = list(spec.members) if isinstance(spec, EnsembleSpec) else [spec]
     shared = isinstance(spec, EnsembleSpec)
     m0 = members[0]
+    f32 = m0.cdtype != torch.bfloat16
+    depth = _TF32_DEPTH if f32 else 64
     w_src, w_parts, w_size = [], [], [0]  # w_size: source elements so far
     f_src, f_pos = [], [0]
     heads, biases, head_biases = [], [], []  # (layer, source base, sizes...) of each
@@ -770,10 +727,10 @@ def sm90_plan(spec) -> Sm90Plan:
         op = [n, n_pad, 0, flags, len(segs), 0, 0, 0, 0, 0, 0, hvx_slot, 0, 0, 0, 0]
         for s, (src, key) in enumerate(segs):
             k, nn = shapes[key]
-            w_parts.append(_slab_index(k, nn, n_pad, w_size[0]))
+            w_parts.append(_slab_index(k, nn, n_pad, w_size[0], f32=f32))
             w_src.append((mi, key))
             w_size[0] += k * nn
-            op[5 + s], op[8 + s] = src, _kblocks(k)
+            op[5 + s], op[8 + s] = src, _kblocks(k, depth)
         biases.append((len(ops), fsource(mi, bkey, n), n, n_pad))
         ops.append(op)
 
@@ -831,9 +788,9 @@ def sm90_plan(spec) -> Sm90Plan:
     f_index[f_index < 0] = f_pos[0]
 
     in_hi = 0 if shared else m0.in_hi
-    lo_kb, hi_kb = _kblocks(m0.in_lo), _kblocks(in_hi)
-    act_kb = max(op[1] for op in ops) // 64
-    slot = max(op[1] for op in ops) * 128
+    lo_kb, hi_kb = _kblocks(m0.in_lo, depth), _kblocks(in_hi, depth)
+    act_kb = max(op[1] for op in ops) // depth
+    slot = _TF32_SLOT if f32 else max(op[1] for op in ops) * 128
     hvx_w = max((m.views_width for m in members if m.has_hvx), default=0)
     hvx_rays = 63 // m0.ns + 2 if hvx_w else 0  # rays that 64 consecutive rows can touch
 
@@ -842,7 +799,8 @@ def sm90_plan(spec) -> Sm90Plan:
                 + -(-head_floats * 4 // 16) * 16 + 2 * 4 * (_SM90_BIAS + rays * hvx_w)
                 + _SM90_BARRIERS)
 
-    # The deepest ring first, then hvx rows staged in shared memory if they fit.
+    # The deepest ring first, then hvx rows staged in shared memory if they
+    # fit (float32 with a hi tile at the published widths: two 16 KB slots).
     stages, rays = next(((s, r) for s in _SM90_STAGES for r in (hvx_rays, 0)
                          if smem(s, r) <= _SMEM_LIMIT), (_SM90_STAGES[-1], 0))
     header = [len(ops), 0, m0.ns, m0.in_lo, in_hi, lo_kb, hi_kb, act_kb, slot, stages,
@@ -850,7 +808,7 @@ def sm90_plan(spec) -> Sm90Plan:
     words = np.asarray(header + [w for op in ops for w in op], dtype=np.int32)
     words.setflags(write=False)
     return Sm90Plan(words=words, w_src=tuple(w_src), w_index=w_index, f_src=tuple(f_src),
-                    f_index=f_index, smem=smem(stages, rays))
+                    f_index=f_index, smem=smem(stages, rays), f32=f32)
 
 
 @functools.lru_cache(maxsize=64)
@@ -861,39 +819,68 @@ def _sm90_on(spec, dev: torch.device) -> tuple:
     return (plan, *(torch.from_numpy(i.astype(np.int32)).to(dev) for i in (plan.w_index, plan.f_index)))
 
 
-def _pack_sm90(spec, kp, n_rows: int):
-    """The bf16 engine's operands: one gather each builds the slab image and
-    the float32 buffer from the concatenated parameters."""
-    _, kps, _ = _members_of(spec, kp)
-    plan, w_index, f_index = _sm90_on(spec, kps[0]["w0i"].device)
-    with torch.no_grad():
-        zero = kps[0]["b0"].new_zeros(1, dtype=torch.float32)
-        wsrc = torch.cat([kps[mi][k].reshape(-1).float() for mi, k in plan.w_src] + [zero])
-        fsrc = torch.cat([kps[mi][k].reshape(-1).float() for mi, k in plan.f_src] + [zero])
-        wts = wsrc.to(torch.bfloat16).index_select(0, w_index)
-        fpar = fsrc.index_select(0, f_index)
-    words = plan.words.copy()
-    words[1] = n_rows
-    return words, wts, fpar, plan.smem
+def slab_bytes(spec, rows: int) -> int:
+    """Bytes of weight image one forward launch's producers ask for: every
+    128-row block copies the whole image once (float32: each chunk's big and
+    small halves). A count, not a reading of L2 traffic."""
+    plan = sm90_plan(spec)
+    return -(-rows // 128) * plan.w_index.size * (8 if plan.f32 else 2)
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the int32 view: the 13 low mantissa bits rounded
+    to the nearest, ties away from zero (on the magnitude), then cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_halves(x: torch.Tensor) -> tuple:
+    """(big, small): big = tf32(x), small = tf32(x - big), float32."""
+    big = _tf32_round(x)
+    return big, _tf32_round(x.float() - big)
+
+
+def tf32_split(image: torch.Tensor) -> torch.Tensor:
+    """A float32 weight image of 8 KB chunks -> each chunk's big image, then
+    its small image (`tf32_halves`), twice the size.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (csrc/fused_mlp_fwd.cu `snerf_tf32_split`) or raise.
+    """
+    if image.dtype != torch.float32 or image.dim() != 1 or image.numel() % _TF32_CHUNK_FLOATS:
+        raise ValueError(f"expected whole {_TF32_CHUNK_FLOATS}-float chunks of float32, got "
+                         f"{tuple(image.shape)} {image.dtype}")
+    if image.device.type == "cpu":
+        return torch.stack(tf32_halves(image.view(-1, _TF32_CHUNK_FLOATS)), 1).reshape(-1)
+    from simplenerf_torch.ops import build
+
+    out = torch.empty(2 * image.numel(), dtype=torch.float32, device=image.device)
+    rc = build.load_library("fused_mlp_fwd").snerf_tf32_split(
+        _ptr(image.contiguous()), _ptr(out), image.numel(), _stream(image.device))
+    if rc != 0:
+        raise RuntimeError(f"snerf_tf32_split kernel launch failed: CUDA error {rc}")
+    if image.numel():
+        tf32_split.launches += 1
+    return out
 
 
 @dataclasses.dataclass
 class BwdPlan:
     """Backward kernel operands and where each gradient lands.
 
-    header: (16,) int32; ops: (n_ops, 24) int32, the float32 row kernel's
-    program (struct BProgram / BOp); bf16 runs `rows90`, its translation
-    (`bwd90_plan`), and then wts / fpar are that program's slab image and
-    float32 buffer. wts / fpar are gathered per call from the kernel
-    parameters that w_src / f_src name ((member, key) each; `_Gather`);
-    the rest depends on the spec and the row count only and is cached
-    (`_bwd_on`), with dev_tasks (and, float32, dev_ops) on the device.
-    tasks: the weight pass's work, (n_tasks, 9) int32 float32 tiles or
-    (n_jobs, 9) int32 bf16 jobs (`_wgrad_plan`). The stash holds
-    `stash_cols` column slots of n_rows rows each; partials rows are
-    `part_w` wide, dW partials `dw_total`. The ReLU masks take `mask_words`
-    int32 words: two per thread of a tile (float32), four per consumer
-    thread (bf16), for each of its ReLU layers (header[15] of them).
+    header: (_BHEADER_WORDS,) int32 (named by _BHEADER); ops: (n_ops, 24)
+    int32, the backward's program (`_bwd_plan`) in ops of one product each;
+    the row pass runs `rows90`, its translation (`bwd90_plan`), and wts /
+    fpar are that program's weight image (bf16 slabs, or the float32
+    chunks' split) and float32 buffer. wts / fpar are gathered per call from
+    the kernel parameters that w_src / f_src name ((member, key) each;
+    `_Gather`); the rest depends on the spec and the row count only and is
+    cached (`_bwd_on`), with dev_tasks on the device. tasks: the weight
+    pass's work, (n_tasks, 9) int32 float32 tiles or (n_jobs, 9) int32
+    bf16 jobs (`_wgrad_plan`). The stash holds `stash_cols` column slots of
+    n_rows rows each; partials rows are `part_w` wide, dW partials
+    `dw_total`. The ReLU masks take `mask_words` int32 words: four per
+    consumer thread of a tile for each of its ReLU layers (header n_masks).
     grads[mi][key] = ("dw" | "part", offset, shape) into the reduced dW or
     partials vector. bf16: `maps` (n_maps, 4) int64 are the weight pass's
     tensor maps and `wgrad_bytes` the stash bytes its producers issue
@@ -923,11 +910,10 @@ class BwdPlan:
     dws: list
     w_src: tuple
     f_src: tuple
-    rows90: Optional["Bwd90Plan"] = None
+    rows90: "Bwd90Plan"
     wts: Optional[torch.Tensor] = None
     fpar: Optional[torch.Tensor] = None
     dev_tasks: Optional[torch.Tensor] = None
-    dev_ops: Optional[torch.Tensor] = None
 
 
 def _colsum_slices(S: int, L: int, C: int) -> tuple[int, int]:
@@ -1097,31 +1083,31 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
     the cached plan of the spec at n_rows (`_bwd_on`) with its weight and
     float32 buffers gathered from the parameters, one gather each."""
     members, kps, _ = _members_of(spec, kp)
-    plan, w_index, f_index, tasks, ops = _bwd_on(spec, n_rows, kps[0]["w0i"].device)
+    plan, w_index, f_index, tasks = _bwd_on(spec, n_rows, kps[0]["w0i"].device)
     cd = members[0].cdtype
-    return dataclasses.replace(plan, wts=_gather(kps, plan.w_src, w_index, cd),
+    wts = _gather(kps, plan.w_src, w_index, cd)
+    return dataclasses.replace(plan, wts=wts if cd == torch.bfloat16 else tf32_split(wts),
                                fpar=_gather(kps, plan.f_src, f_index, torch.float32),
-                               dev_tasks=tasks, dev_ops=ops)
+                               dev_tasks=tasks)
 
 
 @functools.lru_cache(maxsize=16)
 def _bwd_on(spec, n_rows: int, dev: torch.device) -> tuple:
-    """(plan, w_index, f_index, tasks, ops): `_bwd_plan(spec, n_rows)` with
-    its gathers, its weight-pass tasks and, float32, its ops on `dev`,
-    cached per spec, row count and device."""
+    """(plan, w_index, f_index, tasks): `_bwd_plan(spec, n_rows)` with its
+    gathers and its weight-pass tasks on `dev`, cached per spec, row count
+    and device."""
     plan, w_index, f_index = _bwd_plan(spec, n_rows)
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    return (plan, up(w_index.astype(np.int32)), up(f_index.astype(np.int32)), up(plan.tasks),
-            None if plan.rows90 is not None else up(plan.ops))
+    return plan, up(w_index.astype(np.int32)), up(f_index.astype(np.int32)), up(plan.tasks)
 
 
 def _bwd_plan(spec, n_rows: int) -> tuple:
     """(plan without wts / fpar, w_index, f_index): the backward's program of
     a FusedSpec or EnsembleSpec at n_rows, its buffers as gathers from the
-    concatenated parameters (`_Gather`; bf16: the row pass's slab image and
+    concatenated parameters (`_Gather`, then the row pass's weight image and
     float32 buffer, `bwd90_plan`).
 
     The program runs each member's forward (stashing lo/hi and every layer's
@@ -1283,12 +1269,10 @@ def _bwd_plan(spec, n_rows: int) -> tuple:
         grads.append({k: g[k] for k in m.param_keys()})
         plane += m.n_planes
 
-    weighted = [w[1] for w in ops if w[4]]
-    lay = _layout(members, cd, shared, weighted)
+    in_hi = 0 if shared else m0.in_hi
     header = np.asarray(
-        [len(ops), n_rows, m0.ns, lay["in_lo"], lay["in_hi"], lay["lo_kpad"], lay["hi_kpad"],
-         lay["act_ld"], lay["lo_ld"], lay["hi_ld"], lay["slab_ld"], lay["slab_rows"],
-         lay["slab_k"], sizes["part"], hvx_w, sizes["mask"]], dtype=np.int32)
+        [len(ops), n_rows, m0.ns, m0.in_lo, in_hi, lo_kpad, _round16(in_hi) if in_hi else 0,
+         sizes["part"], hvx_w, sizes["mask"]], dtype=np.int32)
     if cd == torch.bfloat16:
         wp = _wgrad_plan(tasks, n_rows)
         n_chunks, chunk_rows, jobs, maps, issued = (wp.n_chunks, wp.chunk_rows, wp.jobs, wp.maps,
@@ -1304,19 +1288,14 @@ def _bwd_plan(spec, n_rows: int) -> tuple:
     sums = [(1, -(-n_rows // bm), sizes["part"]), (1, n_chunks, sizes["dw"]),
             (hvx_slot * (n_rows // m0.ns), m0.ns, hvx_w)]
     ops = np.asarray(ops, dtype=np.int32).reshape(-1, _BOP_WORDS)
-    w_index, f_index = np.concatenate(buf.w_parts), np.arange(buf.f_size)
-    rows90 = None
-    if cd == torch.bfloat16:
-        key = header.copy()
-        key[1] = 0
-        rows90 = bwd90_plan(key, ops, {s for t in tasks for s in (t[0], t[2])})
-        w_index = np.where(rows90.w_index < 0, -1, w_index[rows90.w_index])
-        f_index = rows90.f_index
-        smem, mask_words = rows90.smem, -(-n_rows // bm) * sizes["mask"] * _BWD90_MASK_THREADS * 4
-    else:
-        wm = 2
-        smem = _smem(cd, lay, extra=(wm * (256 + 1) + bm) * _MAX_HEAD * 4)
-        mask_words = -(-n_rows // bm) * sizes["mask"] * (32 * wm * 4) * 2
+    key = header.copy()
+    key[1] = 0
+    rows90 = bwd90_plan(key, ops, {s for t in tasks for s in (t[0], t[2])},
+                        f32=cd != torch.bfloat16)
+    w_index = np.concatenate(buf.w_parts)
+    w_index = np.where(rows90.w_index < 0, -1, w_index[rows90.w_index])
+    f_index = rows90.f_index
+    smem, mask_words = rows90.smem, -(-n_rows // bm) * sizes["mask"] * _BWD90_MASK_THREADS * 4
     w_index = np.where(w_index < 0, buf.w_size, w_index)
     f_index = np.where(f_index < 0, buf.f_size, f_index)
     plan = BwdPlan(
@@ -1352,12 +1331,13 @@ _BWD90_MASK_THREADS = 256  # consumer threads of a tile, one uint4 of mask words
 
 @dataclasses.dataclass(frozen=True)
 class Bwd90Plan:
-    """The bf16 row pass's program, translated from a BwdPlan's ops.
+    """The row pass's program, translated from a BwdPlan's ops.
 
-    words: the program (n_rows left 0); w_index: the slab image as a
+    words: the program (n_rows left 0); w_index: the weight image as a
     gather from the ops' weight buffer with one zero after it (every
-    forward op's W^T and every backward product's W, (out rows, depth),
-    in 64-deep slabs of n_pad rows, 128-byte swizzled); f_index: its
+    forward op's W^T and every backward product's W, (out rows, depth):
+    bf16 in 64-deep slabs of n_pad rows, float32 in the 32-deep chunks of
+    `_slab_index`, both 128-byte swizzled); f_index: its
     float32 buffer as a gather from the ops' (each bias padded to n_pad,
     then each head's weights [q][n_pad] for the backward op that adds
     them); maps: (stash slot, width) of the tensor map of each op whose
@@ -1372,9 +1352,11 @@ class Bwd90Plan:
     smem: int
 
 
-def bwd90_plan(header: np.ndarray, ops: np.ndarray, read) -> Bwd90Plan:
-    """The bf16 row pass's program from a BwdPlan's header and ops; `read`:
-    the stash slots the weight pass reads.
+def bwd90_plan(header: np.ndarray, ops: np.ndarray, read, f32: bool = False) -> Bwd90Plan:
+    """The row pass's program from a BwdPlan's header and ops; `read`: the
+    stash slots the weight pass reads; f32: the float32 engine's (K blocks
+    and slabs 32 deep, 16 KB slots of a chunk's two images; `map` then only
+    tells which slots to store: that row pass has no tensor maps).
 
     A forward op keeps its product and epilogue. A backward op of the row
     kernel is the product of the BOp before it (round(g) @ W^T, W stored
@@ -1382,8 +1364,10 @@ def bwd90_plan(header: np.ndarray, ops: np.ndarray, read) -> Bwd90Plan:
     followed by its own epilogue: so the product and the epilogue of one op
     share a width, as in the forward engine.
     """
-    hdr = [int(v) for v in header]
-    ns, in_lo, in_hi, part_w, hvx_w, n_masks = hdr[2], hdr[3], hdr[4], hdr[13], hdr[14], hdr[15]
+    hdr = dict(zip(_BHEADER, (int(v) for v in header)))
+    ns, in_lo, in_hi, part_w, hvx_w, n_masks = (hdr[k] for k in ("ns", "in_lo", "in_hi", "part_w",
+                                                                "hvx_w", "n_masks"))
+    depth = _TF32_DEPTH if f32 else 64
     w_parts, f_parts, maps, out = [], [], [], []
     f_size = [0]
 
@@ -1395,8 +1379,8 @@ def bwd90_plan(header: np.ndarray, ops: np.ndarray, read) -> Bwd90Plan:
     def slabs(w_off, n, kpad):
         """The slabs of a matrix the ops' buffer stores (n, kpad) at w_off: its
         rows are the product's outputs."""
-        w_parts.append(_slab_index(kpad, n, _n_pad(n), w_off, strides=(1, kpad)))
-        return _kblocks(kpad)
+        w_parts.append(_slab_index(kpad, n, _n_pad(n), w_off, strides=(1, kpad), f32=f32))
+        return _kblocks(kpad, depth)
 
     pending = None  # the product the next backward op runs: (w_off, n, kpad)
     for w in ops.tolist():
@@ -1442,9 +1426,9 @@ def bwd90_plan(header: np.ndarray, ops: np.ndarray, read) -> Bwd90Plan:
         raise ValueError(f"{len(out)} backward ops exceed the row kernel's {_BWD90_MAX_OPS}")
     if len(maps) > _WGRAD_MAX_MAPS:
         raise ValueError(f"{len(maps)} stash slots written; the row kernel takes {_WGRAD_MAX_MAPS}")
-    lo_kb, hi_kb = _kblocks(in_lo), _kblocks(in_hi)
-    act_kb = max(op["n_pad"] for op in out) // 64
-    slot = max(op["n_pad"] for op in out if op["nseg"]) * 128
+    lo_kb, hi_kb = _kblocks(in_lo, depth), _kblocks(in_hi, depth)
+    act_kb = max(op["n_pad"] for op in out) // depth
+    slot = _TF32_SLOT if f32 else max(op["n_pad"] for op in out if op["nseg"]) * 128
     hvx_rays = 63 // ns + 2 if hvx_w else 0  # rays that 64 consecutive rows can touch
 
     def smem(stages, rays):
@@ -1573,15 +1557,15 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
     dhvx = f32(plan.n_hvx, n // ns, max(plan.hvx_w, 1))
     scratch = f32(plan.scratch)
     slices = np.asarray(plan.slices, dtype=np.int32)
-    header, maps = plan.header, plan.maps
-    if plan.rows90 is not None:  # the bf16 row pass's program and its tensor maps, then the weight pass's
-        header = plan.rows90.words.copy()
-        header[1] = n
+    words = plan.rows90.words.copy()  # the row pass's program
+    words[1] = n
+    maps = plan.maps
+    if cd == torch.bfloat16:  # the row pass's tensor maps, then the weight pass's
         row_maps = [[slot * n, w, n, 2 * w] for slot, w in plan.rows90.maps]
         maps = np.concatenate([np.asarray(row_maps, dtype=np.int64).reshape(-1, 4), plan.maps])
     lib = build.load_library("fused_mlp_bwd")
-    args = [1 if cd == torch.bfloat16 else 0, header.ctypes.data_as(ctypes.c_void_p),
-            int(header.size), _ptr(plan.dev_ops), _ptr(lo)]
+    args = [1 if cd == torch.bfloat16 else 0, words.ctypes.data_as(ctypes.c_void_p),
+            int(words.size), _ptr(lo)]
     args += [_ptr(hi)] if entry == "snerf_fused_mlp_bwd" else []
     args += [_ptr(hvx), _ptr(d_planes), _ptr(plan.wts), _ptr(plan.fpar), _ptr(plan.dev_tasks),
              len(plan.tasks), plan.n_chunks, plan.chunk_rows, plan.dw_total,
@@ -1675,6 +1659,7 @@ def column_sums(x: torch.Tensor) -> torch.Tensor:
 
 wgrad.launches = 0
 column_sums.launches = 0
+tf32_split.launches = 0
 
 
 def _stacked_cotangents(n_planes: int, d_planes, nr: int, ns: int, device) -> torch.Tensor:
@@ -1852,7 +1837,8 @@ fused_apply_ensemble.launches = 0
 fused_ens_bwd.launches = 0
 
 
-_COUNTED = (fused_apply, fused_bwd, fused_apply_ensemble, fused_ens_bwd, wgrad, column_sums)
+_COUNTED = (fused_apply, fused_bwd, fused_apply_ensemble, fused_ens_bwd, wgrad, column_sums,
+            tf32_split)
 
 
 def launch_counts() -> dict:

@@ -7,8 +7,8 @@ file imports no JAX, so on a machine without JAX it runs with
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -p no:cacheprovider
 
 Tolerances, max abs error on the raw head planes: float32 products on the
-card accumulate in another order than the plain version's matmul, hence
-1e-5. In bf16 an order difference can flip one bf16 rounding of an
+card (3xTF32 on the tensor cores) accumulate in another order and with
+other roundings than the plain version's matmul, hence 1e-5. In bf16 an order difference can flip one bf16 rounding of an
 activation (2^-8 relative) and the flips propagate through the layers,
 hence 2e-3. Each is a few times the largest error these cases read on the
 card, which `-s` prints, and well below what a broken kernel reads (see
@@ -20,10 +20,13 @@ measure of chip_smoke.py. Besides the order of the row sums, an activation
 within rounding of 0 can take the other side of the ReLU in the two
 versions, which moves one row's term of a sum by its full size; a norm
 over the whole tensor keeps one such term small. The limits are
-chip_smoke.py's: these cases read at most 1.2e-6 (float32) and 5.9e-3
-(bf16) on the card, chip_smoke.py's published-width cases up to 9.8e-4 and
-5.6e-3, and a kernel that drops a ragged last tile of rows reads 2.5e-2
-and more (tools/probe_fused_mlp_bwd.py; PERF.md).
+chip_smoke.py's (readings: PERF.md), and a kernel that drops a ragged last
+tile of rows reads 2.5e-2 and more (tools/probe_fused_mlp_bwd.py). The
+float32 kernels are also held to chip_smoke.py's float64 yardstick: their
+error against the plain version in float64 at most YARDSTICK times the
+float32 plain version's; test_backward_kernel_matches_plain holds float32
+against the plain version in float64, since at its few thousand rows the
+float32 plain version's own ReLU flips exceed GRAD_TOL.
 
 Training steps as one CUDA graph (`Trainer.train_many`, tiny preset with
 draws on, f32 and bf16): K replayed steps against K loop steps, a resumed
@@ -61,6 +64,8 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 GRAD_TOL = {torch.float32: {"weights": 3e-3, "dhvx": 1e-3},
             torch.bfloat16: {"weights": 1.2e-2, "dhvx": 8e-3}}
 TRIO = ("main", "points_aug", "lambertian")
+YARDSTICK = 4.0  # chip_smoke.YARDSTICK
+DTYPES = dict(argnames="dtype", argvalues=[torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 
 
 @pytest.fixture
@@ -124,6 +129,14 @@ def test_kernel_pads_widths(cuda_device, widths, dtype):
         assert err <= TOL[dtype], f"widths {widths} plane {j}: max abs err {err}"
 
 
+def _double(x):
+    if isinstance(x, dict):
+        return {k: _double(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_double(v) for v in x)
+    return x.double() if isinstance(x, torch.Tensor) else x
+
+
 def _norm_err(got, want) -> float:
     err = (got.double() - want.double()).norm().nan_to_num(float("inf")).item()
     return err / max(want.double().norm().item(), 1e-30)
@@ -141,6 +154,12 @@ def _grad_errors(label, got: dict, want: dict, dtype):
 @pytest.mark.parametrize("ns", [5, 64, 192])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_backward_kernel_matches_plain(cuda_device, name, ns, dtype):
+    """bf16 against the plain version in bf16; float32 against the plain
+    version evaluated in float64. The float32 plain version rounds in its
+    own order, so an activation within rounding of 0 can fall on the other
+    side of its ReLU there, and with a few thousand rows one such row is
+    over GRAD_TOL: at 37 x 64 at the published widths it is 9.2e-3 from
+    float64 where the 3xTF32 kernel is 1.4e-6 (PERF.md, PR 12)."""
     cfg = mlp.MLPConfig(**{**SMALL, **CASES[name]})
     nr = 6 if ns == 5 else 37
     spec, kp, lo, hi, hvx = _operands(cfg, nr, ns, dtype, cuda_device)
@@ -150,7 +169,10 @@ def test_backward_kernel_matches_plain(cuda_device, name, ns, dtype):
     dkp, dhvx = fused_mlp.fused_bwd(spec, kp, lo, hi, hvx, d_planes)
     torch.cuda.synchronize()
     assert fused_mlp.fused_bwd.launches == before + 1
-    want, want_hvx = fused_mlp.fused_bwd_reference(spec, kp, lo, hi, hvx, d_planes)
+    plain = (spec, kp, lo, hi, hvx, d_planes)
+    if dtype == torch.float32:
+        plain = (fused_mlp.with_dtype(spec, "float64"), *_double(plain[1:]))
+    want, want_hvx = fused_mlp.fused_bwd_reference(*plain)
     assert list(dkp) == spec.param_keys()
     for k in want:
         assert dkp[k].shape == kp[k].shape and dkp[k].dtype == torch.float32, k
@@ -244,43 +266,93 @@ def _check_bwd(label, spec, kp, lo, hi, hvx, nr, ns, dtype, device, seed=1):
         assert torch.equal(again_hvx, dhvx), "two launches differ in dhvx"
 
 
-# The bf16 row pass (fused_mlp_bwd_rows_sm90_kernel): 128-row blocks of two
-# 64-row consumers, so row counts that leave a block's second consumer
-# ragged or empty, one sample per ray (each row its own hvx row), the widths
-# its wgmma pads (48 -> 64, 160 -> 256, views 80 -> 128), the published
-# widths at the per-rank shapes of two-rank training (2048 rays), the trio.
+# The row passes (bf16 fused_mlp_bwd_rows_sm90_kernel, float32
+# fused_mlp_bwd_rows_tf32_kernel): 128-row blocks of two 64-row consumers,
+# so row counts that leave a block's second consumer ragged or empty, one
+# sample per ray (each row its own hvx row), the widths their wgmma pads
+# (48 -> 64, 160 -> 256, views 80 -> 128), the published widths at the
+# per-rank shapes of two-rank training (2048 rays), the trio.
+@pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("rows", [37, 1037, 5000])
 @pytest.mark.parametrize("name", ["main", "published"])
-def test_bwd_row_pass_ragged_rows(cuda_device, name, rows):
+def test_bwd_row_pass_ragged_rows(cuda_device, name, rows, dtype):
     cfg = mlp.MLPConfig(**{**SMALL, **CASES[name]})
-    spec, kp, lo, hi, hvx = _operands(cfg, rows, 1, torch.bfloat16, cuda_device, seed=rows)
-    _check_bwd(f"rows {name} {rows} x 1", spec, kp, lo, hi, hvx, rows, 1, torch.bfloat16,
-               cuda_device)
+    spec, kp, lo, hi, hvx = _operands(cfg, rows, 1, dtype, cuda_device, seed=rows)
+    _check_bwd(f"rows {name} {rows} x 1", spec, kp, lo, hi, hvx, rows, 1, dtype, cuda_device)
 
 
+@pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("widths", [(48, 64), (160, 128), (64, 80)],
                          ids=["trunk48", "trunk160", "views80"])
-def test_bwd_row_pass_pads_widths(cuda_device, widths):
+def test_bwd_row_pass_pads_widths(cuda_device, widths, dtype):
     width, views_width = widths
     cfg = mlp.MLPConfig(**{**SMALL, "points_net_width": width, "views_net_width": views_width})
     nr, ns = 37, 64
-    spec, kp, lo, hi, hvx = _operands(cfg, nr, ns, torch.bfloat16, cuda_device)
-    _check_bwd(f"rows widths {widths}", spec, kp, lo, hi, hvx, nr, ns, torch.bfloat16, cuda_device)
+    spec, kp, lo, hi, hvx = _operands(cfg, nr, ns, dtype, cuda_device)
+    _check_bwd(f"rows widths {widths}", spec, kp, lo, hi, hvx, nr, ns, dtype, cuda_device)
 
 
+@pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("name", ["published", "visibility"])
-def test_bwd_row_pass_two_rank_fine_shape(cuda_device, name):
+def test_bwd_row_pass_two_rank_fine_shape(cuda_device, name, dtype):
     """A rank's fine backward in two-rank training: 2048 rays x 192."""
     published = CASES["published"]
     cfg = mlp.MLPConfig(**{**SMALL, **published, **CASES[name]})
-    spec, kp, lo, hi, hvx = _operands(cfg, 2048, 192, torch.bfloat16, cuda_device)
-    _check_bwd(f"rows {name} 2048 x 192", spec, kp, lo, hi, hvx, 2048, 192, torch.bfloat16,
-               cuda_device)
+    spec, kp, lo, hi, hvx = _operands(cfg, 2048, 192, dtype, cuda_device)
+    _check_bwd(f"rows {name} 2048 x 192", spec, kp, lo, hi, hvx, 2048, 192, dtype, cuda_device)
 
 
+@pytest.mark.parametrize("ns", [64, 192])
+@pytest.mark.parametrize("name", ["published", "visibility"])
+def test_f32_kernels_against_the_float64_yardstick(cuda_device, name, ns):
+    """The float32 forward and backward (3xTF32) against the plain version
+    in float64: each no further than YARDSTICK times the float32 plain
+    version (true float32 products) is; planes as max abs error, gradients
+    as the worst norm error; at the training step's 4096 rays: a
+    gradient's error is mostly its rows' ReLU flips (activations within
+    rounding of 0), whose count fewer rows leave to chance."""
+    cfg = mlp.MLPConfig(**{**SMALL, **CASES["published"], **CASES[name]})
+    nr = 4096
+    ops = _operands(cfg, nr, ns, torch.float32, cuda_device, seed=nr)
+    spec = ops[0]
+    ops64 = (fused_mlp.with_dtype(spec, "float64"), *_double(ops[1:]))
+    got, plain = fused_mlp.fused_apply(*ops), fused_mlp.fused_apply_reference(*ops)
+    exact = fused_mlp.fused_apply_reference(*ops64)
+    k_err = max((a.double() - b).abs().max().item() for a, b in zip(got, exact))
+    p_err = max((a.double() - b).abs().max().item() for a, b in zip(plain, exact))
+    print(f"yardstick {name} {nr} x {ns} planes: kernel {k_err:.3e}, plain {p_err:.3e}")
+    assert k_err <= YARDSTICK * p_err
+    g = torch.Generator(device=cuda_device).manual_seed(nr)
+    d_planes = torch.randn((spec.n_planes, nr, ns), generator=g, device=cuda_device)
+    (dkp, dhvx), (want, want_hvx) = (fused_mlp.fused_bwd(*ops, d_planes),
+                                     fused_mlp.fused_bwd_reference(*ops, d_planes))
+    w64, w64_hvx = fused_mlp.fused_bwd_reference(*ops64, d_planes.double())
+    if spec.has_hvx:
+        dkp, want, w64 = {**dkp, "dhvx": dhvx}, {**want, "dhvx": want_hvx}, {**w64, "dhvx": w64_hvx}
+    k_err = max(_norm_err(dkp[k], w64[k]) for k in w64)
+    p_err = max(_norm_err(want[k], w64[k]) for k in w64)
+    print(f"yardstick {name} {nr} x {ns} gradients: kernel {k_err:.3e}, plain {p_err:.3e}")
+    assert k_err <= YARDSTICK * p_err
+
+
+@pytest.mark.parametrize("chunks", [1, 37, 577])
+def test_tf32_split_matches_plain(cuda_device, chunks):
+    """The split kernel gives the plain version's big and small images to
+    the bit, and counts its launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(chunks)
+    image = torch.randn(chunks * fused_mlp._TF32_CHUNK_FLOATS, generator=g, device=cuda_device)
+    image *= torch.exp2(torch.randint(-20, 20, image.shape, generator=g, device=cuda_device))
+    before = fused_mlp.tf32_split.launches
+    got = fused_mlp.tf32_split(image)
+    torch.cuda.synchronize()
+    assert fused_mlp.tf32_split.launches == before + 1
+    assert torch.equal(got.cpu(), fused_mlp.tf32_split(image.cpu()))
+
+
+@pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("trio", [TRIO, ("visibility", "points_aug", "lambertian")],
                          ids=["trio", "visibility_trio"])
-def test_bwd_row_pass_two_rank_trio_shape(cuda_device, trio):
+def test_bwd_row_pass_two_rank_trio_shape(cuda_device, trio, dtype):
     """A rank's coarse trio backward in two-rank training at the published
     widths: 2048 rays x 64, each member's gradients and dhvx."""
     g = torch.Generator().manual_seed(7)
@@ -291,15 +363,15 @@ def test_bwd_row_pass_two_rank_trio_shape(cuda_device, trio):
     nr, ns = 2048, 64
     pts = torch.randn((nr * ns, 3), generator=g).to(cuda_device)
     dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1).to(cuda_device)
-    ens, kps, lo, hvxs = mlp.ensemble_operands(members, pts, dirs, ns, torch.bfloat16)
+    ens, kps, lo, hvxs = mlp.ensemble_operands(members, pts, dirs, ns, dtype)
     gd = torch.Generator(device=cuda_device).manual_seed(8)
     d_planes = torch.randn((ens.n_planes, nr, ns), generator=gd, device=cuda_device)
     dkps, dhvxs = fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, d_planes)
     want_kps, want_hvxs = fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, d_planes)
     for name, dkp, wkp in zip(trio, dkps, want_kps):
-        _grad_errors(f"rows trio {name} 2048 x 64", dkp, wkp, torch.bfloat16)
+        _grad_errors(f"rows trio {name} 2048 x 64", dkp, wkp, dtype)
     for a, b in zip(dhvxs, want_hvxs):
-        _grad_errors("rows trio 2048 x 64", {"dhvx": a}, {"dhvx": b}, torch.bfloat16)
+        _grad_errors("rows trio 2048 x 64", {"dhvx": a}, {"dhvx": b}, dtype)
     again, again_hvx = fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, d_planes)
     for a, b in zip(again, dkps):
         assert all(torch.equal(a[k], b[k]) for k in b), "two launches differ"
@@ -593,7 +665,7 @@ def test_graph_keeps_each_stash_in_its_pool(cuda_device, graph_scene, tmp_path, 
     t.train_one_iter(0)
     lib = build.load_library("fused_mlp_bwd")
     seen = []
-    for entry, arg in (("snerf_fused_mlp_bwd", 16), ("snerf_fused_mlp_ens_bwd", 15)):
+    for entry, arg in (("snerf_fused_mlp_bwd", 15), ("snerf_fused_mlp_ens_bwd", 14)):
         def spy(*args, _fn=getattr(lib, entry), _arg=arg):
             seen.append(args[_arg].value)
             return _fn(*args)

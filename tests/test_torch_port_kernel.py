@@ -111,8 +111,53 @@ def _unswizzle_slab(img, n_pad):
     return rows[n, torch.arange(8)[None, :] ^ (n % 8)].reshape(n_pad, 64)
 
 
+def _unswizzle_chunk(img):
+    """The (64, 32) block of W^T held by one float32 chunk image: element
+    (n, k) sits in row n's 16-byte group of four floats (k // 4) ^ (n % 8),
+    its depth slot p holding K row _TF32_PERM[p % 8] of its 8-deep group,
+    as the TF32 kernels' descriptors and register fragments read it."""
+    rows = img.reshape(64, 8, 4)
+    n = torch.arange(64)[:, None]
+    phys = rows[n, torch.arange(8)[None, :] ^ (n % 8)].reshape(64, 32)
+    logical = torch.empty_like(phys)
+    perm = torch.as_tensor(fused_mlp._TF32_PERM)
+    for g in range(4):
+        logical[:, 8 * g + perm] = phys[:, 8 * g : 8 * g + 8]
+    return logical
+
+
+def _image_mats(n_pad, kb, wts, pos, f32):
+    """One segment's weight from the image at `pos`: (n_pad, depth * kb)
+    W^T, bf16 slabs or (float32) the (big, small) halves of its chunks read
+    back from the split image; and the position after it."""
+    if not f32:
+        blocks = []
+        for _ in range(kb):
+            blocks.append(_unswizzle_slab(wts[pos : pos + n_pad * 64], n_pad))
+            pos += n_pad * 64
+        return torch.cat(blocks, 1), pos
+    f = fused_mlp._TF32_CHUNK_FLOATS
+    big = torch.zeros((n_pad, 32 * kb))
+    small = torch.zeros((n_pad, 32 * kb))
+    for k in range(kb):
+        for ch in range(n_pad // 64):
+            big[64 * ch : 64 * ch + 64, 32 * k : 32 * k + 32] = _unswizzle_chunk(wts[pos : pos + f])
+            small[64 * ch : 64 * ch + 64, 32 * k : 32 * k + 32] = _unswizzle_chunk(wts[pos + f : pos + 2 * f])
+            pos += 2 * f
+    return (big, small), pos
+
+
+def _product(a, w, f32):
+    """a @ w^T as the kernel forms it: bf16 operands in float32 sums, or
+    3xTF32 (w the (big, small) halves): small-big + big-small + big-big."""
+    if not f32:
+        return a.float() @ w.float().T
+    big, small = fused_mlp.tf32_halves(a)
+    return small @ w[0].T + big @ w[1].T + big @ w[0].T
+
+
 def _sm90_layers(words):
-    """The bf16 program's header and its layers as dicts (struct sm90::Op)."""
+    """The forward program's header and its layers as dicts (struct sm90::Op)."""
     hw = fused_mlp._SM90_HEADER_WORDS
     hdr = words[:hw].tolist()
     names = ("n", "n_pad", "b_off", "flags", "nseg", "src", "kb", "hvx_slot", "plane", "nout",
@@ -125,97 +170,59 @@ def _sm90_layers(words):
     return hdr, layers
 
 
-def _slabs(words, wts):
-    """Every segment's slabs in stream order: [(layer, segment, W^T padded (n_pad, 64 kb))]."""
+def _slabs(words, wts, f32=False):
+    """Every segment's weight in stream order: [(layer, segment, W^T padded
+    (n_pad, depth kb))], bf16 slabs or float32 (big, small) halves."""
     _, layers = _sm90_layers(words)
     out, pos = [], 0
     for li, op in enumerate(layers):
         for s in range(op["nseg"]):
-            blocks = []
-            for _ in range(op["kb"][s]):
-                blocks.append(_unswizzle_slab(wts[pos : pos + op["n_pad"] * 64], op["n_pad"]))
-                pos += op["n_pad"] * 64
-            out.append((li, s, torch.cat(blocks, 1)))
+            mat, pos = _image_mats(op["n_pad"], op["kb"][s], wts, pos, f32)
+            out.append((li, s, mat))
     assert pos == wts.numel()
     return out
 
 
 def _run_sm90_program(spec, kp, lo, hi, hvx):
-    """The bf16 program, its slab image read through the swizzle, as the kernel runs it."""
+    """The forward program, its weight image read through the swizzle (and,
+    float32, the permuted K order and the split), as the kernel runs it."""
     n = lo.shape[0]
     words, wts, fpar, _ = fused_mlp.pack_program(spec, kp, n)
     hdr, layers = _sm90_layers(words)
     _, n_rows, ns, in_lo, in_hi, lo_kb, hi_kb, act_kb, slot, stages, head_floats, *_ = hdr
     assert n_rows == n and ns == spec.ns
-    cd = torch.bfloat16
-    tiles = {fused_mlp._SRC_LO: torch.zeros((n, 64 * lo_kb), dtype=cd),
-             fused_mlp._SRC_HI: torch.zeros((n, 64 * hi_kb), dtype=cd)}
+    cd = spec.cdtype
+    f32 = cd == torch.float32
+    depth = 32 if f32 else 64
+    tiles = {fused_mlp._SRC_LO: torch.zeros((n, depth * lo_kb), dtype=cd),
+             fused_mlp._SRC_HI: torch.zeros((n, depth * hi_kb), dtype=cd)}
     tiles[fused_mlp._SRC_LO][:, :in_lo] = lo
     if in_hi:
         tiles[fused_mlp._SRC_HI][:, :in_hi] = hi
-    slabs = iter(_slabs(words, wts))
+    slabs = iter(_slabs(words, wts, f32))
     hvxs = hvx if isinstance(hvx, (list, tuple)) else [hvx]
     planes = {}
     for li, op in enumerate(layers):
-        assert op["n_pad"] in (64, 128, 256) and op["n_pad"] * 128 <= slot
+        assert op["n_pad"] in (64, 128, 256) and (16384 if f32 else op["n_pad"] * 128) <= slot
         acc = 0
         for s in range(op["nseg"]):
             li2, s2, wt = next(slabs)
             assert (li2, s2) == (li, s)
-            acc = acc + tiles[op["src"][s]][:, : wt.shape[1]].float() @ wt.float().T
+            k = (wt[0] if f32 else wt).shape[1]
+            acc = acc + _product(tiles[op["src"][s]][:, :k], wt, f32)
         v = acc + fpar[op["b_off"] : op["b_off"] + op["n_pad"]]
         if op["flags"] & fused_mlp._FLAG_HVX:
             v[:, : op["n"]] += hvxs[op["hvx_slot"]].repeat_interleave(ns, 0)
         if op["flags"] & fused_mlp._FLAG_RELU:
             v = torch.relu(v)
         tiles[fused_mlp._SRC_ACT] = v.to(cd)  # the kernel overwrites its one activation tile
-        assert op["n_pad"] <= 64 * act_kb
+        assert op["n_pad"] <= depth * act_kb
         if op["nout"]:
             assert op["head_w"] + op["nout"] * op["n_pad"] <= head_floats
             w = fpar[op["head_w"] : op["head_w"] + op["nout"] * op["n_pad"]].view(op["nout"], -1)
             for j in range(op["nout"]):
                 planes[op["plane"] + j] = (v.to(cd).float() @ w[j]
                                            + fpar[op["head_b"] + j]).reshape(-1, ns)
-    return tuple(planes[j] for j in range(len(planes)))
-
-
-def _run_program(spec, kp, lo, hi, hvx):
-    """Execute `pack_program`'s output with PyTorch ops, as the kernel does."""
-    if spec.cdtype == torch.bfloat16:
-        return _run_sm90_program(spec, kp, lo, hi, hvx)
-    n = lo.shape[0]
-    words, wts, fpar, _ = fused_mlp.pack_program(spec, kp, n)
-    hw = fused_mlp._HEADER_WORDS
-    hdr, ops = words[:hw], words[hw:].reshape(-1, fused_mlp._OP_WORDS)
-    assert hdr[0] == len(ops) and hdr[1] == n and hdr[2] == spec.ns
-    cd = spec.cdtype
-    tiles = {
-        fused_mlp._SRC_LO: torch.zeros((n, hdr[5]), dtype=cd),
-        fused_mlp._SRC_HI: torch.zeros((n, hdr[6]), dtype=cd),
-    }
-    tiles[fused_mlp._SRC_LO][:, : hdr[3]] = lo
-    if hdr[4]:
-        tiles[fused_mlp._SRC_HI][:, : hdr[4]] = hi
-    hvxs = hvx if isinstance(hvx, (list, tuple)) else [hvx]
-    planes = {}
-    for kind, width, b_off, flags, nseg, *rest in ops.tolist():
-        src, w_off, kpad, plane, hvx_slot = rest[0:3], rest[3:6], rest[6:9], rest[9], rest[10]
-        if kind == fused_mlp._OP_LAYER:
-            acc = sum(
-                tiles[src[s]].float()
-                @ wts[w_off[s] : w_off[s] + width * kpad[s]].reshape(width, kpad[s]).float().T
-                for s in range(nseg)
-            )
-            v = acc + fpar[b_off : b_off + width]
-            if flags & fused_mlp._FLAG_HVX:
-                v = v + hvxs[hvx_slot].repeat_interleave(hdr[2], 0)
-            if flags & fused_mlp._FLAG_RELU:
-                v = torch.relu(v)
-            tiles[fused_mlp._SRC_ACT] = v.to(cd)  # the kernel overwrites its one activation tile
-        else:
-            w = fpar[w_off[0] : w_off[0] + width * kpad[0]].reshape(width, kpad[0])
-            for j in range(width):
-                planes[plane + j] = (tiles[src[0]].float() @ w[j] + fpar[b_off + j]).reshape(-1, hdr[2])
     return tuple(planes[j] for j in range(len(planes)))
 
 
@@ -250,7 +257,7 @@ PROGRAMS = sorted(CASES) + ["published", "trio"]
 def test_packed_program_computes_plain_version(name, dtype_name):
     spec, kp, lo, hi, hvx = _program_operands(name, dtype_name)
     want = _plain_planes(spec, kp, lo, hi, hvx)
-    got = _run_program(spec, kp, lo, hi, hvx)
+    got = _run_sm90_program(spec, kp, lo, hi, hvx)
     assert len(got) == len(want) == spec.n_planes
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
@@ -284,9 +291,12 @@ def test_program_fits_shared_memory(name, dtype_name):
     assert words[0] <= fused_mlp._MAX_OPS
     assert smem <= fused_mlp._SMEM_LIMIT == 227 * 1024
     members = spec.members if isinstance(spec, fused_mlp.EnsembleSpec) else (spec,)
-    if dtype_name == "bfloat16":  # the deepest ring, and hvx rows staged where a member has them
-        hdr, _ = _sm90_layers(words)
-        assert hdr[9] == 4 and (hdr[11] > 0) == any(m.has_hvx for m in members)
+    # the deepest ring that fits (float32 at the published widths: three
+    # 16 KB slots beside 2 x 80 KB of tiles), and hvx rows staged where a
+    # member has them
+    hdr, _ = _sm90_layers(words)
+    wide = name == "published" and dtype_name == "float32"
+    assert hdr[9] == (3 if wide else 4) and (hdr[11] > 0) == any(m.has_hvx for m in members)
 
 
 def test_published_flop_count():
@@ -318,34 +328,35 @@ def _bwd90_ops(words):
     return words[:hw].tolist(), ops
 
 
-def _bwd90_slabs(plan):
-    """Each op's segments as (n_pad, 64 kb) matrices read back through the
-    swizzle from the slab image, in the producer's order."""
+def _bwd90_slabs(plan, f32=False):
+    """Each op's segments as (n_pad, depth kb) matrices read back through
+    the swizzle from the weight image (float32: the (big, small) halves of
+    the split chunk image), in the producer's order."""
     _, ops = _bwd90_ops(plan.rows90.words)
     pos, mats = 0, []
     for op in ops:
         segs = []
         for s in range(op["nseg"]):
-            blocks = []
-            for _ in range(op["kb"][s]):
-                blocks.append(_unswizzle_slab(plan.wts[pos : pos + op["n_pad"] * 64], op["n_pad"]))
-                pos += op["n_pad"] * 64
-            segs.append(torch.cat(blocks, 1))
+            mat, pos = _image_mats(op["n_pad"], op["kb"][s], plan.wts, pos, f32)
+            segs.append(mat)
         mats.append(segs)
     assert pos == plan.wts.numel()
     return mats
 
 
 def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
-    """The bf16 row pass's program, run as fused_mlp_bwd_rows_sm90_kernel
-    runs it, tile by tile: (stash, g32, per-tile partials). An op with no
-    tensor map stores no stash: its slot stays zero."""
+    """The row pass's program, run as fused_mlp_bwd_rows_sm90_kernel (bf16)
+    or fused_mlp_bwd_rows_tf32_kernel (float32, products in 3xTF32) runs
+    it, tile by tile: (stash, g32, per-tile partials). An op with no tensor
+    map stores no stash: its slot stays zero."""
     hdr, ops = _bwd90_ops(plan.rows90.words)
     ns, in_lo, in_hi, lo_kb, hi_kb, act_kb = hdr[2:8]
     slot_bytes, part_w, n_maps = hdr[8], hdr[12], hdr[14]
     assert part_w == plan.part_w and n_maps == len(plan.rows90.maps)
-    cd, bm = torch.bfloat16, 128
-    mats = _bwd90_slabs(plan)
+    cd, bm = plan.wts.dtype, 128
+    f32 = cd == torch.float32
+    depth = 32 if f32 else 64
+    mats = _bwd90_slabs(plan, f32)
     stash = torch.zeros(plan.stash_cols * n, dtype=cd)
     g32 = torch.zeros((max(plan.n_hvx, 1), n, max(plan.hvx_w, 1)))
     n_tiles = -(-n // bm)
@@ -363,8 +374,8 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
     for t in range(n_tiles):
         rows = slice(t * bm, min(n, (t + 1) * bm))
         r = rows.stop - rows.start
-        tiles = {fused_mlp._SRC_LO: torch.zeros((r, 64 * lo_kb), dtype=cd),
-                 fused_mlp._SRC_HI: torch.zeros((r, 64 * hi_kb), dtype=cd)}
+        tiles = {fused_mlp._SRC_LO: torch.zeros((r, depth * lo_kb), dtype=cd),
+                 fused_mlp._SRC_HI: torch.zeros((r, depth * hi_kb), dtype=cd)}
         tiles[fused_mlp._SRC_LO][:, :in_lo] = lo[rows]
         if in_hi:
             tiles[fused_mlp._SRC_HI][:, :in_hi] = hi[rows]
@@ -374,10 +385,12 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
             if kind == fused_mlp._F_IN:
                 store(op, rows, tiles[op["src"][0]])
                 continue
-            assert n_pad in (64, 128, 256) and n_pad * 128 <= slot_bytes and n_pad <= 64 * act_kb
+            assert n_pad in (64, 128, 256) and n_pad <= depth * act_kb
+            assert (16384 if f32 else n_pad * 128) <= slot_bytes
             acc = torch.zeros((r, n_pad))
             for s, w in enumerate(segs):
-                acc = acc + tiles[op["src"][s]][:, : w.shape[1]].float() @ w.float().T
+                k = (w[0] if f32 else w).shape[1]
+                acc = acc + _product(tiles[op["src"][s]][:, :k], w, f32)
             d = dp[op["plane"] : op["plane"] + op["head_nout"], rows]
             if kind == fused_mlp._F_LAYER:
                 v = acc + fpar[op["b_off"] : op["b_off"] + n_pad]
@@ -408,84 +421,17 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
     return stash, g32, parts
 
 
-def _run_f32_rows(plan, n, lo, hi, hvxs, dp):
-    """The float32 row pass's program (struct BProgram / BOp), run as
-    fused_mlp_bwd_rows_kernel<float> runs it, tile by tile: (stash, g32,
-    per-tile partials)."""
-    hdr = plan.header.tolist()
-    ns, in_lo, in_hi, lo_kpad, hi_kpad = hdr[2:7]
-    cd = torch.float32
-    bm, _ = fused_mlp._tiling(cd)
-    stash = torch.zeros(plan.stash_cols * n, dtype=cd)
-    g32 = torch.zeros((max(plan.n_hvx, 1), n, max(plan.hvx_w, 1)))
-    n_tiles = -(-n // bm)
-    parts = torch.zeros((n_tiles, plan.part_w))
-
-    def slot(off, w):
-        return stash[off * n : (off + w) * n].view(n, w)
-
-    def weight(off, rows, kpad):
-        return plan.wts[off : off + rows * kpad].view(rows, kpad).float()
-
-    for t in range(n_tiles):
-        rows = slice(t * bm, min(n, (t + 1) * bm))
-        masks = {}  # the tile's ReLU masks by mask slot, from each layer's rounded activation
-        tiles = {fused_mlp._SRC_LO: torch.zeros((rows.stop - rows.start, lo_kpad), dtype=cd)}
-        tiles[fused_mlp._SRC_LO][:, :in_lo] = lo[rows]
-        if in_hi:
-            tiles[fused_mlp._SRC_HI] = torch.zeros((rows.stop - rows.start, hi_kpad), dtype=cd)
-            tiles[fused_mlp._SRC_HI][:, :in_hi] = hi[rows]
-        acc = None
-        for op in plan.ops.tolist():
-            kind, width, b_off, flags, nseg = op[:5]
-            src, w_off, kpad = op[5:8], op[8:11], op[11:14]
-            plane, hvx_slot, out_slot, gn, mask, hn, hw_off, part, g32_slot, part2 = op[14:]
-            if kind == fused_mlp._F_IN:
-                slot(out_slot, gn)[rows] = tiles[src[0]][:, :gn]
-                continue
-            d = dp[plane : plane + hn, rows]
-            if kind == fused_mlp._F_LAYER:
-                v = sum(tiles[src[s]].float()[:, : kpad[s]] @ weight(w_off[s], width, kpad[s]).T
-                        for s in range(nseg)) + plan.fpar[b_off : b_off + width]
-                if flags & fused_mlp._FLAG_HVX:
-                    v = v + hvxs[hvx_slot].repeat_interleave(ns, 0)[rows]
-                if flags & fused_mlp._FLAG_RELU:
-                    v = torch.relu(v)
-                tiles[fused_mlp._SRC_ACT] = v.to(cd)
-                slot(out_slot, width)[rows] = v.to(cd)
-                if flags & fused_mlp._FLAG_RELU:
-                    masks[mask] = v.to(cd).float() > 0
-                if hn:  # the head this layer feeds: partials of its rounded activation
-                    parts[t, part : part + hn * width] = (d @ v.to(cd).float()).reshape(-1)
-                    parts[t, part2 : part2 + hn] = d.sum(1)
-                continue
-            v = torch.zeros((rows.stop - rows.start, gn)) if flags & fused_mlp._FLAG_ZERO else acc
-            if hn:
-                v = v + d.T @ plan.fpar[hw_off : hw_off + hn * gn].view(hn, gn)
-            if flags & fused_mlp._FLAG_RELU:
-                v = v * masks[mask]
-            if g32_slot >= 0:
-                g32[g32_slot, rows] = v
-            tiles[fused_mlp._SRC_ACT] = v.to(cd)
-            slot(out_slot, gn)[rows] = v.to(cd)
-            parts[t, part : part + gn] = v.sum(0)
-            if nseg:
-                acc = v.to(cd).float() @ weight(w_off[0], width, kpad[0]).T
-    return stash, g32, parts
-
-
 def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
     """Execute `pack_bwd_program`'s output with PyTorch ops, tile by tile and
     task by task, as the backward kernels do: (per-member dkp, dhvx stack).
-    The row pass: bf16 the program of `bwd90_plan` (`_run_bwd90_rows`),
-    float32 the BOp program (`_run_f32_rows`)."""
+    The row pass runs the program of `bwd90_plan` (`_run_bwd90_rows`)."""
     n = lo.shape[0]
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
     ns = int(plan.header[2])
     members = spec.members if isinstance(spec, fused_mlp.EnsembleSpec) else (spec,)
     bf16 = members[0].cdtype == torch.bfloat16
     dp = d_planes.reshape(d_planes.shape[0], n)
-    stash, g32, parts = (_run_bwd90_rows if bf16 else _run_f32_rows)(plan, n, lo, hi, hvxs, dp)
+    stash, g32, parts = _run_bwd90_rows(plan, n, lo, hi, hvxs, dp)
 
     def slot(off, w):
         return stash[off * n : (off + w) * n].view(n, w)
@@ -611,7 +557,7 @@ def test_bwd_program_offsets_disjoint_and_in_range(which, dtype_name):
     its own mask slot, which its backward layer reads; the mask buffer holds
     every thread's words of every tile, the ragged last one included."""
     dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
-    nr, ns = 1037, 64  # 66,368 rows: a ragged last 128-row tile in bf16 (f32 tiles are 64)
+    nr, ns = 1037, 64  # 66,368 rows: a ragged last 128-row tile
     published = dict(points_net_depth=8, points_net_width=256, views_net_width=128,
                      skip_layers=(4,))
     if which == "single":
@@ -625,8 +571,8 @@ def test_bwd_program_offsets_disjoint_and_in_range(which, dtype_name):
     n = nr * ns
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
     bm, _ = fused_mlp._tiling(dtype)
-    assert (n % bm > 0) == (dtype == torch.bfloat16)
-    n_masks = int(plan.header[15])
+    assert n % bm > 0
+    n_masks = int(dict(zip(fused_mlp._BHEADER, plan.header))["n_masks"])
     ranges, relu_f, relu_b = [], {}, []
     for op in plan.ops.tolist():
         kind, width, flags = op[0], op[1], op[3]
@@ -650,9 +596,9 @@ def test_bwd_program_offsets_disjoint_and_in_range(which, dtype_name):
     assert ranges[0][0] >= 0 and ranges[-1][1] <= plan.part_w
     assert all(a[1] <= b[0] for a, b in zip(ranges, ranges[1:])), "partials overlap"
     assert sum(b - a for a, b in ranges) == plan.part_w
-    # float32: two words for each of a tile's 256 threads; bf16: a uint4 for
-    # each of its 256 consumer threads (the wgmma fragment of 128 values)
-    threads, words = (256, 4) if dtype == torch.bfloat16 else (4 * bm, 2)
+    # a uint4 for each of a tile's 256 consumer threads (the wgmma fragment
+    # of 128 values), in both types
+    threads, words = 256, 4
     last = ((-(-n // bm) - 1) * n_masks + n_masks - 1) * threads + threads - 1
     assert words * (last + 1) == plan.mask_words
 
@@ -684,26 +630,52 @@ def _f32_twin(spec):
     return dataclasses.replace(spec, dtype="float32")
 
 
+def _padded_op_weights(plan, kp, depth):
+    """Each row-pass op's segments' weights, zero-padded to (n_pad, depth
+    kb), from the parameters: a forward op's W^T, a backward op's W (the
+    product of the BOp before it), as `_bwd_plan` lays the ops' buffer out
+    (each matrix's rows padded to 16 columns, one after the other)."""
+    kps = list(kp) if isinstance(kp, tuple) else [kp]
+    srcs, mats, w_len = iter(plan.w_src), [], 0
+    for w in plan.ops.tolist():  # the ops' buffer: each op's segments in order
+        segs = []
+        for s_ in range(w[4]):
+            mi, key = next(srcs)
+            m = kps[mi][key].detach().float()
+            m = m.T if w[0] == fused_mlp._F_LAYER else m
+            assert (w[8 + s_], w[11 + s_]) == (w_len, -(-m.shape[1] // 16) * 16)
+            w_len += m.shape[0] * w[11 + s_]
+            segs.append(m)
+        mats.append(segs)
+    assert next(srcs, None) is None
+    _, ops = _bwd90_ops(plan.rows90.words)
+    out = []
+    for i, op in enumerate(ops):
+        src = mats[i] if op["kind"] == fused_mlp._F_LAYER else mats[i - 1]  # B: the op before's W
+        segs = []
+        for s_ in range(op["nseg"]):
+            want = torch.zeros((op["n_pad"], depth * op["kb"][s_]))
+            want[: src[s_].shape[0], : src[s_].shape[1]] = src[s_]
+            segs.append(want)
+        out.append(segs)
+    return out
+
+
 @pytest.mark.parametrize("name", sorted(BWD90_CASES))
 def test_bwd90_slab_image_unswizzles_to_padded_weights(name):
     """Every slab of the bf16 row pass's image, read back through the
     swizzle, is its op's weight zero-padded to (n_pad, 64 kb): a forward
-    op's W^T, a backward op's W (the product of the op before it), as the
-    float32 program stores them at the same offsets."""
+    op's W^T, a backward op's W (the product of the op before it), at the
+    offsets the ops' buffer gives them; the float32 program has the same
+    ops."""
     spec, kp, lo, *_ = _bwd90_operands(name)
     n = lo.shape[0]
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
     twin = fused_mlp.pack_bwd_program(_f32_twin(spec), kp, n)  # same ops, float32 weights
     assert np.array_equal(plan.ops, twin.ops)
-    _, ops = _bwd90_ops(plan.rows90.words)
-    old = twin.ops.tolist()
-    for i, (op, segs) in enumerate(zip(ops, _bwd90_slabs(plan))):
-        for s, got in enumerate(segs):
-            w = old[i] if op["kind"] == fused_mlp._F_LAYER else old[i - 1]  # B: the op before's W
-            assert op["kind"] != fused_mlp._B_LAYER or (w[0] == fused_mlp._B_LAYER and w[4] == 1)
-            rows, w_off, kpad = w[1], w[8 + s], w[11 + s]
-            want = torch.zeros((op["n_pad"], 64 * op["kb"][s]))
-            want[:rows, :kpad] = twin.wts[w_off : w_off + rows * kpad].view(rows, kpad)
+    for i, (segs, wants) in enumerate(zip(_bwd90_slabs(plan), _padded_op_weights(plan, kp, 64))):
+        assert len(segs) == len(wants)
+        for s, (got, want) in enumerate(zip(segs, wants)):
             assert got.shape == want.shape, (i, s)
             torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(), atol=0, rtol=0,
                                        msg=f"op {i} segment {s}")
@@ -725,24 +697,33 @@ def test_bwd90_maps_are_the_slots_the_weight_pass_reads(name):
     assert skipped and all(op["kind"] == fused_mlp._F_LAYER and op["head_nout"] for op in skipped)
 
 
+def _np_tf32(x):
+    """cvt.rna.tf32.f32 in numpy, on the uint32 view: round the magnitude's
+    13 low bits to the nearest, ties away from zero, then clear them."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
 @pytest.mark.parametrize("name", sorted(BWD90_CASES))
 def test_f32_bwd_buffer_holds_each_ops_padded_weight(name):
-    """The float32 backward's weight buffer, gathered from the parameters,
-    holds at each op's offsets what `_Buffers` stores for it: a forward op's
-    W^T, a backward op's W, rows zero-padded to 16 columns."""
+    """The float32 row pass's weight image, gathered from the parameters
+    and split, holds each op's padded weight (a forward op's W^T, a
+    backward op's W) in its chunks: read back through the swizzle and the
+    permuted K order, the big half is tf32(W) and the small half
+    tf32(W - big), bit for bit, and big + small is W to 2^-22 of |W|."""
     spec, kp, lo, *_ = _bwd90_operands(name)
     spec = _f32_twin(spec)
     plan = fused_mlp.pack_bwd_program(spec, kp, lo.shape[0])
-    members, kps, _ = fused_mlp._members_of(spec, kp)
-    buf = fused_mlp._Buffers(torch.float32, "cpu")
-    srcs = iter(plan.w_src)
-    for op in plan.ops.tolist():
-        for s_ in range(op[4]):
-            mi, key = next(srcs)
-            assert buf.mat(kps[mi][key], transpose=op[0] == fused_mlp._F_LAYER) == (op[8 + s_],
-                                                                                   op[11 + s_])
-    assert next(srcs, None) is None
-    assert torch.equal(plan.wts, torch.cat(buf.mats))
+    assert plan.wts.dtype == torch.float32
+    for i, (segs, wants) in enumerate(zip(_bwd90_slabs(plan, f32=True),
+                                          _padded_op_weights(plan, kp, 32))):
+        assert len(segs) == len(wants)
+        for s, ((big, small), want) in enumerate(zip(segs, wants)):
+            w = want.numpy()
+            b = _np_tf32(w)
+            np.testing.assert_array_equal(big.numpy(), b, err_msg=f"op {i} segment {s} big")
+            np.testing.assert_array_equal(small.numpy(), _np_tf32(w - b), err_msg=f"op {i} {s} small")
+            assert np.all(np.abs((big + small).numpy() - w) <= 2.0**-22 * np.abs(w)), (i, s)
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])

@@ -1,4 +1,4 @@
-"""The bf16 forward kernel with parts of it broken or taken out: whether
+"""The forward kernels with parts of them broken or taken out: whether
 chip_smoke.py's checks catch each fault, and what each part costs in time.
 
     python3 tools/probe_fused_mlp.py                  # broken variants, then the timing split
@@ -22,7 +22,17 @@ the plain version and held to chip_smoke.py's crop tolerance. The unedited
 kernel must pass both checks and every broken variant must fail both; the
 script exits 1 otherwise.
 
-Timing split: the kernel as committed; without the heads, the epilogue's
+Float32 variants (the 3xTF32 engine, fused_mlp_tf32_sm90.cuh: one TF32
+product, big x big, in place of three; the A fragment's columns out of
+the packer's K order) run the published main MLP in float32 at 1037 x 64
+and at the fine training step (4096 x 192): the planes are held to
+chip_smoke.py's float32 tolerance against `fused_apply_reference` and to
+its float64 yardstick (the kernel's max abs error against the plain
+version in float64 at most chip_smoke.YARDSTICK times the float32 plain
+version's; both printed). The unedited kernel must pass both and each
+broken variant must fail one.
+
+Timing split (bf16): the kernel as committed; without the heads, the epilogue's
 activation stores, its bias loads, its head-weight loads or its hvx loads,
 or without the lo tile's loads;
 the products and the ring without the epilogue; and the products alone
@@ -37,8 +47,11 @@ one call (packing included, no synchronisation). Parts overlap, so a
 difference bounds what a part costs. `--parent DIR` runs the same timing
 on another checkout's package and kernel (unpack `git archive <commit>`
 into a gitignored directory such as build/parent), where only the
-unedited kernel is timed. An edit that no longer matches the source raises
-for a broken variant and skips a timing variant.
+unedited kernel is timed. Float32 split: the kernel as committed, its
+products and ring without the epilogue, and one TF32 product in place of
+three, at the training step's float32 shapes (fine 4096 x 192, trio 4096 x
+64). An edit that no longer matches the source raises for a broken variant
+and skips a timing variant.
 """
 
 from __future__ import annotations
@@ -57,6 +70,8 @@ if str(REPO) not in sys.path:  # a caller may have put another checkout first
     sys.path.insert(0, str(REPO))
 
 _SM90 = "fused_mlp_sm90.cuh"
+_TF32 = "fused_mlp_tf32_sm90.cuh"
+_ONE_PASS = [(_TF32, "          mma(part, small[s], db + 2 * s);\n          mma(part, big[s], ds + 2 * s);\n", "")]
 # Part -> [(file, text in it, text in its place)].
 EDITS = {
     "swizzle": [(_SM90, "{ return chunk ^ (r & 7); }", "{ return chunk ^ ((r + 1) & 7); }")],
@@ -69,6 +84,9 @@ EDITS = {
                 "const float2 b = make_float2(0.f, 0.f);")],
     "ragged tail": [(_SM90, "if (row0 + r0 < n_rows) plane[", "plane["),
                     (_SM90, "if (row0 + r1 < n_rows) plane[", "plane[")],
+    "one pass": _ONE_PASS,
+    "fragment order": [(_TF32, "const float v[4] = {x0.x, x1.x, x0.y, x1.y};",
+                        "const float v[4] = {x0.x, x0.y, x1.x, x1.y};")],
 }
 # Variant -> parts edited. The first is the kernel as committed.
 VARIANTS = {
@@ -79,6 +97,11 @@ VARIANTS = {
     "hvx read one row late": ["hvx row"],
     "without layer biases": ["biases"],
     "ragged tail unmasked": ["ragged tail"],
+}
+# The float32 engine's variants; the unedited kernel is "full kernel" above.
+F32_VARIANTS = {
+    "float32: one TF32 product (big x big) in place of three": ["one pass"],
+    "float32: the A fragment's columns out of the packer's K order": ["fragment order"],
 }
 TIMING_EDITS = {
     "heads": [(_SM90, "const bool has_head = nout > 0;", "const bool has_head = false;")],
@@ -94,6 +117,9 @@ TIMING_EDITS = {
     "ring": [(_SM90, "      mbar_wait(s.empty + slot, phase ^ 1);\n", "      if (it >= p.stages) return;\n"),
              (_SM90, "      mbar_wait(s.full + slot, phase);\n",
               "      if (it < p.stages) mbar_wait(s.full + slot, phase);\n")],
+    "f32 epilogue": [(_TF32, "  fwd_epilogue<N>(acc, op, p, s, const_cast<unsigned char*>(tiles[sm90::SRC_ACT]), cst, hvx, out, fpar,\n                  row0, t);\n",
+                      "  if (acc[0] == 1.2345e-30f) out[t] = acc[N / 2 - 1];\n")],
+    "f32 one pass": _ONE_PASS,
 }
 TIMING = {
     "full kernel": [],
@@ -105,6 +131,11 @@ TIMING = {
     "without lo tile loads": ["lo tile loads"],
     "products and ring, no epilogue": ["epilogue"],
     "products alone": ["epilogue", "ring"],
+}
+TIMING_F32 = {
+    "float32 full kernel": [],
+    "float32 products and ring, no epilogue": ["f32 epilogue"],
+    "float32 one TF32 product in place of three": ["f32 one pass"],
 }
 
 
@@ -161,20 +192,22 @@ def _load(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def _bf16_ptxas(log: str) -> str:
-    """Registers and spill bytes of the bf16 forward kernel in an nvcc log."""
+def _bf16_ptxas(log: str, f32: bool = False) -> str:
+    """Registers and spill bytes of the bf16 (or float32) forward kernel in an nvcc log."""
     import chip_smoke
 
     for entry, r in chip_smoke.ptxas_report(log).items():
         label = chip_smoke.kernel_label(entry)
-        if "registers" in r and ("sm90" in label or label.endswith("bf16")):
+        if "registers" in r and (label == "fused_mlp_fwd_tf32_kernel" if f32 else
+                                 ("sm90" in label or label.endswith("bf16"))):
             return (f"{label}: {r['registers']} registers, {r.get('spill_stores', 0)} / "
                     f"{r.get('spill_loads', 0)} B spill stores / loads")
-    return "no bf16 forward kernel in the log"
+    return f"no {'float32' if f32 else 'bf16'} forward kernel in the log"
 
 
-def _shapes():
-    """name -> (call, flops) at the four shapes the main path gives the forward."""
+def _shapes(f32: bool = False):
+    """name -> (call, flops) at the four shapes the main path gives the
+    forward (float32: the training step's two)."""
     import torch
 
     import chip_smoke
@@ -182,13 +215,16 @@ def _shapes():
     from simplenerf_torch.ops import fused_mlp
 
     out = {}
+    cd = torch.float32 if f32 else torch.bfloat16
     for name, nr, ns in (("serve coarse 65536 x 64", chip_smoke.CHUNK_RAYS, 64),
                          ("serve fine 65536 x 192", chip_smoke.CHUNK_RAYS, 192),
                          ("step fine 4096 x 192", chip_smoke.STEP_RAYS, chip_smoke.FINE_NS)):
-        ops = chip_smoke.kernel_operands(MLPConfig(), nr, ns, torch.bfloat16, seed=ns)
+        if f32 and "serve" in name:
+            continue
+        ops = chip_smoke.kernel_operands(MLPConfig(), nr, ns, cd, seed=ns)
         out[name] = ((lambda ops=ops: fused_mlp.fused_apply(*ops)), ops[0].flops_per_point() * nr * ns)
     ens, kps, lo, hvxs = chip_smoke.ensemble_operands(chip_smoke.STEP_RAYS, chip_smoke.COARSE_NS,
-                                                      torch.bfloat16, seed=5)
+                                                      cd, seed=5)
     out["step trio 4096 x 64"] = ((lambda: fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs)),
                                   ens.flops_per_point() * lo.shape[0])
     return out
@@ -235,6 +271,30 @@ def _check(name: str, sound: bool, ops_list, want_list, tester, crop) -> bool:
     return passes == (sound, sound)
 
 
+def _check_f32(name: str, sound: bool, cases) -> bool:
+    """Float32 planes against the plain version (KERNEL_TOL) and against the
+    float64 yardstick; True when the outcome is the expected one (sound
+    passes both, broken fails one)."""
+    import torch
+
+    import chip_smoke
+    from simplenerf_torch.ops import fused_mlp
+
+    ok, readings = True, []
+    for label, ops, want, exact in cases:
+        got = torch.stack(fused_mlp.fused_apply(*ops))
+        err = (got - torch.stack(want)).abs().nan_to_num(float("inf")).max().item()
+        k_err = (got.double() - torch.stack(exact)).abs().nan_to_num(float("inf")).max().item()
+        p_err = (torch.stack(want).double() - torch.stack(exact)).abs().max().item()
+        ratio = k_err / max(p_err, 1e-300)
+        ok &= err <= chip_smoke.KERNEL_TOL["float32"] and ratio <= chip_smoke.YARDSTICK
+        readings.append(f"{label} max abs err {err:.3e}, vs float64 {k_err:.3e} against the plain "
+                        f"version's {p_err:.3e} (ratio {ratio:.2f})")
+    print(f"probe fused_mlp_fwd {name}: {'passes' if ok else 'fails'}: " + "; ".join(readings),
+          flush=True)
+    return ok == sound
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--timing", action="store_true", help="only the timing split")
@@ -255,9 +315,10 @@ def main() -> int:
         raise SystemExit("the probe needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"{chip_smoke.card_line()}; kernel sources {build.CSRC}", flush=True)
-    broken = {} if args.timing or args.parent else VARIANTS
-    timing = {name: parts for name, parts in TIMING.items() if _applies(parts, TIMING_EDITS)}
-    skipped = [name for name in TIMING if name not in timing]
+    broken = {} if args.timing or args.parent else {**VARIANTS, **F32_VARIANTS}
+    timing = {name: parts for name, parts in {**TIMING, **TIMING_F32}.items()
+              if _applies(parts, TIMING_EDITS)}
+    skipped = [name for name in {**TIMING, **TIMING_F32} if name not in timing]
     if skipped:
         print(f"timing variants whose edits do not match these sources, skipped: {skipped}",
               flush=True)
@@ -286,18 +347,37 @@ def main() -> int:
             print(f"broken variants: planes at {chip_smoke.CHUNK_RAYS} x 192 and 1037 x 64, "
                   f"tolerance {tol:g}; a 63x63 crop, tolerance {chip_smoke.CROP_TOL:g}", flush=True)
             for name, proc in procs.items():
+                if name not in VARIANTS:
+                    continue
                 build._loaded["fused_mlp_fwd"] = _load(proc.lib)  # the wrappers launch the variant
                 caught &= _check(name, not VARIANTS[name], ops_list, want_list, tester, crop)
             del ops_list, want_list
+            cases = []
+            for nr, ns in ((1037, 64), (chip_smoke.STEP_RAYS, chip_smoke.FINE_NS)):
+                ops = chip_smoke.kernel_operands(MLPConfig(), nr, ns, torch.float32, seed=ns)
+                ops64 = (fused_mlp.with_dtype(ops[0], "float64"), *chip_smoke._double(ops[1:]))
+                cases.append((f"{nr} x {ns}", ops, fused_mlp.fused_apply_reference(*ops),
+                               fused_mlp.fused_apply_reference(*ops64)))
+            print(f"float32 variants: planes at 1037 x 64 and {chip_smoke.STEP_RAYS} x "
+                  f"{chip_smoke.FINE_NS}, tolerance {chip_smoke.KERNEL_TOL['float32']:g}, and the "
+                  f"float64 yardstick (limit {chip_smoke.YARDSTICK:g})", flush=True)
+            for name in ["full kernel", *F32_VARIANTS]:
+                build._loaded["fused_mlp_fwd"] = _load(procs[name].lib)
+                caught &= _check_f32(name, name == "full kernel", cases)
+            del cases
             torch.cuda.empty_cache()
 
-        shapes = _shapes()
+        shapes, shapes32 = _shapes(), None
         for name, proc in tprocs.items():  # with --parent: the parent's sources, unedited
             build._loaded["fused_mlp_fwd"] = _load(proc.lib)
-            got = _time(shapes)
-            print(f"timing fused_mlp_fwd {name} ({_bf16_ptxas(logs[('timing', name)])}):", flush=True)
+            f32 = name in TIMING_F32
+            if f32 and shapes32 is None:
+                shapes32 = _shapes(f32=True)
+            got = _time(shapes32 if f32 else shapes)
+            print(f"timing fused_mlp_fwd {name} ({_bf16_ptxas(logs[('timing', name)], f32)}):",
+                  flush=True)
             for shape, (ms, host) in got.items():
-                tflops = shapes[shape][1] / ms / 1e9
+                tflops = (shapes32 if f32 else shapes)[shape][1] / ms / 1e9
                 print(f"timing   {shape}: {ms:.3f} ms ({tflops:.1f} TFLOP/s), host {host:.3f} ms "
                       f"to issue a call", flush=True)
         build._loaded.pop("fused_mlp_fwd", None)

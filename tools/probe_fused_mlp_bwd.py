@@ -5,6 +5,7 @@ differs at all.
 
     python3 tools/probe_fused_mlp_bwd.py                 # broken variants, splits
     python3 tools/probe_fused_mlp_bwd.py --timing        # the splits only
+    python3 tools/probe_fused_mlp_bwd.py --explain       # float32 flips of the card cases only
     python3 DIR/tools/probe_fused_mlp_bwd.py --timing    # another checkout's, by its own probe
 
 Needs one CUDA card. Each variant is simplenerf_torch/ops/csrc/fused_mlp_bwd.cu
@@ -27,8 +28,16 @@ ReLU layer before, step every slab descriptor one k16 step off, drop
 consumer 1's releases of the ring (the watchdog's trap), skip the stash
 stores of each tile's last 64 rows, leave one warp out of each db partial
 and consumer 1's sums out of the heads' partials. The float32 row pass's
-(fused_mlp_bwd.cu) break its mask bits, its mask words, a head's
-contribution, its head partials and its db. The weight pass's break its
+(fused_mlp_bwd_tf32_sm90.cuh, on the 3xTF32 core of fused_mlp_tf32_sm90.cuh)
+take each mask bit from the neighbouring fragment element, read the mask
+words of the ReLU layer before, skip the stash of each tile's last 64
+rows, leave one warp out of each db partial and consumer 1's sums out of
+the heads' partials, take the A fragment's columns out of the packer's K
+order, and form each product as one TF32 product (big x big) in place of
+three; its checks also hold the gradients to chip_smoke.py's float64
+yardstick (the worst ||got - want|| / ||want|| against the plain version
+in float64 at most chip_smoke.YARDSTICK times the float32 plain
+version's), which the one-product variant must fail. The weight pass's break its
 MN-major descriptor (leading and stride byte offsets swapped), the k16
 advance (by columns instead of rows), its ring protocol (the consumers'
 empty-barrier arrivals dropped) and its A strip (64 columns off); the
@@ -38,7 +47,10 @@ otherwise.
 
 Row-pass split: timing-only variants that launch the row pass alone (the
 weight pass and the column sums edited out), whole and with parts of the
-bf16 row pass removed or changed (the stash stores, the heads' partials,
+row pass removed or changed; float32: whole, its products alone (no
+epilogue, stash, head partials; one data-dependent store keeps them) and
+with one TF32 product in place of three, at the float32 step's shapes;
+bf16 (the stash stores, the heads' partials,
 the backward ops' epilogues, or their db shuffles, db hand-over or masks,
 the forward ops' mask words; the products alone, with no epilogue, stash
 or partials, kept by one data-dependent store; the stash's TMA stores
@@ -68,7 +80,11 @@ count of rows x channels that disagree, and the largest activation among
 them relative to its layer's largest), and the kernel's gradients against
 the plain backward fed with the kernel's own stashed activations. Where the
 disagreements explain the difference, that second error is at the level of
-summation order.
+summation order. The same for the float32 cases of
+tests/test_torch_port_cuda.py's test_backward_kernel_matches_plain at the
+published widths (37 rays x 64 and x 192, its operands), with the kernel's
+and the float32 plain version's worst norm errors against the plain
+version in float64 (`--explain` runs only these).
 """
 
 from __future__ import annotations
@@ -90,6 +106,8 @@ sys.path.insert(0, str(REPO / "tools"))
 def _args():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--timing", action="store_true", help="only the row- and weight-pass splits")
+    ap.add_argument("--explain", action="store_true",
+                    help="only the float32 card cases' ReLU flips and float64 errors")
     ap.add_argument("--check", nargs=3, metavar=("NAME", "LIB", "CASES"),
                     help="(internal) check one built variant against saved cases, in this process")
     return ap.parse_args()
@@ -106,6 +124,9 @@ from simplenerf_torch.ops import build, fused_mlp  # noqa: E402
 
 _BWD = "fused_mlp_bwd.cu"
 _ROWS = "fused_mlp_bwd_sm90.cuh"
+_TROWS = "fused_mlp_bwd_tf32_sm90.cuh"
+_TCORE = "fused_mlp_tf32_sm90.cuh"
+_ONE_PASS = [(_TCORE, "          mma(part, small[s], db + 2 * s);\n          mma(part, big[s], ds + 2 * s);\n", "")]
 _WG = "fused_mlp_wgrad_sm90.cuh"
 _WG_PRODUCTS = "for (int kk = 0; kk < 4; ++kk) Mma<N>::run(acc, da + kk * kK16Step, db + kk * kK16Step, 1);"
 _RELEASE = "if (prev >= 0 && x.t == 0) mbar_arrive(x.s.empty + prev);"
@@ -123,12 +144,17 @@ EDITS = {
     "row db warp": [(_ROWS, "for (int w = 0; w < 4; ++w) {\n      const float2 v",
                      "for (int w = 1; w < 4; ++w) {\n      const float2 v")],
     "row head hand-over": [(_ROWS, "dst[0] = w0[q] + o.x;", "dst[0] = w0[q];")],
-    "relu mask": [(_BWD, "if (!((w >> b) & 1u)) v0 = 0.f;\n            if (!((w >> (b + 1)) & 1u)) v1 = 0.f;",
-                   "")],
-    "mask column": [(_BWD, "if (!((w >> b) & 1u)) v0 = 0.f;\n            if (!((w >> (b + 1)) & 1u)) v1 = 0.f;",
-                     "if (!((w >> (b + 1)) & 1u)) v0 = 0.f;\n            if (!((w >> b) & 1u)) v1 = 0.f;")],
-    "mask layer": [(_BWD, "mk = tile_masks[p.op(i).mask_slot * Block<T>::kThreads];",
-                    "mk = tile_masks[max(p.op(i).mask_slot - 1, 0) * Block<T>::kThreads];")],
+    "tf32 mask bit": [(_TROWS, "(words[j >> 3] >> (4 * (j & 7) + e)) & 1u",
+                       "(words[j >> 3] >> (4 * (j & 7) + (e ^ 1))) & 1u")],
+    "tf32 mask layer": [(_TROWS, "tmask[op.mask_slot * bwd90::kMaskThreads]",
+                         "tmask[max(op.mask_slot - 1, 0) * bwd90::kMaskThreads]")],
+    "tf32 stash tail": [(_TROWS, "  if (gr < n_rows) __stcs(", "  if (gr < n_rows && gr % 128 < 64) __stcs(")],
+    "tf32 db warp": [(_TROWS, "for (int w = 0; w < 4; ++w) {\n      const float2 v",
+                      "for (int w = 1; w < 4; ++w) {\n      const float2 v")],
+    "tf32 head hand-over": [(_TROWS, "dst[0] = w0[q] + o.x;", "dst[0] = w0[q];")],
+    "tf32 fragment order": [(_TCORE, "const float v[4] = {x0.x, x1.x, x0.y, x1.y};",
+                             "const float v[4] = {x0.x, x0.y, x1.x, x1.y};")],
+    "tf32 one pass": _ONE_PASS,
     "g one row late": [  # row r of the chunk reads G's row r + 1 (float32: the chunk's last reads zeros)
         (_BWD, "load_stage(sg[0], LD, gm, task.g_w, task.j0, r_begin, r_end, tid);",
          "load_stage(sg[0], LD, gm + task.g_w, task.g_w, task.j0, r_begin, r_end - 1, tid);"),
@@ -148,10 +174,6 @@ EDITS = {
                  "tma_load(st + b * kBoxBytes, am, j.i0 + b * kBox + kBox, row, bar);")],
     "colsum slice": [(_BWD, "return colsum_launch(scratch, out, S, slices, C, 1, slices, stream);",
                       "return colsum_launch(scratch, out, S, slices - 1, C, 1, slices - 1, stream);")],
-    "head add": [(_BWD, "h0 += dq * w0[q];", "h0 += 0.f;")],
-    "head row-warp": [(_BWD, "for (int wm = 0; wm < WM; ++wm) sum += red[(wm * kMaxHead + q) * 256 + c];",
-                       "for (int wm = 0; wm < WM; ++wm) sum += wm == 1 ? 0.f : red[(wm * kMaxHead + q) * 256 + c];")],
-    "db": [(_BWD, "        part[op.part + c] = sum;", "        part[op.part + c] = 0.5f * sum;")],
     "ragged tail": [(_BWD, "const int r_end = min(n_rows, r_begin + chunk_rows);",
                      "const int r_end = min(n_rows / 128 * 128, r_begin + chunk_rows);"),
                     (_WG, "const int r_end = min(n_rows, r_begin + chunk_rows);",
@@ -166,9 +188,13 @@ VARIANTS = {
     "bf16 row pass: the stash stores of each tile's last 64 rows skipped": ["row stash tail"],
     "bf16 row pass: db partials without one warp": ["row db warp"],
     "bf16 row pass: head partials without consumer 1's rows": ["row head hand-over"],
-    "float32 row pass: without the ReLU mask": ["relu mask"],
-    "float32 row pass: each mask bit from the neighbouring column": ["mask column"],
-    "float32 row pass: the mask words of the previous ReLU layer": ["mask layer"],
+    "float32 row pass: each mask bit from the neighbouring fragment element": ["tf32 mask bit"],
+    "float32 row pass: the mask words of the previous ReLU layer": ["tf32 mask layer"],
+    "float32 row pass: the stash stores of each tile's last 64 rows skipped": ["tf32 stash tail"],
+    "float32 row pass: db partials without one warp": ["tf32 db warp"],
+    "float32 row pass: head partials without consumer 1's rows": ["tf32 head hand-over"],
+    "float32 row pass: the A fragment's columns out of the packer's K order": ["tf32 fragment order"],
+    "float32 row pass: one TF32 product (big x big) in place of three": ["tf32 one pass"],
     "g read one row late in the weight pass": ["g one row late"],
     "without the first weight's dW (wv0f)": ["first dW"],
     "weight pass: descriptor leading and stride offsets swapped": ["desc swap"],
@@ -176,24 +202,32 @@ VARIANTS = {
     "weight pass: the consumers' empty-barrier arrivals dropped": ["empty arrival"],
     "weight pass: the A strip 64 columns off": ["a strip"],
     "column sums: one slice dropped": ["colsum slice"],
-    "float32 row pass: without a head's contribution to even columns": ["head add"],
-    "float32 row pass: half of each layer's db": ["db"],
     "without the ragged last 128-row tile in dW": ["ragged tail"],
-    "float32 row pass: head partials without one row-warp": ["head row-warp"],
 }
 SHAPES = [(1037, 64, torch.bfloat16), (1037, 192, torch.float32), (1037, 192, torch.bfloat16),
           (chip_smoke.STEP_RAYS, 192, torch.bfloat16)]
 
 # Timing-only parts: the row pass alone, and parts of it removed or changed.
-_ROWS_ONLY = "static_cast<float*>(b.parts));\n  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);\n  rc = wgrad_launch("
+_ROWS_ONLY = "static_cast<float*>(b.parts));\n    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);\n    rc = wgrad_launch("
+_F32_ROWS_ONLY = "static_cast<float*>(b.parts));\n    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);\n    if (n_tasks > 0) {"
 _F_EPILOGUE = "  f_epilogue<N>(acc, op, x, cst, hvx, tmask + op.mask_slot * kMaskThreads);"
 _B_EPILOGUE = "  named_sync(1 + x.c);  // every reader of the tile (stash stores, head partials) is done"
 _HEAD_PARTIALS = "  if (op.head_nout) head_partials(op, x, part);"
+_F32_F_EPILOGUE = "  f_epilogue<N>(acc, op, b, cst, hvx, stash, tmask + op.mask_slot * bwd90::kMaskThreads);"
+_F32_B_EPILOGUE = "  sm90::named_sync(1 + x.c);  // every reader of the tile (products, head partials) is done"
 # ptxas drops a wgmma whose results are dead: one data-dependent store keeps them
 _KEEP = ("{ float z = 0.f; for (int i = 0; i < N / 2; ++i) z += acc[i]; "
          "if (z == 1e30f) x.tl.act[x.t] = 1; }")
 TIMING_EDITS = {
-    "bf16 rows only": [(_BWD, _ROWS_ONLY, "static_cast<float*>(b.parts));\n  return static_cast<int>(cudaGetLastError());\n  rc = wgrad_launch(")],
+    "bf16 rows only": [(_BWD, _ROWS_ONLY, "static_cast<float*>(b.parts));\n    return static_cast<int>(cudaGetLastError());\n    rc = wgrad_launch(")],
+    "f32 rows only": [(_BWD, _F32_ROWS_ONLY, "static_cast<float*>(b.parts));\n    return static_cast<int>(cudaGetLastError());\n    if (n_tasks > 0) {")],
+    "f32 no stash": [(_TROWS, "  if (gr < n_rows) __stcs(", "  if (false) __stcs("),
+                     (_TROWS, "    if (row0 + r < n_rows)\n      __stcs(", "    if (false)\n      __stcs(")],
+    "f32 no head partials": [(_TROWS, "  if (op.head_nout) head_partials(op, b, part);",
+                              "  if (false) head_partials(op, b, part);")],
+    "f32 no backward epilogue": [(_TROWS, _F32_B_EPILOGUE, _F32_B_EPILOGUE + "\n  " + _KEEP + "\n  if (true) return;")],
+    "f32 no forward epilogue": [(_TROWS, _F32_F_EPILOGUE, "  " + _KEEP)],
+    "f32 one pass": _ONE_PASS,
     "no stash stores": [(_ROWS, _TMA, _TMA.replace("if (t == 0)", "if (false)"))],
     "no head partials": [(_ROWS, _HEAD_PARTIALS, _HEAD_PARTIALS.replace("op.head_nout", "false"))],
     "no backward epilogue": [(_ROWS, _B_EPILOGUE, _B_EPILOGUE + "\n  " + _KEEP + "\n  if (true) return;")],
@@ -226,6 +260,10 @@ TIMING = {
     "row pass without the db hand-over": ["bf16 rows only", "no db hand-over"],
     "row pass without the backward ops' masks": ["bf16 rows only", "no mask apply"],
     "row pass, TMA stash stores without the evict-first hint": ["bf16 rows only", "no evict-first hint"],
+    "float32 row pass": ["f32 rows only"],
+    "float32 row pass, products only": ["f32 rows only", "f32 no stash", "f32 no head partials",
+                                        "f32 no backward epilogue", "f32 no forward epilogue"],
+    "float32 row pass, one TF32 product in place of three": ["f32 rows only", "f32 one pass"],
 }
 # Weight-pass split: the whole backward runs; the weight pass's own device time is read.
 WGRAD_TIMING = {
@@ -235,12 +273,20 @@ WGRAD_TIMING = {
 }
 
 
-def check(dkp, dhvx, want, dname) -> tuple:
-    """(worst norm error, its key, within GRAD_TOL) over every gradient."""
-    errs = {k: chip_smoke.norm_err(v, want[k]) for k, v in {**dkp, "dhvx": dhvx}.items()}
+def check(dkp, dhvx, want, dname, exact=None) -> tuple:
+    """(worst norm error, its key, within GRAD_TOL and, with `exact` (the
+    float64 plain version's gradients and the float32 plain version's worst
+    norm error against them), within the float64 yardstick, the ratio)."""
+    got = {**dkp, "dhvx": dhvx}
+    errs = {k: chip_smoke.norm_err(v, want[k]) for k, v in got.items()}
     worst = max(errs, key=errs.get)
     ok = all(e <= chip_smoke.GRAD_TOL[dname][chip_smoke.grad_group(k)] for k, e in errs.items())
-    return errs[worst], worst, ok
+    ratio = None
+    if exact is not None:
+        want64, plain_err = exact
+        ratio = max(chip_smoke.norm_err(got[k], want64[k]) for k in want64) / max(plain_err, 1e-300)
+        ok &= ratio <= chip_smoke.YARDSTICK
+    return errs[worst], worst, ok, ratio
 
 
 def _applies(parts: list, edits: dict) -> bool:
@@ -296,12 +342,13 @@ def row_kernels(log: str) -> str:
     rep = chip_smoke.ptxas_report(log)
     return "; ".join(f"{'bf16' if 'nv_bfloat16' in k else 'f32'} {v['registers']} registers, "
                      f"{v['spill_stores']} / {v['spill_loads']} B spill stores / loads"
-                     for k, v in sorted(rep.items()) if "rows_kernel" in k or "rows_sm90_kernel" in k)
+                     for k, v in sorted(rep.items())
+                     if "rows_sm90_kernel" in k or "rows_tf32_kernel" in k)
 
 
-def timing_cases():
-    """The training step's two backward launches: (label, call) with seeded operands."""
-    bf16 = torch.bfloat16
+def timing_cases(bf16=torch.bfloat16):
+    """The training step's two backward launches in the compute type `bf16`
+    (bfloat16 or float32): (label, call) with seeded operands."""
     ops = chip_smoke.kernel_operands(MLPConfig(), chip_smoke.STEP_RAYS, chip_smoke.FINE_NS, bf16, seed=3)
     dp = chip_smoke.cotangents(ops[0].n_planes, chip_smoke.STEP_RAYS, chip_smoke.FINE_NS, seed=4)
     ens = chip_smoke.ensemble_operands(chip_smoke.STEP_RAYS, chip_smoke.COARSE_NS, bf16, seed=5)
@@ -390,14 +437,58 @@ def explain(ops, dp, dname: str) -> None:
               f"worst max abs err / largest value {worst:.3e}", flush=True)
 
 
+def explain_card_cases() -> None:
+    """`explain` on the float32 cases of the card test
+    test_backward_kernel_matches_plain at the published widths, with both
+    versions' worst norm errors against the plain version in float64."""
+    from simplenerf_torch.fields import mlp
+
+    small = dict(points_net_depth=4, views_net_depth=1, points_net_width=64, views_net_width=64,
+                 points_pe_degree=10, views_pe_degree=4, use_view_dirs=True,
+                 view_dependent_rgb=True, skip_layers=(2,))
+    published = dict(points_net_depth=8, points_net_width=256, views_net_width=128, skip_layers=(4,))
+    nr = 37
+    for ns in (64, 192):
+        cfg = mlp.MLPConfig(**{**small, **published})
+        g = torch.Generator().manual_seed(0)
+        params = mlp.init(g, cfg, device="cuda")
+        pts = torch.randn((nr * ns, 3), generator=g).to("cuda")
+        dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1).to("cuda")
+        ops = mlp.fused_operands(params, cfg, pts, dirs, ns, torch.float32)
+        gd = torch.Generator(device="cuda").manual_seed(1)
+        dp = torch.randn((ops[0].n_planes, nr, ns), generator=gd, device="cuda")
+        label = f"card case {nr}x{ns} float32"
+        explain(ops, dp, label)
+        dkp, dhvx = fused_mlp.fused_bwd(*ops, dp)
+        want, want_hvx = fused_mlp.fused_bwd_reference(*ops, dp)
+        ops64 = (fused_mlp.with_dtype(ops[0], "float64"), *chip_smoke._double(ops[1:]))
+        w64, w64_hvx = fused_mlp.fused_bwd_reference(*ops64, dp.double())
+        w64 = {**w64, "dhvx": w64_hvx}
+        errs = [max((chip_smoke.norm_err(g_[k], w64[k]), k) for k in w64)
+                for g_ in ({**dkp, "dhvx": dhvx}, {**want, "dhvx": want_hvx})]
+        print(f"probe explain {label}: against the plain version in float64, worst norm err: "
+              f"kernel {errs[0][0]:.3e} ({errs[0][1]}), float32 plain version {errs[1][0]:.3e} "
+              f"({errs[1][1]})", flush=True)
+
+
 def _cases():
-    """chip_smoke.py's backward check at the probe's shapes: (label, dtype name, ops, dp, want)."""
+    """chip_smoke.py's backward check at the probe's shapes: (label, dtype
+    name, ops, dp, want, exact); exact, for float32: the float64 plain
+    version's gradients and the float32 plain version's worst norm error
+    against them."""
     cases = []
     for nr, ns, dtype in SHAPES:
         ops = chip_smoke.kernel_operands(MLPConfig(), nr, ns, dtype, seed=nr + ns)
         dp = chip_smoke.cotangents(ops[0].n_planes, nr, ns, seed=nr + 1)
         want, want_hvx = fused_mlp.fused_bwd_reference(*ops, dp)
-        cases.append((f"{nr}x{ns}", chip_smoke.dname_of(dtype), ops, dp, {**want, "dhvx": want_hvx}))
+        want = {**want, "dhvx": want_hvx}
+        exact = None
+        if dtype == torch.float32:
+            ops64 = (fused_mlp.with_dtype(ops[0], "float64"), *chip_smoke._double(ops[1:]))
+            w64, w64_hvx = fused_mlp.fused_bwd_reference(*ops64, dp.double())
+            w64 = {**w64, "dhvx": w64_hvx}
+            exact = (w64, max(chip_smoke.norm_err(want[k], w64[k]) for k in w64))
+        cases.append((f"{nr}x{ns}", chip_smoke.dname_of(dtype), ops, dp, want, exact))
     return cases
 
 
@@ -407,14 +498,16 @@ def check_variant(name: str, lib_path: str, cases_path: str) -> int:
     build._loaded["fused_mlp_bwd"] = _load(lib_path)
     cases = torch.load(cases_path, weights_only=False)
     results = []
-    for label, dname, ops, dp, want in cases:
-        err, key, ok = check(*fused_mlp.fused_bwd(*ops, dp), want, dname)
-        results.append((f"{label} {dname}", err, key, ok))
-    _, _, ops, dp, _ = cases[-1]
+    for label, dname, ops, dp, want, exact in cases:
+        err, key, ok, ratio = check(*fused_mlp.fused_bwd(*ops, dp), want, dname, exact)
+        results.append((f"{label} {dname}", err, key, ok, ratio))
+    _, _, ops, dp, _, _ = cases[-1]
     ms = launch_ms(build._loaded["fused_mlp_bwd"], lambda: fused_mlp.fused_bwd(*ops, dp), iters=3)
     print(f"probe fused_mlp_bwd {name}: {ms:.3f} ms at 4096x192 bf16; "
-          + "; ".join(f"{label} worst norm err {e:.3e} ({k}, {'passes' if ok else 'fails'})"
-                      for label, e, k, ok in results), flush=True)
+          + "; ".join(f"{label} worst norm err {e:.3e} ({k}"
+                      + (f"; float64 yardstick ratio {r:.2f}" if r is not None else "")
+                      + f", {'passes' if ok else 'fails'})" for label, e, k, ok, r in results),
+          flush=True)
     print(json.dumps({"passes": all(r[3] for r in results)}), flush=True)
     return 0
 
@@ -443,17 +536,22 @@ def broken_variants(procs: dict, tmp: Path) -> bool:
             passes = False
             print(f"probe fused_mlp_bwd {name}: no result within 600 s (fails)", flush=True)
         caught &= passes == sound
-    for label, dname, ops, dp, _ in torch.load(cases_path, weights_only=False)[1:3]:
+    for label, dname, ops, dp, *_ in torch.load(cases_path, weights_only=False)[1:3]:
         explain(ops, dp, f"{label} {dname}")
+    explain_card_cases()
     return caught
 
 
 def row_pass_split(procs: dict, logs: dict) -> None:
-    """Each timing variant's row pass per launch at the step's two shapes."""
-    cases = timing_cases()
+    """Each timing variant's row pass per launch at the step's two shapes
+    (float32 variants at the float32 step's)."""
+    cases = {False: timing_cases(), True: None}
     for name, proc in procs.items():
         lib = _load(proc)
-        times = [(label, launch_ms(lib, run)) for label, run in cases]
+        f32 = name.startswith("float32")
+        if cases[f32] is None:
+            cases[f32] = timing_cases(torch.float32)
+        times = [(label, launch_ms(lib, run)) for label, run in cases[f32]]
         print(f"probe row pass {name}: " + ", ".join(f"{label} {ms:.3f} ms" for label, ms in times)
               + f" per launch; ptxas {row_kernels(logs[name])}", flush=True)
     build._loaded.pop("fused_mlp_bwd", None)
@@ -527,6 +625,9 @@ def main() -> int:
         raise SystemExit("the probe needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"{chip_smoke.card_line()}; kernel sources {build.CSRC}", flush=True)
+    if ARGS.explain:
+        explain_card_cases()
+        return 0
     broken = {} if ARGS.timing else VARIANTS
     timing = {name: parts for name, parts in TIMING.items() if _applies(parts, TIMING_EDITS)}
     wtiming = {name: parts for name, parts in WGRAD_TIMING.items() if _applies(parts, TIMING_EDITS)}

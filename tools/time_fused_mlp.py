@@ -4,11 +4,13 @@ run by run.
 
     python3 tools/time_fused_mlp.py                 # this checkout's kernels
     python3 tools/time_fused_mlp.py --parent DIR    # DIR's package and kernels
+    python3 tools/time_fused_mlp.py --dtype float32 --step   # float32, and the step and a frame
 
-Needs one CUDA card. The operands are chip_smoke.py's (bf16, its seeds and
-shapes): the fine MLP at 4096 rays x 192 samples (seed 3, as chip_smoke.py
-times it, and seed 192, as tools/probe_fused_mlp.py times it) and the coarse
-trio at 4096 x 64 (seed 5). Each wrapper is timed three ways:
+Needs one CUDA card. The operands are chip_smoke.py's (its seeds and
+shapes; bf16 unless --dtype float32): the fine MLP at 4096 rays x 192
+samples (seed 3, as chip_smoke.py times it, and seed 192, as
+tools/probe_fused_mlp.py times it) and the coarse trio at 4096 x 64
+(seed 5). Each wrapper is timed three ways:
 
   - CUDA events around `iters` calls after one warm-up, as chip_smoke.py
     does (10 calls for a forward, 5 for a backward), and around 20 calls
@@ -23,11 +25,21 @@ trio at 4096 x 64 (seed 5). Each wrapper is timed three ways:
     backward also its passes over 3 calls (chip_smoke.bwd_pass_ms: row
     pass, weight pass, column sums, and each column sum apart).
 
+Beside each wrapper at the step's shapes: its plain version's time (CUDA
+events, `plain_ms`), and beside each backward the per-dW torch.matmul on
+a seeded stash of the step's shape (chip_smoke.weight_pass_yardsticks,
+`weight_library_ms`).
+
 The fine forward is timed once before and once after three calls of the
 64k-ray x 192 serving chunk, the shape the probe times just before it.
-Run it alternately on two checkouts, one process each (parent / change /
-change / parent ...), to read each side's spread; unpack `git archive
-<commit>` into a gitignored directory such as build/parent for --parent.
+With --step it also times, in the same compute type and through the
+checkout's package, the published recipe's training step through the loop
+and through the CUDA graph and one 756x1008 frame through
+`Tester.predict_frame` (chip_smoke.step_time and frame_time, on a fresh
+seeded scene). Run it alternately on two checkouts, one process each
+(parent / change / change / parent ...), to read each side's spread;
+unpack `git archive <commit>` into a gitignored directory such as
+build/parent for --parent.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
@@ -94,10 +107,28 @@ def timings(fn, iters: tuple[int, ...], plan=None) -> dict:
     return out
 
 
+def library(row: dict, label: str, plan, rows: int, ns: int) -> None:
+    """The per-dW torch.matmul on a seeded stash of the plan's shape into
+    `row` (chip_smoke.weight_pass_yardsticks; float32 without TF32)."""
+    import torch
+
+    import chip_smoke
+
+    dname = chip_smoke.dname_of(plan.wts.dtype)
+    torch.cuda.empty_cache()
+    ys = chip_smoke.weight_pass_yardsticks(label, plan, rows, chip_smoke._sum_shapes(plan, rows, ns),
+                                           dname)
+    row["weight_library_ms"] = ys["weight_library_ms"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
                     help="a checkout of an earlier commit whose package and kernels to time")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the kernels' compute type")
+    ap.add_argument("--step", action="store_true",
+                    help="also time the training step (loop and graph) and a 756x1008 frame")
     args = ap.parse_args()
     import torch
 
@@ -112,31 +143,49 @@ def main() -> int:
         raise SystemExit("the timing needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
-    bf16 = torch.bfloat16
+    cd = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     nr, fine_ns, coarse_ns = chip_smoke.STEP_RAYS, chip_smoke.FINE_NS, chip_smoke.COARSE_NS
-    out = {"checkout": str(build.CSRC.parents[2]), "card": chip_smoke.card_line()}
+    out = {"checkout": str(build.CSRC.parents[2]), "card": chip_smoke.card_line(),
+           "dtype": args.dtype}
 
-    ops = chip_smoke.kernel_operands(MLPConfig(), nr, fine_ns, bf16, seed=3)
-    alt = chip_smoke.kernel_operands(MLPConfig(), nr, fine_ns, bf16, seed=192)
+    ops = chip_smoke.kernel_operands(MLPConfig(), nr, fine_ns, cd, seed=3)
+    alt = chip_smoke.kernel_operands(MLPConfig(), nr, fine_ns, cd, seed=192)
     dp = chip_smoke.cotangents(ops[0].n_planes, nr, fine_ns, seed=4)
     out["fwd fine seed 3"] = timings(lambda: fused_mlp.fused_apply(*ops), (10, 20))
     out["fwd fine seed 192"] = timings(lambda: fused_mlp.fused_apply(*alt), (10, 20))
-    out["bwd fine"] = timings(lambda: fused_mlp.fused_bwd(*ops, dp), (5,),
-                             fused_mlp.pack_bwd_program(*ops[:2], nr * fine_ns))
+    plan = fused_mlp.pack_bwd_program(*ops[:2], nr * fine_ns)
+    out["bwd fine"] = timings(lambda: fused_mlp.fused_bwd(*ops, dp), (5,), plan)
+    out["fwd fine seed 3"]["plain_ms"] = chip_smoke.cuda_time_ms(
+        lambda: fused_mlp.fused_apply_reference(*ops), iters=3)
+    out["bwd fine"]["plain_ms"] = chip_smoke.cuda_time_ms(
+        lambda: fused_mlp.fused_bwd_reference(*ops, dp), iters=2)
+    library(out["bwd fine"], "fused_mlp_bwd", plan, nr * fine_ns, fine_ns)
 
-    ens, kps, lo, hvxs = chip_smoke.ensemble_operands(nr, coarse_ns, bf16, seed=5)
+    ens, kps, lo, hvxs = chip_smoke.ensemble_operands(nr, coarse_ns, cd, seed=5)
     edp = chip_smoke.cotangents(ens.n_planes, nr, coarse_ns, seed=6)
     out["ens fwd trio"] = timings(lambda: fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs), (10, 20))
-    out["ens bwd trio"] = timings(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, edp), (5,),
-                                 fused_mlp.pack_bwd_program(ens, kps, nr * coarse_ns))
-    del ens, kps, lo, hvxs, edp
+    plan = fused_mlp.pack_bwd_program(ens, kps, nr * coarse_ns)
+    out["ens bwd trio"] = timings(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, edp), (5,), plan)
+    out["ens fwd trio"]["plain_ms"] = chip_smoke.cuda_time_ms(
+        lambda: fused_mlp.fused_apply_ensemble_reference(ens, kps, lo, hvxs), iters=3)
+    out["ens bwd trio"]["plain_ms"] = chip_smoke.cuda_time_ms(
+        lambda: fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, edp), iters=2)
+    library(out["ens bwd trio"], "fused_mlp_ens_bwd", plan, nr * coarse_ns, coarse_ns)
+    del ens, kps, lo, hvxs, edp, plan
 
-    serve = chip_smoke.kernel_operands(MLPConfig(), chip_smoke.CHUNK_RAYS, 192, bf16, seed=192)
+    serve = chip_smoke.kernel_operands(MLPConfig(), chip_smoke.CHUNK_RAYS, 192, cd, seed=192)
     for _ in range(3):
         fused_mlp.fused_apply(*serve)
     out["fwd fine seed 3, after serving chunks"] = timings(lambda: fused_mlp.fused_apply(*ops), (10, 20))
     out["fwd fine seed 192, after serving chunks"] = timings(lambda: fused_mlp.fused_apply(*alt),
                                                             (10, 20))
+    del ops, alt, dp, serve
+    torch.cuda.empty_cache()
+    if args.step:
+        with tempfile.TemporaryDirectory() as tmp:
+            work = Path(tmp)
+            out["frame"] = chip_smoke.frame_time(work, args.dtype)
+            out["step"] = chip_smoke.step_time(work / "db", dname=args.dtype)
     print(json.dumps(out), flush=True)
     return 0
 
