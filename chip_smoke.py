@@ -11,8 +11,8 @@ without a result):
   2. build: compile every CUDA source with nvcc, one process per source,
      all started together, and print each kernel's ptxas registers and
      spill bytes and the HGMMA instructions in each kernel's SASS
-     (`cuobjdump -sass`): the forwards, the row passes (bf16 and float32)
-     and the bf16 weight pass must issue some;
+     (`cuobjdump -sass`): the forwards, the row passes and the weight
+     passes (bf16 and float32) must issue some;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the published width (8x256 trunk, 1x128 views, PE 10/4), for the main,
      points-augmentation, Lambertian and visibility-head MLPs, 64 and 192
@@ -24,7 +24,11 @@ without a result):
      and trio (views heads of 4 beside 3) at the same shapes; there the
      float32 kernels (3xTF32) are also held to the plain versions in
      float64: their error at most YARDSTICK times the float32 plain
-     version's (planes and gradients; both printed);
+     version's (planes and gradients; both printed); and the float32
+     weight pass alone (`fused_mlp.wgrad`) on seeded float32 slots of the
+     step's fine and trio stash (every dW of each backward) against
+     torch.matmul in float64, within YARDSTICK times the float32
+     torch.matmul's error;
   4. serve: a seeded synthetic scene (189x252, 6 frames, 3 for training),
      the published bf16 recipe with seeded random weights in a checkpoint,
      `runner.start_testing` over its test frames, then one 756x1008 request
@@ -144,7 +148,10 @@ its bound, bound_share = bound_ms / ms; the serving chunks carry the
 same; the float32 readings carry the suffix _f32: ms, plain_ms, bound_ms
 (3xTF32), fma_bound_ms, the passes, the float32 kernels' ptxas and HGMMA
 counts, yardstick_f32, and the per-dW float32 torch.matmul beside the
-float32 weight pass). A
+float32 weight pass; a backward's row names the float32 weight pass's
+kernel and source (weight_kernel_f32, weight_source_f32) with its ptxas,
+HGMMA count, issued GB and its float64 yardstick at the step's shapes,
+weight_yardstick_f32). A
 forward's `time` line also counts the weight bytes its producer issues
 per launch (blocks x the packed slab image), and a backward's the stash
 bytes its weight pass's producers issue: counts, not readings of the
@@ -260,7 +267,9 @@ def hgmma_counts(lib: Path) -> dict:
 
 TENSOR_CORE_KERNELS = ("fused_mlp_fwd_sm90_kernel", "fused_mlp_fwd_tf32_kernel",
                        "fused_mlp_bwd_rows_sm90_kernel", "fused_mlp_bwd_rows_tf32_kernel",
-                       "fused_mlp_bwd_wgrad_kernel")
+                       "fused_mlp_bwd_wgrad_kernel", "fused_mlp_bwd_wgrad_tf32_kernel")
+WGRAD_F32 = ("fused_mlp_bwd_wgrad_tf32_kernel",
+             "simplenerf_torch/ops/csrc/fused_mlp_bwd.cu + fused_mlp_wgrad_tf32_sm90.cuh")
 
 
 def kernel_label(entry: str) -> str:
@@ -493,6 +502,62 @@ def ensemble_check(nr: int, ns: int, dtype, trio=TRIO, exact: bool = False) -> d
     return out
 
 
+def wgrad_check(which: str) -> dict:
+    """The float32 weight pass alone (`fused_mlp.wgrad`, launched) at the
+    training step's shapes: every dW of the fine (4096 x 192 rows) or trio
+    (4096 x 64) backward on seeded float32 slots (A uniform in [0, 1), as
+    ReLU activations; G normal), against torch.matmul in float64; the worst
+    ||got - want|| / ||want|| at most YARDSTICK times float32
+    torch.matmul's (no TF32). Its launches are not the main path's."""
+    import torch
+
+    from simplenerf_torch.fields.mlp import MLPConfig
+    from simplenerf_torch.ops import fused_mlp
+
+    if which == "fine":
+        spec, kp = kernel_operands(MLPConfig(), 8, FINE_NS, torch.float32, seed=3)[:2]
+        rows = STEP_RAYS * FINE_NS
+    else:
+        spec, kp = ensemble_operands(8, COARSE_NS, torch.float32, seed=5)[:2]
+        rows = STEP_RAYS * COARSE_NS
+    dws = fused_mlp.pack_bwd_program(spec, kp, 64).dws
+    a_slots = {(a, aw) for a, aw, *_ in dws}
+    index = {}
+    for a, aw, g, gw, *_ in dws:
+        for key in ((a, aw), (g, gw)):
+            index.setdefault(key, len(index))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    slots = [None] * len(index)
+    for (c, w), i in index.items():
+        slots[i] = (torch.rand((rows, w), generator=gen, device="cuda") if (c, w) in a_slots
+                    else torch.randn((rows, w), generator=gen, device="cuda"))
+    calls = [(index[(a, aw)], index[(g, gw)], k, m) for a, aw, g, gw, k, m, _ in dws]
+    launches = fused_mlp.wgrad.launches
+    got = fused_mlp.wgrad(slots, calls)
+    torch.cuda.synchronize()
+    if fused_mlp.wgrad.launches != launches + 1:
+        fail("fused_mlp.wgrad did not count its launch")
+    fused_mlp.wgrad.launches = launches
+    k_err = p_err = 0.0
+    for (a, g, k, m), x in zip(calls, got):
+        exact = slots[a][:, :k].double().T @ slots[g][:, :m].double()
+        if x.shape != (k, m) or not torch.isfinite(x).all():
+            fail(f"float32 weight pass: dW ({k}, {m}) not finite or of shape {tuple(x.shape)}")
+        k_err = max(k_err, norm_err(x, exact))
+        p_err = max(p_err, norm_err(slots[a][:, :k].T @ slots[g][:, :m], exact))
+        del exact
+    del slots, got
+    torch.cuda.empty_cache()
+    ratio = k_err / max(p_err, 1e-300)
+    print(f"yardstick fused_mlp_bwd_wgrad_tf32_kernel {which} step ({rows} rows, {len(calls)} dW) float32 "
+          f"vs float64: kernel {k_err:.3e}, float32 torch.matmul {p_err:.3e}, ratio {ratio:.2f} "
+          f"(limit {YARDSTICK:g}; worst norm err)", flush=True)
+    if not ratio <= YARDSTICK:
+        fail(f"the float32 weight pass is further from float64 than {YARDSTICK:g} x float32 "
+             f"torch.matmul: {which}")
+    return {"kernel": k_err, "plain": p_err, "ratio": ratio}
+
+
 def check_train_kernels() -> dict:
     """Every kernel, forward and gradients, at the published width: 1037
     rays for each MLP kind, then the training step's shapes. Returns the
@@ -543,6 +608,8 @@ def check_train_kernels() -> dict:
         keep("fused_mlp_ens_fwd", dtype, e["fwd"])
         keep("fused_mlp_ens_bwd", dtype, e["bwd"])
         torch.cuda.empty_cache()
+    for kernel, which in (("fused_mlp_bwd", "fine"), ("fused_mlp_ens_bwd", "trio")):
+        worst[(kernel, "float32", "wgrad_yardstick")] = wgrad_check(which)
     for f, n in saved.items():
         f.launches = n
     return worst
@@ -758,7 +825,7 @@ def bwd_pass_ms(fn, calls: int = 3, sums=(1, 1, 1)) -> dict:
     out = {"row_ms": 0.0, "weight_ms": 0.0, "sums_ms": 0.0}
     parts = {"fused_mlp_bwd_rows_kernel": "row_ms", "fused_mlp_bwd_rows_sm90_kernel": "row_ms",
              "fused_mlp_bwd_rows_tf32_kernel": "row_ms", "fused_mlp_tf32_split_kernel": "row_ms",
-             "fused_mlp_bwd_wgrad_kernel": "weight_ms",
+             "fused_mlp_bwd_wgrad_kernel": "weight_ms", "fused_mlp_bwd_wgrad_tf32_kernel": "weight_ms",
              "fused_mlp_bwd_weights_kernel": "weight_ms", "colsum_kernel": "sums_ms"}
     colsums = []
     for e in prof.events():
@@ -824,7 +891,7 @@ def weight_pass_yardsticks(label: str, plan, rows: int, sum_shapes, dname: str =
     shape in the compute type: the weight pass's bounds (the distinct stash
     slots it reads, each once, over HBM's rate; its FLOP over the peak of
     the compute type, and in float32 also as FMAs), the stash bytes its
-    producers issue (bf16: a count from the plan), one torch.matmul of the
+    producers issue (a count from the plan), one torch.matmul of the
     two slots per dW (N calls; float32 without TF32, PyTorch's default), and
     torch.sum at each column sum's shape (the same function, one call each)."""
     import torch
@@ -2186,6 +2253,9 @@ def main() -> int:
             row["row_ptxas_f32"] = ptxas["fused_mlp_bwd_rows_tf32_kernel"]
             row["row_hgmma_f32"] = hgmma["fused_mlp_bwd_rows_tf32_kernel"]
             row["weight_ptxas"] = ptxas.get("fused_mlp_bwd_wgrad_kernel")
+            row.update(weight_kernel_f32=WGRAD_F32[0], weight_source_f32=WGRAD_F32[1],
+                       weight_ptxas_f32=ptxas.get(WGRAD_F32[0]), weight_hgmma_f32=hgmma[WGRAD_F32[0]],
+                       weight_yardstick_f32=worst[(name, "float32", "wgrad_yardstick")])
         row.update({
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
@@ -2202,7 +2272,7 @@ def main() -> int:
         if name.endswith("bwd"):
             row.update({f"{k}_f32": f["yardsticks"][k] for k in (
                 "weight_library_ms", "weight_flop_bound_ms", "weight_fma_bound_ms", "weight_bound_ms",
-                "sums_library_ms")})
+                "weight_issued_gb", "sums_library_ms")})
         if name == "fused_mlp_fwd":
             row["launches_serve"] = served["launches"]
             row["serve_chunks"] = {

@@ -38,7 +38,7 @@ _SIGNATURES = {
                                + [_I, _P],
         "snerf_fused_mlp_ens_bwd": [_I, _P, _I] + [_P] * 6 + [_I] * 5 + [_P] * 9 + [_I]
                                    + [_P] * 2 + [_I, _P],
-        "snerf_wgrad": [_P, _P, _I, _P] + [_I] * 5 + [_P, _P, _I, _P, _P],
+        "snerf_wgrad": [_I, _P, _P, _I, _P] + [_I] * 5 + [_P, _P, _I, _P, _P],
         "snerf_colsum": [_P, _P] + [_I] * 4 + [_P, _P],
     },
 }

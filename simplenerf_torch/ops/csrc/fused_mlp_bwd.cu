@@ -46,9 +46,12 @@
 //       dW fed by TMA boxes, wgmma with both operands MN-major, the two
 //       panels of a 256-row dW as a cluster of two that reads G in step, so
 //       each stash slot crosses from device memory about once per launch;
-//       float32:
-//       one block per 128x128 tile of one dW and chunk (cp.async stages,
-//       plain FMAs);
+//       float32: fused_mlp_bwd_wgrad_tf32_kernel
+//       (fused_mlp_wgrad_tf32_sm90.cuh), the same work split, maps and
+//       clusters on the 3xTF32 core, G read from slots that the float32 row
+//       pass stores K-major (wgmma takes 32-bit operands from shared memory
+//       only K-major) and split into big and small TF32 images in shared
+//       memory, A split in registers;
 //   (c) fixed-order column sums: partials over tiles, dW partials over
 //       chunks, and g over each ray's ns rows (dhvx). Each sum splits its
 //       rows into a fixed number of slices (ops/fused_mlp.py
@@ -73,21 +76,9 @@
 #include "fused_mlp_bwd_sm90.cuh"
 #include "fused_mlp_bwd_tf32_sm90.cuh"
 #include "fused_mlp_wgrad_sm90.cuh"
+#include "fused_mlp_wgrad_tf32_sm90.cuh"
 
 namespace {
-
-// Float32 weight-pass task: the 128x128 tile (i0, j0) of dW (k_in, n_out) =
-// A^T G, A = stash slot a_slot (width a_w), G = stash slot g_slot (width g_w).
-struct Task {
-  int a_slot, a_w, g_slot, g_w, k_in, n_out, dw_off, i0, j0;
-};
-constexpr int kTaskWords = 9;
-static_assert(sizeof(Task) == kTaskWords * sizeof(int), "Task layout");
-
-template <typename T>
-__device__ __forceinline__ T* slot_ptr(T* stash, int slot, int n_rows) {
-  return stash + (size_t)slot * n_rows;
-}
 
 // The bf16 row pass (fused_mlp_bwd_sm90.cuh): warpgroup 0 produces (one
 // thread issues the bulk copies), warpgroups 1 and 2 consume; the roles
@@ -155,122 +146,6 @@ fused_mlp_bwd_rows_tf32_kernel(const __grid_constant__ bwd90::Program p, const f
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(sm90::kConsumerRegs));
     tf32::consume_rows(p, tf32_smem, s, wg - 1, lo, hi, hvx, dplanes, fpar, stash, g32, masks, parts);
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sm90::smem_u32(smem)), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Float32 weight pass: rows of the chunk in stages of KC, double-buffered by
-// cp.async (the bf16 weight pass is fused_mlp_bwd_wgrad_kernel).
-template <typename T> struct WTraits;
-template <> struct WTraits<float> { static constexpr int KC = 16; };
-constexpr int kWTile = 128, kWThreads = 256;
-
-template <typename T>
-__device__ __forceinline__ void load_stage(T* dst, int ld, const T* src, int width, int c0, int r0,
-                                           int r_end, int tid) {
-  constexpr int kElems = 16 / sizeof(T), kPerRow = kWTile / kElems;
-  constexpr int KC = WTraits<T>::KC;
-  for (int i = tid; i < KC * kPerRow; i += kWThreads) {
-    const int rr = i / kPerRow, q = i - rr * kPerRow;
-    const int r = r0 + rr, c = c0 + q * kElems;
-    T* d = dst + rr * ld + q * kElems;
-    if (r < r_end && c < width)
-      cp_async16(d, src + (size_t)r * width + c);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// acc[mt][jt] += A_stage^T G_stage for the warp's 32 x 64 part of the tile.
-__device__ __forceinline__ void stage_product(float (&acc)[2][8][4], const float* a,
-                                              const float* gm, int ld, int warp_m, int warp_n,
-                                              int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < WTraits<float>::KC; ++k) {
-    float av[2][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      av[mt][0] = a[k * ld + warp_m * 32 + mt * 16 + g];
-      av[mt][1] = a[k * ld + warp_m * 32 + mt * 16 + g + 8];
-    }
-#pragma unroll
-    for (int jt = 0; jt < 8; ++jt) {
-      const float b0 = gm[k * ld + warp_n * 64 + jt * 8 + 2 * t];
-      const float b1 = gm[k * ld + warp_n * 64 + jt * 8 + 2 * t + 1];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        acc[mt][jt][0] = fmaf(av[mt][0], b0, acc[mt][jt][0]);
-        acc[mt][jt][1] = fmaf(av[mt][0], b1, acc[mt][jt][1]);
-        acc[mt][jt][2] = fmaf(av[mt][1], b0, acc[mt][jt][2]);
-        acc[mt][jt][3] = fmaf(av[mt][1], b1, acc[mt][jt][3]);
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWThreads)
-fused_mlp_bwd_weights_kernel(const Task* __restrict__ tasks, const T* __restrict__ stash,
-                             int n_rows, int chunk_rows, int dw_total, float* __restrict__ dw_part) {
-  constexpr int KC = WTraits<T>::KC, LD = kWTile + 16 / sizeof(T);
-  __shared__ __align__(16) T sa[2][KC * LD];
-  __shared__ __align__(16) T sg[2][KC * LD];
-  const Task task = tasks[blockIdx.x];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int warp_m = warp >> 1, warp_n = warp & 1;
-  const int r_begin = blockIdx.y * chunk_rows;
-  const int r_end = min(n_rows, r_begin + chunk_rows);
-  const T* a = slot_ptr(stash, task.a_slot, n_rows);
-  const T* gm = slot_ptr(stash, task.g_slot, n_rows);
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int jt = 0; jt < 8; ++jt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][jt][e] = 0.f;
-
-  const int n_steps = r_end > r_begin ? (r_end - r_begin + KC - 1) / KC : 0;
-  if (n_steps > 0) {
-    load_stage(sa[0], LD, a, task.a_w, task.i0, r_begin, r_end, tid);
-    load_stage(sg[0], LD, gm, task.g_w, task.j0, r_begin, r_end, tid);
-    cp_async_commit();
-  }
-  for (int step = 0; step < n_steps; ++step) {
-    const int buf = step & 1;
-    if (step + 1 < n_steps) {
-      const int r0 = r_begin + (step + 1) * KC;
-      load_stage(sa[buf ^ 1], LD, a, task.a_w, task.i0, r0, r_end, tid);
-      load_stage(sg[buf ^ 1], LD, gm, task.g_w, task.j0, r0, r_end, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    stage_product(acc, sa[buf], sg[buf], LD, warp_m, warp_n, lane);
-    __syncthreads();  // the buffer is free for the stage after next
-  }
-
-  const int g = lane >> 2, t = lane & 3;
-  float* out = dw_part + (size_t)blockIdx.y * dw_total + task.dw_off;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int jt = 0; jt < 8; ++jt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = task.i0 + warp_m * 32 + mt * 16 + g + 8 * h;
-        const int j = task.j0 + warp_n * 64 + jt * 8 + 2 * t;
-        if (i >= task.k_in) continue;
-        if (j < task.n_out) out[(size_t)i * task.n_out + j] = acc[mt][jt][2 * h];
-        if (j + 1 < task.n_out) out[(size_t)i * task.n_out + j + 1] = acc[mt][jt][2 * h + 1];
-      }
 }
 
 // The first `slices` ranges of `per` rows of in[s] (rows C floats apart),
@@ -361,6 +236,30 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The float32 weight pass's tensor maps: for each of n_maps slots, int64
+// (element offset in the stash, dim 0, dim 1, dim 1's stride in bytes, box
+// 0, box 1) -> a float32 CUtensorMap, 128-byte swizzle, zeros past the
+// dims (an A slot: (width, n_rows), 32 x 32 boxes; a K-major G slot:
+// (n_rows, width), 32 rows x 64 columns).
+int encode_maps_f32(const float* stash, const long long* maps, int n_maps, wgrad::Maps* out) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (n_maps > wgrad::kMaxMaps) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < n_maps; ++i) {
+    const long long* m = maps + wgrad32::kMapWords * i;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(m[1]), static_cast<cuuint64_t>(m[2])};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(m[3])};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(m[4]), static_cast<cuuint32_t>(m[5])};
+    const cuuint32_t elem[2] = {1, 1};
+    const CUresult r = encode(&out->map[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                              const_cast<float*>(stash + m[0]), dims, strides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
 int encode_maps(const __nv_bfloat16* stash, const long long* maps, int n_maps, wgrad::Maps* out) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -379,27 +278,40 @@ int encode_maps(const __nv_bfloat16* stash, const long long* maps, int n_maps, w
   return 0;
 }
 
-// The bf16 weight pass: the maps, then one CTA per job (clusters of two).
-int wgrad_launch(const void* stash, const long long* maps, int n_maps, const void* jobs, int n_jobs,
-                 int n_rows, int chunk_rows, int dw_total, float* dw_part, cudaStream_t stream) {
+// The weight pass (dtype 1: bf16, 0: float32): the maps, then one CTA per
+// job (clusters of two).
+int wgrad_launch(int dtype, const void* stash, const long long* maps, int n_maps, const void* jobs,
+                 int n_jobs, int n_rows, int chunk_rows, int dw_total, float* dw_part,
+                 cudaStream_t stream) {
   if (n_jobs <= 0) return 0;
-  if (chunk_rows % wgrad::kBox) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bf16 = dtype == 1;
+  if (chunk_rows % (bf16 ? wgrad::kBox : wgrad32::kDepth)) return static_cast<int>(cudaErrorInvalidValue);
   wgrad::Maps params;  // 16 KB; the launch copies it into the kernel's parameters
-  int rc = encode_maps(static_cast<const __nv_bfloat16*>(stash), maps, n_maps, &params);
+  int rc = bf16 ? encode_maps(static_cast<const __nv_bfloat16*>(stash), maps, n_maps, &params)
+                : encode_maps_f32(static_cast<const float*>(stash), maps, n_maps, &params);
   if (rc) return rc;
-  auto kernel = wgrad::fused_mlp_bwd_wgrad_kernel;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         wgrad::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(n_jobs + 1) / 2 * 2, wgrad::kThreads, wgrad::kSmemBytes, stream>>>(
-      static_cast<const wgrad::Job*>(jobs), n_jobs, params, n_rows, chunk_rows, dw_total, dw_part);
+  const unsigned grid = (n_jobs + 1) / 2 * 2;
+  cudaError_t err;
+  if (bf16) {
+    auto kernel = wgrad::fused_mlp_bwd_wgrad_kernel;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wgrad::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, wgrad::kThreads, wgrad::kSmemBytes, stream>>>(
+        static_cast<const wgrad::Job*>(jobs), n_jobs, params, n_rows, chunk_rows, dw_total, dw_part);
+  } else {
+    auto kernel = wgrad32::fused_mlp_bwd_wgrad_tf32_kernel;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wgrad32::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, wgrad32::kThreads, wgrad32::kSmemBytes, stream>>>(
+        static_cast<const wgrad32::Job*>(jobs), n_jobs, params, n_rows, chunk_rows, dw_total, dw_part);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 struct Buffers {
   const void *lo, *hi, *hvx, *dplanes, *wts, *fpar, *tasks;
   void *stash, *g32, *masks, *parts, *part_out, *dw_part, *dw_out, *dhvx;
-  const long long* maps;  // bf16: the tensor-map parameters (host)
+  const long long* maps;  // the tensor-map parameters (host)
   int n_maps;
   const int* slices;      // the three column sums' slices (host)
   void* scratch;          // the column sums' slice sums
@@ -422,8 +334,8 @@ int column_sums(const Buffers& b, int n_tiles, int part_w, int n_chunks, int dw_
 
 // The backward: the row pass (its program `words`: the bwd90 header and
 // ops; bf16: its tensor maps the first n_maps of b.maps, the weight pass's
-// the rest), the weight pass (bf16: wgrad jobs; float32: 128 x 128 tiles),
-// the column sums. dtype 1: bf16; 0: float32 (wts: the split image).
+// the rest; float32: b.maps are the weight pass's), the weight pass (its
+// jobs), the column sums. dtype 1: bf16; 0: float32 (wts: the split image).
 int run(int dtype, const int* words, int n_words, const Buffers& b, int n_tasks, int n_chunks,
         int chunk_rows, int dw_total, int n_hvx_rows, int smem, cudaStream_t stream) {
   if (n_chunks <= 0 || chunk_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -461,8 +373,8 @@ int run(int dtype, const int* words, int n_words, const Buffers& b, int n_tasks,
         static_cast<const __nv_bfloat16*>(b.wts), static_cast<const float*>(b.fpar),
         static_cast<float*>(b.g32), static_cast<uint4*>(b.masks), static_cast<float*>(b.parts));
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    rc = wgrad_launch(b.stash, b.maps + 4 * p.n_maps, b.n_maps - p.n_maps, b.tasks, n_tasks, p.n_rows,
-                      chunk_rows, dw_total, static_cast<float*>(b.dw_part), stream);
+    rc = wgrad_launch(1, b.stash, b.maps + 4 * p.n_maps, b.n_maps - p.n_maps, b.tasks, n_tasks,
+                      p.n_rows, chunk_rows, dw_total, static_cast<float*>(b.dw_part), stream);
     if (rc) return rc;
   } else {
     auto rows = fused_mlp_bwd_rows_tf32_kernel;
@@ -475,12 +387,9 @@ int run(int dtype, const int* words, int n_words, const Buffers& b, int n_tasks,
         static_cast<float*>(b.stash), static_cast<float*>(b.g32), static_cast<uint4*>(b.masks),
         static_cast<float*>(b.parts));
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    if (n_tasks > 0) {
-      fused_mlp_bwd_weights_kernel<float><<<dim3(n_tasks, n_chunks), kWThreads, 0, stream>>>(
-          static_cast<const Task*>(b.tasks), static_cast<const float*>(b.stash), p.n_rows,
-          chunk_rows, dw_total, static_cast<float*>(b.dw_part));
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    }
+    rc = wgrad_launch(0, b.stash, b.maps, b.n_maps, b.tasks, n_tasks, p.n_rows, chunk_rows, dw_total,
+                      static_cast<float*>(b.dw_part), stream);
+    if (rc) return rc;
   }
   return column_sums(b, n_tiles, p.part_w, n_chunks, dw_total, n_hvx_rows, p.ns, p.hvx_w, stream);
 }
@@ -488,14 +397,16 @@ int run(int dtype, const int* words, int n_words, const Buffers& b, int n_tasks,
 }  // namespace
 
 // dtype: 1 = bfloat16 operands, 0 = float32. words: the row pass's whole
-// program (struct bwd90::Program's header and ops, host memory). tasks: of
-// Task (float32) or wgrad::Job (bf16, n_tasks jobs).
-// Workspace and outputs are allocated by the caller: stash (cdtype), g32,
+// program (struct bwd90::Program's header and ops, host memory). tasks: the
+// weight pass's n_tasks jobs (bf16 wgrad::Job, float32 wgrad32::Job).
+// Workspace and outputs are allocated by the caller: stash (cdtype; float32:
+// stash_cols x tf32::stash_ld(n_rows) floats), g32,
 // masks (n_tiles x n_masks x 256 consumer threads x 16 bytes), parts
 // (n_tiles x part_w), dw_part (n_chunks x dw_total), the outputs part_out
 // (part_w), dw_out (dw_total), dhvx (n_hvx_rows x hvx_w); for bf16 the
-// tensor maps' host parameters `maps` (n_maps x 4 int64: the row pass's
-// stash slots, as many as its header names, then the weight pass's); the
+// tensor maps' host parameters `maps` (bf16: n_maps x 4 int64, the row
+// pass's stash slots, as many as its header names, then the weight pass's;
+// float32: n_maps x 6, the weight pass's); the
 // column sums' slices (3 ints, host) and their scratch (the largest
 // S x slices x C of the three where slices > 1).
 extern "C" int snerf_fused_mlp_bwd(int dtype, const int* words, int n_words, const void* lo,
@@ -530,13 +441,15 @@ extern "C" int snerf_fused_mlp_ens_bwd(int dtype, const int* words, int n_words,
              static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 weight pass alone, on a stash the caller filled, then the column
-// sum of its partials over the chunks: dw_out (dw_total).
-extern "C" int snerf_wgrad(const void* stash, const long long* maps, int n_maps, const void* jobs,
-                           int n_jobs, int n_rows, int chunk_rows, int n_chunks, int dw_total,
-                           void* dw_part, void* dw_out, int slices, void* scratch, void* stream) {
+// The weight pass alone (dtype 1: bf16, 0: float32), on a stash the caller
+// filled, then the column sum of its partials over the chunks: dw_out
+// (dw_total).
+extern "C" int snerf_wgrad(int dtype, const void* stash, const long long* maps, int n_maps,
+                           const void* jobs, int n_jobs, int n_rows, int chunk_rows, int n_chunks,
+                           int dw_total, void* dw_part, void* dw_out, int slices, void* scratch,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = wgrad_launch(stash, maps, n_maps, jobs, n_jobs, n_rows, chunk_rows,
+  const int rc = wgrad_launch(dtype, stash, maps, n_maps, jobs, n_jobs, n_rows, chunk_rows,
                               dw_total, static_cast<float*>(dw_part), s);
   if (rc) return rc;
   return colsum(static_cast<const float*>(dw_part), static_cast<float*>(dw_out), 1, n_chunks,

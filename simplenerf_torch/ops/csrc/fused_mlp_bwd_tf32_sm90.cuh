@@ -10,8 +10,12 @@
 // registers, the permuted K order, the float32 tiles, shared memory), with
 // two changes that float32 brings: nothing is rounded (g, the activations
 // and the stash are float32), and the stash leaves from the epilogues'
-// registers as streaming float2 stores, row-major, as the float32 weight
-// pass (fused_mlp_bwd_weights_kernel, fused_mlp_bwd.cu) reads it; no TMA.
+// registers as streaming stores; no TMA. The float32 weight pass
+// (fused_mlp_wgrad_tf32_sm90.cuh) reads the activations (its A) row-major
+// and each backward op's g (its G) K-major, so a forward op and F_IN store
+// (r, c) at slot * ld + r * n + c (float2 stores) and a backward op at
+// slot * ld + c * ld + r (scalar stores: a warp's store still fills 32-byte
+// sectors, 8 consecutive rows of each of 4 columns), ld = stash_ld(n_rows).
 
 #pragma once
 
@@ -26,10 +30,23 @@ struct BCtx {  // one consumer's place in the block and in the ring
   const unsigned char* tiles[3];
 };
 
+// Rows of a float32 stash slot, and of a K-major slot's columns: n_rows
+// rounded up to 8, so that every slot and column starts 32-byte aligned
+// (TMA needs 16; a warp's K-major store then fills whole sectors;
+// ops/fused_mlp.py `_stash_ld`).
+__device__ __forceinline__ int stash_ld(int n_rows) { return (n_rows + 7) & ~7; }
+
 // The consumer's 64 rows of `v` pairs at (row, col) into the op's stash
 // slot (row-major, n wide), streaming; rows past n_rows are not stored.
 __device__ __forceinline__ void stash2(float* st, int n, int n_rows, int gr, int col, float a, float b) {
   if (gr < n_rows) __stcs(reinterpret_cast<float2*>(st + (size_t)gr * n + col), make_float2(a, b));
+}
+// The same into a K-major slot: (row, col) at col * ld + row.
+__device__ __forceinline__ void stash2k(float* st, int ld, int n_rows, int gr, int col, float a, float b) {
+  if (gr < n_rows) {
+    __stcs(st + (size_t)col * ld + gr, a);
+    __stcs(st + (size_t)(col + 1) * ld + gr, b);
+  }
 }
 
 // F_IN: the consumer's rows of the lo (hi) tile, n columns, to the stash.
@@ -75,7 +92,7 @@ __device__ __forceinline__ void f_epilogue(float (&acc)[N / 2], const bwd90::Op&
     }
   }
   const bool relu = op.flags & bwd90::FLAG_RELU;
-  float* st = op.map >= 0 ? stash + (size_t)op.out_slot * n_rows : nullptr;
+  float* st = op.map >= 0 ? stash + (size_t)op.out_slot * stash_ld(n_rows) : nullptr;
   unsigned char* act = const_cast<unsigned char*>(b.tiles[bwd90::SRC_ACT]);
   uint32_t bits[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
@@ -232,8 +249,9 @@ __device__ __forceinline__ void b_layer(const bwd90::Op& op, BCtx& b, const floa
       if (ok1) __stcs(reinterpret_cast<float2*>(g + (size_t)r1 * n + col), make_float2(acc[4 * j + 2], acc[4 * j + 3]));
     }
   }
-  // g to the tile and the stash; the warp's column sums to its red row.
-  float* st = op.map >= 0 ? stash + (size_t)op.out_slot * n_rows : nullptr;
+  // g to the tile and the stash (K-major); the warp's column sums to its red row.
+  const int ld = stash_ld(n_rows);
+  float* st = op.map >= 0 ? stash + (size_t)op.out_slot * ld : nullptr;
   unsigned char* act = const_cast<unsigned char*>(b.tiles[bwd90::SRC_ACT]);
   float* red = x.s.red + (x.c * 4 + warp) * 256;
 #pragma unroll
@@ -242,8 +260,8 @@ __device__ __forceinline__ void b_layer(const bwd90::Op& op, BCtx& b, const floa
     st2(act, r0, col, acc[4 * j], acc[4 * j + 1]);
     st2(act, r1, col, acc[4 * j + 2], acc[4 * j + 3]);
     if (st && col < n) {
-      stash2(st, n, n_rows, x.row0 + r0, col, acc[4 * j], acc[4 * j + 1]);
-      stash2(st, n, n_rows, x.row0 + r1, col, acc[4 * j + 2], acc[4 * j + 3]);
+      stash2k(st, ld, n_rows, x.row0 + r0, col, acc[4 * j], acc[4 * j + 1]);
+      stash2k(st, ld, n_rows, x.row0 + r1, col, acc[4 * j + 2], acc[4 * j + 3]);
     }
     float s0 = acc[4 * j] + acc[4 * j + 2], s1 = acc[4 * j + 1] + acc[4 * j + 3];
 #pragma unroll
@@ -310,7 +328,8 @@ __device__ __forceinline__ void consume_rows(const bwd90::Program& p, unsigned c
     const bwd90::Op& op = p.ops[i];
     if (op.kind == bwd90::F_IN) {
       if (op.map >= 0)
-        stash_tile(b.tiles[op.src[0]], op.n, stash + (size_t)op.out_slot * p.n_rows, x.row0, p.n_rows, x.t);
+        stash_tile(b.tiles[op.src[0]], op.n, stash + (size_t)op.out_slot * stash_ld(p.n_rows), x.row0,
+                   p.n_rows, x.t);
     } else if (op.kind == bwd90::F_LAYER) {
       if (op.n_pad == 256)
         f_layer<256>(op, b, fpar, hvx, dplanes, stash, tmask, part);

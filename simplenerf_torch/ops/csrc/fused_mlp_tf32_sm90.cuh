@@ -53,9 +53,10 @@
 //     products); the other consumer's groups keep the tensor cores busy
 //     meanwhile. The A registers are kept live until the slab's last group
 //     is done.
-//   * the row pass stores its stash from the epilogue's registers (float2,
-//     streaming), in the row-major layout the float32 weight pass reads, and
-//     copies the lo (hi) tile there for F_IN; no TMA.
+//   * the row pass stores its stash from the epilogue's registers
+//     (streaming; activations row-major, each backward op's g K-major, as
+//     the float32 weight pass, fused_mlp_wgrad_tf32_sm90.cuh, reads them),
+//     and copies the lo (hi) tile there for F_IN; no TMA.
 //
 // Shared memory (`sm90_plan` / `bwd90_plan` in ops/fused_mlp.py compute the
 // same): the ring, stages x 16 KB; per consumer its tiles, 8 KB per 32-column

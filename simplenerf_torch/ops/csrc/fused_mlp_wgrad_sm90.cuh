@@ -2,8 +2,9 @@
 // device code of fused_mlp_bwd_wgrad_kernel in fused_mlp_bwd.cu, the part
 // of the CUDA counterpart of simplenerf_tpu/ops/fused_mlp.py `_bwd_kernel`
 // and `_ens_bwd_kernel` that sums every dW over the rows (the TPU kernels
-// carry those sums in VMEM across grid steps). The row pass, the float32
-// weight pass and the forward's engine do not use it.
+// carry those sums in VMEM across grid steps). The float32 weight pass
+// (fused_mlp_wgrad_tf32_sm90.cuh) shares its tensor maps, mbarriers and
+// TMA loads.
 //
 // It forms every dW = round(h_prev)^T @ round(g) of the backward program
 // from two slots of the stash that the row pass wrote to device memory

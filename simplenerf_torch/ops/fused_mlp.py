@@ -533,16 +533,13 @@ _FLAG_RELU, _FLAG_HVX, _FLAG_ZERO = 1, 2, 4
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block can use
 # The backward's intermediate program (`_bwd_plan`), which `bwd90_plan`
 # translates for the row pass: a header of _BHEADER_WORDS and ops of
-# _BOP_WORDS; and the float32 weight pass's Task in fused_mlp_bwd.cu.
+# _BOP_WORDS.
 _BHEADER = ("n_ops", "n_rows", "ns", "in_lo", "in_hi", "lo_kpad", "hi_kpad", "part_w", "hvx_w",
             "n_masks")
 _BHEADER_WORDS = len(_BHEADER)
 _BOP_WORDS = 24
 _F_IN, _F_LAYER, _B_LAYER = 0, 1, 3
 _MAX_HEAD = 4  # head channels one op takes (kMaxHead in the .cu)
-_TASK_WORDS = 9  # a float32 weight-pass task
-_WTILE = 128  # float32 weight-pass output tile
-_WEIGHT_BLOCKS = 4 * 132  # float32 weight-pass blocks to aim for: four per SM
 # bf16 weight pass: struct wgrad::Job and the constants of fused_mlp_wgrad_sm90.cuh.
 _JOB_WORDS = 9
 _WGRAD_MAX_MAPS = 128  # tensor maps the kernel's parameter holds (kMaxMaps)
@@ -550,8 +547,25 @@ _WBOX = 64  # rows and columns of one TMA box
 _WBOX_BYTES = _WBOX * _WBOX * 2
 _WGRAD_STAGES = 4
 _WGRAD_SMEM = _WGRAD_STAGES * 6 * _WBOX_BYTES + 2 * _WGRAD_STAGES * 8  # two A and four G boxes
+# float32 weight pass (csrc/fused_mlp_wgrad_tf32_sm90.cuh, struct
+# wgrad32::Job): jobs of up to 128 dW rows by 128 columns, stages of 32
+# stash rows, A boxes of 32 columns (4 KB), G boxes of 64 columns of a
+# K-major slot (8 KB); a stage holds four A and two G boxes, and two small
+# images of two G boxes sit beside the ring.
+_JOB32_WORDS = 10
+_WGRAD32_DEPTH = 32
+_WGRAD32_ABOX = 32
+_WGRAD32_GBOX = 64
+_WGRAD32_STAGES = 5
+_WGRAD32_STAGE = 4 * _WGRAD32_DEPTH * _WGRAD32_ABOX * 4 + 2 * _WGRAD32_DEPTH * _WGRAD32_GBOX * 4
+_WGRAD32_SMEM = (_WGRAD32_STAGES * _WGRAD32_STAGE + 2 * 2 * _WGRAD32_DEPTH * _WGRAD32_GBOX * 4
+                 + 2 * _WGRAD32_STAGES * 8)
+_WGRAD32_THREADS = 288  # two consumer warpgroups and the producer warp
+_WGRAD32_MAP = 6  # int64 host parameters of one float32 tensor map (kMapWords)
+_STASH_LD_ALIGN = 8  # a float32 stash slot's rows: n_rows rounded up to this (tf32::stash_ld)
 _SMS = 132  # streaming multiprocessors of an H100 SXM; the bf16 weight pass runs one CTA on each
 _WGRAD_WAVES = (2, 4)  # the weight pass's grid: this many waves of _SMS CTAs, at least and at most
+_WGRAD32_WAVES = (2, 6)  # the float32 pass's: its jobs are longer, so a last wave's gap costs more
 _WGRAD_FULL = 0.95  # a last wave this full is full enough
 _COLSUM_THREADS = _SMS * 1024  # threads a column sum aims for (half of the card's resident threads)
 _COLSUM_MIN_ROWS = 16  # rows one thread sums at least, where a sum is split into slices
@@ -570,6 +584,16 @@ _TF32_PERM = np.array([0, 2, 4, 6, 1, 3, 5, 7])
 
 def _round16(k: int) -> int:
     return -(-k // 16) * 16
+
+
+def _stash_ld(n_rows: int, f32: bool = True) -> int:
+    """Rows a stash slot is given: n_rows in bf16; in float32 n_rows
+    rounded up to 8, so that every slot, and every column of a K-major slot
+    (the G slots, which the float32 weight pass reads as wgmma's K-major B),
+    starts 32-byte aligned: TMA needs 16, and the row pass's K-major stores
+    fill whole 32-byte sectors (csrc/fused_mlp_bwd_tf32_sm90.cuh
+    `stash_ld`). Slot s starts at element s * ld."""
+    return -(-n_rows // _STASH_LD_ALIGN) * _STASH_LD_ALIGN if f32 else n_rows
 
 
 def _tiling(cdtype) -> tuple[int, int]:
@@ -876,16 +900,18 @@ class BwdPlan:
     the kernel parameters that w_src / f_src name ((member, key) each;
     `_Gather`); the rest depends on the spec and the row count only and is
     cached (`_bwd_on`), with dev_tasks on the device. tasks: the weight
-    pass's work, (n_tasks, 9) int32 float32 tiles or (n_jobs, 9) int32
-    bf16 jobs (`_wgrad_plan`). The stash holds `stash_cols` column slots of
-    n_rows rows each; partials rows are `part_w` wide, dW partials
-    `dw_total`. The ReLU masks take `mask_words` int32 words: four per
-    consumer thread of a tile for each of its ReLU layers (header n_masks).
-    grads[mi][key] = ("dw" | "part", offset, shape) into the reduced dW or
-    partials vector. bf16: `maps` (n_maps, 4) int64 are the weight pass's
-    tensor maps and `wgrad_bytes` the stash bytes its producers issue
-    (`WgradPlan`). dws: every dW as (a_slot, a_w, g_slot, g_w, k_in, n_out,
-    dw_off). `slices`: the three column sums' slices (partials, dW
+    pass's work, (n_jobs, 9) int32 jobs, float32 (n_jobs, 10)
+    (`_wgrad_plan`). The stash holds `stash_cols` column slots of
+    `stash_ld` rows each (n_rows; float32: n_rows rounded up to 8,
+    `_stash_ld`; slot s at element s * stash_ld); partials rows are
+    `part_w` wide, dW partials `dw_total`. The ReLU masks take
+    `mask_words` int32 words: four per consumer thread of a tile for each
+    of its ReLU layers (header n_masks). grads[mi][key] = ("dw" | "part",
+    offset, shape) into the reduced dW or partials vector. `maps` are the
+    weight pass's tensor maps (bf16 (n_maps, 4), float32 (n_maps, 6)
+    int64) and `wgrad_bytes` the stash bytes its producers issue
+    (`WgradPlan`). dws: every dW as (a_slot, a_w, g_slot, g_w, k_in,
+    n_out, dw_off). `slices`: the three column sums' slices (partials, dW
     partials, dhvx; `_colsum_slices`), `scratch` the floats their slice
     sums take.
     """
@@ -911,6 +937,7 @@ class BwdPlan:
     w_src: tuple
     f_src: tuple
     rows90: "Bwd90Plan"
+    stash_ld: int = 0
     wts: Optional[torch.Tensor] = None
     fpar: Optional[torch.Tensor] = None
     dev_tasks: Optional[torch.Tensor] = None
@@ -938,17 +965,22 @@ def _colsum_scratch(shapes) -> int:
 
 @dataclasses.dataclass
 class WgradPlan:
-    """The bf16 weight pass's work (struct wgrad::Job in
-    csrc/fused_mlp_wgrad_sm90.cuh), for stash slots of n_rows rows.
+    """The weight pass's work (struct wgrad::Job in
+    csrc/fused_mlp_wgrad_sm90.cuh, float32 wgrad32::Job in
+    fused_mlp_wgrad_tf32_sm90.cuh), for stash slots of n_rows rows.
 
-    jobs: (n_jobs, 9) int32, one CTA each, clusters of two consecutive
-    jobs; maps: (n_maps, 4) int64
-    tensor-map parameters, one per slot read: (element offset of the slot
-    in the stash, width, n_rows, row stride in bytes); the maps' boxes are
-    64 x 64. Each chunk of `chunk_rows` rows (a multiple of 64) writes one
-    dW partials row. `issued`: the stash bytes the producers ask for (a
-    box's rows and columns past the slot left out: the copy engine reads
-    none of them).
+    jobs: (n_jobs, 9) int32 (float32: (n_jobs, 10), with the first G box
+    g0 before n_g), one CTA each, clusters of two consecutive jobs; maps:
+    one per slot read, int64 tensor-map parameters. bf16:
+    (n_maps, 4), (element offset of the slot in the stash, width, n_rows,
+    row stride in bytes), boxes of 64 x 64. float32
+    (csrc/fused_mlp_wgrad_tf32_sm90.cuh): (n_maps, 6), (element offset,
+    dim 0, dim 1, dim 1's stride in bytes, box 0, box 1): an A slot
+    row-major (width, n_rows) in 32 x 32 boxes, a G slot K-major (n_rows,
+    width), 32 rows x 64 columns; slot s at s * `_stash_ld(n_rows)`. Each
+    chunk of `chunk_rows` rows (a multiple of 64) writes one dW partials
+    row. `issued`: the stash bytes the producers ask for (a box's rows and
+    columns past the slot left out: the copy engine reads none of them).
     """
 
     jobs: np.ndarray
@@ -958,14 +990,14 @@ class WgradPlan:
     issued: int
 
 
-def _wgrad_chunks(n_rows: int, per_chunk: int) -> tuple[int, int]:
+def _wgrad_chunks(n_rows: int, per_chunk: int, waves=_WGRAD_WAVES) -> tuple[int, int]:
     """(n_chunks, chunk_rows): rows split into chunks of a multiple of 64
     rows, so that the grid (per_chunk CTAs a chunk, one CTA a SM) is
-    _WGRAD_WAVES waves of _SMS CTAs: the fewest chunks whose last wave is
-    at least _WGRAD_FULL full, else the fullest last wave. More chunks
-    than needed only add dW partials to write and sum."""
+    `waves` waves of _SMS CTAs, at least and at most: the fewest chunks
+    whose last wave is at least _WGRAD_FULL full, else the fullest last
+    wave. More chunks than needed only add dW partials to write and sum."""
     best = None
-    lo, hi = (-(-w * _SMS // max(per_chunk, 1)) for w in _WGRAD_WAVES)
+    lo, hi = (-(-w * _SMS // max(per_chunk, 1)) for w in waves)
     for c in range(max(lo, 1), max(hi, 1) + 1):
         rows = max(-(-(-(-n_rows // c)) // _WBOX) * _WBOX, _WBOX)
         n = -(-n_rows // rows)
@@ -978,38 +1010,56 @@ def _wgrad_chunks(n_rows: int, per_chunk: int) -> tuple[int, int]:
     return best[1], best[2]
 
 
-def _wgrad_plan(dws, n_rows: int) -> WgradPlan:
-    """The bf16 weight pass for dW = A[:, :k_in]^T G[:, :n_out] of every
+def _wgrad_plan(dws, n_rows: int, f32: bool = False) -> WgradPlan:
+    """The weight pass for dW = A[:, :k_in]^T G[:, :n_out] of every
     (a_slot, a_w, g_slot, g_w, k_in, n_out, dw_off) in `dws`, with A and G
-    stash slots (column offsets and widths; a slot is an (n_rows, width)
-    array at stash + slot * n_rows).
+    stash slots (column offsets and widths; bf16: a slot is an (n_rows,
+    width) array at stash + slot * n_rows; float32: A slots so at stash +
+    slot * ld, G slots K-major (width, n_rows) with rows ld apart there, ld
+    = `_stash_ld(n_rows)`).
 
-    A dW is cut into panels of 128 rows (two consumers of 64, one A box
-    each; a panel of <= 64 rows gives both consumers its one A box and half
-    of G's boxes), each a CTA that loads all of its boxes. The kernel runs
-    consecutive jobs (2i, 2i + 1) as a cluster of two, which starts them
-    together: the two panels of a dW of more than 128 rows on one chunk
-    are such a pair (they read the same G, and the second read finds it
-    in L2); every other panel is paired with the next one.
+    A dW is cut into panels of 128 rows (two consumers of 64: bf16 one A
+    box of 64 columns each, float32 two of 32; a panel of <= 64 rows gives
+    both consumers its A boxes and half of G's boxes), each a CTA that loads
+    all of its boxes. In float32 a panel is also cut into halves of 128
+    columns (two G boxes; a consumer's 64 x 128 float32 sums, its partial
+    sum and its A fragments fit the 168 registers ptxas gives a thread). The
+    kernel runs consecutive jobs (2i, 2i + 1) as a cluster of two, which
+    starts them together: the two panels of a dW of more than 128 rows on
+    one chunk are such a pair (they read the same G, and the second read
+    finds it in L2), and in float32 otherwise the two halves of a panel
+    (the same A); every other job is paired with the next one.
     """
     maps, map_of = [], {}
+    ld = _stash_ld(n_rows, f32)
+    a_box = _WGRAD32_ABOX if f32 else _WBOX
 
-    def map_index(slot, width):
-        if slot not in map_of:
-            map_of[slot] = len(maps)
-            maps.append([slot * n_rows, width, n_rows, width * 2])
-        return map_of[slot]
+    def map_index(slot, width, g):
+        key = (slot, g and f32)  # float32 reads a G slot K-major, by a map of its own
+        if key not in map_of:
+            map_of[key] = len(maps)
+            if not f32:
+                maps.append([slot * n_rows, width, n_rows, width * 2])
+            elif g:
+                maps.append([slot * ld, n_rows, width, ld * 4, _WGRAD32_DEPTH, _WGRAD32_GBOX])
+            else:
+                maps.append([slot * ld, width, n_rows, width * 4, _WGRAD32_ABOX, _WGRAD32_DEPTH])
+        return map_of[key]
 
-    pairs, singles = [], []  # job words without the chunk; pairs: two panels of one dW each
+    pairs, singles = [], []  # job words without the chunk; pairs: two jobs of one dW each
     for a_slot, a_w, g_slot, g_w, k_in, n_out, off in dws:
-        panels = [[map_index(a_slot, a_w), i0, min(2, -(-(k_in - i0) // _WBOX)),
-                   map_index(g_slot, g_w), -(-n_out // _WBOX), off, k_in, n_out]
-                  for i0 in range(0, k_in, 2 * _WBOX)]
-        (pairs if len(panels) == 2 else singles).extend(panels)
+        a_map, g_map = map_index(a_slot, a_w, False), map_index(g_slot, g_w, True)
+        n_gbox = -(-n_out // _WBOX)
+        halves = [(g0, min(2, n_gbox - g0)) for g0 in range(0, n_gbox, 2)] if f32 else [(0, n_gbox)]
+        panels = [[a_map, i0, min(128 // a_box, -(-(k_in - i0) // a_box)), g_map]
+                  + ([g0] if f32 else []) + [n_g, off, k_in, n_out]
+                  for g0, n_g in halves for i0 in range(0, k_in, 2 * _WBOX)]
+        (pairs if len(panels) % 2 == 0 else singles).extend(panels)  # pairs share G, else A
     if len(maps) > _WGRAD_MAX_MAPS:
         raise ValueError(f"the weight pass reads {len(maps)} stash slots; its kernel takes at most "
                          f"{_WGRAD_MAX_MAPS} tensor maps")
-    n_chunks, chunk_rows = _wgrad_chunks(n_rows, len(pairs) + len(singles))
+    n_chunks, chunk_rows = _wgrad_chunks(n_rows, len(pairs) + len(singles),
+                                         _WGRAD32_WAVES if f32 else _WGRAD_WAVES)
     jobs, pending = [], []
     for c in range(n_chunks):
         jobs += [[c] + w for w in pairs]  # an even count: each pair is one cluster
@@ -1019,21 +1069,28 @@ def _wgrad_plan(dws, n_rows: int) -> WgradPlan:
                 jobs += pending
                 pending = []
     jobs += pending
-    jobs = np.asarray(jobs, dtype=np.int32).reshape(-1, _JOB_WORDS)
-    maps = np.asarray(maps, dtype=np.int64).reshape(-1, 4)
+    jobs = np.asarray(jobs, dtype=np.int32).reshape(-1, _JOB32_WORDS if f32 else _JOB_WORDS)
+    maps = np.asarray(maps, dtype=np.int64).reshape(-1, _WGRAD32_MAP if f32 else 4)
     return WgradPlan(jobs=jobs, maps=maps, n_chunks=n_chunks, chunk_rows=chunk_rows,
-                     issued=_wgrad_issued(jobs, maps, n_rows, chunk_rows))
+                     issued=_wgrad_issued(jobs, maps, n_rows, chunk_rows, f32))
 
 
-def _wgrad_issued(jobs: np.ndarray, maps: np.ndarray, n_rows: int, chunk_rows: int) -> int:
+def _wgrad_issued(jobs: np.ndarray, maps: np.ndarray, n_rows: int, chunk_rows: int,
+                  f32: bool = False) -> int:
     """Stash bytes the jobs' producers issue, as `produce` in
-    csrc/fused_mlp_wgrad_sm90.cuh asks for them: each CTA its A boxes and
-    all of G's. Only a box's part inside the slot counts."""
+    csrc/fused_mlp_wgrad_sm90.cuh (float32: fused_mlp_wgrad_tf32_sm90.cuh)
+    asks for them: each CTA its A boxes and all of G's. Only a box's part
+    inside the slot counts."""
+    a_box, esize = (_WGRAD32_ABOX, 4) if f32 else (_WBOX, 2)
     total = 0
-    for chunk, a_map, i0, n_a, g_map, n_g, *_ in jobs.tolist():
+    for job in jobs.tolist():
+        chunk, a_map, i0, n_a, g_map = job[:5]
+        g0, n_g = job[5:7] if f32 else (0, job[5])
         rows = min(n_rows, (chunk + 1) * chunk_rows) - chunk * chunk_rows
-        boxes = [(a_map, i0 + b * _WBOX) for b in range(n_a)] + [(g_map, b * _WBOX) for b in range(n_g)]
-        total += sum(rows * max(0, min(_WBOX, int(maps[m][1]) - c0)) * 2 for m, c0 in boxes)
+        a_w, g_w = int(maps[a_map][1]), int(maps[g_map][2 if f32 else 1])
+        cols = ([min(a_box, a_w - i0 - b * a_box) for b in range(n_a)]
+                + [min(_WBOX, g_w - (g0 + b) * _WBOX) for b in range(n_g)])
+        total += sum(rows * max(0, c) * esize for c in cols)
     return total
 
 
@@ -1117,9 +1174,8 @@ def _bwd_plan(spec, n_rows: int) -> tuple:
     (head contributions added, the layer's ReLU mask bits applied),
     its per-tile column sum (db), round(g) into the stash, and the product
     round(g) @ W^T with W stored (K, round16(N)). The weight pass then forms
-    every dW = A^T G from two stash slots: float32 in 128 x 128 tiles, bf16
-    in the panels of `_wgrad_plan`. The column sums' slices follow
-    `_colsum_slices`.
+    every dW = A^T G from two stash slots in the panels of `_wgrad_plan`.
+    The column sums' slices follow `_colsum_slices`.
     """
     members = list(spec.members) if isinstance(spec, EnsembleSpec) else [spec]
     shared = isinstance(spec, EnsembleSpec)
@@ -1273,18 +1329,8 @@ def _bwd_plan(spec, n_rows: int) -> tuple:
     header = np.asarray(
         [len(ops), n_rows, m0.ns, m0.in_lo, in_hi, lo_kpad, _round16(in_hi) if in_hi else 0,
          sizes["part"], hvx_w, sizes["mask"]], dtype=np.int32)
-    if cd == torch.bfloat16:
-        wp = _wgrad_plan(tasks, n_rows)
-        n_chunks, chunk_rows, jobs, maps, issued = (wp.n_chunks, wp.chunk_rows, wp.jobs, wp.maps,
-                                                     wp.issued)
-    else:
-        n_chunks = max(1, min(-(-_WEIGHT_BLOCKS // max(len(tasks), 1)), -(-n_rows // 256)))
-        chunk_rows = -(-(-(-n_rows // n_chunks)) // 32) * 32
-        n_chunks = -(-n_rows // chunk_rows)
-        jobs = [t + [i0, j0] for t in tasks for i0 in range(0, t[4], _WTILE)
-                for j0 in range(0, t[5], _WTILE)]
-        jobs = np.asarray(jobs, dtype=np.int32).reshape(-1, _TASK_WORDS)
-        maps, issued = np.zeros((0, 4), dtype=np.int64), 0
+    wp = _wgrad_plan(tasks, n_rows, f32=cd != torch.bfloat16)
+    n_chunks, chunk_rows, jobs, maps, issued = wp.n_chunks, wp.chunk_rows, wp.jobs, wp.maps, wp.issued
     sums = [(1, -(-n_rows // bm), sizes["part"]), (1, n_chunks, sizes["dw"]),
             (hvx_slot * (n_rows // m0.ns), m0.ns, hvx_w)]
     ops = np.asarray(ops, dtype=np.int32).reshape(-1, _BOP_WORDS)
@@ -1305,6 +1351,7 @@ def _bwd_plan(spec, n_rows: int) -> tuple:
         grads=grads, maps=maps, wgrad_bytes=issued,
         slices=tuple(_colsum_slices(*x)[0] for x in sums), scratch=_colsum_scratch(sums), dws=tasks,
         w_src=tuple(buf.w_src), f_src=tuple(buf.f_src), rows90=rows90,
+        stash_ld=_stash_ld(n_rows, cd != torch.bfloat16),
     )
     return plan, w_index, f_index
 
@@ -1549,7 +1596,7 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    stash = torch.empty(plan.stash_cols * n, dtype=cd, device=dev)
+    stash = torch.empty(plan.stash_cols * plan.stash_ld, dtype=cd, device=dev)
     g32 = f32(max(plan.n_hvx * n * plan.hvx_w, 1))
     masks = torch.empty(max(plan.mask_words, 2), dtype=torch.int32, device=dev)
     parts, part_out = f32(n_tiles * plan.part_w), f32(plan.part_w)
@@ -1581,40 +1628,60 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
 
 
 def wgrad(slots, dws) -> list:
-    """The bf16 weight pass alone: [A[:, :k_in]^T G[:, :n_out]] in float32
-    for every (a, g, k_in, n_out) of `dws`, with A = slots[a] and G =
-    slots[g], (n_rows, width) bf16 matrices (width a multiple of 16).
+    """The weight pass alone: [A[:, :k_in]^T G[:, :n_out]] in float32 for
+    every (a, g, k_in, n_out) of `dws`, with A = slots[a] and G = slots[g],
+    (n_rows, width) bf16 or float32 matrices (width a multiple of 16).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (`_wgrad_plan`'s jobs on a stash of the slots, then the column sum of
-    its partials over the chunks) or raise.
+    (`_wgrad_plan`'s jobs on a stash of the slots, laid out as the row pass
+    lays it out: in float32 each slot read as A row-major and each read as
+    G K-major, a slot read both ways twice; then the column sum of its
+    partials over the chunks) or raise.
     """
     if slots[0].device.type == "cpu":
         return [slots[a][:, :k].float().T @ slots[g][:, :m].float() for a, g, k, m in dws]
-    n, dev = slots[0].shape[0], slots[0].device
+    n, dev, cd = slots[0].shape[0], slots[0].device, slots[0].dtype
     widths = [x.shape[1] for x in slots]
     for x in slots:
-        if x.dtype != torch.bfloat16 or x.device != dev or x.dim() != 2 or x.shape[0] != n:
-            raise ValueError("slots must be (n_rows, width) bf16 tensors on one device")
+        if (x.dtype not in (torch.bfloat16, torch.float32) or x.dtype != cd or x.device != dev
+                or x.dim() != 2 or x.shape[0] != n):
+            raise ValueError("slots must be (n_rows, width) bf16 or float32 tensors of one type "
+                             "on one device")
     if any(w % 16 for w in widths) or not n:
         raise ValueError(f"slot widths {widths} must be multiples of 16, rows > 0")
-    cols = np.cumsum([0] + widths).tolist()
-    stash = torch.cat([x.contiguous().reshape(-1) for x in slots])
+    f32 = cd == torch.float32
+    ld = _stash_ld(n, f32)
+    parts, col = [], {}  # the stash's slots, in order: (slot, read as G), at column col[...]
+
+    def place(i, g):
+        key = (i, g and f32)
+        if key not in col:
+            col[key] = sum(widths[j] for j, _ in parts)
+            parts.append(key)
+        return col[key]
+
     tasks, offs, total = [], [], 0
     for a, g, k, m in dws:
         if not (0 < k <= widths[a] and 0 < m <= widths[g] and m % 2 == 0):
             raise ValueError(f"dW ({k}, {m}) does not fit slots of widths {widths[a]}, {widths[g]}")
-        tasks.append([cols[a], widths[a], cols[g], widths[g], k, m, total])
+        tasks.append([place(a, False), widths[a], place(g, True), widths[g], k, m, total])
         offs.append(total)
         total += k * m
-    dw = _launch_wgrad(stash, n, _wgrad_plan(tasks, n), total)
+    stash = torch.zeros(sum(widths[i] for i, _ in parts) * ld, dtype=cd, device=dev)
+    for i, kmajor in parts:
+        w, c = widths[i], col[(i, kmajor)]
+        if kmajor:
+            stash[c * ld : (c + w) * ld].view(w, ld)[:, :n] = slots[i].T
+        else:
+            stash[c * ld : c * ld + n * w].view(n, w)[:] = slots[i]
+    dw = _launch_wgrad(stash, n, _wgrad_plan(tasks, n, f32), total)
     wgrad.launches += 1
     return [dw[o : o + k * m].view(k, m) for o, (_, _, k, m) in zip(offs, dws)]
 
 
 def _launch_wgrad(stash: torch.Tensor, n_rows: int, plan: WgradPlan, dw_total: int) -> torch.Tensor:
-    """Run a WgradPlan's jobs on a bf16 stash, then the column sum of their
-    partials: the reduced dW vector (dw_total,) float32."""
+    """Run a WgradPlan's jobs on a bf16 or float32 stash, then the column
+    sum of their partials: the reduced dW vector (dw_total,) float32."""
     from simplenerf_torch.ops import build
 
     dev = stash.device
@@ -1625,7 +1692,8 @@ def _launch_wgrad(stash: torch.Tensor, n_rows: int, plan: WgradPlan, dw_total: i
     scratch = torch.empty(_colsum_scratch([(1, plan.n_chunks, dw_total)]), dtype=torch.float32,
                           device=dev)
     rc = build.load_library("fused_mlp_bwd").snerf_wgrad(
-        _ptr(stash), plan.maps.ctypes.data_as(ctypes.c_void_p), len(plan.maps), _ptr(jobs),
+        1 if stash.dtype == torch.bfloat16 else 0, _ptr(stash),
+        plan.maps.ctypes.data_as(ctypes.c_void_p), len(plan.maps), _ptr(jobs),
         len(plan.jobs), n_rows, plan.chunk_rows, plan.n_chunks, dw_total, _ptr(dw_part), _ptr(dw),
         slices, _ptr(scratch), _stream(dev))
     if rc != 0:

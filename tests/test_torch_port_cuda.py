@@ -418,6 +418,34 @@ def test_wgrad_matches_plain(cuda_device, case, n):
     assert all(torch.equal(x, y) for x, y in zip(again, got)), "two launches differ"
 
 
+@pytest.mark.parametrize("n", [37, 5000, 66_368])
+@pytest.mark.parametrize("case", sorted(WGRAD_CASES))
+def test_wgrad_f32_against_the_float64_yardstick(cuda_device, case, n):
+    """The float32 weight pass (3xTF32, G K-major) on float32 slots of the
+    same shapes against the plain version evaluated in float64: the worst
+    ||got - want|| / ||want|| at most YARDSTICK times the float32 plain
+    version's (float32 torch.matmul, no TF32); 37 rows: fewer than one
+    32-row stage; 5000 and 66,368: ragged stages and chunks, rows no
+    multiple of the stash's 8-row padding. Two launches give the same bits."""
+    widths, dws = WGRAD_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(n + 1)
+    slots = [torch.randn((n, w), generator=g, device=cuda_device) for w in widths]
+    before = fused_mlp.wgrad.launches
+    got = fused_mlp.wgrad(slots, dws)
+    torch.cuda.synchronize()
+    assert fused_mlp.wgrad.launches == before + 1
+    k_err = p_err = 0.0
+    for (a, gs, k, m), x in zip(dws, got):
+        exact = slots[a][:, :k].double().T @ slots[gs][:, :m].double()
+        assert x.shape == (k, m) and x.dtype == torch.float32
+        k_err = max(k_err, _norm_err(x, exact))
+        p_err = max(p_err, _norm_err(slots[a][:, :k].T @ slots[gs][:, :m], exact))
+    print(f"wgrad float32 {case} n={n}: kernel {k_err:.3e}, plain {p_err:.3e} from float64")
+    assert k_err <= YARDSTICK * p_err
+    again = fused_mlp.wgrad(slots, dws)
+    assert all(torch.equal(x, y) for x, y in zip(again, got)), "two launches differ"
+
+
 @pytest.mark.parametrize("shape", [(1, 6181, 3076), (1, 2048, 9228), (1, 23, 589_312),
                                    (4096, 192, 128), (3, 191, 130), (2, 1, 12), (5, 40, 7)])
 def test_column_sums_match_torch_sum(cuda_device, shape):

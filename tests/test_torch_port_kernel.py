@@ -348,7 +348,9 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
     """The row pass's program, run as fused_mlp_bwd_rows_sm90_kernel (bf16)
     or fused_mlp_bwd_rows_tf32_kernel (float32, products in 3xTF32) runs
     it, tile by tile: (stash, g32, per-tile partials). An op with no tensor
-    map stores no stash: its slot stays zero."""
+    map stores no stash: its slot stays zero. Float32 slots have
+    plan.stash_ld rows; a backward op's slot (the weight pass's G) is
+    stored K-major there, (r, c) at slot * ld + c * ld + r."""
     hdr, ops = _bwd90_ops(plan.rows90.words)
     ns, in_lo, in_hi, lo_kb, hi_kb, act_kb = hdr[2:8]
     slot_bytes, part_w, n_maps = hdr[8], hdr[12], hdr[14]
@@ -357,19 +359,22 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
     f32 = cd == torch.float32
     depth = 32 if f32 else 64
     mats = _bwd90_slabs(plan, f32)
-    stash = torch.zeros(plan.stash_cols * n, dtype=cd)
+    ld = plan.stash_ld
+    assert ld == (-(-n // 8) * 8 if f32 else n)
+    stash = torch.zeros(plan.stash_cols * ld, dtype=cd)
     g32 = torch.zeros((max(plan.n_hvx, 1), n, max(plan.hvx_w, 1)))
     n_tiles = -(-n // bm)
     parts = torch.zeros((n_tiles, part_w))
     fpar = plan.fpar
 
-    def slot(off, w):
-        return stash[off * n : (off + w) * n].view(n, w)
-
     def store(op, rows, v):
         if op["map"] >= 0:
             assert plan.rows90.maps[op["map"]] == (op["out_slot"], op["n"])
-            slot(op["out_slot"], op["n"])[rows] = v[:, : op["n"]]
+            off, w = op["out_slot"], op["n"]
+            if f32 and op["kind"] == fused_mlp._B_LAYER:
+                stash[off * ld : (off + w) * ld].view(w, ld)[:, rows] = v[:, :w].T
+            else:
+                stash[off * ld : off * ld + n * w].view(n, w)[rows] = v[:, :w]
 
     for t in range(n_tiles):
         rows = slice(t * bm, min(n, (t + 1) * bm))
@@ -432,22 +437,26 @@ def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
     bf16 = members[0].cdtype == torch.bfloat16
     dp = d_planes.reshape(d_planes.shape[0], n)
     stash, g32, parts = _run_bwd90_rows(plan, n, lo, hi, hvxs, dp)
-
-    def slot(off, w):
-        return stash[off * n : (off + w) * n].view(n, w)
-
     if bf16:
         dw = _run_wgrad_jobs(stash, n, plan.tasks, plan.maps, plan.chunk_rows, plan.n_chunks,
                              plan.dw_total)
-    else:
-        dw = torch.zeros(plan.dw_total)
-        for a_slot, a_w, g_slot, g_w, k_in, n_out, off, i0, j0 in plan.tasks.tolist():
-            a = slot(a_slot, a_w).float()[:, i0 : min(i0 + 128, k_in)]
-            gm = slot(g_slot, g_w).float()[:, j0 : min(j0 + 128, n_out)]
-            view = dw[off : off + k_in * n_out].view(k_in, n_out)
-            view[i0 : i0 + a.shape[1], j0 : j0 + gm.shape[1]] = a.T @ gm
+    else:  # the float32 weight pass's jobs through its tensor maps, in 3xTF32
+        dw = _wgrad_tf32_tests().run_wgrad32_jobs(stash, n, plan.tasks, plan.maps, plan.chunk_rows,
+                                                  plan.n_chunks, plan.dw_total)
     dhvx = g32[: plan.n_hvx].reshape(plan.n_hvx, n // ns, ns, g32.shape[-1]).sum(2)
     return fused_mlp.unpack_grads(plan, dw, parts.sum(0)), dhvx
+
+
+def _wgrad_tf32_tests():
+    """tests/test_torch_port_wgrad_tf32.py, whose `run_wgrad32_jobs` runs the
+    float32 weight pass's jobs as the kernel runs them."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "test_torch_port_wgrad_tf32.py"
+    spec = importlib.util.spec_from_file_location("wgrad_tf32_tests", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _run_wgrad_jobs(stash, n, jobs, maps, chunk_rows, n_chunks, dw_total):

@@ -37,13 +37,24 @@ order, and form each product as one TF32 product (big x big) in place of
 three; its checks also hold the gradients to chip_smoke.py's float64
 yardstick (the worst ||got - want|| / ||want|| against the plain version
 in float64 at most chip_smoke.YARDSTICK times the float32 plain
-version's), which the one-product variant must fail. The weight pass's break its
-MN-major descriptor (leading and stride byte offsets swapped), the k16
-advance (by columns instead of rows), its ring protocol (the consumers'
+version's), which the one-product variant must fail. The bf16 weight pass's
+break its MN-major descriptor (leading and stride byte offsets swapped), the
+k16 advance (by columns instead of rows), its ring protocol (the consumers'
 empty-barrier arrivals dropped) and its A strip (64 columns off); the
-column sums' variant drops one slice. The unedited kernel must pass every
+float32 weight pass's (fused_mlp_wgrad_tf32_sm90.cuh) form each product as
+one TF32 product (big x big) and drop the ragged last 128-row tile (with
+the bf16 pass's); G read one row late and the first dW left out break both.
+The column sums' variant drops one slice. Every variant also runs the
+float32 weight pass alone (`fused_mlp.wgrad`) on seeded float32 slots at
+the card test's shapes (tests/test_torch_port_cuda.py WGRAD_CASES, 37 and
+5000 rows) against the plain version in float64: within
+chip_smoke.YARDSTICK times the float32 plain version's error (a one-product
+weight pass is far outside it, where the backward's gradient checks, ruled
+by ReLU flips, would not see it). The unedited kernel must pass every
 check and every broken variant must fail one; the script exits 1
-otherwise.
+otherwise. One more variant is a reading, not a check: the float32 weight
+pass with one accumulator (every stage's products into the sums, no
+partial), its float64 yardstick printed.
 
 Row-pass split: timing-only variants that launch the row pass alone (the
 weight pass and the column sums edited out), whole and with parts of the
@@ -64,11 +75,14 @@ beside its times.
 Weight-pass split: the weight pass's device time (torch.profiler) in the
 same backward calls, whole, with its loads only (no products) and with its
 products only (no loads; the sums of whatever the ring holds are still
-stored, so no product is dead code). Then the weight pass alone on a
-seeded stash of the step's shape (`fused_mlp._launch_wgrad`) with the plan
-as it runs, beside the stash bytes its producers issue (a count from the
-plan); the plan at other chunk counts; and one torch.matmul of the two
-slots per dW as the library's yardstick.
+stored, so no product is dead code); float32, at the float32 step's
+shapes: whole, without the split of G into its TF32 images, with its
+products only (no loads, no split) and with one accumulator. Then the
+weight pass alone on a seeded stash of the step's shape
+(`fused_mlp._launch_wgrad`, bf16 and float32) with the plan as it runs,
+beside the stash bytes its producers issue (a count from the plan); the
+plan at other chunk counts; and one torch.matmul of the two slots per dW
+as the library's yardstick.
 
 A variant whose edits do not match the sources is skipped. To time an
 earlier commit's kernel, unpack a `git archive` of it and run the probe of
@@ -126,8 +140,21 @@ _BWD = "fused_mlp_bwd.cu"
 _ROWS = "fused_mlp_bwd_sm90.cuh"
 _TROWS = "fused_mlp_bwd_tf32_sm90.cuh"
 _TCORE = "fused_mlp_tf32_sm90.cuh"
+_K_STORE = "  if (gr < n_rows) {\n    __stcs(st + (size_t)col * ld + gr, a);"  # the K-major G store
 _ONE_PASS = [(_TCORE, "          mma(part, small[s], db + 2 * s);\n          mma(part, big[s], ds + 2 * s);\n", "")]
 _WG = "fused_mlp_wgrad_sm90.cuh"
+_WG32 = "fused_mlp_wgrad_tf32_sm90.cuh"
+_WG32_PASSES = ("          tf32::mma(part, small[s8], db + 2 * s8);\n"
+                "          tf32::mma(part, big[s8], ds + 2 * s8);\n")
+_WG32_LOADS = ("    wgrad::mbar_expect_tx(full + s, bytes);\n"
+               "    for (int b = 0; b < j.n_a; ++b) wgrad::tma_load(")
+# one accumulator: every product into the box's sums, no partial
+_WG32_ONE_ACC = [(_WG32, _WG32_PASSES + "          tf32::mma(part, big[s8], db + 2 * s8);",
+                  "          tf32::mma(acc[jb], small[s8], db + 2 * s8);\n"
+                  "          tf32::mma(acc[jb], big[s8], ds + 2 * s8);\n"
+                  "          tf32::mma(acc[jb], big[s8], db + 2 * s8);"),
+                 (_WG32, "        for (int i = 0; i < 32; ++i) acc[jb][i] += part[i];",
+                  "        sm90::fence_acc(acc[jb]);")]
 _WG_PRODUCTS = "for (int kk = 0; kk < 4; ++kk) Mma<N>::run(acc, da + kk * kK16Step, db + kk * kK16Step, 1);"
 _RELEASE = "if (prev >= 0 && x.t == 0) mbar_arrive(x.s.empty + prev);"
 _TMA = "  if (t == 0) {\n    for (int b = 0; b * 64 < width; ++b) tma_store("
@@ -148,24 +175,25 @@ EDITS = {
                        "(words[j >> 3] >> (4 * (j & 7) + (e ^ 1))) & 1u")],
     "tf32 mask layer": [(_TROWS, "tmask[op.mask_slot * bwd90::kMaskThreads]",
                          "tmask[max(op.mask_slot - 1, 0) * bwd90::kMaskThreads]")],
-    "tf32 stash tail": [(_TROWS, "  if (gr < n_rows) __stcs(", "  if (gr < n_rows && gr % 128 < 64) __stcs(")],
+    "tf32 stash tail": [(_TROWS, "  if (gr < n_rows) __stcs(", "  if (gr < n_rows && gr % 128 < 64) __stcs("),
+                        (_TROWS, _K_STORE, _K_STORE.replace("if (gr < n_rows)", "if (gr < n_rows && gr % 128 < 64)"))],
     "tf32 db warp": [(_TROWS, "for (int w = 0; w < 4; ++w) {\n      const float2 v",
                       "for (int w = 1; w < 4; ++w) {\n      const float2 v")],
     "tf32 head hand-over": [(_TROWS, "dst[0] = w0[q] + o.x;", "dst[0] = w0[q];")],
     "tf32 fragment order": [(_TCORE, "const float v[4] = {x0.x, x1.x, x0.y, x1.y};",
                              "const float v[4] = {x0.x, x0.y, x1.x, x1.y};")],
     "tf32 one pass": _ONE_PASS,
-    "g one row late": [  # row r of the chunk reads G's row r + 1 (float32: the chunk's last reads zeros)
-        (_BWD, "load_stage(sg[0], LD, gm, task.g_w, task.j0, r_begin, r_end, tid);",
-         "load_stage(sg[0], LD, gm + task.g_w, task.g_w, task.j0, r_begin, r_end - 1, tid);"),
-        (_BWD, "load_stage(sg[buf ^ 1], LD, gm, task.g_w, task.j0, r0, r_end, tid);",
-         "load_stage(sg[buf ^ 1], LD, gm + task.g_w, task.g_w, task.j0, r0, r_end - 1, tid);"),
+    "g one row late": [  # row r of the chunk reads G's row r + 1
+        (_WG32, "wgrad::tma_load(st + kMaxA * kABoxBytes + b * kGBoxBytes, gm, row, (j.g0 + b) * kGBox, full + s);",
+         "wgrad::tma_load(st + kMaxA * kABoxBytes + b * kGBoxBytes, gm, row + 1, (j.g0 + b) * kGBox, full + s);"),
         (_WG, "tma_load(st + (kGBox + b) * kBoxBytes, gm, b * kBox, row, bar);",
          "tma_load(st + (kGBox + b) * kBoxBytes, gm, b * kBox, row + 1, bar);"),
     ],
-    "first dW": [(_BWD, "    stage_product(acc, sa[buf], sg[buf], LD, warp_m, warp_n, lane);",
-                  "    if (task.dw_off != 0) stage_product(acc, sa[buf], sg[buf], LD, warp_m, warp_n, lane);"),
+    "first dW": [(_WG32, "for (int s8 = 0; s8 < kSteps; ++s8) {  // a k8 step",
+                  "for (int s8 = 0; s8 < (j.dw_off != 0 ? kSteps : 0); ++s8) {  // a k8 step"),
                  (_WG, _WG_PRODUCTS, "if (j.dw_off != 0) " + _WG_PRODUCTS)],
+    "wgrad32 one pass": [(_WG32, _WG32_PASSES, "")],
+    "wgrad32 one accumulator": _WG32_ONE_ACC,
     "desc swap": [(_WG, "(kLbo << 16) | (kSbo << 32)", "(kSbo << 16) | (kLbo << 32)")],
     "k16 columns": [(_WG, "constexpr uint64_t kK16Step = 2048 >> 4;",
                      "constexpr uint64_t kK16Step = 32 >> 4;")],
@@ -174,7 +202,7 @@ EDITS = {
                  "tma_load(st + b * kBoxBytes, am, j.i0 + b * kBox + kBox, row, bar);")],
     "colsum slice": [(_BWD, "return colsum_launch(scratch, out, S, slices, C, 1, slices, stream);",
                       "return colsum_launch(scratch, out, S, slices - 1, C, 1, slices - 1, stream);")],
-    "ragged tail": [(_BWD, "const int r_end = min(n_rows, r_begin + chunk_rows);",
+    "ragged tail": [(_WG32, "const int r_end = min(n_rows, r_begin + chunk_rows);",
                      "const int r_end = min(n_rows / 128 * 128, r_begin + chunk_rows);"),
                     (_WG, "const int r_end = min(n_rows, r_begin + chunk_rows);",
                      "const int r_end = min(n_rows / 128 * 128, r_begin + chunk_rows);")],
@@ -201,15 +229,21 @@ VARIANTS = {
     "weight pass: k16 advanced by columns": ["k16 columns"],
     "weight pass: the consumers' empty-barrier arrivals dropped": ["empty arrival"],
     "weight pass: the A strip 64 columns off": ["a strip"],
+    "float32 weight pass: one TF32 product (big x big) in place of three": ["wgrad32 one pass"],
     "column sums: one slice dropped": ["colsum slice"],
     "without the ragged last 128-row tile in dW": ["ragged tail"],
+}
+# Readings, not checks: built and checked as the variants are, neither
+# required to pass nor to fail.
+READINGS = {
+    "float32 weight pass: one accumulator, no per-stage partial sums": ["wgrad32 one accumulator"],
 }
 SHAPES = [(1037, 64, torch.bfloat16), (1037, 192, torch.float32), (1037, 192, torch.bfloat16),
           (chip_smoke.STEP_RAYS, 192, torch.bfloat16)]
 
 # Timing-only parts: the row pass alone, and parts of it removed or changed.
 _ROWS_ONLY = "static_cast<float*>(b.parts));\n    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);\n    rc = wgrad_launch("
-_F32_ROWS_ONLY = "static_cast<float*>(b.parts));\n    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);\n    if (n_tasks > 0) {"
+_F32_ROWS_ONLY = "static_cast<float*>(b.parts));\n    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);\n    rc = wgrad_launch(0, "
 _F_EPILOGUE = "  f_epilogue<N>(acc, op, x, cst, hvx, tmask + op.mask_slot * kMaskThreads);"
 _B_EPILOGUE = "  named_sync(1 + x.c);  // every reader of the tile (stash stores, head partials) is done"
 _HEAD_PARTIALS = "  if (op.head_nout) head_partials(op, x, part);"
@@ -220,8 +254,9 @@ _KEEP = ("{ float z = 0.f; for (int i = 0; i < N / 2; ++i) z += acc[i]; "
          "if (z == 1e30f) x.tl.act[x.t] = 1; }")
 TIMING_EDITS = {
     "bf16 rows only": [(_BWD, _ROWS_ONLY, "static_cast<float*>(b.parts));\n    return static_cast<int>(cudaGetLastError());\n    rc = wgrad_launch(")],
-    "f32 rows only": [(_BWD, _F32_ROWS_ONLY, "static_cast<float*>(b.parts));\n    return static_cast<int>(cudaGetLastError());\n    if (n_tasks > 0) {")],
+    "f32 rows only": [(_BWD, _F32_ROWS_ONLY, "static_cast<float*>(b.parts));\n    return static_cast<int>(cudaGetLastError());\n    rc = wgrad_launch(0, ")],
     "f32 no stash": [(_TROWS, "  if (gr < n_rows) __stcs(", "  if (false) __stcs("),
+                     (_TROWS, _K_STORE, _K_STORE.replace("if (gr < n_rows)", "if (false)")),
                      (_TROWS, "    if (row0 + r < n_rows)\n      __stcs(", "    if (false)\n      __stcs(")],
     "f32 no head partials": [(_TROWS, "  if (op.head_nout) head_partials(op, b, part);",
                               "  if (false) head_partials(op, b, part);")],
@@ -246,6 +281,14 @@ TIMING_EDITS = {
     "wgrad loads only": [(_WG, _WG_PRODUCTS, "")],
     "wgrad products only": [(_WG, "    mbar_expect_tx(full + s, bytes);\n    load_stage(",
                              "    mbar_arrive(full + s);\n    if (false) load_stage(")],
+    "wgrad32 no split": [(_WG32, "  const int steps = n_g * (kGBoxBytes / 16) / kConsumers;",
+                          "  const int steps = 0;")],
+    "wgrad32 no loads": [(_WG32, _WG32_LOADS, _WG32_LOADS.replace(
+        "wgrad::mbar_expect_tx(full + s, bytes);", "wgrad::mbar_arrive(full + s);").replace(
+        "for (int b = 0; b < j.n_a;", "for (int b = 0; b < 0;")),
+                         (_WG32, "    for (int b = 0; b < j.n_g; ++b)\n      wgrad::tma_load(",
+                          "    for (int b = 0; b < 0; ++b)\n      wgrad::tma_load(")],
+    "wgrad32 one accumulator": _WG32_ONE_ACC,
 }
 _NO_EPILOGUES = ["bf16 rows only", "no stash stores", "no head partials", "no backward epilogue",
                  "no forward epilogue"]
@@ -270,7 +313,19 @@ WGRAD_TIMING = {
     "weight pass": [],
     "weight pass, loads only": ["wgrad loads only"],
     "weight pass, products only": ["wgrad products only"],
+    "float32 weight pass": [],
+    "float32 weight pass without the split": ["wgrad32 no split"],
+    "float32 weight pass, products only (no loads, no split)": ["wgrad32 no loads", "wgrad32 no split"],
+    "float32 weight pass with one accumulator": ["wgrad32 one accumulator"],
 }
+# The float32 weight pass alone against float64 in every variant's check:
+# tests/test_torch_port_cuda.py's WGRAD_CASES at these rows.
+WGRAD_CASES = {
+    "published skip": ([64, 256, 256], [(1, 2, 256, 256), (0, 2, 63, 256), (0, 1, 63, 256)]),
+    "views": ([256, 128, 64], [(0, 1, 256, 128), (2, 1, 63, 128)]),
+    "width 144": ([144, 144, 64], [(0, 1, 144, 144), (2, 0, 63, 144), (1, 1, 144, 144)]),
+}
+WGRAD_ROWS = (37, 5000)
 
 
 def check(dkp, dhvx, want, dname, exact=None) -> tuple:
@@ -387,9 +442,10 @@ def stashed_activations(ops, dp):
         dkp, dhvx = fused_mlp.fused_bwd(*ops, dp)
     finally:
         fused_mlp.torch = torch
-    stash = next(t for t in rec.made if t.numel() == plan.stash_cols * n and t.dtype == spec.cdtype)
+    ld = plan.stash_ld  # a float32 slot's rows are padded (`_stash_ld`); activations are row-major
+    stash = next(t for t in rec.made if t.numel() == plan.stash_cols * ld and t.dtype == spec.cdtype)
     layers = [(int(w[16]), int(w[1])) for w in plan.ops if w[0] == fused_mlp._F_LAYER]  # (slot, n)
-    acts = [stash[s * n : (s + w) * n].view(n, w) for s, w in layers]
+    acts = [stash[s * ld : s * ld + w * n].view(n, w) for s, w in layers]
     d = spec.depth
     hs, f, hvs = acts[:d], acts[d], acts[d + 1 :]
     if plan.rows90 is not None:
@@ -492,15 +548,40 @@ def _cases():
     return cases
 
 
+def wgrad_checks() -> list:
+    """The float32 weight pass alone (`fused_mlp.wgrad`) at WGRAD_CASES x
+    WGRAD_ROWS on seeded float32 slots: (label, worst norm error against
+    the plain version in float64 (the "key" field: the float32 plain
+    version's), within the yardstick, the ratio)."""
+    out = []
+    for case, (widths, dws) in WGRAD_CASES.items():
+        for n in WGRAD_ROWS:
+            g = torch.Generator(device="cuda").manual_seed(n)
+            slots = [torch.randn((n, w), generator=g, device="cuda") for w in widths]
+            got = fused_mlp.wgrad(slots, dws)
+            k_err = p_err = 0.0
+            for (a, gs, k, m), x in zip(dws, got):
+                exact = slots[a][:, :k].double().T @ slots[gs][:, :m].double()
+                plain = slots[a][:, :k].T @ slots[gs][:, :m]
+                k_err = max(k_err, chip_smoke.norm_err(x, exact))
+                p_err = max(p_err, chip_smoke.norm_err(plain, exact))
+            ratio = k_err / max(p_err, 1e-300)
+            out.append((f"wgrad {case} {n} rows float32", k_err, f"plain {p_err:.3e}",
+                        ratio <= chip_smoke.YARDSTICK, ratio))
+    return out
+
+
 def check_variant(name: str, lib_path: str, cases_path: str) -> int:
-    """One variant against the saved cases, in this process: prints its line,
-    then a JSON line {"passes": ...}. A CUDA error ends the process."""
+    """One variant against the saved cases and the float32 weight pass's
+    checks (`wgrad_checks`), in this process: prints its line, then a JSON
+    line {"passes": ...}. A CUDA error ends the process."""
     build._loaded["fused_mlp_bwd"] = _load(lib_path)
     cases = torch.load(cases_path, weights_only=False)
     results = []
     for label, dname, ops, dp, want, exact in cases:
         err, key, ok, ratio = check(*fused_mlp.fused_bwd(*ops, dp), want, dname, exact)
         results.append((f"{label} {dname}", err, key, ok, ratio))
+    results += wgrad_checks()
     _, _, ops, dp, _, _ = cases[-1]
     ms = launch_ms(build._loaded["fused_mlp_bwd"], lambda: fused_mlp.fused_bwd(*ops, dp), iters=3)
     print(f"probe fused_mlp_bwd {name}: {ms:.3f} ms at 4096x192 bf16; "
@@ -515,12 +596,13 @@ def check_variant(name: str, lib_path: str, cases_path: str) -> int:
 def broken_variants(procs: dict, tmp: Path) -> bool:
     """Every broken variant against the plain backward, each in a process of
     its own; True when the sound kernel passes and every broken one fails
-    (a variant whose process ends in an error or outlasts its limit fails)."""
+    (a variant whose process ends in an error or outlasts its limit fails).
+    A reading (READINGS) prints its line and counts neither way."""
     cases_path = tmp / "cases.pt"
     torch.save(_cases(), cases_path)
     caught = True
     for name, proc in procs.items():
-        sound = not VARIANTS[name]
+        sound = not VARIANTS.get(name, ())
         try:
             run = subprocess.run([sys.executable, __file__, "--check", name, str(proc.lib),
                                   str(cases_path)], capture_output=True, text=True, timeout=600)
@@ -535,7 +617,8 @@ def broken_variants(procs: dict, tmp: Path) -> bool:
         except subprocess.TimeoutExpired:
             passes = False
             print(f"probe fused_mlp_bwd {name}: no result within 600 s (fails)", flush=True)
-        caught &= passes == sound
+        if name not in READINGS:
+            caught &= passes == sound
     for label, dname, ops, dp, *_ in torch.load(cases_path, weights_only=False)[1:3]:
         explain(ops, dp, f"{label} {dname}")
     explain_card_cases()
@@ -559,11 +642,14 @@ def row_pass_split(procs: dict, logs: dict) -> None:
 
 def wgrad_split(procs: dict) -> None:
     """Each weight-pass timing variant's device time per launch (profiler) at
-    the step's two shapes."""
-    cases = timing_cases()
+    the step's two shapes (float32 variants at the float32 step's)."""
+    cases = {False: None, True: None}
     for name, proc in procs.items():
+        f32 = name.startswith("float32")
+        if cases[f32] is None:
+            cases[f32] = timing_cases(torch.float32 if f32 else torch.bfloat16)
         build._loaded["fused_mlp_bwd"] = _load(proc)
-        times = [(label, chip_smoke.bwd_pass_ms(run)["weight_ms"]) for label, run in cases]
+        times = [(label, chip_smoke.bwd_pass_ms(run)["weight_ms"]) for label, run in cases[f32]]
         print(f"probe weight pass {name}: " + ", ".join(f"{label} {ms:.3f} ms" for label, ms in times)
               + " per launch (profiler)", flush=True)
     build._loaded.pop("fused_mlp_bwd", None)
@@ -576,22 +662,31 @@ def wgrad_plans() -> None:
     if not hasattr(fused_mlp, "_launch_wgrad"):
         print("probe weight pass plans: skipped (this checkout has no _launch_wgrad)", flush=True)
         return
-    bf16 = torch.bfloat16
-    shapes = [("fine", chip_smoke.kernel_operands(MLPConfig(), 8, chip_smoke.FINE_NS, bf16, seed=3)[:2],
+    for cd in (torch.bfloat16, torch.float32):
+        wgrad_plans_in(cd)
+
+
+def wgrad_plans_in(cd) -> None:
+    """wgrad_plans in the compute type cd (float32: the stash's rows padded
+    to `_stash_ld`, the plan's maps K-major for G)."""
+    f32 = cd == torch.float32
+    shapes = [("fine", chip_smoke.kernel_operands(MLPConfig(), 8, chip_smoke.FINE_NS, cd, seed=3)[:2],
                chip_smoke.STEP_RAYS * chip_smoke.FINE_NS),
-              ("trio", chip_smoke.ensemble_operands(8, chip_smoke.COARSE_NS, bf16, seed=5)[:2],
+              ("trio", chip_smoke.ensemble_operands(8, chip_smoke.COARSE_NS, cd, seed=5)[:2],
                chip_smoke.STEP_RAYS * chip_smoke.COARSE_NS)]
     for label, (spec, kp), n in shapes:
+        label = f"{label} {chip_smoke.dname_of(cd)}"
         plan = fused_mlp.pack_bwd_program(spec, kp, 64)
         dws, dw_total = plan.dws, plan.dw_total
+        ld = fused_mlp._stash_ld(n, f32)
         g = torch.Generator(device="cuda").manual_seed(7)
-        stash = torch.randn(plan.stash_cols * n, generator=g, device="cuda").to(bf16)
+        stash = torch.randn(plan.stash_cols * ld, generator=g, device="cuda").to(cd)
 
         def timed(wp):
             return chip_smoke.cuda_time_ms(lambda: fused_mlp._launch_wgrad(stash, n, wp, dw_total),
                                            iters=10)
 
-        wp = fused_mlp._wgrad_plan(dws, n)
+        wp = fused_mlp._wgrad_plan(dws, n, f32)
         print(f"probe weight pass plan {label} ({n} rows, {len(dws)} dW): {timed(wp):.3f} ms, "
               f"{wp.issued / 1e9:.2f} GB issued, {len(wp.jobs)} CTAs, {wp.n_chunks} chunks", flush=True)
         chosen = fused_mlp._wgrad_chunks
@@ -599,16 +694,17 @@ def wgrad_plans() -> None:
         other = []
         for c in sorted({max(1, wp.n_chunks // 2), wp.n_chunks * 2, -(-132 // per), -(-6 * 132 // per)}):
             rows = -(-(-(-n // c)) // 64) * 64
-            fused_mlp._wgrad_chunks = lambda n_rows, per_chunk, c=c, rows=rows: (-(-n_rows // rows), rows)
+            fused_mlp._wgrad_chunks = lambda n_rows, per_chunk, waves=None, c=c, rows=rows: (
+                -(-n_rows // rows), rows)
             try:
-                other_wp = fused_mlp._wgrad_plan(dws, n)
+                other_wp = fused_mlp._wgrad_plan(dws, n, f32)
             finally:
                 fused_mlp._wgrad_chunks = chosen
             other.append(f"{other_wp.n_chunks} chunks ({len(other_wp.jobs)} CTAs) {timed(other_wp):.3f} ms")
         print(f"probe weight pass chunks {label}: " + "; ".join(other), flush=True)
 
         def slot(c, w):
-            return stash[c * n : (c + w) * n].view(n, w)
+            return stash[c * ld : c * ld + w * n].view(n, w)
 
         lib = chip_smoke.cuda_time_ms(lambda: [torch.matmul(slot(a, aw).T, slot(gs, gw))
                                                for a, aw, gs, gw, *_ in dws], iters=3)
@@ -628,7 +724,7 @@ def main() -> int:
     if ARGS.explain:
         explain_card_cases()
         return 0
-    broken = {} if ARGS.timing else VARIANTS
+    broken = {} if ARGS.timing else {**VARIANTS, **READINGS}
     timing = {name: parts for name, parts in TIMING.items() if _applies(parts, TIMING_EDITS)}
     wtiming = {name: parts for name, parts in WGRAD_TIMING.items() if _applies(parts, TIMING_EDITS)}
     skipped = [name for name in [*TIMING, *WGRAD_TIMING] if name not in {**timing, **wtiming}]

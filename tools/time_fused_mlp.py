@@ -28,7 +28,8 @@ tools/probe_fused_mlp.py times it) and the coarse trio at 4096 x 64
 Beside each wrapper at the step's shapes: its plain version's time (CUDA
 events, `plain_ms`), and beside each backward the per-dW torch.matmul on
 a seeded stash of the step's shape (chip_smoke.weight_pass_yardsticks,
-`weight_library_ms`).
+`weight_library_ms`), and the stash bytes the weight pass's producers
+issue (`weight_issued_gb`, a count from the plan).
 
 The fine forward is timed once before and once after three calls of the
 64k-ray x 192 serving chunk, the shape the probe times just before it.
@@ -119,6 +120,7 @@ def library(row: dict, label: str, plan, rows: int, ns: int) -> None:
     ys = chip_smoke.weight_pass_yardsticks(label, plan, rows, chip_smoke._sum_shapes(plan, rows, ns),
                                            dname)
     row["weight_library_ms"] = ys["weight_library_ms"]
+    row["weight_issued_gb"] = ys["weight_issued_gb"]
 
 
 def main() -> int:
