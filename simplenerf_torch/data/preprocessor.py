@@ -32,6 +32,7 @@ from simplenerf_torch.device import resolve_device
 from simplenerf_torch.geometry import poses as pose_lib
 from simplenerf_torch.geometry import projection
 from simplenerf_torch.geometry import rays as ray_lib
+from simplenerf_torch.utils import profiling
 
 
 class EpochSampler:
@@ -510,8 +511,10 @@ class ScenePreprocessor:
         def img(key, ch=None):
             return host(f"{key}{suffix}").reshape((h, w, ch) if ch else (h, w))
 
+        with profiling.span("frame.fetch.wait"):
+            rgb = img("rgb", 3)  # the first read waits for the frame's device work
         out = {
-            "image": np.clip(np.round(np.clip(img("rgb", 3), 0, 1) * 255), 0, 255).astype(np.uint8),
+            "image": np.clip(np.round(np.clip(rgb, 0, 1) * 255), 0, 255).astype(np.uint8),
             "depth": np.clip(img("depth"), 0, np.inf),
             "depth_var": np.clip(img("depth_var"), 0, np.inf),
         }

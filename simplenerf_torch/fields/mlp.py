@@ -33,6 +33,7 @@ from typing import Any, Optional
 import torch
 
 from simplenerf_torch.fields import encoding
+from simplenerf_torch.utils import profiling
 
 Params = Any  # nested dict of tensors
 
@@ -316,7 +317,8 @@ def apply_fused(
     ns = view_dirs_tile
     if n % ns:
         raise ValueError(f"{n} points do not split into rays of {ns} samples")
-    operands = fused_operands(params, cfg, pts, view_dirs, ns, dtype)
+    with profiling.span("field.encode", device=pts.device):
+        operands = fused_operands(params, cfg, pts, view_dirs, ns, dtype)
     planes = fused_mlp.fused_apply(*operands)
     return _fused_epilogue(cfg, operands[0].out_p, planes, noise_std, noise)
 
@@ -386,7 +388,8 @@ def apply_fused_ensemble(
     if pts.shape[0] % ns:
         raise ValueError(f"{pts.shape[0]} points do not split into rays of {ns} samples")
     noises = noises if noises is not None else [None] * len(members)
-    ens, kps, lo, hvxs = ensemble_operands(members, pts, view_dirs, ns, dtype)
+    with profiling.span("field.encode", device=pts.device):
+        ens, kps, lo, hvxs = ensemble_operands(members, pts, view_dirs, ns, dtype)
     planes = fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs)
     outs, pos = [], 0
     for (_, cfg), m, noise in zip(members, ens.members, noises):

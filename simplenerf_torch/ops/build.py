@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from simplenerf_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -105,7 +107,8 @@ def load_library(name: str) -> ctypes.CDLL:
     """The built library with argtypes/restype set (built on first call)."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_library(name)))
+        with profiling.span("kernels.load"):
+            lib = ctypes.CDLL(str(build_library(name)))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

@@ -23,6 +23,7 @@ from simplenerf_torch.device import resolve_device
 from simplenerf_torch.render import renderer
 from simplenerf_torch.training import checkpoints
 from simplenerf_torch.training.trainer import build_eval_renderer, render_in_chunks
+from simplenerf_torch.utils import profiling
 
 # Rays per eval chunk. A 64k-ray chunk of the published model is 12.6M fine
 # samples, whose encodings and planes take a few GB of device memory: far
@@ -63,17 +64,23 @@ class Tester:
         intrinsic: Optional[np.ndarray] = None,
         view_intrinsic: Optional[np.ndarray] = None,
     ) -> dict:
+        """One frame's host arrays, in a span `frame`: its rays
+        (`frame.rays`), the chunks' renders and their join (`frame.chunks`,
+        `frame.join`) and the read back to the host (`frame.fetch`)."""
         if self.params is None:
             raise RuntimeError("call load_model first")
-        batch = self.preprocessor.create_test_data(
-            pose,
-            view_pose=view_pose,
-            secondary_poses=secondary_poses,
-            intrinsic=intrinsic,
-            view_intrinsic=view_intrinsic,
-        )
-        outputs = render_in_chunks(self._eval_step, self.params, batch, self.chunk)
-        return self.preprocessor.retrieve_inference_outputs(outputs)
+        with profiling.span("frame"):
+            with profiling.span("frame.rays"):
+                batch = self.preprocessor.create_test_data(
+                    pose,
+                    view_pose=view_pose,
+                    secondary_poses=secondary_poses,
+                    intrinsic=intrinsic,
+                    view_intrinsic=view_intrinsic,
+                )
+            outputs = render_in_chunks(self._eval_step, self.params, batch, self.chunk)
+            with profiling.span("frame.fetch"):
+                return self.preprocessor.retrieve_inference_outputs(outputs)
 
     # ------------------------------------------------------------------
     def save_frame_outputs(self, output_dir: Path, frame_num: int, prediction: dict):

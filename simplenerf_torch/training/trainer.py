@@ -183,7 +183,8 @@ class StepInputs:
         buffers) in stream order: the previous copy out of the pinned
         buffer is waited for before the host overwrites it."""
         if self._copied is not None:
-            self._copied.synchronize()
+            with profiling.span("train.stage.wait"):
+                self._copied.synchronize()
         for view, a in zip(self._views(self.host), (indices, weights, adam, mask_nerf, mask_sd)):
             view.copy_(torch.from_numpy(np.ascontiguousarray(a)))
         if self.host is not self.dev:
@@ -211,8 +212,11 @@ class StepGraph:
     captured body on the current stream; `out` is the body's output,
     which each replay overwrites. The capture launches nothing, so the
     kernels' launch counters (`fused_mlp.launch_counts`) are set back
-    after it and gain what it counted at each replay. `capture_s`: the
-    capture's host-clock seconds. A capture that fails raises.
+    after it and gain what it counted at each replay. The body's device
+    spans become the graph's markers (`profiling.capturing`), timed again
+    by every replay (`profiling.replay_ms`). `capture_s`: the capture's
+    host-clock seconds (its span, `train.capture`). A capture that fails
+    raises.
     """
 
     def __init__(self, fn, device: torch.device):
@@ -222,16 +226,19 @@ class StepGraph:
             fn()
         self.graph = torch.cuda.CUDAGraph()
         before = fused_mlp.launch_counts()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, stream=stream):
-            self.out = fn()
-        self.capture_s = time.perf_counter() - t0
+        with profiling.capturing() as self.markers:
+            with profiling.span("train.capture") as captured, torch.cuda.graph(self.graph,
+                                                                                 stream=stream):
+                self.out = fn()
+        self.capture_s = captured.seconds
         self.launches = {k: n - before[k] for k, n in fused_mlp.launch_counts().items()}
         fused_mlp.add_launches({k: -n for k, n in self.launches.items()})
 
     def replay(self):
-        self.graph.replay()
+        with profiling.span("train.replay"):
+            self.graph.replay()
         fused_mlp.add_launches(self.launches)
+        profiling.replayed(self.markers)
 
 
 class Trainer:
@@ -322,16 +329,13 @@ class Trainer:
         return gather_batch(pp.cache, pp.common, self._consts, t(indices), t(mask_nerf),
                             t(mask_sd), packed_layout=self._layout)
 
-    def _loss(self, batch: dict, weights: torch.Tensor, draws: dict):
-        outputs = renderer.render_rays(self.params, self.render_cfg, batch, train=True, **draws)
-        return self.loss_computer.compute(batch, outputs, weights)
-
     def loss(self, batch: dict, iter_num: int, **draws):
         """Render the batch in train mode and apply the loss stack with the
         weights of `iter_num`: (total, values). `draws` go to `render_rays`
         (generator or explicit draws)."""
         weights = torch.as_tensor(self.loss_computer.weights_vector(iter_num), device=self.device)
-        return self._loss(batch, weights, draws)
+        outputs = renderer.render_rays(self.params, self.render_cfg, batch, train=True, **draws)
+        return self.loss_computer.compute(batch, outputs, weights)
 
     def stage(self, iter_num: int) -> StepInputs:
         """The host stage of step `iter_num`: its global ray indices and
@@ -339,18 +343,22 @@ class Trainer:
         current count (then the count advances), its counts and its draws
         from the step's generator, drawn for the whole batch, written into
         the step's inputs."""
-        indices, mask_nerf, mask_sd = self.train_pp.next_indices(iter_num)
-        counts = {"rows": len(indices), "indices_mask_nerf": int(mask_nerf.sum()),
-                  "indices_mask_sparse_depth": int(mask_sd.sum())}
-        adam = self.opt.scalars(self.opt_state["count"])
-        self.opt_state["count"] += 1
-        draws = renderer.step_draws(self.render_cfg, len(indices), self.step_generator(iter_num),
-                                    self.device)
-        if self._inputs is None or self._inputs.nr != len(indices):
-            self._inputs = StepInputs(len(indices), len(self.loss_computer.specs), draws, self.device)
-        self._inputs.write(indices, mask_nerf, mask_sd,
-                           self.loss_computer.weights_vector(iter_num), adam, draws, counts)
-        return self._inputs
+        with profiling.span("train.stage"):
+            with profiling.span("train.stage.indices"):
+                indices, mask_nerf, mask_sd = self.train_pp.next_indices(iter_num)
+            counts = {"rows": len(indices), "indices_mask_nerf": int(mask_nerf.sum()),
+                      "indices_mask_sparse_depth": int(mask_sd.sum())}
+            adam = self.opt.scalars(self.opt_state["count"])
+            self.opt_state["count"] += 1
+            with profiling.span("train.stage.draws"):
+                draws = renderer.step_draws(self.render_cfg, len(indices),
+                                            self.step_generator(iter_num), self.device)
+            if self._inputs is None or self._inputs.nr != len(indices):
+                self._inputs = StepInputs(len(indices), len(self.loss_computer.specs), draws,
+                                          self.device)
+            self._inputs.write(indices, mask_nerf, mask_sd,
+                               self.loss_computer.weights_vector(iter_num), adam, draws, counts)
+            return self._inputs
 
     def body(self, inputs: StepInputs) -> dict:
         """The device part of a step, read from `inputs` alone: gather ->
@@ -360,20 +368,28 @@ class Trainer:
         its rows of the batch and of the draws, divides by the whole
         batch's counts, and the loss values are summed over the ranks:
         without a mesh, or in a world of one, the rows are the batch and
-        the sums are no-ops."""
-        for p in self.leaves:
-            p.grad = None
-        indices, mask_nerf, mask_sd, draws = mesh_lib.shard_ray_batch(
-            self.mesh, (inputs.indices, inputs.mask_nerf, inputs.mask_sd, inputs.draws))
-        batch = self.batch(indices, mask_nerf, mask_sd)
-        batch["global_counts"] = inputs.counts
-        total, values = self._loss(batch, inputs.weights, draws)
-        total.backward()
-        self.opt.step(self.leaves, self.opt_state, inputs.adam)
-        stacked = torch.stack([
-            (v if torch.is_tensor(v) else torch.full((), v, device=self.device)).detach().float()
-            for v in values.values()])
-        return dict(zip(values, mesh_lib.all_reduce_sum(self.mesh, stacked).unbind()))
+        the sums are no-ops. Four device spans cover it, one after another:
+        `step.forward` (gather and render), `step.losses`, `step.backward`
+        and `step.adam` (Adam and the stacked loss values)."""
+        dev = self.device
+        with profiling.span("step.forward", device=dev):
+            for p in self.leaves:
+                p.grad = None
+            indices, mask_nerf, mask_sd, draws = mesh_lib.shard_ray_batch(
+                self.mesh, (inputs.indices, inputs.mask_nerf, inputs.mask_sd, inputs.draws))
+            batch = self.batch(indices, mask_nerf, mask_sd)
+            batch["global_counts"] = inputs.counts
+            outputs = renderer.render_rays(self.params, self.render_cfg, batch, train=True, **draws)
+        with profiling.span("step.losses", device=dev):
+            total, values = self.loss_computer.compute(batch, outputs, inputs.weights)
+        with profiling.span("step.backward", device=dev):
+            total.backward()
+        with profiling.span("step.adam", device=dev):
+            self.opt.step(self.leaves, self.opt_state, inputs.adam)
+            stacked = torch.stack([
+                (v if torch.is_tensor(v) else torch.full((), v, device=dev)).detach().float()
+                for v in values.values()])
+            return dict(zip(values, mesh_lib.all_reduce_sum(self.mesh, stacked).unbind()))
 
     def train_one_iter(self, iter_num: int) -> dict:
         """One step: its host stage, then its body, eagerly; returns the loss values."""
@@ -444,8 +460,6 @@ class Trainer:
         iters_since_log = 0
         pp = self.train_pp
         rays_per_iter = pp.num_rays + getattr(pp, "num_rays_sparse_depth", 0)
-        timer = profiling.StepTimer(rays_per_step=rays_per_iter)
-        timer.tick(0)
         it = self.start_iter
         try:
             while it < num_iterations:
@@ -464,22 +478,26 @@ class Trainer:
                 if it % log_interval == 0 or it == num_iterations:
                     values = {k: float(v) for k, v in values.items()}  # synchronizes
                     dt = time.time() - t_last
-                    timer.tick(iters_since_log)
                     scalars = dict(values)
                     scalars["lr"] = float(self.lr_schedule(it - 1))
                     scalars["rays_per_s"] = rays_per_iter * iters_since_log / max(dt, 1e-9)
+                    # The step body's device spans: of the last graph replay,
+                    # or of the last step timed eagerly (tracing on), since
+                    # the last log.
+                    for name, ms in profiling.device_ms("step.", clear=True).items():
+                        scalars[f"device_ms/{name}"] = ms
                     self.logger.log_scalars(it, scalars)
                     t_last = time.time()
                     iters_since_log = 0
                 if val_interval and it % val_interval == 0:
-                    self.run_validation(it)
+                    with profiling.span("train.validate"):
+                        self.run_validation(it)
                 if it % save_interval == 0 or it == num_iterations:
-                    self.save_checkpoint(it)
+                    with profiling.span("train.save"):
+                        self.save_checkpoint(it)
         finally:
             if prof_ctx is not None:  # the run ended inside the trace window
                 prof_ctx.__exit__(None, None, None)
-        if timer.stats():
-            timer.dump(self.output_dir / "logs/step_timing.json")
         return values
 
     def save_checkpoint(self, iteration: int):
@@ -609,9 +627,10 @@ def render_in_chunks(eval_step, params, ray_batch: dict, chunk: int) -> dict:
             k: torch.cat([v, v[-1:].expand(padded - nr, *v.shape[1:])]) for k, v in rays.items()
         }
     parts: dict = {}
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("frame.chunks"):
         for i in range(num_chunks):
             chunk_rays = {k: v[i * chunk : (i + 1) * chunk] for k, v in rays.items()}
             for k, v in eval_step(params, chunk_rays).items():
                 parts.setdefault(k, []).append(v)
-    return {k: torch.cat(v)[:nr] for k, v in parts.items()}
+    with profiling.span("frame.join", device=rays["rays_o"].device):
+        return {k: torch.cat(v)[:nr] for k, v in parts.items()}

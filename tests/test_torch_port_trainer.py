@@ -22,6 +22,7 @@ absolute floors at the same scale.
 """
 
 import copy
+import json
 
 import jax
 import numpy as np
@@ -222,11 +223,17 @@ def test_start_training_then_testing_on_cpu(tmp_path):
                                         consistency_start_iter=2)
     cfg["log_interval"] = 2
     cfg["model"]["fused_mlp"] = "on"
+    cfg["profiling"] = {"start_iter": 2, "num_iters": 2}
     run = runner.start_training(cfg, tmp_path / "db", tmp_path / "runs", device="cpu")
     scene = run / "blobs"
     rows = (scene / "logs/scalars.jsonl").read_text().splitlines()
     assert len(rows) == 2 and (scene / "saved_models/Model_Iter000004.msgpack").exists()
-    assert (scene / "logs/step_timing.json").exists()
+    # The step body's device spans of the traced steps (2-3), logged at 4 alone.
+    step_ms = [{k: v for k, v in json.loads(r).items() if k.startswith("device_ms/")} for r in rows]
+    assert step_ms[0] == {}
+    assert set(step_ms[1]) == {f"device_ms/step.{n}" for n in ("forward", "losses", "backward",
+                                                                "adam")}
+    assert all(v > 0 for v in step_ms[1].values())
     # A finished scene is skipped on a second call.
     runner.start_training(cfg, tmp_path / "db", tmp_path / "runs", device="cpu")
     assert len((scene / "logs/scalars.jsonl").read_text().splitlines()) == 2

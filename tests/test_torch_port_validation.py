@@ -7,7 +7,8 @@
   samples/, frames within one 8-bit step, depths, variances and loss maps
   at 1e-4 (of their scale, where it passes 1), the validation scalars at
   1e-4 relative;
-- a `profiling` window writes a torch.profiler trace and step_timing.json;
+- a `profiling` window writes a torch.profiler trace with the port's spans,
+  and the step body's device ms at the next log;
 - the logger's TensorBoard events and plots.
 
 Tolerances: both sides run the same float32 arithmetic in another order
@@ -175,10 +176,14 @@ def test_profiling_window_writes_trace_and_timing(tmp_path):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
-    timing = json.loads((tmp_path / "run/logs/step_timing.json").read_text())
-    assert timing["steps_per_s"] > 0
-    rows = (tmp_path / "run/logs/scalars.jsonl").read_text().splitlines()
-    assert [json.loads(r)["iter"] for r in rows] == [3, 6]
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    steps = ("step.forward", "step.losses", "step.backward", "step.adam")
+    for name in ("train.stage", "train.stage.indices", "train.stage.draws") + steps:
+        assert spans.count(name) == 2, name  # the window's two steps
+    rows = [json.loads(r) for r in (tmp_path / "run/logs/scalars.jsonl").read_text().splitlines()]
+    assert [r["iter"] for r in rows] == [3, 6]
+    # The traced steps 2 and 3 are logged at 3 and at 6.
+    assert all(r[f"device_ms/{n}"] > 0 for r in rows for n in steps)
 
 
 def test_logger_writes_tensorboard_events_and_plots(tmp_path):
