@@ -110,7 +110,11 @@ without a result):
      rays x 64 / 192 samples for the 756x1008 frame, one test frame's
      chunk, and a 41,152-ray chunk), held against its plain version; at the
      64k shapes it is also timed with CUDA events after warm-up, beside the
-     plain version and the card's bound;
+     plain version and the card's bound; then the PE operand pass
+     (`fused_mlp.pe_operands`) against its plain version bit for bit, in
+     bf16 and float32, at the render's chunks (64k rays x 64 / 192, lo
+     only), the training step's shapes (4096 x 64 / 192, lo and hi) and a
+     ragged count, timed beside the plain version and its byte bound;
   11. timing: each kernel at the training step's shapes, in bf16 and in
      float32 (CUDA events after warm-up), beside its plain version and its
      bound (float32: 3 x FLOP at the TF32 peak, the FMA bound beside it),
@@ -129,6 +133,9 @@ without a result):
      replays must run each kernel of ops/csrc as often per step as the
      loop), peak device memory allocated and reserved, and the capture's
      time; one float32 756x1008 frame through `Tester.predict_frame`.
+Every phase that counts launches also holds the PE operand pass's to one
+for each fused forward of the run, and "the plain versions" swap out the
+PE operand pass with the MLP kernels.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON (`launches` from the 40-step training run,
 `launches_parallel` from phase 6, summed over its ranks of (b) and (c),
@@ -155,7 +162,11 @@ weight_yardstick_f32). A
 forward's `time` line also counts the weight bytes its producer issues
 per launch (blocks x the packed slab image), and a backward's the stash
 bytes its weight pass's producers issue: counts, not readings of the
-card's traffic.
+card's traffic. The PE operand pass's row, field_pe, has the same launch
+counts (launches_serve too), the elements that differ from its plain
+version (differ), ms, plain_ms, bound_ms and bound_share at the render's
+fine bf16 chunk, its ptxas by type and every checked shape's readings
+(shapes).
 """
 
 from __future__ import annotations
@@ -617,20 +628,33 @@ def check_train_kernels() -> dict:
 
 @contextlib.contextmanager
 def plain_versions():
-    """The four kernels' plain versions in place of their launches."""
+    """The kernels' plain versions in place of their launches: the four MLP
+    kernels' and the PE operand pass's."""
     import torch
 
     from simplenerf_torch.ops import fused_mlp as fm
 
-    saved = (fm._fwd, fm.fused_bwd, fm._ens_fwd, fm.fused_ens_bwd)
+    saved = (fm._fwd, fm.fused_bwd, fm._ens_fwd, fm.fused_ens_bwd, fm.pe_operands)
     fm._fwd = lambda *a: torch.stack(fm.fused_apply_reference(*a))
     fm.fused_bwd = fm.fused_bwd_reference
     fm._ens_fwd = lambda *a: torch.stack(fm.fused_apply_ensemble_reference(*a))
     fm.fused_ens_bwd = fm.fused_ens_bwd_reference
+    fm.pe_operands = fm.pe_operands_reference
     try:
         yield
     finally:
-        fm._fwd, fm.fused_bwd, fm._ens_fwd, fm.fused_ens_bwd = saved
+        fm._fwd, fm.fused_bwd, fm._ens_fwd, fm.fused_ens_bwd, fm.pe_operands = saved
+
+
+def mlp_launches(label: str, launches: dict) -> dict:
+    """The MLP kernels' launches of `launches` (by wrapper name), once the PE
+    operand pass's are held to one for each fused forward of the same run
+    (fused_apply's and fused_apply_ensemble's)."""
+    rest = {k: n for k, n in launches.items() if k != "pe_operands"}
+    forwards = rest.get("fused_apply", 0) + rest.get("fused_apply_ensemble", 0)
+    if launches["pe_operands"] != forwards:
+        fail(f"{label}: {launches['pe_operands']} PE operand launches for {forwards} fused forwards")
+    return rest
 
 
 def train_config(**overrides) -> dict:
@@ -643,6 +667,13 @@ def train_config(**overrides) -> dict:
     cfg = presets.simplenerf_config(**kw)
     cfg["log_interval"] = 10
     return cfg
+
+
+def loss_keys(row: dict) -> list:
+    """The loss values' keys of a training log row: neither its bookkeeping
+    (iter, time, lr, rays_per_s) nor the step's device spans (device_ms/...)."""
+    return [k for k in row
+            if k not in ("iter", "time", "lr", "rays_per_s") and not k.startswith("device_ms/")]
 
 
 def train(work: Path, db: Path) -> dict:
@@ -659,7 +690,7 @@ def train(work: Path, db: Path) -> dict:
     cfg["steps_per_call"] = TRAIN_CHUNK
     steps = cfg["num_iterations"]
     counters = (fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd, fused_mlp.fused_apply,
-                fused_mlp.fused_bwd)
+                fused_mlp.fused_bwd, fused_mlp.pe_operands)
     # The main path: counters at 0 just before, read just after.
     for f in counters:
         f.launches = 0
@@ -671,13 +702,13 @@ def train(work: Path, db: Path) -> dict:
     print(f"train: start_training, {steps} steps of the published bf16 recipe in chunks of "
           f"{TRAIN_CHUNK} in {t_train:.1f} s incl. set-up and capture; launches {launches}",
           flush=True)
-    if any(n != steps for n in launches.values()):
+    if any(n != steps for n in mlp_launches("train", launches).values()):
         fail(f"expected {steps} launches of each kernel, got {launches}")
     scene = run_dir / "blobs"
     if not (scene / f"saved_models/Model_Iter{steps:06}.msgpack").exists():
         fail("no checkpoint after training")
     rows = [json.loads(line) for line in (scene / "logs/scalars.jsonl").read_text().splitlines()]
-    losses = [k for k in rows[-1] if k not in ("iter", "time", "lr", "rays_per_s")]
+    losses = loss_keys(rows[-1])
     for r in rows:
         print("train: " + ", ".join(f"{k} {r[k]:.4g}" for k in ["iter"] + losses), flush=True)
     if len(losses) != 10 or not all(np.isfinite(r[k]) for r in rows for k in losses):
@@ -1149,8 +1180,8 @@ def profile_steps(trainer, start: int, steps: int, graph: bool = False) -> dict:
                 trainer.train_one_iter(it)
         torch.cuda.synchronize()
     kernels: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    for e in prof.events():  # the spans' device ranges are no kernels
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             row = kernels.setdefault(e.name, [0.0, 0])
             row[0] += e.time_range.elapsed_us() / 1e3 / steps
             row[1] += 1
@@ -1323,7 +1354,7 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
     print(f"serve: scene + checkpoint set up in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # The main path: counters at 0 just before, read just after.
-    fused_mlp.fused_apply.launches = 0
+    fused_mlp.fused_apply.launches = fused_mlp.pe_operands.launches = 0
     t0 = time.perf_counter()
     if runner.start_testing({"train_num": 0, "test_num": 0}, db, runs, run_qa=False) != {}:
         fail("start_testing without QA returned scores")
@@ -1356,6 +1387,8 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     frame_launches = fused_mlp.fused_apply.launches - before
     launches = fused_mlp.fused_apply.launches
+    pe_launches = fused_mlp.pe_operands.launches
+    mlp_launches("serve", {"fused_apply": launches, "pe_operands": pe_launches})
     chunks = -(-(H * W) // CHUNK_RAYS)
     if frame_launches != 2 * chunks:
         fail(f"the {H}x{W} request made {frame_launches} kernel launches, expected {2 * chunks}")
@@ -1378,7 +1411,7 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
           + ", ".join(f"{k} {v:.3e}" for k, v in crop_err.items()) + f" (tol {CROP_TOL:g})", flush=True)
     if not max(crop_err.values()) <= CROP_TOL:
         fail("the served crop disagrees with the plain path")
-    return {"launches": launches, "frame_s": t_frame, "test_s": t_test,
+    return {"launches": launches, "pe_launches": pe_launches, "frame_s": t_frame, "test_s": t_test,
             "frames": len(frames), "crop_err": crop_err}
 
 
@@ -1524,7 +1557,7 @@ def parallel(work: Path, card: str, device: str = "cuda") -> dict:
               f"{r['s_per_step']:.4f} s per step, launches {r['launches']}", flush=True)
         if not (r["grad_err"] <= tol and r["loss_err"] <= tol):
             fail(f"parallel {label} disagrees with the one-process run")
-        if any(n != PAR_STEPS for n in r["launches"].values()):
+        if any(n != PAR_STEPS for n in mlp_launches(f"parallel {label}", r["launches"]).values()):
             fail(f"parallel {label}: expected {PAR_STEPS} launches of each kernel, got {r['launches']}")
     launches = {k: readings["b"]["launches"][k] + sum(r["launches"][k] for r in readings["c"])
                 for k in readings["b"]["launches"]}
@@ -1649,7 +1682,7 @@ def pipeline(work: Path, card: str, h: int = 189, w: int = 252) -> dict:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     counters = (fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd, fused_mlp.fused_apply,
-                fused_mlp.fused_bwd)
+                fused_mlp.fused_bwd, fused_mlp.pe_operands)
     with timed_calls(Trainer, "run_validation") as val_log, \
             timed_calls(QARunner, "run") as qa_log, \
             timed_calls(runner, "start_training") as train_log, \
@@ -1669,6 +1702,7 @@ def pipeline(work: Path, card: str, h: int = 189, w: int = 252) -> dict:
           f"QA scores {scores}", flush=True)
     if not all(launches.values()):
         fail(f"a kernel of the path was not launched: {launches}")
+    mlp_launches("pipeline", launches)
 
     # Validation: two rounds over 3 train + 1 validation frames, one chunk each.
     run_num = llff.VIEWS_TO_SET[2][1]
@@ -1842,7 +1876,7 @@ def realestate(work: Path, card: str) -> dict:
     train_cfg, test_cfg = re_driver.build_configs(3, [0], RE_STEPS, "bfloat16", 0)
     train_cfg["log_interval"] = 10
     counters = (fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd, fused_mlp.fused_apply,
-                fused_mlp.fused_bwd)
+                fused_mlp.fused_bwd, fused_mlp.pe_operands)
     with timed_calls(QARunner, "run") as qa_log, \
             timed_calls(runner, "start_training") as train_log, \
             timed_calls(runner, "start_testing") as test_log, \
@@ -1856,7 +1890,8 @@ def realestate(work: Path, card: str) -> dict:
         t_run = time.perf_counter() - t0
         launches = {f.__name__: f.launches for f in counters}
     eval_launches = {"test": test_log[0]["fwd_launches"], "video": video_log[0]["fwd_launches"]}
-    train_launches = {**launches, "fused_apply": launches["fused_apply"] - sum(eval_launches.values())}
+    train_launches = {**mlp_launches("realestate", launches),
+                      "fused_apply": launches["fused_apply"] - sum(eval_launches.values())}
     print(f"realestate: realestate.run in {t_run:.1f} s (start_training {train_log[0]['s']:.1f} s, "
           f"start_testing {test_log[0]['s']:.1f} s, video {video_log[0]['s']:.1f} s); training "
           f"launches {train_launches}, forward launches in testing and the video {eval_launches}; "
@@ -1873,7 +1908,7 @@ def realestate(work: Path, card: str) -> dict:
     if not np.allclose(mc["bounds"], np.array([1.0, 100.0]) / 0.75):
         fail(f"RealEstate10K bounds {mc['bounds']}, expected [1, 100] / 0.75")
     rows = [json.loads(r) for r in (scene / "logs/scalars.jsonl").read_text().splitlines()]
-    losses = {k: r[k] for r in rows for k in r if k not in ("iter", "time", "lr", "rays_per_s")}
+    losses = {k: r[k] for r in rows for k in loss_keys(r)}
     if len(losses) != 10 or not all(math.isfinite(v) for v in losses.values()):
         fail(f"RealEstate10K training losses missing or not finite: {losses}")
     test_dir = runs / f"testing/test{run_num:04}"
@@ -1992,7 +2027,7 @@ def priors(work: Path, card: str) -> dict:
           f"prior masks written in {t_setup:.1f} s", flush=True)
 
     counters = (fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd, fused_mlp.fused_apply,
-                fused_mlp.fused_bwd)
+                fused_mlp.fused_bwd, fused_mlp.pe_operands)
     with timed_calls(Trainer, "run_validation") as val_log, \
             recorded(fused_mlp, "_launch_fwd",
                      lambda a, _: tuple(m.out_v for m in getattr(a[0], "members", (a[0],)))) as widths, \
@@ -2008,7 +2043,8 @@ def priors(work: Path, card: str) -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         launches = {f.__name__: f.launches for f in counters}
     val_launches = sum(c["fwd_launches"] for c in val_log)
-    train_launches = {**launches, "fused_apply": launches["fused_apply"] - val_launches}
+    train_launches = {**mlp_launches("priors", launches),
+                      "fused_apply": launches["fused_apply"] - val_launches}
     print(f"priors: start_training, {PRIORS_STEPS} steps with visibility heads and the prior losses "
           f"in {t_train:.1f} s incl. set-up (validation {val_log[0]['s']:.2f} s); training launches "
           f"{train_launches}, {val_launches} forward launches in validation; views head widths the "
@@ -2135,6 +2171,63 @@ def chunk_kernels(test_rays: int) -> dict:
     return out
 
 
+PE_DEGREE = 10
+PE_SHAPES = (  # name, rays, samples, sigma-PE degree (ds < PE_DEGREE: hi too)
+    ("render coarse", CHUNK_RAYS, COARSE_NS, PE_DEGREE), ("render fine", CHUNK_RAYS, FINE_NS, PE_DEGREE),
+    ("step trio", STEP_RAYS, COARSE_NS, 3), ("step fine", STEP_RAYS, FINE_NS, 3),
+    ("ragged", 1037, COARSE_NS, 3))
+
+
+def pe_kernel() -> dict:
+    """The PE operand pass (`fused_mlp.pe_operands`, csrc/field_pe.cu) on
+    seeded points against its plain version, bit for bit, in bf16 and
+    float32 at degree 10: the render's chunks (lo only), the training
+    step's shapes with the sigma-PE split at 3 (lo and hi) and a ragged
+    count (not a multiple of the kernel's 128-point tile). Each but the
+    ragged one timed with CUDA events after warm-up, beside the plain
+    version and the bytes the pass must move (xyz read, lo and hi written
+    once) at HBM's rate."""
+    import torch
+
+    from simplenerf_torch.ops import fused_mlp
+
+    saved = fused_mlp.pe_operands.launches
+    out: dict = {"differ": 0}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = dname_of(dtype)
+        for name, nr, ns, ds in PE_SHAPES:
+            g = torch.Generator(device="cuda").manual_seed(nr * ns + ds)
+            pts = 1.5 * torch.randn((nr * ns, 3), generator=g, device="cuda")
+            got = fused_mlp.pe_operands(pts, PE_DEGREE, ds, dtype)
+            want = fused_mlp.pe_operands_reference(pts, PE_DEGREE, ds, dtype)
+            if (got[1] is None) != (want[1] is None) or any(
+                    b is not None and (a.shape != b.shape or a.dtype != dtype or not a.is_contiguous())
+                    for a, b in zip(got, want)):
+                fail(f"PE operands {name} {dname}: shapes or layout differ from the plain version")
+            differ = sum(int((a != b).sum()) for a, b in zip(got, want) if b is not None)
+            out["differ"] += differ
+            row = {"points": nr * ns, "differ": differ}
+            if name != "ragged":
+                nbytes = pts.numel() * 4 + sum(a.numel() * a.element_size() for a in got if a is not None)
+                row.update(
+                    ms=cuda_time_ms(lambda: fused_mlp.pe_operands(pts, PE_DEGREE, ds, dtype), iters=20),
+                    plain_ms=cuda_time_ms(
+                        lambda: fused_mlp.pe_operands_reference(pts, PE_DEGREE, ds, dtype), iters=3),
+                    bound_ms=1e3 * nbytes / PEAK_BYTES, gb=nbytes / 1e9)
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+            out[f"{name} {dname}"] = row
+            print(f"{'time' if 'ms' in row else 'check'} field_pe_kernel {name} ({nr} rays x {ns}, "
+                  f"d {PE_DEGREE}, ds {ds}, {dname}): {differ} elements differ from the plain version"
+                  + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                     f"{row['bound_ms']:.4f} ms ({row['gb']:.3f} GB)" if "ms" in row else ""), flush=True)
+            del pts, got, want
+        torch.cuda.empty_cache()
+    fused_mlp.pe_operands.launches = saved  # these launches are not the main path's
+    if out["differ"]:
+        fail(f"the PE operand pass differs from its plain version in {out['differ']} elements")
+    return out
+
+
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fused_mlp_fwd": ("simplenerf_torch/ops/csrc/fused_mlp_fwd.cu",
                       "simplenerf_tpu/ops/fused_mlp.py:448"),
@@ -2204,6 +2297,7 @@ def main() -> int:
         step_err = {d: step_gradients(work / "db", d)["worst"] for d in ("float32", "bfloat16")}
         torch.cuda.empty_cache()
         timing = chunk_kernels(test_rays=min(CHUNK_RAYS, -(-(h * w) // 256) * 256))
+        pe = pe_kernel()
         train_timing = time_train_kernels()
         train_timing_f32 = time_train_kernels(torch.float32)
         step = step_time(work / "db")
@@ -2283,6 +2377,24 @@ def main() -> int:
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms", "ms_f32",
                                                     "plain_ms_f32", "bound_ms_f32")):
             fail(f"non-finite timing for {name}")
+    fine_pe = pe["render fine bfloat16"]
+    kernels.append({
+        "name": "field_pe", "route": "cuda", "source": "simplenerf_torch/ops/csrc/field_pe.cu",
+        "replaces": None,  # the JAX package's jnp PE (fields/mlp.py _trunk_inputs), left to XLA
+        "launches": trained["launches"]["pe_operands"], "launches_serve": served["pe_launches"],
+        "launches_pipeline": piped["launches"]["pe_operands"],
+        "launches_realestate": re10k["launches"]["pe_operands"],
+        "launches_priors": prior["launches"]["pe_operands"],
+        "launches_parallel": par["launches"]["pe_operands"],
+        "differ": pe["differ"], "err_measure": "lo and hi: elements that differ from the plain version",
+        **{k: fine_pe[k] for k in ("ms", "plain_ms", "bound_ms", "bound_share")},
+        "bound_by": "bytes", "library_ms": None, "shape": [CHUNK_RAYS, FINE_NS],
+        "ptxas": {d: ptxas.get(f"field_pe_kernel {d}") for d in ("bf16", "f32")},
+        "shapes": {k: v for k, v in pe.items() if k != "differ"},
+    })
+    for k in ("ms", "plain_ms", "bound_ms"):
+        if not all(math.isfinite(r[k]) for r in kernels[-1]["shapes"].values() if k in r):
+            fail(f"non-finite timing for field_pe: {k}")
     print(json.dumps({"parallel": par}), flush=True)
     print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"realestate": re10k}), flush=True)

@@ -333,7 +333,7 @@ def fused_operands(params: Params, cfg: MLPConfig, pts, view_dirs, ns: int, dtyp
 
     spec = fused_mlp.make_spec(cfg, ns, dtype)
     hvx = _hvx(params, cfg, view_dirs, dtype) if spec.has_hvx else None
-    lo, hi = _trunk_inputs(cfg, pts, spec.cdtype)
+    lo, hi = fused_mlp.pe_operands(pts, cfg.points_pe_degree, cfg.sigma_pe_degree, spec.cdtype)
     return spec, fused_mlp.kernel_params(params, cfg), lo, hi, hvx
 
 
@@ -360,10 +360,8 @@ def ensemble_operands(members: list, pts, view_dirs, ns: int, dtype) -> tuple:
     hvxs = tuple(
         _hvx(p, c, view_dirs, dtype) for (p, c), m in zip(members, ens.members) if m.has_hvx
     )
-    x, s, c = encoding.encode_parts(pts, d_max)
-    cd = ens.cdtype
-    lo = x.to(cd) if s is None else torch.cat([x.to(cd), s.to(cd), c.to(cd)], dim=-1)
-    return ens, kps, lo.contiguous(), hvxs
+    lo, _ = fused_mlp.pe_operands(pts, d_max, d_max, ens.cdtype)
+    return ens, kps, lo, hvxs
 
 
 def apply_fused_ensemble(
@@ -396,27 +394,6 @@ def apply_fused_ensemble(
         outs.append(_fused_epilogue(cfg, m.out_p, planes[pos : pos + m.n_planes], noise_std, noise))
         pos += m.n_planes
     return outs
-
-
-def _trunk_inputs(cfg: MLPConfig, pts: torch.Tensor, cdtype):
-    """Blocked PE for the fused kernel: (lo, hi | None), both at cdtype.
-
-    lo = [x | sin f<ds | cos f<ds] (N, 3+6ds); hi = [sin f>=ds | cos f>=ds]
-    (N, 6(d-ds)) when the sigma-PE split routes high-frequency channels to
-    the views branch.
-    """
-    x, s, c = encoding.encode_parts(pts, cfg.points_pe_degree)
-    x = x.to(cdtype)
-    if cfg.points_pe_degree == 0:
-        return x.contiguous(), None
-    ds, d = cfg.sigma_pe_degree, cfg.points_pe_degree
-    lo = torch.cat([x, s[:, : 3 * ds].to(cdtype), c[:, : 3 * ds].to(cdtype)], dim=-1)
-    hi = None
-    if cfg.extra_views_dim:
-        hi = torch.cat(
-            [s[:, 3 * ds : 3 * d].to(cdtype), c[:, 3 * ds : 3 * d].to(cdtype)], dim=-1
-        )
-    return lo, hi
 
 
 def _fused_epilogue(cfg: MLPConfig, out_p: int, planes, noise_std, noise) -> dict:

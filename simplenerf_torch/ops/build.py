@@ -43,6 +43,9 @@ _SIGNATURES = {
         "snerf_wgrad": [_I, _P, _P, _I, _P] + [_I] * 5 + [_P, _P, _I, _P, _P],
         "snerf_colsum": [_P, _P] + [_I] * 4 + [_P, _P],
     },
+    "field_pe": {
+        "snerf_field_pe": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+    },
 }
 LIBRARIES = tuple(_SIGNATURES)
 

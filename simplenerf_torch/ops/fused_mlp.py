@@ -51,7 +51,9 @@ kernel (or raises) for CUDA tensors, and counts its launches:
 weight pass and the column sums alone, `wgrad.launches` and
 `column_sums.launches`, and `tf32_split.launches`, the float32 weight
 images' split, which every float32 launch makes; all of them:
-`launch_counts`). Under autograd
+`launch_counts`). `pe_operands` builds the kernels' positional-encoding
+operands lo and hi in one pass (csrc/field_pe.cu, replacing no TPU kernel;
+`pe_operands.launches`, one a fused field call). Under autograd
 `fused_apply` and `fused_apply_ensemble` differentiate through the
 backward wrappers; the points carry no gradient.
 """
@@ -1730,6 +1732,61 @@ column_sums.launches = 0
 tf32_split.launches = 0
 
 
+def pe_operands_reference(pts, d: int, ds: int, cdtype) -> tuple:
+    """Plain version of `pe_operands`: the float32 positional encoding,
+    cast to cdtype and concatenated."""
+    x, s, c = encoding.encode_parts(pts, d)
+    x = x.to(cdtype)
+    if d == 0:
+        return x.contiguous(), None
+    lo = torch.cat([x, s[:, : 3 * ds].to(cdtype), c[:, : 3 * ds].to(cdtype)], dim=-1)
+    hi = None
+    if ds < d:
+        hi = torch.cat([s[:, 3 * ds : 3 * d].to(cdtype), c[:, 3 * ds : 3 * d].to(cdtype)], dim=-1)
+    return lo, hi
+
+
+def pe_operands(pts: torch.Tensor, d: int, ds: int, cdtype) -> tuple:
+    """The fused kernels' blocked PE operands of points pts (N, 3) float32:
+    (lo, hi or None) at cdtype.
+
+    lo = [x | sin f<ds | cos f<ds] (N, 3+6ds); hi = [sin f>=ds | cos f>=ds]
+    (N, 6(d-ds)), the high-frequency views-branch extra, where ds < d. An
+    ensemble's shared block is ds = d. CPU tensors take the plain version
+    (`pe_operands_reference`); CUDA tensors launch the kernel
+    (csrc/field_pe.cu `snerf_field_pe`, the same numbers bit for bit) or
+    raise.
+    """
+    if pts.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pe_operands runs on CPU or CUDA tensors, got {pts.device}")
+    if pts.dtype != torch.float32 or pts.dim() != 2 or pts.shape[1] != 3:
+        raise ValueError(f"pts: expected (N, 3) float32, got {tuple(pts.shape)} {pts.dtype}")
+    if not pts.is_contiguous():
+        raise ValueError("pts must be contiguous")
+    if not 0 <= ds <= d:
+        raise ValueError(f"PE degrees: expected 0 <= ds <= d, got d={d}, ds={ds}")
+    if cdtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got {cdtype}")
+    if pts.device.type == "cpu":
+        return pe_operands_reference(pts, d, ds, cdtype)
+    from simplenerf_torch.ops import build
+
+    n = pts.shape[0]
+    lo = torch.empty((n, 3 + 6 * ds), dtype=cdtype, device=pts.device)
+    hi = torch.empty((n, 6 * (d - ds)), dtype=cdtype, device=pts.device) if ds < d else None
+    rc = build.load_library("field_pe").snerf_field_pe(
+        _ptr(pts), _ptr(lo), _ptr(hi), n, d, ds, 1 if cdtype == torch.bfloat16 else 0,
+        _stream(pts.device))
+    if rc != 0:
+        raise RuntimeError(f"snerf_field_pe kernel launch failed: CUDA error {rc}")
+    if n:
+        pe_operands.launches += 1
+    return lo, hi
+
+
+pe_operands.launches = 0
+
+
 def _stacked_cotangents(n_planes: int, d_planes, nr: int, ns: int, device) -> torch.Tensor:
     if isinstance(d_planes, torch.Tensor):
         return d_planes.float().reshape(n_planes, nr, ns).contiguous()
@@ -1906,7 +1963,7 @@ fused_ens_bwd.launches = 0
 
 
 _COUNTED = (fused_apply, fused_bwd, fused_apply_ensemble, fused_ens_bwd, wgrad, column_sums,
-            tf32_split)
+            tf32_split, pe_operands)
 
 
 def launch_counts() -> dict:

@@ -28,6 +28,10 @@ float32 plain version's; test_backward_kernel_matches_plain holds float32
 against the plain version in float64, since at its few thousand rows the
 float32 plain version's own ReLU flips exceed GRAD_TOL.
 
+The PE operand pass (`fused_mlp.pe_operands`) equals its plain version,
+the float32 sin / cos / cast / cat chain, bit for bit: the same exact
+product, the same accurate sin and cos, the same rounding to bfloat16.
+
 Training steps as one CUDA graph (`Trainer.train_many`, tiny preset with
 draws on, f32 and bf16): K replayed steps against K loop steps, a resumed
 graph run against an uninterrupted one and a recapture after `set_params`
@@ -347,6 +351,95 @@ def test_tf32_split_matches_plain(cuda_device, chunks):
     torch.cuda.synchronize()
     assert fused_mlp.tf32_split.launches == before + 1
     assert torch.equal(got.cpu(), fused_mlp.tf32_split(image.cpu()))
+
+
+def _pe_points(n: int, device, seed: int = 0) -> torch.Tensor:
+    """Points as the renderer makes them (NDC-like, a few units at most)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return 1.5 * torch.randn((n, 3), generator=g, device=device)
+
+
+def _pe_equal(name: str, got, want) -> None:
+    assert got.dtype == want.dtype and got.shape == want.shape and got.is_contiguous()
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    differ = int((got.view(bits) != want.view(bits)).sum())
+    print(f"pe {name}: {differ} of {want.numel()} elements differ")
+    assert differ == 0
+
+
+PE_CASES = {
+    # the render chunk shapes (coarse 64, fine 192 samples), a ragged last chunk
+    "render_coarse": (65_536 * 64, 10, 10),
+    "render_fine": (65_536 * 192, 10, 10),
+    "render_ragged": (47_872 * 192, 10, 10),
+    "not_whole_tiles": (1037, 10, 10),
+    # the step's trio block and fine shapes with the points-augmentation hi
+    "trio_hi": (4096 * 64, 10, 3),
+    "fine_hi": (4096 * 192, 10, 3),
+    "small_hi": (37, 10, 3),
+    "views_degree": (1037, 4, 4),
+    "no_octaves": (1037, 0, 0),
+}
+
+
+@pytest.mark.parametrize(**DTYPES)
+@pytest.mark.parametrize("case", list(PE_CASES))
+def test_pe_operands_kernel_matches_plain_to_the_bit(cuda_device, case, dtype):
+    """lo and hi from the one-pass kernel equal the float32 sin / cos /
+    cast / cat chain on the card bit for bit, and the launch is counted."""
+    n, d, ds = PE_CASES[case]
+    pts = _pe_points(n, cuda_device, seed=n)
+    before = fused_mlp.pe_operands.launches
+    lo, hi = fused_mlp.pe_operands(pts, d, ds, dtype)
+    torch.cuda.synchronize()
+    assert fused_mlp.pe_operands.launches == before + 1
+    want_lo, want_hi = fused_mlp.pe_operands_reference(pts, d, ds, dtype)
+    _pe_equal(f"{case} {dtype} lo", lo, want_lo)
+    if ds < d:
+        _pe_equal(f"{case} {dtype} hi", hi, want_hi)
+    else:
+        assert hi is None
+
+
+@pytest.mark.parametrize(**DTYPES)
+def test_pe_operands_graph_replay_equals_eager(cuda_device, dtype):
+    """A captured-and-replayed launch writes the eager call's bytes, and the
+    capture counts its launch."""
+    pts = _pe_points(4096 * 64 + 5, cuda_device, seed=11)
+    eager_lo, eager_hi = fused_mlp.pe_operands(pts, 10, 3, dtype)
+    static = pts.clone()
+    static.zero_()
+    torch.cuda.synchronize()
+    before = fused_mlp.pe_operands.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        lo, hi = fused_mlp.pe_operands(static, 10, 3, dtype)
+    assert fused_mlp.pe_operands.launches == before + 1
+    static.copy_(pts)
+    graph.replay()
+    torch.cuda.synchronize()
+    _pe_equal(f"graph {dtype} lo", lo, eager_lo)
+    _pe_equal(f"graph {dtype} hi", hi, eager_hi)
+
+
+def test_pe_operands_count_one_launch_per_fused_field_call(cuda_device):
+    """Each fused field call, single or ensemble, builds its PE in one launch."""
+    cfg = mlp.MLPConfig(**{**SMALL, **CASES["points_aug"]})
+    g = torch.Generator().manual_seed(0)
+    params = mlp.init(g, cfg, device=cuda_device)
+    nr, ns = 37, 64
+    pts = _pe_points(nr * ns, cuda_device)
+    dirs = torch.nn.functional.normalize(_pe_points(nr, cuda_device, seed=1), dim=-1)
+    before = fused_mlp.launch_counts()
+    mlp.apply_fused(params, cfg, pts, view_dirs=dirs, view_dirs_tile=ns, dtype=torch.bfloat16)
+    members = [(mlp.init(g, c, device=cuda_device), c)
+               for c in (mlp.MLPConfig(**{**SMALL, **CASES[name]}) for name in TRIO)]
+    mlp.apply_fused_ensemble(members, pts, view_dirs=dirs, view_dirs_tile=ns, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    after = fused_mlp.launch_counts()
+    assert {k: after[k] - before[k] for k in ("pe_operands", "fused_apply",
+                                              "fused_apply_ensemble")} == {
+        "pe_operands": 2, "fused_apply": 1, "fused_apply_ensemble": 1}
 
 
 @pytest.mark.parametrize(**DTYPES)
@@ -722,6 +815,9 @@ def test_graph_replays_count_one_launch_of_each_kernel_per_step(cuda_device, gra
     assert {k: mid[k] - before[k] for k in COUNTED} == dict.fromkeys(COUNTED, 2)
     assert {k: after[k] - mid[k] for k in COUNTED} == dict.fromkeys(COUNTED, 5)
     assert after["wgrad"] == before["wgrad"] and after["column_sums"] == before["column_sums"]
+    # One PE launch a fused forward (the trio's and the fine MLP's), replays too.
+    forwards = {k: after[k] - before[k] for k in ("fused_apply", "fused_apply_ensemble")}
+    assert after["pe_operands"] - before["pe_operands"] == sum(forwards.values()) == 2 * 7
 
 
 def test_set_params_drops_the_graph(cuda_device, graph_scene, tmp_path):

@@ -121,3 +121,58 @@ def test_init_law_and_layout():
     bound = 1.0 / np.sqrt(w.shape[0])
     assert float(w.abs().max()) <= bound and float(w.abs().max()) > 0.9 * bound
     assert abs(float(w.mean())) < 0.1 * bound
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance of two same-signed float tensors in units in the
+    last place of their dtype (float32 or bfloat16)."""
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return (a.view(bits).long() - b.view(bits).long()).abs()
+
+
+@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,ds", [(10, 10), (10, 3), (4, 4), (0, 0)])
+def test_pe_operands_match_jax(d, ds, cdtype):
+    """The kernels' PE operands on the CPU (the plain version) against the
+    JAX package's `_trunk_inputs` on the same points: lo = [x | sin f<ds |
+    cos f<ds], hi = [sin f>=ds | cos f>=ds]. XLA's CPU sin and cos differ
+    from PyTorch's in the last bit of about one float32 element in twenty
+    (of one bfloat16 element in a million), so they are held to one ulp of
+    the compute type; to the port's reference encoding, in blocked order and
+    cast, they are equal."""
+    from simplenerf_torch.ops import fused_mlp
+
+    pts = np.random.default_rng(d + ds).standard_normal((37, 3)).astype(np.float32)
+    jdt = jnp.float32 if cdtype == torch.float32 else jnp.bfloat16
+    as_torch = lambda a: torch.from_numpy(np.array(a, np.float32)).to(cdtype)  # noqa: E731
+    want_lo, want_hi = jmlp._trunk_inputs(
+        jmlp.MLPConfig(points_pe_degree=d, points_sigma_pe_degree=ds), jnp.asarray(pts), jdt)
+    lo, hi = fused_mlp.pe_operands(torch.from_numpy(pts), d, ds, cdtype)
+    assert lo.dtype == cdtype and lo.is_contiguous() and lo.shape == want_lo.shape
+    assert int(_ulps(lo, as_torch(want_lo)).max()) <= 1
+    if ds < d:
+        assert hi.dtype == cdtype and hi.is_contiguous() and hi.shape == want_hi.shape
+        assert int(_ulps(hi, as_torch(want_hi)).max()) <= 1
+    else:
+        assert hi is None and want_hi is None
+    # The ensemble's shared block: the full degree, no hi.
+    full, none = fused_mlp.pe_operands(torch.from_numpy(pts), d, d, cdtype)
+    want_full, _ = jmlp._trunk_inputs(jmlp.MLPConfig(points_pe_degree=d), jnp.asarray(pts), jdt)
+    assert none is None and full.shape == want_full.shape
+    assert int(_ulps(full, as_torch(want_full)).max()) <= 1
+    blocked = encoding.encode(torch.from_numpy(pts), d)[:, encoding.blocked_to_reference_perm(d)]
+    assert torch.equal(full, blocked.to(cdtype))
+
+
+@pytest.mark.parametrize("pts", [
+    torch.zeros((8, 6))[:, ::2],
+    torch.zeros((8, 3), dtype=torch.float64),
+    torch.zeros((8, 2)),
+], ids=["strided", "float64", "two_coords"])
+def test_pe_operands_rejects_points_the_kernel_does_not_take(pts):
+    from simplenerf_torch.ops import fused_mlp
+
+    before = fused_mlp.launch_counts()["pe_operands"]
+    with pytest.raises(ValueError):
+        fused_mlp.pe_operands(pts, 10, 10, torch.bfloat16)
+    assert fused_mlp.launch_counts()["pe_operands"] == before

@@ -45,7 +45,7 @@ from simplenerf_torch.drivers import runner  # noqa: E402
 from simplenerf_torch.ops import fused_mlp  # noqa: E402
 from simplenerf_torch.training import trainer as trainer_lib  # noqa: E402
 
-COUNTERS = ("fused_apply_ensemble", "fused_ens_bwd", "fused_apply", "fused_bwd")
+COUNTERS = ("fused_apply_ensemble", "fused_ens_bwd", "fused_apply", "fused_bwd", "pe_operands")
 
 
 def record_trainer(rec: dict):
@@ -103,7 +103,8 @@ def main() -> int:
     run_dir = runner.start_training(cfg, args.db, out, mesh=mesh)
     (log,) = run_dir.glob("*/logs/scalars.jsonl")  # one scene
     rows = [r for r in map(json.loads, log.read_text().splitlines()) if "TotalLoss" in r]
-    names = [k for k in rows[0] if k not in ("iter", "time", "lr", "rays_per_s")]
+    names = [k for k in rows[0]  # the loss values: no bookkeeping, no device spans
+             if k not in ("iter", "time", "lr", "rays_per_s") and not k.startswith("device_ms/")]
     values = [[r[k] for k in names] for r in rows]
 
     if device.type == "cuda":
