@@ -28,7 +28,12 @@ without a result):
      weight pass alone (`fused_mlp.wgrad`) on seeded float32 slots of the
      step's fine and trio stash (every dW of each backward) against
      torch.matmul in float64, within YARDSTICK times the float32
-     torch.matmul's error;
+     torch.matmul's error; then ViP-NeRF's secondary views in the bf16
+     kernels (`secondary_kernels`: `fused_apply(sec=)`, the secondary
+     kernels alone and `fused_bwd(sec=, pre=)`) against their plain
+     versions at 4096 x 64 and 4096 x 192 with k = 2 and at 1037 x 64 with
+     k = 3, the secondary kernels timed at the step's shapes beside their
+     plain versions and their bounds;
   4. serve: a seeded synthetic scene (189x252, 6 frames, 3 for training),
      the published bf16 recipe with seeded random weights in a checkpoint,
      `runner.start_testing` over its test frames, then one 756x1008 request
@@ -166,7 +171,12 @@ card's traffic. The PE operand pass's row, field_pe, has the same launch
 counts (launches_serve too), the elements that differ from its plain
 version (differ), ms, plain_ms, bound_ms and bound_share at the render's
 fine bf16 chunk, its ptxas by type and every checked shape's readings
-(shapes).
+(shapes). The secondary kernels' rows, sec_fwd and sec_bwd, have the
+vipnerf phase's launches (launches_vipnerf, which the MLP kernels' rows
+carry too), the worst error of phase 3's checks (planes: max abs error;
+gradients: norm error), ms, plain_ms, bound_ms, bound_by and bound_share
+at the fine level of a ViP-NeRF step (4096 x 192, k = 2), the coarse
+level's beside them and their ptxas.
 """
 
 from __future__ import annotations
@@ -293,7 +303,8 @@ def kernel_label(entry: str) -> str:
         if entry[start:pos].endswith("_kernel"):
             rest = entry[pos:]
             return entry[start:pos] + (" bf16" if rest.startswith("I13__nv_bfloat16") else
-                                       " f32" if rest.startswith("If") else "")
+                                       " f32" if rest.startswith("If") else
+                                       " sec" if rest.startswith("ILb1E") else "")
     return entry
 
 
@@ -629,14 +640,14 @@ def check_train_kernels() -> dict:
 @contextlib.contextmanager
 def plain_versions():
     """The kernels' plain versions in place of their launches: the four MLP
-    kernels' and the PE operand pass's."""
+    kernels' (with the secondary views') and the PE operand pass's."""
     import torch
 
     from simplenerf_torch.ops import fused_mlp as fm
 
     saved = (fm._fwd, fm.fused_bwd, fm._ens_fwd, fm.fused_ens_bwd, fm.pe_operands)
-    fm._fwd = lambda *a: torch.stack(fm.fused_apply_reference(*a))
-    fm.fused_bwd = fm.fused_bwd_reference
+    fm._fwd = lambda *a: (torch.stack(fm.fused_apply_reference(*a)), None)
+    fm.fused_bwd = lambda *a, sec=None, pre=None: fm.fused_bwd_reference(*a, sec=sec)
     fm._ens_fwd = lambda *a: torch.stack(fm.fused_apply_ensemble_reference(*a))
     fm.fused_ens_bwd = fm.fused_ens_bwd_reference
     fm.pe_operands = fm.pe_operands_reference
@@ -2126,6 +2137,195 @@ def priors(work: Path, card: str) -> dict:
     return out
 
 
+VIP_STEPS = 20
+
+
+def vipnerf_config(**overrides) -> dict:
+    """ViP-NeRF (`presets.with_vip_prior`) on the published widths: the
+    recipe of train_config without its augmentations, VIP_STEPS steps in
+    graph chunks of TRAIN_CHUNK, no validation."""
+    from simplenerf_torch.drivers import presets
+
+    kw = {"num_iterations": VIP_STEPS, "with_augmentations": False, **overrides}
+    cfg = presets.with_vip_prior(train_config(**kw))
+    cfg.update(steps_per_call=TRAIN_CHUNK, validation_interval=0)
+    return cfg
+
+
+def vipnerf(work: Path, card: str) -> dict:
+    """ViP-NeRF trained through the graph (`train_many`) with its prior's
+    secondary views in the bf16 kernels: on a copy of the serve phase's
+    scene with visibility-prior masks written (VW02), `runner.start_training`
+    of vipnerf_config. Checks the launches (each level's fused forward and
+    backward and their secondary kernels once a step, no ensemble), that no
+    step calls `fields.mlp.apply_reference` (the unfused secondary path),
+    VisibilityPriorLoss01 above 0 at both levels, and one step's gradients
+    against the plain versions; returns the readings."""
+    import numpy as np
+    import torch
+
+    from simplenerf_torch.data import io
+    from simplenerf_torch.data.factory import get_data_loader
+    from simplenerf_torch.data.preprocessor import ScenePreprocessor
+    from simplenerf_torch.data.synthetic import write_scene_priors
+    from simplenerf_torch.drivers import runner
+    from simplenerf_torch.fields import mlp as mlp_lib
+    from simplenerf_torch.losses.visibility import make_visibility_prior_loss
+    from simplenerf_torch.ops import fused_mlp
+    from simplenerf_torch.render import renderer
+    from simplenerf_torch.training.trainer import Trainer
+
+    db, runs = work / "vipnerf/db", work / "vipnerf/runs"
+    shutil.copytree(work / "db", db)
+    scene_dir = db / "all/database_data/blobs"
+    extrinsics = np.loadtxt(scene_dir / "CameraExtrinsics.csv", delimiter=",").reshape(-1, 4, 4)
+    K = np.loadtxt(scene_dir / "CameraIntrinsics_down4.csv", delimiter=",").reshape(-1, 3, 3)[0]
+    cfg = vipnerf_config()
+    train_f = [int(f) for f in get_data_loader(cfg, db, "train").get_frame_nums()]
+    images = {f: io.read_image(scene_dir / f"rgb_down4/{f:04}.png") for f in train_f}
+    depths = {f: np.load(work / f"gt_depths/blobs/{f:04}.npy") for f in train_f}
+    write_scene_priors(db, "blobs", train_f, images, depths, extrinsics, K, masks_dirname="VW02")
+
+    counters = (fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd, fused_mlp.fused_apply,
+                fused_mlp.fused_bwd, fused_mlp.secondary_fwd, fused_mlp.secondary_bwd,
+                fused_mlp.pe_operands)
+    with recorded(mlp_lib, "apply_reference", lambda a, _: 1) as unfused:
+        for f in counters:
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_dir = runner.start_training(cfg, db, runs)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches = {f.__name__: f.launches for f in counters}
+    # Two levels a step: each level's PE of its points and of its secondary pairs.
+    want = {"fused_apply_ensemble": 0, "fused_ens_bwd": 0,
+            **dict.fromkeys(("fused_apply", "fused_bwd", "secondary_fwd", "secondary_bwd"), 2 * VIP_STEPS),
+            "pe_operands": 4 * VIP_STEPS}
+    print(f"vipnerf: start_training, {VIP_STEPS} steps in graph chunks of {TRAIN_CHUNK} in "
+          f"{t_train:.1f} s incl. set-up and capture; launches {launches}; {len(unfused)} "
+          f"apply_reference calls; peak device memory {peak_gb:.2f} GiB", flush=True)
+    if launches != want or unfused:
+        fail(f"vipnerf: launches {launches} (want {want}), {len(unfused)} unfused secondary calls")
+    rows = [json.loads(r) for r in (run_dir / "blobs/logs/scalars.jsonl").read_text().splitlines()]
+    train_rows = [r for r in rows if "rays_per_s" in r]
+    if not train_rows or not all(math.isfinite(r["VisibilityPriorLoss01"]) and r["VisibilityPriorLoss01"] > 0
+                                 for r in train_rows):
+        fail(f"VisibilityPriorLoss01 in training: {[r.get('VisibilityPriorLoss01') for r in rows]}")
+
+    # Each level's prior loss, from one step's outputs in train mode.
+    raw = get_data_loader(cfg, db, "train").load_data()
+    trainer = Trainer(dict(cfg, resume_training=False), work / "vipnerf/levels",
+                      ScenePreprocessor(cfg, "train", raw))
+    idx = trainer.train_pp.next_indices(0)
+    batch = trainer.batch(*idx)
+    with torch.no_grad():
+        out = renderer.render_rays(trainer.params, trainer.render_cfg, batch, train=True,
+                                   sec_views_vis=True, generator=trainer.step_generator(0))
+    _, maps = make_visibility_prior_loss()(batch, out, return_maps=True)
+    levels = {k: float(v.sum() / batch["indices_mask_nerf"].sum()) for k, v in maps.items()}
+    print(f"vipnerf: VisibilityPriorLoss01 by level {levels}", flush=True)
+    if sorted(levels) != ["VisibilityPriorLoss01_coarse", "VisibilityPriorLoss01_fine"] or \
+            not all(v > 0 for v in levels.values()):
+        fail(f"VisibilityPriorLoss01 by level: {levels}")
+    grads = step_gradients(db, "bfloat16", make_config=vipnerf_config, label=" (vipnerf)")
+    return {"train_s": t_train, "peak_gb": peak_gb, "launches": launches,
+            "apply_reference_calls": len(unfused),
+            "prior_losses": [r["VisibilityPriorLoss01"] for r in train_rows],
+            "prior_by_level": levels, "step_grad_err": grads, "card": card}
+
+
+SEC_VIEWS = 2  # a ViP-NeRF step's k: 3 train views
+SEC_SHAPES = (("coarse", STEP_RAYS, COARSE_NS, SEC_VIEWS), ("fine", STEP_RAYS, FINE_NS, SEC_VIEWS),
+              ("ragged", 1037, COARSE_NS, 3))
+
+
+def secondary_kernels() -> dict:
+    """ViP-NeRF's secondary views in the bf16 kernels against their plain
+    versions, on the published MLP with a visibility head and seeded
+    secondary directions: at the step's shapes (4096 x 64 and 4096 x 192,
+    k = 2) and a ragged row count (1037 x 64, k = 3). `fused_apply(sec=)`'s
+    head and k secondary planes (the forward engine's kPre instance and
+    sec_fwd_kernel), the secondary kernels alone on that forward's `pre`
+    (`secondary_fwd`'s k planes; `secondary_bwd`'s views-layer cotangent,
+    dwdir and the head row's dW and db) and `fused_bwd(sec=, pre=)` (the
+    row pass's kSec instance): every dW, db, dhvx and dwdir, at the
+    kernels' tolerances (KERNEL_TOL, GRAD_TOL). At the step's shapes each
+    secondary kernel is timed with CUDA events after warm-up, beside its
+    plain version and its bound: the pairs' work of
+    benchmark/counts_vipnerf.py (its op less `counts.py`'s) at the bf16
+    peak or HBM's rate. Launches made here are not the main path's."""
+    import torch
+
+    from benchmark import counts, counts_vipnerf, scene
+    from simplenerf_torch.drivers import presets
+    from simplenerf_torch.fields import mlp
+    from simplenerf_torch.ops import fused_mlp as fm
+
+    counters = (fm.fused_apply, fm.fused_bwd, fm.secondary_fwd, fm.secondary_bwd)
+    saved = {f: f.launches for f in counters}
+    cfg = mlp.MLPConfig(**PUBLISHED["visibility"])
+    mlps = scene.model_mlps(presets.vipnerf_config())
+    out: dict = {"fwd_err": 0.0, "bwd_norm_err": 0.0}
+    for level, nr, ns, k in SEC_SHAPES:
+        label = f"{level} {nr} rays x {ns}, k = {k}"
+        g = torch.Generator().manual_seed(nr + ns + k)
+        params = mlp.init(g, cfg, device="cuda")
+        pts = (torch.rand((nr * ns, 3), generator=g) * 2 - 1).cuda()
+        dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1).cuda()
+        dirs2 = torch.nn.functional.normalize(torch.randn((nr * ns, k, 3), generator=g), dim=-1).cuda()
+        ops = mlp.fused_operands(params, cfg, pts, dirs, ns, torch.bfloat16)
+        spec, kp = ops[:2]
+        sec = mlp.secondary_operands(params, cfg, dirs2, torch.bfloat16)
+        planes, pre = fm._fwd(*ops, sec)
+        want = fm.fused_apply_reference(*ops, sec)
+        err = check_planes(f"with secondary views {label}", "bfloat16", planes, want)
+        err = max(err, check_planes(f"secondary planes alone {label}", "bfloat16",
+                                    fm.secondary_fwd(spec, kp, pre, *sec),
+                                    fm.secondary_reference(spec, kp, pre, *sec), kernel="sec_fwd"))
+        dp = cotangents(spec.n_planes + k, nr, ns, seed=ns + k)
+        d_sec = dp[spec.n_planes :]
+        names = ("sec", "dwdir", "dw_vis", "db_vis")
+        got = dict(zip(names, fm.secondary_bwd(spec, kp, pre, *sec, d_sec)))
+        ref = dict(zip(names, fm.secondary_bwd_reference(spec, kp, pre, *sec, d_sec)))
+        bwd = check_grads("sec_bwd", label, "bfloat16", got, ref)
+        dkp, dhvx, dwdir = fm.fused_bwd(*ops, dp, sec=sec, pre=pre)
+        w_kp, w_hvx, w_dir = fm.fused_bwd_reference(*ops, dp, sec)
+        both = check_grads("fused_mlp_bwd", f"with secondary views {label}", "bfloat16",
+                           {**dkp, "dhvx": dhvx, "dwdir": dwdir},
+                           {**w_kp, "dhvx": w_hvx, "dwdir": w_dir})
+        out["fwd_err"] = max(out["fwd_err"], err)
+        out["bwd_norm_err"] = max(out["bwd_norm_err"], bwd["norm"], both["norm"])
+        if nr == STEP_RAYS:
+            m = mlps[level]
+            pairs = {}
+            for op, whole, base in (("fwd", counts_vipnerf.fwd_op, counts.fwd_op),
+                                    ("bwd", counts_vipnerf.bwd_op, counts.bwd_op)):
+                a, b = whole(m, nr, ns, k, "bfloat16"), base([m], nr, ns, "bfloat16")
+                pairs[op] = bound_ms(a["flops"] - b["flops"], a["bytes"] - b["bytes"])
+            r = {
+                "shape": [nr, ns, k],
+                "fwd_ms": cuda_time_ms(lambda: fm.secondary_fwd(spec, kp, pre, *sec), iters=20),
+                "fwd_plain_ms": cuda_time_ms(lambda: fm.secondary_reference(spec, kp, pre, *sec), iters=3),
+                "bwd_ms": cuda_time_ms(lambda: fm.secondary_bwd(spec, kp, pre, *sec, d_sec), iters=20),
+                "bwd_plain_ms": cuda_time_ms(
+                    lambda: fm.secondary_bwd_reference(spec, kp, pre, *sec, d_sec), iters=3),
+                "fwd_bound_ms": pairs["fwd"][0], "fwd_bound_by": pairs["fwd"][1],
+                "bwd_bound_ms": pairs["bwd"][0], "bwd_bound_by": pairs["bwd"][1],
+            }
+            out[level] = r
+            print(f"time secondary {label} bf16: sec_fwd {r['fwd_ms']:.3f} ms (plain "
+                  f"{r['fwd_plain_ms']:.3f}, bound {r['fwd_bound_ms']:.3f} ms, {r['fwd_bound_by']}); "
+                  f"sec_bwd with its column sum {r['bwd_ms']:.3f} ms (plain {r['bwd_plain_ms']:.3f}, "
+                  f"bound {r['bwd_bound_ms']:.3f} ms, {r['bwd_bound_by']})", flush=True)
+        del ops, sec, pre, planes, want, dp, got, ref, dkp, w_kp
+        torch.cuda.empty_cache()
+    for f, n in saved.items():
+        f.launches = n
+    return out
+
+
 def chunk_kernels(test_rays: int) -> dict:
     """Kernel vs plain version at the chunk shapes serving gives it (bf16,
     published main MLP), then timed at the 756x1008 frame's two shapes.
@@ -2281,6 +2481,7 @@ def main() -> int:
             fail(f"{name} issues no HGMMA: its products are not on the tensor cores")
 
     worst = check_train_kernels()
+    sec_kernels = secondary_kernels()
     print(f"kernel checks done at {time.perf_counter() - t_start:.1f} s", flush=True)
     h, w = 189, 252
     with tempfile.TemporaryDirectory() as tmp:
@@ -2294,6 +2495,7 @@ def main() -> int:
         piped = pipeline(work, card, h, w)
         re10k = realestate(work, card)
         prior = priors(work, card)
+        vip = vipnerf(work, card)
         step_err = {d: step_gradients(work / "db", d)["worst"] for d in ("float32", "bfloat16")}
         torch.cuda.empty_cache()
         timing = chunk_kernels(test_rays=min(CHUNK_RAYS, -(-(h * w) // 256) * 256))
@@ -2327,6 +2529,7 @@ def main() -> int:
             "launches_pipeline": piped["launches"][WRAPPERS[name]],
             "launches_realestate": re10k["launches"][WRAPPERS[name]],
             "launches_priors": prior["launches"][WRAPPERS[name]],
+            "launches_vipnerf": vip["launches"][WRAPPERS[name]],
             "launches_parallel": par["launches"][WRAPPERS[name]],
             "max_abs_err": worst[(name, "bfloat16", "err")],
             "max_abs_err_f32": worst[(name, "float32", "err")],
@@ -2395,10 +2598,26 @@ def main() -> int:
     for k in ("ms", "plain_ms", "bound_ms"):
         if not all(math.isfinite(r[k]) for r in kernels[-1]["shapes"].values() if k in r):
             fail(f"non-finite timing for field_pe: {k}")
+    for op, err in (("fwd", {"max_abs_err": sec_kernels["fwd_err"]}),
+                    ("bwd", {"norm_err": sec_kernels["bwd_norm_err"]})):
+        fine_sec = sec_kernels["fine"]
+        kernels.append({
+            "name": f"sec_{op}", "route": "cuda", "source": "simplenerf_torch/ops/csrc/fused_mlp_sec.cu",
+            "replaces": None,  # the JAX package evaluates secondary views unfused (apply_reference)
+            "launches_vipnerf": vip["launches"][f"secondary_{op}"], **err,
+            **{k: fine_sec[f"{op}_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "bound_share": fine_sec[f"{op}_bound_ms"] / fine_sec[f"{op}_ms"],
+            "library_ms": None, "shape": fine_sec["shape"],
+            "coarse": {k: sec_kernels["coarse"][f"{op}_{k}"] for k in ("ms", "plain_ms", "bound_ms")},
+            "ptxas": ptxas.get(f"sec_{op}_kernel"),
+        })
+        if not all(math.isfinite(kernels[-1][k]) for k in ("ms", "plain_ms", "bound_ms")):
+            fail(f"non-finite timing for sec_{op}")
     print(json.dumps({"parallel": par}), flush=True)
     print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"realestate": re10k}), flush=True)
     print(json.dumps({"priors": prior}), flush=True)
+    print(json.dumps({"vipnerf": vip}), flush=True)
     print(json.dumps({"kernels": kernels, "train_step": {
         **step, "float32": step_f32, "frame_f32": frame_f32, "graph_vs_loop": graph_check,
         "step_grad_rel_err": step_err, "card": card}}),

@@ -343,7 +343,11 @@ class ScenePreprocessor:
 
     def _preprocess_visibility_prior(self, raw: dict):
         """Prior masks and weights (n, n-1, h, w) laid out per ray as
-        (n*h*w, n-1): column j of a ray is its frame's j-th other frame."""
+        (n*h*w, n-1): column j of a ray is its frame's j-th other frame.
+        Where the model trains secondary views (`train_secondary_views`),
+        each ray also gets those frames' camera centres in the same column
+        order, `rays_o2` (n*h*w, 3 (n-1)), which `gather_batch` hands out
+        as (nr, n-1, 3)."""
         vp = raw["visibility_prior_data"]
         n = self.num_frames
         for key in ("masks", "weights"):
@@ -351,6 +355,12 @@ class ScenePreprocessor:
                 plane = np.transpose(vp[key].astype(np.float32), (0, 2, 3, 1)).reshape(-1, n - 1)
                 self.cache[f"visibility_prior_{key}"] = torch.as_tensor(
                     np.ascontiguousarray(plane), device=self.device)
+        if self.configs.get("model", {}).get("train_secondary_views", False):
+            h, w = self.resolution
+            centres = self.common["poses"][:, :3, 3]  # the normalised poses' camera centres
+            others = torch.stack([torch.cat([centres[:f], centres[f + 1 :]]).reshape(-1)
+                                  for f in range(n)])  # (n, 3 (n-1)): frame f's others in order
+            self.cache["rays_o2"] = others.repeat_interleave(h * w, dim=0).contiguous()
 
     def _create_model_configs(self) -> dict:
         cfg = {
@@ -553,6 +563,8 @@ def gather_batch(cache: dict, common: dict, consts: dict, indices, mask_nerf, ma
         # reference's -1 fill (load_mip_nerf_cached_batch).
         if key in batch:
             batch[key] = torch.where(mask_nerf[:, None], batch[key], -1.0)
+    if "rays_o2" in batch:  # the other frames' camera centres, (nr, n-1, 3)
+        batch["rays_o2"] = batch["rays_o2"].unflatten(1, (-1, 3))
     for name, value in consts.items():
         batch[name] = torch.full((nr, 1), float(value), dtype=torch.float32, device=idx.device)
     batch["indices_mask_nerf"] = mask_nerf

@@ -5,11 +5,14 @@ Port of simplenerf_tpu/drivers/llff.py. --views 2/3/4 are the published
 2/3/4-input-view SimpleNeRF experiments: the full model with points and
 views augmentations, COLMAP sparse-depth priors, the nine-loss stack and
 100k iterations, then testing with the QA suite and the two videos.
+--model vipnerf trains ViP-NeRF instead (`presets.with_vip_prior`: no
+augmentations, visibility heads, the visibility prior's masks from
+all/visibility_prior/VW02/<scene>/visibility_masks and its two losses).
 
 Usage:
   python -m simplenerf_torch.drivers.llff --database-dir <path to NeRF_LLFF/data>
       --output-dir runs/ --views 3 [--scenes fern flower] [--iters 100000]
-      [--compute-dtype bfloat16] [--device cpu]
+      [--compute-dtype bfloat16] [--model simplenerf|vipnerf] [--device cpu]
 
 Runs on the CUDA device unless --device names another.
 """
@@ -20,14 +23,18 @@ import argparse
 from pathlib import Path
 
 from simplenerf_torch.drivers import runner
-from simplenerf_torch.drivers.presets import simplenerf_config
+from simplenerf_torch.drivers.presets import simplenerf_config, with_vip_prior
 
 # view count -> (train_set_num, run numbering), as the reference's runs.
 VIEWS_TO_SET = {2: (2, 1011), 3: (3, 1021), 4: (4, 1031)}
 
 
-def build_configs(views: int, scenes, iters: int, compute_dtype: str, seed: int):
-    """(train_configs, test_configs) of one published experiment."""
+def build_configs(views: int, scenes, iters: int, compute_dtype: str, seed: int,
+                  model: str = "simplenerf"):
+    """(train_configs, test_configs) of one published experiment; `model`
+    "simplenerf" or "vipnerf"."""
+    if model not in ("simplenerf", "vipnerf"):
+        raise ValueError(f"unknown model {model!r}: simplenerf or vipnerf")
     set_num, run_num = VIEWS_TO_SET[views]
     train_configs = simplenerf_config(
         database="NeRF_LLFF",
@@ -36,7 +43,10 @@ def build_configs(views: int, scenes, iters: int, compute_dtype: str, seed: int)
         num_iterations=iters,
         compute_dtype=compute_dtype,
         seed=seed,
+        with_augmentations=model == "simplenerf",
     )
+    if model == "vipnerf":
+        train_configs = with_vip_prior(train_configs)
     train_configs["train_num"] = run_num
     train_configs["data_loader"]["scene_names"] = scenes or []
     test_configs = {
@@ -76,6 +86,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--iters", type=int, default=100000)
     parser.add_argument("--compute-dtype", default="bfloat16")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--model", default="simplenerf", choices=("simplenerf", "vipnerf"))
     parser.add_argument("--skip-training", action="store_true")
     parser.add_argument("--skip-videos", action="store_true")
     parser.add_argument("--gt-depth-dir", type=Path, default=None,
@@ -85,7 +96,7 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
 
     train_configs, test_configs = build_configs(
-        args.views, args.scenes, args.iters, args.compute_dtype, args.seed
+        args.views, args.scenes, args.iters, args.compute_dtype, args.seed, args.model
     )
     scores = run(train_configs, test_configs, args.database_dir, args.output_dir,
                  gt_depth_dir=args.gt_depth_dir, skip_training=args.skip_training,

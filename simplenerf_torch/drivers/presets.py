@@ -5,7 +5,10 @@
 samples, 8x256 points net, PE degrees 10/4, points-aug sigma PE degree 3,
 Lambertian views-aug, the 9-loss stack with 10k-iteration consistency
 ramp-up, Adam 5e-4 with 250k exponential decay), parameterized so tests and
-benches can shrink it.
+benches can shrink it. `vipnerf_config` is ViP-NeRF (Somraj &
+Soundararajan, SIGGRAPH 2023): the plain coarse/fine NeRF at the same
+widths with visibility heads, sparse depth and the visibility prior,
+trained through secondary views (`train_secondary_views`).
 """
 
 from __future__ import annotations
@@ -205,9 +208,10 @@ def with_visibility_priors(cfg: dict, dense_dirname: str = "DE_GT",
     head on the coarse and fine main MLPs, the DenseDepthMSE01,
     VisibilityLoss01 and VisibilityPriorLoss01 losses, and the dense-depth,
     visibility-prior masks and mip-NeRF radii data (the priors
-    `synthetic.write_scene_priors` writes). The training step renders no
-    secondary views, so VisibilityPriorLoss01 is 0 there and counts only in
-    validation, as in the JAX package."""
+    `synthetic.write_scene_priors` writes). Its training step renders no
+    secondary views (the model key `train_secondary_views` is left off), so
+    VisibilityPriorLoss01 is 0 there and counts only in validation, as in
+    the JAX package; `vipnerf_config` trains the prior."""
     cfg = copy.deepcopy(cfg)
     for level in ("coarse_mlp", "fine_mlp"):
         cfg["model"][level]["predict_visibility"] = True
@@ -221,3 +225,34 @@ def with_visibility_priors(cfg: dict, dense_dirname: str = "DE_GT",
         {"name": "VisibilityPriorLoss01", "weight": 0.001},
     ]
     return cfg
+
+
+VIP_LOSSES = (
+    {"name": "VisibilityLoss01", "weight": 0.1},
+    {"name": "VisibilityPriorLoss01", "weight": 0.001},
+)
+
+
+def with_vip_prior(cfg: dict, masks_dirname: str = "VW02") -> dict:
+    """`cfg` with ViP-NeRF's visibility prior trained: visibility heads on
+    the coarse and fine MLPs, the prior masks' data, VisibilityLoss01 and
+    VisibilityPriorLoss01 (the weights of `with_visibility_priors`), and
+    `train_secondary_views`, which makes the train step render each ray's
+    visibility from its frame's other train cameras."""
+    cfg = copy.deepcopy(cfg)
+    for level in ("coarse_mlp", "fine_mlp"):
+        cfg["model"][level]["predict_visibility"] = True
+    cfg["model"]["name"] = "ViPNeRF"
+    cfg["model"]["train_secondary_views"] = True
+    cfg["data_loader"]["visibility_prior"] = {"load_masks": True, "masks_dirname": masks_dirname}
+    cfg["losses"] += [dict(spec) for spec in VIP_LOSSES]
+    return cfg
+
+
+def vipnerf_config(masks_dirname: str = "VW02", **kwargs) -> dict:
+    """ViP-NeRF: `simplenerf_config` without the augmentations (a coarse and
+    a fine 8x256 MLP, views 1x128, PE 10/4, 64 + 128 samples, 2048 NeRF +
+    2048 sparse-depth rays, NDC, noise std 1, Adam 5e-4 with the 250k
+    decay) and `with_vip_prior`: MSE01, SparseDepthMSE01 0.1,
+    VisibilityLoss01 0.1, VisibilityPriorLoss01 0.001."""
+    return with_vip_prior(simplenerf_config(with_augmentations=False, **kwargs), masks_dirname)

@@ -14,7 +14,9 @@ Three evaluations of the same function:
   row slices of the canonical weights, view dirs encoded once per ray);
 - `apply_fused`: the field through `ops.fused_mlp.fused_apply`, which
   launches the CUDA kernels (forward, and backward under autograd) for
-  CUDA tensors. It returns the plane layout of `to_planes`;
+  CUDA tensors. It returns the plane layout of `to_planes`, with the
+  secondary views' visibility where given their operands
+  (`secondary_operands`: ViP-NeRF's prior through the kernels);
   `apply_fused_ensemble` evaluates several MLPs at the same points through
   `fused_apply_ensemble`, one plane dict per member.
 
@@ -301,15 +303,19 @@ def apply_fused(
     noise: Optional[torch.Tensor] = None,
     dtype=torch.float32,
     view_dirs_tile: int = 1,
+    sec: Optional[tuple] = None,
 ) -> dict:
     """Evaluate the field through `ops.fused_mlp.fused_apply`.
 
-    Same function as `to_planes(apply(...))` (minus view_dirs2): pts (n, 3)
-    grouped as nr = n / view_dirs_tile rays x ns = view_dirs_tile samples;
-    view_dirs (nr, 3). The kernel emits raw linear head planes; noise and
-    activations are applied here on (nr, ns) planes. Sigma noise is the
-    standard-normal `noise` (nr, ns). The kernel masks its ragged last
-    block itself, so nothing is padded. Differentiable in `params`.
+    Same function as `to_planes(apply(...))`: pts (n, 3) grouped as nr = n /
+    view_dirs_tile rays x ns = view_dirs_tile samples; view_dirs (nr, 3).
+    The kernel emits raw linear head planes; noise and activations are
+    applied here on (nr, ns) planes. Sigma noise is the standard-normal
+    `noise` (nr, ns). The kernel masks its ragged last block itself, so
+    nothing is padded. `sec`: the secondary views' operands
+    (`secondary_operands` of view_dirs2 (n, k, 3)), which add
+    "visibility2" (nr, ns, k), as `apply(..., view_dirs2=...)` does.
+    Differentiable in `params`.
     """
     from simplenerf_torch.ops import fused_mlp
 
@@ -319,8 +325,25 @@ def apply_fused(
         raise ValueError(f"{n} points do not split into rays of {ns} samples")
     with profiling.span("field.encode", device=pts.device):
         operands = fused_operands(params, cfg, pts, view_dirs, ns, dtype)
-    planes = fused_mlp.fused_apply(*operands)
-    return _fused_epilogue(cfg, operands[0].out_p, planes, noise_std, noise)
+    planes = fused_mlp.fused_apply(*operands, sec=sec)
+    n_planes = operands[0].n_planes
+    out = _fused_epilogue(cfg, operands[0].out_p, planes[:n_planes], noise_std, noise)
+    if sec is not None:
+        out["visibility2"] = torch.sigmoid(torch.stack(planes[n_planes:], dim=-1))
+    return out
+
+
+def secondary_operands(params: Params, cfg: MLPConfig, view_dirs2, dtype) -> tuple:
+    """`fused_apply`'s secondary-view operands (pe2, wdir) of per-point
+    directions view_dirs2 (n, k, 3): their blocked PE at the compute type,
+    ((n k), 3+6dv) point-major, from the PE kernel (`pe_operands`), and the
+    first views layer's dirs rows (`dirs_w`, differentiable)."""
+    from simplenerf_torch.ops import fused_mlp
+
+    d = cfg.views_pe_degree
+    cdtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    pe2, _ = fused_mlp.pe_operands(view_dirs2.reshape(-1, 3).float().contiguous(), d, d, cdtype)
+    return pe2, fused_mlp.dirs_w(params, cfg)
 
 
 def fused_operands(params: Params, cfg: MLPConfig, pts, view_dirs, ns: int, dtype) -> tuple:

@@ -1,4 +1,4 @@
-"""Visibility-head losses (off in the published configs).
+"""Visibility-head losses (off in the published SimpleNeRF configs; on in ViP-NeRF).
 
 Port of simplenerf_tpu/losses/visibility.py.
 
@@ -11,8 +11,11 @@ VisibilityPriorLoss01: ViP-NeRF-style prior; penalizes low predicted
 secondary-view visibility where the prior masks say the pixel is visible in
 the other views (reference VisibilityPriorLoss01). Loss map: the per-ray
 view-sum penalty, keyed `VisibilityPriorLoss01_{level}`, full length with
-masked-out lanes zeroed. The training step renders without secondary views,
-so this loss is 0 there and counts only in validation.
+masked-out lanes zeroed. The training step renders secondary views only
+where the model's `train_secondary_views` key is on (ViP-NeRF,
+`presets.with_vip_prior`): there the loss trains at both levels; with the
+key off (`presets.with_visibility_priors`, the JAX package) it is 0 in
+training and counts only in validation.
 """
 
 from __future__ import annotations

@@ -32,16 +32,23 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_mlp_fwd": {
         "snerf_fused_mlp_fwd": [_I, _P, _I] + [_P] * 6 + [_I, _P],
+        "snerf_fused_mlp_fwd_pre": [_I, _P, _I] + [_P] * 7 + [_I, _P],
         "snerf_fused_mlp_ens_fwd": [_I, _P, _I] + [_P] * 5 + [_I, _P],
         "snerf_tf32_split": [_P, _P, ctypes.c_longlong, _P],
     },
     "fused_mlp_bwd": {
         "snerf_fused_mlp_bwd": [_I, _P, _I] + [_P] * 7 + [_I] * 5 + [_P] * 9 + [_I] + [_P] * 2
                                + [_I, _P],
+        "snerf_fused_mlp_bwd_sec": [_I, _P, _I] + [_P] * 7 + [_I] * 5 + [_P] * 9 + [_I] + [_P] * 2
+                                   + [_I, _P, _P],
         "snerf_fused_mlp_ens_bwd": [_I, _P, _I] + [_P] * 6 + [_I] * 5 + [_P] * 9 + [_I]
                                    + [_P] * 2 + [_I, _P],
         "snerf_wgrad": [_I, _P, _P, _I, _P] + [_I] * 5 + [_P, _P, _I, _P, _P],
         "snerf_colsum": [_P, _P] + [_I] * 4 + [_P, _P],
+    },
+    "fused_mlp_sec": {
+        "snerf_sec_fwd": [_P] * 5 + [_I] * 5 + [_P],
+        "snerf_sec_bwd": [_P] * 7 + [_I] * 5 + [_P],
     },
     "field_pe": {
         "snerf_field_pe": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],

@@ -84,6 +84,7 @@ namespace {
 // thread issues the bulk copies), warpgroups 1 and 2 consume; the roles
 // never reconverge, so setmaxnreg moves registers from the producer to the
 // consumers (128 x 40 + 256 x 232 = 64,512 of the SM's 65,536).
+template <bool kSec>
 __global__ void __launch_bounds__(bwd90::kThreads, 1)
 fused_mlp_bwd_rows_sm90_kernel(const __grid_constant__ bwd90::Program p,
                                const __grid_constant__ wgrad::Maps maps,
@@ -92,7 +93,7 @@ fused_mlp_bwd_rows_sm90_kernel(const __grid_constant__ bwd90::Program p,
                                const float* __restrict__ dplanes,
                                const __nv_bfloat16* __restrict__ wts,
                                const float* __restrict__ fpar, float* g32, uint4* masks,
-                               float* parts) {
+                               float* parts, const float* __restrict__ sec) {
   extern __shared__ __align__(1024) unsigned char bwd90_smem[];
   if (sm90::smem_u32(bwd90_smem) & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
   const bwd90::Smem s = bwd90::carve(bwd90_smem, p);
@@ -112,7 +113,8 @@ fused_mlp_bwd_rows_sm90_kernel(const __grid_constant__ bwd90::Program p,
     if (threadIdx.x == 0) bwd90::produce(p, s, wts);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(sm90::kConsumerRegs));
-    bwd90::consume(p, maps, bwd90_smem, s, wg - 1, lo, hi, hvx, dplanes, fpar, g32, masks, parts);
+    bwd90::consume<kSec>(p, maps, bwd90_smem, s, wg - 1, lo, hi, hvx, dplanes, fpar, g32, masks,
+                         parts, sec);
   }
 }
 
@@ -310,6 +312,7 @@ int wgrad_launch(int dtype, const void* stash, const long long* maps, int n_maps
 
 struct Buffers {
   const void *lo, *hi, *hvx, *dplanes, *wts, *fpar, *tasks;
+  const void* sec;  // the secondary views' cotangent of the hvx layer (bf16 only), or null
   void *stash, *g32, *masks, *parts, *part_out, *dw_part, *dw_out, *dhvx;
   const long long* maps;  // the tensor-map parameters (host)
   int n_maps;
@@ -364,19 +367,21 @@ int run(int dtype, const int* words, int n_words, const Buffers& b, int n_tasks,
     wgrad::Maps maps;  // 16 KB; the launch copies it into the kernel's parameters
     rc = encode_maps(static_cast<const __nv_bfloat16*>(b.stash), b.maps, p.n_maps, &maps);
     if (rc) return rc;
-    auto rows = fused_mlp_bwd_rows_sm90_kernel;
+    auto rows = b.sec ? fused_mlp_bwd_rows_sm90_kernel<true> : fused_mlp_bwd_rows_sm90_kernel<false>;
     err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     rows<<<n_tiles, bwd90::kThreads, smem, stream>>>(
         p, maps, static_cast<const __nv_bfloat16*>(b.lo), static_cast<const __nv_bfloat16*>(b.hi),
         static_cast<const float*>(b.hvx), static_cast<const float*>(b.dplanes),
         static_cast<const __nv_bfloat16*>(b.wts), static_cast<const float*>(b.fpar),
-        static_cast<float*>(b.g32), static_cast<uint4*>(b.masks), static_cast<float*>(b.parts));
+        static_cast<float*>(b.g32), static_cast<uint4*>(b.masks), static_cast<float*>(b.parts),
+        static_cast<const float*>(b.sec));
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     rc = wgrad_launch(1, b.stash, b.maps + 4 * p.n_maps, b.n_maps - p.n_maps, b.tasks, n_tasks,
                       p.n_rows, chunk_rows, dw_total, static_cast<float*>(b.dw_part), stream);
     if (rc) return rc;
   } else {
+    if (b.sec) return static_cast<int>(cudaErrorInvalidValue);  // no float32 secondary views
     auto rows = fused_mlp_bwd_rows_tf32_kernel;
     err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -417,9 +422,29 @@ extern "C" int snerf_fused_mlp_bwd(int dtype, const int* words, int n_words, con
                                    void* dw_part, void* dw_out, void* dhvx, const long long* maps,
                                    int n_maps, const int* slices, void* scratch, int smem,
                                    void* stream) {
-  const Buffers b{lo,    hi,     hvx,     dplanes, wts,      fpar,    tasks,
-                  stash, g32,    masks,   parts,   part_out, dw_part, dw_out, dhvx,
-                  maps,  n_maps, slices,  scratch};
+  const Buffers b{lo,    hi,      hvx,     dplanes, wts,      fpar,    tasks,   nullptr,
+                  stash, g32,     masks,   parts,   part_out, dw_part, dw_out, dhvx,
+                  maps,  n_maps,  slices,  scratch};
+  return run(dtype, words, n_words, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem,
+             static_cast<cudaStream_t>(stream));
+}
+
+// snerf_fused_mlp_bwd (bf16 only) whose hvx layer's g also takes the
+// secondary views' cotangent sec (n_rows x hvx_w float32, fused_mlp_sec.cu)
+// after dhvx's g32 store.
+extern "C" int snerf_fused_mlp_bwd_sec(int dtype, const int* words, int n_words, const void* lo,
+                                       const void* hi, const void* hvx, const void* dplanes,
+                                       const void* wts, const void* fpar, const void* tasks,
+                                       int n_tasks, int n_chunks, int chunk_rows, int dw_total,
+                                       int n_hvx_rows, void* stash, void* g32, void* masks,
+                                       void* parts, void* part_out, void* dw_part, void* dw_out,
+                                       void* dhvx, const long long* maps, int n_maps,
+                                       const int* slices, void* scratch, int smem, const void* sec,
+                                       void* stream) {
+  if (!sec || dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Buffers b{lo,    hi,      hvx,     dplanes, wts,      fpar,    tasks,   sec,
+                  stash, g32,     masks,   parts,   part_out, dw_part, dw_out, dhvx,
+                  maps,  n_maps,  slices,  scratch};
   return run(dtype, words, n_words, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem,
              static_cast<cudaStream_t>(stream));
 }
@@ -434,7 +459,7 @@ extern "C" int snerf_fused_mlp_ens_bwd(int dtype, const int* words, int n_words,
                                        void* part_out, void* dw_part, void* dw_out, void* dhvx,
                                        const long long* maps, int n_maps, const int* slices,
                                        void* scratch, int smem, void* stream) {
-  const Buffers b{lo,    nullptr, hvx,     dplanes, wts,      fpar,    tasks,
+  const Buffers b{lo,    nullptr, hvx,     dplanes, wts,      fpar,    tasks,   nullptr,
                   stash, g32,     masks,   parts,   part_out, dw_part, dw_out, dhvx,
                   maps,  n_maps,  slices,  scratch};
   return run(dtype, words, n_words, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem,

@@ -476,11 +476,14 @@ __device__ __forceinline__ void f_layer(const Op& op, Ctx& x, const float* __res
 
 // A backward op: the product from the g above (or zeros at the top of a
 // chain), then g in registers, its column sums, round(g) to the tile and
-// the stash.
-template <int N>
+// the stash. kSec: the hvx layer's g gains the secondary views' cotangent
+// sec[row][n] (fused_mlp_sec.cu) after its g32 store, so that dhvx keeps
+// the primary view's share; kSec false compiles to the plain engine.
+template <int N, bool kSec>
 __device__ __forceinline__ void b_layer(const Op& op, Ctx& x, const float* __restrict__ fpar,
                                         const float* __restrict__ dplanes, const uint4* tmask,
-                                        float* __restrict__ g32, float* __restrict__ part) {
+                                        float* __restrict__ g32, float* __restrict__ part,
+                                        const float* __restrict__ sec) {
   const Program& p = *x.p;
   const int warp = x.t >> 5, lane = x.t & 31, q = lane & 3;
   const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;
@@ -543,6 +546,25 @@ __device__ __forceinline__ void b_layer(const Op& op, Ctx& x, const float* __res
       if (ok1) __stcs(reinterpret_cast<float2*>(g + (size_t)r1 * n + col), make_float2(acc[4 * j + 2], acc[4 * j + 3]));
     }
   }
+  if (kSec && op.g32_slot >= 0) {
+    const float* s0 = sec + (size_t)(x.row0 + r0) * n;
+    const float* s1 = sec + (size_t)(x.row0 + r1) * n;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = 8 * j + 2 * q;
+      if (col >= n) continue;
+      if (ok0) {
+        const float2 v = __ldcs(reinterpret_cast<const float2*>(s0 + col));
+        acc[4 * j] += v.x;
+        acc[4 * j + 1] += v.y;
+      }
+      if (ok1) {
+        const float2 v = __ldcs(reinterpret_cast<const float2*>(s1 + col));
+        acc[4 * j + 2] += v.x;
+        acc[4 * j + 3] += v.y;
+      }
+    }
+  }
   // round(g) to the tile; the warp's column sums of g to its red row (the
   // thread's two rows, then xor-shuffles over the eight lanes of a column;
   // a butterfly that halves the shuffles measured slower: PERF.md).
@@ -591,6 +613,7 @@ __device__ __forceinline__ void b_layer(const Op& op, Ctx& x, const float* __res
 }
 
 // Consumer c (0 or 1) of the block: rows row0 .. row0 + 63.
+template <bool kSec>
 __device__ __forceinline__ void consume(const Program& p, const wgrad::Maps& maps, unsigned char* base,
                                         const Smem& s, int c, const __nv_bfloat16* __restrict__ lo,
                                         const __nv_bfloat16* __restrict__ hi,
@@ -598,7 +621,7 @@ __device__ __forceinline__ void consume(const Program& p, const wgrad::Maps& map
                                         const float* __restrict__ dplanes,
                                         const float* __restrict__ fpar, float* __restrict__ g32,
                                         uint4* masks,
-                                        float* __restrict__ parts) {
+                                        float* __restrict__ parts, const float* __restrict__ sec) {
   Ctx x;
   x.p = &p;
   x.maps = &maps;
@@ -627,11 +650,11 @@ __device__ __forceinline__ void consume(const Program& p, const wgrad::Maps& map
         f_layer<64>(op, x, fpar, hvx, dplanes, tmask, part);
     } else {
       if (op.n_pad == 256)
-        b_layer<256>(op, x, fpar, dplanes, tmask, g32, part);
+        b_layer<256, kSec>(op, x, fpar, dplanes, tmask, g32, part, sec);
       else if (op.n_pad == 128)
-        b_layer<128>(op, x, fpar, dplanes, tmask, g32, part);
+        b_layer<128, kSec>(op, x, fpar, dplanes, tmask, g32, part, sec);
       else
-        b_layer<64>(op, x, fpar, dplanes, tmask, g32, part);
+        b_layer<64, kSec>(op, x, fpar, dplanes, tmask, g32, part, sec);
     }
   }
   if (x.t == 0) bulk_wait_all();  // the stash is in device memory before the block ends

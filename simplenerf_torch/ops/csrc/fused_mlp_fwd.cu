@@ -47,11 +47,13 @@ namespace {
 // copies), warpgroups 1 and 2 consume; the two roles never reconverge, so
 // setmaxnreg moves registers from the producer to the consumers
 // (128 x 40 + 256 x 232 = 64,512 of the SM's 65,536).
+template <bool kPre>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
 fused_mlp_fwd_sm90_kernel(const __grid_constant__ sm90::Program p,
                           const __nv_bfloat16* __restrict__ lo, const __nv_bfloat16* __restrict__ hi,
                           const float* __restrict__ hvx, const __nv_bfloat16* __restrict__ wts,
-                          const float* __restrict__ fpar, float* __restrict__ out) {
+                          const float* __restrict__ fpar, float* __restrict__ out,
+                          float* __restrict__ pre) {
   extern __shared__ __align__(1024) unsigned char sm90_smem[];
   if (sm90::smem_u32(sm90_smem) & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
   const sm90::Smem s = sm90::carve(sm90_smem, p);
@@ -70,7 +72,7 @@ fused_mlp_fwd_sm90_kernel(const __grid_constant__ sm90::Program p,
     if (threadIdx.x == 0) sm90::produce(p, s, wts, fpar);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(sm90::kConsumerRegs));
-    sm90::consume(p, sm90_smem, s, wg - 1, lo, hi, hvx, fpar, out);
+    sm90::consume<kPre>(p, sm90_smem, s, wg - 1, lo, hi, hvx, fpar, out, pre);
   }
 }
 
@@ -111,7 +113,7 @@ fused_mlp_fwd_tf32_kernel(const __grid_constant__ sm90::Program p, const float* 
 
 // dtype 1: the bf16 engine; 0: the float32 engine (3xTF32).
 int launch(int dtype, const int* words, int n_words, const void* lo, const void* hi, const void* hvx,
-           const void* wts, const void* fpar, void* out, int smem, cudaStream_t stream) {
+           const void* wts, const void* fpar, void* out, void* pre, int smem, cudaStream_t stream) {
   sm90::Program p;
   if (n_words < sm90::kHeaderWords || n_words > static_cast<int>(sizeof(p) / sizeof(int)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -127,14 +129,15 @@ int launch(int dtype, const int* words, int n_words, const void* lo, const void*
   }
   const unsigned grid = static_cast<unsigned>((p.n_rows + sm90::kBM - 1) / sm90::kBM);
   if (dtype == 1) {
-    auto kernel = fused_mlp_fwd_sm90_kernel;
+    auto kernel = pre ? fused_mlp_fwd_sm90_kernel<true> : fused_mlp_fwd_sm90_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<grid, sm90::kThreads, smem, stream>>>(
         p, static_cast<const __nv_bfloat16*>(lo), static_cast<const __nv_bfloat16*>(hi),
         static_cast<const float*>(hvx), static_cast<const __nv_bfloat16*>(wts),
-        static_cast<const float*>(fpar), static_cast<float*>(out));
+        static_cast<const float*>(fpar), static_cast<float*>(out), static_cast<float*>(pre));
   } else {
+    if (pre) return static_cast<int>(cudaErrorInvalidValue);  // no float32 secondary views
     auto kernel = fused_mlp_fwd_tf32_kernel;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -152,7 +155,19 @@ int launch(int dtype, const int* words, int n_words, const void* lo, const void*
 extern "C" int snerf_fused_mlp_fwd(int dtype, const int* words, int n_words, const void* lo,
                                    const void* hi, const void* hvx, const void* wts,
                                    const void* fpar, void* out, int smem, void* stream) {
-  return launch(dtype, words, n_words, lo, hi, hvx, wts, fpar, out, smem,
+  return launch(dtype, words, n_words, lo, hi, hvx, wts, fpar, out, nullptr, smem,
+                static_cast<cudaStream_t>(stream));
+}
+
+// snerf_fused_mlp_fwd (bf16 only) that also stores the hvx layer's products
+// plus bias, before hvx, as pre (n_rows x views width float32): the
+// secondary views' operand (fused_mlp_sec.cu).
+extern "C" int snerf_fused_mlp_fwd_pre(int dtype, const int* words, int n_words, const void* lo,
+                                       const void* hi, const void* hvx, const void* wts,
+                                       const void* fpar, void* out, void* pre, int smem,
+                                       void* stream) {
+  if (!pre || dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(dtype, words, n_words, lo, hi, hvx, wts, fpar, out, pre, smem,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -161,7 +176,7 @@ extern "C" int snerf_fused_mlp_fwd(int dtype, const int* words, int n_words, con
 extern "C" int snerf_fused_mlp_ens_fwd(int dtype, const int* words, int n_words, const void* lo,
                                        const void* hvx, const void* wts, const void* fpar,
                                        void* out, int smem, void* stream) {
-  return launch(dtype, words, n_words, lo, nullptr, hvx, wts, fpar, out, smem,
+  return launch(dtype, words, n_words, lo, nullptr, hvx, wts, fpar, out, nullptr, smem,
                 static_cast<cudaStream_t>(stream));
 }
 

@@ -387,15 +387,31 @@ __device__ __forceinline__ void stage_consts(const Op& op, const Program& p, flo
 // its activation tile, then the folded head from the rounded values. Each
 // test that depends on the layer (hvx, ReLU, head) is taken once per pass,
 // outside the unrolled loop over the accumulators: branches inside it cost
-// every layer (PERF.md).
-template <int N>
+// every layer (PERF.md). kPre: the hvx layer also stores its products plus
+// bias, before hvx, as float32 rows pre[row][n] (the secondary views'
+// operand, fused_mlp_sec.cu); kPre false compiles to the plain engine.
+template <int N, bool kPre>
 __device__ __forceinline__ void epilogue(float (&acc)[N / 2], const Op& op, const Program& p,
                                          const Smem& s, const Tiles& tl, const float* cst,
                                          const float* __restrict__ hvx, float* __restrict__ out,
-                                         const float* __restrict__ fpar, int row0, int t) {
+                                         const float* __restrict__ fpar, float* __restrict__ pre,
+                                         int row0, int t) {
   const int warp = t >> 5, lane = t & 31, q = lane & 3;
   const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;  // the thread's two rows of the 64
   const int n_rows = p.n_rows, n = op.n;
+  if (kPre && (op.flags & FLAG_HVX)) {
+    const bool ok0 = row0 + r0 < n_rows, ok1 = row0 + r1 < n_rows;
+    float* p0 = pre + (size_t)(row0 + r0) * n;
+    float* p1 = pre + (size_t)(row0 + r1) * n;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = 8 * j + 2 * q;
+      if (col >= n) continue;
+      const float2 b = *reinterpret_cast<const float2*>(cst + col);
+      if (ok0) __stcs(reinterpret_cast<float2*>(p0 + col), make_float2(acc[4 * j] + b.x, acc[4 * j + 1] + b.y));
+      if (ok1) __stcs(reinterpret_cast<float2*>(p1 + col), make_float2(acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y));
+    }
+  }
   if (op.flags & FLAG_HVX) {
     // Staged rows start at the consumer's first ray. A row past n_rows reads
     // the last row's ray: its values are never stored.
@@ -468,11 +484,11 @@ __device__ __forceinline__ void epilogue(float (&acc)[N / 2], const Op& op, cons
 
 // One layer for the warpgroup's 64 rows: its slabs from the ring, then the
 // epilogue; slot and phase follow the ring across layers.
-template <int N>
+template <int N, bool kPre>
 __device__ __forceinline__ void layer(const Op& op, const Program& p, const Smem& s, const Tiles& tl,
                                       const float* __restrict__ fpar, const float* __restrict__ hvx,
-                                      float* __restrict__ out, int row0, int t, int& slot, int& phase,
-                                      int& it) {
+                                      float* __restrict__ out, float* __restrict__ pre, int row0, int t,
+                                      int& slot, int& phase, int& it) {
   const int c = threadIdx.x / 128 - 1;  // the consumer
   float* cst = s.cst + c * p.cst_floats;
   stage_consts(op, p, cst, fpar, hvx, row0, t);
@@ -505,16 +521,17 @@ __device__ __forceinline__ void layer(const Op& op, const Program& p, const Smem
   if (prev >= 0 && t == 0) mbar_arrive(s.empty + prev);
   cp_commit_wait();
   named_sync(1 + c);  // every thread's staged constants have landed
-  epilogue<N>(acc, op, p, s, tl, cst, hvx, out, fpar, row0, t);
+  epilogue<N, kPre>(acc, op, p, s, tl, cst, hvx, out, fpar, pre, row0, t);
   fence_proxy_async();  // the tile's generic stores, before the next layer's wgmma reads them
 }
 
 // Consumer c (0 or 1) of the block: rows row0 .. row0 + 63.
+template <bool kPre>
 __device__ __forceinline__ void consume(const Program& p, unsigned char* base, const Smem& s, int c,
                                         const __nv_bfloat16* __restrict__ lo,
                                         const __nv_bfloat16* __restrict__ hi,
                                         const float* __restrict__ hvx, const float* __restrict__ fpar,
-                                        float* __restrict__ out) {
+                                        float* __restrict__ out, float* __restrict__ pre) {
   const int t = threadIdx.x - 128 * (c + 1);
   const int row0 = blockIdx.x * kBM + c * kRows;
   const Tiles tl = tiles_of(base, p, c);
@@ -527,11 +544,11 @@ __device__ __forceinline__ void consume(const Program& p, unsigned char* base, c
   for (int i = 0; i < p.n_ops; ++i) {
     const Op& op = p.ops[i];
     if (op.n_pad == 256)
-      layer<256>(op, p, s, tl, fpar, hvx, out, row0, t, slot, phase, it);
+      layer<256, kPre>(op, p, s, tl, fpar, hvx, out, pre, row0, t, slot, phase, it);
     else if (op.n_pad == 128)
-      layer<128>(op, p, s, tl, fpar, hvx, out, row0, t, slot, phase, it);
+      layer<128, kPre>(op, p, s, tl, fpar, hvx, out, pre, row0, t, slot, phase, it);
     else
-      layer<64>(op, p, s, tl, fpar, hvx, out, row0, t, slot, phase, it);
+      layer<64, kPre>(op, p, s, tl, fpar, hvx, out, pre, row0, t, slot, phase, it);
     named_sync(1 + c);
   }
 }

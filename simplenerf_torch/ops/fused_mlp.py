@@ -44,6 +44,17 @@ panels through TMA boxes into wgmma, the two panels of a dW in one
 cluster (`_wgrad_plan`, csrc/fused_mlp_wgrad_sm90.cuh); the float32 one
 runs 128 x 128 tiles of plain FMAs.
 
+Secondary views (ViP-NeRF's visibility prior; no TPU kernel: the JAX
+package evaluates them unfused): `fused_apply(..., sec=(pe2, wdir))`
+evaluates the views branch again at each point for k other cameras'
+directions, the head's visibility channel only, and returns those k raw
+planes after the head planes. In bf16 on the card its forward kernel's hvx
+layer also stores its products and bias (`pre`), from which
+csrc/fused_mlp_sec.cu computes the pairs (`secondary_fwd`); the backward
+runs that file's backward (`secondary_bwd`), whose per-point cotangent the
+row pass adds to the hvx layer's g after dhvx's share is taken. Without
+`sec` both kernels run their plain instances, as before.
+
 Each wrapper takes the plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors, and counts its launches:
 `fused_apply.launches`, `fused_bwd.launches`,
@@ -53,7 +64,8 @@ weight pass and the column sums alone, `wgrad.launches` and
 images' split, which every float32 launch makes; all of them:
 `launch_counts`). `pe_operands` builds the kernels' positional-encoding
 operands lo and hi in one pass (csrc/field_pe.cu, replacing no TPU kernel;
-`pe_operands.launches`, one a fused field call). Under autograd
+`pe_operands.launches`, one a fused field call; `secondary_fwd.launches`,
+`secondary_bwd.launches`). Under autograd
 `fused_apply` and `fused_apply_ensemble` differentiate through the
 backward wrappers; the points carry no gradient.
 """
@@ -389,12 +401,20 @@ def _trunk_forward(spec: FusedSpec, kp: dict, lo, keep: bool = True) -> list:
     return hs
 
 
-def _views_forward(spec: FusedSpec, kp: dict, h, hi, hvx):
-    """Views branch: (feature, [hv_0, ...]); hvx (nr, Wv) per ray or None."""
-    f = (_mm(h, kp["wf"], spec) + kp["bf"]).to(spec.cdtype)
+def _views_pre(spec: FusedSpec, kp: dict, f, hi):
+    """The first views layer's products and bias, before hvx: (N, Wv) in
+    the accumulation type (what the forward kernel stores as `pre` for the
+    secondary views)."""
     acc = _mm(f, kp["wv0f"], spec) + kp["bv0"]
     if spec.has_extra:
         acc = acc + _mm(hi, kp["wv0i"], spec)
+    return acc
+
+
+def _views_forward(spec: FusedSpec, kp: dict, h, hi, hvx):
+    """Views branch: (feature, [hv_0, ...]); hvx (nr, Wv) per ray or None."""
+    f = (_mm(h, kp["wf"], spec) + kp["bf"]).to(spec.cdtype)
+    acc = _views_pre(spec, kp, f, hi)
     if hvx is not None:
         acc = acc + hvx.to(spec.acc_dtype).repeat_interleave(spec.ns, dim=0)
     hvs = [torch.relu(acc).to(spec.cdtype)]
@@ -403,18 +423,74 @@ def _views_forward(spec: FusedSpec, kp: dict, h, hi, hvx):
     return f, hvs
 
 
-def fused_apply_reference(spec: FusedSpec, kp: dict, lo, hi, hvx) -> tuple:
-    """The forward kernel's function in plain PyTorch (same roundings, f32 heads)."""
+def fused_apply_reference(spec: FusedSpec, kp: dict, lo, hi, hvx, sec=None) -> tuple:
+    """The forward kernel's function in plain PyTorch (same roundings, f32
+    heads); with `sec` = (pe2, wdir), the secondary views' k planes after
+    the head planes (`secondary_reference`)."""
     hs = _trunk_forward(spec, kp, lo, keep=False)
     planes = _head_planes(spec, hs[-1], kp["wpo_t"], kp["bpo"], spec.out_p)
     if spec.has_views:
-        _, hvs = _views_forward(spec, kp, hs[-1], hi, hvx)
+        f, hvs = _views_forward(spec, kp, hs[-1], hi, hvx)
         planes += _head_planes(spec, hvs[-1], kp["wvo_t"], kp["bvo"], spec.out_v)
+        if sec is not None:
+            planes += list(secondary_reference(spec, kp, _views_pre(spec, kp, f, hi), *sec))
     return tuple(planes)
 
 
-def fused_bwd_reference(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes):
-    """The backward kernel's function in plain PyTorch: (dkp, dhvx).
+def _sec_head(spec: FusedSpec, kp: dict) -> tuple:
+    """(w_vis (Wv,), b_vis ()): the views head's last channel, the visibility
+    the secondary views read, in the accumulation type."""
+    c = spec.out_v - 1
+    return kp["wvo_t"][c].to(spec.acc_dtype), kp["bvo"][0, c].to(spec.acc_dtype)
+
+
+def _sec_act(spec: FusedSpec, pre, pe2, wdir):
+    """The secondary pairs' views-layer pre-activations ((N k), Wv): pre_i +
+    pe_ij @ wdir, both operands of the product rounded to the compute type."""
+    k = pe2.shape[0] // max(pre.shape[0], 1)
+    return pre.to(spec.acc_dtype).repeat_interleave(k, dim=0) + _mm(pe2, wdir, spec)
+
+
+def secondary_reference(spec: FusedSpec, kp: dict, pre, pe2, wdir) -> torch.Tensor:
+    """The secondary-view kernel's function: (k, nr, ns) raw visibility planes.
+
+    pre (N, Wv): the first views layer's products and bias without hvx
+    (`_views_pre`); pe2 ((N k), 3+6dv) cdtype: the blocked PE of each
+    point's k secondary directions, rows point-major; wdir (3+6dv, Wv): the
+    first views layer's dirs rows (`dirs_w`). v_ij = sum_c
+    round(relu(pre_ij))[c] w_vis[c] + b_vis with the views head's last
+    channel (`_sec_head`): the one channel the prior reads.
+    """
+    n = pre.shape[0]
+    h = torch.relu(_sec_act(spec, pre, pe2, wdir)).to(spec.cdtype).to(spec.acc_dtype)
+    w_vis, b_vis = _sec_head(spec, kp)
+    v = (h * w_vis).sum(-1) + b_vis
+    return v.reshape(n, -1).T.reshape(-1, n // spec.ns, spec.ns)
+
+
+def secondary_bwd_reference(spec: FusedSpec, kp: dict, pre, pe2, wdir, d_sec) -> tuple:
+    """The secondary-view backward kernel's function from the planes'
+    cotangents d_sec (k, nr, ns): (sec (N, Wv), dwdir, dw_vis (Wv,), db_vis).
+
+    sec_i = sum_j dv_ij w_vis [pre_ij > 0], the views layer's cotangent the
+    row pass adds to its g; dwdir = pe2^T dpre with dpre rounded to the
+    compute type, as every dW product rounds its operands; dw_vis, db_vis
+    the head row's; float32 sums.
+    """
+    n = pre.shape[0]
+    act = _sec_act(spec, pre, pe2, wdir)
+    h = torch.relu(act).to(spec.cdtype).to(spec.acc_dtype)
+    w_vis, _ = _sec_head(spec, kp)
+    dv = d_sec.to(spec.acc_dtype).reshape(-1, n).T.reshape(-1, 1)
+    dpre = dv * w_vis * (act > 0).to(spec.acc_dtype)
+    sec = dpre.reshape(n, -1, dpre.shape[-1]).sum(1)
+    dwdir = _mm_tn(pe2, dpre, spec)
+    return sec, dwdir, (h * dv).sum(0), dv.sum()
+
+
+def fused_bwd_reference(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes, sec=None):
+    """The backward kernel's function in plain PyTorch: (dkp, dhvx), and
+    with `sec` = (pe2, wdir) (dkp, dhvx, dwdir).
 
     A transcription of the TPU `_bwd_kernel` over all rows at once (not
     autograd through `fused_apply_reference`, which would round in other
@@ -423,12 +499,18 @@ def fused_bwd_reference(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes):
     head gradients and every db are f32 sums. dkp holds f32 gradients of
     every kernel parameter; dhvx (nr, Wv) is the per-ray sum of the f32
     views-layer-0 cotangent (None without hvx). d_planes: (n_planes, nr, ns)
-    or a sequence of (nr, ns) tensors, None for a plane no loss reads.
+    or a sequence of (nr, ns) tensors, None for a plane no loss reads; with
+    `sec`, the k secondary planes' cotangents follow: their share
+    (`secondary_bwd_reference`) joins that cotangent after dhvx is taken,
+    and the head's visibility row.
     """
     nr = lo.shape[0] // spec.ns
     ref = torch.empty((nr, spec.ns), device=lo.device, dtype=spec.acc_dtype)
-    dps = _cotangent_list(spec.n_planes, d_planes, ref)
+    k = 0 if sec is None else sec[0].shape[0] // max(lo.shape[0], 1)
+    dps = _cotangent_list(spec.n_planes + k, d_planes, ref)
+    dps, d_sec = dps[: spec.n_planes], dps[spec.n_planes :]
     grads: dict = {}
+    dwdir = None
 
     def acc(key, val):
         grads[key] = grads[key] + val if key in grads else val
@@ -448,6 +530,14 @@ def fused_bwd_reference(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes):
             g = _mm_nt(g, kp[f"wv{i}"], spec) * _relu_mask(hvs[i - 1])
         if hvx is not None:
             dhvx = g.reshape(nr, spec.ns, -1).sum(1)
+        if sec is not None:
+            pre = _views_pre(spec, kp, f, hi)
+            sg, dwdir, dw_vis, db_vis = secondary_bwd_reference(spec, kp, pre, *sec, torch.stack(d_sec))
+            g = g + sg
+            last = torch.zeros((spec.out_v, 1), dtype=spec.acc_dtype, device=lo.device)
+            last[-1] = 1.0  # the views head's last channel, the visibility
+            grads["wvo_t"] = grads["wvo_t"] + last * dw_vis
+            grads["bvo"] = grads["bvo"] + last.T * db_vis
         acc("bv0", g.sum(0, keepdim=True))
         acc("wv0f", _mm_tn(f, g, spec))
         if spec.has_extra:
@@ -471,7 +561,8 @@ def fused_bwd_reference(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes):
     g = dh * _relu_mask(hs[0])
     acc("w0i", _mm_tn(lo, g, spec))
     acc("b0", g.sum(0, keepdim=True))
-    return {k: grads[k] for k in spec.param_keys()}, dhvx
+    dkp = {key: grads[key] for key in spec.param_keys()}
+    return (dkp, dhvx) if sec is None else (dkp, dhvx, dwdir)
 
 
 def _cotangent_list(n_planes: int, d_planes, ref) -> list:
@@ -1557,8 +1648,10 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _launch_fwd(spec, kp, lo, hi, hvx, entry: str) -> torch.Tensor:
-    """Run the forward kernel: (n_planes, nr, ns) f32 planes."""
+def _launch_fwd(spec, kp, lo, hi, hvx, entry: str, pre=None) -> torch.Tensor:
+    """Run the forward kernel: (n_planes, nr, ns) f32 planes; with `pre`
+    (entry snerf_fused_mlp_fwd_pre) the hvx layer's products and bias
+    before hvx land there too."""
     from simplenerf_torch.ops import build
 
     n = lo.shape[0]
@@ -1573,17 +1666,20 @@ def _launch_fwd(spec, kp, lo, hi, hvx, entry: str) -> torch.Tensor:
         lib = build.load_library("fused_mlp_fwd")
         args = [1 if members[0].cdtype == torch.bfloat16 else 0,
                 words.ctypes.data_as(ctypes.c_void_p), int(words.size), _ptr(lo)]
-        args += [_ptr(hi)] if entry == "snerf_fused_mlp_fwd" else []
-        args += [_ptr(hvx), _ptr(wts), _ptr(fpar), _ptr(out), ctypes.c_int(smem),
-                 _stream(lo.device)]
+        args += [_ptr(hi)] if entry != "snerf_fused_mlp_ens_fwd" else []
+        args += [_ptr(hvx), _ptr(wts), _ptr(fpar), _ptr(out)]
+        args += [_ptr(pre)] if pre is not None else []
+        args += [ctypes.c_int(smem), _stream(lo.device)]
         rc = getattr(lib, entry)(*args)
         if rc != 0:
             raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     return out
 
 
-def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
-    """Run the backward kernels: (per-member dkp list, dhvx (n_hvx, nr, Wv))."""
+def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str, sec_g=None):
+    """Run the backward kernels: (per-member dkp list, dhvx (n_hvx, nr, Wv));
+    with `sec_g` (entry snerf_fused_mlp_bwd_sec) the hvx layer's g takes
+    the secondary views' cotangent after dhvx's share is stored."""
     from simplenerf_torch.ops import build
 
     n = lo.shape[0]
@@ -1615,14 +1711,15 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str):
     lib = build.load_library("fused_mlp_bwd")
     args = [1 if cd == torch.bfloat16 else 0, words.ctypes.data_as(ctypes.c_void_p),
             int(words.size), _ptr(lo)]
-    args += [_ptr(hi)] if entry == "snerf_fused_mlp_bwd" else []
+    args += [_ptr(hi)] if entry != "snerf_fused_mlp_ens_bwd" else []
     args += [_ptr(hvx), _ptr(d_planes), _ptr(plan.wts), _ptr(plan.fpar), _ptr(plan.dev_tasks),
              len(plan.tasks), plan.n_chunks, plan.chunk_rows, plan.dw_total,
              plan.n_hvx * (n // ns), _ptr(stash), _ptr(g32), _ptr(masks), _ptr(parts),
              _ptr(part_out), _ptr(dw_part), _ptr(dw_out), _ptr(dhvx),
              maps.ctypes.data_as(ctypes.c_void_p), len(maps),
-             slices.ctypes.data_as(ctypes.c_void_p), _ptr(scratch), ctypes.c_int(plan.smem),
-             _stream(dev)]
+             slices.ctypes.data_as(ctypes.c_void_p), _ptr(scratch), ctypes.c_int(plan.smem)]
+    args += [_ptr(sec_g)] if sec_g is not None else []
+    args += [_stream(dev)]
     rc = getattr(lib, entry)(*args)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
@@ -1799,55 +1896,91 @@ def _zero_grads(kp: dict, keys) -> dict:
     return {k: torch.zeros(kp[k].shape, dtype=torch.float32, device=kp[k].device) for k in keys}
 
 
-def _fwd(spec: FusedSpec, kp: dict, lo, hi, hvx) -> torch.Tensor:
-    """The forward kernel (CUDA) or its plain version (CPU): stacked planes."""
+def _fwd(spec: FusedSpec, kp: dict, lo, hi, hvx, sec=None) -> tuple:
+    """The forward kernel (CUDA) or its plain version (CPU): (stacked
+    planes, pre); with `sec` the k secondary planes follow the head planes
+    and pre is the hvx layer's stored pre-activation (CUDA; None on the
+    CPU, whose backward recomputes it)."""
     if lo.device.type == "cpu":
-        return torch.stack(fused_apply_reference(spec, kp, lo, hi, hvx))
+        return torch.stack(fused_apply_reference(spec, kp, lo, hi, hvx, sec)), None
     _check_operands(spec, lo, hi, hvx)
-    out = _launch_fwd(spec, kp, lo, hi, hvx, "snerf_fused_mlp_fwd")
+    if sec is None:
+        out = _launch_fwd(spec, kp, lo, hi, hvx, "snerf_fused_mlp_fwd")
+        if lo.shape[0]:
+            fused_apply.launches += 1
+        return out, None
+    _check_secondary(spec, lo, *sec)
+    pre = torch.empty((lo.shape[0], spec.views_width), dtype=torch.float32, device=lo.device)
+    out = _launch_fwd(spec, kp, lo, hi, hvx, "snerf_fused_mlp_fwd_pre", pre=pre)
     if lo.shape[0]:
         fused_apply.launches += 1
-    return out
+    return torch.cat([out, secondary_fwd(spec, kp, pre, *sec)]), pre
 
 
-def fused_bwd(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes):
-    """The backward of `fused_apply`: (dkp f32, dhvx or None).
+def fused_bwd(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes, sec=None, pre=None):
+    """The backward of `fused_apply`: (dkp f32, dhvx or None), and with
+    `sec` = (pe2, wdir) (dkp, dhvx, dwdir).
 
     CPU tensors take `fused_bwd_reference`; CUDA tensors launch the kernel
-    (or raise). d_planes: (n_planes, nr, ns) or a sequence with None for a
-    plane no loss reads.
+    (or raise). d_planes: (n_planes [+ k], nr, ns) or a sequence with None
+    for a plane no loss reads. With `sec` on CUDA: the secondary backward
+    (`secondary_bwd`, from `pre`, the forward's stored hvx-layer products,
+    which that case requires), then the row pass with its cotangent
+    (snerf_fused_mlp_bwd_sec); the head row's share is added to dkp.
     """
     _check_device(lo, "fused_bwd")
     if lo.device.type == "cpu":
-        return fused_bwd_reference(spec, kp, lo, hi, hvx, d_planes)
+        return fused_bwd_reference(spec, kp, lo, hi, hvx, d_planes, sec)
     _check_operands(spec, lo, hi, hvx)
     n = lo.shape[0]
+    if sec is not None:
+        _check_secondary(spec, lo, *sec)
+        if pre is None:
+            raise ValueError("fused_bwd with secondary views on CUDA needs the forward's pre")
     if n == 0:
-        return _zero_grads(kp, spec.param_keys()), torch.zeros_like(hvx) if spec.has_hvx else None
-    dp = _stacked_cotangents(spec.n_planes, d_planes, n // spec.ns, spec.ns, lo.device)
-    (dkp,), dhvx = _launch_bwd(spec, kp, lo, hi, hvx, dp, "snerf_fused_mlp_bwd")
+        out = (_zero_grads(kp, spec.param_keys()), torch.zeros_like(hvx) if spec.has_hvx else None)
+        return out if sec is None else (*out, torch.zeros_like(sec[1], dtype=torch.float32))
+    k = 0 if sec is None else sec[0].shape[0] // n
+    dp = _stacked_cotangents(spec.n_planes + k, d_planes, n // spec.ns, spec.ns, lo.device)
+    if sec is None:
+        (dkp,), dhvx = _launch_bwd(spec, kp, lo, hi, hvx, dp, "snerf_fused_mlp_bwd")
+        fused_bwd.launches += 1
+        return dkp, dhvx[0] if spec.has_hvx else None
+    sec_g, dwdir, dw_vis, db_vis = secondary_bwd(spec, kp, pre, *sec, dp[spec.n_planes :])
+    (dkp,), dhvx = _launch_bwd(spec, kp, lo, hi, hvx, dp[: spec.n_planes].contiguous(),
+                               "snerf_fused_mlp_bwd_sec", sec_g=sec_g)
     fused_bwd.launches += 1
-    return dkp, dhvx[0] if spec.has_hvx else None
+    dkp["wvo_t"][-1] += dw_vis
+    dkp["bvo"][0, -1] += db_vis
+    return dkp, dhvx[0], dwdir
 
 
 class _FusedApply(torch.autograd.Function):
-    """fused_apply under autograd: the forward kernel, then the backward kernel."""
+    """fused_apply under autograd: the forward kernel, then the backward
+    kernel; pe2 and wdir are the secondary views' operands or None."""
 
     @staticmethod
-    def forward(ctx, spec, keys, lo, hi, hvx, *vals):
+    def forward(ctx, spec, keys, lo, hi, hvx, pe2, wdir, *vals):
         ctx.spec, ctx.keys = spec, keys
-        ctx.save_for_backward(lo, hi, hvx, *vals)
-        return _fwd(spec, dict(zip(keys, vals)), lo, hi, hvx)
+        sec = None if pe2 is None else (pe2, wdir)
+        out, pre = _fwd(spec, dict(zip(keys, vals)), lo, hi, hvx, sec)
+        ctx.save_for_backward(lo, hi, hvx, pe2, wdir, pre, *vals)
+        return out
 
     @staticmethod
     def backward(ctx, d_out):
-        lo, hi, hvx, *vals = ctx.saved_tensors
-        dkp, dhvx = fused_bwd(ctx.spec, dict(zip(ctx.keys, vals)), lo, hi, hvx, d_out)
-        return (None, None, None, None, dhvx if ctx.needs_input_grad[4] else None,
-                *(dkp[k] for k in ctx.keys))
+        lo, hi, hvx, pe2, wdir, pre, *vals = ctx.saved_tensors
+        kp = dict(zip(ctx.keys, vals))
+        dwdir = None
+        if pe2 is None:
+            dkp, dhvx = fused_bwd(ctx.spec, kp, lo, hi, hvx, d_out)
+        else:
+            dkp, dhvx, dwdir = fused_bwd(ctx.spec, kp, lo, hi, hvx, d_out, sec=(pe2, wdir), pre=pre)
+        return (None, None, None, None, dhvx if ctx.needs_input_grad[4] else None, None,
+                dwdir if ctx.needs_input_grad[6] else None, *(dkp[k] for k in ctx.keys))
 
 
-def fused_apply(spec: FusedSpec, kp: dict, lo, hi, hvx) -> tuple:
+def fused_apply(spec: FusedSpec, kp: dict, lo, hi, hvx, sec=None) -> tuple:
     """Fused field evaluation -> tuple of `spec.n_planes` (N // ns, ns) f32 planes.
 
     lo: (N, in_lo) cdtype trunk input [x | sin f<ds | cos f<ds]; hi:
@@ -1856,12 +1989,121 @@ def fused_apply(spec: FusedSpec, kp: dict, lo, hi, hvx) -> tuple:
     required iff spec.has_hvx. Points-head channels first, then views-head
     channels: raw linear head outputs.
 
+    sec = (pe2, wdir): secondary views (ViP-NeRF's visibility prior). pe2
+    ((N k), 3+6dv) cdtype holds the blocked PE of each point's k other
+    cameras' directions, rows point-major; wdir (3+6dv, Wv) the first views
+    layer's dirs rows (`dirs_w`). Then k planes of the views head's last
+    channel (the visibility) at those directions follow, raw
+    (`secondary_reference`); bf16 only on CUDA (`secondary_supported`).
+
     CPU tensors take the plain versions; CUDA tensors launch the kernels (or
-    raise). Differentiable in kp and hvx (`fused_bwd`); lo and hi get none.
+    raise). Differentiable in kp, hvx and wdir (`fused_bwd`); lo, hi and pe2
+    get none.
     """
     _check_device(lo, "fused_apply")
     keys = tuple(spec.param_keys())
-    return _FusedApply.apply(spec, keys, lo, hi, hvx, *(kp[k] for k in keys)).unbind(0)
+    pe2, wdir = sec if sec is not None else (None, None)
+    return _FusedApply.apply(spec, keys, lo, hi, hvx, pe2, wdir, *(kp[k] for k in keys)).unbind(0)
+
+
+def secondary_supported(spec: FusedSpec, device) -> bool:
+    """Whether `fused_apply` takes secondary views for `spec` on `device`:
+    one views layer with view directions and a visibility channel last in
+    its head; on CUDA the bf16 kernels only (float32 goes unfused)."""
+    ok = (spec.has_hvx and spec.views_depth == 1 and spec.out_v >= 1
+          and spec.views_width <= _SEC_MAX_WV)
+    return ok and (torch.device(device).type == "cpu" or spec.cdtype == torch.bfloat16)
+
+
+# The secondary-view kernels (csrc/fused_mlp_sec.cu): the widest views
+# layer, direction PE and view count they take, a block's warps (each a
+# tile of 16 // k points at a time), and their grid, two blocks an SM (the
+# backward's rows of partials).
+_SEC_MAX_WV = 128
+_SEC_MAX_PE = 32
+_SEC_MAX_VIEWS = 8
+_SEC_WARPS = 4
+_SEC_BLOCKS = 2 * _SMS
+
+
+def _sec_blocks(n: int, k: int) -> int:
+    return min(-(-n // (_SEC_WARPS * (16 // k))), _SEC_BLOCKS)
+
+
+def _check_secondary(spec: FusedSpec, lo, pe2, wdir):
+    if not secondary_supported(spec, lo.device):
+        raise ValueError(f"no secondary views for this spec on {lo.device}: {spec}")
+    n = lo.shape[0]
+    pe_w = wdir.shape[0] if wdir is not None else -1
+    k = pe2.shape[0] // n if n else 0
+    if (pe2.dtype != spec.cdtype or pe2.dim() != 2 or pe2.shape[1] != pe_w or k * n != pe2.shape[0]
+            or not 0 < pe_w <= _SEC_MAX_PE or tuple(wdir.shape) != (pe_w, spec.views_width)
+            or (n and not 0 < k <= _SEC_MAX_VIEWS)):
+        raise ValueError(f"secondary operands: pe2 {tuple(pe2.shape)} {pe2.dtype}, wdir "
+                         f"{None if wdir is None else tuple(wdir.shape)} for {n} rows")
+    if not pe2.is_contiguous() or pe2.device != lo.device or wdir.device != lo.device:
+        raise ValueError(f"pe2 must be contiguous and both operands on {lo.device}")
+
+
+def _sec_operands(spec: FusedSpec, kp: dict, wdir) -> tuple:
+    """The secondary kernels' float32 operands: wdir rounded to the compute
+    type, and [w_vis | b_vis]."""
+    w_vis, b_vis = _sec_head(spec, kp)
+    head = torch.cat([w_vis.float(), b_vis.float().reshape(1)]).contiguous()
+    return wdir.to(spec.cdtype).float().contiguous(), head
+
+
+def secondary_fwd(spec: FusedSpec, kp: dict, pre, pe2, wdir) -> torch.Tensor:
+    """The secondary-view forward: (k, nr, ns) raw planes. CPU tensors take
+    `secondary_reference`; CUDA tensors launch csrc/fused_mlp_sec.cu
+    `snerf_sec_fwd` (or raise)."""
+    if pre.device.type == "cpu":
+        return secondary_reference(spec, kp, pre, pe2, wdir)
+    from simplenerf_torch.ops import build
+
+    n, pe_w = pre.shape[0], wdir.shape[0]
+    k = pe2.shape[0] // n
+    w, head = _sec_operands(spec, kp, wdir)
+    out = torch.empty((k, n // spec.ns, spec.ns), dtype=torch.float32, device=pre.device)
+    blocks = _sec_blocks(n, k)
+    rc = build.load_library("fused_mlp_sec").snerf_sec_fwd(
+        _ptr(pre), _ptr(pe2), _ptr(w), _ptr(head), _ptr(out), n, k, pe_w, spec.views_width, blocks,
+        _stream(pre.device))
+    if rc != 0:
+        raise RuntimeError(f"snerf_sec_fwd kernel launch failed: CUDA error {rc}")
+    secondary_fwd.launches += 1
+    return out
+
+
+def secondary_bwd(spec: FusedSpec, kp: dict, pre, pe2, wdir, d_sec) -> tuple:
+    """The secondary-view backward from d_sec (k, nr, ns): (sec (N, Wv),
+    dwdir, dw_vis, db_vis), as `secondary_bwd_reference`. CUDA: csrc/
+    fused_mlp_sec.cu `snerf_sec_bwd`, then the column sum of its blocks'
+    partials (`column_sums`)."""
+    if pre.device.type == "cpu":
+        return secondary_bwd_reference(spec, kp, pre, pe2, wdir, d_sec)
+    from simplenerf_torch.ops import build
+
+    n, pe_w, wv = pre.shape[0], wdir.shape[0], spec.views_width
+    k = pe2.shape[0] // n
+    w, head = _sec_operands(spec, kp, wdir)
+    dv = d_sec.float().reshape(k, n).contiguous()
+    sec = torch.empty((n, wv), dtype=torch.float32, device=pre.device)
+    blocks = _sec_blocks(n, k)
+    width = pe_w * wv + wv + 1
+    part = torch.empty((1, blocks, width), dtype=torch.float32, device=pre.device)
+    rc = build.load_library("fused_mlp_sec").snerf_sec_bwd(
+        _ptr(pre), _ptr(pe2), _ptr(w), _ptr(head), _ptr(dv), _ptr(sec), _ptr(part), n, k, pe_w, wv,
+        blocks, _stream(pre.device))
+    if rc != 0:
+        raise RuntimeError(f"snerf_sec_bwd kernel launch failed: CUDA error {rc}")
+    secondary_bwd.launches += 1
+    sums = column_sums(part)[0]
+    return sec, sums[: pe_w * wv].view(pe_w, wv), sums[pe_w * wv : pe_w * wv + wv], sums[-1]
+
+
+secondary_fwd.launches = 0
+secondary_bwd.launches = 0
 
 
 fused_apply.launches = 0
@@ -1963,7 +2205,7 @@ fused_ens_bwd.launches = 0
 
 
 _COUNTED = (fused_apply, fused_bwd, fused_apply_ensemble, fused_ens_bwd, wgrad, column_sums,
-            tf32_split, pe_operands)
+            tf32_split, pe_operands, secondary_fwd, secondary_bwd)
 
 
 def launch_counts() -> dict:

@@ -19,6 +19,7 @@ import torch
 
 from simplenerf_torch.fields import mlp as mlp_lib
 from simplenerf_torch.render import sampling, volume
+from simplenerf_torch.utils import profiling
 
 Params = Any
 
@@ -42,7 +43,9 @@ class RenderConfig:
     compute_dtype: str = "float32"
     # Fused MLP kernel: always on for CUDA tensors ("off" raises there); on
     # CPU "on" takes its plain version, "auto"/"off" the unfused MLP. The
-    # visibility2 path always uses the unfused MLP.
+    # visibility2 path takes the kernels where they have secondary views
+    # (`fused_mlp.secondary_supported`: bf16 on the card), else the
+    # unfused MLP.
     fused_mlp: str = "auto"
 
     @property
@@ -88,15 +91,17 @@ def _eval_mlp(
     use_fused: bool,
     noise_std: float = 0.0,
     noise: Optional[torch.Tensor] = None,
+    sec: Optional[tuple] = None,
 ) -> dict:
     """Flatten (nr, ns, 3) points into one batch, evaluate, return planes:
     sigma (nr, ns), rgb (3, nr, ns), visibility (nr, ns), visibility2
-    (nr, ns, k). View directions stay per ray except on the visibility2
-    path, which needs per-sample directions."""
+    (nr, ns, k). View directions stay per ray except on the unfused
+    visibility2 path, which needs per-sample directions; `sec` (the
+    secondary operands of view_dirs2) takes the kernel path."""
     nr, ns = pts.shape[:2]
     flat_pts = pts.reshape(nr * ns, 3)
     kw = dict(noise_std=noise_std, noise=noise, dtype=dtype)
-    if view_dirs2 is not None:
+    if view_dirs2 is not None and sec is None:
         k = view_dirs2.shape[-2]
         flat_dirs = None
         if mcfg.use_view_dirs:
@@ -108,7 +113,8 @@ def _eval_mlp(
         return mlp_lib.to_planes(raw, nr, ns)
     dirs = view_dirs if mcfg.use_view_dirs else None
     if use_fused:
-        return mlp_lib.apply_fused(params, mcfg, flat_pts, view_dirs=dirs, view_dirs_tile=ns, **kw)
+        return mlp_lib.apply_fused(params, mcfg, flat_pts, view_dirs=dirs, view_dirs_tile=ns,
+                                   sec=sec, **kw)
     raw = mlp_lib.apply(params, mcfg, flat_pts, view_dirs=dirs, view_dirs_tile=ns, **kw)
     return mlp_lib.to_planes(raw, nr, ns)
 
@@ -191,10 +197,16 @@ def _run_level(
 ) -> tuple[dict, dict]:
     """Evaluate one MLP at the given z values and composite."""
     pts = _points(cfg, rays, z_vals)
+    use_fused = _use_fused(cfg, pts.device)
 
-    view_dirs2 = None
+    view_dirs2 = sec = None
     if mcfg.predict_visibility and sec_views_vis and "rays_o2" in rays:
-        view_dirs2 = _other_view_dirs(cfg, z_vals, rays["rays_o"], rays["rays_d"], rays["rays_o2"])
+        # The secondary views' directions and, on the kernel path, their operands.
+        with profiling.span("field.secondary", device=pts.device):
+            view_dirs2 = _other_view_dirs(cfg, z_vals, rays["rays_o"], rays["rays_d"],
+                                          rays["rays_o2"])
+            if use_fused and _fused_secondary(cfg, mcfg, pts.shape[1], pts.device):
+                sec = mlp_lib.secondary_operands(params[model_name], mcfg, view_dirs2, cfg.dtype)
 
     net_out = _eval_mlp(
         params[model_name],
@@ -203,11 +215,19 @@ def _run_level(
         rays.get("view_dirs"),
         view_dirs2,
         cfg.dtype,
-        use_fused=_use_fused(cfg, pts.device),
+        use_fused=use_fused,
         noise_std=cfg.raw_noise_std if train else 0.0,
         noise=noise,
+        sec=sec,
     )
     return _composite_level(cfg, net_out, z_vals, rays), net_out
+
+
+def _fused_secondary(cfg: RenderConfig, mcfg: mlp_lib.MLPConfig, ns: int, device) -> bool:
+    """Whether the kernels take this MLP's secondary views (`fused_mlp.secondary_supported`)."""
+    from simplenerf_torch.ops import fused_mlp
+
+    return fused_mlp.secondary_supported(fused_mlp.make_spec(mcfg, ns, cfg.dtype), device)
 
 
 _LEVEL_MEMBERS = {

@@ -263,6 +263,14 @@ class Trainer:
         self._inputs: Optional[StepInputs] = None
 
         self.render_cfg = config_lib.render_config_from_dict(configs, compute_dtype)
+        # ViP-NeRF's prior: the step renders each ray's secondary views
+        # (`rays_o2`, its frame's other train cameras) so that
+        # VisibilityPriorLoss01 trains; off, the step renders none.
+        self.train_sec_views = bool(configs["model"].get("train_secondary_views", False))
+        # The last step's secondary visibility by output name
+        # (`visibility2_coarse`, `visibility2_fine`: (rows, k)), detached;
+        # under a CUDA graph the graph's buffers, which each replay rewrites.
+        self.step_visibility2: dict = {}
         self.loss_computer = LossComputer(configs["losses"], loss_context_from_configs(configs))
         opt_cfg = configs["optimizer"]
         self.lr_schedule = make_lr_schedule(opt_cfg, configs.get("num_iterations", 0))
@@ -334,7 +342,8 @@ class Trainer:
         weights of `iter_num`: (total, values). `draws` go to `render_rays`
         (generator or explicit draws)."""
         weights = torch.as_tensor(self.loss_computer.weights_vector(iter_num), device=self.device)
-        outputs = renderer.render_rays(self.params, self.render_cfg, batch, train=True, **draws)
+        outputs = renderer.render_rays(self.params, self.render_cfg, batch, train=True,
+                                       sec_views_vis=self.train_sec_views, **draws)
         return self.loss_computer.compute(batch, outputs, weights)
 
     def stage(self, iter_num: int) -> StepInputs:
@@ -370,7 +379,8 @@ class Trainer:
         without a mesh, or in a world of one, the rows are the batch and
         the sums are no-ops. Four device spans cover it, one after another:
         `step.forward` (gather and render), `step.losses`, `step.backward`
-        and `step.adam` (Adam and the stacked loss values)."""
+        and `step.adam` (Adam and the stacked loss values). The render's
+        secondary visibility, where it has any, stays in `step_visibility2`."""
         dev = self.device
         with profiling.span("step.forward", device=dev):
             for p in self.leaves:
@@ -379,7 +389,10 @@ class Trainer:
                 self.mesh, (inputs.indices, inputs.mask_nerf, inputs.mask_sd, inputs.draws))
             batch = self.batch(indices, mask_nerf, mask_sd)
             batch["global_counts"] = inputs.counts
-            outputs = renderer.render_rays(self.params, self.render_cfg, batch, train=True, **draws)
+            outputs = renderer.render_rays(self.params, self.render_cfg, batch, train=True,
+                                           sec_views_vis=self.train_sec_views, **draws)
+            self.step_visibility2 = {k: v.detach() for k, v in outputs.items()
+                                     if k.startswith("visibility2_")}
         with profiling.span("step.losses", device=dev):
             total, values = self.loss_computer.compute(batch, outputs, inputs.weights)
         with profiling.span("step.backward", device=dev):

@@ -663,7 +663,8 @@ def test_visibility_training_step_gradients_match_plain(cuda_device, tmp_path, m
                                   fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd)]
     assert [b - a for a, b in zip(counts, after)] == [1, 1, 1, 1]
     assert sorted(widths) == [[4], [4, 3, 0]]  # the fine MLP, the coarse trio
-    monkeypatch.setattr(fused_mlp, "_fwd", lambda *a: torch.stack(fused_mlp.fused_apply_reference(*a)))
+    monkeypatch.setattr(fused_mlp, "_fwd",
+                        lambda *a: (torch.stack(fused_mlp.fused_apply_reference(*a)), None))
     monkeypatch.setattr(fused_mlp, "fused_bwd", fused_mlp.fused_bwd_reference)
     monkeypatch.setattr(fused_mlp, "_ens_fwd",
                         lambda *a: torch.stack(fused_mlp.fused_apply_ensemble_reference(*a)))
@@ -845,3 +846,111 @@ def test_set_params_drops_the_graph(cuda_device, graph_scene, tmp_path):
     start = torch.cat([p.detach().reshape(-1) for p in checkpoints.flat_leaves(init)]).cpu()
     assert not torch.equal(got["params"], start)
     _held("after set_params", got, fresh(tmp_path / "a"), fresh(tmp_path / "b"))
+
+
+# Secondary views (ViP-NeRF's prior; bf16 only on the card): the forward's
+# hvx-layer store and csrc/fused_mlp_sec.cu, and the row pass taking their
+# cotangent, against the plain versions (`fused_apply_reference` and
+# `fused_bwd_reference` with `sec`). The secondary planes' tolerance is the
+# planes' (TOL); dwdir's the weights' (GRAD_TOL): its sums run in another
+# order, on the same bf16 operands. Row counts leave a block's second
+# consumer and the secondary kernels' last warp ragged.
+SEC_CASES = {
+    "visibility": CASES["visibility"],
+    "published": dict(CASES["published"], predict_visibility=True),
+}
+
+
+def _sec_operands(cfg, nr, ns, k, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    params = mlp.init(g, cfg, device=device)
+    pts = torch.randn((nr * ns, 3), generator=g).to(device)
+    dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1).to(device)
+    dirs2 = torch.nn.functional.normalize(torch.randn((nr * ns, k, 3), generator=g), dim=-1).to(device)
+    ops = mlp.fused_operands(params, cfg, pts, dirs, ns, torch.bfloat16)
+    return ops, mlp.secondary_operands(params, cfg, dirs2, torch.bfloat16)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(37, 5), (1037, 1), (40, 64)], ids=["37x5", "1037x1", "40x64"])
+@pytest.mark.parametrize("name", sorted(SEC_CASES))
+def test_secondary_kernels_match_plain(cuda_device, name, shape, k):
+    cfg = mlp.MLPConfig(**{**SMALL, **SEC_CASES[name]})
+    nr, ns = shape
+    (spec, kp, lo, hi, hvx), sec = _sec_operands(cfg, nr, ns, k, cuda_device, seed=nr + k)
+    before = fused_mlp.launch_counts()
+    got = fused_mlp.fused_apply(spec, kp, lo, hi, hvx, sec=sec)
+    torch.cuda.synchronize()
+    after = fused_mlp.launch_counts()
+    assert {n: after[n] - before[n] for n in ("fused_apply", "secondary_fwd")} == {
+        "fused_apply": 1, "secondary_fwd": 1}
+    want = fused_mlp.fused_apply_reference(spec, kp, lo, hi, hvx, sec)
+    assert len(got) == len(want) == spec.n_planes + k
+    for j, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == (nr, ns)
+        err = (a - b).abs().max().item()
+        print(f"secondary {name} {nr}x{ns} k={k} plane {j}: max abs err {err:.3e}")
+        assert err <= TOL[torch.bfloat16], f"plane {j}: max abs err {err}"
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    d_planes = torch.randn((spec.n_planes + k, nr, ns), generator=gen, device=cuda_device)
+    pre = fused_mlp._fwd(spec, kp, lo, hi, hvx, sec)[1]
+    dkp, dhvx, dwdir = fused_mlp.fused_bwd(spec, kp, lo, hi, hvx, d_planes, sec=sec, pre=pre)
+    want, want_hvx, want_dir = fused_mlp.fused_bwd_reference(spec, kp, lo, hi, hvx, d_planes, sec)
+    got_g = {**dkp, "dhvx": dhvx, "dwdir": dwdir}
+    _grad_errors(f"secondary bwd {name} {nr}x{ns} k={k}", got_g,
+                 {**want, "dhvx": want_hvx, "dwdir": want_dir}, torch.bfloat16)
+    again = fused_mlp.fused_bwd(spec, kp, lo, hi, hvx, d_planes, sec=sec, pre=pre)
+    assert all(torch.equal(again[0][n], dkp[n]) for n in dkp), "two launches differ"
+    assert torch.equal(again[1], dhvx) and torch.equal(again[2], dwdir), "two launches differ"
+
+
+def test_secondary_autograd_matches_plain(cuda_device):
+    """Under autograd: wdir's gradient and the kernel params' through
+    `fused_apply` with secondary views, against the plain versions."""
+    cfg = mlp.MLPConfig(**{**SMALL, **SEC_CASES["published"]})
+    nr, ns, k = 37, 64, 2
+    (spec, kp, lo, hi, hvx), (pe2, wdir) = _sec_operands(cfg, nr, ns, k, cuda_device, seed=5)
+    leaves = {n: t.detach().clone().requires_grad_() for n, t in {**kp, "wdir": wdir}.items()}
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    weights = torch.randn((spec.n_planes + k, nr, ns), generator=gen, device=cuda_device)
+
+    def run():
+        kp_ = {n: leaves[n] for n in kp}
+        planes = fused_mlp.fused_apply(spec, kp_, lo, hi, hvx, sec=(pe2, leaves["wdir"]))
+        loss = (torch.stack(planes) * weights).sum()
+        return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    got = run()
+    plain = (fused_mlp.fused_apply_reference, fused_mlp.fused_bwd_reference)
+    saved = (fused_mlp._fwd, fused_mlp.fused_bwd)
+    fused_mlp._fwd = lambda *a: (torch.stack(plain[0](*a)), None)
+    fused_mlp.fused_bwd = lambda *a, sec=None, pre=None: plain[1](*a, sec=sec)
+    try:
+        want = run()
+    finally:
+        fused_mlp._fwd, fused_mlp.fused_bwd = saved
+    _grad_errors("secondary autograd", got, want, torch.bfloat16)
+
+
+def test_k0_launches_the_kernels_it_launched_before(cuda_device):
+    """Without secondary views a field call and its backward launch the
+    forward engine and the row pass in their plain instances (kPre, kSec
+    false), the weight pass and the column sums: no secondary kernel and
+    no column sum of its partials."""
+    cfg = mlp.MLPConfig(**{**SMALL, **SEC_CASES["published"]})
+    spec, kp, lo, hi, hvx = _operands(cfg, 37, 64, torch.bfloat16, cuda_device)
+    kp = {n: t.detach().clone().requires_grad_() for n, t in kp.items()}
+    before = fused_mlp.launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        planes = fused_mlp.fused_apply(spec, kp, lo, hi, hvx)
+        torch.autograd.grad(torch.stack(planes).sum(), list(kp.values()))
+        torch.cuda.synchronize()
+    after = fused_mlp.launch_counts()
+    delta = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    assert delta == {"fused_apply": 1, "fused_bwd": 1}, delta
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [n for n in names if "fused_mlp" in n or "sec_" in n]
+    print("k = 0 kernels:", sorted(set(ours)))
+    assert not [n for n in ours if "sec_" in n or "<true>" in n], ours
+    assert sum("fused_mlp_fwd_sm90_kernel<false>" in n for n in ours) == 1, ours
+    assert sum("fused_mlp_bwd_rows_sm90_kernel<false>" in n for n in ours) == 1, ours

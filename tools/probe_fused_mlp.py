@@ -112,7 +112,7 @@ TIMING_EDITS = {
     "hvx loads": [(_SM90, "  if (op.flags & FLAG_HVX) {\n    // Staged", "  if (false) {\n    // Staged")],
     "lo tile loads": [(_SM90, "  load_rows(tl.lo, lo, p.in_lo,", "  if (0) load_rows(tl.lo, lo, p.in_lo,")],
     # ptxas drops a wgmma whose results nobody reads: one data-dependent store keeps them.
-    "epilogue": [(_SM90, "  epilogue<N>(acc, op, p, s, tl, cst, hvx, out, fpar, row0, t);\n",
+    "epilogue": [(_SM90, "  epilogue<N, kPre>(acc, op, p, s, tl, cst, hvx, out, fpar, pre, row0, t);\n",
                   "  if (acc[0] == 1.2345e-30f) out[t] = acc[N / 2 - 1];\n")],
     "ring": [(_SM90, "      mbar_wait(s.empty + slot, phase ^ 1);\n", "      if (it >= p.stages) return;\n"),
              (_SM90, "      mbar_wait(s.full + slot, phase);\n",
