@@ -657,11 +657,39 @@ def plain_versions():
         fm._fwd, fm.fused_bwd, fm._ens_fwd, fm.fused_ens_bwd, fm.pe_operands = saved
 
 
+def reset_launches(counters):
+    """The counters of the wrappers `counters` at 0 (a forward's ping-pong count too)."""
+    for f in counters:
+        f.launches = 0
+        if hasattr(f, "pingpong"):
+            f.pingpong = 0
+
+
+def read_launches(counters) -> dict:
+    """The wrappers' launches by name, and each forward's launches of the
+    bf16 ping-pong engine as "<name>.pingpong"."""
+    out = {f.__name__: f.launches for f in counters}
+    out.update({f"{f.__name__}.pingpong": f.pingpong for f in counters if hasattr(f, "pingpong")})
+    return out
+
+
+def pingpong_held(label: str, launches: dict, dname: str = "bfloat16") -> dict:
+    """`launches` without its "<forward>.pingpong" counts, once each is held
+    to its forward's launches in bf16 (every bf16 forward runs the ping-pong
+    engine) or to 0 in float32 (the 3xTF32 engine)."""
+    for key in [k for k in launches if k.endswith(".pingpong")]:
+        want = launches[key.split(".")[0]] if dname == "bfloat16" else 0
+        if launches[key] != want:
+            fail(f"{label}: {launches[key]} {key} launches, expected {want} ({dname})")
+    return {k: n for k, n in launches.items() if not k.endswith(".pingpong")}
+
+
 def mlp_launches(label: str, launches: dict) -> dict:
-    """The MLP kernels' launches of `launches` (by wrapper name), once the PE
-    operand pass's are held to one for each fused forward of the same run
-    (fused_apply's and fused_apply_ensemble's)."""
-    rest = {k: n for k, n in launches.items() if k != "pe_operands"}
+    """The MLP kernels' launches of `launches` (by wrapper name) in a bf16
+    run, once the PE operand pass's are held to one for each fused forward
+    of the same run (fused_apply's and fused_apply_ensemble's) and the
+    forwards' ping-pong counts to their launches (`pingpong_held`)."""
+    rest = {k: n for k, n in pingpong_held(label, launches).items() if k != "pe_operands"}
     forwards = rest.get("fused_apply", 0) + rest.get("fused_apply_ensemble", 0)
     if launches["pe_operands"] != forwards:
         fail(f"{label}: {launches['pe_operands']} PE operand launches for {forwards} fused forwards")
@@ -703,13 +731,12 @@ def train(work: Path, db: Path) -> dict:
     counters = (fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd, fused_mlp.fused_apply,
                 fused_mlp.fused_bwd, fused_mlp.pe_operands)
     # The main path: counters at 0 just before, read just after.
-    for f in counters:
-        f.launches = 0
+    reset_launches(counters)
     t0 = time.perf_counter()
     run_dir = runner.start_training(cfg, db, work / "runs")
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
-    launches = {f.__name__: f.launches for f in counters}
+    launches = read_launches(counters)
     print(f"train: start_training, {steps} steps of the published bf16 recipe in chunks of "
           f"{TRAIN_CHUNK} in {t_train:.1f} s incl. set-up and capture; launches {launches}",
           flush=True)
@@ -1160,7 +1187,12 @@ def step_time(db: Path, warmup: int = 3, steps: int = 40, graph_calls: int = 5,
               f"allocated, {reserved_gb:.2f} GiB reserved"
               + (f"; first call {first_s:.2f} s, capture {capture_s:.3f} s" if mode == "graph" else ""),
               flush=True)
-    fused_mlp.add_launches({k: n - fused_mlp.launch_counts()[k] for k, n in saved.items()})
+    made = {k: n - saved[k] for k, n in fused_mlp.launch_counts().items()}
+    fused_mlp.add_launches({k: -n for k, n in made.items()})
+    print(f"train step ({dname}): forward launches {made['fused_apply']} + "
+          f"{made['fused_apply_ensemble']} (ensemble), of the bf16 ping-pong engine "
+          f"{made['fused_apply.pingpong']} + {made['fused_apply_ensemble.pingpong']}", flush=True)
+    pingpong_held(f"train step ({dname})", made, dname)
     loop_k, graph_k = out["loop"]["csrc_kernels"], out["graph"]["csrc_kernels"]
     print(f"train step ({dname}): ops/csrc kernels per step, loop {loop_k}, replayed {graph_k}",
           flush=True)
@@ -1365,7 +1397,7 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
     print(f"serve: scene + checkpoint set up in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # The main path: counters at 0 just before, read just after.
-    fused_mlp.fused_apply.launches = fused_mlp.pe_operands.launches = 0
+    reset_launches((fused_mlp.fused_apply, fused_mlp.pe_operands))
     t0 = time.perf_counter()
     if runner.start_testing({"train_num": 0, "test_num": 0}, db, runs, run_qa=False) != {}:
         fail("start_testing without QA returned scores")
@@ -1399,7 +1431,7 @@ def serve(work: Path, h: int = 189, w: int = 252, scale: int = 4) -> dict:
     frame_launches = fused_mlp.fused_apply.launches - before
     launches = fused_mlp.fused_apply.launches
     pe_launches = fused_mlp.pe_operands.launches
-    mlp_launches("serve", {"fused_apply": launches, "pe_operands": pe_launches})
+    mlp_launches("serve", read_launches((fused_mlp.fused_apply, fused_mlp.pe_operands)))
     chunks = -(-(H * W) // CHUNK_RAYS)
     if frame_launches != 2 * chunks:
         fail(f"the {H}x{W} request made {frame_launches} kernel launches, expected {2 * chunks}")
@@ -1700,13 +1732,12 @@ def pipeline(work: Path, card: str, h: int = 189, w: int = 252) -> dict:
             timed_calls(runner, "start_testing") as test_log, \
             timed_calls(runner, "start_testing_videos") as video_log:
         # The main path: counters at 0 just before, read just after.
-        for f in counters:
-            f.launches = 0
+        reset_launches(counters)
         t0 = time.perf_counter()
         scores = llff.run(train_cfg, test_cfg, db, runs, gt_depth_dir=gt_depths)
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
-        launches = {f.__name__: f.launches for f in counters}
+        launches = read_launches(counters)
     print(f"pipeline: llff.run in {t_run:.1f} s (start_training {train_log[0]['s']:.1f} s, "
           f"start_testing {test_log[0]['s']:.1f} s, videos "
           + ", ".join(f"{c['s']:.1f}" for c in video_log) + f" s); launches {launches}; "
@@ -1893,13 +1924,12 @@ def realestate(work: Path, card: str) -> dict:
             timed_calls(runner, "start_testing") as test_log, \
             timed_calls(runner, "start_testing_videos") as video_log:
         # The main path: counters at 0 just before, read just after.
-        for f in counters:
-            f.launches = 0
+        reset_launches(counters)
         t0 = time.perf_counter()
         scores = re_driver.run(train_cfg, test_cfg, db, runs, gt_depth_dir=gt_depths)
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
-        launches = {f.__name__: f.launches for f in counters}
+        launches = read_launches(counters)
     eval_launches = {"test": test_log[0]["fwd_launches"], "video": video_log[0]["fwd_launches"]}
     train_launches = {**mlp_launches("realestate", launches),
                       "fused_apply": launches["fused_apply"] - sum(eval_launches.values())}
@@ -2044,15 +2074,14 @@ def priors(work: Path, card: str) -> dict:
                      lambda a, _: tuple(m.out_v for m in getattr(a[0], "members", (a[0],)))) as widths, \
             recorded(Trainer, "body", lambda a, v: float(v["VisibilityPriorLoss01"])) as prior_losses:
         # The main path: counters at 0 just before, read just after.
-        for f in counters:
-            f.launches = 0
+        reset_launches(counters)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         run_dir = runner.start_training(cfg, db, runs)
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        launches = {f.__name__: f.launches for f in counters}
+        launches = read_launches(counters)
     val_launches = sum(c["fwd_launches"] for c in val_log)
     train_launches = {**mlp_launches("priors", launches),
                       "fused_apply": launches["fused_apply"] - val_launches}
@@ -2190,19 +2219,19 @@ def vipnerf(work: Path, card: str) -> dict:
                 fused_mlp.fused_bwd, fused_mlp.secondary_fwd, fused_mlp.secondary_bwd,
                 fused_mlp.pe_operands)
     with recorded(mlp_lib, "apply_reference", lambda a, _: 1) as unfused:
-        for f in counters:
-            f.launches = 0
+        reset_launches(counters)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         run_dir = runner.start_training(cfg, db, runs)
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        launches = {f.__name__: f.launches for f in counters}
+        launches = read_launches(counters)
     # Two levels a step: each level's PE of its points and of its secondary pairs.
     want = {"fused_apply_ensemble": 0, "fused_ens_bwd": 0,
             **dict.fromkeys(("fused_apply", "fused_bwd", "secondary_fwd", "secondary_bwd"), 2 * VIP_STEPS),
-            "pe_operands": 4 * VIP_STEPS}
+            "pe_operands": 4 * VIP_STEPS, "fused_apply.pingpong": 2 * VIP_STEPS,
+            "fused_apply_ensemble.pingpong": 0}
     print(f"vipnerf: start_training, {VIP_STEPS} steps in graph chunks of {TRAIN_CHUNK} in "
           f"{t_train:.1f} s incl. set-up and capture; launches {launches}; {len(unfused)} "
           f"apply_reference calls; peak device memory {peak_gb:.2f} GiB", flush=True)
@@ -2474,6 +2503,12 @@ def main() -> int:
                       f"{r.get('spill_stores', 0)} / {r.get('spill_loads', 0)} B spill stores / loads",
                       flush=True)
     print(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.1f} s (parallel nvcc)", flush=True)
+    fwd_bf16 = {k: r for k, r in ptxas.items() if k.startswith("fused_mlp_fwd_sm90_kernel")}
+    print("build: the bf16 forward's instances (ping-pong engine; sec: kPre): " + "; ".join(
+        f"{k}: {r['registers']} registers, {r.get('spill_stores', 0)} / {r.get('spill_loads', 0)} B "
+        f"spill stores / loads" for k, r in sorted(fwd_bf16.items())), flush=True)
+    if len(fwd_bf16) != 2 or any(r.get("spill_stores") or r.get("spill_loads") for r in fwd_bf16.values()):
+        fail(f"the bf16 forward's instances spill or are missing: {fwd_bf16}")
     hgmma = {k: n for lib in libs.values() for k, n in hgmma_counts(lib).items()}
     print(f"build: HGMMA instructions in the SASS by kernel: {hgmma}", flush=True)
     for name in TENSOR_CORE_KERNELS:
@@ -2559,6 +2594,8 @@ def main() -> int:
         })
         if name.endswith("fwd"):
             row["fwd_ptxas"] = ptxas["fused_mlp_fwd_sm90_kernel"]
+            row["fwd_ptxas_pre"] = ptxas["fused_mlp_fwd_sm90_kernel sec"]
+            row["pingpong"] = trained["launches"][WRAPPERS[name] + ".pingpong"]
             row["fwd_ptxas_f32"] = ptxas["fused_mlp_fwd_tf32_kernel"]
             row["hgmma_f32"] = hgmma["fused_mlp_fwd_tf32_kernel"]
             row["bound_share"] = t["bound_ms"] / t["ms"]

@@ -21,8 +21,10 @@
 // Two engines, by operand type, one program (struct sm90::Program):
 //   * bfloat16: fused_mlp_fwd_sm90_kernel (fused_mlp_sm90.cuh): a producer
 //     warpgroup streams the slabs with cp.async.bulk into an mbarrier ring,
-//     two consumer warpgroups of 64 rows run the products as wgmma from
-//     shared-memory descriptors and fold the heads into their register
+//     two consumer warpgroups of 64 rows keep their activations in
+//     registers as the next layer's wgmma A operand, take turns on the
+//     tensor cores one layer at a time (ping-pong: one's epilogue runs
+//     under the other's products) and fold the heads into their register
 //     epilogues; no block-wide barrier in the layer chain;
 //   * float32: fused_mlp_fwd_tf32_kernel (fused_mlp_tf32_sm90.cuh), the same
 //     engine on the tensor cores in 3xTF32 (each product as three TF32
@@ -44,9 +46,10 @@
 namespace {
 
 // The bf16 engine: warpgroup 0 produces (one thread issues the bulk
-// copies), warpgroups 1 and 2 consume; the two roles never reconverge, so
-// setmaxnreg moves registers from the producer to the consumers
-// (128 x 40 + 256 x 232 = 64,512 of the SM's 65,536).
+// copies), warpgroups 1 and 2 consume in ping-pong; the two roles never
+// reconverge, so setmaxnreg moves registers from the producer to the
+// consumers (128 x 24 + 256 x 240 = 64,512 of the SM's 65,536): a consumer
+// holds 128 accumulators and 64 registers of activations.
 template <bool kPre>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
 fused_mlp_fwd_sm90_kernel(const __grid_constant__ sm90::Program p,
@@ -56,7 +59,7 @@ fused_mlp_fwd_sm90_kernel(const __grid_constant__ sm90::Program p,
                           float* __restrict__ pre) {
   extern __shared__ __align__(1024) unsigned char sm90_smem[];
   if (sm90::smem_u32(sm90_smem) & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
-  const sm90::Smem s = sm90::carve(sm90_smem, p);
+  const sm90::Smem s = sm90::carve<sm90::kMaxStagesBf16>(sm90_smem, p);
   if (threadIdx.x == 0) {
     for (int i = 0; i < p.stages; ++i) {
       sm90::mbar_init(s.full + i, 1);   // the producer's expect_tx arrival
@@ -68,10 +71,10 @@ fused_mlp_fwd_sm90_kernel(const __grid_constant__ sm90::Program p,
   __syncthreads();
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(sm90::kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(sm90::kProducerRegsBf16));
     if (threadIdx.x == 0) sm90::produce(p, s, wts, fpar);
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(sm90::kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(sm90::kConsumerRegsBf16));
     sm90::consume<kPre>(p, sm90_smem, s, wg - 1, lo, hi, hvx, fpar, out, pre);
   }
 }
@@ -119,12 +122,16 @@ int launch(int dtype, const int* words, int n_words, const void* lo, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   memset(&p, 0, sizeof(p));
   memcpy(&p, words, sizeof(int) * n_words);
-  if (p.n_ops > sm90::kMaxOps || p.n_rows <= 0 || p.stages < 2 || p.stages > sm90::kMaxStages)
+  const int max_stages = dtype == 1 ? sm90::kMaxStagesBf16 : sm90::kMaxStages;
+  if (p.n_ops > sm90::kMaxOps || p.n_rows <= 0 || p.stages < 2 || p.stages > max_stages ||
+      (dtype == 1 && p.act_kb != 0))  // the bf16 engine keeps activations in registers
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < p.n_ops; ++i) {
     const int np = p.ops[i].n_pad;
+    const int slabs = p.ops[i].kb[0] + p.ops[i].kb[1] + p.ops[i].kb[2];
     if ((np != 64 && np != 128 && np != 256) ||
-        (dtype == 1 ? np * 128 : tf32::kSlotBytes) > p.slot_bytes || p.ops[i].head_nout > sm90::kMaxHead)
+        (dtype == 1 ? np * 128 : tf32::kSlotBytes) > p.slot_bytes || p.ops[i].head_nout > sm90::kMaxHead ||
+        (dtype == 1 && slabs > p.stages))  // both consumers' turns on a layer's slabs fit the ring
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const unsigned grid = static_cast<unsigned>((p.n_rows + sm90::kBM - 1) / sm90::kBM);

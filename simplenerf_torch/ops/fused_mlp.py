@@ -21,15 +21,19 @@ What bounds them on an H100: arithmetic. The published 8x256 main MLP does
 traffic per point in bf16, far above the ~295 FLOP/byte at which the
 H100's published bf16 peak and memory rate balance (SXM data sheet,
 700 W). The forward keeps every activation on chip: a block owns 128 rows,
-holds its lo/hi inputs and one activation tile in shared memory, and walks
-a program of layers (`pack_program`) with each layer's transposed weight
-streaming through a ring in shared memory that every block reads from L2.
-The weights are packed as the ring's shared-memory image, copied by one
-producer thread with bulk copies, and two consumer warpgroups multiply
-with wgmma and fold the heads into their epilogues: bf16 in 64-deep
-swizzled slabs (csrc/fused_mlp_sm90.cuh); float32 on the same engine in
-3xTF32 (csrc/fused_mlp_tf32_sm90.cuh: 64-row x 32-deep chunks in a
-permuted K order, each split on the card into its big and small TF32
+holds its lo/hi inputs in shared memory, and walks a program of layers
+(`pack_program`) with each layer's transposed weight streaming through a
+ring in shared memory that every block reads from L2. The weights are
+packed as the ring's shared-memory image, copied by one producer thread
+with bulk copies, and two consumer warpgroups multiply with wgmma and fold
+the heads into their epilogues: bf16 in 64-deep swizzled slabs, the
+activations held in registers as the next layer's A operand and the two
+consumers taking turns on the tensor cores a layer at a time, so that
+one's epilogue runs under the other's products (csrc/fused_mlp_sm90.cuh;
+`fused_apply.pingpong` and `fused_apply_ensemble.pingpong` count its
+launches); float32 on the same producer in 3xTF32 with an activation tile
+in shared memory (csrc/fused_mlp_tf32_sm90.cuh: 64-row x 32-deep chunks in
+a permuted K order, each split on the card into its big and small TF32
 images by `tf32_split`, three TF32 products per product). The backward
 (`pack_bwd_program`) runs the forward program again, stashes the rounded
 activations and cotangents in device memory, and computes dW in a second
@@ -58,7 +62,9 @@ row pass adds to the hvx layer's g after dhvx's share is taken. Without
 Each wrapper takes the plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors, and counts its launches:
 `fused_apply.launches`, `fused_bwd.launches`,
-`fused_apply_ensemble.launches`, `fused_ens_bwd.launches` (and, for the
+`fused_apply_ensemble.launches`, `fused_ens_bwd.launches` (the forwards'
+bf16 launches also as `fused_apply.pingpong` and
+`fused_apply_ensemble.pingpong`; and, for the
 weight pass and the column sums alone, `wgrad.launches` and
 `column_sums.launches`, and `tf32_split.launches`, the float32 weight
 images' split, which every float32 launch makes; all of them:
@@ -707,10 +713,10 @@ def pack_program(spec, kp, n_rows: int):
 
     `spec` is a FusedSpec with its kernel-param dict, or an EnsembleSpec with
     a tuple of them. The program (`sm90_plan`) lists the layers in execution
-    order, member after member, with the tiles each layer reads (the
-    activation tile, which it then overwrites, the lo tile, the hi tile); an
-    ensemble member's extra input is the shared lo tile. wts: the bf16 slab
-    image, or the float32 chunk image's split (`tf32_split`).
+    order, member after member, with the operands each layer reads (the
+    last layer's activations, which it then replaces, the lo tile, the hi
+    tile); an ensemble member's extra input is the shared lo tile. wts: the
+    bf16 slab image, or the float32 chunk image's split (`tf32_split`).
     """
     _, kps, _ = _members_of(spec, kp)
     plan, w_index, f_index = _sm90_on(spec, kps[0]["w0i"].device)
@@ -733,8 +739,10 @@ def pack_program(spec, kp, n_rows: int):
 _SM90_HEADER_WORDS = 14
 _SM90_OP_WORDS = 16
 _SM90_KBLOCK = 64 * 128  # bytes of one K block of a consumer's 64-row tile (64 bf16, 32 floats deep)
-_SM90_STAGES = (4, 3, 2)  # ring depths, the deepest that fits first
-_SM90_BARRIERS = 9 * 8  # full and empty per stage (4 + 4) and the heads' mbarrier
+_SM90_STAGES = (4, 3, 2)  # float32 ring depths (kMaxStages), the deepest that fits first
+_SM90_STAGES_BF16 = (6, 5, 4, 3, 2)  # bf16 (kMaxStagesBf16): no activation tiles beside the ring
+_SM90_BARRIERS = 9 * 8  # full and empty per float32 stage (4 + 4) and the heads' mbarrier
+_SM90_BARRIERS_BF16 = 13 * 8  # the same for the bf16 ring (6 + 6 + 1)
 _SM90_BIAS = 256  # floats of a layer's bias in a consumer's staging area (kBiasFloats)
 
 
@@ -906,7 +914,10 @@ def sm90_plan(spec) -> Sm90Plan:
 
     in_hi = 0 if shared else m0.in_hi
     lo_kb, hi_kb = _kblocks(m0.in_lo, depth), _kblocks(in_hi, depth)
-    act_kb = max(op[1] for op in ops) // depth
+    # float32 keeps a consumer's activations in a shared-memory tile; bf16
+    # in registers (the next layer's wgmma A fragments), so a deeper ring.
+    act_kb = max(op[1] for op in ops) // depth if f32 else 0
+    depths, barriers = (_SM90_STAGES, _SM90_BARRIERS) if f32 else (_SM90_STAGES_BF16, _SM90_BARRIERS_BF16)
     slot = _TF32_SLOT if f32 else max(op[1] for op in ops) * 128
     hvx_w = max((m.views_width for m in members if m.has_hvx), default=0)
     hvx_rays = 63 // m0.ns + 2 if hvx_w else 0  # rays that 64 consecutive rows can touch
@@ -914,12 +925,17 @@ def sm90_plan(spec) -> Sm90Plan:
     def smem(stages, rays):
         return (stages * slot + 2 * (act_kb + lo_kb + hi_kb) * _SM90_KBLOCK
                 + -(-head_floats * 4 // 16) * 16 + 2 * 4 * (_SM90_BIAS + rays * hvx_w)
-                + _SM90_BARRIERS)
+                + barriers)
 
     # The deepest ring first, then hvx rows staged in shared memory if they
     # fit (float32 with a hi tile at the published widths: two 16 KB slots).
-    stages, rays = next(((s, r) for s in _SM90_STAGES for r in (hvx_rays, 0)
-                         if smem(s, r) <= _SMEM_LIMIT), (_SM90_STAGES[-1], 0))
+    # bf16: consumer 0 reads all of a layer's slabs before consumer 1 (their
+    # turns), so the ring holds the largest layer's slabs or deadlocks.
+    least = 2 if f32 else max(sum(op[8:11]) for op in ops)
+    stages, rays = next(((s, r) for s in depths for r in (hvx_rays, 0)
+                         if s >= least and smem(s, r) <= _SMEM_LIMIT), (depths[-1], 0))
+    if stages < least:
+        raise ValueError(f"a layer of {least} weight slabs; the kernel's ring fits at most {stages}")
     header = [len(ops), 0, m0.ns, m0.in_lo, in_hi, lo_kb, hi_kb, act_kb, slot, stages,
               head_floats, rays, _SM90_BIAS + rays * hvx_w, 0]
     words = np.asarray(header + [w for op in ops for w in op], dtype=np.int32)
@@ -1896,6 +1912,14 @@ def _zero_grads(kp: dict, keys) -> dict:
     return {k: torch.zeros(kp[k].shape, dtype=torch.float32, device=kp[k].device) for k in keys}
 
 
+def _count_fwd(wrapper, spec, lo):
+    """Count a forward launch (none for no rows) on `wrapper`, and in bf16
+    its launch of the ping-pong engine (`wrapper.pingpong`)."""
+    if lo.shape[0]:
+        wrapper.launches += 1
+        wrapper.pingpong += spec.cdtype == torch.bfloat16
+
+
 def _fwd(spec: FusedSpec, kp: dict, lo, hi, hvx, sec=None) -> tuple:
     """The forward kernel (CUDA) or its plain version (CPU): (stacked
     planes, pre); with `sec` the k secondary planes follow the head planes
@@ -1906,14 +1930,12 @@ def _fwd(spec: FusedSpec, kp: dict, lo, hi, hvx, sec=None) -> tuple:
     _check_operands(spec, lo, hi, hvx)
     if sec is None:
         out = _launch_fwd(spec, kp, lo, hi, hvx, "snerf_fused_mlp_fwd")
-        if lo.shape[0]:
-            fused_apply.launches += 1
+        _count_fwd(fused_apply, spec, lo)
         return out, None
     _check_secondary(spec, lo, *sec)
     pre = torch.empty((lo.shape[0], spec.views_width), dtype=torch.float32, device=lo.device)
     out = _launch_fwd(spec, kp, lo, hi, hvx, "snerf_fused_mlp_fwd_pre", pre=pre)
-    if lo.shape[0]:
-        fused_apply.launches += 1
+    _count_fwd(fused_apply, spec, lo)
     return torch.cat([out, secondary_fwd(spec, kp, pre, *sec)]), pre
 
 
@@ -2106,7 +2128,7 @@ secondary_fwd.launches = 0
 secondary_bwd.launches = 0
 
 
-fused_apply.launches = 0
+fused_apply.launches = fused_apply.pingpong = 0
 fused_bwd.launches = 0
 
 
@@ -2128,8 +2150,7 @@ def _ens_fwd(ens: EnsembleSpec, kps, lo, hvxs) -> torch.Tensor:
         return torch.stack(fused_apply_ensemble_reference(ens, kps, lo, hvxs))
     _check_ensemble(ens, lo, hvxs)
     out = _launch_fwd(ens, kps, lo, None, _stack_hvx(hvxs), "snerf_fused_mlp_ens_fwd")
-    if lo.shape[0]:
-        fused_apply_ensemble.launches += 1
+    _count_fwd(fused_apply_ensemble, ens, lo)
     return out
 
 
@@ -2200,21 +2221,28 @@ def fused_apply_ensemble(ens: EnsembleSpec, kps, lo, hvxs) -> tuple:
     return _FusedEnsemble.apply(ens, keys, len(hvxs), lo, *hvxs, *vals).unbind(0)
 
 
-fused_apply_ensemble.launches = 0
+fused_apply_ensemble.launches = fused_apply_ensemble.pingpong = 0
 fused_ens_bwd.launches = 0
 
 
 _COUNTED = (fused_apply, fused_bwd, fused_apply_ensemble, fused_ens_bwd, wgrad, column_sums,
             tf32_split, pe_operands, secondary_fwd, secondary_bwd)
+# The forwards' launches of the bf16 engine (ping-pong), as "<wrapper>.pingpong".
+_PINGPONG = (fused_apply, fused_apply_ensemble)
 
 
 def launch_counts() -> dict:
-    """Every counting wrapper's `launches`, by the wrapper's name."""
-    return {f.__name__: f.launches for f in _COUNTED}
+    """Every counting wrapper's `launches`, by the wrapper's name, and the
+    forwards' bf16 launches as "fused_apply.pingpong" and
+    "fused_apply_ensemble.pingpong"."""
+    counts = {f.__name__: f.launches for f in _COUNTED}
+    return {**counts, **{f"{f.__name__}.pingpong": f.pingpong for f in _PINGPONG}}
 
 
 def add_launches(counts: dict):
-    """Add `counts` (by wrapper name) to the wrappers' `launches`: a CUDA
-    graph's replay launches what its capture counted."""
+    """Add `counts` (by `launch_counts`' names) to the wrappers' counters: a
+    CUDA graph's replay launches what its capture counted."""
     for f in _COUNTED:
         f.launches += counts.get(f.__name__, 0)
+    for f in _PINGPONG:
+        f.pingpong += counts.get(f"{f.__name__}.pingpong", 0)

@@ -42,6 +42,8 @@ the graph's memory pool; the launch counters at one launch of each kernel
 per replayed step.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -131,6 +133,97 @@ def test_kernel_pads_widths(cuda_device, widths, dtype):
         err = (a - b).abs().max().item()
         print(f"widths {widths} {dtype} plane {j}: max abs err {err:.3e}")
         assert err <= TOL[dtype], f"widths {widths} plane {j}: max abs err {err}"
+
+
+# The bf16 forward's engine (activations in registers, the consumers in
+# ping-pong) on the published programs: the fine and coarse MLP, the coarse
+# trio and ViP-NeRF's MLP through its kPre instance (secondary views, k =
+# 2), at a render chunk (65,536 rays; ViP-NeRF, which renders no secondary
+# views outside training, at its training step's 4096) and at 37 rays,
+# whose rows are no multiple of a block's 128 and whose blocks start inside
+# rays; with the hvx rows staged in shared memory, as the plan gives them,
+# and read from global memory.
+PINGPONG = {"fine": 192, "coarse": 64, "trio": 64, "vipnerf": 192}
+
+
+def _hvx_from_global(monkeypatch):
+    """The forward's plans without staged hvx rows: the epilogue reads hvx
+    from global memory (the plan's choice where the rows do not fit)."""
+    real = fused_mlp._sm90_on
+
+    def unstaged(spec, dev):
+        plan, w_index, f_index = real(spec, dev)
+        words = plan.words.copy()
+        assert words[11] > 0  # every published program stages them
+        shrink = 2 * 4 * (int(words[12]) - fused_mlp._SM90_BIAS)
+        words[11], words[12] = 0, fused_mlp._SM90_BIAS
+        return dataclasses.replace(plan, words=words, smem=plan.smem - shrink), w_index, f_index
+
+    monkeypatch.setattr(fused_mlp, "_sm90_on", unstaged)
+
+
+@pytest.mark.parametrize("staged", [True, False], ids=["staged", "global"])
+@pytest.mark.parametrize("rays", ["chunk", "ragged"])
+@pytest.mark.parametrize("program", list(PINGPONG))
+def test_pingpong_engine_matches_plain(cuda_device, monkeypatch, program, rays, staged):
+    ns = PINGPONG[program]
+    nr = 37 if rays == "ragged" else 4096 if program == "vipnerf" else 65536
+    if not staged:
+        _hvx_from_global(monkeypatch)
+    published = mlp.MLPConfig(**{**SMALL, **CASES["published"]})
+    before = fused_mlp.launch_counts()
+    if program == "trio":
+        g = torch.Generator().manual_seed(nr)
+        cfgs = [mlp.MLPConfig(**{**SMALL, **CASES["published"], **CASES[n]}) for n in TRIO]
+        members = [(mlp.init(g, c, device=cuda_device), c) for c in cfgs]
+        pts = torch.randn((nr * ns, 3), generator=g).to(cuda_device)
+        dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1).to(cuda_device)
+        ens, kps, lo, hvxs = mlp.ensemble_operands(members, pts, dirs, ns, torch.bfloat16)
+        got = fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs)
+        wrapper = "fused_apply_ensemble"
+        torch.cuda.synchronize()
+        want = fused_mlp.fused_apply_ensemble_reference(ens, kps, lo, hvxs)
+    elif program == "vipnerf":
+        cfg = mlp.MLPConfig(**{**SMALL, **SEC_CASES["published"]})
+        (spec, kp, lo, hi, hvx), sec = _sec_operands(cfg, nr, ns, 2, cuda_device, seed=nr)
+        got = fused_mlp.fused_apply(spec, kp, lo, hi, hvx, sec=sec)
+        wrapper = "fused_apply"
+        torch.cuda.synchronize()
+        want = fused_mlp.fused_apply_reference(spec, kp, lo, hi, hvx, sec)
+    else:
+        spec, kp, lo, hi, hvx = _operands(published, nr, ns, torch.bfloat16, cuda_device, seed=nr)
+        got = fused_mlp.fused_apply(spec, kp, lo, hi, hvx)
+        wrapper = "fused_apply"
+        torch.cuda.synchronize()
+        want = fused_mlp.fused_apply_reference(spec, kp, lo, hi, hvx)
+    after = fused_mlp.launch_counts()
+    assert {k: after[k] - before[k] for k in (wrapper, wrapper + ".pingpong")} == {
+        wrapper: 1, wrapper + ".pingpong": 1}
+    assert len(got) == len(want)
+    for j, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == (nr, ns)
+        err = (a - b).abs().max().item()
+        print(f"ping-pong {program} {nr}x{ns} hvx {'staged' if staged else 'global'} plane {j}: "
+              f"max abs err {err:.3e}")
+        assert err <= TOL[torch.bfloat16], f"plane {j}: max abs err {err}"
+
+
+@pytest.mark.parametrize(**DTYPES)
+def test_pingpong_counts_the_bf16_forwards_only(cuda_device, dtype):
+    """Each forward counts its bf16 launches as `<wrapper>.pingpong`; the
+    float32 engine (3xTF32) leaves the count at 0."""
+    cfg = mlp.MLPConfig(**{**SMALL, **CASES["published"]})
+    spec, kp, lo, hi, hvx = _operands(cfg, 37, 64, dtype, cuda_device)
+    ens, kps, elo, hvxs = _ensemble(37, 64, dtype, cuda_device)
+    before = fused_mlp.launch_counts()
+    fused_mlp.fused_apply(spec, kp, lo, hi, hvx)
+    fused_mlp.fused_apply_ensemble(ens, kps, elo, hvxs)
+    torch.cuda.synchronize()
+    after = fused_mlp.launch_counts()
+    n = int(dtype == torch.bfloat16)
+    assert {k: after[k] - before[k] for k in after if k.startswith("fused_apply")} == {
+        "fused_apply": 1, "fused_apply_ensemble": 1, "fused_apply.pingpong": n,
+        "fused_apply_ensemble.pingpong": n}
 
 
 def _double(x):
@@ -947,7 +1040,7 @@ def test_k0_launches_the_kernels_it_launched_before(cuda_device):
         torch.cuda.synchronize()
     after = fused_mlp.launch_counts()
     delta = {n: after[n] - before[n] for n in after if after[n] != before[n]}
-    assert delta == {"fused_apply": 1, "fused_bwd": 1}, delta
+    assert delta == {"fused_apply": 1, "fused_bwd": 1, "fused_apply.pingpong": 1}, delta
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     ours = [n for n in names if "fused_mlp" in n or "sec_" in n]
     print("k = 0 kernels:", sorted(set(ours)))

@@ -202,21 +202,28 @@ def _run_sm90_program(spec, kp, lo, hi, hvx):
     slabs = iter(_slabs(words, wts, f32))
     hvxs = hvx if isinstance(hvx, (list, tuple)) else [hvx]
     planes = {}
+    # float32: an activation tile of act_kb K blocks; bf16: none, the last
+    # layer's n_pad columns in registers (a fragment per k16 step).
+    assert (act_kb > 0) == f32
+    held = depth * act_kb
     for li, op in enumerate(layers):
         assert op["n_pad"] in (64, 128, 256) and (16384 if f32 else op["n_pad"] * 128) <= slot
+        assert sum(op["kb"]) <= stages or f32  # the bf16 consumers' turns on a layer's slabs
         acc = 0
         for s in range(op["nseg"]):
             li2, s2, wt = next(slabs)
             assert (li2, s2) == (li, s)
             k = (wt[0] if f32 else wt).shape[1]
+            assert op["src"][s] != fused_mlp._SRC_ACT or k <= held
             acc = acc + _product(tiles[op["src"][s]][:, :k], wt, f32)
         v = acc + fpar[op["b_off"] : op["b_off"] + op["n_pad"]]
         if op["flags"] & fused_mlp._FLAG_HVX:
             v[:, : op["n"]] += hvxs[op["hvx_slot"]].repeat_interleave(ns, 0)
         if op["flags"] & fused_mlp._FLAG_RELU:
             v = torch.relu(v)
-        tiles[fused_mlp._SRC_ACT] = v.to(cd)  # the kernel overwrites its one activation tile
-        assert op["n_pad"] <= depth * act_kb
+        tiles[fused_mlp._SRC_ACT] = v.to(cd)  # the kernel replaces the last layer's activations
+        assert op["n_pad"] <= (depth * act_kb if f32 else 256)
+        held = depth * act_kb if f32 else op["n_pad"]
         if op["nout"]:
             assert op["head_w"] + op["nout"] * op["n_pad"] <= head_floats
             w = fpar[op["head_w"] : op["head_w"] + op["nout"] * op["n_pad"]].view(op["nout"], -1)
@@ -292,11 +299,105 @@ def test_program_fits_shared_memory(name, dtype_name):
     assert smem <= fused_mlp._SMEM_LIMIT == 227 * 1024
     members = spec.members if isinstance(spec, fused_mlp.EnsembleSpec) else (spec,)
     # the deepest ring that fits (float32 at the published widths: three
-    # 16 KB slots beside 2 x 80 KB of tiles), and hvx rows staged where a
-    # member has them
+    # 16 KB slots beside 2 x 80 KB of tiles; bf16, with no activation tiles:
+    # six), and hvx rows staged where a member has them
     hdr, _ = _sm90_layers(words)
     wide = name == "published" and dtype_name == "float32"
-    assert hdr[9] == (3 if wide else 4) and (hdr[11] > 0) == any(m.has_hvx for m in members)
+    want = (3 if wide else 4) if dtype_name == "float32" else 6
+    assert hdr[9] == want and (hdr[11] > 0) == any(m.has_hvx for m in members)
+
+
+# The bf16 forward keeps each consumer's activations in registers as the
+# next layer's wgmma A operand (csrc/fused_mlp_sm90.cuh `epilogue`, `layer`).
+# A mirror of the two register layouts of a warpgroup's 64 rows, from the
+# PTX ISA's wgmma fragments: the m64nN float32 accumulator d, and the
+# m64k16 bf16 A fragment of four registers of two values each.
+def _acc_element(warp, lane, i):
+    """(row, column) of accumulator register d[i] of (warp, lane): n8 tile
+    i // 4, rows 16 warp + lane // 4 (+ 8 for i % 4 >= 2), columns
+    2 (lane % 4) (+ 1 for odd i)."""
+    return 16 * warp + lane // 4 + 8 * (i // 2 % 2), 8 * (i // 4) + 2 * (lane % 4) + i % 2
+
+
+def _a_element(warp, lane, kk, r, half):
+    """(row, column) of value `half` (0: low 16 bits) of A register r of
+    k16 step kk: r 0 / 1 rows 16 warp + lane // 4 / + 8, columns 2 (lane %
+    4) + half; r 2 / 3 the same 8 columns on."""
+    return 16 * warp + lane // 4 + 8 * (r % 2), 16 * kk + 2 * (lane % 4) + 8 * (r // 2) + half
+
+
+@pytest.mark.parametrize("n", [64, 128, 256])
+def test_accumulators_round_into_the_next_layers_a_fragments(n):
+    """The epilogue rounds d[2m], d[2m + 1] into the bf16 pair a[m], and k16
+    step kk of the next layer reads a[4kk .. 4kk + 3]: those registers
+    hold exactly A's columns 16kk .. 16kk + 15, and over all steps, warps
+    and lanes they rebuild the 64 x n tile, each element once."""
+    tile = torch.arange(64 * n).reshape(64, n)
+    got = torch.full((64, n), -1)
+    for warp in range(4):
+        for lane in range(32):
+            d = [tile[_acc_element(warp, lane, i)] for i in range(n // 2)]
+            a = [(d[2 * m], d[2 * m + 1]) for m in range(n // 4)]  # (low, high) of each pair
+            for kk in range(n // 16):
+                for r in range(4):
+                    for half in range(2):
+                        row, col = _a_element(warp, lane, kk, r, half)
+                        assert a[4 * kk + r][half] == tile[row, col], (warp, lane, kk, r, half)
+                        assert got[row, col] == -1, (row, col)
+                        got[row, col] = a[4 * kk + r][half]
+    assert torch.equal(got, tile)
+
+
+def _published_bf16_programs():
+    """The bf16 forward programs of the main path: the fine and coarse main
+    MLP at the render's and the training step's samples (the plan does not
+    depend on the rows), the coarse trio, and ViP-NeRF's MLP (visibility
+    head) at both levels."""
+    pub, vip = mlp.MLPConfig(), mlp.MLPConfig(predict_visibility=True)
+    trio = [mlp.MLPConfig(**kw) for kw in
+            ({}, {"points_sigma_pe_degree": 3}, {"use_view_dirs": False, "view_dependent_rgb": False})]
+    bf = torch.bfloat16
+    return {"fine 192": fused_mlp.make_spec(pub, 192, bf), "coarse 64": fused_mlp.make_spec(pub, 64, bf),
+            "trio 64": fused_mlp.make_ensemble_spec(trio, 64, bf),
+            "vipnerf fine 192": fused_mlp.make_spec(vip, 192, bf),
+            "vipnerf coarse 64": fused_mlp.make_spec(vip, 64, bf)}
+
+
+@pytest.mark.parametrize("name", sorted(_published_bf16_programs()))
+def test_bf16_plan_keeps_activations_in_registers(name):
+    """Every published bf16 program reserves no activation tile, fits
+    shared memory with six 32 KB slabs in its ring (the 64 KB the two
+    activation tiles would take), stages its hvx rows, and its ring holds a
+    layer's slabs (the consumers' turns need them all in it)."""
+    spec = _published_bf16_programs()[name]
+    plan = fused_mlp.sm90_plan(spec)
+    hdr, layers = _sm90_layers(plan.words)
+    _, _, ns, in_lo, in_hi, lo_kb, hi_kb, act_kb, slot, stages, head_floats, rays, cst, _ = hdr
+    assert act_kb == 0 and slot == 32 * 1024 and stages == 6 and rays > 0
+    assert max(sum(op["kb"]) for op in layers) <= stages
+    want = (stages * slot + 2 * (lo_kb + hi_kb) * 8192 + -(-head_floats * 4 // 16) * 16
+            + 2 * 4 * cst + (2 * 6 + 1) * 8)
+    assert plan.smem == want <= fused_mlp._SMEM_LIMIT
+    rows = 65536 * ns  # a render chunk
+    words, *_, smem = fused_mlp.pack_program(spec, _zero_params(spec), rows)
+    assert words[1] == rows and smem == plan.smem
+
+
+def _zero_params(spec):
+    """Zero kernel params of the spec's shapes (or a tuple per member)."""
+    members = spec.members if isinstance(spec, fused_mlp.EnsembleSpec) else (spec,)
+    kps = tuple({k: torch.zeros(shape) for k, shape in fused_mlp._sm90_shapes(m).items()}
+                for m in members)
+    return kps if isinstance(spec, fused_mlp.EnsembleSpec) else kps[0]
+
+
+def test_bf16_plan_refuses_a_ring_shorter_than_a_layer():
+    """A layer of more slabs than any ring that fits would deadlock the
+    consumers' turns: the plan raises instead (a lo input 640 wide: a
+    skip layer of 4 + 10 slabs)."""
+    cfg = mlp.MLPConfig(points_pe_degree=106)  # 3 + 6 x 106 = 639 inputs
+    with pytest.raises(ValueError, match="weight slabs"):
+        fused_mlp.sm90_plan(fused_mlp.make_spec(cfg, 64, torch.bfloat16))
 
 
 def test_published_flop_count():

@@ -95,8 +95,7 @@ def main() -> int:
     out = args.out / f"rank{mesh.rank}"
     rec: dict = {}
     record_trainer(rec)
-    for name in COUNTERS:
-        getattr(fused_mlp, name).launches = 0
+    before = fused_mlp.launch_counts()
 
     cfg["num_iterations"] = args.steps
     cfg["steps_per_call"] = cfg["log_interval"] = args.steps_per_call
@@ -118,7 +117,8 @@ def main() -> int:
         grad1=rec.get("grad1", np.zeros(0, np.float32)), names=np.array(names),
         iters=np.array([r["iter"] for r in rows]), values=np.array(values, np.float64),
         t=np.array(rec["t"]),
-        launches=json.dumps({n: getattr(fused_mlp, n).launches for n in COUNTERS}),
+        launches=json.dumps({n: c - before[n] for n, c in fused_mlp.launch_counts().items()
+                             if n.split(".")[0] in COUNTERS}),
         world_size=mesh.world_size,
     )
     torch.distributed.destroy_process_group()

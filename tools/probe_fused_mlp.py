@@ -12,7 +12,10 @@ then launch it in place of the built library.
 
 Broken variants (the swizzle XOR on row + 1, the k16 descriptor advance one
 step on, a quad sum without one lane, hvx read one row late, no layer
-biases, the ragged tail's stores unmasked) run the published main MLP in
+biases, the ragged tail's stores unmasked, the register A fragments of
+neighbouring k16 steps swapped, consumer 1 issuing its products without
+waiting for its turn and reading its accumulators before its last group
+of products has landed) run the published main MLP in
 bf16 with chip_smoke.py's seeded operands at the fine serving chunk (64k
 rays x 192) and at 1037 rays x 64 (a ragged last block), and the max abs
 error of their planes against `fused_apply_reference` is held to
@@ -33,8 +36,9 @@ version's; both printed). The unedited kernel must pass both and each
 broken variant must fail one.
 
 Timing split (bf16): the kernel as committed; without the heads, the epilogue's
-activation stores, its bias loads, its head-weight loads or its hvx loads,
-or without the lo tile's loads;
+bias loads, its head-weight loads or its hvx loads, or without the lo
+tile's loads; the consumers without turns on the tensor cores (both issue
+at once, as in lockstep: what the ping-pong itself gains);
 the products and the ring without the epilogue; and the products alone
 (no epilogue, the first ring fill loaded once and never waited on again;
 ptxas drops a wgmma whose results are dead, so one data-dependent store
@@ -77,13 +81,21 @@ EDITS = {
     "swizzle": [(_SM90, "{ return chunk ^ (r & 7); }", "{ return chunk ^ ((r + 1) & 7); }")],
     "k16 advance": [(_SM90, "Mma<N>::run(acc, da + 2 * kk, db + 2 * kk,",
                      "Mma<N>::run(acc, da + 2 * (kk + 1), db + 2 * (kk + 1),")],
-    "quad sum": [(_SM90, "    a += a1;\n", "    a += q == 2 ? 0.f : a1;\n")],
+    "quad sum": [(_SM90, "    a0 += a1;\n", "    a0 += q == 2 ? 0.f : a1;\n")],
     "hvx row": [(_SM90, "min(row0 + r0, n_rows - 1)", "min(row0 + r0 + 1, n_rows - 1)"),
                 (_SM90, "min(row0 + r1, n_rows - 1)", "min(row0 + r1 + 1, n_rows - 1)")],
     "biases": [(_SM90, "const float2 b = *reinterpret_cast<const float2*>(cst + col);",
                 "const float2 b = make_float2(0.f, 0.f);")],
     "ragged tail": [(_SM90, "if (row0 + r0 < n_rows) plane[", "plane["),
                     (_SM90, "if (row0 + r1 < n_rows) plane[", "plane[")],
+    "fragment swap": [(_SM90, "const int f = 16 * k + 4 * kk;", "const int f = 16 * k + 4 * (kk ^ 1);")],
+    # Consumer 1 no longer waits for its turn, and its epilogue reads the
+    # accumulators before its last group of products has landed (a wait
+    # after the layer loop keeps every group finished by the block's end).
+    "early issue": [(_SM90, "  turn_wait(c);\n", "  if (c == 0) turn_wait(c);\n"),
+                    (_SM90, "  wgmma_wait<0>();\n  fence_acc(acc);\n",
+                     "  if (c == 0) wgmma_wait<0>();\n  fence_acc(acc);\n"),
+                    (_SM90, "the next layer's copies\n  }\n", "the next layer's copies\n  }\n  wgmma_wait<0>();\n")],
     "one pass": _ONE_PASS,
     "fragment order": [(_TF32, "const float v[4] = {x0.x, x1.x, x0.y, x1.y};",
                         "const float v[4] = {x0.x, x0.y, x1.x, x1.y};")],
@@ -97,6 +109,8 @@ VARIANTS = {
     "hvx read one row late": ["hvx row"],
     "without layer biases": ["biases"],
     "ragged tail unmasked": ["ragged tail"],
+    "A fragments of neighbouring k16 steps swapped": ["fragment swap"],
+    "consumer 1 issues before the hand-off, its epilogue on stale accumulators": ["early issue"],
 }
 # The float32 engine's variants; the unedited kernel is "full kernel" above.
 F32_VARIANTS = {
@@ -105,18 +119,19 @@ F32_VARIANTS = {
 }
 TIMING_EDITS = {
     "heads": [(_SM90, "const bool has_head = nout > 0;", "const bool has_head = false;")],
-    "stores": [(_SM90, "  *reinterpret_cast<__nv_bfloat162*>(p) = v;\n", "")],
+    "no turns": [(_SM90, "  turn_wait(c);\n", ""), (_SM90, "  if (!last || c == 0) turn_pass(c);\n", ""),
+                 (_SM90, "  if (c == 1) turn_pass(1);  // consumer 0 takes the first turn\n", "")],
     "bias loads": EDITS["biases"],
     "head-weight loads": [(_SM90, "const float2 w = *reinterpret_cast<const float2*>(hw + o * N + col);",
                            "const float2 w = make_float2(0.5f, 0.25f);")],
     "hvx loads": [(_SM90, "  if (op.flags & FLAG_HVX) {\n    // Staged", "  if (false) {\n    // Staged")],
     "lo tile loads": [(_SM90, "  load_rows(tl.lo, lo, p.in_lo,", "  if (0) load_rows(tl.lo, lo, p.in_lo,")],
     # ptxas drops a wgmma whose results nobody reads: one data-dependent store keeps them.
-    "epilogue": [(_SM90, "  epilogue<N, kPre>(acc, op, p, s, tl, cst, hvx, out, fpar, pre, row0, t);\n",
+    "epilogue": [(_SM90, "  epilogue<N, kPre>(acc, a, op, p, s, cst, hvx, out, fpar, pre, row0, t);\n",
                   "  if (acc[0] == 1.2345e-30f) out[t] = acc[N / 2 - 1];\n")],
     "ring": [(_SM90, "      mbar_wait(s.empty + slot, phase ^ 1);\n", "      if (it >= p.stages) return;\n"),
-             (_SM90, "      mbar_wait(s.full + slot, phase);\n",
-              "      if (it < p.stages) mbar_wait(s.full + slot, phase);\n")],
+             (_SM90, "    mbar_wait(s.full + slot, phase);\n",
+              "    if (it < p.stages) mbar_wait(s.full + slot, phase);\n")],
     "f32 epilogue": [(_TF32, "  fwd_epilogue<N>(acc, op, p, s, const_cast<unsigned char*>(tiles[sm90::SRC_ACT]), cst, hvx, out, fpar,\n                  row0, t);\n",
                       "  if (acc[0] == 1.2345e-30f) out[t] = acc[N / 2 - 1];\n")],
     "f32 one pass": _ONE_PASS,
@@ -124,11 +139,11 @@ TIMING_EDITS = {
 TIMING = {
     "full kernel": [],
     "without heads": ["heads"],
-    "without epilogue stores": ["stores"],
     "without bias loads": ["bias loads"],
     "without head-weight loads": ["head-weight loads"],
     "without hvx loads": ["hvx loads"],
     "without lo tile loads": ["lo tile loads"],
+    "lockstep: the consumers issue without turns": ["no turns"],
     "products and ring, no epilogue": ["epilogue"],
     "products alone": ["epilogue", "ring"],
 }
