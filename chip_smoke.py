@@ -12,7 +12,8 @@ without a result):
      all started together, and print each kernel's ptxas registers and
      spill bytes and the HGMMA instructions in each kernel's SASS
      (`cuobjdump -sass`): the forwards, the row passes and the weight
-     passes (bf16 and float32) must issue some;
+     passes (bf16 and float32) must issue some; the bf16 forward's two
+     instances (the ping-pong engine, kPre false and true) must not spill;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the published width (8x256 trunk, 1x128 views, PE 10/4), for the main,
      points-augmentation, Lambertian and visibility-head MLPs, 64 and 192
@@ -139,8 +140,11 @@ without a result):
      loop), peak device memory allocated and reserved, and the capture's
      time; one float32 756x1008 frame through `Tester.predict_frame`.
 Every phase that counts launches also holds the PE operand pass's to one
-for each fused forward of the run, and "the plain versions" swap out the
-PE operand pass with the MLP kernels.
+for each fused forward of the run, and each forward's launches of the
+bf16 ping-pong engine (`fused_apply.pingpong`,
+`fused_apply_ensemble.pingpong`) to its launches; phase 11's training
+steps hold them to the forwards' launches in bf16 and to 0 in float32.
+"The plain versions" swap out the PE operand pass with the MLP kernels.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON (`launches` from the 40-step training run,
 `launches_parallel` from phase 6, summed over its ranks of (b) and (c),
@@ -155,7 +159,9 @@ slots the weight pass reads, the g32 planes and the partials written
 once; `row_pass_bytes`), row_bound_by and row_bound_share =
 row_bound_ms / row_ms, its bf16 row kernel's ptxas registers and spill
 bytes, row_ptxas, and the weight kernel's, weight_ptxas; a
-forward's row has its bf16 kernel's ptxas, fwd_ptxas, and the share of
+forward's row has its bf16 kernel's ptxas, fwd_ptxas (and its kPre
+instance's, fwd_ptxas_pre), the training run's ping-pong launches,
+pingpong, and the share of
 its bound, bound_share = bound_ms / ms; the serving chunks carry the
 same; the float32 readings carry the suffix _f32: ms, plain_ms, bound_ms
 (3xTF32), fma_bound_ms, the passes, the float32 kernels' ptxas and HGMMA

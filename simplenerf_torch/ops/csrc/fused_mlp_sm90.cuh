@@ -642,9 +642,11 @@ __device__ __forceinline__ void epilogue(float (&acc)[N / 2], uint32_t (&a)[64],
 
 // One layer for the warpgroup's 64 rows: on its turn, its slabs from the
 // ring (the activation segment with A from the registers a, a lo or hi
-// segment from its tile), then the turn to the other consumer (except after
-// consumer 1's last layer, which nobody waits for), then the epilogue
-// under the other consumer's products.
+// segment from its tile), the turn handed to the other consumer once
+// `hand` of them are issued (all: handing on after half of them or after
+// the first measured slower, PERF.md; consumer 1's last layer hands on
+// nothing, as nobody waits for it), then the epilogue under the other
+// consumer's products.
 template <int N, bool kPre>
 __device__ __forceinline__ void layer(const Op& op, bool last, const Program& p, const Smem& s,
                                       const Tiles& tl, uint32_t (&a)[64],
@@ -658,6 +660,9 @@ __device__ __forceinline__ void layer(const Op& op, bool last, const Program& p,
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
   int first = 1;
   rg.prev = -1;
+  const int slabs = op.kb[0] + op.kb[1] + op.kb[2];
+  const int hand = slabs;
+  int n_issued = 0;
   turn_wait(c);
   for (int seg = 0; seg < op.nseg; ++seg) {
     if (op.src[seg] == SRC_ACT) {
@@ -674,6 +679,7 @@ __device__ __forceinline__ void layer(const Op& op, bool last, const Program& p,
         wgmma_commit();
         first = 0;
         rg.issued(s, p, t);
+        if (++n_issued == hand && (!last || c == 0)) turn_pass(c);
       }
     } else {
       const unsigned char* tile = op.src[seg] == SRC_LO ? tl.lo : tl.hi;
@@ -686,10 +692,10 @@ __device__ __forceinline__ void layer(const Op& op, bool last, const Program& p,
         wgmma_commit();
         first = 0;
         rg.issued(s, p, t);
+        if (++n_issued == hand && (!last || c == 0)) turn_pass(c);
       }
     }
   }
-  if (!last || c == 0) turn_pass(c);
   wgmma_wait<0>();
   fence_acc(acc);
   fence_regs(a);  // the products read a until here

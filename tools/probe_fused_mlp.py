@@ -13,9 +13,9 @@ then launch it in place of the built library.
 Broken variants (the swizzle XOR on row + 1, the k16 descriptor advance one
 step on, a quad sum without one lane, hvx read one row late, no layer
 biases, the ragged tail's stores unmasked, the register A fragments of
-neighbouring k16 steps swapped, consumer 1 issuing its products without
-waiting for its turn and reading its accumulators before its last group
-of products has landed) run the published main MLP in
+neighbouring k16 steps swapped, one staging area of bias and hvx rows for
+both consumers, which the ping-pong's offset layers overwrite) run the
+published main MLP in
 bf16 with chip_smoke.py's seeded operands at the fine serving chunk (64k
 rays x 192) and at 1037 rays x 64 (a ragged last block), and the max abs
 error of their planes against `fused_apply_reference` is held to
@@ -38,15 +38,17 @@ broken variant must fail one.
 Timing split (bf16): the kernel as committed; without the heads, the epilogue's
 bias loads, its head-weight loads or its hvx loads, or without the lo
 tile's loads; the consumers without turns on the tensor cores (both issue
-at once, as in lockstep: what the ping-pong itself gains);
-the products and the ring without the epilogue; and the products alone
-(no epilogue, the first ring fill loaded once and never waited on again;
-ptxas drops a wgmma whose results are dead, so one data-dependent store
-keeps them): each at the
+at once, as in lockstep: what the ping-pong itself gains), and with the
+turn handed on after half a layer's slabs or after its first;
+the products and the ring without the epilogue (bf16: but its rounding
+into the next layer's A registers); and the products alone (that, and the
+first ring fill loaded once and never waited on again; ptxas drops a wgmma
+whose results are dead, so one data-dependent store keeps them): each at the
 four shapes the main path gives the forward (the 64k-ray serving chunks at
 64 and 192 samples, the training step's fine 4096 x 192 and coarse trio
 4096 x 64), CUDA events over launches through the wrappers after one
-warm-up, with ptxas registers and spill bytes and the host's time to issue
+warm-up, with ptxas registers and spill bytes (and whether ptxas
+serialized the build's wgmma) and the host's time to issue
 one call (packing included, no synchronisation). Parts overlap, so a
 difference bounds what a part costs. `--parent DIR` runs the same timing
 on another checkout's package and kernel (unpack `git archive <commit>`
@@ -89,13 +91,9 @@ EDITS = {
     "ragged tail": [(_SM90, "if (row0 + r0 < n_rows) plane[", "plane["),
                     (_SM90, "if (row0 + r1 < n_rows) plane[", "plane[")],
     "fragment swap": [(_SM90, "const int f = 16 * k + 4 * kk;", "const int f = 16 * k + 4 * (kk ^ 1);")],
-    # Consumer 1 no longer waits for its turn, and its epilogue reads the
-    # accumulators before its last group of products has landed (a wait
-    # after the layer loop keeps every group finished by the block's end).
-    "early issue": [(_SM90, "  turn_wait(c);\n", "  if (c == 0) turn_wait(c);\n"),
-                    (_SM90, "  wgmma_wait<0>();\n  fence_acc(acc);\n",
-                     "  if (c == 0) wgmma_wait<0>();\n  fence_acc(acc);\n"),
-                    (_SM90, "the next layer's copies\n  }\n", "the next layer's copies\n  }\n  wgmma_wait<0>();\n")],
+    # The consumers' staging areas as one: in ping-pong consumer 0 stages
+    # layer L + 1's bias (and hvx rows) while consumer 1's epilogue of L reads.
+    "one staging area": [(_SM90, "  float* cst = s.cst + c * p.cst_floats;\n", "  float* cst = s.cst;\n")],
     "one pass": _ONE_PASS,
     "fragment order": [(_TF32, "const float v[4] = {x0.x, x1.x, x0.y, x1.y};",
                         "const float v[4] = {x0.x, x0.y, x1.x, x1.y};")],
@@ -110,7 +108,7 @@ VARIANTS = {
     "without layer biases": ["biases"],
     "ragged tail unmasked": ["ragged tail"],
     "A fragments of neighbouring k16 steps swapped": ["fragment swap"],
-    "consumer 1 issues before the hand-off, its epilogue on stale accumulators": ["early issue"],
+    "one staging area for both consumers": ["one staging area"],
 }
 # The float32 engine's variants; the unedited kernel is "full kernel" above.
 F32_VARIANTS = {
@@ -118,8 +116,12 @@ F32_VARIANTS = {
     "float32: the A fragment's columns out of the packer's K order": ["fragment order"],
 }
 TIMING_EDITS = {
-    "heads": [(_SM90, "const bool has_head = nout > 0;", "const bool has_head = false;")],
-    "no turns": [(_SM90, "  turn_wait(c);\n", ""), (_SM90, "  if (!last || c == 0) turn_pass(c);\n", ""),
+    # Without the heads nothing reads the activations: one data-dependent
+    # store keeps the products alive (ptxas drops a wgmma whose results are dead).
+    "heads": [(_SM90, "  const bool has_head = nout > 0;\n",
+               "  if (acc[0] == 1.2345e-30f) out[t] = acc[N / 2 - 1];\n  const bool has_head = false;\n")],
+    "no turns": [(_SM90, "  turn_wait(c);\n", ""),
+                 (_SM90, "if (++n_issued == hand && (!last || c == 0)) turn_pass(c);", ""),
                  (_SM90, "  if (c == 1) turn_pass(1);  // consumer 0 takes the first turn\n", "")],
     "bias loads": EDITS["biases"],
     "head-weight loads": [(_SM90, "const float2 w = *reinterpret_cast<const float2*>(hw + o * N + col);",
@@ -127,7 +129,13 @@ TIMING_EDITS = {
     "hvx loads": [(_SM90, "  if (op.flags & FLAG_HVX) {\n    // Staged", "  if (false) {\n    // Staged")],
     "lo tile loads": [(_SM90, "  load_rows(tl.lo, lo, p.in_lo,", "  if (0) load_rows(tl.lo, lo, p.in_lo,")],
     # ptxas drops a wgmma whose results nobody reads: one data-dependent store keeps them.
+    "half turns": [(_SM90, "const int hand = slabs;", "const int hand = (slabs + 1) / 2;")],
+    "one-slab turns": [(_SM90, "const int hand = slabs;", "const int hand = 1;")],
+    # What stays of the epilogue is the rounding into the next layer's A
+    # registers: without it ptxas serializes the wgmma (register resources).
     "epilogue": [(_SM90, "  epilogue<N, kPre>(acc, a, op, p, s, cst, hvx, out, fpar, pre, row0, t);\n",
+                  "#pragma unroll\n  for (int j = 0; j < N / 4; ++j)\n"
+                  "    a[j] = bf16x2_bits(__floats2bfloat162_rn(acc[2 * j], acc[2 * j + 1]));\n"
                   "  if (acc[0] == 1.2345e-30f) out[t] = acc[N / 2 - 1];\n")],
     "ring": [(_SM90, "      mbar_wait(s.empty + slot, phase ^ 1);\n", "      if (it >= p.stages) return;\n"),
              (_SM90, "    mbar_wait(s.full + slot, phase);\n",
@@ -144,6 +152,8 @@ TIMING = {
     "without hvx loads": ["hvx loads"],
     "without lo tile loads": ["lo tile loads"],
     "lockstep: the consumers issue without turns": ["no turns"],
+    "turns handed on after half a layer's slabs": ["half turns"],
+    "turns handed on after a layer's first slab": ["one-slab turns"],
     "products and ring, no epilogue": ["epilogue"],
     "products alone": ["epilogue", "ring"],
 }
@@ -215,7 +225,10 @@ def _bf16_ptxas(log: str, f32: bool = False) -> str:
         label = chip_smoke.kernel_label(entry)
         if "registers" in r and (label == "fused_mlp_fwd_tf32_kernel" if f32 else
                                  ("sm90" in label or label.endswith("bf16"))):
-            return (f"{label}: {r['registers']} registers, {r.get('spill_stores', 0)} / "
+            why = sorted({ln.split("serialized", 1)[1].strip() for ln in log.splitlines()
+                          if "serialized" in ln})
+            serial = f" ptxas serialized its wgmma ({'; '.join(why)})," if why else ""
+            return (f"{label}:{serial} {r['registers']} registers, {r.get('spill_stores', 0)} / "
                     f"{r.get('spill_loads', 0)} B spill stores / loads")
     return f"no {'float32' if f32 else 'bf16'} forward kernel in the log"
 
