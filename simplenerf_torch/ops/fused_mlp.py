@@ -931,7 +931,7 @@ def sm90_plan(spec) -> Sm90Plan:
     # fit (float32 with a hi tile at the published widths: two 16 KB slots).
     # bf16: consumer 0 reads all of a layer's slabs before consumer 1 (their
     # turns), so the ring holds the largest layer's slabs or deadlocks.
-    least = 2 if f32 else max(sum(op[8:11]) for op in ops)
+    least = 0 if f32 else max(sum(op[8:11]) for op in ops)
     stages, rays = next(((s, r) for s in depths for r in (hvx_rays, 0)
                          if s >= least and smem(s, r) <= _SMEM_LIMIT), (depths[-1], 0))
     if stages < least:
