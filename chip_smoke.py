@@ -140,10 +140,7 @@ without a result):
      loop), peak device memory allocated and reserved, and the capture's
      time; one float32 756x1008 frame through `Tester.predict_frame`.
 Every phase that counts launches also holds the PE operand pass's to one
-for each fused forward of the run, and each forward's launches of the
-bf16 ping-pong engine (`fused_apply.pingpong`,
-`fused_apply_ensemble.pingpong`) to its launches; phase 11's training
-steps hold them to the forwards' launches in bf16 and to 0 in float32.
+for each fused forward of the run.
 "The plain versions" swap out the PE operand pass with the MLP kernels.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON (`launches` from the 40-step training run,
@@ -160,9 +157,7 @@ once; `row_pass_bytes`), row_bound_by and row_bound_share =
 row_bound_ms / row_ms, its bf16 row kernel's ptxas registers and spill
 bytes, row_ptxas, and the weight kernel's, weight_ptxas; a
 forward's row has its bf16 kernel's ptxas, fwd_ptxas (and its kPre
-instance's, fwd_ptxas_pre), the training run's ping-pong launches,
-pingpong, and the share of
-its bound, bound_share = bound_ms / ms; the serving chunks carry the
+instance's, fwd_ptxas_pre), and the share of its bound, bound_share = bound_ms / ms; the serving chunks carry the
 same; the float32 readings carry the suffix _f32: ms, plain_ms, bound_ms
 (3xTF32), fma_bound_ms, the passes, the float32 kernels' ptxas and HGMMA
 counts, yardstick_f32, and the per-dW float32 torch.matmul beside the
@@ -664,38 +659,21 @@ def plain_versions():
 
 
 def reset_launches(counters):
-    """The counters of the wrappers `counters` at 0 (a forward's ping-pong count too)."""
+    """The counters of the wrappers `counters` at 0."""
     for f in counters:
         f.launches = 0
-        if hasattr(f, "pingpong"):
-            f.pingpong = 0
 
 
 def read_launches(counters) -> dict:
-    """The wrappers' launches by name, and each forward's launches of the
-    bf16 ping-pong engine as "<name>.pingpong"."""
-    out = {f.__name__: f.launches for f in counters}
-    out.update({f"{f.__name__}.pingpong": f.pingpong for f in counters if hasattr(f, "pingpong")})
-    return out
-
-
-def pingpong_held(label: str, launches: dict, dname: str = "bfloat16") -> dict:
-    """`launches` without its "<forward>.pingpong" counts, once each is held
-    to its forward's launches in bf16 (every bf16 forward runs the ping-pong
-    engine) or to 0 in float32 (the 3xTF32 engine)."""
-    for key in [k for k in launches if k.endswith(".pingpong")]:
-        want = launches[key.split(".")[0]] if dname == "bfloat16" else 0
-        if launches[key] != want:
-            fail(f"{label}: {launches[key]} {key} launches, expected {want} ({dname})")
-    return {k: n for k, n in launches.items() if not k.endswith(".pingpong")}
+    """The wrappers' launches by name."""
+    return {f.__name__: f.launches for f in counters}
 
 
 def mlp_launches(label: str, launches: dict) -> dict:
     """The MLP kernels' launches of `launches` (by wrapper name) in a bf16
     run, once the PE operand pass's are held to one for each fused forward
-    of the same run (fused_apply's and fused_apply_ensemble's) and the
-    forwards' ping-pong counts to their launches (`pingpong_held`)."""
-    rest = {k: n for k, n in pingpong_held(label, launches).items() if k != "pe_operands"}
+    of the same run (fused_apply's and fused_apply_ensemble's)."""
+    rest = {k: n for k, n in launches.items() if k != "pe_operands"}
     forwards = rest.get("fused_apply", 0) + rest.get("fused_apply_ensemble", 0)
     if launches["pe_operands"] != forwards:
         fail(f"{label}: {launches['pe_operands']} PE operand launches for {forwards} fused forwards")
@@ -1196,9 +1174,7 @@ def step_time(db: Path, warmup: int = 3, steps: int = 40, graph_calls: int = 5,
     made = {k: n - saved[k] for k, n in fused_mlp.launch_counts().items()}
     fused_mlp.add_launches({k: -n for k, n in made.items()})
     print(f"train step ({dname}): forward launches {made['fused_apply']} + "
-          f"{made['fused_apply_ensemble']} (ensemble), of the bf16 ping-pong engine "
-          f"{made['fused_apply.pingpong']} + {made['fused_apply_ensemble.pingpong']}", flush=True)
-    pingpong_held(f"train step ({dname})", made, dname)
+          f"{made['fused_apply_ensemble']} (ensemble)", flush=True)
     loop_k, graph_k = out["loop"]["csrc_kernels"], out["graph"]["csrc_kernels"]
     print(f"train step ({dname}): ops/csrc kernels per step, loop {loop_k}, replayed {graph_k}",
           flush=True)
@@ -2236,8 +2212,7 @@ def vipnerf(work: Path, card: str) -> dict:
     # Two levels a step: each level's PE of its points and of its secondary pairs.
     want = {"fused_apply_ensemble": 0, "fused_ens_bwd": 0,
             **dict.fromkeys(("fused_apply", "fused_bwd", "secondary_fwd", "secondary_bwd"), 2 * VIP_STEPS),
-            "pe_operands": 4 * VIP_STEPS, "fused_apply.pingpong": 2 * VIP_STEPS,
-            "fused_apply_ensemble.pingpong": 0}
+            "pe_operands": 4 * VIP_STEPS}
     print(f"vipnerf: start_training, {VIP_STEPS} steps in graph chunks of {TRAIN_CHUNK} in "
           f"{t_train:.1f} s incl. set-up and capture; launches {launches}; {len(unfused)} "
           f"apply_reference calls; peak device memory {peak_gb:.2f} GiB", flush=True)
@@ -2601,7 +2576,6 @@ def main() -> int:
         if name.endswith("fwd"):
             row["fwd_ptxas"] = ptxas["fused_mlp_fwd_sm90_kernel"]
             row["fwd_ptxas_pre"] = ptxas["fused_mlp_fwd_sm90_kernel sec"]
-            row["pingpong"] = trained["launches"][WRAPPERS[name] + ".pingpong"]
             row["fwd_ptxas_f32"] = ptxas["fused_mlp_fwd_tf32_kernel"]
             row["hgmma_f32"] = hgmma["fused_mlp_fwd_tf32_kernel"]
             row["bound_share"] = t["bound_ms"] / t["ms"]

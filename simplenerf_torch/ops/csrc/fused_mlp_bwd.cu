@@ -19,7 +19,7 @@
 //       type) is stashed in device memory. One engine in both types, the
 //       forward's warp-specialised one (bulk-copied weight ring, two
 //       consumers of 64 rows) run forward and back on one program
-//       (`bwd90_plan`): bf16, fused_mlp_bwd_rows_sm90_kernel
+//       (`_bwd_plan`): bf16, fused_mlp_bwd_rows_sm90_kernel
 //       (fused_mlp_bwd_sm90.cuh), wgmma on bf16 slabs, the stash leaving by
 //       TMA stores; float32, fused_mlp_bwd_rows_tf32_kernel
 //       (fused_mlp_bwd_tf32_sm90.cuh), the same on the 3xTF32 core of

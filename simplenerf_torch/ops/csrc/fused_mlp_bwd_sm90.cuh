@@ -33,7 +33,7 @@
 //     swizzled tile (A) and the slab (B), both through 128-byte-swizzle
 //     descriptors, one group in flight. The backward's products
 //     dh_prev = round(g) @ W^T read a slab image of W itself, packed once
-//     per parameter version by ops/fused_mlp.py (`bwd90_plan`): K-major
+//     per parameter version by ops/fused_mlp.py (`_bwd_plan`): K-major
 //     like the forward's, so the backward runs the forward's own proven
 //     descriptor and product loop (the forward's image read MN-major would
 //     finish 64 output columns per slab, with four accumulator slices and
@@ -60,7 +60,7 @@
 //     tensor map, evict-first in L2), waited on (.read) before the tile is
 //     written again.
 //
-// Shared memory (bytes, from a 1024-aligned base; `bwd90_plan` computes
+// Shared memory (bytes, from a 1024-aligned base; `_bwd_plan` computes
 // the same): the ring (stages x the widest op's n_pad x 128); per consumer
 // an activation tile of act_kb x 8 KB, a lo tile and a hi tile; per
 // consumer a staging area (bias, hvx rows) and a head's dp rows (64 x 4
@@ -100,9 +100,10 @@ enum { F_IN = 0, F_LAYER = 1, B_LAYER = 3 };
 enum { SRC_ACT = 0, SRC_LO = 1, SRC_HI = 2 };
 enum { FLAG_RELU = 1, FLAG_HVX = 2 };
 
-// One op (22 ints; built by ops/fused_mlp.py `bwd90_plan`). Every op whose
-// stash slot the weight pass reads writes its n columns there (stash +
-// out_slot * n_rows; tensor map `map`, -1 for a slot it does not read).
+// One op (22 ints; built by ops/fused_mlp.py `_bwd_plan` from the layers of
+// `_layers`, forward and then in reverse). Every op whose stash slot the
+// weight pass reads writes its n columns there (stash + out_slot * n_rows;
+// tensor map `map`, -1 for a slot it does not read).
 //   F_IN:    the src[0] tile to the stash.
 //   F_LAYER: act = f(sum_s src[s] @ W_s + bias [+ hvx[hvx_slot]]), n real
 //            columns of n_pad, kb[s] slabs per segment; with RELU its mask

@@ -58,7 +58,7 @@
 //     the float32 weight pass, fused_mlp_wgrad_tf32_sm90.cuh, reads them),
 //     and copies the lo (hi) tile there for F_IN; no TMA.
 //
-// Shared memory (`sm90_plan` / `bwd90_plan` in ops/fused_mlp.py compute the
+// Shared memory (`sm90_plan` / `_bwd_plan` in ops/fused_mlp.py compute the
 // same): the ring, stages x 16 KB; per consumer its tiles, 8 KB per 32-column
 // block (a 256-wide activation 64 KB, a 63-wide lo 16 KB); then the bf16
 // engines' regions. The published fine MLP: forward 3 x 16 + 2 x 80 + 2.5 +

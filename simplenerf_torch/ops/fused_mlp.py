@@ -29,9 +29,8 @@ with bulk copies, and two consumer warpgroups multiply with wgmma and fold
 the heads into their epilogues: bf16 in 64-deep swizzled slabs, the
 activations held in registers as the next layer's A operand and the two
 consumers taking turns on the tensor cores a layer at a time, so that
-one's epilogue runs under the other's products (csrc/fused_mlp_sm90.cuh;
-`fused_apply.pingpong` and `fused_apply_ensemble.pingpong` count its
-launches); float32 on the same producer in 3xTF32 with an activation tile
+one's epilogue runs under the other's products (csrc/fused_mlp_sm90.cuh);
+float32 on the same producer in 3xTF32 with an activation tile
 in shared memory (csrc/fused_mlp_tf32_sm90.cuh: 64-row x 32-deep chunks in
 a permuted K order, each split on the card into its big and small TF32
 images by `tf32_split`, three TF32 products per product). The backward
@@ -39,14 +38,17 @@ images by `tf32_split`, three TF32 products per product). The backward
 activations and cotangents in device memory, and computes dW in a second
 pass over the stash; sums over rows are fixed-order reductions, so
 gradients do not change from run to run. Its row pass runs the forward's
-engine forward and back, with an image of every backward product's weight
-beside the forward's (`bwd90_plan`): bf16 with the stash leaving by TMA
-stores (csrc/fused_mlp_bwd_sm90.cuh), float32 on the 3xTF32 core with the
-stash stored from registers (csrc/fused_mlp_bwd_tf32_sm90.cuh). The bf16
-weight pass is bound by the stash bytes it reads, and reads whole dW
-panels through TMA boxes into wgmma, the two panels of a dW in one
-cluster (`_wgrad_plan`, csrc/fused_mlp_wgrad_sm90.cuh); the float32 one
-runs 128 x 128 tiles of plain FMAs.
+engine forward and back, on one program whose weight image holds every
+backward product's weight beside the forward's (`_bwd_plan`): bf16 with
+the stash leaving by TMA stores (csrc/fused_mlp_bwd_sm90.cuh), float32
+on the 3xTF32 core with the stash stored from registers
+(csrc/fused_mlp_bwd_tf32_sm90.cuh). The bf16 weight pass is bound by the
+stash bytes it reads, and reads whole dW panels through TMA boxes into
+wgmma, the two panels of a dW in one cluster (`_wgrad_plan`,
+csrc/fused_mlp_wgrad_sm90.cuh); the float32 one runs 128 x 128 tiles of
+plain FMAs. Both programs come from one list of a member's layers
+(`_layers`): the forward's walks it forward, the row pass's forward and
+then back.
 
 Secondary views (ViP-NeRF's visibility prior; no TPU kernel: the JAX
 package evaluates them unfused): `fused_apply(..., sec=(pe2, wdir))`
@@ -62,9 +64,7 @@ row pass adds to the hvx layer's g after dhvx's share is taken. Without
 Each wrapper takes the plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors, and counts its launches:
 `fused_apply.launches`, `fused_bwd.launches`,
-`fused_apply_ensemble.launches`, `fused_ens_bwd.launches` (the forwards'
-bf16 launches also as `fused_apply.pingpong` and
-`fused_apply_ensemble.pingpong`; and, for the
+`fused_apply_ensemble.launches`, `fused_ens_bwd.launches` (and, for the
 weight pass and the column sums alone, `wgrad.launches` and
 `column_sums.launches`, and `tf32_split.launches`, the float32 weight
 images' split, which every float32 launch makes; all of them:
@@ -628,16 +628,9 @@ def fused_ens_bwd_reference(ens: EnsembleSpec, kps, lo, hvxs, d_planes):
 
 _MAX_OPS = 40  # layers of a forward program (sm90::kMaxOps)
 _SRC_ACT, _SRC_LO, _SRC_HI = 0, 1, 2
-_FLAG_RELU, _FLAG_HVX, _FLAG_ZERO = 1, 2, 4
+_FLAG_RELU, _FLAG_HVX = 1, 2
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block can use
-# The backward's intermediate program (`_bwd_plan`), which `bwd90_plan`
-# translates for the row pass: a header of _BHEADER_WORDS and ops of
-# _BOP_WORDS.
-_BHEADER = ("n_ops", "n_rows", "ns", "in_lo", "in_hi", "lo_kpad", "hi_kpad", "part_w", "hvx_w",
-            "n_masks")
-_BHEADER_WORDS = len(_BHEADER)
-_BOP_WORDS = 24
-_F_IN, _F_LAYER, _B_LAYER = 0, 1, 3
+_F_IN, _F_LAYER, _B_LAYER = 0, 1, 3  # the row pass's op kinds (bwd90::Op)
 _MAX_HEAD = 4  # head channels one op takes (kMaxHead in the .cu)
 # bf16 weight pass: struct wgrad::Job and the constants of fused_mlp_wgrad_sm90.cuh.
 _JOB_WORDS = 9
@@ -702,10 +695,82 @@ def _tiling(cdtype) -> tuple[int, int]:
 
 
 def _members_of(spec, kp):
-    """(member specs, their kernel params, shared lo block?) of a spec or ensemble."""
+    """(member specs, their kernel params) of a spec or ensemble."""
     if isinstance(spec, EnsembleSpec):
-        return list(spec.members), list(kp), True
-    return [spec], [kp], False
+        return list(spec.members), list(kp)
+    return [spec], [kp]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layer:
+    """One layer of a member's forward, as both programs run it: its
+    segments ((source, key), ...; the activation segment first), n outputs,
+    bias key and flags, the hvx slot it adds (with _FLAG_HVX), and the head
+    it feeds: (weight key, bias key, plane, channels) or None."""
+
+    mi: int
+    segs: tuple
+    n: int
+    bias: str
+    flags: int
+    hvx_slot: int = 0
+    head: Optional[tuple] = None
+
+
+def _layers(spec) -> list:
+    """Every member's forward layers in execution order, member after
+    member: the trunk with its skip joins (the points head on its last
+    layer), the feature layer, the views layers (hvx on the first, the
+    views head on the last). An ensemble member's extra input is the shared
+    lo tile. Each layer's activation feeds the next layer of its member."""
+    members = list(spec.members) if isinstance(spec, EnsembleSpec) else [spec]
+    extra = _SRC_LO if isinstance(spec, EnsembleSpec) else _SRC_HI
+    out, plane, hvx_slot = [], 0, 0
+
+    def head(wkey, bkey, pl, n_out):
+        if n_out > _MAX_HEAD:
+            raise ValueError(f"a head of {n_out} channels; the kernel takes {_MAX_HEAD}")
+        return wkey, bkey, pl, n_out
+
+    for mi, m in enumerate(members):
+        if m.has_views and m.views_depth < 1:
+            raise ValueError("a views head needs at least one views layer")
+        for i in range(m.depth):
+            segs = ((_SRC_LO, "w0i"),) if i == 0 else ((_SRC_ACT, f"w{i}"),)
+            if i and (i - 1) in m.skip_layers:
+                segs += ((_SRC_LO, f"w{i}i"),)
+            top = head("wpo_t", "bpo", plane, m.out_p) if i == m.depth - 1 else None
+            out.append(_Layer(mi, segs, m.width, f"b{i}", _FLAG_RELU, head=top))
+        if m.has_views:
+            out.append(_Layer(mi, ((_SRC_ACT, "wf"),), m.width, "bf", 0))
+            for i in range(m.views_depth):
+                segs = ((_SRC_ACT, f"wv{i}"),) if i else ((_SRC_ACT, "wv0f"),)
+                if i == 0 and m.has_extra:
+                    segs += ((extra, "wv0i"),)
+                hvx = i == 0 and m.has_hvx
+                last = i == m.views_depth - 1
+                top = head("wvo_t", "bvo", plane + m.out_p, m.out_v) if last else None
+                flags = _FLAG_RELU | (_FLAG_HVX if hvx else 0)
+                out.append(_Layer(mi, segs, m.views_width, f"bv{i}", flags, hvx_slot * hvx, top))
+                hvx_slot += hvx
+        plane += m.n_planes
+    return out
+
+
+class _Sources:
+    """The kernel parameters a program's buffer gathers from, (member, key)
+    at each use: their flattened values concatenated, with one zero after
+    them at `size`."""
+
+    def __init__(self, shapes):
+        self.shapes, self.keys, self.size = shapes, [], 0
+
+    def __call__(self, mi: int, key: str) -> int:
+        """Member mi's parameter `key` once more: its offset."""
+        k, n = self.shapes[mi][key]
+        self.keys.append((mi, key))
+        self.size += k * n
+        return self.size - k * n
 
 
 def pack_program(spec, kp, n_rows: int):
@@ -713,12 +778,11 @@ def pack_program(spec, kp, n_rows: int):
 
     `spec` is a FusedSpec with its kernel-param dict, or an EnsembleSpec with
     a tuple of them. The program (`sm90_plan`) lists the layers in execution
-    order, member after member, with the operands each layer reads (the
-    last layer's activations, which it then replaces, the lo tile, the hi
-    tile); an ensemble member's extra input is the shared lo tile. wts: the
+    order (`_layers`), with the operands each layer reads (the last layer's
+    activations, which it then replaces, the lo tile, the hi tile). wts: the
     bf16 slab image, or the float32 chunk image's split (`tf32_split`).
     """
-    _, kps, _ = _members_of(spec, kp)
+    _, kps = _members_of(spec, kp)
     plan, w_index, f_index = _sm90_on(spec, kps[0]["w0i"].device)
     with torch.no_grad():
         zero = kps[0]["b0"].new_zeros(1, dtype=torch.float32)
@@ -837,58 +901,25 @@ def sm90_plan(spec) -> Sm90Plan:
     m0 = members[0]
     f32 = m0.cdtype != torch.bfloat16
     depth = _TF32_DEPTH if f32 else 64
-    w_src, w_parts, w_size = [], [], [0]  # w_size: source elements so far
-    f_src, f_pos = [], [0]
+    shapes = [_sm90_shapes(m) for m in members]
+    ws, fs = _Sources(shapes), _Sources(shapes)
+    w_parts, ops = [], []
     heads, biases, head_biases = [], [], []  # (layer, source base, sizes...) of each
-    ops = []
-
-    def fsource(mi, key, size):
-        f_src.append((mi, key))
-        f_pos[0] += size
-        return f_pos[0] - size
-
-    def layer(mi, shapes, segs, n, bkey, flags, hvx_slot=0):
+    for layer in _layers(spec):
+        mi, n, flags = layer.mi, layer.n, layer.flags
         n_pad = _n_pad(n)
-        op = [n, n_pad, 0, flags, len(segs), 0, 0, 0, 0, 0, 0, hvx_slot, 0, 0, 0, 0]
-        for s, (src, key) in enumerate(segs):
-            k, nn = shapes[key]
-            w_parts.append(_slab_index(k, nn, n_pad, w_size[0], f32=f32))
-            w_src.append((mi, key))
-            w_size[0] += k * nn
+        op = [n, n_pad, 0, flags, len(layer.segs), 0, 0, 0, 0, 0, 0, layer.hvx_slot, 0, 0, 0, 0]
+        for s, (src, key) in enumerate(layer.segs):
+            k, nn = shapes[mi][key]
+            w_parts.append(_slab_index(k, nn, n_pad, ws(mi, key), f32=f32))
             op[5 + s], op[8 + s] = src, _kblocks(k, depth)
-        biases.append((len(ops), fsource(mi, bkey, n), n, n_pad))
+        biases.append((len(ops), fs(mi, layer.bias), n, n_pad))
+        if layer.head:
+            wkey, bkey, plane, n_out = layer.head
+            op[12], op[13] = plane, n_out
+            heads.append((len(ops), fs(mi, wkey), n_out, n, n_pad))
+            head_biases.append((len(ops), fs(mi, bkey), n_out))
         ops.append(op)
-
-    def head(mi, shapes, wkey, bkey, plane):
-        n_out, k = shapes[wkey]
-        if n_out > _MAX_HEAD:
-            raise ValueError(f"a head of {n_out} channels; the kernel takes {_MAX_HEAD}")
-        op = ops[-1]
-        op[12], op[13] = plane, n_out
-        heads.append((len(ops) - 1, fsource(mi, wkey, n_out * k), n_out, k, op[1]))
-        head_biases.append((len(ops) - 1, fsource(mi, bkey, n_out), n_out))
-
-    extra_src = _SRC_LO if shared else _SRC_HI
-    plane, hvx_slot = 0, 0
-    for mi, m in enumerate(members):
-        sh = _sm90_shapes(m)
-        layer(mi, sh, [(_SRC_LO, "w0i")], m.width, "b0", _FLAG_RELU)
-        for i in range(1, m.depth):
-            segs = [(_SRC_ACT, f"w{i}")]
-            if (i - 1) in m.skip_layers:
-                segs.append((_SRC_LO, f"w{i}i"))
-            layer(mi, sh, segs, m.width, f"b{i}", _FLAG_RELU)
-        head(mi, sh, "wpo_t", "bpo", plane)
-        if m.has_views:
-            layer(mi, sh, [(_SRC_ACT, "wf")], m.width, "bf", 0)
-            segs = [(_SRC_ACT, "wv0f")] + ([(extra_src, "wv0i")] if m.has_extra else [])
-            layer(mi, sh, segs, m.views_width, "bv0", _FLAG_RELU | (_FLAG_HVX if m.has_hvx else 0),
-                  hvx_slot)
-            hvx_slot += int(m.has_hvx)
-            for i in range(1, m.views_depth):
-                layer(mi, sh, [(_SRC_ACT, f"wv{i}")], m.views_width, f"bv{i}", _FLAG_RELU)
-            head(mi, sh, "wvo_t", "bvo", plane + m.out_p)
-        plane += m.n_planes
     if len(ops) > _MAX_OPS:
         raise ValueError(f"{len(ops)} kernel layers exceed the program's {_MAX_OPS}")
 
@@ -909,8 +940,8 @@ def sm90_plan(spec) -> Sm90Plan:
         f_index.append(np.where(c < n_out, base + c, -1))
     w_index = np.concatenate(w_parts)
     f_index = np.concatenate(f_index)
-    w_index[w_index < 0] = w_size[0]  # the zero after the weights
-    f_index[f_index < 0] = f_pos[0]
+    w_index[w_index < 0] = ws.size  # the zero after the weights
+    f_index[f_index < 0] = fs.size
 
     in_hi = 0 if shared else m0.in_hi
     lo_kb, hi_kb = _kblocks(m0.in_lo, depth), _kblocks(in_hi, depth)
@@ -940,7 +971,7 @@ def sm90_plan(spec) -> Sm90Plan:
               head_floats, rays, _SM90_BIAS + rays * hvx_w, 0]
     words = np.asarray(header + [w for op in ops for w in op], dtype=np.int32)
     words.setflags(write=False)
-    return Sm90Plan(words=words, w_src=tuple(w_src), w_index=w_index, f_src=tuple(f_src),
+    return Sm90Plan(words=words, w_src=tuple(ws.keys), w_index=w_index, f_src=tuple(fs.keys),
                     f_index=f_index, smem=smem(stages, rays), f32=f32)
 
 
@@ -1001,21 +1032,25 @@ def tf32_split(image: torch.Tensor) -> torch.Tensor:
 class BwdPlan:
     """Backward kernel operands and where each gradient lands.
 
-    header: (_BHEADER_WORDS,) int32 (named by _BHEADER); ops: (n_ops, 24)
-    int32, the backward's program (`_bwd_plan`) in ops of one product each;
-    the row pass runs `rows90`, its translation (`bwd90_plan`), and wts /
-    fpar are that program's weight image (bf16 slabs, or the float32
-    chunks' split) and float32 buffer. wts / fpar are gathered per call from
-    the kernel parameters that w_src / f_src name ((member, key) each;
-    `_Gather`); the rest depends on the spec and the row count only and is
-    cached (`_bwd_on`), with dev_tasks on the device. tasks: the weight
+    words: the row pass's program (struct bwd90::Program, n_rows left 0;
+    `_bwd_plan`); wts / fpar: its weight image (every forward op's W^T and
+    every backward product's W, (out rows, depth): bf16 in 64-deep slabs of
+    n_pad rows, float32 the split of the 32-deep chunks of `_slab_index`)
+    and its float32 buffer (each forward op's bias padded to n_pad, each
+    backward op's head weights [q][n_pad]). They are gathered per call by
+    w_index / f_index from the kernel parameters that w_src / f_src name
+    ((member, key) each, `_gather`); the rest depends on the spec and the
+    row count only and is cached (`_bwd_on`), with dev_tasks on the device.
+    row_maps: (stash slot, width) of each op whose slot the weight pass
+    reads, in op order (the op's `map`; bf16: the row pass's tensor maps;
+    the other ops store no stash). tasks: the weight
     pass's work, (n_jobs, 9) int32 jobs, float32 (n_jobs, 10)
     (`_wgrad_plan`). The stash holds `stash_cols` column slots of
     `stash_ld` rows each (n_rows; float32: n_rows rounded up to 8,
     `_stash_ld`; slot s at element s * stash_ld); partials rows are
     `part_w` wide, dW partials `dw_total`. The ReLU masks take
     `mask_words` int32 words: four per consumer thread of a tile for each
-    of its ReLU layers (header n_masks). grads[mi][key] = ("dw" | "part",
+    of its ReLU layers (the program's n_masks). grads[mi][key] = ("dw" | "part",
     offset, shape) into the reduced dW or partials vector. `maps` are the
     weight pass's tensor maps (bf16 (n_maps, 4), float32 (n_maps, 6)
     int64) and `wgrad_bytes` the stash bytes its producers issue
@@ -1025,8 +1060,8 @@ class BwdPlan:
     sums take.
     """
 
-    header: np.ndarray
-    ops: np.ndarray
+    words: np.ndarray
+    row_maps: tuple
     tasks: np.ndarray
     stash_cols: int
     part_w: int
@@ -1044,8 +1079,9 @@ class BwdPlan:
     scratch: int
     dws: list
     w_src: tuple
+    w_index: np.ndarray
     f_src: tuple
-    rows90: "Bwd90Plan"
+    f_index: np.ndarray
     stash_ld: int = 0
     wts: Optional[torch.Tensor] = None
     fpar: Optional[torch.Tensor] = None
@@ -1203,38 +1239,6 @@ def _wgrad_issued(jobs: np.ndarray, maps: np.ndarray, n_rows: int, chunk_rows: i
     return total
 
 
-class _Gather:
-    """A program's weight buffer and float32 buffer as gathers from its
-    kernel parameters, made without them: w_src / f_src name the parameters
-    ((member, key) each) whose flattened values, concatenated with one zero
-    after them, `w_index` / `f_index` gather from (-1: the zero)."""
-
-    def __init__(self):
-        self.w_src, self.w_parts, self.w_size, self.w_len = [], [], 0, 0
-        self.f_src, self.f_size = [], 0
-
-    def mat(self, src, shape, transpose: bool = True) -> tuple[int, int]:
-        """Store the (K, N) parameter `src` as W^T (N, K) [or W (K, N)], rows
-        zero-padded to 16 columns: (offset, kpad)."""
-        k, n = shape
-        rows, cols = (n, k) if transpose else (k, n)
-        kpad = _round16(cols)
-        r, c = np.meshgrid(np.arange(rows), np.arange(kpad), indexing="ij")
-        pos = c * n + r if transpose else r * n + c
-        self.w_parts.append(np.where(c < cols, self.w_size + pos, -1).reshape(-1))
-        self.w_src.append(src)
-        self.w_size += k * n
-        self.w_len += rows * kpad
-        return self.w_len - rows * kpad, kpad
-
-    def fvec(self, src, size: int) -> int:
-        """Store the parameter `src` (size values) as it is: its offset."""
-        self.f_src.append(src)
-        self.f_size += size
-        return self.f_size - size
-
-
-
 def _gather(kps, srcs, index: torch.Tensor, dtype) -> torch.Tensor:
     """One buffer of a program: the flattened parameters `srcs` names, one
     zero after them, gathered by `index`."""
@@ -1248,7 +1252,7 @@ def pack_bwd_program(spec, kp, n_rows: int) -> BwdPlan:
     """Backward kernel operands for a FusedSpec + kp, or an EnsembleSpec + kps:
     the cached plan of the spec at n_rows (`_bwd_on`) with its weight and
     float32 buffers gathered from the parameters, one gather each."""
-    members, kps, _ = _members_of(spec, kp)
+    members, kps = _members_of(spec, kp)
     plan, w_index, f_index, tasks = _bwd_on(spec, n_rows, kps[0]["w0i"].device)
     cd = members[0].cdtype
     wts = _gather(kps, plan.w_src, w_index, cd)
@@ -1262,211 +1266,16 @@ def _bwd_on(spec, n_rows: int, dev: torch.device) -> tuple:
     """(plan, w_index, f_index, tasks): `_bwd_plan(spec, n_rows)` with its
     gathers and its weight-pass tasks on `dev`, cached per spec, row count
     and device."""
-    plan, w_index, f_index = _bwd_plan(spec, n_rows)
+    plan = _bwd_plan(spec, n_rows)
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    return plan, up(w_index.astype(np.int32)), up(f_index.astype(np.int32)), up(plan.tasks)
+    return plan, *(up(a.astype(np.int32)) for a in (plan.w_index, plan.f_index, plan.tasks))
 
 
-def _bwd_plan(spec, n_rows: int) -> tuple:
-    """(plan without wts / fpar, w_index, f_index): the backward's program of
-    a FusedSpec or EnsembleSpec at n_rows, its buffers as gathers from the
-    concatenated parameters (`_Gather`, then the row pass's weight image and
-    float32 buffer, `bwd90_plan`).
-
-    The program runs each member's forward (stashing lo/hi and every layer's
-    rounded activation; a ReLU layer also packs its mask as bits, and the
-    layer that feeds a head forms the head's per-tile dW and db partials)
-    and then its backward: per layer, from the top, the f32 cotangent g
-    (head contributions added, the layer's ReLU mask bits applied),
-    its per-tile column sum (db), round(g) into the stash, and the product
-    round(g) @ W^T with W stored (K, round16(N)). The weight pass then forms
-    every dW = A^T G from two stash slots in the panels of `_wgrad_plan`.
-    The column sums' slices follow `_colsum_slices`.
-    """
-    members = list(spec.members) if isinstance(spec, EnsembleSpec) else [spec]
-    shared = isinstance(spec, EnsembleSpec)
-    cd = members[0].cdtype
-    bm, _ = _tiling(cd)
-    buf = _Gather()
-    ops, tasks, grads = [], [], []
-    sizes = {"stash": 0, "part": 0, "dw": 0, "mask": 0}
-
-    def alloc(kind, n):
-        off = sizes[kind]
-        sizes[kind] += n
-        return off
-
-    def op(kind, **f):
-        w = [0] * _BOP_WORDS
-        w[0] = kind
-        for key, idx in (("n", 1), ("b_off", 2), ("flags", 3), ("plane", 14), ("hvx_slot", 15),
-                         ("out_slot", 16), ("gn", 17), ("mask_slot", 18), ("head_nout", 19),
-                         ("head_w_off", 20), ("part", 21), ("g32_slot", 22), ("part2", 23)):
-            w[idx] = f.get(key, -1 if key in ("mask_slot", "g32_slot") else 0)
-        for s, (src, key) in enumerate(f.get("segs", ())):
-            w_off, kpad = buf.mat((mi, key), sh[key], transpose=f.get("transpose", True))
-            w[5 + s], w[8 + s], w[11 + s] = src, w_off, kpad
-        w[4] = len(f.get("segs", ()))
-        if kind == _F_IN:
-            w[5] = f["src"]
-        ops.append(w)
-
-    def task(a_slot, a_w, g_slot, g_w, k_in, n_out, key, g):
-        off = alloc("dw", k_in * n_out)
-        g[key] = ("dw", off, (k_in, n_out))
-        tasks.append([a_slot, a_w, g_slot, g_w, k_in, n_out, off])
-
-    m0 = members[0]
-    lo_kpad = _round16(m0.in_lo)
-    lo_slot = alloc("stash", lo_kpad)
-    op(_F_IN, src=_SRC_LO, gn=lo_kpad, out_slot=lo_slot)
-    extra = (_SRC_LO, lo_slot, lo_kpad)
-    if not shared and m0.has_extra:
-        hi_kpad = _round16(m0.in_hi)
-        hi_slot = alloc("stash", hi_kpad)
-        op(_F_IN, src=_SRC_HI, gn=hi_kpad, out_slot=hi_slot)
-        extra = (_SRC_HI, hi_slot, hi_kpad)
-
-    plane, hvx_slot = 0, 0
-    hvx_w = max((m.views_width for m in members if m.has_hvx), default=0)
-    for mi, m in enumerate(members):
-        sh = _sm90_shapes(m)
-
-        def fvec(key):
-            return buf.fvec((mi, key), sh[key][0] * sh[key][1])
-
-        if m.has_hvx and m.views_width != hvx_w:
-            raise ValueError("the ensemble's hvx members must share one views width")
-        if m.has_views and m.views_depth < 1:
-            raise ValueError("a views head needs at least one views layer")
-        g: dict = {}
-        W, Wv = m.width, m.views_width
-
-        def head_partials(key_w, key_b, pl, n_out, k):
-            """The fields of the F_LAYER whose activation (k wide) feeds a head."""
-            if n_out > _MAX_HEAD:
-                raise ValueError(f"a head of {n_out} channels; the kernel takes {_MAX_HEAD}")
-            pw, pb = alloc("part", n_out * k), alloc("part", n_out)
-            g[key_w], g[key_b] = ("part", pw, (n_out, k)), ("part", pb, (1, n_out))
-            return dict(plane=pl, head_nout=n_out, part=pw, part2=pb)
-
-        # Forward, stashing every activation; h/hv: stash slots, hm/hvm: mask slots.
-        h, hm = [], []
-        for i in range(m.depth):
-            segs = [(_SRC_LO, "w0i")] if i == 0 else [(_SRC_ACT, f"w{i}")]
-            if i > 0 and (i - 1) in m.skip_layers:
-                segs.append((_SRC_LO, f"w{i}i"))
-            h.append(alloc("stash", W))
-            hm.append(alloc("mask", 1))
-            head = head_partials("wpo_t", "bpo", plane, m.out_p, W) if i == m.depth - 1 else {}
-            op(_F_LAYER, segs=segs, n=W, b_off=fvec(f"b{i}"), flags=_FLAG_RELU,
-               out_slot=h[-1], mask_slot=hm[-1], **head)
-        hv, hvm = [], []
-        my_hvx = -1
-        if m.has_views:
-            f_slot = alloc("stash", W)
-            op(_F_LAYER, segs=[(_SRC_ACT, "wf")], n=W, b_off=fvec("bf"), flags=0,
-               out_slot=f_slot)
-            for i in range(m.views_depth):
-                if i == 0:
-                    segs = [(_SRC_ACT, "wv0f")]
-                    if m.has_extra:
-                        segs.append((extra[0], "wv0i"))
-                    flags = _FLAG_RELU
-                    if m.has_hvx:
-                        flags |= _FLAG_HVX
-                        my_hvx = hvx_slot
-                        hvx_slot += 1
-                else:
-                    segs, flags = [(_SRC_ACT, f"wv{i}")], _FLAG_RELU
-                hv.append(alloc("stash", Wv))
-                hvm.append(alloc("mask", 1))
-                head = {}
-                if i == m.views_depth - 1:
-                    head = head_partials("wvo_t", "bvo", plane + m.out_p, m.out_v, Wv)
-                op(_F_LAYER, segs=segs, n=Wv, b_off=fvec(f"bv{i}"), flags=flags,
-                   hvx_slot=max(my_hvx, 0), out_slot=hv[-1], mask_slot=hvm[-1], **head)
-
-        # Backward, from the top.
-        def back(gn, relu, mask_slot, b_key, zero=False, head=None, prod=None, g32=-1):
-            """One B_LAYER; returns its G slot. head = (plane, n_out, wt key); prod = W's key, (K, N)."""
-            g_slot, pdb = alloc("stash", gn), alloc("part", gn)
-            g[b_key] = ("part", pdb, (1, gn))
-            f = dict(gn=gn, flags=(_FLAG_RELU if relu else 0) | (_FLAG_ZERO if zero else 0),
-                     mask_slot=mask_slot, out_slot=g_slot, part=pdb, g32_slot=g32)
-            if head is not None:
-                f.update(plane=head[0], head_nout=head[1], head_w_off=fvec(head[2]))
-            if prod is not None:
-                f.update(segs=[(_SRC_ACT, prod)], transpose=False, n=sh[prod][0])
-            op(_B_LAYER, **f)
-            return g_slot
-
-        if m.has_views:
-            vplane = plane + m.out_p
-            for i in range(m.views_depth - 1, -1, -1):
-                top = i == m.views_depth - 1
-                gs = back(Wv, True, hvm[i], f"bv{i}", zero=top,
-                          head=(vplane, m.out_v, "wvo_t") if top else None,
-                          prod=f"wv{i}" if i else "wv0f",
-                          g32=my_hvx if i == 0 else -1)
-                if i:
-                    task(hv[i - 1], Wv, gs, Wv, Wv, Wv, f"wv{i}", g)
-                else:
-                    task(f_slot, W, gs, Wv, W, Wv, "wv0f", g)
-                    if m.has_extra:
-                        task(extra[1], extra[2], gs, Wv, m.in_hi, Wv, "wv0i", g)
-            gs = back(W, False, -1, "bf", prod="wf")
-            task(h[-1], W, gs, W, W, W, "wf", g)
-        for i in range(m.depth - 1, -1, -1):
-            top = i == m.depth - 1
-            gs = back(W, True, hm[i], f"b{i}", zero=top and not m.has_views,
-                      head=(plane, m.out_p, "wpo_t") if top else None,
-                      prod=f"w{i}" if i else None)
-            if i:
-                task(h[i - 1], W, gs, W, W, W, f"w{i}", g)
-                if (i - 1) in m.skip_layers:
-                    task(lo_slot, lo_kpad, gs, W, m.in_lo, W, f"w{i}i", g)
-            else:
-                task(lo_slot, lo_kpad, gs, W, m.in_lo, W, "w0i", g)
-        grads.append({k: g[k] for k in m.param_keys()})
-        plane += m.n_planes
-
-    in_hi = 0 if shared else m0.in_hi
-    header = np.asarray(
-        [len(ops), n_rows, m0.ns, m0.in_lo, in_hi, lo_kpad, _round16(in_hi) if in_hi else 0,
-         sizes["part"], hvx_w, sizes["mask"]], dtype=np.int32)
-    wp = _wgrad_plan(tasks, n_rows, f32=cd != torch.bfloat16)
-    n_chunks, chunk_rows, jobs, maps, issued = wp.n_chunks, wp.chunk_rows, wp.jobs, wp.maps, wp.issued
-    sums = [(1, -(-n_rows // bm), sizes["part"]), (1, n_chunks, sizes["dw"]),
-            (hvx_slot * (n_rows // m0.ns), m0.ns, hvx_w)]
-    ops = np.asarray(ops, dtype=np.int32).reshape(-1, _BOP_WORDS)
-    key = header.copy()
-    key[1] = 0
-    rows90 = bwd90_plan(key, ops, {s for t in tasks for s in (t[0], t[2])},
-                        f32=cd != torch.bfloat16)
-    w_index = np.concatenate(buf.w_parts)
-    w_index = np.where(rows90.w_index < 0, -1, w_index[rows90.w_index])
-    f_index = rows90.f_index
-    smem, mask_words = rows90.smem, -(-n_rows // bm) * sizes["mask"] * _BWD90_MASK_THREADS * 4
-    w_index = np.where(w_index < 0, buf.w_size, w_index)
-    f_index = np.where(f_index < 0, buf.f_size, f_index)
-    plan = BwdPlan(
-        header=header, ops=ops, tasks=jobs,
-        stash_cols=sizes["stash"], part_w=sizes["part"], dw_total=sizes["dw"], n_chunks=n_chunks,
-        chunk_rows=chunk_rows, hvx_w=hvx_w, n_hvx=hvx_slot, smem=smem, mask_words=mask_words,
-        grads=grads, maps=maps, wgrad_bytes=issued,
-        slices=tuple(_colsum_slices(*x)[0] for x in sums), scratch=_colsum_scratch(sums), dws=tasks,
-        w_src=tuple(buf.w_src), f_src=tuple(buf.f_src), rows90=rows90,
-        stash_ld=_stash_ld(n_rows, cd != torch.bfloat16),
-    )
-    return plan, w_index, f_index
-
-
-# The bf16 row pass: struct bwd90::Program / bwd90::Op in
-# csrc/fused_mlp_bwd_sm90.cuh.
+# The row pass: struct bwd90::Program / bwd90::Op in
+# csrc/fused_mlp_bwd_sm90.cuh (the float32 row pass reads the same program).
 _BWD90_HEADER = ("n_ops", "n_rows", "ns", "in_lo", "in_hi", "lo_kb", "hi_kb", "act_kb",
                  "slot_bytes", "stages", "hvx_rays", "cst_floats", "part_w", "n_masks", "n_maps",
                  "hvx_w")
@@ -1485,107 +1294,124 @@ _BWD90_BARRIERS = (2 * 4 + 2) * 8  # full and empty per stage (4 + 4), the hand-
 _BWD90_MASK_THREADS = 256  # consumer threads of a tile, one uint4 of mask words each
 
 
-@dataclasses.dataclass(frozen=True)
-class Bwd90Plan:
-    """The row pass's program, translated from a BwdPlan's ops.
+def _bwd_plan(spec, n_rows: int) -> BwdPlan:
+    """The backward's plan of a FusedSpec or EnsembleSpec at n_rows, without
+    wts / fpar; in float32 the 3xTF32 row pass's (K blocks and slabs 32
+    deep, 16 KB slots of a chunk's two images; it has no tensor maps, and
+    stores the slots of `row_maps` only).
 
-    words: the program (n_rows left 0); w_index: the weight image as a
-    gather from the ops' weight buffer with one zero after it (every
-    forward op's W^T and every backward product's W, (out rows, depth):
-    bf16 in 64-deep slabs of n_pad rows, float32 in the 32-deep chunks of
-    `_slab_index`, both 128-byte swizzled); f_index: its
-    float32 buffer as a gather from the ops' (each bias padded to n_pad,
-    then each head's weights [q][n_pad] for the backward op that adds
-    them); maps: (stash slot, width) of the tensor map of each op whose
-    slot the weight pass reads (the others' map is -1: the kernel stores
-    no stash for them); smem: bytes of a block.
+    The row pass's program stashes lo (and hi), then runs each member's
+    layers (`_layers`) forward, stashing every layer's rounded activation
+    (a ReLU layer also packs its mask as bits, and the layer that feeds a
+    head forms the head's per-tile dW and db partials), and then in
+    reverse: per layer the f32 cotangent g = round(g_above) @ W^T, W the
+    activation segment of the layer above (zeros at the member's last
+    layer), head contributions added, the layer's ReLU mask bits applied,
+    its per-tile column sum (db), and round(g) into the stash. The weight
+    pass then forms every dW = A^T G from two stash slots in the panels of
+    `_wgrad_plan`. The column sums' slices follow `_colsum_slices`.
     """
+    members = list(spec.members) if isinstance(spec, EnsembleSpec) else [spec]
+    shared = isinstance(spec, EnsembleSpec)
+    m0, cd = members[0], members[0].cdtype
+    f32 = cd != torch.bfloat16
+    bm, depth = _tiling(cd)
+    hvx_w = max((m.views_width for m in members if m.has_hvx), default=0)
+    if any(m.has_hvx and m.views_width != hvx_w for m in members):
+        raise ValueError("the ensemble's hvx members must share one views width")
+    shapes = [_sm90_shapes(m) for m in members]
+    ws, fs = _Sources(shapes), _Sources(shapes)
+    layers = _layers(spec)
+    ops, w_parts, f_parts, tasks, grads = [], [], [], [], []
+    sizes = dict.fromkeys(("stash", "part", "dw", "mask", "fpar"), 0)
 
-    words: np.ndarray
-    w_index: np.ndarray
-    f_index: np.ndarray
-    maps: tuple
-    smem: int
-
-
-def bwd90_plan(header: np.ndarray, ops: np.ndarray, read, f32: bool = False) -> Bwd90Plan:
-    """The row pass's program from a BwdPlan's header and ops; `read`: the
-    stash slots the weight pass reads; f32: the float32 engine's (K blocks
-    and slabs 32 deep, 16 KB slots of a chunk's two images; `map` then only
-    tells which slots to store: that row pass has no tensor maps).
-
-    A forward op keeps its product and epilogue. A backward op of the row
-    kernel is the product of the BOp before it (round(g) @ W^T, W stored
-    (K, round16(N)) in the ops' buffer), or zeros at the top of a chain,
-    followed by its own epilogue: so the product and the epilogue of one op
-    share a width, as in the forward engine.
-    """
-    hdr = dict(zip(_BHEADER, (int(v) for v in header)))
-    ns, in_lo, in_hi, part_w, hvx_w, n_masks = (hdr[k] for k in ("ns", "in_lo", "in_hi", "part_w",
-                                                                "hvx_w", "n_masks"))
-    depth = _TF32_DEPTH if f32 else 64
-    w_parts, f_parts, maps, out = [], [], [], []
-    f_size = [0]
+    def alloc(kind, n):
+        sizes[kind] += n
+        return sizes[kind] - n
 
     def fvec(idx):
+        """Entries of the float32 buffer: their offset."""
         f_parts.append(idx)
-        f_size[0] += idx.size
-        return f_size[0] - idx.size
+        return alloc("fpar", idx.size)
 
-    def slabs(w_off, n, kpad):
-        """The slabs of a matrix the ops' buffer stores (n, kpad) at w_off: its
-        rows are the product's outputs."""
-        w_parts.append(_slab_index(kpad, n, _n_pad(n), w_off, strides=(1, kpad), f32=f32))
-        return _kblocks(kpad, depth)
+    def slabs(mi, key, back=False):
+        """W's image (a backward product reads W (K, N) as its transpose):
+        its K blocks."""
+        k, n = shapes[mi][key]
+        k, n, strides = (n, k, (1, n)) if back else (k, n, (n, 1))
+        w_parts.append(_slab_index(k, n, _n_pad(n), ws(mi, key), strides, f32))
+        return _kblocks(k, depth)
 
-    pending = None  # the product the next backward op runs: (w_off, n, kpad)
-    for w in ops.tolist():
-        kind, n, b_off, flags, nseg = w[:5]
-        src, w_off, kpad = w[5:8], w[8:11], w[11:14]
-        plane, hvx_slot, out_slot, gn, mask_slot, hn, hw_off, part, g32_slot, part2 = w[14:24]
-        op = dict.fromkeys(_BWD90_OP, 0)
-        op.update(kind=kind, out_slot=out_slot, map=-1, mask_slot=max(mask_slot, 0),
-                  g32_slot=g32_slot, src=[0] * _BWD90_MAX_SEG, kb=[0] * _BWD90_MAX_SEG)
-        if kind == _F_IN:
-            op["n"], op["src"][0] = gn, src[0]
-        elif kind == _F_LAYER:
-            if pending is not None:
-                raise ValueError("a forward op after a backward product")
-            n_pad = _n_pad(n)
-            c = np.arange(n_pad)
-            op.update(n=n, n_pad=n_pad, b_off=fvec(np.where(c < n, b_off + c, -1)), flags=flags,
-                      nseg=nseg, hvx_slot=hvx_slot, plane=plane, head_nout=hn, part=part,
-                      part2=part2)
-            for s_ in range(nseg):
-                op["src"][s_], op["kb"][s_] = src[s_], slabs(w_off[s_], n, kpad[s_])
-        else:
-            if (pending is None) != bool(flags & _FLAG_ZERO):
-                raise ValueError("a backward op's product does not match its chain")
-            n_pad = _n_pad(gn)
-            op.update(n=gn, n_pad=n_pad, flags=flags & ~_FLAG_ZERO, plane=plane, head_nout=hn,
-                      part=part)
-            if pending is not None:
-                p_off, p_n, p_kpad = pending
-                if p_n != gn:
-                    raise ValueError(f"a product of width {p_n} feeds a layer of width {gn}")
-                op["nseg"], op["src"][0], op["kb"][0] = 1, _SRC_ACT, slabs(p_off, p_n, p_kpad)
-            if hn:
-                c = np.arange(n_pad)
-                op["head_w"] = fvec(np.concatenate([np.where(c < gn, hw_off + q * gn + c, -1)
-                                                    for q in range(hn)]))
-            pending = (w_off[0], n, kpad[0]) if nseg else None
-        if out_slot in read:
-            op["map"] = len(maps)
-            maps.append((out_slot, op["n"]))
-        out.append(op)
-    if len(out) > _BWD90_MAX_OPS:
-        raise ValueError(f"{len(out)} backward ops exceed the row kernel's {_BWD90_MAX_OPS}")
-    if len(maps) > _WGRAD_MAX_MAPS:
-        raise ValueError(f"{len(maps)} stash slots written; the row kernel takes {_WGRAD_MAX_MAPS}")
-    lo_kb, hi_kb = _kblocks(in_lo, depth), _kblocks(in_hi, depth)
-    act_kb = max(op["n_pad"] for op in out) // depth
-    slot = _TF32_SLOT if f32 else max(op["n_pad"] for op in out if op["nseg"]) * 128
-    hvx_rays = 63 // ns + 2 if hvx_w else 0  # rays that 64 consecutive rows can touch
+    def op(kind, n, segs=(), **f):
+        """One op of n columns whose products read `segs` ((src, K blocks)
+        each), stashed in a new slot: that slot."""
+        src, kb = zip(*segs, *[(0, 0)] * (_BWD90_MAX_SEG - len(segs)))
+        w = dict.fromkeys(_BWD90_OP, 0)
+        w.update(kind=kind, n=n, n_pad=0 if kind == _F_IN else _n_pad(n), nseg=len(segs),
+                 src=list(src), kb=list(kb), g32_slot=-1, out_slot=alloc("stash", n))
+        w.update(f)
+        ops.append(w)
+        return w["out_slot"]
+
+    inputs = {}  # source -> (stash slot, width)
+    for src, width in ((_SRC_LO, m0.in_lo), (_SRC_HI, 0 if shared else m0.in_hi)):
+        if width:
+            kpad = _round16(width)
+            inputs[src] = (op(_F_IN, kpad, src=[src] + [0] * (_BWD90_MAX_SEG - 1)), kpad)
+
+    for mi, m in enumerate(members):
+        mine, g, fwd = [x for x in layers if x.mi == mi], {}, []  # fwd: (slot, mask) of each
+        for layer in mine:
+            n, f = layer.n, {}
+            if layer.head:
+                wkey, bkey, plane, n_out = layer.head
+                pw, pb = alloc("part", n_out * n), alloc("part", n_out)
+                g[wkey], g[bkey] = ("part", pw, (n_out, n)), ("part", pb, (1, n_out))
+                f = dict(plane=plane, head_nout=n_out, part=pw, part2=pb)
+            mask = alloc("mask", 1) if layer.flags & _FLAG_RELU else 0
+            c = np.arange(_n_pad(n))
+            slot = op(_F_LAYER, n, [(src, slabs(mi, key)) for src, key in layer.segs],
+                      b_off=fvec(np.where(c < n, fs(mi, layer.bias) + c, -1)), flags=layer.flags,
+                      hvx_slot=layer.hvx_slot, mask_slot=mask, **f)
+            fwd.append((slot, mask))
+        for i in range(len(mine) - 1, -1, -1):
+            layer, n, f = mine[i], mine[i].n, {}
+            segs = []
+            if i + 1 < len(mine):  # round(g_above) @ W^T, W the activation segment above
+                segs = [(_SRC_ACT, slabs(mi, mine[i + 1].segs[0][1], back=True))]
+            if layer.head:
+                wkey, _, plane, n_out = layer.head
+                c, base = np.arange(_n_pad(n)), fs(mi, wkey)
+                f = dict(plane=plane, head_nout=n_out, head_w=fvec(np.concatenate(
+                    [np.where(c < n, base + q * n + c, -1) for q in range(n_out)])))
+            part = alloc("part", n)
+            g[layer.bias] = ("part", part, (1, n))
+            g_slot = op(_B_LAYER, n, segs, flags=layer.flags & _FLAG_RELU, mask_slot=fwd[i][1],
+                        part=part, g32_slot=layer.hvx_slot if layer.flags & _FLAG_HVX else -1, **f)
+            for src, key in layer.segs:
+                a_slot, a_w = (fwd[i - 1][0], mine[i - 1].n) if src == _SRC_ACT else inputs[src]
+                k_in = shapes[mi][key][0]
+                off = alloc("dw", k_in * n)
+                g[key] = ("dw", off, (k_in, n))
+                tasks.append([a_slot, a_w, g_slot, n, k_in, n, off])
+        grads.append({k: g[k] for k in m.param_keys()})
+
+    # the row pass stores the slots the weight pass reads, and no others
+    read = {s for t in tasks for s in (t[0], t[2])}
+    row_maps = [(w["out_slot"], w["n"]) for w in ops if w["out_slot"] in read]
+    map_of = {s: i for i, (s, _) in enumerate(row_maps)}
+    for w in ops:
+        w["map"] = map_of.get(w["out_slot"], -1)
+    if len(ops) > _BWD90_MAX_OPS:
+        raise ValueError(f"{len(ops)} backward ops exceed the row kernel's {_BWD90_MAX_OPS}")
+    if len(row_maps) > _WGRAD_MAX_MAPS:
+        raise ValueError(f"{len(row_maps)} stash slots written; the row kernel takes "
+                         f"{_WGRAD_MAX_MAPS}")
+    in_hi = 0 if shared else m0.in_hi
+    lo_kb, hi_kb = _kblocks(m0.in_lo, depth), _kblocks(in_hi, depth)
+    act_kb = max(w["n_pad"] for w in ops) // depth
+    slot = _TF32_SLOT if f32 else max(w["n_pad"] for w in ops if w["nseg"]) * 128
+    hvx_rays = 63 // m0.ns + 2 if hvx_w else 0  # rays that 64 consecutive rows can touch
 
     def smem(stages, rays):
         return (stages * slot + 2 * (act_kb + lo_kb + hi_kb) * _SM90_KBLOCK
@@ -1596,17 +1422,30 @@ def bwd90_plan(header: np.ndarray, ops: np.ndarray, read, f32: bool = False) -> 
     if not fits:
         raise ValueError(f"the row kernel needs {smem(_BWD90_STAGES[-1], 0)} B of shared memory")
     stages, rays = fits[0]
-    head = dict(n_ops=len(out), n_rows=0, ns=ns, in_lo=in_lo, in_hi=in_hi, lo_kb=lo_kb,
+    head = dict(n_ops=len(ops), n_rows=0, ns=m0.ns, in_lo=m0.in_lo, in_hi=in_hi, lo_kb=lo_kb,
                 hi_kb=hi_kb, act_kb=act_kb, slot_bytes=slot, stages=stages, hvx_rays=rays,
-                cst_floats=_SM90_BIAS + rays * hvx_w, part_w=part_w, n_masks=n_masks,
-                n_maps=len(maps), hvx_w=hvx_w)
+                cst_floats=_SM90_BIAS + rays * hvx_w, part_w=sizes["part"], n_masks=sizes["mask"],
+                n_maps=len(row_maps), hvx_w=hvx_w)
     words = [head[k] for k in _BWD90_HEADER]
-    for op in out:
-        words += [v for k in _BWD90_OP for v in (op[k] if isinstance(op[k], list) else [op[k]])]
+    for w in ops:
+        words += [v for k in _BWD90_OP for v in (w[k] if isinstance(w[k], list) else [w[k]])]
     words = np.asarray(words, dtype=np.int32)
     words.setflags(write=False)
-    return Bwd90Plan(words=words, w_index=np.concatenate(w_parts), f_index=np.concatenate(f_parts),
-                     maps=tuple(maps), smem=smem(stages, rays))
+
+    n_hvx = sum(m.has_hvx for m in members)
+    wp = _wgrad_plan(tasks, n_rows, f32=f32)
+    sums = [(1, -(-n_rows // bm), sizes["part"]), (1, wp.n_chunks, sizes["dw"]),
+            (n_hvx * (n_rows // m0.ns), m0.ns, hvx_w)]
+    w_index, f_index = np.concatenate(w_parts), np.concatenate(f_parts)
+    return BwdPlan(
+        words=words, row_maps=tuple(row_maps), tasks=wp.jobs, stash_cols=sizes["stash"],
+        part_w=sizes["part"], dw_total=sizes["dw"], n_chunks=wp.n_chunks,
+        chunk_rows=wp.chunk_rows, hvx_w=hvx_w, n_hvx=n_hvx, smem=smem(stages, rays),
+        mask_words=-(-n_rows // bm) * sizes["mask"] * _BWD90_MASK_THREADS * 4, grads=grads,
+        maps=wp.maps, wgrad_bytes=wp.issued, slices=tuple(_colsum_slices(*x)[0] for x in sums),
+        scratch=_colsum_scratch(sums), dws=tasks, w_src=tuple(ws.keys),
+        w_index=np.where(w_index < 0, ws.size, w_index), f_src=tuple(fs.keys),
+        f_index=np.where(f_index < 0, fs.size, f_index), stash_ld=_stash_ld(n_rows, f32))
 
 
 def unpack_grads(plan: BwdPlan, dw, part) -> list:
@@ -1718,11 +1557,11 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str, sec_g
     dhvx = f32(plan.n_hvx, n // ns, max(plan.hvx_w, 1))
     scratch = f32(plan.scratch)
     slices = np.asarray(plan.slices, dtype=np.int32)
-    words = plan.rows90.words.copy()  # the row pass's program
+    words = plan.words.copy()  # the row pass's program
     words[1] = n
     maps = plan.maps
     if cd == torch.bfloat16:  # the row pass's tensor maps, then the weight pass's
-        row_maps = [[slot * n, w, n, 2 * w] for slot, w in plan.rows90.maps]
+        row_maps = [[slot * n, w, n, 2 * w] for slot, w in plan.row_maps]
         maps = np.concatenate([np.asarray(row_maps, dtype=np.int64).reshape(-1, 4), plan.maps])
     lib = build.load_library("fused_mlp_bwd")
     args = [1 if cd == torch.bfloat16 else 0, words.ctypes.data_as(ctypes.c_void_p),
@@ -1912,12 +1751,10 @@ def _zero_grads(kp: dict, keys) -> dict:
     return {k: torch.zeros(kp[k].shape, dtype=torch.float32, device=kp[k].device) for k in keys}
 
 
-def _count_fwd(wrapper, spec, lo):
-    """Count a forward launch (none for no rows) on `wrapper`, and in bf16
-    its launch of the ping-pong engine (`wrapper.pingpong`)."""
+def _count_fwd(wrapper, lo):
+    """Count a forward launch (none for no rows) on `wrapper`."""
     if lo.shape[0]:
         wrapper.launches += 1
-        wrapper.pingpong += spec.cdtype == torch.bfloat16
 
 
 def _fwd(spec: FusedSpec, kp: dict, lo, hi, hvx, sec=None) -> tuple:
@@ -1930,12 +1767,12 @@ def _fwd(spec: FusedSpec, kp: dict, lo, hi, hvx, sec=None) -> tuple:
     _check_operands(spec, lo, hi, hvx)
     if sec is None:
         out = _launch_fwd(spec, kp, lo, hi, hvx, "snerf_fused_mlp_fwd")
-        _count_fwd(fused_apply, spec, lo)
+        _count_fwd(fused_apply, lo)
         return out, None
     _check_secondary(spec, lo, *sec)
     pre = torch.empty((lo.shape[0], spec.views_width), dtype=torch.float32, device=lo.device)
     out = _launch_fwd(spec, kp, lo, hi, hvx, "snerf_fused_mlp_fwd_pre", pre=pre)
-    _count_fwd(fused_apply, spec, lo)
+    _count_fwd(fused_apply, lo)
     return torch.cat([out, secondary_fwd(spec, kp, pre, *sec)]), pre
 
 
@@ -2128,7 +1965,7 @@ secondary_fwd.launches = 0
 secondary_bwd.launches = 0
 
 
-fused_apply.launches = fused_apply.pingpong = 0
+fused_apply.launches = 0
 fused_bwd.launches = 0
 
 
@@ -2150,7 +1987,7 @@ def _ens_fwd(ens: EnsembleSpec, kps, lo, hvxs) -> torch.Tensor:
         return torch.stack(fused_apply_ensemble_reference(ens, kps, lo, hvxs))
     _check_ensemble(ens, lo, hvxs)
     out = _launch_fwd(ens, kps, lo, None, _stack_hvx(hvxs), "snerf_fused_mlp_ens_fwd")
-    _count_fwd(fused_apply_ensemble, ens, lo)
+    _count_fwd(fused_apply_ensemble, lo)
     return out
 
 
@@ -2221,22 +2058,17 @@ def fused_apply_ensemble(ens: EnsembleSpec, kps, lo, hvxs) -> tuple:
     return _FusedEnsemble.apply(ens, keys, len(hvxs), lo, *hvxs, *vals).unbind(0)
 
 
-fused_apply_ensemble.launches = fused_apply_ensemble.pingpong = 0
+fused_apply_ensemble.launches = 0
 fused_ens_bwd.launches = 0
 
 
 _COUNTED = (fused_apply, fused_bwd, fused_apply_ensemble, fused_ens_bwd, wgrad, column_sums,
             tf32_split, pe_operands, secondary_fwd, secondary_bwd)
-# The forwards' launches of the bf16 engine (ping-pong), as "<wrapper>.pingpong".
-_PINGPONG = (fused_apply, fused_apply_ensemble)
 
 
 def launch_counts() -> dict:
-    """Every counting wrapper's `launches`, by the wrapper's name, and the
-    forwards' bf16 launches as "fused_apply.pingpong" and
-    "fused_apply_ensemble.pingpong"."""
-    counts = {f.__name__: f.launches for f in _COUNTED}
-    return {**counts, **{f"{f.__name__}.pingpong": f.pingpong for f in _PINGPONG}}
+    """Every counting wrapper's `launches`, by the wrapper's name."""
+    return {f.__name__: f.launches for f in _COUNTED}
 
 
 def add_launches(counts: dict):
@@ -2244,5 +2076,3 @@ def add_launches(counts: dict):
     CUDA graph's replay launches what its capture counted."""
     for f in _COUNTED:
         f.launches += counts.get(f.__name__, 0)
-    for f in _PINGPONG:
-        f.pingpong += counts.get(f"{f.__name__}.pingpong", 0)

@@ -197,8 +197,7 @@ def test_pingpong_engine_matches_plain(cuda_device, monkeypatch, program, rays, 
         torch.cuda.synchronize()
         want = fused_mlp.fused_apply_reference(spec, kp, lo, hi, hvx)
     after = fused_mlp.launch_counts()
-    assert {k: after[k] - before[k] for k in (wrapper, wrapper + ".pingpong")} == {
-        wrapper: 1, wrapper + ".pingpong": 1}
+    assert after[wrapper] - before[wrapper] == 1
     assert len(got) == len(want)
     for j, (a, b) in enumerate(zip(got, want)):
         assert a.shape == (nr, ns)
@@ -206,24 +205,6 @@ def test_pingpong_engine_matches_plain(cuda_device, monkeypatch, program, rays, 
         print(f"ping-pong {program} {nr}x{ns} hvx {'staged' if staged else 'global'} plane {j}: "
               f"max abs err {err:.3e}")
         assert err <= TOL[torch.bfloat16], f"plane {j}: max abs err {err}"
-
-
-@pytest.mark.parametrize(**DTYPES)
-def test_pingpong_counts_the_bf16_forwards_only(cuda_device, dtype):
-    """Each forward counts its bf16 launches as `<wrapper>.pingpong`; the
-    float32 engine (3xTF32) leaves the count at 0."""
-    cfg = mlp.MLPConfig(**{**SMALL, **CASES["published"]})
-    spec, kp, lo, hi, hvx = _operands(cfg, 37, 64, dtype, cuda_device)
-    ens, kps, elo, hvxs = _ensemble(37, 64, dtype, cuda_device)
-    before = fused_mlp.launch_counts()
-    fused_mlp.fused_apply(spec, kp, lo, hi, hvx)
-    fused_mlp.fused_apply_ensemble(ens, kps, elo, hvxs)
-    torch.cuda.synchronize()
-    after = fused_mlp.launch_counts()
-    n = int(dtype == torch.bfloat16)
-    assert {k: after[k] - before[k] for k in after if k.startswith("fused_apply")} == {
-        "fused_apply": 1, "fused_apply_ensemble": 1, "fused_apply.pingpong": n,
-        "fused_apply_ensemble.pingpong": n}
 
 
 def _double(x):
@@ -1040,7 +1021,7 @@ def test_k0_launches_the_kernels_it_launched_before(cuda_device):
         torch.cuda.synchronize()
     after = fused_mlp.launch_counts()
     delta = {n: after[n] - before[n] for n in after if after[n] != before[n]}
-    assert delta == {"fused_apply": 1, "fused_bwd": 1, "fused_apply.pingpong": 1}, delta
+    assert delta == {"fused_apply": 1, "fused_bwd": 1}, delta
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     ours = [n for n in names if "fused_mlp" in n or "sec_" in n]
     print("k = 0 kernels:", sorted(set(ours)))

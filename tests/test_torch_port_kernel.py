@@ -433,7 +433,7 @@ def _bwd90_slabs(plan, f32=False):
     """Each op's segments as (n_pad, depth kb) matrices read back through
     the swizzle from the weight image (float32: the (big, small) halves of
     the split chunk image), in the producer's order."""
-    _, ops = _bwd90_ops(plan.rows90.words)
+    _, ops = _bwd90_ops(plan.words)
     pos, mats = 0, []
     for op in ops:
         segs = []
@@ -452,10 +452,10 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
     map stores no stash: its slot stays zero. Float32 slots have
     plan.stash_ld rows; a backward op's slot (the weight pass's G) is
     stored K-major there, (r, c) at slot * ld + c * ld + r."""
-    hdr, ops = _bwd90_ops(plan.rows90.words)
+    hdr, ops = _bwd90_ops(plan.words)
     ns, in_lo, in_hi, lo_kb, hi_kb, act_kb = hdr[2:8]
     slot_bytes, part_w, n_maps = hdr[8], hdr[12], hdr[14]
-    assert part_w == plan.part_w and n_maps == len(plan.rows90.maps)
+    assert part_w == plan.part_w and n_maps == len(plan.row_maps)
     cd, bm = plan.wts.dtype, 128
     f32 = cd == torch.float32
     depth = 32 if f32 else 64
@@ -470,7 +470,7 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
 
     def store(op, rows, v):
         if op["map"] >= 0:
-            assert plan.rows90.maps[op["map"]] == (op["out_slot"], op["n"])
+            assert plan.row_maps[op["map"]] == (op["out_slot"], op["n"])
             off, w = op["out_slot"], op["n"]
             if f32 and op["kind"] == fused_mlp._B_LAYER:
                 stash[off * ld : (off + w) * ld].view(w, ld)[:, rows] = v[:, :w].T
@@ -530,10 +530,10 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
 def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
     """Execute `pack_bwd_program`'s output with PyTorch ops, tile by tile and
     task by task, as the backward kernels do: (per-member dkp, dhvx stack).
-    The row pass runs the program of `bwd90_plan` (`_run_bwd90_rows`)."""
+    The row pass runs the program of `_bwd_plan` (`_run_bwd90_rows`)."""
     n = lo.shape[0]
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
-    ns = int(plan.header[2])
+    ns = int(plan.words[2])  # the row program's header
     members = spec.members if isinstance(spec, fused_mlp.EnsembleSpec) else (spec,)
     bf16 = members[0].cdtype == torch.bfloat16
     dp = d_planes.reshape(d_planes.shape[0], n)
@@ -682,11 +682,12 @@ def test_bwd_program_offsets_disjoint_and_in_range(which, dtype_name):
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
     bm, _ = fused_mlp._tiling(dtype)
     assert n % bm > 0
-    n_masks = int(dict(zip(fused_mlp._BHEADER, plan.header))["n_masks"])
+    hdr, ops = _bwd90_ops(plan.words)
+    n_masks = dict(zip(fused_mlp._BWD90_HEADER, hdr))["n_masks"]
     ranges, relu_f, relu_b = [], {}, []
-    for op in plan.ops.tolist():
-        kind, width, flags = op[0], op[1], op[3]
-        gn, mask, hn, part, part2 = op[17], op[18], op[19], op[21], op[23]
+    for op in ops:
+        kind, width, flags = op["kind"], op["n"], op["flags"]
+        mask, hn, part, part2 = op["mask_slot"], op["head_nout"], op["part"], op["part2"]
         if kind == fused_mlp._F_LAYER:
             if hn:
                 ranges += [(part, part + hn * width), (part2, part2 + hn)]
@@ -694,11 +695,11 @@ def test_bwd_program_offsets_disjoint_and_in_range(which, dtype_name):
                 assert mask not in relu_f and 0 <= mask < n_masks
                 relu_f[mask] = width
             else:
-                assert mask == -1
+                assert mask == 0  # the row program's word for no mask
         elif kind == fused_mlp._B_LAYER:
-            ranges.append((part, part + gn))
+            ranges.append((part, part + width))
             if flags & fused_mlp._FLAG_RELU:
-                relu_b.append((mask, gn))
+                relu_b.append((mask, width))
     assert len(relu_f) == n_masks
     # each ReLU layer's mask is read back once, by a backward layer of its width
     assert sorted(relu_b) == sorted(relu_f.items())
@@ -742,32 +743,28 @@ def _f32_twin(spec):
 
 def _padded_op_weights(plan, kp, depth):
     """Each row-pass op's segments' weights, zero-padded to (n_pad, depth
-    kb), from the parameters: a forward op's W^T, a backward op's W (the
-    product of the BOp before it), as `_bwd_plan` lays the ops' buffer out
-    (each matrix's rows padded to 16 columns, one after the other)."""
+    kb), from `w_src` and the row program alone: `w_src` names every op's
+    segments in op order, a forward op's W^T and a backward op's W, which
+    must be that of the activation segment of the layer above (a member's
+    backward ops follow its forward ops, its top layer first)."""
     kps = list(kp) if isinstance(kp, tuple) else [kp]
-    srcs, mats, w_len = iter(plan.w_src), [], 0
-    for w in plan.ops.tolist():  # the ops' buffer: each op's segments in order
+    srcs, above, product, out = iter(plan.w_src), [], None, []
+    for op in _bwd90_ops(plan.words)[1]:
+        keys = [next(srcs) for _ in range(op["nseg"])]
+        if op["kind"] == fused_mlp._F_LAYER:
+            above.append(keys[0])
+        elif op["kind"] == fused_mlp._B_LAYER:
+            assert keys == ([product] if op["nseg"] else []), (keys, product)
+            product = above.pop()  # this layer's W: the product of the layer below's op
         segs = []
-        for s_ in range(w[4]):
-            mi, key = next(srcs)
+        for s_, (mi, key) in enumerate(keys):
             m = kps[mi][key].detach().float()
-            m = m.T if w[0] == fused_mlp._F_LAYER else m
-            assert (w[8 + s_], w[11 + s_]) == (w_len, -(-m.shape[1] // 16) * 16)
-            w_len += m.shape[0] * w[11 + s_]
-            segs.append(m)
-        mats.append(segs)
-    assert next(srcs, None) is None
-    _, ops = _bwd90_ops(plan.rows90.words)
-    out = []
-    for i, op in enumerate(ops):
-        src = mats[i] if op["kind"] == fused_mlp._F_LAYER else mats[i - 1]  # B: the op before's W
-        segs = []
-        for s_ in range(op["nseg"]):
+            m = m.T if op["kind"] == fused_mlp._F_LAYER else m
             want = torch.zeros((op["n_pad"], depth * op["kb"][s_]))
-            want[: src[s_].shape[0], : src[s_].shape[1]] = src[s_]
+            want[: m.shape[0], : m.shape[1]] = m
             segs.append(want)
         out.append(segs)
+    assert next(srcs, None) is None and not above
     return out
 
 
@@ -775,14 +772,15 @@ def _padded_op_weights(plan, kp, depth):
 def test_bwd90_slab_image_unswizzles_to_padded_weights(name):
     """Every slab of the bf16 row pass's image, read back through the
     swizzle, is its op's weight zero-padded to (n_pad, 64 kb): a forward
-    op's W^T, a backward op's W (the product of the op before it), at the
-    offsets the ops' buffer gives them; the float32 program has the same
-    ops."""
+    op's W^T, a backward op's W (that of the activation segment of the
+    layer above); the float32 program has the same ops but their K
+    blocks."""
     spec, kp, lo, *_ = _bwd90_operands(name)
     n = lo.shape[0]
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
     twin = fused_mlp.pack_bwd_program(_f32_twin(spec), kp, n)  # same ops, float32 weights
-    assert np.array_equal(plan.ops, twin.ops)
+    ops, twin_ops = (_bwd90_ops(p.words)[1] for p in (plan, twin))
+    assert [{**op, "kb": None} for op in ops] == [{**op, "kb": None} for op in twin_ops]
     for i, (segs, wants) in enumerate(zip(_bwd90_slabs(plan), _padded_op_weights(plan, kp, 64))):
         assert len(segs) == len(wants)
         for s, (got, want) in enumerate(zip(segs, wants)):
@@ -798,13 +796,31 @@ def test_bwd90_maps_are_the_slots_the_weight_pass_reads(name):
     the activations that feed only a head, whose dW the row pass forms."""
     spec, kp, lo, *_ = _bwd90_operands(name)
     plan = fused_mlp.pack_bwd_program(spec, kp, lo.shape[0])
-    _, ops = _bwd90_ops(plan.rows90.words)
+    _, ops = _bwd90_ops(plan.words)
     read = {s_: w for a, aw, g_, gw, *_ in plan.dws for s_, w in ((a, aw), (g_, gw))}
     mapped = [(op["out_slot"], op["n"]) for op in ops if op["map"] >= 0]
     assert [ops[i]["map"] for i in range(len(ops)) if ops[i]["map"] >= 0] == list(range(len(mapped)))
-    assert list(plan.rows90.maps) == mapped and dict(mapped) == read
+    assert list(plan.row_maps) == mapped and dict(mapped) == read
     skipped = [op for op in ops if op["map"] < 0]
     assert skipped and all(op["kind"] == fused_mlp._F_LAYER and op["head_nout"] for op in skipped)
+
+
+@pytest.mark.parametrize("name", sorted(BWD90_CASES))
+def test_row_program_runs_the_forward_programs_layers(name):
+    """The row pass's forward ops are the forward program's layers, in its
+    order, in bf16 and in float32: the same widths, sources and K blocks of
+    each segment, flags, hvx slot, and head channels and plane; then one
+    backward op for each layer, each member's in reverse."""
+    spec, kp, lo, *_ = _bwd90_operands(name)
+    for s in (spec, _f32_twin(spec)):
+        _, layers = _sm90_layers(fused_mlp.sm90_plan(s).words)
+        _, ops = _bwd90_ops(fused_mlp.pack_bwd_program(s, kp, lo.shape[0]).words)
+        fwd = [op for op in ops if op["kind"] == fused_mlp._F_LAYER]
+        keys = ("n", "n_pad", "nseg", "src", "kb", "flags", "hvx_slot", "plane")
+        assert [{k: op[k] for k in keys} | {"nout": op["head_nout"]} for op in fwd] == [
+            {k: layer[k] for k in keys + ("nout",)} for layer in layers]
+        back = [op for op in ops if op["kind"] == fused_mlp._B_LAYER]
+        assert sorted(op["n"] for op in back) == sorted(layer["n"] for layer in layers)
 
 
 def _np_tf32(x):
@@ -849,7 +865,7 @@ def test_bwd_plan_cached_per_spec_but_buffers_follow_the_weights(dtype_name):
     g = torch.Generator().manual_seed(9)
     kp2 = {k: v + 0.1 * torch.randn(v.shape, generator=g) for k, v in kp.items()}
     b = fused_mlp.pack_bwd_program(spec, kp2, lo.shape[0])
-    assert a.header is b.header and a.rows90 is b.rows90 and a.dev_tasks is b.dev_tasks
+    assert a.words is b.words and a.row_maps is b.row_maps and a.dev_tasks is b.dev_tasks
     assert not torch.equal(a.wts, b.wts) and not torch.equal(a.fpar, b.fpar)
     want, want_hvx = fused_mlp.fused_bwd_reference(spec, kp2, lo, hi, hvx[0] if hvx else None,
                                                    d_planes)
@@ -930,7 +946,7 @@ def test_bwd90_plan_fits_shared_memory(trio):
         dirs = torch.nn.functional.normalize(torch.randn((nr, 3), generator=g), dim=-1)
         spec, kp, lo, _ = mlp.ensemble_operands(members, pts, dirs, ns, torch.bfloat16)
     plan = fused_mlp.pack_bwd_program(spec, kp, lo.shape[0])
-    hdr, ops = _bwd90_ops(plan.rows90.words)
+    hdr, ops = _bwd90_ops(plan.words)
     h = dict(zip(fused_mlp._BWD90_HEADER, hdr))
     assert h["stages"] == 4 and h["slot_bytes"] == 256 * 128 and h["hvx_rays"] > 0
     regions = (h["stages"] * h["slot_bytes"]

@@ -63,7 +63,12 @@ def test_wgrad_issues_each_slot_once_but_shared_lo_reads(which, n):
     assert panels - per_dw == sum((-(-k // 128) - 1) * g_w * n * 2
                                   for _, _, _, g_w, k, *_ in plan.dws)
     twice = {s for s, r in reads.items() if r > 1}
-    lo = {(int(plan.ops[0][16]), int(plan.ops[0][17]))}  # the F_IN op's lo slot
+    seg = fused_mlp._BWD90_MAX_SEG
+    names = [f"{k}{i}" if k in ("src", "kb") else k for k in fused_mlp._BWD90_OP
+             for i in range(seg if k in ("src", "kb") else 1)]
+    f_in = dict(zip(names, plan.words[fused_mlp._BWD90_HEADER_WORDS:].tolist()))  # the first op
+    assert f_in["kind"] == fused_mlp._F_IN and f_in["src0"] == fused_mlp._SRC_LO
+    lo = {(f_in["out_slot"], f_in["n"])}  # the row program's F_IN op: the lo slot
     shared_g = {(g, gw) for a, aw, g, gw, k, *_ in plan.dws if k <= 64}
     assert twice <= lo | shared_g
     assert per_dw - distinct == sum((r - 1) * w * n * 2 for (_, w), r in reads.items())

@@ -444,15 +444,19 @@ def stashed_activations(ops, dp):
         fused_mlp.torch = torch
     ld = plan.stash_ld  # a float32 slot's rows are padded (`_stash_ld`); activations are row-major
     stash = next(t for t in rec.made if t.numel() == plan.stash_cols * ld and t.dtype == spec.cdtype)
-    layers = [(int(w[16]), int(w[1])) for w in plan.ops if w[0] == fused_mlp._F_LAYER]  # (slot, n)
+    seg = fused_mlp._BWD90_MAX_SEG
+    names = [f"{k}{i}" if k in ("src", "kb") else k for k in fused_mlp._BWD90_OP
+             for i in range(seg if k in ("src", "kb") else 1)]
+    ops = plan.words[fused_mlp._BWD90_HEADER_WORDS:].reshape(-1, fused_mlp._BWD90_OP_WORDS)
+    ops = [dict(zip(names, w)) for w in ops.tolist()]  # the row program's ops
+    layers = [(op["out_slot"], op["n"]) for op in ops if op["kind"] == fused_mlp._F_LAYER]
     acts = [stash[s * ld : s * ld + w * n].view(n, w) for s, w in layers]
     d = spec.depth
     hs, f, hvs = acts[:d], acts[d], acts[d + 1 :]
-    if plan.rows90 is not None:
-        stored = {s for s, _ in plan.rows90.maps}
-        assert all(s in stored for s, _ in layers[: d + 1])
-        _, again = fused_mlp._views_forward(spec, kp, hs[-1], hi, hvx)
-        hvs = [a if s in stored else b for (s, _), a, b in zip(layers[d + 1 :], hvs, again)]
+    stored = {s for s, _ in plan.row_maps}
+    assert all(s in stored for s, _ in layers[: d + 1])
+    _, again = fused_mlp._views_forward(spec, kp, hs[-1], hi, hvx)
+    hvs = [a if s in stored else b for (s, _), a, b in zip(layers[d + 1 :], hvs, again)]
     return (dkp, dhvx), (hs, f, hvs)
 
 
