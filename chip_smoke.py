@@ -288,8 +288,11 @@ def hgmma_counts(lib: Path) -> dict:
 
 
 TENSOR_CORE_KERNELS = ("fused_mlp_fwd_sm90_kernel", "fused_mlp_fwd_tf32_kernel",
+                       "fused_mlp_fwd_stash_tf32_kernel",
                        "fused_mlp_bwd_rows_sm90_kernel", "fused_mlp_bwd_rows_tf32_kernel",
                        "fused_mlp_bwd_wgrad_kernel", "fused_mlp_bwd_wgrad_tf32_kernel")
+F32_KERNELS = ("fused_mlp_fwd_tf32_kernel", "fused_mlp_fwd_stash_tf32_kernel",
+               "fused_mlp_bwd_rows_tf32_kernel")
 WGRAD_F32 = ("fused_mlp_bwd_wgrad_tf32_kernel",
              "simplenerf_torch/ops/csrc/fused_mlp_bwd.cu + fused_mlp_wgrad_tf32_sm90.cuh")
 
@@ -544,17 +547,16 @@ def wgrad_check(which: str) -> dict:
         spec, kp = ensemble_operands(8, COARSE_NS, torch.float32, seed=5)[:2]
         rows = STEP_RAYS * COARSE_NS
     dws = fused_mlp.pack_bwd_program(spec, kp, 64).dws
-    a_slots = {(a, aw) for a, aw, *_ in dws}
-    index = {}
+    index = {}  # A slots (the training forward's) and G slots are numbered apart
     for a, aw, g, gw, *_ in dws:
-        for key in ((a, aw), (g, gw)):
+        for key in (("a", a, aw), ("g", g, gw)):
             index.setdefault(key, len(index))
     gen = torch.Generator(device="cuda").manual_seed(13)
     slots = [None] * len(index)
-    for (c, w), i in index.items():
-        slots[i] = (torch.rand((rows, w), generator=gen, device="cuda") if (c, w) in a_slots
+    for (kind, _, w), i in index.items():
+        slots[i] = (torch.rand((rows, w), generator=gen, device="cuda") if kind == "a"
                     else torch.randn((rows, w), generator=gen, device="cuda"))
-    calls = [(index[(a, aw)], index[(g, gw)], k, m) for a, aw, g, gw, k, m, _ in dws]
+    calls = [(index[("a", a, aw)], index[("g", g, gw)], k, m) for a, aw, g, gw, k, m, _ in dws]
     launches = fused_mlp.wgrad.launches
     got = fused_mlp.wgrad(slots, calls)
     torch.cuda.synchronize()
@@ -647,10 +649,10 @@ def plain_versions():
     from simplenerf_torch.ops import fused_mlp as fm
 
     saved = (fm._fwd, fm.fused_bwd, fm._ens_fwd, fm.fused_ens_bwd, fm.pe_operands)
-    fm._fwd = lambda *a: (torch.stack(fm.fused_apply_reference(*a)), None)
-    fm.fused_bwd = lambda *a, sec=None, pre=None: fm.fused_bwd_reference(*a, sec=sec)
-    fm._ens_fwd = lambda *a: torch.stack(fm.fused_apply_ensemble_reference(*a))
-    fm.fused_ens_bwd = fm.fused_ens_bwd_reference
+    fm._fwd = lambda *a, train=False: (torch.stack(fm.fused_apply_reference(*a)), None, None)
+    fm.fused_bwd = lambda *a, sec=None, pre=None, stash=None: fm.fused_bwd_reference(*a, sec=sec)
+    fm._ens_fwd = lambda *a, train=False: (torch.stack(fm.fused_apply_ensemble_reference(*a)), None)
+    fm.fused_ens_bwd = lambda *a, stash=None: fm.fused_ens_bwd_reference(*a)
     fm.pe_operands = fm.pe_operands_reference
     try:
         yield
@@ -925,16 +927,37 @@ def fma_bound_ms(flops: float) -> float:
     return 1e3 * flops / PEAK_FLOPS["float32"]
 
 
+def row_ops(plan) -> list:
+    """The row program's ops as dicts (struct bwd90::Op)."""
+    from simplenerf_torch.ops import fused_mlp
+
+    seg = fused_mlp._BWD90_MAX_SEG
+    names = [f"{k}{i}" if k in ("src", "kb") else k for k in fused_mlp._BWD90_OP
+             for i in range(seg if k in ("src", "kb") else 1)]
+    words = plan.words[fused_mlp._BWD90_HEADER_WORDS:].reshape(-1, fused_mlp._BWD90_OP_WORDS)
+    return [dict(zip(names, w)) for w in words.tolist()]
+
+
 def row_pass_bytes(plan, rows: int, inputs) -> int:
     """Bytes the backward's row pass must move: each input tensor read once
     and each output written once, the stash slots the weight pass reads
     (2 bytes a value in bf16, 4 in float32), the g32 planes of dhvx and the
-    per-tile partials rows (4). Its mask words are its own scratch, written
-    and read back by the same block."""
-    slots = {s: w for a, aw, g, gw, *_ in plan.dws for s, w in ((a, aw), (g, gw))}
+    per-tile partials rows (4). bf16: its mask words are its own scratch,
+    written and read back by the same block. float32: the training forward
+    stored the activations (the weight pass's A) and the mask words, so
+    the row pass writes the G slots and reads the mask words and the
+    activations of the layers that feed a head."""
+    f32 = plan.wts.element_size() == 4
+    slots = {x: w for a, aw, g, gw, *_ in plan.dws for x, w in ((("a", a), aw), (("g", g), gw))
+             if not (f32 and x[0] == "a")}
     esize = plan.wts.element_size()
     outputs = (sum(slots.values()) * rows * esize + plan.n_hvx * rows * plan.hvx_w * 4
                + -(-rows // 128) * plan.part_w * 4)
+    if f32:
+        from simplenerf_torch.ops import fused_mlp
+
+        heads = sum(op["n"] for op in row_ops(plan) if op["kind"] == fused_mlp._H_LAYER)
+        outputs += heads * rows * 4 + plan.mask_words * 4
     return outputs + sum(t.numel() * t.element_size() for t in inputs if t is not None)
 
 
@@ -951,11 +974,12 @@ def weight_pass_yardsticks(label: str, plan, rows: int, sum_shapes, dname: str =
 
     cd = torch.bfloat16 if dname == "bfloat16" else torch.float32
     esize = 2 if dname == "bfloat16" else 4
-    slots = {s: w for a, aw, g, gw, *_ in plan.dws for s, w in ((a, aw), (g, gw))}
+    # float32 numbers its A slots (the training forward's) apart from its G slots
+    slots = {x: w for a, aw, g, gw, *_ in plan.dws for x, w in ((("a", a), aw), (("g", g), gw))}
     slot_bytes = sum(slots.values()) * rows * esize
     flops = sum(2 * k * m * rows for *_, k, m, _off in plan.dws)
     g = torch.Generator(device="cuda").manual_seed(11)
-    stash = torch.randn(plan.stash_cols * rows, generator=g, device="cuda").to(cd)
+    stash = torch.randn(max(plan.stash_cols, plan.act_cols) * rows, generator=g, device="cuda").to(cd)
 
     def slot(c, w):
         return stash[c * rows : (c + w) * rows].view(rows, w)
@@ -1024,27 +1048,35 @@ def time_train_kernels(dtype=None) -> dict:
             row[f"{prefix}fma_bound_ms"] = fma_bound_ms(flops)
         return row
 
-    # Fine: one MLP, 4096 x 192.
+    def row_flops(s):  # the float32 row pass runs no forward: dX (and the heads' partials) only
+        return s.row_flops_per_point() - (s.flops_per_point() if dname == "float32" else 0)
+
+    # Fine: one MLP, 4096 x 192. float32: the backward reads what the
+    # training forward stored (`stash`), as under autograd; that forward's
+    # time is the forward row's `train_ms`.
     spec, kp, lo, hi, hvx = ops = kernel_operands(MLPConfig(), STEP_RAYS, FINE_NS, cd, seed=3)
     rows = lo.shape[0]
     dp = cotangents(spec.n_planes, STEP_RAYS, FINE_NS, seed=4)
     plan = fused_mlp.pack_bwd_program(spec, kp, rows)
     io = lo.numel() * esize + hvx.numel() * 4
     shape = f"fine step: {STEP_RAYS} rays x {FINE_NS} = {rows} points, {dname}"
+    stash = fused_mlp._fwd(*ops, train=True)[2]
+    row_in = (dp, plan.wts, plan.fpar) if stash else (lo, hi, hvx, dp, plan.wts, plan.fpar)
     out["fused_mlp_fwd"] = dict(
         shape=shape, ms=cuda_time_ms(lambda: fused_mlp.fused_apply(*ops), iters=10),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_apply_reference(*ops), iters=3),
         slab_gb=slab_gb(spec, rows),
         **bounds(spec.flops_per_point() * rows, io + wbytes([kp]) + dp.numel() * 4))
+    if stash:
+        out["fused_mlp_fwd"]["train_ms"] = cuda_time_ms(lambda: fused_mlp._fwd(*ops, train=True), iters=10)
     out["fused_mlp_bwd"] = dict(
-        shape=shape, ms=cuda_time_ms(lambda: fused_mlp.fused_bwd(*ops, dp), iters=5),
+        shape=shape, ms=cuda_time_ms(lambda: fused_mlp.fused_bwd(*ops, dp, stash=stash), iters=5),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_bwd_reference(*ops, dp), iters=2),
         **bounds(spec.bwd_flops_per_point() * rows,
                  io + wbytes([kp]) + dp.numel() * 4 + wbytes([kp]) * 2 + hvx.numel() * 4),
-        **bounds(spec.row_flops_per_point() * rows,
-                 row_pass_bytes(plan, rows, (lo, hi, hvx, dp, plan.wts, plan.fpar)), "row_"),
-        **bwd_pass_ms(lambda: fused_mlp.fused_bwd(*ops, dp), sums=sum_launches(plan)))
-    del ops, lo, hi, hvx, kp, dp
+        **bounds(row_flops(spec) * rows, row_pass_bytes(plan, rows, row_in), "row_"),
+        **bwd_pass_ms(lambda: fused_mlp.fused_bwd(*ops, dp, stash=stash), sums=sum_launches(plan)))
+    del ops, lo, hi, hvx, kp, dp, stash
     torch.cuda.empty_cache()
     out["fused_mlp_bwd"]["yardsticks"] = weight_pass_yardsticks(
         "fused_mlp_bwd", plan, rows, _sum_shapes(plan, rows, FINE_NS), dname)
@@ -1057,6 +1089,8 @@ def time_train_kernels(dtype=None) -> dict:
     plan = fused_mlp.pack_bwd_program(ens, kps, rows)
     io = lo.numel() * esize + sum(h.numel() for h in hvxs) * 4
     shape = f"coarse trio step: {STEP_RAYS} rays x {COARSE_NS} = {rows} points, {dname}"
+    stash = fused_mlp._ens_fwd(ens, kps, lo, hvxs, train=True)[1]
+    row_in = (dp, plan.wts, plan.fpar) if stash else (lo, *hvxs, dp, plan.wts, plan.fpar)
     out["fused_mlp_ens_fwd"] = dict(
         shape=shape,
         ms=cuda_time_ms(lambda: fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs), iters=10),
@@ -1064,18 +1098,20 @@ def time_train_kernels(dtype=None) -> dict:
                               iters=3),
         slab_gb=slab_gb(ens, rows),
         **bounds(ens.flops_per_point() * rows, io + wbytes(kps) + dp.numel() * 4))
+    if stash:
+        out["fused_mlp_ens_fwd"]["train_ms"] = cuda_time_ms(
+            lambda: fused_mlp._ens_fwd(ens, kps, lo, hvxs, train=True), iters=10)
     out["fused_mlp_ens_bwd"] = dict(
         shape=shape,
-        ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp), iters=5),
+        ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp, stash=stash), iters=5),
         plain_ms=cuda_time_ms(lambda: fused_mlp.fused_ens_bwd_reference(ens, kps, lo, hvxs, dp),
                               iters=2),
         **bounds(ens.bwd_flops_per_point() * rows,
                  io + wbytes(kps) + dp.numel() * 4 + wbytes(kps) * 2 + io - lo.numel() * esize),
-        **bounds(ens.row_flops_per_point() * rows,
-                 row_pass_bytes(plan, rows, (lo, *hvxs, dp, plan.wts, plan.fpar)), "row_"),
-        **bwd_pass_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp),
+        **bounds(row_flops(ens) * rows, row_pass_bytes(plan, rows, row_in), "row_"),
+        **bwd_pass_ms(lambda: fused_mlp.fused_ens_bwd(ens, kps, lo, hvxs, dp, stash=stash),
                       sums=sum_launches(plan)))
-    del ens, kps, lo, hvxs, dp
+    del ens, kps, lo, hvxs, dp, stash
     torch.cuda.empty_cache()
     out["fused_mlp_ens_bwd"]["yardsticks"] = weight_pass_yardsticks(
         "fused_mlp_ens_bwd", plan, rows, _sum_shapes(plan, rows, COARSE_NS), dname)
@@ -1173,8 +1209,12 @@ def step_time(db: Path, warmup: int = 3, steps: int = 40, graph_calls: int = 5,
               flush=True)
     made = {k: n - saved[k] for k, n in fused_mlp.launch_counts().items()}
     fused_mlp.add_launches({k: -n for k, n in made.items()})
+    out["own_forward"] = {k: made[k] for k in ("fused_bwd.own_forward", "fused_ens_bwd.own_forward")}
     print(f"train step ({dname}): forward launches {made['fused_apply']} + "
-          f"{made['fused_apply_ensemble']} (ensemble)", flush=True)
+          f"{made['fused_apply_ensemble']} (ensemble); backward calls that launched their own "
+          f"forward (loop and replayed graph) {out['own_forward']}", flush=True)
+    if any(out["own_forward"].values()):
+        fail(f"training backward calls launched their own forward: {out['own_forward']}")
     loop_k, graph_k = out["loop"]["csrc_kernels"], out["graph"]["csrc_kernels"]
     print(f"train step ({dname}): ops/csrc kernels per step, loop {loop_k}, replayed {graph_k}",
           flush=True)
@@ -2288,7 +2328,7 @@ def secondary_kernels() -> dict:
         ops = mlp.fused_operands(params, cfg, pts, dirs, ns, torch.bfloat16)
         spec, kp = ops[:2]
         sec = mlp.secondary_operands(params, cfg, dirs2, torch.bfloat16)
-        planes, pre = fm._fwd(*ops, sec)
+        planes, pre, _ = fm._fwd(*ops, sec)
         want = fm.fused_apply_reference(*ops, sec)
         err = check_planes(f"with secondary views {label}", "bfloat16", planes, want)
         err = max(err, check_planes(f"secondary planes alone {label}", "bfloat16",
@@ -2490,6 +2530,9 @@ def main() -> int:
         f"spill stores / loads" for k, r in sorted(fwd_bf16.items())), flush=True)
     if len(fwd_bf16) != 2 or any(r.get("spill_stores") or r.get("spill_loads") for r in fwd_bf16.values()):
         fail(f"the bf16 forward's instances spill or are missing: {fwd_bf16}")
+    print("build: the float32 kernels (no-grad forward, training forward, row pass): " + "; ".join(
+        f"{k}: {ptxas[k]['registers']} registers, {ptxas[k].get('spill_stores', 0)} / "
+        f"{ptxas[k].get('spill_loads', 0)} B spill stores / loads" for k in F32_KERNELS), flush=True)
     hgmma = {k: n for lib in libs.values() for k, n in hgmma_counts(lib).items()}
     print(f"build: HGMMA instructions in the SASS by kernel: {hgmma}", flush=True)
     for name in TENSOR_CORE_KERNELS:
@@ -2578,10 +2621,12 @@ def main() -> int:
             row["fwd_ptxas_pre"] = ptxas["fused_mlp_fwd_sm90_kernel sec"]
             row["fwd_ptxas_f32"] = ptxas["fused_mlp_fwd_tf32_kernel"]
             row["hgmma_f32"] = hgmma["fused_mlp_fwd_tf32_kernel"]
+            row["fwd_ptxas_f32_stash"] = ptxas["fused_mlp_fwd_stash_tf32_kernel"]
+            row["hgmma_f32_stash"] = hgmma["fused_mlp_fwd_stash_tf32_kernel"]
             row["bound_share"] = t["bound_ms"] / t["ms"]
         f = train_timing_f32[name]  # float32: the 3xTF32 bound, the FMA bound beside it
         row.update({f"{k}_f32": f[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "fma_bound_ms", "row_ms", "weight_ms",
+            "ms", "train_ms", "plain_ms", "bound_ms", "bound_by", "fma_bound_ms", "row_ms", "weight_ms",
             "sums_ms", "sums_parts_ms", "row_bound_ms", "row_bound_by", "row_fma_bound_ms") if k in f})
         if name.endswith("bwd"):
             row.update({f"{k}_f32": f["yardsticks"][k] for k in (

@@ -34,14 +34,15 @@ _SIGNATURES = {
         "snerf_fused_mlp_fwd": [_I, _P, _I] + [_P] * 6 + [_I, _P],
         "snerf_fused_mlp_fwd_pre": [_I, _P, _I] + [_P] * 7 + [_I, _P],
         "snerf_fused_mlp_ens_fwd": [_I, _P, _I] + [_P] * 5 + [_I, _P],
+        "snerf_fused_mlp_fwd_stash": [_I, _P, _I] + [_P] * 7 + [_I, _P, _P, _I, _P],
         "snerf_tf32_split": [_P, _P, ctypes.c_longlong, _P],
     },
     "fused_mlp_bwd": {
-        "snerf_fused_mlp_bwd": [_I, _P, _I] + [_P] * 7 + [_I] * 5 + [_P] * 9 + [_I] + [_P] * 2
+        "snerf_fused_mlp_bwd": [_I, _P, _I] + [_P] * 7 + [_I] * 5 + [_P] * 10 + [_I] + [_P] * 2
                                + [_I, _P],
         "snerf_fused_mlp_bwd_sec": [_I, _P, _I] + [_P] * 7 + [_I] * 5 + [_P] * 9 + [_I] + [_P] * 2
                                    + [_I, _P, _P],
-        "snerf_fused_mlp_ens_bwd": [_I, _P, _I] + [_P] * 6 + [_I] * 5 + [_P] * 9 + [_I]
+        "snerf_fused_mlp_ens_bwd": [_I, _P, _I] + [_P] * 6 + [_I] * 5 + [_P] * 10 + [_I]
                                    + [_P] * 2 + [_I, _P],
         "snerf_wgrad": [_I, _P, _P, _I, _P] + [_I] * 5 + [_P, _P, _I, _P, _P],
         "snerf_colsum": [_P, _P] + [_I] * 4 + [_P, _P],

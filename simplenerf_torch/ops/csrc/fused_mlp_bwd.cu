@@ -15,17 +15,22 @@
 // a block, so the work is split in two passes with fixed-order reductions
 // (the same result on every run; no atomics):
 //   (a) row pass, one block per tile of 128 rows: the forward is
-//       recomputed, and each layer's activation (rounded to the compute
-//       type) is stashed in device memory. One engine in both types, the
+//       recomputed (bf16; float32 reads it, below), and each layer's
+//       activation (rounded to the compute type) is stashed in device
+//       memory. One engine in both types, the
 //       forward's warp-specialised one (bulk-copied weight ring, two
 //       consumers of 64 rows) run forward and back on one program
 //       (`_bwd_plan`): bf16, fused_mlp_bwd_rows_sm90_kernel
 //       (fused_mlp_bwd_sm90.cuh), wgmma on bf16 slabs, the stash leaving by
 //       TMA stores; float32, fused_mlp_bwd_rows_tf32_kernel
-//       (fused_mlp_bwd_tf32_sm90.cuh), the same on the 3xTF32 core of
-//       fused_mlp_tf32_sm90.cuh (the weight image split into big and small
-//       TF32 halves by snerf_tf32_split before the launch), the stash leaving
-//       from registers. A ReLU layer's epilogue also packs its
+//       (fused_mlp_bwd_tf32_sm90.cuh), the walk back alone on the 3xTF32
+//       core of fused_mlp_tf32_sm90.cuh (the weight image split into big
+//       and small TF32 halves by snerf_tf32_split before the launch), g
+//       leaving from registers: the float32 forward, run under autograd
+//       (snerf_fused_mlp_fwd_stash), has already stored the activations
+//       and the mask words, and the heads' partials read the activations
+//       back (`acts`; a direct call runs that forward first). A ReLU
+//       layer's epilogue also packs its
 //       mask as bits in the order of the thread's accumulator fragment (four
 //       words a consumer thread), and the layer that feeds a head sums the head's
 //       per-tile dW and db from the tile it just wrote. Then the layers are
@@ -120,13 +125,12 @@ fused_mlp_bwd_rows_sm90_kernel(const __grid_constant__ bwd90::Program p,
 
 // The float32 row pass (fused_mlp_bwd_tf32_sm90.cuh): the same roles on the
 // 3xTF32 core; wts is the split image (snerf_tf32_split), one 16 KB slot
-// per weight chunk.
+// per weight chunk; acts and masks are the training forward's.
 __global__ void __launch_bounds__(bwd90::kThreads, 1)
-fused_mlp_bwd_rows_tf32_kernel(const __grid_constant__ bwd90::Program p, const float* __restrict__ lo,
-                               const float* __restrict__ hi, const float* __restrict__ hvx,
+fused_mlp_bwd_rows_tf32_kernel(const __grid_constant__ bwd90::Program p, const float* __restrict__ acts,
                                const float* __restrict__ dplanes, const float* __restrict__ wts,
-                               const float* __restrict__ fpar, float* stash, float* g32, uint4* masks,
-                               float* parts) {
+                               const float* __restrict__ fpar, float* stash, float* g32,
+                               const uint4* masks, float* parts) {
   extern __shared__ __align__(1024) unsigned char tf32_smem[];
   if (sm90::smem_u32(tf32_smem) & 1023) __trap();  // the swizzle needs 1024-byte aligned slots
   const bwd90::Smem s = bwd90::carve(tf32_smem, p);
@@ -146,7 +150,7 @@ fused_mlp_bwd_rows_tf32_kernel(const __grid_constant__ bwd90::Program p, const f
     if (threadIdx.x == 0) tf32::produce(p, s.ring, s.full, s.empty, wts);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(sm90::kConsumerRegs));
-    tf32::consume_rows(p, tf32_smem, s, wg - 1, lo, hi, hvx, dplanes, fpar, stash, g32, masks, parts);
+    tf32::consume_rows(p, tf32_smem, s, wg - 1, acts, dplanes, fpar, stash, g32, masks, parts);
   }
 }
 
@@ -239,11 +243,12 @@ EncodeTiled encode_tiled() {
 }
 
 // The float32 weight pass's tensor maps: for each of n_maps slots, int64
-// (element offset in the stash, dim 0, dim 1, dim 1's stride in bytes, box
-// 0, box 1) -> a float32 CUtensorMap, 128-byte swizzle, zeros past the
-// dims (an A slot: (width, n_rows), 32 x 32 boxes; a K-major G slot:
-// (n_rows, width), 32 rows x 64 columns).
-int encode_maps_f32(const float* stash, const long long* maps, int n_maps, wgrad::Maps* out) {
+// (element offset in its buffer, dim 0, dim 1, dim 1's stride in bytes, box
+// 0, box 1, buffer: 0 acts, 1 stash) -> a float32 CUtensorMap, 128-byte
+// swizzle, zeros past the dims (an A slot: (width, n_rows), 32 x 32 boxes;
+// a K-major G slot: (n_rows, width), 32 rows x 64 columns).
+int encode_maps_f32(const float* acts, const float* stash, const long long* maps, int n_maps,
+                    wgrad::Maps* out) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   if (n_maps > wgrad::kMaxMaps) return static_cast<int>(cudaErrorInvalidValue);
@@ -253,8 +258,9 @@ int encode_maps_f32(const float* stash, const long long* maps, int n_maps, wgrad
     const cuuint64_t strides[1] = {static_cast<cuuint64_t>(m[3])};
     const cuuint32_t box[2] = {static_cast<cuuint32_t>(m[4]), static_cast<cuuint32_t>(m[5])};
     const cuuint32_t elem[2] = {1, 1};
+    const float* base = m[6] ? stash : acts;
     const CUresult r = encode(&out->map[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                              const_cast<float*>(stash + m[0]), dims, strides, box, elem,
+                              const_cast<float*>(base + m[0]), dims, strides, box, elem,
                               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
@@ -281,16 +287,18 @@ int encode_maps(const __nv_bfloat16* stash, const long long* maps, int n_maps, w
 }
 
 // The weight pass (dtype 1: bf16, 0: float32): the maps, then one CTA per
-// job (clusters of two).
-int wgrad_launch(int dtype, const void* stash, const long long* maps, int n_maps, const void* jobs,
-                 int n_jobs, int n_rows, int chunk_rows, int dw_total, float* dw_part,
+// job (clusters of two). bf16 reads every slot from stash; float32 a map's
+// buffer, acts or stash.
+int wgrad_launch(int dtype, const void* acts, const void* stash, const long long* maps, int n_maps,
+                 const void* jobs, int n_jobs, int n_rows, int chunk_rows, int dw_total, float* dw_part,
                  cudaStream_t stream) {
   if (n_jobs <= 0) return 0;
   const bool bf16 = dtype == 1;
   if (chunk_rows % (bf16 ? wgrad::kBox : wgrad32::kDepth)) return static_cast<int>(cudaErrorInvalidValue);
   wgrad::Maps params;  // 16 KB; the launch copies it into the kernel's parameters
   int rc = bf16 ? encode_maps(static_cast<const __nv_bfloat16*>(stash), maps, n_maps, &params)
-                : encode_maps_f32(static_cast<const float*>(stash), maps, n_maps, &params);
+                : encode_maps_f32(static_cast<const float*>(acts), static_cast<const float*>(stash),
+                                  maps, n_maps, &params);
   if (rc) return rc;
   const unsigned grid = (n_jobs + 1) / 2 * 2;
   cudaError_t err;
@@ -312,7 +320,8 @@ int wgrad_launch(int dtype, const void* stash, const long long* maps, int n_maps
 
 struct Buffers {
   const void *lo, *hi, *hvx, *dplanes, *wts, *fpar, *tasks;
-  const void* sec;  // the secondary views' cotangent of the hvx layer (bf16 only), or null
+  const void* sec;   // the secondary views' cotangent of the hvx layer (bf16 only), or null
+  const void* acts;  // float32: the training forward's activation stash (its masks: masks)
   void *stash, *g32, *masks, *parts, *part_out, *dw_part, *dw_out, *dhvx;
   const long long* maps;  // the tensor-map parameters (host)
   int n_maps;
@@ -355,6 +364,9 @@ int run(int dtype, const int* words, int n_words, const Buffers& b, int n_tasks,
   for (int i = 0; i < p.n_ops; ++i) {
     const bwd90::Op& op = p.ops[i];
     if (op.map < -1 || (bf16 && op.map >= n_maps)) return static_cast<int>(cudaErrorInvalidValue);
+    // bf16 recomputes the forward; float32 reads it (head ops) and walks back
+    if (bf16 ? op.kind == bwd90::H_LAYER : op.kind != bwd90::H_LAYER && op.kind != bwd90::B_LAYER)
+      return static_cast<int>(cudaErrorInvalidValue);
     if (op.kind == bwd90::F_IN) continue;
     if ((op.n_pad != 64 && op.n_pad != 128 && op.n_pad != 256) ||
         (bf16 ? op.n_pad * 128 : tf32::kSlotBytes) > p.slot_bytes || op.head_nout > bwd90::kMaxHead)
@@ -377,23 +389,23 @@ int run(int dtype, const int* words, int n_words, const Buffers& b, int n_tasks,
         static_cast<float*>(b.g32), static_cast<uint4*>(b.masks), static_cast<float*>(b.parts),
         static_cast<const float*>(b.sec));
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    rc = wgrad_launch(1, b.stash, b.maps + 4 * p.n_maps, b.n_maps - p.n_maps, b.tasks, n_tasks,
-                      p.n_rows, chunk_rows, dw_total, static_cast<float*>(b.dw_part), stream);
+    rc = wgrad_launch(1, b.stash, b.stash, b.maps + 4 * p.n_maps, b.n_maps - p.n_maps, b.tasks,
+                      n_tasks, p.n_rows, chunk_rows, dw_total, static_cast<float*>(b.dw_part), stream);
     if (rc) return rc;
   } else {
     if (b.sec) return static_cast<int>(cudaErrorInvalidValue);  // no float32 secondary views
+    if (!b.acts) return static_cast<int>(cudaErrorInvalidValue);  // the training forward's stash
     auto rows = fused_mlp_bwd_rows_tf32_kernel;
     err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     rows<<<n_tiles, bwd90::kThreads, smem, stream>>>(
-        p, static_cast<const float*>(b.lo), static_cast<const float*>(b.hi),
-        static_cast<const float*>(b.hvx), static_cast<const float*>(b.dplanes),
+        p, static_cast<const float*>(b.acts), static_cast<const float*>(b.dplanes),
         static_cast<const float*>(b.wts), static_cast<const float*>(b.fpar),
-        static_cast<float*>(b.stash), static_cast<float*>(b.g32), static_cast<uint4*>(b.masks),
+        static_cast<float*>(b.stash), static_cast<float*>(b.g32), static_cast<const uint4*>(b.masks),
         static_cast<float*>(b.parts));
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    rc = wgrad_launch(0, b.stash, b.maps, b.n_maps, b.tasks, n_tasks, p.n_rows, chunk_rows, dw_total,
-                      static_cast<float*>(b.dw_part), stream);
+    rc = wgrad_launch(0, b.acts, b.stash, b.maps, b.n_maps, b.tasks, n_tasks, p.n_rows, chunk_rows,
+                      dw_total, static_cast<float*>(b.dw_part), stream);
     if (rc) return rc;
   }
   return column_sums(b, n_tiles, p.part_w, n_chunks, dw_total, n_hvx_rows, p.ns, p.hvx_w, stream);
@@ -405,24 +417,25 @@ int run(int dtype, const int* words, int n_words, const Buffers& b, int n_tasks,
 // program (struct bwd90::Program's header and ops, host memory). tasks: the
 // weight pass's n_tasks jobs (bf16 wgrad::Job, float32 wgrad32::Job).
 // Workspace and outputs are allocated by the caller: stash (cdtype; float32:
-// stash_cols x tf32::stash_ld(n_rows) floats), g32,
-// masks (n_tiles x n_masks x 256 consumer threads x 16 bytes), parts
-// (n_tiles x part_w), dw_part (n_chunks x dw_total), the outputs part_out
-// (part_w), dw_out (dw_total), dhvx (n_hvx_rows x hvx_w); for bf16 the
+// the backward ops' stash_cols x tf32::stash_ld(n_rows) floats), g32,
+// masks (n_tiles x n_masks x 256 consumer threads x 16 bytes; float32: the
+// training forward's, as acts, its activation stash; bf16: acts null),
+// parts (n_tiles x part_w), dw_part (n_chunks x dw_total), the outputs
+// part_out (part_w), dw_out (dw_total), dhvx (n_hvx_rows x hvx_w); the
 // tensor maps' host parameters `maps` (bf16: n_maps x 4 int64, the row
 // pass's stash slots, as many as its header names, then the weight pass's;
-// float32: n_maps x 6, the weight pass's); the
+// float32: n_maps x 7, the weight pass's); the
 // column sums' slices (3 ints, host) and their scratch (the largest
 // S x slices x C of the three where slices > 1).
 extern "C" int snerf_fused_mlp_bwd(int dtype, const int* words, int n_words, const void* lo,
                                    const void* hi, const void* hvx, const void* dplanes,
                                    const void* wts, const void* fpar, const void* tasks, int n_tasks,
                                    int n_chunks, int chunk_rows, int dw_total, int n_hvx_rows,
-                                   void* stash, void* g32, void* masks, void* parts, void* part_out,
-                                   void* dw_part, void* dw_out, void* dhvx, const long long* maps,
-                                   int n_maps, const int* slices, void* scratch, int smem,
-                                   void* stream) {
-  const Buffers b{lo,    hi,      hvx,     dplanes, wts,      fpar,    tasks,   nullptr,
+                                   void* stash, const void* acts, void* g32, void* masks, void* parts,
+                                   void* part_out, void* dw_part, void* dw_out, void* dhvx,
+                                   const long long* maps, int n_maps, const int* slices,
+                                   void* scratch, int smem, void* stream) {
+  const Buffers b{lo,    hi,      hvx,     dplanes, wts,      fpar,    tasks,   nullptr, acts,
                   stash, g32,     masks,   parts,   part_out, dw_part, dw_out, dhvx,
                   maps,  n_maps,  slices,  scratch};
   return run(dtype, words, n_words, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem,
@@ -442,7 +455,7 @@ extern "C" int snerf_fused_mlp_bwd_sec(int dtype, const int* words, int n_words,
                                        const int* slices, void* scratch, int smem, const void* sec,
                                        void* stream) {
   if (!sec || dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Buffers b{lo,    hi,      hvx,     dplanes, wts,      fpar,    tasks,   sec,
+  const Buffers b{lo,    hi,      hvx,     dplanes, wts,      fpar,    tasks,   sec, nullptr,
                   stash, g32,     masks,   parts,   part_out, dw_part, dw_out, dhvx,
                   maps,  n_maps,  slices,  scratch};
   return run(dtype, words, n_words, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem,
@@ -455,11 +468,11 @@ extern "C" int snerf_fused_mlp_ens_bwd(int dtype, const int* words, int n_words,
                                        const void* hvx, const void* dplanes, const void* wts,
                                        const void* fpar, const void* tasks, int n_tasks,
                                        int n_chunks, int chunk_rows, int dw_total, int n_hvx_rows,
-                                       void* stash, void* g32, void* masks, void* parts,
-                                       void* part_out, void* dw_part, void* dw_out, void* dhvx,
-                                       const long long* maps, int n_maps, const int* slices,
-                                       void* scratch, int smem, void* stream) {
-  const Buffers b{lo,    nullptr, hvx,     dplanes, wts,      fpar,    tasks,   nullptr,
+                                       void* stash, const void* acts, void* g32, void* masks,
+                                       void* parts, void* part_out, void* dw_part, void* dw_out,
+                                       void* dhvx, const long long* maps, int n_maps,
+                                       const int* slices, void* scratch, int smem, void* stream) {
+  const Buffers b{lo,    nullptr, hvx,     dplanes, wts,      fpar,    tasks,   nullptr, acts,
                   stash, g32,     masks,   parts,   part_out, dw_part, dw_out, dhvx,
                   maps,  n_maps,  slices,  scratch};
   return run(dtype, words, n_words, b, n_tasks, n_chunks, chunk_rows, dw_total, n_hvx_rows, smem,
@@ -467,14 +480,14 @@ extern "C" int snerf_fused_mlp_ens_bwd(int dtype, const int* words, int n_words,
 }
 
 // The weight pass alone (dtype 1: bf16, 0: float32), on a stash the caller
-// filled, then the column sum of its partials over the chunks: dw_out
-// (dw_total).
+// filled (every map's buffer), then the column sum of its partials over the
+// chunks: dw_out (dw_total).
 extern "C" int snerf_wgrad(int dtype, const void* stash, const long long* maps, int n_maps,
                            const void* jobs, int n_jobs, int n_rows, int chunk_rows, int n_chunks,
                            int dw_total, void* dw_part, void* dw_out, int slices, void* scratch,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = wgrad_launch(dtype, stash, maps, n_maps, jobs, n_jobs, n_rows, chunk_rows,
+  const int rc = wgrad_launch(dtype, stash, stash, maps, n_maps, jobs, n_jobs, n_rows, chunk_rows,
                               dw_total, static_cast<float*>(dw_part), s);
   if (rc) return rc;
   return colsum(static_cast<const float*>(dw_part), static_cast<float*>(dw_out), 1, n_chunks,

@@ -4,7 +4,7 @@
 // and `_ens_bwd_kernel` that recomputes the forward and walks the layers
 // back over one tile of rows. The weight pass (fused_mlp_wgrad_sm90.cuh),
 // the column sums and the float32 row pass (fused_mlp_bwd_tf32_sm90.cuh,
-// this engine on the 3xTF32 core) are separate.
+// this engine's walk back on the 3xTF32 core) are separate.
 //
 // What bounds it: per point of the published fine MLP the forward again
 // and dX, (589,952 + 557,696) multiply-adds, 1.81 TFLOP at the training
@@ -96,7 +96,7 @@ constexpr int kBarriers = 2 * kMaxStages + 2;
 constexpr int kConsumerThreads = 128;
 constexpr int kMaskThreads = 2 * kConsumerThreads;  // mask words: one uint4 per consumer thread
 
-enum { F_IN = 0, F_LAYER = 1, B_LAYER = 3 };
+enum { F_IN = 0, F_LAYER = 1, H_LAYER = 2, B_LAYER = 3 };
 enum { SRC_ACT = 0, SRC_LO = 1, SRC_HI = 2 };
 enum { FLAG_RELU = 1, FLAG_HVX = 2 };
 
@@ -110,6 +110,11 @@ enum { FLAG_RELU = 1, FLAG_HVX = 2 };
 //            words at mask_slot; with head_nout > 0 the head's per-tile
 //            partials, dW[q][c] = sum_rows act[row][c] * dp[plane + q][row]
 //            at part, db[q] = sum_rows dp[plane + q][row] at part2.
+//   H_LAYER: (float32 only) the partials of the head a layer feeds, as
+//            F_LAYER forms them, from the layer's n activations that the
+//            training forward stored at slot out_slot; stores nothing (map
+//            -1). The float32 program has no F_IN or F_LAYER op: the
+//            forward ran under autograd (fused_mlp_tf32_sm90.cuh kStash).
 //   B_LAYER: acc = round(g_above) @ W^T over kb[0] slabs of the act tile
 //            (nseg 1; nseg 0: acc = 0, the top of a chain); then g = (acc +
 //            sum_q dp[plane + q] * fpar[head_w + q * n_pad + c]) * mask

@@ -3,19 +3,23 @@
 // fused_mlp_bwd.cu, the float32 counterpart of the row half of
 // simplenerf_tpu/ops/fused_mlp.py `_bwd_kernel` and `_ens_bwd_kernel`.
 //
-// It is the bf16 row pass (fused_mlp_bwd_sm90.cuh: its program, the
-// forward recomputed, the walk back, the ReLU mask words, db from g, the
-// head partials, the consumers' hand-over) on the 3xTF32 core of
-// fused_mlp_tf32_sm90.cuh (see there: the split, the weight chunks, A from
-// registers, the permuted K order, the float32 tiles, shared memory), with
-// two changes that float32 brings: nothing is rounded (g, the activations
-// and the stash are float32), and the stash leaves from the epilogues'
-// registers as streaming stores; no TMA. The float32 weight pass
-// (fused_mlp_wgrad_tf32_sm90.cuh) reads the activations (its A) row-major
-// and each backward op's g (its G) K-major, so a forward op and F_IN store
-// (r, c) at slot * ld + r * n + c (float2 stores) and a backward op at
-// slot * ld + c * ld + r (scalar stores: a warp's store still fills 32-byte
-// sectors, 8 consecutive rows of each of 4 columns), ld = stash_ld(n_rows).
+// It is the bf16 row pass's walk back (fused_mlp_bwd_sm90.cuh: its
+// program, the ReLU mask words, db from g, the head partials, the
+// consumers' hand-over) on the 3xTF32 core of fused_mlp_tf32_sm90.cuh (see
+// there: the split, the weight chunks, A from registers, the permuted K
+// order, the float32 tiles, shared memory), with three changes that float32
+// brings. It runs no forward op: the training forward (the kStash instance
+// of fused_mlp_tf32_sm90.cuh) has already stored each layer's activations
+// (the weight pass's A, row-major at slot * ld + r * n + c, ld =
+// stash_ld(n_rows)) and every ReLU layer's mask words, so the program is
+// each member's head ops (H_LAYER: a head's partials from its layer's
+// stored activations) and then its backward ops, and a block holds an
+// activation tile only, no lo or hi tile. Nothing is rounded (g and the
+// stash are float32). And g leaves from the epilogues' registers as
+// streaming stores, no TMA, into the cotangent stash, K-major as the
+// float32 weight pass (fused_mlp_wgrad_tf32_sm90.cuh) reads its G: (r, c)
+// at slot * ld + c * ld + r (scalar stores: a warp's store still fills
+// 32-byte sectors, 8 consecutive rows of each of 4 columns).
 
 #pragma once
 
@@ -24,24 +28,16 @@
 
 namespace tf32 {
 
+static_assert(kMaskThreads == bwd90::kMaskThreads, "the forward's mask words are the row pass's");
+
 struct BCtx {  // one consumer's place in the block and in the ring
   bwd90::Ctx x;
   Ring rg;
   const unsigned char* tiles[3];
 };
 
-// Rows of a float32 stash slot, and of a K-major slot's columns: n_rows
-// rounded up to 8, so that every slot and column starts 32-byte aligned
-// (TMA needs 16; a warp's K-major store then fills whole sectors;
-// ops/fused_mlp.py `_stash_ld`).
-__device__ __forceinline__ int stash_ld(int n_rows) { return (n_rows + 7) & ~7; }
-
-// The consumer's 64 rows of `v` pairs at (row, col) into the op's stash
-// slot (row-major, n wide), streaming; rows past n_rows are not stored.
-__device__ __forceinline__ void stash2(float* st, int n, int n_rows, int gr, int col, float a, float b) {
-  if (gr < n_rows) __stcs(reinterpret_cast<float2*>(st + (size_t)gr * n + col), make_float2(a, b));
-}
-// The same into a K-major slot: (row, col) at col * ld + row.
+// The consumer's g pairs at (row, col) into a K-major stash slot, (row,
+// col) at col * ld + row, streaming; rows past n_rows are not stored.
 __device__ __forceinline__ void stash2k(float* st, int ld, int n_rows, int gr, int col, float a, float b) {
   if (gr < n_rows) {
     __stcs(st + (size_t)col * ld + gr, a);
@@ -49,72 +45,7 @@ __device__ __forceinline__ void stash2k(float* st, int ld, int n_rows, int gr, i
   }
 }
 
-// F_IN: the consumer's rows of the lo (hi) tile, n columns, to the stash.
-__device__ __forceinline__ void stash_tile(const unsigned char* tile, int n, float* st, int row0,
-                                           int n_rows, int t) {
-  const int per_row = n / 4;
-  for (int i = t; i < kRows * per_row; i += 128) {
-    const int r = i / per_row, c = (i - r * per_row) * 4;
-    if (row0 + r < n_rows)
-      __stcs(reinterpret_cast<float4*>(st + (size_t)(row0 + r) * n + c),
-             *reinterpret_cast<const float4*>(tile + tile_off(r, c)));
-  }
-}
-
-// A forward op's epilogue: bias, hvx, ReLU, the tile and the stash, the
-// ReLU mask of the values to `mask` (bwd90::f_epilogue in float32).
-template <int N>
-__device__ __forceinline__ void f_epilogue(float (&acc)[N / 2], const bwd90::Op& op, const BCtx& b,
-                                           const float* cst, const float* __restrict__ hvx,
-                                           float* __restrict__ stash, uint4* mask) {
-  const bwd90::Ctx& x = b.x;
-  const bwd90::Program& p = *x.p;
-  const int warp = x.t >> 5, lane = x.t & 31, q = lane & 3;
-  const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;
-  const int n_rows = p.n_rows, n = op.n, row0 = x.row0;
-  if (op.flags & bwd90::FLAG_HVX) {
-    const bool staged = p.hvx_rays > 0;
-    const float* base =
-        staged ? cst + bwd90::kBiasFloats : hvx + (size_t)op.hvx_slot * (n_rows / p.ns) * n;
-    const int first = staged ? row0 / p.ns : 0;
-    const float* hv0 = base + (size_t)(min(row0 + r0, n_rows - 1) / p.ns - first) * n;
-    const float* hv1 = base + (size_t)(min(row0 + r1, n_rows - 1) / p.ns - first) * n;
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const int col = 8 * j + 2 * q;
-      const float2 zero = make_float2(0.f, 0.f);
-      const float2 h0 = col < n ? *reinterpret_cast<const float2*>(hv0 + col) : zero;
-      const float2 h1 = col < n ? *reinterpret_cast<const float2*>(hv1 + col) : zero;
-      acc[4 * j] += h0.x;
-      acc[4 * j + 1] += h0.y;
-      acc[4 * j + 2] += h1.x;
-      acc[4 * j + 3] += h1.y;
-    }
-  }
-  const bool relu = op.flags & bwd90::FLAG_RELU;
-  float* st = op.map >= 0 ? stash + (size_t)op.out_slot * stash_ld(n_rows) : nullptr;
-  unsigned char* act = const_cast<unsigned char*>(b.tiles[bwd90::SRC_ACT]);
-  uint32_t bits[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    const int col = 8 * j + 2 * q;
-    const float2 bb = *reinterpret_cast<const float2*>(cst + col);
-    float v[4] = {acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y, acc[4 * j + 2] + bb.x, acc[4 * j + 3] + bb.y};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = relu ? fmaxf(v[e], 0.f) : v[e];
-    st2(act, r0, col, v[0], v[1]);
-    st2(act, r1, col, v[2], v[3]);
-    if (st && col < n) {
-      stash2(st, n, n_rows, row0 + r0, col, v[0], v[1]);
-      stash2(st, n, n_rows, row0 + r1, col, v[2], v[3]);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) bits[j >> 3] |= (v[e] > 0.f ? 1u : 0u) << (4 * (j & 7) + e);
-  }
-  if (relu) *mask = make_uint4(bits[0], bits[1], bits[2], bits[3]);
-}
-
-// The per-tile partials of the head a forward op feeds (bwd90::head_partials
+// The per-tile partials of the head a layer feeds (bwd90::head_partials
 // reading the float32 tile).
 __device__ __forceinline__ void head_partials(const bwd90::Op& op, BCtx& b, float* __restrict__ part) {
   bwd90::Ctx& x = b.x;
@@ -160,23 +91,19 @@ __device__ __forceinline__ void head_partials(const bwd90::Op& op, BCtx& b, floa
   sm90::named_sync(1 + x.c);  // every thread has read dsm and the tile
 }
 
-template <int N>
-__device__ __forceinline__ void f_layer(const bwd90::Op& op, BCtx& b, const float* __restrict__ fpar,
-                                        const float* __restrict__ hvx,
-                                        const float* __restrict__ dplanes, float* __restrict__ stash,
-                                        uint4* tmask, float* __restrict__ part) {
+// A head op: the consumer's rows of the layer's activations, which the
+// training forward stored at slot out_slot of `acts`, into the tile, and
+// the head's dp rows staged; then the head's partials from them.
+__device__ __forceinline__ void h_layer(const bwd90::Op& op, BCtx& b, const float* __restrict__ acts,
+                                        const float* __restrict__ dplanes, float* __restrict__ part) {
   bwd90::Ctx& x = b.x;
   const bwd90::Program& p = *x.p;
-  float* cst = x.s.cst + x.c * p.cst_floats;
-  bwd90::stage_consts(op, p, cst, fpar, hvx, x.row0, x.t);
-  if (op.head_nout) bwd90::stage_dp(op, p, x.s.dsm + x.c * bwd90::kDpFloats, dplanes, x.row0, x.t);
-  float acc[N / 2];
-  product<N>(acc, op.nseg, op.src, op.kb, b.tiles, b.rg, x.t);
+  bwd90::stage_dp(op, p, x.s.dsm + x.c * bwd90::kDpFloats, dplanes, x.row0, x.t);
+  load_rows(const_cast<unsigned char*>(b.tiles[bwd90::SRC_ACT]), acts + (size_t)op.out_slot * stash_ld(p.n_rows),
+            op.n, op.n_pad / kSlabK, x.row0, p.n_rows, x.t);
   sm90::cp_commit_wait();
-  sm90::named_sync(1 + x.c);  // staged constants landed; every reader of the tile is done
-  f_epilogue<N>(acc, op, b, cst, hvx, stash, tmask + op.mask_slot * bwd90::kMaskThreads);
-  sm90::named_sync(1 + x.c);  // the tile is complete
-  if (op.head_nout) head_partials(op, b, part);
+  sm90::named_sync(1 + x.c);  // the tile and the dp rows landed
+  head_partials(op, b, part);
 }
 
 // A backward op (bwd90::b_layer in float32): the product from the g above
@@ -200,7 +127,7 @@ __device__ __forceinline__ void b_layer(const bwd90::Op& op, BCtx& b, const floa
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
   }
-  // The mask words this thread packed in the layer's forward op and the
+  // The mask words the training forward packed for this thread and the
   // head's dp of its two rows, loaded after the product: held across it,
   // their registers spilled the accumulators (ptxas; PERF.md).
   const bool relu = op.flags & bwd90::FLAG_RELU;
@@ -298,12 +225,13 @@ __device__ __forceinline__ void b_layer(const bwd90::Op& op, BCtx& b, const floa
 }
 
 // Consumer c (0 or 1) of the row pass's block: rows row0 .. row0 + 63.
+// acts and masks: what the training forward stored; stash: the cotangent
+// slots the backward ops store for the weight pass.
 __device__ __forceinline__ void consume_rows(const bwd90::Program& p, unsigned char* base,
-                                             const bwd90::Smem& s, int c, const float* __restrict__ lo,
-                                             const float* __restrict__ hi, const float* __restrict__ hvx,
+                                             const bwd90::Smem& s, int c, const float* __restrict__ acts,
                                              const float* __restrict__ dplanes,
                                              const float* __restrict__ fpar, float* __restrict__ stash,
-                                             float* __restrict__ g32, uint4* masks,
+                                             float* __restrict__ g32, const uint4* masks,
                                              float* __restrict__ parts) {
   BCtx b;
   bwd90::Ctx& x = b.x;
@@ -316,34 +244,19 @@ __device__ __forceinline__ void consume_rows(const bwd90::Program& p, unsigned c
   x.tl = bwd90::tiles_of(base, p, c);
   x.slot = x.phase = x.k = 0;
   b.rg = Ring{s.ring, s.full, s.empty, p.stages, 0, 0};
-  b.tiles[bwd90::SRC_ACT] = x.tl.act;
-  b.tiles[bwd90::SRC_LO] = x.tl.lo;
-  b.tiles[bwd90::SRC_HI] = x.tl.hi;
-  load_rows(x.tl.lo, lo, p.in_lo, p.lo_kb, x.row0, p.n_rows, x.t);
-  if (p.in_hi > 0) load_rows(x.tl.hi, hi, p.in_hi, p.hi_kb, x.row0, p.n_rows, x.t);
-  sm90::named_sync(1 + c);
-  uint4* tmask = masks + (size_t)blockIdx.x * p.n_masks * bwd90::kMaskThreads + c * bwd90::kConsumerThreads + x.t;
+  b.tiles[bwd90::SRC_ACT] = b.tiles[bwd90::SRC_LO] = b.tiles[bwd90::SRC_HI] = x.tl.act;
+  const uint4* tmask = masks + (size_t)blockIdx.x * p.n_masks * bwd90::kMaskThreads + c * bwd90::kConsumerThreads + x.t;
   float* part = parts + (size_t)blockIdx.x * p.part_w;
   for (int i = 0; i < p.n_ops; ++i) {
     const bwd90::Op& op = p.ops[i];
-    if (op.kind == bwd90::F_IN) {
-      if (op.map >= 0)
-        stash_tile(b.tiles[op.src[0]], op.n, stash + (size_t)op.out_slot * stash_ld(p.n_rows), x.row0,
-                   p.n_rows, x.t);
-    } else if (op.kind == bwd90::F_LAYER) {
-      if (op.n_pad == 256)
-        f_layer<256>(op, b, fpar, hvx, dplanes, stash, tmask, part);
-      else if (op.n_pad == 128)
-        f_layer<128>(op, b, fpar, hvx, dplanes, stash, tmask, part);
-      else
-        f_layer<64>(op, b, fpar, hvx, dplanes, stash, tmask, part);
+    if (op.kind == bwd90::H_LAYER) {
+      h_layer(op, b, acts, dplanes, part);
+    } else if (op.n_pad == 256) {
+      b_layer<256>(op, b, fpar, dplanes, tmask, stash, g32, part);
+    } else if (op.n_pad == 128) {
+      b_layer<128>(op, b, fpar, dplanes, tmask, stash, g32, part);
     } else {
-      if (op.n_pad == 256)
-        b_layer<256>(op, b, fpar, dplanes, tmask, stash, g32, part);
-      else if (op.n_pad == 128)
-        b_layer<128>(op, b, fpar, dplanes, tmask, stash, g32, part);
-      else
-        b_layer<64>(op, b, fpar, dplanes, tmask, stash, g32, part);
+      b_layer<64>(op, b, fpar, dplanes, tmask, stash, g32, part);
     }
   }
 }

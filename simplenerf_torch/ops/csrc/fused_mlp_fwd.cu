@@ -31,7 +31,10 @@
 //     products of the operands' big and small halves, float32-accurate):
 //     64-row x 32-deep weight chunks, split on the card by
 //     fused_mlp_tf32_split_kernel (snerf_tf32_split) into big and small
-//     images, A split in registers.
+//     images, A split in registers. Under autograd its kStash instance,
+//     fused_mlp_fwd_stash_tf32_kernel (snerf_fused_mlp_fwd_stash), also
+//     stores what the float32 backward reads instead of recomputing the
+//     forward: each layer's activations, lo (hi), the ReLU mask words.
 // The ragged last block is masked: rows past n_rows read zeros and write
 // nothing. Per-ray `hvx` is read as hvx[slot][row / ns].
 //
@@ -80,12 +83,13 @@ fused_mlp_fwd_sm90_kernel(const __grid_constant__ sm90::Program p,
 }
 
 // The float32 engine: the same roles on the 3xTF32 core; wts is the split
-// image (snerf_tf32_split), one 16 KB slot per weight chunk.
-__global__ void __launch_bounds__(sm90::kThreads, 1)
-fused_mlp_fwd_tf32_kernel(const __grid_constant__ sm90::Program p, const float* __restrict__ lo,
-                          const float* __restrict__ hi, const float* __restrict__ hvx,
-                          const float* __restrict__ wts, const float* __restrict__ fpar,
-                          float* __restrict__ out) {
+// image (snerf_tf32_split), one 16 KB slot per weight chunk. kStash: also
+// the stash and mask words of `so` (the training forward).
+template <bool kStash>
+__device__ __forceinline__ void fwd_tf32(const sm90::Program& p, const float* __restrict__ lo,
+                                         const float* __restrict__ hi, const float* __restrict__ hvx,
+                                         const float* __restrict__ wts, const float* __restrict__ fpar,
+                                         float* __restrict__ out, const tf32::StashOut& so) {
   extern __shared__ __align__(1024) unsigned char tf32_smem[];
   if (sm90::smem_u32(tf32_smem) & 1023) __trap();  // the swizzle needs 1024-byte aligned slots
   const sm90::Smem s = sm90::carve(tf32_smem, p);
@@ -110,13 +114,33 @@ fused_mlp_fwd_tf32_kernel(const __grid_constant__ sm90::Program p, const float* 
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(sm90::kConsumerRegs));
-    tf32::consume_fwd(p, tf32_smem, s, wg - 1, lo, hi, hvx, fpar, out);
+    tf32::consume_fwd<kStash>(p, tf32_smem, s, wg - 1, lo, hi, hvx, fpar, out, so);
   }
 }
 
-// dtype 1: the bf16 engine; 0: the float32 engine (3xTF32).
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+fused_mlp_fwd_tf32_kernel(const __grid_constant__ sm90::Program p, const float* __restrict__ lo,
+                          const float* __restrict__ hi, const float* __restrict__ hvx,
+                          const float* __restrict__ wts, const float* __restrict__ fpar,
+                          float* __restrict__ out) {
+  fwd_tf32<false>(p, lo, hi, hvx, wts, fpar, out, tf32::StashOut{nullptr, nullptr, nullptr});
+}
+
+// The training forward: the planes, and the stash of `st` in acts and masks.
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+fused_mlp_fwd_stash_tf32_kernel(const __grid_constant__ sm90::Program p, const float* __restrict__ lo,
+                                const float* __restrict__ hi, const float* __restrict__ hvx,
+                                const float* __restrict__ wts, const float* __restrict__ fpar,
+                                float* __restrict__ out, const __grid_constant__ tf32::Stash st,
+                                float* acts, uint4* masks) {
+  fwd_tf32<true>(p, lo, hi, hvx, wts, fpar, out, tf32::StashOut{&st, acts, masks});
+}
+
+// dtype 1: the bf16 engine; 0: the float32 engine (3xTF32), with `st` (and
+// acts, masks) its training instance.
 int launch(int dtype, const int* words, int n_words, const void* lo, const void* hi, const void* hvx,
-           const void* wts, const void* fpar, void* out, void* pre, int smem, cudaStream_t stream) {
+           const void* wts, const void* fpar, void* out, void* pre, int smem, cudaStream_t stream,
+           const tf32::Stash* st = nullptr, void* acts = nullptr, void* masks = nullptr) {
   sm90::Program p;
   if (n_words < sm90::kHeaderWords || n_words > static_cast<int>(sizeof(p) / sizeof(int)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -143,7 +167,7 @@ int launch(int dtype, const int* words, int n_words, const void* lo, const void*
         p, static_cast<const __nv_bfloat16*>(lo), static_cast<const __nv_bfloat16*>(hi),
         static_cast<const float*>(hvx), static_cast<const __nv_bfloat16*>(wts),
         static_cast<const float*>(fpar), static_cast<float*>(out), static_cast<float*>(pre));
-  } else {
+  } else if (st == nullptr) {
     if (pre) return static_cast<int>(cudaErrorInvalidValue);  // no float32 secondary views
     auto kernel = fused_mlp_fwd_tf32_kernel;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -151,6 +175,14 @@ int launch(int dtype, const int* words, int n_words, const void* lo, const void*
     kernel<<<grid, sm90::kThreads, smem, stream>>>(
         p, static_cast<const float*>(lo), static_cast<const float*>(hi), static_cast<const float*>(hvx),
         static_cast<const float*>(wts), static_cast<const float*>(fpar), static_cast<float*>(out));
+  } else {
+    auto kernel = fused_mlp_fwd_stash_tf32_kernel;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, sm90::kThreads, smem, stream>>>(
+        p, static_cast<const float*>(lo), static_cast<const float*>(hi), static_cast<const float*>(hvx),
+        static_cast<const float*>(wts), static_cast<const float*>(fpar), static_cast<float*>(out), *st,
+        static_cast<float*>(acts), static_cast<uint4*>(masks));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -176,6 +208,26 @@ extern "C" int snerf_fused_mlp_fwd_pre(int dtype, const int* words, int n_words,
   if (!pre || dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch(dtype, words, n_words, lo, hi, hvx, wts, fpar, out, pre, smem,
                 static_cast<cudaStream_t>(stream));
+}
+
+// The float32 training forward (dtype 0 only) of a single MLP or an
+// ensemble (hi null):
+// snerf_fused_mlp_fwd (or snerf_fused_mlp_ens_fwd) that also stores what the
+// row pass and the weight pass read, as `stash_words` (struct tf32::Stash)
+// lays it out: the activation stash `acts` (float32, slots of
+// tf32::stash_ld(n_rows) rows) and the mask words `masks` (n_tiles x
+// n_masks x 256 consumer threads x 16 bytes).
+extern "C" int snerf_fused_mlp_fwd_stash(int dtype, const int* words, int n_words, const void* lo,
+                                         const void* hi, const void* hvx, const void* wts,
+                                         const void* fpar, void* out, const int* stash_words,
+                                         int n_stash_words, void* acts, void* masks, int smem,
+                                         void* stream) {
+  tf32::Stash st;
+  if (dtype != 0 || n_stash_words * sizeof(int) != sizeof(st) || !acts || !masks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  memcpy(&st, stash_words, sizeof(st));
+  return launch(0, words, n_words, lo, hi, hvx, wts, fpar, out, nullptr, smem,
+                static_cast<cudaStream_t>(stream), &st, acts, masks);
 }
 
 // The ensemble: one program over the members, hi unused (the members' extra

@@ -53,18 +53,24 @@
 //     products); the other consumer's groups keep the tensor cores busy
 //     meanwhile. The A registers are kept live until the slab's last group
 //     is done.
-//   * the row pass stores its stash from the epilogue's registers
-//     (streaming; activations row-major, each backward op's g K-major, as
-//     the float32 weight pass, fused_mlp_wgrad_tf32_sm90.cuh, reads them),
-//     and copies the lo (hi) tile there for F_IN; no TMA.
+//   * under autograd the forward (its kStash instance) also leaves what the
+//     backward reads, from the epilogue's registers (streaming stores, no
+//     TMA): each layer's activation row-major in its slot of the
+//     activation stash, the lo (hi) tile copied there, and each ReLU
+//     layer's mask words in the row pass's layout (struct Stash). The row
+//     pass (fused_mlp_bwd_tf32_sm90.cuh) then runs no forward op: it walks
+//     the layers back from the mask words, and reads the activations only
+//     for the heads' partials. The no-grad forward is the kStash false
+//     instance, which stores none of it.
 //
 // Shared memory (`sm90_plan` / `_bwd_plan` in ops/fused_mlp.py compute the
 // same): the ring, stages x 16 KB; per consumer its tiles, 8 KB per 32-column
 // block (a 256-wide activation 64 KB, a 63-wide lo 16 KB); then the bf16
 // engines' regions. The published fine MLP: forward 3 x 16 + 2 x 80 + 2.5 +
-// 2 x 2 KB = 214.6 KB; row pass 3 x 16 + 2 x 80 + 4 + 2 + 8 + 4 KB =
-// 226.1 KB, of the 227 KB. The 64 KB slots a 256-wide 32-deep slab would
-// take, or 16-deep slabs in the 64-byte swizzle, leave no room for two.
+// 2 x 2 KB = 214.6 KB; row pass, which holds an activation tile only and
+// stages no bias, 4 x 16 + 2 x 64 + 2 + 8 + 4 KB = 206.1 KB, of the 227 KB.
+// The 64 KB slots a 256-wide 32-deep slab would take, or 16-deep slabs in
+// the 64-byte swizzle, leave no room for two.
 
 #pragma once
 
@@ -139,6 +145,59 @@ __device__ __forceinline__ void st2(unsigned char* tile, int r, int c, float a, 
 __device__ __forceinline__ float2 ld2(const unsigned char* tile, int r, int c) {
   return *reinterpret_cast<const float2*>(tile + tile_off(r, c));
 }
+
+// ---- the stash ----
+
+// Rows of a float32 stash slot, and of a K-major slot's columns: n_rows
+// rounded up to 8, so that every slot and column starts 32-byte aligned
+// (TMA needs 16; a warp's K-major store then fills whole sectors;
+// ops/fused_mlp.py `_stash_ld`).
+__device__ __forceinline__ int stash_ld(int n_rows) { return (n_rows + 7) & ~7; }
+
+// The consumer's 64 rows of `v` pairs at (row, col) into a stash slot
+// (row-major, n wide), streaming; rows past n_rows are not stored.
+__device__ __forceinline__ void stash2(float* st, int n, int n_rows, int gr, int col, float a, float b) {
+  if (gr < n_rows) __stcs(reinterpret_cast<float2*>(st + (size_t)gr * n + col), make_float2(a, b));
+}
+
+// The consumer's rows of the lo (hi) tile, n columns, to a stash slot.
+__device__ __forceinline__ void stash_tile(const unsigned char* tile, int n, float* st, int row0,
+                                           int n_rows, int t) {
+  const int per_row = n / 4;
+  for (int i = t; i < kRows * per_row; i += 128) {
+    const int r = i / per_row, c = (i - r * per_row) * 4;
+    if (row0 + r < n_rows)
+      __stcs(reinterpret_cast<float4*>(st + (size_t)(row0 + r) * n + c),
+             *reinterpret_cast<const float4*>(tile + tile_off(r, c)));
+  }
+}
+
+// Mask words: one uint4 per consumer thread of a 128-row block and ReLU
+// layer, bit 4j + e for the thread's accumulator element acc[4j + e]
+// (bwd90::kMaskThreads threads, the row pass's layout).
+constexpr int kMaskThreads = 2 * 128;
+
+// What the training forward stores for the row pass and the weight pass
+// (built by ops/fused_mlp.py `_bwd_plan`, `BwdPlan.fwd_words`): the lo (hi)
+// tile's first lo_n (hi_n) columns at slot lo_slot (hi_slot, -1 for none),
+// op i's n activations at slot[i] (-1: not stored), and with ReLU its mask
+// words at mask[i] of the n_masks a block has. A slot s is the activation
+// stash's rows from s * stash_ld(n_rows), row-major.
+constexpr int kStashHeader = 6;  // the ints before slot[]
+struct Stash {
+  int lo_slot, lo_n, hi_slot, hi_n, n_masks, reserved;
+  int slot[sm90::kMaxOps];
+  int mask[sm90::kMaxOps];
+};
+static_assert(sizeof(Stash) == (kStashHeader + 2 * sm90::kMaxOps) * sizeof(int), "Stash layout");
+
+// The training forward's outputs beside the planes: the layout, the
+// activation stash and the mask words.
+struct StashOut {
+  const Stash* st;
+  float* acts;
+  uint4* masks;
+};
 
 // ---- the product core ----
 
@@ -293,12 +352,15 @@ __device__ __forceinline__ void produce(const Program& p, unsigned char* ring, u
 
 // Bias, hvx, ReLU and the store of the consumer's rows into its activation
 // tile, then the folded head; sm90::epilogue without the bf16 rounding.
-template <int N>
+// kStash: the values also go to the stash slot `st` (none for null) and
+// their ReLU mask to `mask`, packed as the row pass reads it back.
+template <int N, bool kStash>
 __device__ __forceinline__ void fwd_epilogue(float (&acc)[N / 2], const sm90::Op& op,
                                              const sm90::Program& p, const sm90::Smem& s,
                                              unsigned char* act, const float* cst,
                                              const float* __restrict__ hvx, float* __restrict__ out,
-                                             const float* __restrict__ fpar, int row0, int t) {
+                                             const float* __restrict__ fpar, int row0, int t,
+                                             float* __restrict__ st, uint4* mask) {
   const int warp = t >> 5, lane = t & 31, q = lane & 3;
   const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;
   const int n_rows = p.n_rows, n = op.n;
@@ -321,6 +383,7 @@ __device__ __forceinline__ void fwd_epilogue(float (&acc)[N / 2], const sm90::Op
     }
   }
   const bool relu = op.flags & sm90::FLAG_RELU;
+  uint32_t bits[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const int col = 8 * j + 2 * q;
@@ -330,7 +393,16 @@ __device__ __forceinline__ void fwd_epilogue(float (&acc)[N / 2], const sm90::Op
     for (int e = 0; e < 4; ++e) acc[4 * j + e] = v[e] = relu ? fmaxf(v[e], 0.f) : v[e];
     st2(act, r0, col, v[0], v[1]);
     st2(act, r1, col, v[2], v[3]);
+    if constexpr (kStash) {
+      if (st && col < n) {
+        stash2(st, n, n_rows, row0 + r0, col, v[0], v[1]);
+        stash2(st, n, n_rows, row0 + r1, col, v[2], v[3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bits[j >> 3] |= (v[e] > 0.f ? 1u : 0u) << (4 * (j & 7) + e);
+    }
   }
+  if (kStash && relu) *mask = make_uint4(bits[0], bits[1], bits[2], bits[3]);
   const int nout = op.head_nout;
   if (nout == 0) return;
   const float* hw = s.heads + op.head_w;
@@ -360,11 +432,11 @@ __device__ __forceinline__ void fwd_epilogue(float (&acc)[N / 2], const sm90::Op
   }
 }
 
-template <int N>
+template <int N, bool kStash>
 __device__ __forceinline__ void fwd_layer(const sm90::Op& op, const sm90::Program& p, const sm90::Smem& s,
                                           const unsigned char* const* tiles, const float* __restrict__ fpar,
                                           const float* __restrict__ hvx, float* __restrict__ out, int row0,
-                                          int t, Ring& rg) {
+                                          int t, Ring& rg, float* __restrict__ st, uint4* mask) {
   const int c = threadIdx.x / 128 - 1;  // the consumer
   float* cst = s.cst + c * p.cst_floats;
   sm90::stage_consts(op, p, cst, fpar, hvx, row0, t);
@@ -372,15 +444,18 @@ __device__ __forceinline__ void fwd_layer(const sm90::Op& op, const sm90::Progra
   product<N>(acc, op.nseg, op.src, op.kb, tiles, rg, t);
   sm90::cp_commit_wait();
   sm90::named_sync(1 + c);  // staged constants landed; every thread's reads of the tile are done
-  fwd_epilogue<N>(acc, op, p, s, const_cast<unsigned char*>(tiles[sm90::SRC_ACT]), cst, hvx, out, fpar,
-                  row0, t);
+  fwd_epilogue<N, kStash>(acc, op, p, s, const_cast<unsigned char*>(tiles[sm90::SRC_ACT]), cst, hvx,
+                          out, fpar, row0, t, st, mask);
 }
 
-// Consumer c (0 or 1) of the block: rows row0 .. row0 + 63.
+// Consumer c (0 or 1) of the block: rows row0 .. row0 + 63. kStash: the
+// block's stash and mask words too (`so`).
+template <bool kStash>
 __device__ __forceinline__ void consume_fwd(const sm90::Program& p, unsigned char* base,
                                             const sm90::Smem& s, int c, const float* __restrict__ lo,
                                             const float* __restrict__ hi, const float* __restrict__ hvx,
-                                            const float* __restrict__ fpar, float* __restrict__ out) {
+                                            const float* __restrict__ fpar, float* __restrict__ out,
+                                            const StashOut& so) {
   const int t = threadIdx.x - 128 * (c + 1);
   const int row0 = blockIdx.x * sm90::kBM + c * kRows;
   const sm90::Tiles tl = sm90::tiles_of(base, p, c);
@@ -388,16 +463,30 @@ __device__ __forceinline__ void consume_fwd(const sm90::Program& p, unsigned cha
   load_rows(tl.lo, lo, p.in_lo, p.lo_kb, row0, p.n_rows, t);
   if (p.in_hi > 0) load_rows(tl.hi, hi, p.in_hi, p.hi_kb, row0, p.n_rows, t);
   sm90::named_sync(1 + c);
+  const int ld = stash_ld(p.n_rows);
+  uint4* tmask = nullptr;
+  if constexpr (kStash) {
+    const Stash& st = *so.st;
+    if (st.lo_slot >= 0) stash_tile(tl.lo, st.lo_n, so.acts + (size_t)st.lo_slot * ld, row0, p.n_rows, t);
+    if (st.hi_slot >= 0) stash_tile(tl.hi, st.hi_n, so.acts + (size_t)st.hi_slot * ld, row0, p.n_rows, t);
+    tmask = so.masks + (size_t)blockIdx.x * st.n_masks * kMaskThreads + c * 128 + t;
+  }
   if (p.head_floats) ring_wait(s.head_bar, 0);
   Ring rg{s.ring, s.full, s.empty, p.stages, 0, 0};
   for (int i = 0; i < p.n_ops; ++i) {
     const sm90::Op& op = p.ops[i];
+    float* st = nullptr;
+    uint4* mask = nullptr;
+    if constexpr (kStash) {
+      st = so.st->slot[i] >= 0 ? so.acts + (size_t)so.st->slot[i] * ld : nullptr;
+      mask = tmask + so.st->mask[i] * kMaskThreads;
+    }
     if (op.n_pad == 256)
-      fwd_layer<256>(op, p, s, tiles, fpar, hvx, out, row0, t, rg);
+      fwd_layer<256, kStash>(op, p, s, tiles, fpar, hvx, out, row0, t, rg, st, mask);
     else if (op.n_pad == 128)
-      fwd_layer<128>(op, p, s, tiles, fpar, hvx, out, row0, t, rg);
+      fwd_layer<128, kStash>(op, p, s, tiles, fpar, hvx, out, row0, t, rg, st, mask);
     else
-      fwd_layer<64>(op, p, s, tiles, fpar, hvx, out, row0, t, rg);
+      fwd_layer<64, kStash>(op, p, s, tiles, fpar, hvx, out, row0, t, rg, st, mask);
     sm90::named_sync(1 + c);  // the tile is complete before the next layer reads it
   }
 }

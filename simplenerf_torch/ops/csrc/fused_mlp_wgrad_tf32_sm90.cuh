@@ -9,7 +9,8 @@
 // fused_mlp_tf32_sm90.cuh.
 //
 // It forms every dW = h_prev^T @ g of the backward program, in float32,
-// from two slots of the stash that the float32 row pass wrote, summed over
+// from two stash slots, the activation h_prev that the training forward
+// stored and the g that the float32 row pass stored, summed over
 // one chunk of stash rows into a float32 partials row per chunk; the column
 // sums then add the chunks in order. What bounds it: operations, and bytes
 // close behind. For the published fine MLP at the training step the 3 x
@@ -19,7 +20,9 @@
 // tensor cores fed:
 //   * wgmma takes 32-bit operands from shared memory only K-major, and in
 //     A^T G the sum runs over stash rows (K). So the row pass stores every
-//     slot that this pass reads as G K-major: element (r, c) at
+//     slot that this pass reads as G K-major (a tensor map names its
+//     buffer: the forward's activations or the row pass's cotangents):
+//     element (r, c) at
 //     slot * ld + c * ld + r (ld = n_rows rounded up to 8, so that every
 //     slot and every column starts 32-byte aligned; TMA needs 16); the
 //     activation (A) slots stay row-major, (r, c) at slot * ld + r * width
@@ -103,7 +106,7 @@ constexpr int kStages = 5;
 constexpr int kSmallBytes = kMaxG * kGBoxBytes;
 constexpr int kSmalls = 2;
 constexpr int kSmemBytes = kStages * kStageBytes + kSmalls * kSmallBytes + 2 * kStages * 8;
-constexpr int kMapWords = 6;  // a tensor map's host parameters (ops/fused_mlp.py `_WGRAD32_MAP`)
+constexpr int kMapWords = 7;  // a tensor map's host parameters (ops/fused_mlp.py `_WGRAD32_MAP`)
 constexpr int kSplitBar = 1;  // the consumers' named barrier
 
 using tf32::kSteps;  // k8 steps of a stage

@@ -34,21 +34,24 @@ float32 on the same producer in 3xTF32 with an activation tile
 in shared memory (csrc/fused_mlp_tf32_sm90.cuh: 64-row x 32-deep chunks in
 a permuted K order, each split on the card into its big and small TF32
 images by `tf32_split`, three TF32 products per product). The backward
-(`pack_bwd_program`) runs the forward program again, stashes the rounded
-activations and cotangents in device memory, and computes dW in a second
-pass over the stash; sums over rows are fixed-order reductions, so
-gradients do not change from run to run. Its row pass runs the forward's
-engine forward and back, on one program whose weight image holds every
-backward product's weight beside the forward's (`_bwd_plan`): bf16 with
-the stash leaving by TMA stores (csrc/fused_mlp_bwd_sm90.cuh), float32
-on the 3xTF32 core with the stash stored from registers
-(csrc/fused_mlp_bwd_tf32_sm90.cuh). The bf16 weight pass is bound by the
+(`pack_bwd_program`) stashes the rounded activations and cotangents in
+device memory and computes dW in a second pass over the stash; sums over
+rows are fixed-order reductions, so gradients do not change from run to
+run. In bf16 its row pass runs the forward's engine forward and back, on
+one program whose weight image holds every backward product's weight
+beside the forward's (`_bwd_plan`), the stash leaving by TMA stores
+(csrc/fused_mlp_bwd_sm90.cuh). In float32 the forward, run under
+autograd, already stores the activations and the ReLU mask words
+(`_stash_fwd`, the forward engine's kStash instance), so the row pass
+only walks back, on the 3xTF32 core with its stash stored from registers
+(csrc/fused_mlp_bwd_tf32_sm90.cuh); a backward called directly launches
+that forward first. The bf16 weight pass is bound by the
 stash bytes it reads, and reads whole dW panels through TMA boxes into
 wgmma, the two panels of a dW in one cluster (`_wgrad_plan`,
 csrc/fused_mlp_wgrad_sm90.cuh); the float32 one runs 128 x 128 tiles of
 plain FMAs. Both programs come from one list of a member's layers
-(`_layers`): the forward's walks it forward, the row pass's forward and
-then back.
+(`_layers`): the forward's walks it forward, the row pass's forward (bf16)
+and then back.
 
 Secondary views (ViP-NeRF's visibility prior; no TPU kernel: the JAX
 package evaluates them unfused): `fused_apply(..., sec=(pe2, wdir))`
@@ -68,7 +71,9 @@ kernel (or raises) for CUDA tensors, and counts its launches:
 weight pass and the column sums alone, `wgrad.launches` and
 `column_sums.launches`, and `tf32_split.launches`, the float32 weight
 images' split, which every float32 launch makes; all of them:
-`launch_counts`). `pe_operands` builds the kernels' positional-encoding
+`launch_counts`, with `fused_bwd.own_forward` and
+`fused_ens_bwd.own_forward`, the float32 backward calls that launched
+their own forward). `pe_operands` builds the kernels' positional-encoding
 operands lo and hi in one pass (csrc/field_pe.cu, replacing no TPU kernel;
 `pe_operands.launches`, one a fused field call; `secondary_fwd.launches`,
 `secondary_bwd.launches`). Under autograd
@@ -186,7 +191,9 @@ class FusedSpec:
         return 2 * (3 * self.macs_per_point() - self._input_macs())
 
     def row_flops_per_point(self) -> int:
-        """The backward's row pass: the forward again and dX (its dW is the weight pass's)."""
+        """The backward's row pass: the forward again and dX (its dW is the
+        weight pass's; the float32 row pass reads the forward's stash in
+        place of the forward)."""
         return 2 * (2 * self.macs_per_point() - self._input_macs())
 
 
@@ -630,7 +637,7 @@ _MAX_OPS = 40  # layers of a forward program (sm90::kMaxOps)
 _SRC_ACT, _SRC_LO, _SRC_HI = 0, 1, 2
 _FLAG_RELU, _FLAG_HVX = 1, 2
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block can use
-_F_IN, _F_LAYER, _B_LAYER = 0, 1, 3  # the row pass's op kinds (bwd90::Op)
+_F_IN, _F_LAYER, _H_LAYER, _B_LAYER = 0, 1, 2, 3  # the row pass's op kinds (bwd90::Op)
 _MAX_HEAD = 4  # head channels one op takes (kMaxHead in the .cu)
 # bf16 weight pass: struct wgrad::Job and the constants of fused_mlp_wgrad_sm90.cuh.
 _JOB_WORDS = 9
@@ -653,7 +660,7 @@ _WGRAD32_STAGE = 4 * _WGRAD32_DEPTH * _WGRAD32_ABOX * 4 + 2 * _WGRAD32_DEPTH * _
 _WGRAD32_SMEM = (_WGRAD32_STAGES * _WGRAD32_STAGE + 2 * 2 * _WGRAD32_DEPTH * _WGRAD32_GBOX * 4
                  + 2 * _WGRAD32_STAGES * 8)
 _WGRAD32_THREADS = 288  # two consumer warpgroups and the producer warp
-_WGRAD32_MAP = 6  # int64 host parameters of one float32 tensor map (kMapWords)
+_WGRAD32_MAP = 7  # int64 host parameters of one float32 tensor map (kMapWords)
 _STASH_LD_ALIGN = 8  # a float32 stash slot's rows: n_rows rounded up to this (tf32::stash_ld)
 _SMS = 132  # streaming multiprocessors of an H100 SXM; the bf16 weight pass runs one CTA on each
 _WGRAD_WAVES = (2, 4)  # the weight pass's grid: this many waves of _SMS CTAs, at least and at most
@@ -1033,26 +1040,29 @@ class BwdPlan:
     """Backward kernel operands and where each gradient lands.
 
     words: the row pass's program (struct bwd90::Program, n_rows left 0;
-    `_bwd_plan`); wts / fpar: its weight image (every forward op's W^T and
-    every backward product's W, (out rows, depth): bf16 in 64-deep slabs of
-    n_pad rows, float32 the split of the 32-deep chunks of `_slab_index`)
-    and its float32 buffer (each forward op's bias padded to n_pad, each
-    backward op's head weights [q][n_pad]). They are gathered per call by
-    w_index / f_index from the kernel parameters that w_src / f_src name
-    ((member, key) each, `_gather`); the rest depends on the spec and the
-    row count only and is cached (`_bwd_on`), with dev_tasks on the device.
-    row_maps: (stash slot, width) of each op whose slot the weight pass
-    reads, in op order (the op's `map`; bf16: the row pass's tensor maps;
-    the other ops store no stash). tasks: the weight
-    pass's work, (n_jobs, 9) int32 jobs, float32 (n_jobs, 10)
-    (`_wgrad_plan`). The stash holds `stash_cols` column slots of
-    `stash_ld` rows each (n_rows; float32: n_rows rounded up to 8,
-    `_stash_ld`; slot s at element s * stash_ld); partials rows are
+    `_bwd_plan`); wts / fpar: its weight image (bf16: every forward op's
+    W^T and every backward product's W, (out rows, depth), in 64-deep slabs
+    of n_pad rows; float32: the backward products' W, the split of the
+    32-deep chunks of `_slab_index`) and its float32 buffer (each forward
+    op's bias padded to n_pad, each backward op's head weights [q][n_pad]).
+    They are gathered per call by w_index / f_index from the kernel
+    parameters that w_src / f_src name ((member, key) each, `_gather`); the
+    rest depends on the spec and the row count only and is cached
+    (`_bwd_on`), with dev_tasks on the device. row_maps: (stash slot,
+    width) of each op whose slot the weight pass reads, in op order (the
+    op's `map`; bf16: the row pass's tensor maps; the other ops store no
+    stash). tasks: the weight pass's work, (n_jobs, 9) int32 jobs, float32
+    (n_jobs, 10) (`_wgrad_plan`). The stash holds `stash_cols` column
+    slots of `stash_ld` rows each (n_rows; float32: n_rows rounded up to 8,
+    `_stash_ld`; slot s at element s * stash_ld), in float32 the backward
+    ops' only: the training forward stores lo (hi) and every layer's
+    activation in `act_cols` slots of its own buffer, and the mask words,
+    as `fwd_words` (struct tf32::Stash) lays them out. Partials rows are
     `part_w` wide, dW partials `dw_total`. The ReLU masks take
     `mask_words` int32 words: four per consumer thread of a tile for each
     of its ReLU layers (the program's n_masks). grads[mi][key] = ("dw" | "part",
     offset, shape) into the reduced dW or partials vector. `maps` are the
-    weight pass's tensor maps (bf16 (n_maps, 4), float32 (n_maps, 6)
+    weight pass's tensor maps (bf16 (n_maps, 4), float32 (n_maps, 7)
     int64) and `wgrad_bytes` the stash bytes its producers issue
     (`WgradPlan`). dws: every dW as (a_slot, a_w, g_slot, g_w, k_in,
     n_out, dw_off). `slices`: the three column sums' slices (partials, dW
@@ -1083,6 +1093,8 @@ class BwdPlan:
     f_src: tuple
     f_index: np.ndarray
     stash_ld: int = 0
+    act_cols: int = 0
+    fwd_words: Optional[np.ndarray] = None
     wts: Optional[torch.Tensor] = None
     fpar: Optional[torch.Tensor] = None
     dev_tasks: Optional[torch.Tensor] = None
@@ -1119,10 +1131,12 @@ class WgradPlan:
     one per slot read, int64 tensor-map parameters. bf16:
     (n_maps, 4), (element offset of the slot in the stash, width, n_rows,
     row stride in bytes), boxes of 64 x 64. float32
-    (csrc/fused_mlp_wgrad_tf32_sm90.cuh): (n_maps, 6), (element offset,
-    dim 0, dim 1, dim 1's stride in bytes, box 0, box 1): an A slot
-    row-major (width, n_rows) in 32 x 32 boxes, a G slot K-major (n_rows,
-    width), 32 rows x 64 columns; slot s at s * `_stash_ld(n_rows)`. Each
+    (csrc/fused_mlp_wgrad_tf32_sm90.cuh): (n_maps, 7), (element offset,
+    dim 0, dim 1, dim 1's stride in bytes, box 0, box 1, buffer): an A slot
+    row-major (width, n_rows) in 32 x 32 boxes of buffer 0 (the backward's:
+    the training forward's activation stash), a G slot K-major (n_rows,
+    width), 32 rows x 64 columns, of buffer 1 (the row pass's stash); slot
+    s at s * `_stash_ld(n_rows)` of its buffer. Each
     chunk of `chunk_rows` rows (a multiple of 64) writes one dW partials
     row. `issued`: the stash bytes the producers ask for (a box's rows and
     columns past the slot left out: the copy engine reads none of them).
@@ -1159,9 +1173,9 @@ def _wgrad_plan(dws, n_rows: int, f32: bool = False) -> WgradPlan:
     """The weight pass for dW = A[:, :k_in]^T G[:, :n_out] of every
     (a_slot, a_w, g_slot, g_w, k_in, n_out, dw_off) in `dws`, with A and G
     stash slots (column offsets and widths; bf16: a slot is an (n_rows,
-    width) array at stash + slot * n_rows; float32: A slots so at stash +
-    slot * ld, G slots K-major (width, n_rows) with rows ld apart there, ld
-    = `_stash_ld(n_rows)`).
+    width) array at stash + slot * n_rows; float32: A slots so at acts +
+    slot * ld, G slots K-major (width, n_rows) with rows ld apart at stash
+    + slot * ld, ld = `_stash_ld(n_rows)`; the two buffers may be one).
 
     A dW is cut into panels of 128 rows (two consumers of 64: bf16 one A
     box of 64 columns each, float32 two of 32; a panel of <= 64 rows gives
@@ -1186,9 +1200,9 @@ def _wgrad_plan(dws, n_rows: int, f32: bool = False) -> WgradPlan:
             if not f32:
                 maps.append([slot * n_rows, width, n_rows, width * 2])
             elif g:
-                maps.append([slot * ld, n_rows, width, ld * 4, _WGRAD32_DEPTH, _WGRAD32_GBOX])
+                maps.append([slot * ld, n_rows, width, ld * 4, _WGRAD32_DEPTH, _WGRAD32_GBOX, 1])
             else:
-                maps.append([slot * ld, width, n_rows, width * 4, _WGRAD32_ABOX, _WGRAD32_DEPTH])
+                maps.append([slot * ld, width, n_rows, width * 4, _WGRAD32_ABOX, _WGRAD32_DEPTH, 0])
         return map_of[key]
 
     pairs, singles = [], []  # job words without the chunk; pairs: two jobs of one dW each
@@ -1300,16 +1314,21 @@ def _bwd_plan(spec, n_rows: int) -> BwdPlan:
     deep, 16 KB slots of a chunk's two images; it has no tensor maps, and
     stores the slots of `row_maps` only).
 
-    The row pass's program stashes lo (and hi), then runs each member's
-    layers (`_layers`) forward, stashing every layer's rounded activation
-    (a ReLU layer also packs its mask as bits, and the layer that feeds a
-    head forms the head's per-tile dW and db partials), and then in
-    reverse: per layer the f32 cotangent g = round(g_above) @ W^T, W the
-    activation segment of the layer above (zeros at the member's last
+    The bf16 row pass's program stashes lo (and hi), then runs each
+    member's layers (`_layers`) forward, stashing every layer's rounded
+    activation (a ReLU layer also packs its mask as bits, and the layer
+    that feeds a head forms the head's per-tile dW and db partials), and
+    then in reverse: per layer the f32 cotangent g = round(g_above) @ W^T,
+    W the activation segment of the layer above (zeros at the member's last
     layer), head contributions added, the layer's ReLU mask bits applied,
-    its per-tile column sum (db), and round(g) into the stash. The weight
-    pass then forms every dW = A^T G from two stash slots in the panels of
-    `_wgrad_plan`. The column sums' slices follow `_colsum_slices`.
+    its per-tile column sum (db), and round(g) into the stash. The float32
+    program runs no forward op: its forward ran under autograd and stored
+    lo (hi), every layer's activation and the mask bits (`fwd_words`,
+    `_stash_fwd`), so each member's program is a head op per head (its
+    partials from the stored activation) and then the layers in reverse.
+    The weight pass then forms every dW = A^T G from two stash slots in the
+    panels of `_wgrad_plan`. The column sums' slices follow
+    `_colsum_slices`.
     """
     members = list(spec.members) if isinstance(spec, EnsembleSpec) else [spec]
     shared = isinstance(spec, EnsembleSpec)
@@ -1323,7 +1342,8 @@ def _bwd_plan(spec, n_rows: int) -> BwdPlan:
     ws, fs = _Sources(shapes), _Sources(shapes)
     layers = _layers(spec)
     ops, w_parts, f_parts, tasks, grads = [], [], [], [], []
-    sizes = dict.fromkeys(("stash", "part", "dw", "mask", "fpar"), 0)
+    sizes = dict.fromkeys(("stash", "act", "part", "dw", "mask", "fpar"), 0)
+    stored = []  # float32: (activation slot, mask slot) of each forward layer, as the forward stores them
 
     def alloc(kind, n):
         sizes[kind] += n
@@ -1344,20 +1364,24 @@ def _bwd_plan(spec, n_rows: int) -> BwdPlan:
 
     def op(kind, n, segs=(), **f):
         """One op of n columns whose products read `segs` ((src, K blocks)
-        each), stashed in a new slot: that slot."""
+        each), stashed in a new slot unless `f` names its slot: that slot."""
         src, kb = zip(*segs, *[(0, 0)] * (_BWD90_MAX_SEG - len(segs)))
         w = dict.fromkeys(_BWD90_OP, 0)
         w.update(kind=kind, n=n, n_pad=0 if kind == _F_IN else _n_pad(n), nseg=len(segs),
-                 src=list(src), kb=list(kb), g32_slot=-1, out_slot=alloc("stash", n))
+                 src=list(src), kb=list(kb), g32_slot=-1)
+        if "out_slot" not in f:
+            w["out_slot"] = alloc("stash", n)
         w.update(f)
         ops.append(w)
         return w["out_slot"]
 
-    inputs = {}  # source -> (stash slot, width)
+    inputs = {}  # source -> (stash slot, width); float32: of the activation stash
     for src, width in ((_SRC_LO, m0.in_lo), (_SRC_HI, 0 if shared else m0.in_hi)):
         if width:
             kpad = _round16(width)
-            inputs[src] = (op(_F_IN, kpad, src=[src] + [0] * (_BWD90_MAX_SEG - 1)), kpad)
+            slot = (alloc("act", kpad) if f32 else
+                    op(_F_IN, kpad, src=[src] + [0] * (_BWD90_MAX_SEG - 1)))
+            inputs[src] = (slot, kpad)
 
     for mi, m in enumerate(members):
         mine, g, fwd = [x for x in layers if x.mi == mi], {}, []  # fwd: (slot, mask) of each
@@ -1369,11 +1393,19 @@ def _bwd_plan(spec, n_rows: int) -> BwdPlan:
                 g[wkey], g[bkey] = ("part", pw, (n_out, n)), ("part", pb, (1, n_out))
                 f = dict(plane=plane, head_nout=n_out, part=pw, part2=pb)
             mask = alloc("mask", 1) if layer.flags & _FLAG_RELU else 0
-            c = np.arange(_n_pad(n))
-            slot = op(_F_LAYER, n, [(src, slabs(mi, key)) for src, key in layer.segs],
-                      b_off=fvec(np.where(c < n, fs(mi, layer.bias) + c, -1)), flags=layer.flags,
-                      hvx_slot=layer.hvx_slot, mask_slot=mask, **f)
-            fwd.append((slot, mask))
+            if f32:  # every activation is read: the next layer's dW or its head's partials
+                slot = alloc("act", n)
+                stored.append((slot, mask))
+            else:
+                c = np.arange(_n_pad(n))
+                slot = op(_F_LAYER, n, [(src, slabs(mi, key)) for src, key in layer.segs],
+                          b_off=fvec(np.where(c < n, fs(mi, layer.bias) + c, -1)), flags=layer.flags,
+                          hvx_slot=layer.hvx_slot, mask_slot=mask, **f)
+            fwd.append((slot, mask, f))
+        if f32:  # the heads' partials from the stored activations, before the walk back
+            for (slot, _, f), layer in zip(fwd, mine):
+                if f:
+                    op(_H_LAYER, layer.n, out_slot=slot, **f)
         for i in range(len(mine) - 1, -1, -1):
             layer, n, f = mine[i], mine[i].n, {}
             segs = []
@@ -1396,47 +1428,62 @@ def _bwd_plan(spec, n_rows: int) -> BwdPlan:
                 tasks.append([a_slot, a_w, g_slot, n, k_in, n, off])
         grads.append({k: g[k] for k in m.param_keys()})
 
-    # the row pass stores the slots the weight pass reads, and no others
-    read = {s for t in tasks for s in (t[0], t[2])}
-    row_maps = [(w["out_slot"], w["n"]) for w in ops if w["out_slot"] in read]
+    # the row pass stores the slots the weight pass reads, and no others (float32:
+    # its G slots; the forward stores the A slots)
+    read = {t[2] for t in tasks} if f32 else {s for t in tasks for s in (t[0], t[2])}
+    row_maps = [(w["out_slot"], w["n"]) for w in ops if w["kind"] != _H_LAYER and w["out_slot"] in read]
     map_of = {s: i for i, (s, _) in enumerate(row_maps)}
     for w in ops:
-        w["map"] = map_of.get(w["out_slot"], -1)
+        w["map"] = -1 if w["kind"] == _H_LAYER else map_of.get(w["out_slot"], -1)
     if len(ops) > _BWD90_MAX_OPS:
         raise ValueError(f"{len(ops)} backward ops exceed the row kernel's {_BWD90_MAX_OPS}")
     if len(row_maps) > _WGRAD_MAX_MAPS:
         raise ValueError(f"{len(row_maps)} stash slots written; the row kernel takes "
                          f"{_WGRAD_MAX_MAPS}")
-    in_hi = 0 if shared else m0.in_hi
-    lo_kb, hi_kb = _kblocks(m0.in_lo, depth), _kblocks(in_hi, depth)
+    # float32 holds an activation tile only: no input tile, no staged bias or hvx rows
+    in_lo, in_hi = (0, 0) if f32 else (m0.in_lo, 0 if shared else m0.in_hi)
+    lo_kb, hi_kb = _kblocks(in_lo, depth), _kblocks(in_hi, depth)
     act_kb = max(w["n_pad"] for w in ops) // depth
     slot = _TF32_SLOT if f32 else max(w["n_pad"] for w in ops if w["nseg"]) * 128
-    hvx_rays = 63 // m0.ns + 2 if hvx_w else 0  # rays that 64 consecutive rows can touch
+    hvx_rays = 63 // m0.ns + 2 if hvx_w and not f32 else 0  # rays that 64 consecutive rows can touch
+
+    def cst(rays):
+        return 0 if f32 else _SM90_BIAS + rays * hvx_w
 
     def smem(stages, rays):
         return (stages * slot + 2 * (act_kb + lo_kb + hi_kb) * _SM90_KBLOCK
-                + 2 * 4 * (_SM90_BIAS + rays * hvx_w + _BWD90_DP) + 4 * (_BWD90_RED + _BWD90_XFER)
+                + 2 * 4 * (cst(rays) + _BWD90_DP) + 4 * (_BWD90_RED + _BWD90_XFER)
                 + _BWD90_BARRIERS)
 
     fits = [(s_, r) for s_ in _BWD90_STAGES for r in (hvx_rays, 0) if smem(s_, r) <= _SMEM_LIMIT]
     if not fits:
         raise ValueError(f"the row kernel needs {smem(_BWD90_STAGES[-1], 0)} B of shared memory")
     stages, rays = fits[0]
-    head = dict(n_ops=len(ops), n_rows=0, ns=m0.ns, in_lo=m0.in_lo, in_hi=in_hi, lo_kb=lo_kb,
+    head = dict(n_ops=len(ops), n_rows=0, ns=m0.ns, in_lo=in_lo, in_hi=in_hi, lo_kb=lo_kb,
                 hi_kb=hi_kb, act_kb=act_kb, slot_bytes=slot, stages=stages, hvx_rays=rays,
-                cst_floats=_SM90_BIAS + rays * hvx_w, part_w=sizes["part"], n_masks=sizes["mask"],
+                cst_floats=cst(rays), part_w=sizes["part"], n_masks=sizes["mask"],
                 n_maps=len(row_maps), hvx_w=hvx_w)
     words = [head[k] for k in _BWD90_HEADER]
     for w in ops:
         words += [v for k in _BWD90_OP for v in (w[k] if isinstance(w[k], list) else [w[k]])]
     words = np.asarray(words, dtype=np.int32)
     words.setflags(write=False)
+    fwd_words = None
+    if f32:  # struct tf32::Stash
+        slots, masks = [-1] * _MAX_OPS, [0] * _MAX_OPS
+        for i, (slot_, mask) in enumerate(stored):
+            slots[i], masks[i] = slot_, mask
+        lo_slot, lo_n = inputs.get(_SRC_LO, (-1, 0))
+        hi_slot, hi_n = inputs.get(_SRC_HI, (-1, 0))
+        fwd_words = np.asarray([lo_slot, lo_n, hi_slot, hi_n, sizes["mask"], 0] + slots + masks,
+                               dtype=np.int32)
+        fwd_words.setflags(write=False)
 
     n_hvx = sum(m.has_hvx for m in members)
     wp = _wgrad_plan(tasks, n_rows, f32=f32)
     sums = [(1, -(-n_rows // bm), sizes["part"]), (1, wp.n_chunks, sizes["dw"]),
             (n_hvx * (n_rows // m0.ns), m0.ns, hvx_w)]
-    w_index, f_index = np.concatenate(w_parts), np.concatenate(f_parts)
+    w_index, f_index = (np.concatenate(x) if x else np.zeros(0, np.int64) for x in (w_parts, f_parts))
     return BwdPlan(
         words=words, row_maps=tuple(row_maps), tasks=wp.jobs, stash_cols=sizes["stash"],
         part_w=sizes["part"], dw_total=sizes["dw"], n_chunks=wp.n_chunks,
@@ -1445,7 +1492,8 @@ def _bwd_plan(spec, n_rows: int) -> BwdPlan:
         maps=wp.maps, wgrad_bytes=wp.issued, slices=tuple(_colsum_slices(*x)[0] for x in sums),
         scratch=_colsum_scratch(sums), dws=tasks, w_src=tuple(ws.keys),
         w_index=np.where(w_index < 0, ws.size, w_index), f_src=tuple(fs.keys),
-        f_index=np.where(f_index < 0, fs.size, f_index), stash_ld=_stash_ld(n_rows, f32))
+        f_index=np.where(f_index < 0, fs.size, f_index), stash_ld=_stash_ld(n_rows, f32),
+        act_cols=sizes["act"], fwd_words=fwd_words)
 
 
 def unpack_grads(plan: BwdPlan, dw, part) -> list:
@@ -1503,10 +1551,11 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _launch_fwd(spec, kp, lo, hi, hvx, entry: str, pre=None) -> torch.Tensor:
+def _launch_fwd(spec, kp, lo, hi, hvx, entry: str, pre=None, stash=None) -> torch.Tensor:
     """Run the forward kernel: (n_planes, nr, ns) f32 planes; with `pre`
     (entry snerf_fused_mlp_fwd_pre) the hvx layer's products and bias
-    before hvx land there too."""
+    before hvx land there too; with `stash` = (fwd_words, acts, masks)
+    (entry snerf_fused_mlp_fwd_stash, float32) what the row pass reads."""
     from simplenerf_torch.ops import build
 
     n = lo.shape[0]
@@ -1524,6 +1573,10 @@ def _launch_fwd(spec, kp, lo, hi, hvx, entry: str, pre=None) -> torch.Tensor:
         args += [_ptr(hi)] if entry != "snerf_fused_mlp_ens_fwd" else []
         args += [_ptr(hvx), _ptr(wts), _ptr(fpar), _ptr(out)]
         args += [_ptr(pre)] if pre is not None else []
+        if stash is not None:
+            fwd_words, acts, masks = stash
+            args += [fwd_words.ctypes.data_as(ctypes.c_void_p), int(fwd_words.size), _ptr(acts),
+                     _ptr(masks)]
         args += [ctypes.c_int(smem), _stream(lo.device)]
         rc = getattr(lib, entry)(*args)
         if rc != 0:
@@ -1531,10 +1584,12 @@ def _launch_fwd(spec, kp, lo, hi, hvx, entry: str, pre=None) -> torch.Tensor:
     return out
 
 
-def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str, sec_g=None):
+def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str, sec_g=None, saved=None):
     """Run the backward kernels: (per-member dkp list, dhvx (n_hvx, nr, Wv));
     with `sec_g` (entry snerf_fused_mlp_bwd_sec) the hvx layer's g takes
-    the secondary views' cotangent after dhvx's share is stored."""
+    the secondary views' cotangent after dhvx's share is stored. float32:
+    `saved` = (acts, masks), what the training forward stored
+    (`_stash_fwd`)."""
     from simplenerf_torch.ops import build
 
     n = lo.shape[0]
@@ -1549,9 +1604,12 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str, sec_g
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
+    if cd == torch.bfloat16:
+        acts, masks = None, torch.empty(max(plan.mask_words, 2), dtype=torch.int32, device=dev)
+    else:
+        acts, masks = saved
     stash = torch.empty(plan.stash_cols * plan.stash_ld, dtype=cd, device=dev)
     g32 = f32(max(plan.n_hvx * n * plan.hvx_w, 1))
-    masks = torch.empty(max(plan.mask_words, 2), dtype=torch.int32, device=dev)
     parts, part_out = f32(n_tiles * plan.part_w), f32(plan.part_w)
     dw_part, dw_out = f32(max(plan.n_chunks * plan.dw_total, 1)), f32(max(plan.dw_total, 1))
     dhvx = f32(plan.n_hvx, n // ns, max(plan.hvx_w, 1))
@@ -1569,7 +1627,9 @@ def _launch_bwd(spec, kp, lo, hi, hvx, d_planes: torch.Tensor, entry: str, sec_g
     args += [_ptr(hi)] if entry != "snerf_fused_mlp_ens_bwd" else []
     args += [_ptr(hvx), _ptr(d_planes), _ptr(plan.wts), _ptr(plan.fpar), _ptr(plan.dev_tasks),
              len(plan.tasks), plan.n_chunks, plan.chunk_rows, plan.dw_total,
-             plan.n_hvx * (n // ns), _ptr(stash), _ptr(g32), _ptr(masks), _ptr(parts),
+             plan.n_hvx * (n // ns), _ptr(stash)]
+    args += [_ptr(acts)] if entry != "snerf_fused_mlp_bwd_sec" else []
+    args += [_ptr(g32), _ptr(masks), _ptr(parts),
              _ptr(part_out), _ptr(dw_part), _ptr(dw_out), _ptr(dhvx),
              maps.ctypes.data_as(ctypes.c_void_p), len(maps),
              slices.ctypes.data_as(ctypes.c_void_p), _ptr(scratch), ctypes.c_int(plan.smem)]
@@ -1757,26 +1817,53 @@ def _count_fwd(wrapper, lo):
         wrapper.launches += 1
 
 
-def _fwd(spec: FusedSpec, kp: dict, lo, hi, hvx, sec=None) -> tuple:
+def _stashes(spec, lo) -> bool:
+    """Whether the forward of `spec` at lo's rows, under autograd, stores
+    what its backward reads (`_stash_fwd`): float32 on CUDA."""
+    return lo.shape[0] > 0 and lo.device.type == "cuda" and spec.cdtype == torch.float32
+
+
+def _stash_fwd(spec, kp, lo, hi, hvx) -> tuple:
+    """The float32 training forward (snerf_fused_mlp_fwd_stash; an
+    ensemble's hi None): (planes, (acts, masks)), acts the activation stash
+    (lo, hi and every layer's activations, `act_cols` slots) and masks the
+    ReLU mask words, laid out as `_bwd_plan`'s fwd_words says, so that the
+    row pass runs no forward op."""
+    n, dev = lo.shape[0], lo.device
+    plan = _bwd_on(spec, n, dev)[0]
+    acts = torch.empty(plan.act_cols * plan.stash_ld, dtype=torch.float32, device=dev)
+    masks = torch.empty(max(plan.mask_words, 2), dtype=torch.int32, device=dev)
+    out = _launch_fwd(spec, kp, lo, hi, hvx, "snerf_fused_mlp_fwd_stash",
+                      stash=(plan.fwd_words, acts, masks))
+    return out, (acts, masks)
+
+
+def _fwd(spec: FusedSpec, kp: dict, lo, hi, hvx, sec=None, train=False) -> tuple:
     """The forward kernel (CUDA) or its plain version (CPU): (stacked
-    planes, pre); with `sec` the k secondary planes follow the head planes
-    and pre is the hvx layer's stored pre-activation (CUDA; None on the
-    CPU, whose backward recomputes it)."""
+    planes, pre, stash); with `sec` the k secondary planes follow the head
+    planes and pre is the hvx layer's stored pre-activation (CUDA; None on
+    the CPU, whose backward recomputes it); with `train` (under autograd)
+    in float32 on CUDA stash is what the backward reads (`_stash_fwd`),
+    else None."""
     if lo.device.type == "cpu":
-        return torch.stack(fused_apply_reference(spec, kp, lo, hi, hvx, sec)), None
+        return torch.stack(fused_apply_reference(spec, kp, lo, hi, hvx, sec)), None, None
     _check_operands(spec, lo, hi, hvx)
     if sec is None:
-        out = _launch_fwd(spec, kp, lo, hi, hvx, "snerf_fused_mlp_fwd")
+        stash = None
+        if train and _stashes(spec, lo):
+            out, stash = _stash_fwd(spec, kp, lo, hi, hvx)
+        else:
+            out = _launch_fwd(spec, kp, lo, hi, hvx, "snerf_fused_mlp_fwd")
         _count_fwd(fused_apply, lo)
-        return out, None
+        return out, None, stash
     _check_secondary(spec, lo, *sec)
     pre = torch.empty((lo.shape[0], spec.views_width), dtype=torch.float32, device=lo.device)
     out = _launch_fwd(spec, kp, lo, hi, hvx, "snerf_fused_mlp_fwd_pre", pre=pre)
     _count_fwd(fused_apply, lo)
-    return torch.cat([out, secondary_fwd(spec, kp, pre, *sec)]), pre
+    return torch.cat([out, secondary_fwd(spec, kp, pre, *sec)]), pre, None
 
 
-def fused_bwd(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes, sec=None, pre=None):
+def fused_bwd(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes, sec=None, pre=None, stash=None):
     """The backward of `fused_apply`: (dkp f32, dhvx or None), and with
     `sec` = (pe2, wdir) (dkp, dhvx, dwdir).
 
@@ -1786,6 +1873,9 @@ def fused_bwd(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes, sec=None, pre=No
     (`secondary_bwd`, from `pre`, the forward's stored hvx-layer products,
     which that case requires), then the row pass with its cotangent
     (snerf_fused_mlp_bwd_sec); the head row's share is added to dkp.
+    float32 on CUDA: the row pass reads `stash`, what the forward stored
+    under autograd (`_fwd(train=True)`); without it (a direct call) this
+    launches that forward first and counts it in `fused_bwd.own_forward`.
     """
     _check_device(lo, "fused_bwd")
     if lo.device.type == "cpu":
@@ -1802,7 +1892,10 @@ def fused_bwd(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes, sec=None, pre=No
     k = 0 if sec is None else sec[0].shape[0] // n
     dp = _stacked_cotangents(spec.n_planes + k, d_planes, n // spec.ns, spec.ns, lo.device)
     if sec is None:
-        (dkp,), dhvx = _launch_bwd(spec, kp, lo, hi, hvx, dp, "snerf_fused_mlp_bwd")
+        if stash is None and _stashes(spec, lo):
+            stash = _stash_fwd(spec, kp, lo, hi, hvx)[1]
+            fused_bwd.own_forward += 1
+        (dkp,), dhvx = _launch_bwd(spec, kp, lo, hi, hvx, dp, "snerf_fused_mlp_bwd", saved=stash)
         fused_bwd.launches += 1
         return dkp, dhvx[0] if spec.has_hvx else None
     sec_g, dwdir, dw_vis, db_vis = secondary_bwd(spec, kp, pre, *sec, dp[spec.n_planes :])
@@ -1816,27 +1909,34 @@ def fused_bwd(spec: FusedSpec, kp: dict, lo, hi, hvx, d_planes, sec=None, pre=No
 
 class _FusedApply(torch.autograd.Function):
     """fused_apply under autograd: the forward kernel, then the backward
-    kernel; pe2 and wdir are the secondary views' operands or None."""
+    kernel; pe2 and wdir are the secondary views' operands or None; train:
+    a backward will run (the float32 forward then stores what it reads)."""
 
     @staticmethod
-    def forward(ctx, spec, keys, lo, hi, hvx, pe2, wdir, *vals):
+    def forward(ctx, spec, keys, train, lo, hi, hvx, pe2, wdir, *vals):
         ctx.spec, ctx.keys = spec, keys
         sec = None if pe2 is None else (pe2, wdir)
-        out, pre = _fwd(spec, dict(zip(keys, vals)), lo, hi, hvx, sec)
-        ctx.save_for_backward(lo, hi, hvx, pe2, wdir, pre, *vals)
+        out, pre, stash = _fwd(spec, dict(zip(keys, vals)), lo, hi, hvx, sec, train=train)
+        ctx.save_for_backward(lo, hi, hvx, pe2, wdir, pre, *(stash or (None, None)), *vals)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        lo, hi, hvx, pe2, wdir, pre, *vals = ctx.saved_tensors
+        lo, hi, hvx, pe2, wdir, pre, acts, masks, *vals = ctx.saved_tensors
         kp = dict(zip(ctx.keys, vals))
+        stash = None if acts is None else (acts, masks)
         dwdir = None
         if pe2 is None:
-            dkp, dhvx = fused_bwd(ctx.spec, kp, lo, hi, hvx, d_out)
+            dkp, dhvx = fused_bwd(ctx.spec, kp, lo, hi, hvx, d_out, stash=stash)
         else:
             dkp, dhvx, dwdir = fused_bwd(ctx.spec, kp, lo, hi, hvx, d_out, sec=(pe2, wdir), pre=pre)
-        return (None, None, None, None, dhvx if ctx.needs_input_grad[4] else None, None,
-                dwdir if ctx.needs_input_grad[6] else None, *(dkp[k] for k in ctx.keys))
+        return (None, None, None, None, None, dhvx if ctx.needs_input_grad[5] else None, None,
+                dwdir if ctx.needs_input_grad[7] else None, *(dkp[k] for k in ctx.keys))
+
+
+def _train(*tensors) -> bool:
+    """Whether autograd will run a backward through these inputs."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def fused_apply(spec: FusedSpec, kp: dict, lo, hi, hvx, sec=None) -> tuple:
@@ -1862,7 +1962,9 @@ def fused_apply(spec: FusedSpec, kp: dict, lo, hi, hvx, sec=None) -> tuple:
     _check_device(lo, "fused_apply")
     keys = tuple(spec.param_keys())
     pe2, wdir = sec if sec is not None else (None, None)
-    return _FusedApply.apply(spec, keys, lo, hi, hvx, pe2, wdir, *(kp[k] for k in keys)).unbind(0)
+    vals = [kp[k] for k in keys]
+    train = _train(hvx, wdir, *vals)
+    return _FusedApply.apply(spec, keys, train, lo, hi, hvx, pe2, wdir, *vals).unbind(0)
 
 
 def secondary_supported(spec: FusedSpec, device) -> bool:
@@ -1967,6 +2069,7 @@ secondary_bwd.launches = 0
 
 fused_apply.launches = 0
 fused_bwd.launches = 0
+fused_bwd.own_forward = 0
 
 
 def _check_ensemble(ens: EnsembleSpec, lo, hvxs):
@@ -1982,20 +2085,28 @@ def _stack_hvx(hvxs):
     return torch.stack(list(hvxs)).contiguous() if hvxs else None
 
 
-def _ens_fwd(ens: EnsembleSpec, kps, lo, hvxs) -> torch.Tensor:
+def _ens_fwd(ens: EnsembleSpec, kps, lo, hvxs, train=False) -> tuple:
+    """The ensemble's forward kernel (CUDA) or its plain version (CPU):
+    (stacked planes, stash), stash as `_fwd`'s."""
     if lo.device.type == "cpu":
-        return torch.stack(fused_apply_ensemble_reference(ens, kps, lo, hvxs))
+        return torch.stack(fused_apply_ensemble_reference(ens, kps, lo, hvxs)), None
     _check_ensemble(ens, lo, hvxs)
-    out = _launch_fwd(ens, kps, lo, None, _stack_hvx(hvxs), "snerf_fused_mlp_ens_fwd")
+    stash = None
+    if train and _stashes(ens, lo):
+        out, stash = _stash_fwd(ens, kps, lo, None, _stack_hvx(hvxs))
+    else:
+        out = _launch_fwd(ens, kps, lo, None, _stack_hvx(hvxs), "snerf_fused_mlp_ens_fwd")
     _count_fwd(fused_apply_ensemble, lo)
-    return out
+    return out, stash
 
 
-def fused_ens_bwd(ens: EnsembleSpec, kps, lo, hvxs, d_planes):
+def fused_ens_bwd(ens: EnsembleSpec, kps, lo, hvxs, d_planes, stash=None):
     """The backward of `fused_apply_ensemble`: (per-member dkp tuple, dhvx tuple).
 
     CPU tensors take `fused_ens_bwd_reference`; CUDA tensors launch the
-    kernel (or raise).
+    kernel (or raise). float32 on CUDA: `stash` as `fused_bwd`'s (a call
+    without it launches the forward first, counted in
+    `fused_ens_bwd.own_forward`).
     """
     _check_device(lo, "fused_ens_bwd")
     if lo.device.type == "cpu":
@@ -2006,38 +2117,44 @@ def fused_ens_bwd(ens: EnsembleSpec, kps, lo, hvxs, d_planes):
         return (tuple(_zero_grads(kp, m.param_keys()) for m, kp in zip(ens.members, kps)),
                 tuple(torch.zeros_like(h) for h in hvxs))
     dp = _stacked_cotangents(ens.n_planes, d_planes, n // ens.ns, ens.ns, lo.device)
-    dkps, dhvx = _launch_bwd(ens, kps, lo, None, _stack_hvx(hvxs), dp, "snerf_fused_mlp_ens_bwd")
+    if stash is None and _stashes(ens, lo):
+        stash = _stash_fwd(ens, kps, lo, None, _stack_hvx(hvxs))[1]
+        fused_ens_bwd.own_forward += 1
+    dkps, dhvx = _launch_bwd(ens, kps, lo, None, _stack_hvx(hvxs), dp, "snerf_fused_mlp_ens_bwd",
+                             saved=stash)
     fused_ens_bwd.launches += 1
     return tuple(dkps), tuple(dhvx.unbind(0)[: len(ens.hvx_members)])
 
 
 class _FusedEnsemble(torch.autograd.Function):
-    """fused_apply_ensemble under autograd."""
+    """fused_apply_ensemble under autograd (train as `_FusedApply`'s)."""
 
     @staticmethod
-    def forward(ctx, ens, keys, n_hvx, lo, *flat):
+    def forward(ctx, ens, keys, n_hvx, train, lo, *flat):
         hvxs, vals = flat[:n_hvx], flat[n_hvx:]
         kps, pos = [], 0
         for ks in keys:
             kps.append(dict(zip(ks, vals[pos : pos + len(ks)])))
             pos += len(ks)
         ctx.ens, ctx.keys, ctx.n_hvx = ens, keys, n_hvx
-        ctx.save_for_backward(lo, *flat)
-        return _ens_fwd(ens, kps, lo, hvxs)
+        out, stash = _ens_fwd(ens, kps, lo, hvxs, train=train)
+        ctx.save_for_backward(lo, *(stash or (None, None)), *flat)
+        return out
 
     @staticmethod
     def backward(ctx, d_out):
-        lo, *flat = ctx.saved_tensors
+        lo, acts, masks, *flat = ctx.saved_tensors
         hvxs, vals = flat[: ctx.n_hvx], flat[ctx.n_hvx :]
         kps, pos = [], 0
         for ks in ctx.keys:
             kps.append(dict(zip(ks, vals[pos : pos + len(ks)])))
             pos += len(ks)
-        dkps, dhvxs = fused_ens_bwd(ctx.ens, kps, lo, hvxs, d_out)
-        grads = [d if ctx.needs_input_grad[4 + i] else None for i, d in enumerate(dhvxs)]
+        stash = None if acts is None else (acts, masks)
+        dkps, dhvxs = fused_ens_bwd(ctx.ens, kps, lo, hvxs, d_out, stash=stash)
+        grads = [d if ctx.needs_input_grad[5 + i] else None for i, d in enumerate(dhvxs)]
         for ks, dkp in zip(ctx.keys, dkps):
             grads += [dkp[k] for k in ks]
-        return (None, None, None, None, *grads)
+        return (None, None, None, None, None, *grads)
 
 
 def fused_apply_ensemble(ens: EnsembleSpec, kps, lo, hvxs) -> tuple:
@@ -2055,20 +2172,27 @@ def fused_apply_ensemble(ens: EnsembleSpec, kps, lo, hvxs) -> tuple:
     _check_device(lo, "fused_apply_ensemble")
     keys = tuple(tuple(m.param_keys()) for m in ens.members)
     vals = [kp[k] for kp, ks in zip(kps, keys) for k in ks]
-    return _FusedEnsemble.apply(ens, keys, len(hvxs), lo, *hvxs, *vals).unbind(0)
+    train = _train(*hvxs, *vals)
+    return _FusedEnsemble.apply(ens, keys, len(hvxs), train, lo, *hvxs, *vals).unbind(0)
 
 
 fused_apply_ensemble.launches = 0
 fused_ens_bwd.launches = 0
+fused_ens_bwd.own_forward = 0
 
 
 _COUNTED = (fused_apply, fused_bwd, fused_apply_ensemble, fused_ens_bwd, wgrad, column_sums,
             tf32_split, pe_operands, secondary_fwd, secondary_bwd)
+_OWN_FORWARD = (fused_bwd, fused_ens_bwd)  # float32 backward calls that launched their own forward
 
 
 def launch_counts() -> dict:
-    """Every counting wrapper's `launches`, by the wrapper's name."""
-    return {f.__name__: f.launches for f in _COUNTED}
+    """Every counting wrapper's `launches`, by the wrapper's name, and as
+    `<name>.own_forward` the float32 backward calls that had no stash from
+    a forward under autograd and launched that forward themselves."""
+    counts = {f.__name__: f.launches for f in _COUNTED}
+    counts.update({f"{f.__name__}.own_forward": f.own_forward for f in _OWN_FORWARD})
+    return counts
 
 
 def add_launches(counts: dict):
@@ -2076,3 +2200,5 @@ def add_launches(counts: dict):
     CUDA graph's replay launches what its capture counted."""
     for f in _COUNTED:
         f.launches += counts.get(f.__name__, 0)
+    for f in _OWN_FORWARD:
+        f.own_forward += counts.get(f"{f.__name__}.own_forward", 0)

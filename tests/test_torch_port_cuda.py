@@ -650,6 +650,59 @@ def test_autograd_runs_both_kernels(cuda_device):
     _grad_errors("autograd", {k: v.grad for k, v in kp.items()}, want, torch.float32)
 
 
+AUTOGRAD_CASES = {"published": 192, "main": 5, "trio": 64}
+
+
+@pytest.mark.parametrize("rays", [37, 1037])
+@pytest.mark.parametrize("case", sorted(AUTOGRAD_CASES))
+def test_f32_autograd_equals_the_direct_backward_to_the_bit(cuda_device, case, rays):
+    """Under autograd the float32 forward stores the activations and mask
+    words and the backward reads them (no forward of its own); a direct
+    backward call launches that forward itself. Both give the same
+    gradients, bit for bit, single MLP and trio, ragged rows included."""
+    ns = AUTOGRAD_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(rays)
+    if case == "trio":
+        ens, kps, lo, hvxs = _ensemble(rays, ns, torch.float32, cuda_device)
+        kps = [{k: v.clone().requires_grad_() for k, v in kp.items()} for kp in kps]
+        hvxs = [h.clone().requires_grad_() for h in hvxs]
+        names = [(i, k) for i, kp in enumerate(kps) for k in kp] + [("hvx", i) for i in range(len(hvxs))]
+        leaves = [v for kp in kps for v in kp.values()] + hvxs
+        d = torch.randn((ens.n_planes, rays, ns), generator=g, device=cuda_device)
+        before = fused_mlp.launch_counts()
+        planes = fused_mlp.fused_apply_ensemble(ens, kps, lo, hvxs)
+        got = torch.autograd.grad((torch.stack(planes) * d).sum(), leaves)
+        mid = fused_mlp.launch_counts()
+        detached = [{k: v.detach() for k, v in kp.items()} for kp in kps]
+        dkps, dhvxs = fused_mlp.fused_ens_bwd(ens, detached, lo, [h.detach() for h in hvxs], d)
+        want = [dkps[i][k] if i != "hvx" else dhvxs[k] for i, k in names]
+        key = "fused_ens_bwd.own_forward"
+    else:
+        cfg = mlp.MLPConfig(**{**SMALL, **CASES.get(case, {}), **(
+            dict(points_net_depth=8, points_net_width=256, views_net_width=128, skip_layers=(4,))
+            if case == "published" else {})})
+        spec, kp, lo, hi, hvx = _operands(cfg, rays, ns, torch.float32, cuda_device)
+        kp = {k: v.clone().requires_grad_() for k, v in kp.items()}
+        hvx = hvx.clone().requires_grad_()
+        names = [*kp, "hvx"]
+        leaves = [*kp.values(), hvx]
+        d = torch.randn((spec.n_planes, rays, ns), generator=g, device=cuda_device)
+        before = fused_mlp.launch_counts()
+        planes = fused_mlp.fused_apply(spec, kp, lo, hi, hvx)
+        got = torch.autograd.grad((torch.stack(planes) * d).sum(), leaves)
+        mid = fused_mlp.launch_counts()
+        dkp, dhvx = fused_mlp.fused_bwd(spec, {k: v.detach() for k, v in kp.items()}, lo, hi,
+                                        hvx.detach(), d)
+        want = [dkp[k] if k != "hvx" else dhvx for k in names]
+        key = "fused_bwd.own_forward"
+    torch.cuda.synchronize()
+    after = fused_mlp.launch_counts()
+    assert mid[key] == before[key] and after[key] == mid[key] + 1
+    assert len(got) == len(want) == len(names)
+    for name, a, b in zip(names, got, want):
+        assert torch.equal(a, b), f"{name} differs: {float((a - b).abs().max()):.3e}"
+
+
 def test_backward_kernels_with_no_rows(cuda_device):
     """0 rows: zero gradients shaped like the params, no launch."""
     cfg = mlp.MLPConfig(**SMALL)
@@ -716,9 +769,9 @@ def test_visibility_training_step_gradients_match_plain(cuda_device, tmp_path, m
     widths = []
     launch = fused_mlp._launch_fwd
 
-    def spy(spec, *args):
+    def spy(spec, *args, **kwargs):
         widths.append([m.out_v for m in getattr(spec, "members", (spec,))])
-        return launch(spec, *args)
+        return launch(spec, *args, **kwargs)
 
     def grads():
         for p in trainer.leaves:
@@ -737,12 +790,14 @@ def test_visibility_training_step_gradients_match_plain(cuda_device, tmp_path, m
                                   fused_mlp.fused_apply_ensemble, fused_mlp.fused_ens_bwd)]
     assert [b - a for a, b in zip(counts, after)] == [1, 1, 1, 1]
     assert sorted(widths) == [[4], [4, 3, 0]]  # the fine MLP, the coarse trio
-    monkeypatch.setattr(fused_mlp, "_fwd",
-                        lambda *a: (torch.stack(fused_mlp.fused_apply_reference(*a)), None))
-    monkeypatch.setattr(fused_mlp, "fused_bwd", fused_mlp.fused_bwd_reference)
-    monkeypatch.setattr(fused_mlp, "_ens_fwd",
-                        lambda *a: torch.stack(fused_mlp.fused_apply_ensemble_reference(*a)))
-    monkeypatch.setattr(fused_mlp, "fused_ens_bwd", fused_mlp.fused_ens_bwd_reference)
+    monkeypatch.setattr(fused_mlp, "_fwd", lambda *a, train=False: (
+        torch.stack(fused_mlp.fused_apply_reference(*a)), None, None))
+    monkeypatch.setattr(fused_mlp, "fused_bwd",
+                        lambda *a, stash=None: fused_mlp.fused_bwd_reference(*a))
+    monkeypatch.setattr(fused_mlp, "_ens_fwd", lambda *a, train=False: (
+        torch.stack(fused_mlp.fused_apply_ensemble_reference(*a)), None))
+    monkeypatch.setattr(fused_mlp, "fused_ens_bwd",
+                        lambda *a, stash=None: fused_mlp.fused_ens_bwd_reference(*a))
     plain = grads()
     names = _leaf_names(trainer.params)
     assert any("views_out" in n for n in names)
@@ -895,6 +950,20 @@ def test_graph_replays_count_one_launch_of_each_kernel_per_step(cuda_device, gra
     assert after["pe_operands"] - before["pe_operands"] == sum(forwards.values()) == 2 * 7
 
 
+def test_f32_graph_steps_launch_no_backward_forward(cuda_device, graph_scene, tmp_path):
+    """Float32 training steps, eager and replayed: every backward reads the
+    stash its forward stored under autograd, none launches its own."""
+    t = _graph_trainer(graph_scene, tmp_path, "float32")
+    keys = ("fused_bwd.own_forward", "fused_ens_bwd.own_forward")
+    before = fused_mlp.launch_counts()
+    t.train_one_iter(0)
+    t.train_many(1, 4)  # a warm-up step, the capture and two replays
+    torch.cuda.synchronize()
+    after = fused_mlp.launch_counts()
+    assert {k: after[k] - before[k] for k in COUNTED} == dict.fromkeys(COUNTED, 5)
+    assert {k: after[k] - before[k] for k in keys} == dict.fromkeys(keys, 0)
+
+
 def test_set_params_drops_the_graph(cuda_device, graph_scene, tmp_path):
     """After set_params a call captures anew and trains the new parameters,
     as a fresh Trainer from them does; a stale graph would train the old
@@ -997,8 +1066,8 @@ def test_secondary_autograd_matches_plain(cuda_device):
     got = run()
     plain = (fused_mlp.fused_apply_reference, fused_mlp.fused_bwd_reference)
     saved = (fused_mlp._fwd, fused_mlp.fused_bwd)
-    fused_mlp._fwd = lambda *a: (torch.stack(plain[0](*a)), None)
-    fused_mlp.fused_bwd = lambda *a, sec=None, pre=None: plain[1](*a, sec=sec)
+    fused_mlp._fwd = lambda *a, train=False: (torch.stack(plain[0](*a)), None, None)
+    fused_mlp.fused_bwd = lambda *a, sec=None, pre=None, stash=None: plain[1](*a, sec=sec)
     try:
         want = run()
     finally:

@@ -183,9 +183,64 @@ def _slabs(words, wts, f32=False):
     return out
 
 
-def _run_sm90_program(spec, kp, lo, hi, hvx):
+# The m64n256 float32 accumulator of each of a tile's 256 consumer threads
+# (128 c + 32 warp + lane: consumer c's rows 64 c ..), element d[4j + e]:
+# its row and column in the 128-row tile, and where its ReLU mask bit goes
+# (word j // 8, bit 4 (j % 8) + e), as both float32 kernels pack the words.
+_T = np.arange(256)[:, None]
+_I = np.arange(128)[None, :]
+_MASK_ROW = 64 * (_T // 128) + 16 * (_T % 128 // 32) + _T % 32 // 4 + 8 * (_I // 2 % 2)
+_MASK_COL = 8 * (_I // 4) + 2 * (_T % 4) + _I % 2
+_MASK_WORD = np.broadcast_to(_I // 4 // 8, _MASK_ROW.shape)
+_MASK_BIT = np.broadcast_to(4 * (_I // 4 % 8) + _I % 4, _MASK_ROW.shape).astype(np.uint64)
+
+
+def _mask_words(on):
+    """One ReLU layer's mask words of a tile: `on` (rows, n_pad) booleans ->
+    (256, 4) int32, each thread's bit set where its element is on; rows past
+    the tile's and columns past n_pad give 0."""
+    full = np.zeros((128, 256), bool)
+    full[: on.shape[0], : on.shape[1]] = on
+    words = np.zeros((256, 4), np.uint64)
+    np.add.at(words, (np.broadcast_to(_T, _MASK_ROW.shape), _MASK_WORD),
+              full[_MASK_ROW, _MASK_COL].astype(np.uint64) << _MASK_BIT)
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32))
+
+
+def _mask_of(words, rows, n_pad):
+    """The booleans a tile's mask words (256, 4) hold, (rows, n_pad)."""
+    w = words.numpy().view(np.uint32).astype(np.uint64)
+    full = np.zeros((128, 256), bool)
+    full[_MASK_ROW, _MASK_COL] = (w[_T, _MASK_WORD] >> _MASK_BIT) & 1 == 1
+    return torch.from_numpy(full[:rows, :n_pad])
+
+
+def test_mask_words_hold_each_element_once():
+    """Every (row, column) of a 128 x 256 tile is one thread's one bit, so
+    the words round-trip any mask."""
+    assert sorted(zip(_MASK_ROW.ravel(), _MASK_COL.ravel())) == [(r, c) for r in range(128)
+                                                                  for c in range(256)]
+    assert len({(t, w, b) for t, w, b in zip(np.broadcast_to(_T, _MASK_ROW.shape).ravel(),
+                                              _MASK_WORD.ravel(), _MASK_BIT.ravel())}) == 128 * 256
+    g = torch.Generator().manual_seed(0)
+    on = torch.rand((101, 192), generator=g) > 0.5
+    assert torch.equal(_mask_of(_mask_words(on.numpy()), 101, 192), on)
+
+
+def _stash_words(plan):
+    """The training forward's layout (struct tf32::Stash): (lo slot, lo
+    width, hi slot, hi width, n_masks, each layer's slot, its mask slot)."""
+    w = plan.fwd_words.tolist()
+    k = fused_mlp._MAX_OPS
+    return (*w[:5], w[6 : 6 + k], w[6 + k : 6 + 2 * k])
+
+
+def _run_sm90_program(spec, kp, lo, hi, hvx, plan=None):
     """The forward program, its weight image read through the swizzle (and,
-    float32, the permuted K order and the split), as the kernel runs it."""
+    float32, the permuted K order and the split), as the kernel runs it.
+    With `plan` (the float32 backward's), the planes and what the training
+    forward stores: (planes, (acts, masks)), the activation stash and the
+    mask words (n_tiles, n_masks, 256, 4)."""
     n = lo.shape[0]
     words, wts, fpar, _ = fused_mlp.pack_program(spec, kp, n)
     hdr, layers = _sm90_layers(words)
@@ -202,6 +257,18 @@ def _run_sm90_program(spec, kp, lo, hi, hvx):
     slabs = iter(_slabs(words, wts, f32))
     hvxs = hvx if isinstance(hvx, (list, tuple)) else [hvx]
     planes = {}
+    if plan is not None:
+        lo_slot, lo_n, hi_slot, hi_n, n_masks, slots, mask_slots = _stash_words(plan)
+        ld, n_tiles = plan.stash_ld, -(-n // 128)
+        acts = torch.zeros(plan.act_cols * ld)
+        masks = torch.zeros((n_tiles, n_masks, 256, 4), dtype=torch.int32)
+
+        def put(slot, v):
+            acts[slot * ld : slot * ld + n * v.shape[1]].view(n, -1)[:] = v
+
+        put(lo_slot, tiles[fused_mlp._SRC_LO][:, :lo_n])
+        if hi_slot >= 0:
+            put(hi_slot, tiles[fused_mlp._SRC_HI][:, :hi_n])
     # float32: an activation tile of act_kb K blocks; bf16: none, the last
     # layer's n_pad columns in registers (a fragment per k16 step).
     assert (act_kb > 0) == f32
@@ -221,6 +288,12 @@ def _run_sm90_program(spec, kp, lo, hi, hvx):
             v[:, : op["n"]] += hvxs[op["hvx_slot"]].repeat_interleave(ns, 0)
         if op["flags"] & fused_mlp._FLAG_RELU:
             v = torch.relu(v)
+        if plan is not None:
+            if slots[li] >= 0:
+                put(slots[li], v[:, : op["n"]])
+            if op["flags"] & fused_mlp._FLAG_RELU:
+                for t in range(n_tiles):
+                    masks[t, mask_slots[li]] = _mask_words(v[128 * t : 128 * t + 128].numpy() > 0)
         tiles[fused_mlp._SRC_ACT] = v.to(cd)  # the kernel replaces the last layer's activations
         assert op["n_pad"] <= (depth * act_kb if f32 else 256)
         held = depth * act_kb if f32 else op["n_pad"]
@@ -230,7 +303,8 @@ def _run_sm90_program(spec, kp, lo, hi, hvx):
             for j in range(op["nout"]):
                 planes[op["plane"] + j] = (v.to(cd).float() @ w[j]
                                            + fpar[op["head_b"] + j]).reshape(-1, ns)
-    return tuple(planes[j] for j in range(len(planes)))
+    planes = tuple(planes[j] for j in range(len(planes)))
+    return planes if plan is None else (planes, (acts, masks))
 
 
 PUBLISHED = dict(points_net_depth=8, points_net_width=256, views_net_width=128, skip_layers=(4,))
@@ -445,13 +519,16 @@ def _bwd90_slabs(plan, f32=False):
     return mats
 
 
-def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
+def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp, saved=None):
     """The row pass's program, run as fused_mlp_bwd_rows_sm90_kernel (bf16)
     or fused_mlp_bwd_rows_tf32_kernel (float32, products in 3xTF32) runs
     it, tile by tile: (stash, g32, per-tile partials). An op with no tensor
     map stores no stash: its slot stays zero. Float32 slots have
     plan.stash_ld rows; a backward op's slot (the weight pass's G) is
-    stored K-major there, (r, c) at slot * ld + c * ld + r."""
+    stored K-major there, (r, c) at slot * ld + c * ld + r. The float32
+    program runs no forward op: it reads `saved`, the training forward's
+    (acts, masks) (`_run_sm90_program` with the plan), its head ops the
+    activations and its backward ops the mask words."""
     hdr, ops = _bwd90_ops(plan.words)
     ns, in_lo, in_hi, lo_kb, hi_kb, act_kb = hdr[2:8]
     slot_bytes, part_w, n_maps = hdr[8], hdr[12], hdr[14]
@@ -467,6 +544,9 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
     n_tiles = -(-n // bm)
     parts = torch.zeros((n_tiles, part_w))
     fpar = plan.fpar
+    if f32:  # a block holds its activation tile only
+        assert (in_lo, in_hi, lo_kb, hi_kb) == (0, 0, 0, 0)
+        acts, words = saved
 
     def store(op, rows, v):
         if op["map"] >= 0:
@@ -482,22 +562,31 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
         r = rows.stop - rows.start
         tiles = {fused_mlp._SRC_LO: torch.zeros((r, depth * lo_kb), dtype=cd),
                  fused_mlp._SRC_HI: torch.zeros((r, depth * hi_kb), dtype=cd)}
-        tiles[fused_mlp._SRC_LO][:, :in_lo] = lo[rows]
+        if in_lo:
+            tiles[fused_mlp._SRC_LO][:, :in_lo] = lo[rows]
         if in_hi:
             tiles[fused_mlp._SRC_HI][:, :in_hi] = hi[rows]
         masks = {}
         for op, segs in zip(ops, mats):
             kind, width, n_pad, flags = op["kind"], op["n"], op["n_pad"], op["flags"]
+            assert kind in ((fused_mlp._H_LAYER, fused_mlp._B_LAYER) if f32 else
+                            (fused_mlp._F_IN, fused_mlp._F_LAYER, fused_mlp._B_LAYER))
             if kind == fused_mlp._F_IN:
                 store(op, rows, tiles[op["src"][0]])
                 continue
             assert n_pad in (64, 128, 256) and n_pad <= depth * act_kb
             assert (16384 if f32 else n_pad * 128) <= slot_bytes
+            d = dp[op["plane"] : op["plane"] + op["head_nout"], rows]
+            if kind == fused_mlp._H_LAYER:  # the head's partials from the forward's activations
+                assert op["nseg"] == 0 and op["map"] == -1 and op["head_nout"]
+                a = acts[op["out_slot"] * ld : op["out_slot"] * ld + n * width].view(n, width)[rows]
+                parts[t, op["part"] : op["part"] + op["head_nout"] * width] = (d @ a).reshape(-1)
+                parts[t, op["part2"] : op["part2"] + op["head_nout"]] = d.sum(1)
+                continue
             acc = torch.zeros((r, n_pad))
             for s, w in enumerate(segs):
                 k = (w[0] if f32 else w).shape[1]
                 acc = acc + _product(tiles[op["src"][s]][:, :k], w, f32)
-            d = dp[op["plane"] : op["plane"] + op["head_nout"], rows]
             if kind == fused_mlp._F_LAYER:
                 v = acc + fpar[op["b_off"] : op["b_off"] + n_pad]
                 if flags & fused_mlp._FLAG_HVX:
@@ -518,7 +607,9 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
                 hw = fpar[op["head_w"] : op["head_w"] + op["head_nout"] * n_pad].view(op["head_nout"], n_pad)
                 acc = acc + d.T @ hw
             if flags & fused_mlp._FLAG_RELU:
-                acc = acc * masks[op["mask_slot"]][:, :n_pad]
+                on = (_mask_of(words[t, op["mask_slot"]], r, n_pad) if f32
+                      else masks[op["mask_slot"]][:, :n_pad])
+                acc = acc * on
             if op["g32_slot"] >= 0:
                 g32[op["g32_slot"], rows] = acc[:, :width]
             tiles[fused_mlp._SRC_ACT] = acc.to(cd)
@@ -530,20 +621,23 @@ def _run_bwd90_rows(plan, n, lo, hi, hvxs, dp):
 def _run_bwd_program(spec, kp, lo, hi, hvxs, d_planes):
     """Execute `pack_bwd_program`'s output with PyTorch ops, tile by tile and
     task by task, as the backward kernels do: (per-member dkp, dhvx stack).
-    The row pass runs the program of `_bwd_plan` (`_run_bwd90_rows`)."""
+    The row pass runs the program of `_bwd_plan` (`_run_bwd90_rows`); in
+    float32 after the training forward (`_run_sm90_program` with the
+    plan), whose activations the weight pass reads as A."""
     n = lo.shape[0]
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
     ns = int(plan.words[2])  # the row program's header
     members = spec.members if isinstance(spec, fused_mlp.EnsembleSpec) else (spec,)
     bf16 = members[0].cdtype == torch.bfloat16
     dp = d_planes.reshape(d_planes.shape[0], n)
-    stash, g32, parts = _run_bwd90_rows(plan, n, lo, hi, hvxs, dp)
+    saved = None if bf16 else _run_sm90_program(spec, kp, lo, hi, hvxs, plan)[1]
+    stash, g32, parts = _run_bwd90_rows(plan, n, lo, hi, hvxs, dp, saved)
     if bf16:
         dw = _run_wgrad_jobs(stash, n, plan.tasks, plan.maps, plan.chunk_rows, plan.n_chunks,
                              plan.dw_total)
     else:  # the float32 weight pass's jobs through its tensor maps, in 3xTF32
         dw = _wgrad_tf32_tests().run_wgrad32_jobs(stash, n, plan.tasks, plan.maps, plan.chunk_rows,
-                                                  plan.n_chunks, plan.dw_total)
+                                                  plan.n_chunks, plan.dw_total, acts=saved[0])
     dhvx = g32[: plan.n_hvx].reshape(plan.n_hvx, n // ns, ns, g32.shape[-1]).sum(2)
     return fused_mlp.unpack_grads(plan, dw, parts.sum(0)), dhvx
 
@@ -664,8 +758,9 @@ def test_packed_ensemble_programs_compute_plain_versions(dtype_name):
 def test_bwd_program_offsets_disjoint_and_in_range(which, dtype_name):
     """Every per-tile partial (layer db, head dW and db) of the packed backward
     program has its own range inside the partials row, and every ReLU layer
-    its own mask slot, which its backward layer reads; the mask buffer holds
-    every thread's words of every tile, the ragged last one included."""
+    its own mask slot (float32: in the training forward's layout), which
+    its backward layer reads; the mask buffer holds every thread's words of
+    every tile, the ragged last one included."""
     dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
     nr, ns = 1037, 64  # 66,368 rows: a ragged last 128-row tile
     published = dict(points_net_depth=8, points_net_width=256, views_net_width=128,
@@ -685,10 +780,19 @@ def test_bwd_program_offsets_disjoint_and_in_range(which, dtype_name):
     hdr, ops = _bwd90_ops(plan.words)
     n_masks = dict(zip(fused_mlp._BWD90_HEADER, hdr))["n_masks"]
     ranges, relu_f, relu_b = [], {}, []
+    if dtype == torch.float32:  # the training forward packs the masks of the forward program's layers
+        _, _, _, _, fwd_masks, _, mask_slots = _stash_words(plan)
+        assert fwd_masks == n_masks
+        for layer, mask in zip(_sm90_layers(fused_mlp.sm90_plan(spec).words)[1], mask_slots):
+            if layer["flags"] & fused_mlp._FLAG_RELU:
+                assert mask not in relu_f and 0 <= mask < n_masks
+                relu_f[mask] = layer["n"]
     for op in ops:
         kind, width, flags = op["kind"], op["n"], op["flags"]
         mask, hn, part, part2 = op["mask_slot"], op["head_nout"], op["part"], op["part2"]
-        if kind == fused_mlp._F_LAYER:
+        if kind == fused_mlp._H_LAYER:
+            ranges += [(part, part + hn * width), (part2, part2 + hn)]
+        elif kind == fused_mlp._F_LAYER:
             if hn:
                 ranges += [(part, part + hn * width), (part2, part2 + hn)]
             if flags & fused_mlp._FLAG_RELU:
@@ -741,21 +845,26 @@ def _f32_twin(spec):
     return dataclasses.replace(spec, dtype="float32")
 
 
-def _padded_op_weights(plan, kp, depth):
+def _padded_op_weights(spec, plan, kp, depth):
     """Each row-pass op's segments' weights, zero-padded to (n_pad, depth
     kb), from `w_src` and the row program alone: `w_src` names every op's
     segments in op order, a forward op's W^T and a backward op's W, which
-    must be that of the activation segment of the layer above (a member's
-    backward ops follow its forward ops, its top layer first)."""
+    must be that of the activation segment of the layer above: each
+    member's backward ops walk its layers (`_layers`) from the top, whose
+    op has no product."""
     kps = list(kp) if isinstance(kp, tuple) else [kp]
-    srcs, above, product, out = iter(plan.w_src), [], None, []
+    layers = fused_mlp._layers(spec)
+    above = []  # each backward op's product, in program order: (member, key) or None
+    for mi in range(len(kps)):
+        mine = [x for x in layers if x.mi == mi]
+        above += [(mi, mine[i + 1].segs[0][1]) if i + 1 < len(mine) else None
+                  for i in range(len(mine) - 1, -1, -1)]
+    srcs, above, out = iter(plan.w_src), iter(above), []
     for op in _bwd90_ops(plan.words)[1]:
         keys = [next(srcs) for _ in range(op["nseg"])]
-        if op["kind"] == fused_mlp._F_LAYER:
-            above.append(keys[0])
-        elif op["kind"] == fused_mlp._B_LAYER:
-            assert keys == ([product] if op["nseg"] else []), (keys, product)
-            product = above.pop()  # this layer's W: the product of the layer below's op
+        if op["kind"] == fused_mlp._B_LAYER:
+            want = next(above)
+            assert keys == ([want] if want else []), (keys, want)
         segs = []
         for s_, (mi, key) in enumerate(keys):
             m = kps[mi][key].detach().float()
@@ -764,7 +873,7 @@ def _padded_op_weights(plan, kp, depth):
             want[: m.shape[0], : m.shape[1]] = m
             segs.append(want)
         out.append(segs)
-    assert next(srcs, None) is None and not above
+    assert next(srcs, None) is None and next(above, None) is None
     return out
 
 
@@ -773,15 +882,19 @@ def test_bwd90_slab_image_unswizzles_to_padded_weights(name):
     """Every slab of the bf16 row pass's image, read back through the
     swizzle, is its op's weight zero-padded to (n_pad, 64 kb): a forward
     op's W^T, a backward op's W (that of the activation segment of the
-    layer above); the float32 program has the same ops but their K
-    blocks."""
+    layer above); the float32 program has no forward op and the same
+    backward ops but for their K blocks, stash slots and head weights'
+    offsets (its buffer holds no bias)."""
     spec, kp, lo, *_ = _bwd90_operands(name)
     n = lo.shape[0]
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
-    twin = fused_mlp.pack_bwd_program(_f32_twin(spec), kp, n)  # same ops, float32 weights
-    ops, twin_ops = (_bwd90_ops(p.words)[1] for p in (plan, twin))
-    assert [{**op, "kb": None} for op in ops] == [{**op, "kb": None} for op in twin_ops]
-    for i, (segs, wants) in enumerate(zip(_bwd90_slabs(plan), _padded_op_weights(plan, kp, 64))):
+    twin = fused_mlp.pack_bwd_program(_f32_twin(spec), kp, n)  # float32 weights
+    keys = ("n", "n_pad", "flags", "nseg", "src", "mask_slot", "plane", "head_nout", "part",
+            "g32_slot")
+    ops, twin_ops = ([{k: op[k] for k in keys} for op in _bwd90_ops(p.words)[1]
+                      if op["kind"] == fused_mlp._B_LAYER] for p in (plan, twin))
+    assert ops == twin_ops
+    for i, (segs, wants) in enumerate(zip(_bwd90_slabs(plan), _padded_op_weights(spec, plan, kp, 64))):
         assert len(segs) == len(wants)
         for s, (got, want) in enumerate(zip(segs, wants)):
             assert got.shape == want.shape, (i, s)
@@ -807,20 +920,171 @@ def test_bwd90_maps_are_the_slots_the_weight_pass_reads(name):
 
 @pytest.mark.parametrize("name", sorted(BWD90_CASES))
 def test_row_program_runs_the_forward_programs_layers(name):
-    """The row pass's forward ops are the forward program's layers, in its
-    order, in bf16 and in float32: the same widths, sources and K blocks of
-    each segment, flags, hvx slot, and head channels and plane; then one
-    backward op for each layer, each member's in reverse."""
+    """The bf16 row pass's forward ops are the forward program's layers, in
+    its order: the same widths, sources and K blocks of each segment,
+    flags, hvx slot, and head channels and plane. The float32 training
+    forward runs the forward program itself and stores each of its layers
+    (a slot of the layer's width each, none shared, lo and hi beside them),
+    and the float32 row pass has a head op for each layer with a head, in
+    order. Both: one backward op for each layer, each member's in
+    reverse."""
     spec, kp, lo, *_ = _bwd90_operands(name)
     for s in (spec, _f32_twin(spec)):
         _, layers = _sm90_layers(fused_mlp.sm90_plan(s).words)
-        _, ops = _bwd90_ops(fused_mlp.pack_bwd_program(s, kp, lo.shape[0]).words)
-        fwd = [op for op in ops if op["kind"] == fused_mlp._F_LAYER]
-        keys = ("n", "n_pad", "nseg", "src", "kb", "flags", "hvx_slot", "plane")
-        assert [{k: op[k] for k in keys} | {"nout": op["head_nout"]} for op in fwd] == [
-            {k: layer[k] for k in keys + ("nout",)} for layer in layers]
+        plan = fused_mlp.pack_bwd_program(s, kp, lo.shape[0])
+        _, ops = _bwd90_ops(plan.words)
+        if s is spec:
+            fwd = [op for op in ops if op["kind"] == fused_mlp._F_LAYER]
+            keys = ("n", "n_pad", "nseg", "src", "kb", "flags", "hvx_slot", "plane")
+            assert [{k: op[k] for k in keys} | {"nout": op["head_nout"]} for op in fwd] == [
+                {k: layer[k] for k in keys + ("nout",)} for layer in layers]
+        else:
+            lo_slot, lo_n, hi_slot, hi_n, _, slots, _ = _stash_words(plan)
+            widths = [(lo_slot, lo_n)] + ([(hi_slot, hi_n)] if hi_slot >= 0 else [])
+            widths += [(slot, layer["n"]) for slot, layer in zip(slots, layers)]
+            assert slots[len(layers) :] == [-1] * (fused_mlp._MAX_OPS - len(layers))
+            cols = sorted(c for slot, w in widths for c in range(slot, slot + w))
+            assert cols == list(range(plan.act_cols))  # every slot its own columns
+            heads = [op for op in ops if op["kind"] == fused_mlp._H_LAYER]
+            by_slot = dict(zip(slots, layers))
+            assert [(op["n"], op["plane"], op["head_nout"]) for op in heads] == [
+                (layer["n"], layer["plane"], layer["nout"]) for layer in layers if layer["nout"]]
+            assert all(by_slot[op["out_slot"]]["nout"] == op["head_nout"] for op in heads)
         back = [op for op in ops if op["kind"] == fused_mlp._B_LAYER]
         assert sorted(op["n"] for op in back) == sorted(layer["n"] for layer in layers)
+
+
+@pytest.mark.parametrize("name", sorted(BWD90_CASES))
+def test_f32_row_program_has_no_forward_ops(name):
+    """The float32 row program runs no forward op (the training forward
+    stored what they gave): each member's head ops, one per head, then its
+    backward ops; its blocks hold an activation tile only, so the ring
+    takes the deepest depth; and the training forward's layout has the
+    header's size."""
+    spec, kp, lo, *_ = _bwd90_operands(name)
+    spec = _f32_twin(spec)
+    plan = fused_mlp.pack_bwd_program(spec, kp, lo.shape[0])
+    hdr, ops = _bwd90_ops(plan.words)
+    h = dict(zip(fused_mlp._BWD90_HEADER, hdr))
+    kinds = [op["kind"] for op in ops]
+    assert set(kinds) == {fused_mlp._H_LAYER, fused_mlp._B_LAYER}
+    members = spec.members if isinstance(spec, fused_mlp.EnsembleSpec) else (spec,)
+    heads = [sum(x.head is not None for x in fused_mlp._layers(spec) if x.mi == mi)
+             for mi in range(len(members))]
+    assert kinds.count(fused_mlp._H_LAYER) == sum(heads)
+    first_back = [i for i, k in enumerate(kinds) if k == fused_mlp._B_LAYER and ops[i]["nseg"] == 0]
+    assert len(first_back) == len(members)  # one walk back a member, from its top layer
+    for i, h_ in zip(first_back, heads):  # the member's head ops come right before its walk back
+        assert kinds[i - h_ : i] == [fused_mlp._H_LAYER] * h_
+    assert (h["in_lo"], h["in_hi"], h["lo_kb"], h["hi_kb"], h["cst_floats"]) == (0, 0, 0, 0, 0)
+    assert h["stages"] == max(fused_mlp._BWD90_STAGES) and plan.smem <= fused_mlp._SMEM_LIMIT
+    text = (Path(fused_mlp.__file__).resolve().parent / "csrc" / "fused_mlp_tf32_sm90.cuh").read_text()
+    header = int(re.search(r"constexpr int kStashHeader = (\d+);", text).group(1))
+    assert plan.fwd_words.size == header + 2 * fused_mlp._MAX_OPS
+
+
+def _plain_layers(spec, kp, lo, hi, hvxs):
+    """Every layer's activation in the forward programs' order, from the
+    plain version: each member's trunk, feature and views layers."""
+    if not isinstance(spec, fused_mlp.EnsembleSpec):
+        spec, kp, hvxs, extra = fused_mlp.EnsembleSpec(members=(spec,)), (kp,), hvxs, [hi]
+    else:
+        extra = [lo if m.has_extra else None for m in spec.members]
+    out = []
+    for m, k, x, hvx in zip(spec.members, kp, extra, fused_mlp._member_hvx(spec, list(hvxs))):
+        hs = fused_mlp._trunk_forward(m, k, lo)
+        out += hs
+        if m.has_views:
+            f, hvs = fused_mlp._views_forward(m, k, hs[-1], x, hvx)
+            out += [f, *hvs]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(BWD90_CASES))
+def test_stash_forward_stores_the_plain_activations_and_masks(name):
+    """The float32 training forward, run as its kernel runs it, stores what
+    the row pass's forward ops used to produce: lo (hi) bit for bit, each
+    layer's activation within float32 rounding of the plain version's
+    (3xTF32 products), and its ReLU mask words holding exactly the plain
+    activation's sign but where that activation is within rounding of 0,
+    in the 128-row tiles' thread layout; and the plain version's planes."""
+    spec, kp, lo, hi, hvxs, _ = _bwd90_operands(name, nr=37, ns=7)
+    spec, lo, hi = _f32_twin(spec), lo.float(), hi.float() if hi is not None else None
+    n = lo.shape[0]
+    plan = fused_mlp.pack_bwd_program(spec, kp, n)
+    planes, (acts, words) = _run_sm90_program(spec, kp, lo, hi, hvxs, plan)
+    lo_slot, lo_n, hi_slot, hi_n, n_masks, slots, mask_slots = _stash_words(plan)
+    ld = plan.stash_ld
+
+    def slot(s_, w):
+        return acts[s_ * ld : s_ * ld + n * w].view(n, w)
+
+    assert torch.equal(slot(lo_slot, lo_n)[:, : lo.shape[1]], lo)
+    assert not slot(lo_slot, lo_n)[:, lo.shape[1] :].any()  # the tile's zero columns
+    if hi is not None and hi_slot >= 0:
+        assert torch.equal(slot(hi_slot, hi_n)[:, : hi.shape[1]], hi)
+    layers = _sm90_layers(fused_mlp.sm90_plan(spec).words)[1]
+    plain = _plain_layers(spec, kp, lo, hi, hvxs)
+    assert len(plain) == len(layers)
+    for li, (layer, want) in enumerate(zip(layers, plain)):
+        got = slot(slots[li], layer["n"])
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-5 * scale, f"layer {li}"
+        if layer["flags"] & fused_mlp._FLAG_RELU:
+            for t in range(-(-n // 128)):
+                rows = slice(128 * t, min(n, 128 * t + 128))
+                on = _mask_of(words[t, mask_slots[li]], rows.stop - rows.start, 256)
+                assert not on[:, layer["n"] :].any()
+                near = want[rows].abs() <= 1e-5 * scale
+                assert torch.equal(on[:, : layer["n"]] | near, (want[rows] > 0) | near), f"layer {li}"
+                assert torch.equal(on[:, : layer["n"]], got[rows] > 0), f"layer {li}"
+    want = _plain_planes(spec, kp, lo, hi, hvxs if isinstance(spec, fused_mlp.EnsembleSpec)
+                         else (hvxs[0] if hvxs else None))
+    for a, b in zip(planes, want):
+        assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1.0)
+
+
+# The bf16 row and weight passes' plans and both engines' forward programs,
+# as digests (`_plan_digest`) taken when the float32 backward began to read
+# the training forward's stash: that change gives a bf16 kernel and the
+# no-grad forward the inputs they had.
+PINNED = {("main", 30): "6b2e65f15ebd0174", ("main", 66405): "e9bdb50f3632dfd4",
+          ("published", 30): "c0a93c80b11249aa", ("published", 66405): "ba3f9c323b375cf3",
+          ("trio", 30): "58b81f9451666f99", ("trio", 66405): "8c24007da44ef046",
+          ("trunk160", 30): "c2214a9b5a5aab6d", ("trunk160", 66405): "da39d2d5423fc802",
+          ("trunk48", 30): "86dc804e10c7e700", ("trunk48", 66405): "bd30bb3959e7eba5",
+          ("views80", 30): "fc958d37ba1ad777", ("views80", 66405): "d17ca504cf29bce5"}
+
+
+def _plan_digest(spec, n):
+    """sha256 of the bf16 backward's plan of `spec` at n rows (program
+    words, jobs, maps, gathers, sizes, gradient places) and of the forward
+    programs of spec and its float32 twin."""
+    import hashlib
+
+    h = hashlib.sha256()
+    plan = fused_mlp._bwd_plan(spec, n)
+    for a in (plan.words, plan.tasks, plan.maps, plan.w_index, plan.f_index):
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(repr((plan.row_maps, plan.w_src, plan.f_src, plan.stash_cols, plan.part_w, plan.dw_total,
+                   plan.n_chunks, plan.chunk_rows, plan.smem, plan.mask_words, plan.slices, plan.scratch,
+                   plan.grads)).encode())
+    for s_ in (spec, _f32_twin(spec)):
+        fp = fused_mlp.sm90_plan(s_)
+        for a in (fp.words, fp.w_index, fp.f_index):
+            h.update(np.ascontiguousarray(a).tobytes())
+        h.update(repr((fp.w_src, fp.f_src, fp.smem)).encode())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("name", sorted(BWD90_CASES))
+def test_bf16_plans_and_forward_programs_are_pinned(name):
+    """The bf16 row program, weight pass and gathers, and both forward
+    programs, at a tile's worth of rows and a ragged 66,405, equal their
+    pinned digests."""
+    spec, kp, lo, *_ = _bwd90_operands(name)
+    for n in (lo.shape[0], 66_368 + 37):
+        assert _plan_digest(spec, n) == PINNED[(name, n)], (name, n)
 
 
 def _np_tf32(x):
@@ -833,8 +1097,8 @@ def _np_tf32(x):
 @pytest.mark.parametrize("name", sorted(BWD90_CASES))
 def test_f32_bwd_buffer_holds_each_ops_padded_weight(name):
     """The float32 row pass's weight image, gathered from the parameters
-    and split, holds each op's padded weight (a forward op's W^T, a
-    backward op's W) in its chunks: read back through the swizzle and the
+    and split, holds each backward op's padded weight W in its chunks (the
+    program has no forward op): read back through the swizzle and the
     permuted K order, the big half is tf32(W) and the small half
     tf32(W - big), bit for bit, and big + small is W to 2^-22 of |W|."""
     spec, kp, lo, *_ = _bwd90_operands(name)
@@ -842,7 +1106,7 @@ def test_f32_bwd_buffer_holds_each_ops_padded_weight(name):
     plan = fused_mlp.pack_bwd_program(spec, kp, lo.shape[0])
     assert plan.wts.dtype == torch.float32
     for i, (segs, wants) in enumerate(zip(_bwd90_slabs(plan, f32=True),
-                                          _padded_op_weights(plan, kp, 32))):
+                                          _padded_op_weights(spec, plan, kp, 32))):
         assert len(segs) == len(wants)
         for s, ((big, small), want) in enumerate(zip(segs, wants)):
             w = want.numpy()
@@ -921,8 +1185,8 @@ def test_bwd90_header_constants_match_the_cuh():
     header = _cuh_fields(text, "Program", k)
     assert [name for name, _ in header] == list(fused_mlp._BWD90_HEADER)
     enums = dict(re.findall(r"(\w+) = (\d+)", re.search(r"enum \{ F_IN[^}]*\}", text).group(0)))
-    assert (int(enums["F_IN"]), int(enums["F_LAYER"]), int(enums["B_LAYER"])) == (
-        fused_mlp._F_IN, fused_mlp._F_LAYER, fused_mlp._B_LAYER)
+    assert (int(enums["F_IN"]), int(enums["F_LAYER"]), int(enums["H_LAYER"]), int(enums["B_LAYER"])) == (
+        fused_mlp._F_IN, fused_mlp._F_LAYER, fused_mlp._H_LAYER, fused_mlp._B_LAYER)
 
 
 @pytest.mark.parametrize("trio", [None, ("main", "points_aug", "lambertian"),

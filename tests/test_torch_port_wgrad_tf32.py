@@ -61,9 +61,10 @@ def _cases():
 
 def read_box(stash, m, c0, c1):
     """The box of tensor map `m` (float32 parameters: element offset, dim 0,
-    dim 1, dim 1's stride in bytes, box 0, box 1) at coordinates (c0, c1):
-    a (box 1, box 0) tensor, zeros past the dims, as TMA fills it."""
-    off, d0, d1, stride, b0, b1 = (int(v) for v in m)
+    dim 1, dim 1's stride in bytes, box 0, box 1, buffer) at coordinates
+    (c0, c1) of `stash`, its buffer: a (box 1, box 0) tensor, zeros past
+    the dims, as TMA fills it."""
+    off, d0, d1, stride, b0, b1, _ = (int(v) for v in m)
     out = torch.zeros((b1, b0), dtype=stash.dtype)
     n0, n1 = max(0, min(b0, d0 - c0)), max(0, min(b1, d1 - c1))
     if n0 and n1:
@@ -78,14 +79,17 @@ def a_row(w: int, h: int, g: int) -> int:
     return 32 * (w >> 1) + 4 * ((2 * (w & 1) + h) ^ (4 * (g >> 2))) + (g & 3)
 
 
-def run_wgrad32_jobs(stash, n, jobs, maps, chunk_rows, n_chunks, dw_total, split=True):
+def run_wgrad32_jobs(stash, n, jobs, maps, chunk_rows, n_chunks, dw_total, split=True, acts=None):
     """The float32 weight pass's jobs as fused_mlp_bwd_wgrad_tf32_kernel runs
     them: each consumer's A boxes (through `a_row`) and G boxes, read through
-    the tensor maps in stages of 32 rows; per stage the products small.big +
-    big.small + big.big of the TF32 halves (split=False: the float32
-    product), summed apart and added to the accumulators in float32; one
-    partials row per chunk, each dW element written by exactly one consumer;
-    then the chunks summed in order."""
+    the tensor maps in stages of 32 rows (a map of buffer 0 reads `acts`, the
+    training forward's activations, where given, and else `stash`, as one of
+    buffer 1 does); per stage the products small.big + big.small + big.big
+    of the TF32 halves (split=False: the float32 product), summed apart and
+    added to the accumulators in float32; one partials row per chunk, each
+    dW element written by exactly one consumer; then the chunks summed in
+    order."""
+    buffers = (stash if acts is None else acts, stash)
     depth, abox, gbox = fused_mlp._WGRAD32_DEPTH, fused_mlp._WGRAD32_ABOX, fused_mlp._WGRAD32_GBOX
     frag = torch.tensor([a_row(w, h, g) for w in range(4) for h in range(2) for g in range(8)])
     part = torch.zeros((n_chunks, dw_total))
@@ -101,10 +105,11 @@ def run_wgrad32_jobs(stash, n, jobs, maps, chunk_rows, n_chunks, dw_total, split
             gb0 = g0 + gb
             acc = torch.zeros((64, 64 * gn))
             for row in range(r_begin, r_end, depth):
-                boxes = [read_box(stash, maps[a_map], i0 + (ab + b) * abox, row) if ab + b < n_a
+                boxes = [read_box(buffers[maps[a_map][6]], maps[a_map], i0 + (ab + b) * abox, row)
+                         if ab + b < n_a
                          else torch.full((depth, abox), float("nan")) for b in range(2)]
                 a = torch.cat(boxes, 1)[:, frag]  # (K, fragment rows)
-                gt = torch.cat([read_box(stash, maps[g_map], row, (gb0 + b) * gbox)
+                gt = torch.cat([read_box(buffers[maps[g_map][6]], maps[g_map], row, (gb0 + b) * gbox)
                                 for b in range(gn)], 0).T  # (K, N)
                 if split:
                     ab_, as_ = fused_mlp.tf32_halves(a)
@@ -128,19 +133,21 @@ def run_wgrad32_jobs(stash, n, jobs, maps, chunk_rows, n_chunks, dw_total, split
     return dw
 
 
-def stash_of(slots, plan_dws, n, stash_cols):
-    """A float32 stash laid out as the float32 row pass lays it out: every
-    slot a dW reads as A row-major, (r, c) at slot * ld + r * width + c, and
-    every slot it reads as G K-major, at slot * ld + c * ld + r."""
+def stash_of(slots, n, plan):
+    """The float32 backward's two buffers of `slots` ({("a" | "g", slot,
+    width): (n, width)}), laid out as the training forward and the float32
+    row pass lay them out: every slot a dW reads as A row-major in the
+    activation stash, (r, c) at slot * ld + r * width + c, and every slot it
+    reads as G K-major in the row pass's stash, at slot * ld + c * ld + r:
+    (acts, stash)."""
     ld = fused_mlp._stash_ld(n)
-    stash = torch.zeros(stash_cols * ld)
-    g_slots = {(g, gw) for _, _, g, gw, *_ in plan_dws}
-    for (s, w), x in slots.items():
-        if (s, w) in g_slots:
+    acts, stash = torch.zeros(plan.act_cols * ld), torch.zeros(plan.stash_cols * ld)
+    for (kind, s, w), x in slots.items():
+        if kind == "g":
             stash[s * ld : (s + w) * ld].view(w, ld)[:, :n] = x.T
         else:
-            stash[s * ld : s * ld + n * w].view(n, w)[:] = x
-    return stash
+            acts[s * ld : s * ld + n * w].view(n, w)[:] = x
+    return acts, stash
 
 
 @pytest.mark.parametrize("which,n", _cases())
@@ -180,8 +187,9 @@ def test_f32_tensor_maps(which, n):
     rows width x 4 bytes apart, 32 x 32 boxes) and one per slot they read as
     G (K-major: dims (n_rows, width), columns ld x 4 bytes apart, boxes of
     32 rows x 64 columns); every slot starts at slot * ld, 16-byte aligned,
-    inside the stash; each box's inner extent is the swizzle's 128 bytes;
-    the jobs' boxes start inside their slots."""
+    inside its buffer (A the training forward's activation stash, G the row
+    pass's); each box's inner extent is the swizzle's 128 bytes; the jobs'
+    boxes start inside their slots."""
     spec, kp = _program(which)
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
     ld = plan.stash_ld
@@ -191,17 +199,17 @@ def test_f32_tensor_maps(which, n):
     a_slots = {(a, aw) for a, aw, *_ in plan.dws}
     g_slots = {(g, gw) for _, _, g, gw, *_ in plan.dws}
     kinds = {}
-    for idx, (off, d0, d1, stride, b0, b1) in enumerate(maps.tolist()):
+    for idx, (off, d0, d1, stride, b0, b1, buf) in enumerate(maps.tolist()):
         assert off % ld == 0 and (off * 4) % 16 == 0 and stride % 16 == 0
         assert b0 * 4 == 128  # the inner extent: one swizzle span, 32 floats
-        if d0 == n and b1 == fused_mlp._WGRAD32_GBOX:  # K-major G
+        if d0 == n and b1 == fused_mlp._WGRAD32_GBOX:  # K-major G, in the row pass's stash
             kinds[idx] = ("g", off // ld, d1)
-            assert stride == ld * 4 and b0 == 32
+            assert stride == ld * 4 and b0 == 32 and buf == 1
             assert off + d1 * ld <= plan.stash_cols * ld
-        else:
+        else:  # A, in the training forward's activation stash
             kinds[idx] = ("a", off // ld, d0)
-            assert d1 == n and stride == d0 * 4 and (b0, b1) == (32, 32)
-            assert off + d1 * d0 <= plan.stash_cols * ld
+            assert d1 == n and stride == d0 * 4 and (b0, b1) == (32, 32) and buf == 0
+            assert off + d1 * d0 <= plan.act_cols * ld
     assert sorted((s, w) for k, s, w in kinds.values() if k == "a") == sorted(a_slots)
     assert sorted((s, w) for k, s, w in kinds.values() if k == "g") == sorted(g_slots)
     for chunk, a_map, i0, n_a, g_map, g0, n_g, dw_off, k_in, n_out in jobs.tolist():
@@ -246,7 +254,7 @@ def test_wgrad32_shared_memory_and_kernel_constants():
     assert fused_mlp._WGRAD32_SMEM == const("kStages") * stage + 2 * 2 * 64 * 32 * 4 + 2 * const("kStages") * 8
     assert fused_mlp._WGRAD32_SMEM == 196_688 <= fused_mlp._SMEM_LIMIT
     ld = re.search(r"stash_ld\(int n_rows\) \{ return \(n_rows \+ (\d+)\) & ~(\d+); \}",
-                   (CSRC / "fused_mlp_bwd_tf32_sm90.cuh").read_text())
+                   (CSRC / "fused_mlp_tf32_sm90.cuh").read_text())
     assert int(ld.group(1)) + 1 == int(ld.group(2)) + 1 == fused_mlp._STASH_LD_ALIGN
 
 
@@ -314,17 +322,17 @@ def test_f32_kernel_arithmetic_matches_jax_mm_tn(n):
     spec, kp = _program("fine")
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
     rng = np.random.default_rng(n)
-    widths = {s: w for a, aw, g, gw, *_ in plan.dws for s, w in ((a, aw), (g, gw))}
-    npslots = {(s, w): (rng.random((n, w)) if (s, w) in {(a, aw) for a, aw, *_ in plan.dws}
-                        else rng.standard_normal((n, w))).astype(np.float32) for s, w in widths.items()}
+    keys = dict.fromkeys(x for a, aw, g, gw, *_ in plan.dws for x in (("a", a, aw), ("g", g, gw)))
+    npslots = {k: (rng.random((n, k[2])) if k[0] == "a" else rng.standard_normal((n, k[2])))
+               .astype(np.float32) for k in keys}
     slots = {k: torch.from_numpy(v) for k, v in npslots.items()}
-    stash = stash_of(slots, plan.dws, n, plan.stash_cols)
+    acts, stash = stash_of(slots, n, plan)
     dw = run_wgrad32_jobs(stash, n, plan.tasks, plan.maps, plan.chunk_rows, plan.n_chunks,
-                          plan.dw_total)
+                          plan.dw_total, acts=acts)
     spec32 = types.SimpleNamespace(cdtype=jnp.float32)
     worst = 0.0
     for a, aw, g, gw, k, m, off in plan.dws:
-        A, G = npslots[(a, aw)][:, :k], npslots[(g, gw)][:, :m]
+        A, G = npslots[("a", a, aw)][:, :k], npslots[("g", g, gw)][:, :m]
         want = np.asarray(jfused._mm_tn(jnp.asarray(A), jnp.asarray(G), spec32))
         got = dw[off : off + k * m].view(k, m).numpy()
         assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), f"dW ({k}, {m})"

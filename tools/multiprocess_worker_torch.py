@@ -118,7 +118,7 @@ def main() -> int:
         iters=np.array([r["iter"] for r in rows]), values=np.array(values, np.float64),
         t=np.array(rec["t"]),
         launches=json.dumps({n: c - before[n] for n, c in fused_mlp.launch_counts().items()
-                             if n.split(".")[0] in COUNTERS}),
+                             if n in COUNTERS}),
         world_size=mesh.world_size,
     )
     torch.distributed.destroy_process_group()

@@ -30,11 +30,17 @@ stores of each tile's last 64 rows, leave one warp out of each db partial
 and consumer 1's sums out of the heads' partials. The float32 row pass's
 (fused_mlp_bwd_tf32_sm90.cuh, on the 3xTF32 core of fused_mlp_tf32_sm90.cuh)
 take each mask bit from the neighbouring fragment element, read the mask
-words of the ReLU layer before, skip the stash of each tile's last 64
+words of the ReLU layer before, skip the G stash of each tile's last 64
 rows, leave one warp out of each db partial and consumer 1's sums out of
 the heads' partials, take the A fragment's columns out of the packer's K
 order, and form each product as one TF32 product (big x big) in place of
-three; its checks also hold the gradients to chip_smoke.py's float64
+three (in the training forward too: the product core is theirs). The
+float32 training forward's (fused_mlp_tf32_sm90.cuh's kStash
+instance, which stores what the row pass reads; these variants build the
+forward library too, FWD_PARTS) pack each mask bit from the neighbouring
+fragment element, write the mask words into the previous ReLU layer's,
+and skip the activation stores of each tile's last 64 rows. The float32
+checks also hold the gradients to chip_smoke.py's float64
 yardstick (the worst ||got - want|| / ||want|| against the plain version
 in float64 at most chip_smoke.YARDSTICK times the float32 plain
 version's), which the one-product variant must fail. The bf16 weight pass's
@@ -58,9 +64,11 @@ partial), its float64 yardstick printed.
 
 Row-pass split: timing-only variants that launch the row pass alone (the
 weight pass and the column sums edited out), whole and with parts of the
-row pass removed or changed; float32: whole, its products alone (no
-epilogue, stash, head partials; one data-dependent store keeps them) and
-with one TF32 product in place of three, at the float32 step's shapes;
+row pass removed or changed; float32 (the walk back alone: a direct call
+launches the training forward first, outside the timed library): whole,
+without the heads' partials, its products alone (no epilogue, stash,
+head partials; one data-dependent store keeps them) and with one TF32
+product in place of three, at the float32 step's shapes;
 bf16 (the stash stores, the heads' partials,
 the backward ops' epilogues, or their db shuffles, db hand-over or masks,
 the forward ops' mask words; the products alone, with no epilogue, stash
@@ -124,6 +132,8 @@ def _args():
                     help="only the float32 card cases' ReLU flips and float64 errors")
     ap.add_argument("--check", nargs=3, metavar=("NAME", "LIB", "CASES"),
                     help="(internal) check one built variant against saved cases, in this process")
+    ap.add_argument("--fwd", metavar="LIB",
+                    help="(internal, with --check) the variant's forward library")
     return ap.parse_args()
 
 
@@ -133,6 +143,7 @@ import torch  # noqa: E402
 import chip_smoke  # noqa: E402  (this checkout's: its helpers import the package lazily)
 
 from probe_fused_mlp import _build  # noqa: E402
+from probe_fused_mlp import _load as _load_fwd  # noqa: E402
 from simplenerf_torch.fields.mlp import MLPConfig  # noqa: E402
 from simplenerf_torch.ops import build, fused_mlp  # noqa: E402
 
@@ -175,8 +186,12 @@ EDITS = {
                        "(words[j >> 3] >> (4 * (j & 7) + (e ^ 1))) & 1u")],
     "tf32 mask layer": [(_TROWS, "tmask[op.mask_slot * bwd90::kMaskThreads]",
                          "tmask[max(op.mask_slot - 1, 0) * bwd90::kMaskThreads]")],
-    "tf32 stash tail": [(_TROWS, "  if (gr < n_rows) __stcs(", "  if (gr < n_rows && gr % 128 < 64) __stcs("),
-                        (_TROWS, _K_STORE, _K_STORE.replace("if (gr < n_rows)", "if (gr < n_rows && gr % 128 < 64)"))],
+    "tf32 stash tail": [(_TROWS, _K_STORE, _K_STORE.replace("if (gr < n_rows)", "if (gr < n_rows && gr % 128 < 64)"))],
+    "fwd32 mask bit": [(_TCORE, "bits[j >> 3] |= (v[e] > 0.f ? 1u : 0u) << (4 * (j & 7) + e);",
+                        "bits[j >> 3] |= (v[e ^ 1] > 0.f ? 1u : 0u) << (4 * (j & 7) + e);")],
+    "fwd32 mask layer": [(_TCORE, "mask = tmask + so.st->mask[i] * kMaskThreads;",
+                          "mask = tmask + max(so.st->mask[i] - 1, 0) * kMaskThreads;")],
+    "fwd32 stash tail": [(_TCORE, "  if (gr < n_rows) __stcs(", "  if (gr < n_rows && gr % 128 < 64) __stcs(")],
     "tf32 db warp": [(_TROWS, "for (int w = 0; w < 4; ++w) {\n      const float2 v",
                       "for (int w = 1; w < 4; ++w) {\n      const float2 v")],
     "tf32 head hand-over": [(_TROWS, "dst[0] = w0[q] + o.x;", "dst[0] = w0[q];")],
@@ -207,6 +222,9 @@ EDITS = {
                     (_WG, "const int r_end = min(n_rows, r_begin + chunk_rows);",
                      "const int r_end = min(n_rows / 128 * 128, r_begin + chunk_rows);")],
 }
+# Parts that break the float32 training forward (fused_mlp_fwd.cu's
+# kStash instance): their variants also build that library with the edits.
+FWD_PARTS = {"fwd32 mask bit", "fwd32 mask layer", "fwd32 stash tail", "tf32 one pass"}
 VARIANTS = {
     "full kernel": [],
     "bf16 row pass: each mask bit from the neighbouring wgmma fragment element": ["row mask bit"],
@@ -219,10 +237,14 @@ VARIANTS = {
     "float32 row pass: each mask bit from the neighbouring fragment element": ["tf32 mask bit"],
     "float32 row pass: the mask words of the previous ReLU layer": ["tf32 mask layer"],
     "float32 row pass: the stash stores of each tile's last 64 rows skipped": ["tf32 stash tail"],
+    "float32 training forward: each mask bit packed from the neighbouring fragment element": ["fwd32 mask bit"],
+    "float32 training forward: the mask words into the previous ReLU layer's": ["fwd32 mask layer"],
+    "float32 training forward: the activation stores of each tile's last 64 rows skipped": ["fwd32 stash tail"],
     "float32 row pass: db partials without one warp": ["tf32 db warp"],
     "float32 row pass: head partials without consumer 1's rows": ["tf32 head hand-over"],
     "float32 row pass: the A fragment's columns out of the packer's K order": ["tf32 fragment order"],
-    "float32 row pass: one TF32 product (big x big) in place of three": ["tf32 one pass"],
+    "float32 row pass and training forward: one TF32 product (big x big) in place of three":
+        ["tf32 one pass"],
     "g read one row late in the weight pass": ["g one row late"],
     "without the first weight's dW (wv0f)": ["first dW"],
     "weight pass: descriptor leading and stride offsets swapped": ["desc swap"],
@@ -247,7 +269,6 @@ _F32_ROWS_ONLY = "static_cast<float*>(b.parts));\n    if ((err = cudaGetLastErro
 _F_EPILOGUE = "  f_epilogue<N>(acc, op, x, cst, hvx, tmask + op.mask_slot * kMaskThreads);"
 _B_EPILOGUE = "  named_sync(1 + x.c);  // every reader of the tile (stash stores, head partials) is done"
 _HEAD_PARTIALS = "  if (op.head_nout) head_partials(op, x, part);"
-_F32_F_EPILOGUE = "  f_epilogue<N>(acc, op, b, cst, hvx, stash, tmask + op.mask_slot * bwd90::kMaskThreads);"
 _F32_B_EPILOGUE = "  sm90::named_sync(1 + x.c);  // every reader of the tile (products, head partials) is done"
 # ptxas drops a wgmma whose results are dead: one data-dependent store keeps them
 _KEEP = ("{ float z = 0.f; for (int i = 0; i < N / 2; ++i) z += acc[i]; "
@@ -255,13 +276,10 @@ _KEEP = ("{ float z = 0.f; for (int i = 0; i < N / 2; ++i) z += acc[i]; "
 TIMING_EDITS = {
     "bf16 rows only": [(_BWD, _ROWS_ONLY, "static_cast<float*>(b.parts));\n    return static_cast<int>(cudaGetLastError());\n    rc = wgrad_launch(")],
     "f32 rows only": [(_BWD, _F32_ROWS_ONLY, "static_cast<float*>(b.parts));\n    return static_cast<int>(cudaGetLastError());\n    rc = wgrad_launch(0, ")],
-    "f32 no stash": [(_TROWS, "  if (gr < n_rows) __stcs(", "  if (false) __stcs("),
-                     (_TROWS, _K_STORE, _K_STORE.replace("if (gr < n_rows)", "if (false)")),
-                     (_TROWS, "    if (row0 + r < n_rows)\n      __stcs(", "    if (false)\n      __stcs(")],
-    "f32 no head partials": [(_TROWS, "  if (op.head_nout) head_partials(op, b, part);",
-                              "  if (false) head_partials(op, b, part);")],
+    "f32 no stash": [(_TROWS, _K_STORE, _K_STORE.replace("if (gr < n_rows)", "if (false)"))],
+    "f32 no head partials": [(_TROWS, "      h_layer(op, b, acts, dplanes, part);",
+                              "      if (false) h_layer(op, b, acts, dplanes, part);")],
     "f32 no backward epilogue": [(_TROWS, _F32_B_EPILOGUE, _F32_B_EPILOGUE + "\n  " + _KEEP + "\n  if (true) return;")],
-    "f32 no forward epilogue": [(_TROWS, _F32_F_EPILOGUE, "  " + _KEEP)],
     "f32 one pass": _ONE_PASS,
     "no stash stores": [(_ROWS, _TMA, _TMA.replace("if (t == 0)", "if (false)"))],
     "no head partials": [(_ROWS, _HEAD_PARTIALS, _HEAD_PARTIALS.replace("op.head_nout", "false"))],
@@ -304,8 +322,9 @@ TIMING = {
     "row pass without the backward ops' masks": ["bf16 rows only", "no mask apply"],
     "row pass, TMA stash stores without the evict-first hint": ["bf16 rows only", "no evict-first hint"],
     "float32 row pass": ["f32 rows only"],
+    "float32 row pass without head partials": ["f32 rows only", "f32 no head partials"],
     "float32 row pass, products only": ["f32 rows only", "f32 no stash", "f32 no head partials",
-                                        "f32 no backward epilogue", "f32 no forward epilogue"],
+                                        "f32 no backward epilogue"],
     "float32 row pass, one TF32 product in place of three": ["f32 rows only", "f32 one pass"],
 }
 # Weight-pass split: the whole backward runs; the weight pass's own device time is read.
@@ -432,7 +451,9 @@ def stashed_activations(ops, dp):
     as (trunk list, feature, views list) shaped like the plain version's.
     The bf16 row pass stores no slot for a layer that only feeds a head (the
     last views layer): that one is recomputed from the kernel's stashed
-    trunk by the plain version."""
+    trunk by the plain version. The float32 training forward (which a
+    direct backward call launches) stores every layer in its activation
+    stash."""
     spec, kp, lo, hi, hvx = ops
     n = lo.shape[0]
     plan = fused_mlp.pack_bwd_program(spec, kp, n)
@@ -443,17 +464,24 @@ def stashed_activations(ops, dp):
     finally:
         fused_mlp.torch = torch
     ld = plan.stash_ld  # a float32 slot's rows are padded (`_stash_ld`); activations are row-major
-    stash = next(t for t in rec.made if t.numel() == plan.stash_cols * ld and t.dtype == spec.cdtype)
-    seg = fused_mlp._BWD90_MAX_SEG
-    names = [f"{k}{i}" if k in ("src", "kb") else k for k in fused_mlp._BWD90_OP
-             for i in range(seg if k in ("src", "kb") else 1)]
-    ops = plan.words[fused_mlp._BWD90_HEADER_WORDS:].reshape(-1, fused_mlp._BWD90_OP_WORDS)
-    ops = [dict(zip(names, w)) for w in ops.tolist()]  # the row program's ops
-    layers = [(op["out_slot"], op["n"]) for op in ops if op["kind"] == fused_mlp._F_LAYER]
+    if spec.cdtype == torch.float32:
+        stash = next(t for t in rec.made if t.numel() == plan.act_cols * ld and t.dtype == torch.float32)
+        k = fused_mlp._MAX_OPS
+        slots = plan.fwd_words[6 : 6 + k].tolist()
+        layers = [(s, x.n) for s, x in zip(slots, fused_mlp._layers(spec))]
+        stored = {s for s, _ in layers}
+    else:
+        stash = next(t for t in rec.made if t.numel() == plan.stash_cols * ld and t.dtype == spec.cdtype)
+        seg = fused_mlp._BWD90_MAX_SEG
+        names = [f"{k}{i}" if k in ("src", "kb") else k for k in fused_mlp._BWD90_OP
+                 for i in range(seg if k in ("src", "kb") else 1)]
+        ops = plan.words[fused_mlp._BWD90_HEADER_WORDS:].reshape(-1, fused_mlp._BWD90_OP_WORDS)
+        ops = [dict(zip(names, w)) for w in ops.tolist()]  # the row program's ops
+        layers = [(op["out_slot"], op["n"]) for op in ops if op["kind"] == fused_mlp._F_LAYER]
+        stored = {s for s, _ in plan.row_maps}
     acts = [stash[s * ld : s * ld + w * n].view(n, w) for s, w in layers]
     d = spec.depth
     hs, f, hvs = acts[:d], acts[d], acts[d + 1 :]
-    stored = {s for s, _ in plan.row_maps}
     assert all(s in stored for s, _ in layers[: d + 1])
     _, again = fused_mlp._views_forward(spec, kp, hs[-1], hi, hvx)
     hvs = [a if s in stored else b for (s, _), a, b in zip(layers[d + 1 :], hvs, again)]
@@ -575,11 +603,14 @@ def wgrad_checks() -> list:
     return out
 
 
-def check_variant(name: str, lib_path: str, cases_path: str) -> int:
+def check_variant(name: str, lib_path: str, cases_path: str, fwd_path=None) -> int:
     """One variant against the saved cases and the float32 weight pass's
-    checks (`wgrad_checks`), in this process: prints its line, then a JSON
-    line {"passes": ...}. A CUDA error ends the process."""
+    checks (`wgrad_checks`), in this process (with `fwd_path`, its forward
+    library too): prints its line, then a JSON line {"passes": ...}. A CUDA
+    error ends the process."""
     build._loaded["fused_mlp_bwd"] = _load(lib_path)
+    if fwd_path:
+        build._loaded["fused_mlp_fwd"] = _load_fwd(Path(fwd_path))
     cases = torch.load(cases_path, weights_only=False)
     results = []
     for label, dname, ops, dp, want, exact in cases:
@@ -597,19 +628,21 @@ def check_variant(name: str, lib_path: str, cases_path: str) -> int:
     return 0
 
 
-def broken_variants(procs: dict, tmp: Path) -> bool:
+def broken_variants(procs: dict, fprocs: dict, tmp: Path) -> bool:
     """Every broken variant against the plain backward, each in a process of
     its own; True when the sound kernel passes and every broken one fails
-    (a variant whose process ends in an error or outlasts its limit fails).
-    A reading (READINGS) prints its line and counts neither way."""
+    (a variant whose process ends in an error or outlasts its limit fails;
+    `fprocs`: the forward libraries of the variants that edit it). A
+    reading (READINGS) prints its line and counts neither way."""
     cases_path = tmp / "cases.pt"
     torch.save(_cases(), cases_path)
     caught = True
     for name, proc in procs.items():
         sound = not VARIANTS.get(name, ())
         try:
+            fwd = ["--fwd", str(fprocs[name].lib)] if name in fprocs else []
             run = subprocess.run([sys.executable, __file__, "--check", name, str(proc.lib),
-                                  str(cases_path)], capture_output=True, text=True, timeout=600)
+                                  str(cases_path), *fwd], capture_output=True, text=True, timeout=600)
             out = run.stdout.strip().splitlines()
             passes = run.returncode == 0 and bool(out) and json.loads(out[-1])["passes"]
             if run.returncode == 0 and out:
@@ -684,7 +717,8 @@ def wgrad_plans_in(cd) -> None:
         dws, dw_total = plan.dws, plan.dw_total
         ld = fused_mlp._stash_ld(n, f32)
         g = torch.Generator(device="cuda").manual_seed(7)
-        stash = torch.randn(plan.stash_cols * ld, generator=g, device="cuda").to(cd)
+        # float32 numbers the training forward's A slots apart from the G slots: one buffer holds both
+        stash = torch.randn(max(plan.stash_cols, plan.act_cols) * ld, generator=g, device="cuda").to(cd)
 
         def timed(wp):
             return chip_smoke.cuda_time_ms(lambda: fused_mlp._launch_wgrad(stash, n, wp, dw_total),
@@ -720,7 +754,7 @@ def wgrad_plans_in(cd) -> None:
 
 def main() -> int:
     if ARGS.check:
-        return check_variant(*ARGS.check)
+        return check_variant(*ARGS.check, ARGS.fwd)
     if not torch.cuda.is_available():
         raise SystemExit("the probe needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -740,18 +774,21 @@ def main() -> int:
         procs = {name: _build(Path(tmp), name, parts, lib="fused_mlp_bwd", edits=EDITS,
                               flags=("-DSNERF_WGRAD_WATCHDOG",))
                  for name, parts in broken.items()}
+        fprocs = {name: _build(Path(tmp), "fwd " + name, parts, lib="fused_mlp_fwd", edits=EDITS)
+                  for name, parts in broken.items() if FWD_PARTS & set(parts)}
         tprocs = {name: _build(Path(tmp), "timing " + name, parts, lib="fused_mlp_bwd",
                                edits=TIMING_EDITS) for name, parts in timing.items()}
         wprocs = {name: _build(Path(tmp), "wgrad " + name, parts, lib="fused_mlp_bwd",
                                edits=TIMING_EDITS) for name, parts in wtiming.items()}
         logs = {}
-        for name, proc in {**procs, **tprocs, **wprocs}.items():
+        for name, proc in [*procs.items(), *tprocs.items(), *wprocs.items(),
+                           *((f"fwd {k}", v) for k, v in fprocs.items())]:
             logs[name] = proc.communicate()[0]
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
         saved = build._loaded.get("fused_mlp_bwd")
         if procs:
-            caught = broken_variants(procs, Path(tmp))
+            caught = broken_variants(procs, fprocs, Path(tmp))
         row_pass_split(tprocs, logs)
         wgrad_split(wprocs)
         if saved is not None:
