@@ -12,8 +12,9 @@ without a result):
      all started together, and print each kernel's ptxas registers and
      spill bytes and the HGMMA instructions in each kernel's SASS
      (`cuobjdump -sass`): the forwards, the row passes and the weight
-     passes (bf16 and float32) must issue some; the bf16 forward's two
-     instances (the ping-pong engine, kPre false and true) must not spill;
+     passes (bf16 and float32) must issue some; the bf16 forward's three
+     instances (the ping-pong engine, its kPre and its kSplit instance)
+     must not spill;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the published width (8x256 trunk, 1x128 views, PE 10/4), for the main,
      points-augmentation, Lambertian and visibility-head MLPs, 64 and 192
@@ -111,7 +112,13 @@ without a result):
      secondary views, as in the JAX package) and finite in validation,
      the secondary-view visibility path on a train frame, and one step's
      gradients (visibility head included) through the kernels against the
-     plain versions in float32 and bf16; a `{"priors": ...}` line;
+     plain versions in float32 and bf16; a `{"priors": ...}` line; then
+     ViP-NeRF (`vipnerf`, a `{"vipnerf": ...}` line) and FreeNeRF
+     (`freenerf`: 10 steps from step 10,000 at the published widths, the
+     bf16 forward's kSplit instance at the 99-wide join and the IPE
+     kernel, through the graph and through the loop, equal to the bit,
+     one fused forward, backward and IPE launch a level a step; a
+     `{"freenerf": ...}` line);
   10. chunks: the forward kernel at the chunk shapes serving gives it (64k
      rays x 64 / 192 samples for the 756x1008 frame, one test frame's
      chunk, and a 41,152-ray chunk), held against its plain version; at the
@@ -306,9 +313,11 @@ def kernel_label(entry: str) -> str:
         pos = start + int(m[0])
         if entry[start:pos].endswith("_kernel"):
             rest = entry[pos:]
-            return entry[start:pos] + (" bf16" if rest.startswith("I13__nv_bfloat16") else
-                                       " f32" if rest.startswith("If") else
-                                       " sec" if rest.startswith("ILb1E") else "")
+            if rest.startswith("I13__nv_bfloat16") or rest.startswith("If"):
+                return entry[start:pos] + (" bf16" if rest.startswith("I13") else " f32")
+            m = re.match(r"ILb([01])E(?:Lb([01])E)?", rest)  # kPre / kSec, then kSplit
+            return entry[start:pos] + (" sec" if m and m[1] == "1" else "") + (
+                " split" if m and m[2] == "1" else "")
     return entry
 
 
@@ -2286,6 +2295,163 @@ def vipnerf(work: Path, card: str) -> dict:
             "prior_by_level": levels, "step_grad_err": grads, "card": card}
 
 
+FREE_START, FREE_STEPS = 10000, 10  # FreeNeRF's steps: masks that cut the encoding
+FREE_HAND = 5  # the 99-wide join's hand-off: the turn passes after 5 of its 6 slabs (kSplit)
+IPE_ULP = 0  # the IPE kernel repeats its plain version's float32 chain: equal to the bit
+
+
+def freenerf_config() -> dict:
+    """FreeNeRF (`presets.freenerf_config`) at its published widths in bf16
+    on the serve phase's scene (its _down4 images, its 3 train views in
+    set 2)."""
+    from simplenerf_torch.drivers import presets
+
+    cfg = presets.freenerf_config(compute_dtype="bfloat16", scene_id="blobs",
+                                  resolution_suffix="_down4", train_set_num=2)
+    cfg.update(resume_training=False, validation_interval=0)
+    return cfg
+
+
+def freenerf(work: Path, card: str) -> dict:
+    """FreeNeRF's step at its published widths through the bf16 kernels (the
+    forward's kSplit instance at the 99-wide join, the row and weight
+    passes, the IPE kernel) on the serve phase's scene: FREE_STEPS steps
+    from FREE_START through the graph (`train_many`: warm-up, capture,
+    replays) and through the loop (`train_one_iter`) in two fresh Trainers
+    from one initialisation. The parameters, Adam's moments and every
+    loss value must be equal to the bit, and each run's launches one fused
+    forward, one backward and one IPE launch a level a step, no PE operand
+    and no ensemble launch; returns the readings."""
+    import torch
+
+    from simplenerf_torch.data.factory import get_data_loader
+    from simplenerf_torch.data.preprocessor import ScenePreprocessor
+    from simplenerf_torch.ops import fused_mlp
+    from simplenerf_torch.training.trainer import Trainer
+
+    cfg = freenerf_config()
+    raw = get_data_loader(cfg, work / "db", "train").load_data()
+    counters = (fused_mlp.fused_apply, fused_mlp.fused_bwd, fused_mlp.fused_apply_ensemble,
+                fused_mlp.fused_ens_bwd, fused_mlp.pe_operands, fused_mlp.ipe_operands)
+    saved = fused_mlp.launch_counts()
+
+    def run(graph: bool) -> tuple:
+        reset_launches(counters)
+        with tempfile.TemporaryDirectory() as tmp:
+            t = Trainer(cfg, Path(tmp), ScenePreprocessor(cfg, "train", raw))
+            t0 = time.perf_counter()
+            if graph:
+                values = t.train_many(FREE_START, FREE_STEPS)
+            else:
+                values = [t.train_one_iter(FREE_START + i) for i in range(FREE_STEPS)][-1]
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            state = {"params": torch.cat([p.detach().reshape(-1) for p in t.leaves]),
+                     "mu": t.opt_state["mu"], "nu": t.opt_state["nu"],
+                     "values": torch.stack([values[k] for k in sorted(values)])}
+            state = {k: v.detach().float().cpu() for k, v in state.items()}
+            t.logger.close()
+        torch.cuda.empty_cache()
+        return state, read_launches(counters), took, {k: float(values[k]) for k in values}
+
+    (g, g_launches, g_s, g_values), (lp, l_launches, l_s, _) = run(True), run(False)
+    fused_mlp.add_launches({k: n - fused_mlp.launch_counts()[k] for k, n in saved.items()})
+    want = {"fused_apply": 2 * FREE_STEPS, "fused_bwd": 2 * FREE_STEPS, "fused_apply_ensemble": 0,
+            "fused_ens_bwd": 0, "pe_operands": 0, "ipe_operands": 2 * FREE_STEPS}
+    equal = {k: bool(torch.equal(g[k], lp[k])) for k in g}
+    finite = all(torch.isfinite(x).all() for st in (g, lp) for x in st.values())
+    print(f"freenerf: {FREE_STEPS} steps from {FREE_START}, graph {g_s:.2f} s (incl. capture), "
+          f"loop {l_s:.2f} s; equal to the bit {equal}; launches graph {g_launches}, loop "
+          f"{l_launches}; last values {g_values}", flush=True)
+    if not finite or not all(equal.values()):
+        fail(f"freenerf: graph and loop differ (equal {equal}, finite {finite})")
+    if g_launches != want or l_launches != want:
+        fail(f"freenerf: launches graph {g_launches}, loop {l_launches} (want {want})")
+    return {"equal": equal, "launches": g_launches, "graph_s": g_s, "loop_s": l_s,
+            "values": g_values, "kernels": freenerf_kernels(), "card": card}
+
+
+def freenerf_kernels() -> dict:
+    """At a FreeNeRF step's level (4096 rays x 128 intervals, bf16, masks of
+    step 10,000): the IPE kernel (`fused_mlp.ipe_operands`) against its
+    plain version with the step's mask and without (elements that differ,
+    the largest gap in bf16 ulp; fails past IPE_ULP), and timed with CUDA
+    events beside the plain version and the bytes it must move
+    (`counts_freenerf.ipe_bytes`: lo written, each ray's o, d, radius and
+    edges read once); the bf16 forward at the unmasked 99-wide operand (its
+    kSplit instance: fails unless the plan's hand word is FREE_HAND) and
+    the backward (row and weight passes) against their plain versions at
+    KERNEL_TOL / GRAD_TOL, then timed beside their bounds."""
+    import torch
+
+    from benchmark import counts, counts_freenerf
+    from simplenerf_torch.fields import mlp as mlp_lib
+    from simplenerf_torch.ops import fused_mlp
+    from simplenerf_torch.render import mip
+
+    cfg = freenerf_config()
+    mdict = cfg["model"]["mlp"]
+    mcfg = mlp_lib.MLPConfig(points_pe_degree=16, num_samples=mdict["num_samples"])
+    nr, ns, dt = STEP_RAYS, mdict["num_samples"], torch.bfloat16
+    saved = fused_mlp.launch_counts()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    o = torch.cat([0.8 * torch.rand((nr, 2), generator=g, device="cuda") - 0.4,
+                   -torch.ones((nr, 1), device="cuda")], -1)
+    d = torch.cat([0.2 * torch.randn((nr, 2), generator=g, device="cuda"),
+                   torch.full((nr, 1), 2.0, device="cuda")], -1)
+    r = 0.002 + 0.002 * torch.rand((nr, 1), generator=g, device="cuda")
+    t = torch.sort(torch.rand((nr, ns + 1), generator=g, device="cuda"), dim=-1).values
+    mask = torch.as_tensor(mip.step_masks(mcfg, FREE_START, cfg["model"]["freq_reg_end"]), device="cuda")
+    ipe = lambda m: fused_mlp.ipe_operands(o, d, r, t, 16, m, dt)  # noqa: E731
+    plain = lambda m: fused_mlp.ipe_operands_reference(o, d, r, t, 16, m, dt)  # noqa: E731
+    ulps = {}
+    for name, m in (("masked", mask[:99]), ("unmasked", None)):
+        ulp = (ipe(m).view(torch.int16).long() - plain(m).view(torch.int16).long()).abs()
+        ulps[name] = (int((ulp > 0).sum()), int(ulp.max()))
+        print(f"kernel field_ipe {name} {nr} rays x {ns} bf16: {ulps[name][0]} of {ulp.numel()} "
+              f"elements differ, at most {ulps[name][1]} ulp (limit {IPE_ULP})", flush=True)
+        if ulps[name][1] > IPE_ULP:
+            fail(f"field_ipe disagrees with ipe_operands_reference ({name}): {ulps[name][1]} ulp")
+    out = {"ipe": {"differ": sum(u[0] for u in ulps.values()), "max_ulp": max(u[1] for u in ulps.values()),
+                   "ms": cuda_time_ms(lambda: ipe(mask[:99]), iters=20),
+                   "plain_ms": cuda_time_ms(lambda: plain(mask[:99]), iters=3),
+                   "bound_ms": 1e3 * counts_freenerf.ipe_bytes(mdict, nr, "bfloat16") / PEAK_BYTES}}
+    # The MLP kernels are checked on unmasked operands: at step FREE_START
+    # the mask zeroes lo's second K block, which the kSplit join reads.
+    lo = ipe(None)
+    params = mlp_lib.init(torch.Generator().manual_seed(5), mcfg, device="cuda")
+    field = mip.Field(params, mcfg, torch.nn.functional.normalize(d, dim=-1), None, dt)
+    spec = fused_mlp.make_spec(mcfg, ns, dt)
+    kp = {k: v.detach() for k, v in field.kp.items()}
+    hvx = field.hvx.detach()
+    dp = torch.randn((spec.n_planes, nr, ns), generator=g, device="cuda")
+    hand = int(fused_mlp.sm90_plan(spec).words[13])
+    if hand != FREE_HAND:
+        fail(f"freenerf: the bf16 forward's plan hands the turn on after {hand} slabs "
+             f"(want {FREE_HAND}: the kSplit instance)")
+    label = f"freenerf {nr} rays x {ns}"
+    fwd_err = check_planes(label, "bfloat16", fused_mlp.fused_apply(spec, kp, lo, None, hvx),
+                           fused_mlp.fused_apply_reference(spec, kp, lo, None, hvx))
+    dkp, dhvx = fused_mlp.fused_bwd(spec, kp, lo, None, hvx, dp)
+    w_kp, w_hvx = fused_mlp.fused_bwd_reference(spec, kp, lo, None, hvx, dp)
+    bwd_err = check_grads("fused_mlp_bwd", label, "bfloat16", {**dkp, "dhvx": dhvx},
+                          {**w_kp, "dhvx": w_hvx})
+    del dkp, dhvx, w_kp, w_hvx
+    torch.cuda.empty_cache()
+    fwd = {"ms": cuda_time_ms(lambda: fused_mlp.fused_apply(spec, kp, lo, None, hvx), iters=20),
+           "bound_ms": 1e3 * counts.bound_s(counts.fwd_op([mdict], nr, ns, "bfloat16"), "bfloat16"),
+           "hand": hand, "max_abs_err": fwd_err}
+    bwd = {"ms": cuda_time_ms(lambda: fused_mlp.fused_bwd(spec, kp, lo, None, hvx, dp), iters=10),
+           "norm_err": bwd_err["norm"],
+           "bound_ms": 1e3 * counts.bound_s(counts.bwd_op([mdict], nr, ns, "bfloat16"), "bfloat16")}
+    out.update(fwd=fwd, bwd=bwd)
+    fused_mlp.add_launches({k: n - fused_mlp.launch_counts()[k] for k, n in saved.items()})
+    for name, row in out.items():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(f"time freenerf kernels ({nr} rays x {ns}, bf16): {out}", flush=True)
+    return out
+
+
 SEC_VIEWS = 2  # a ViP-NeRF step's k: 3 train views
 SEC_SHAPES = (("coarse", STEP_RAYS, COARSE_NS, SEC_VIEWS), ("fine", STEP_RAYS, FINE_NS, SEC_VIEWS),
               ("ragged", 1037, COARSE_NS, 3))
@@ -2525,10 +2691,10 @@ def main() -> int:
                       flush=True)
     print(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.1f} s (parallel nvcc)", flush=True)
     fwd_bf16 = {k: r for k, r in ptxas.items() if k.startswith("fused_mlp_fwd_sm90_kernel")}
-    print("build: the bf16 forward's instances (ping-pong engine; sec: kPre): " + "; ".join(
+    print("build: the bf16 forward's instances (ping-pong engine; sec: kPre; split: kSplit): " + "; ".join(
         f"{k}: {r['registers']} registers, {r.get('spill_stores', 0)} / {r.get('spill_loads', 0)} B "
         f"spill stores / loads" for k, r in sorted(fwd_bf16.items())), flush=True)
-    if len(fwd_bf16) != 2 or any(r.get("spill_stores") or r.get("spill_loads") for r in fwd_bf16.values()):
+    if len(fwd_bf16) != 3 or any(r.get("spill_stores") or r.get("spill_loads") for r in fwd_bf16.values()):
         fail(f"the bf16 forward's instances spill or are missing: {fwd_bf16}")
     print("build: the float32 kernels (no-grad forward, training forward, row pass): " + "; ".join(
         f"{k}: {ptxas[k]['registers']} registers, {ptxas[k].get('spill_stores', 0)} / "
@@ -2555,6 +2721,7 @@ def main() -> int:
         re10k = realestate(work, card)
         prior = priors(work, card)
         vip = vipnerf(work, card)
+        free = freenerf(work, card)
         step_err = {d: step_gradients(work / "db", d)["worst"] for d in ("float32", "bfloat16")}
         torch.cuda.empty_cache()
         timing = chunk_kernels(test_rays=min(CHUNK_RAYS, -(-(h * w) // 256) * 256))
@@ -2680,6 +2847,7 @@ def main() -> int:
     print(json.dumps({"realestate": re10k}), flush=True)
     print(json.dumps({"priors": prior}), flush=True)
     print(json.dumps({"vipnerf": vip}), flush=True)
+    print(json.dumps({"freenerf": free}), flush=True)
     print(json.dumps({"kernels": kernels, "train_step": {
         **step, "float32": step_f32, "frame_f32": frame_f32, "graph_vs_loop": graph_check,
         "step_grad_rel_err": step_err, "card": card}}),

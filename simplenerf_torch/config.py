@@ -39,6 +39,15 @@ def render_config_from_dict(configs: dict, compute_dtype: Optional[str] = None) 
     def maybe(d: Optional[dict], default_ns: int = 0) -> Optional[MLPConfig]:
         return mlp_config_from_dict(d, default_ns) if d is not None else None
 
+    if "mlp" in model:  # mip-NeRF (FreeNeRF): one MLP at both levels
+        return RenderConfig(
+            coarse_mlp=None, shared_mlp=mlp_config_from_dict(model["mlp"]),
+            ndc=configs["data_loader"]["ndc"], perturb=bool(model.get("perturb", True)),
+            raw_noise_std=float(model.get("raw_noise_std", 0.0)),
+            white_bkgd=bool(model.get("white_bkgd", False)),
+            compute_dtype=compute_dtype or model.get("compute_dtype", "float32"),
+            fused_mlp=model.get("fused_mlp", "auto"),
+        )
     pts_aug = model.get("points_augmentation", {})
     views_aug = model.get("views_augmentation", {})
     coarse = model.get("coarse_mlp")

@@ -7,12 +7,15 @@ views augmentations, COLMAP sparse-depth priors, the nine-loss stack and
 100k iterations, then testing with the QA suite and the two videos.
 --model vipnerf trains ViP-NeRF instead (`presets.with_vip_prior`: no
 augmentations, visibility heads, the visibility prior's masks from
-all/visibility_prior/VW02/<scene>/visibility_masks and its two losses).
+all/visibility_prior/VW02/<scene>/visibility_masks and its two losses);
+--model freenerf trains FreeNeRF (`presets.freenerf_config`: mip-NeRF's
+model with FreeNeRF's frequency masks and occlusion loss, no sparse depth,
+the train set's views only, `--iters` its schedule's steps).
 
 Usage:
   python -m simplenerf_torch.drivers.llff --database-dir <path to NeRF_LLFF/data>
       --output-dir runs/ --views 3 [--scenes fern flower] [--iters 100000]
-      [--compute-dtype bfloat16] [--model simplenerf|vipnerf] [--device cpu]
+      [--compute-dtype bfloat16] [--model simplenerf|vipnerf|freenerf] [--device cpu]
 
 Runs on the CUDA device unless --device names another.
 """
@@ -23,7 +26,7 @@ import argparse
 from pathlib import Path
 
 from simplenerf_torch.drivers import runner
-from simplenerf_torch.drivers.presets import simplenerf_config, with_vip_prior
+from simplenerf_torch.drivers.presets import freenerf_config, simplenerf_config, with_vip_prior
 
 # view count -> (train_set_num, run numbering), as the reference's runs.
 VIEWS_TO_SET = {2: (2, 1011), 3: (3, 1021), 4: (4, 1031)}
@@ -32,19 +35,24 @@ VIEWS_TO_SET = {2: (2, 1011), 3: (3, 1021), 4: (4, 1031)}
 def build_configs(views: int, scenes, iters: int, compute_dtype: str, seed: int,
                   model: str = "simplenerf"):
     """(train_configs, test_configs) of one published experiment; `model`
-    "simplenerf" or "vipnerf"."""
-    if model not in ("simplenerf", "vipnerf"):
-        raise ValueError(f"unknown model {model!r}: simplenerf or vipnerf")
+    "simplenerf", "vipnerf" or "freenerf"."""
+    if model not in ("simplenerf", "vipnerf", "freenerf"):
+        raise ValueError(f"unknown model {model!r}: simplenerf, vipnerf or freenerf")
     set_num, run_num = VIEWS_TO_SET[views]
-    train_configs = simplenerf_config(
-        database="NeRF_LLFF",
-        data_loader_name="NerfLlffDataLoader01",
-        train_set_num=set_num,
-        num_iterations=iters,
-        compute_dtype=compute_dtype,
-        seed=seed,
-        with_augmentations=model == "simplenerf",
-    )
+    if model == "freenerf":
+        train_configs = freenerf_config(database="NeRF_LLFF", data_loader_name="NerfLlffDataLoader01",
+                                        train_set_num=set_num, num_iterations=iters,
+                                        compute_dtype=compute_dtype, seed=seed)
+    else:
+        train_configs = simplenerf_config(
+            database="NeRF_LLFF",
+            data_loader_name="NerfLlffDataLoader01",
+            train_set_num=set_num,
+            num_iterations=iters,
+            compute_dtype=compute_dtype,
+            seed=seed,
+            with_augmentations=model == "simplenerf",
+        )
     if model == "vipnerf":
         train_configs = with_vip_prior(train_configs)
     train_configs["train_num"] = run_num
@@ -86,7 +94,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--iters", type=int, default=100000)
     parser.add_argument("--compute-dtype", default="bfloat16")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--model", default="simplenerf", choices=("simplenerf", "vipnerf"))
+    parser.add_argument("--model", default="simplenerf", choices=("simplenerf", "vipnerf", "freenerf"))
     parser.add_argument("--skip-training", action="store_true")
     parser.add_argument("--skip-videos", action="store_true")
     parser.add_argument("--gt-depth-dir", type=Path, default=None,

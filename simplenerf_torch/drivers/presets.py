@@ -8,7 +8,10 @@ ramp-up, Adam 5e-4 with 250k exponential decay), parameterized so tests and
 benches can shrink it. `vipnerf_config` is ViP-NeRF (Somraj &
 Soundararajan, SIGGRAPH 2023): the plain coarse/fine NeRF at the same
 widths with visibility heads, sparse depth and the visibility prior,
-trained through secondary views (`train_secondary_views`).
+trained through secondary views (`train_secondary_views`). `freenerf_config`
+is FreeNeRF (Yang, Pavone and Wang, CVPR 2023) on mip-NeRF: one 8x256
+MLP at both levels fed the integrated PE of 16 octaves, 128 + 128
+intervals, FreeNeRF's frequency masks and occlusion loss.
 """
 
 from __future__ import annotations
@@ -256,3 +259,54 @@ def vipnerf_config(masks_dirname: str = "VW02", **kwargs) -> dict:
     decay) and `with_vip_prior`: MSE01, SparseDepthMSE01 0.1,
     VisibilityLoss01 0.1, VisibilityPriorLoss01 0.001."""
     return with_vip_prior(simplenerf_config(with_augmentations=False, **kwargs), masks_dirname)
+
+
+def freenerf_config(
+    scene_id: str = "fern",
+    database: str = "NeRF_LLFF",
+    data_loader_name: str = "NerfLlffDataLoader01",
+    train_set_num: int = 3,
+    resolution_suffix: str = "_down8",
+    num_iterations: int = 69768,
+    seed: int = 0,
+    compute_dtype: str = "float32",
+) -> dict:
+    """FreeNeRF on LLFF: mip-NeRF's model (`render.mip`) with one MLP at
+    both levels (8 x 256 trunk, the input re-joined after the 5th layer, a
+    density head, a 256-wide bottleneck, views 1 x 128, RGB head), the
+    integrated PE of 16 octaves (a 3 + 6 x 16 = 99-wide points operand) and
+    the views PE of 4, 128 intervals at each level, 4096 random rays a step
+    from the train views in NDC with mip-NeRF's radii (`mip_nerf` data),
+    sigma noise 1; FreeNeRF's frequency masks until 0.9 of the steps
+    (`freq_reg_end`); the loss MipNeRFMSE01 (fine + 0.1 coarse) and
+    OcclusionLoss01 at 0.01 over the first 10 intervals; Adam 2e-3 -> 2e-5
+    log-linear over the steps with a 512-step warm-up from 0.01 of it
+    (`MipNeRFLearningRateDecayer01`)."""
+    cfg = simplenerf_config(
+        scene_id=scene_id, database=database, data_loader_name=data_loader_name,
+        train_set_num=train_set_num, resolution_suffix=resolution_suffix, num_rays=4096,
+        num_iterations=num_iterations, seed=seed, raw_noise_std=1.0,
+        compute_dtype=compute_dtype, with_augmentations=False, with_sparse_depth=False,
+    )
+    cfg["data_loader"]["mip_nerf"] = {}
+    model = cfg["model"]
+    for key in ("coarse_mlp", "fine_mlp", "chunk", "netchunk"):
+        model.pop(key)
+    model["name"] = "FreeNeRF"
+    model["mlp"] = mlp_dict(128, pe_points=16)
+    model["freq_reg_end"] = int(0.9 * num_iterations)
+    cfg["losses"] = [
+        {"name": "MipNeRFMSE01", "weight": 1, "coarse_weight": 0.1},
+        {"name": "OcclusionLoss01", "weight": 0.01, "reg_range": 10},
+    ]
+    cfg["optimizer"] = {
+        "lr_decayer_name": "MipNeRFLearningRateDecayer01",
+        "lr_initial": 2e-3,
+        "lr_final": 2e-5,
+        "max_steps": num_iterations,
+        "lr_delay_steps": 512,
+        "lr_delay_mult": 0.01,
+        "beta1": 0.9,
+        "beta2": 0.999,
+    }
+    return copy.deepcopy(cfg)

@@ -13,7 +13,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from simplenerf_torch.losses import consistency, depth_supervision, photometric, visibility
+from simplenerf_torch.losses import consistency, depth_supervision, freenerf, photometric, visibility
 
 LossFn = Callable[[dict, dict], torch.Tensor]
 
@@ -63,6 +63,8 @@ def build_loss(name: str, loss_cfg: dict, ctx: LossContext) -> LossFn:
         ),
         "VisibilityLoss01": visibility.make_visibility_loss,
         "VisibilityPriorLoss01": visibility.make_visibility_prior_loss,
+        "MipNeRFMSE01": lambda: freenerf.make_mip_mse(float(loss_cfg.get("coarse_weight", 0.1))),
+        "OcclusionLoss01": lambda: freenerf.make_occlusion_loss(int(loss_cfg.get("reg_range", 10))),
     }
     if name not in builders:
         raise ValueError(f"Unknown loss function: {name}")

@@ -53,6 +53,7 @@ _SIGNATURES = {
     },
     "field_pe": {
         "snerf_field_pe": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+        "snerf_field_ipe": [_P] * 6 + [ctypes.c_longlong, _I, _I, _I, _P],
     },
 }
 LIBRARIES = tuple(_SIGNATURES)

@@ -34,8 +34,27 @@
 //     with 16-byte vector stores; only a ragged last tile's few trailing
 //     elements are scalar stores.
 //
-// Plain C interface (ctypes): snerf_field_pe returns the CUDA error of the
-// launch, 0 on success.
+// The integrated positional encoding of mip-NeRF (FreeNeRF's field) is a
+// second kernel here, field_ipe_kernel: each point is a conical frustum,
+// the interval [t_s, t_s+1] of its ray (o, d, base radius r) (nr rays of
+// ns samples, edges t (nr, ns + 1)), approximated by a Gaussian of mean
+// and diagonal variance (mip-NeRF's `conical_frustum_to_gaussian` with its
+// stable form, `lift_gaussian` diag), and encoded with each octave's sine
+// and cosine damped by exp(-1/2 4^l var):
+//   lo = [mean | sin(2^l mean) e^(-4^l var / 2), l < L | cos(...) e^(...)]
+// (n, 3 + 6 L), frequency-major as the PE block, each column times the
+// step's frequency mask (FreeNeRF; none: ones). It reads each ray's o, d,
+// r and its edges and writes lo once: 2 (3 + 6 L) bytes a point in
+// bfloat16, 198 at L = 16, against 8 bytes of edges and 28 / ns of the
+// ray. Numbers: the frustum moments are the float32 chain of
+// `fused_mlp.ipe_operands_reference` in its order, each product and sum
+// rounded on its own (__fmul_rn / __fadd_rn / __fdiv_rn: no contraction
+// into FMAs; a division by a constant is the product with its float32
+// reciprocal, as PyTorch runs a tensor over a scalar on the card), then
+// sincosf and expf as the PE block's.
+//
+// Plain C interface (ctypes): snerf_field_pe and snerf_field_ipe return the
+// CUDA error of the launch, 0 on success.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,6 +138,86 @@ int launch(const float* pts, void* lo, void* hi, long long n, int d, int ds, cud
   return static_cast<int>(cudaGetLastError());
 }
 
+// The frustum's Gaussian along its ray: (t_mean, t_var, r_var) of the
+// interval [t0, t1] at base radius r (mip-NeRF's stable form).
+__device__ __forceinline__ void frustum(float t0, float t1, float r, float& t_mean, float& t_var,
+                                        float& r_var) {
+  const float k13 = static_cast<float>(1.0 / 3.0), k415 = static_cast<float>(4.0 / 15.0),
+              k512 = static_cast<float>(5.0 / 12.0);
+  const float mu = __fmul_rn(__fadd_rn(t0, t1), 0.5f), hw = __fmul_rn(__fsub_rn(t1, t0), 0.5f);
+  const float mu2 = __fmul_rn(mu, mu), hw2 = __fmul_rn(hw, hw);
+  const float den = __fadd_rn(__fmul_rn(3.0f, mu2), hw2);
+  const float hw4 = __fmul_rn(hw2, hw2);
+  t_mean = __fadd_rn(mu, __fdiv_rn(__fmul_rn(__fmul_rn(2.0f, mu), hw2), den));
+  t_var = __fsub_rn(__fmul_rn(hw2, k13),
+                    __fmul_rn(k415, __fdiv_rn(__fmul_rn(hw4, __fsub_rn(__fmul_rn(12.0f, mu2), hw2)),
+                                              __fmul_rn(den, den))));
+  r_var = __fmul_rn(__fmul_rn(r, r),
+                    __fsub_rn(__fadd_rn(__fmul_rn(mu2, 0.25f), __fmul_rn(k512, hw2)),
+                              __fdiv_rn(__fmul_rn(k415, hw4), den)));
+}
+
+// One thread per (point, coordinate), as field_pe_kernel; the tile of lo
+// rows is assembled in shared memory and copied out in 16-byte vectors.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+field_ipe_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                 const float* __restrict__ radii, const float* __restrict__ t,
+                 const float* __restrict__ mask, T* __restrict__ lo, long long n, int ns, int deg) {
+  extern __shared__ __align__(16) unsigned char ipe_smem[];
+  const int w_lo = 3 + 6 * deg;
+  T* s_lo = reinterpret_cast<T*>(ipe_smem);
+  const long long p0 = static_cast<long long>(blockIdx.x) * kTile;
+  const int rows = static_cast<int>(min(static_cast<long long>(kTile), n - p0));
+  const int u = threadIdx.x;
+  const int p = u / 3, j = u - 3 * (u / 3);
+  if (p < rows) {
+    const long long gp = p0 + p, ray = gp / ns;
+    const long long e = ray * (ns + 1) + (gp - ray * ns);
+    float t_mean, t_var, r_var;
+    frustum(__ldg(t + e), __ldg(t + e + 1), __ldg(radii + ray), t_mean, t_var, r_var);
+    const float d0 = __ldg(d + 3 * ray), d1 = __ldg(d + 3 * ray + 1), d2 = __ldg(d + 3 * ray + 2);
+    const float dj = j == 0 ? d0 : j == 1 ? d1 : d2;
+    const float ddj = __fmul_rn(dj, dj);
+    const float mag = fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2)),
+                            1e-10f);
+    const float mean = __fadd_rn(__ldg(o + 3 * ray + j), __fmul_rn(dj, t_mean));
+    const float var = __fadd_rn(__fmul_rn(t_var, ddj), __fmul_rn(r_var, __fsub_rn(1.0f, __fdiv_rn(ddj, mag))));
+    T* row = s_lo + p * w_lo;
+    row[j] = to_out<T>(mask ? __fmul_rn(mean, __ldg(mask + j)) : mean);
+    float scale = 1.0f, scale2 = 1.0f;
+    for (int l = 0; l < deg; ++l, scale *= 2.0f, scale2 *= 4.0f) {
+      float sn, cs;
+      sincosf(mean * scale, &sn, &cs);
+      const float damp = expf(-0.5f * (var * scale2));
+      float vs = __fmul_rn(sn, damp), vc = __fmul_rn(cs, damp);
+      if (mask) {
+        vs = __fmul_rn(vs, __ldg(mask + 3 + 3 * l + j));
+        vc = __fmul_rn(vc, __ldg(mask + 3 + 3 * deg + 3 * l + j));
+      }
+      row[3 + 3 * l + j] = to_out<T>(vs);
+      row[3 + 3 * deg + 3 * l + j] = to_out<T>(vc);
+    }
+  }
+  __syncthreads();
+  store_tile(lo + p0 * w_lo, s_lo, rows * w_lo);
+}
+
+template <typename T>
+int launch_ipe(const float* o, const float* d, const float* radii, const float* t, const float* mask,
+               void* lo, long long n, int ns, int deg, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kTile) * (3 + 6 * deg) * sizeof(T);
+  if (smem > kSmemDefault) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        field_ipe_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long blocks = (n + kTile - 1) / kTile;
+  field_ipe_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      o, d, radii, t, mask, static_cast<T*>(lo), n, ns, deg);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // pts (n, 3) float32; lo (n, 3 + 6 ds) and, where ds < d, hi (n, 6 (d - ds)), in
@@ -131,4 +230,21 @@ extern "C" int snerf_field_pe(const void* pts, void* lo, void* hi, long long n, 
   const float* p = static_cast<const float*>(pts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<__nv_bfloat16>(p, lo, hi, n, d, ds, s) : launch<float>(p, lo, hi, n, d, ds, s);
+}
+
+// The integrated PE of n = nr * ns frustums: o, d (nr, 3), radii (nr,) and
+// edges t (nr, ns + 1) float32, mask (3 + 6 deg) float32 or null (ones); lo
+// (n, 3 + 6 deg) in bfloat16 (bf16 = 1) or float32, on a 16-byte boundary.
+// Launches on `stream`; nothing for n = 0.
+extern "C" int snerf_field_ipe(const void* o, const void* d, const void* radii, const void* t,
+                               const void* mask, void* lo, long long n, int ns, int deg, int bf16,
+                               void* stream) {
+  if (n <= 0) return 0;
+  if (ns <= 0 || n % ns || deg < 0 || deg > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const float* args[5] = {static_cast<const float*>(o), static_cast<const float*>(d),
+                          static_cast<const float*>(radii), static_cast<const float*>(t),
+                          static_cast<const float*>(mask)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_ipe<__nv_bfloat16>(args[0], args[1], args[2], args[3], args[4], lo, n, ns, deg, s)
+              : launch_ipe<float>(args[0], args[1], args[2], args[3], args[4], lo, n, ns, deg, s);
 }

@@ -25,7 +25,10 @@
 //     registers as the next layer's wgmma A operand, take turns on the
 //     tensor cores one layer at a time (ping-pong: one's epilogue runs
 //     under the other's products) and fold the heads into their register
-//     epilogues; no block-wide barrier in the layer chain;
+//     epilogues; no block-wide barrier in the layer chain. Its kSplit
+//     instance (a program with `hand` set) hands a turn on after `hand`
+//     slabs, for a layer of more slabs than the ring holds (not with kPre:
+//     no configuration has secondary views and a join wider than 64);
 //   * float32: fused_mlp_fwd_tf32_kernel (fused_mlp_tf32_sm90.cuh), the same
 //     engine on the tensor cores in 3xTF32 (each product as three TF32
 //     products of the operands' big and small halves, float32-accurate):
@@ -53,7 +56,7 @@ namespace {
 // reconverge, so setmaxnreg moves registers from the producer to the
 // consumers (128 x 24 + 256 x 240 = 64,512 of the SM's 65,536): a consumer
 // holds 128 accumulators and 64 registers of activations.
-template <bool kPre>
+template <bool kPre, bool kSplit = false>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
 fused_mlp_fwd_sm90_kernel(const __grid_constant__ sm90::Program p,
                           const __nv_bfloat16* __restrict__ lo, const __nv_bfloat16* __restrict__ hi,
@@ -78,7 +81,7 @@ fused_mlp_fwd_sm90_kernel(const __grid_constant__ sm90::Program p,
     if (threadIdx.x == 0) sm90::produce(p, s, wts, fpar);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(sm90::kConsumerRegsBf16));
-    sm90::consume<kPre>(p, sm90_smem, s, wg - 1, lo, hi, hvx, fpar, out, pre);
+    sm90::consume<kPre, kSplit>(p, sm90_smem, s, wg - 1, lo, hi, hvx, fpar, out, pre);
   }
 }
 
@@ -148,19 +151,21 @@ int launch(int dtype, const int* words, int n_words, const void* lo, const void*
   memcpy(&p, words, sizeof(int) * n_words);
   const int max_stages = dtype == 1 ? sm90::kMaxStagesBf16 : sm90::kMaxStages;
   if (p.n_ops > sm90::kMaxOps || p.n_rows <= 0 || p.stages < 2 || p.stages > max_stages ||
-      (dtype == 1 && p.act_kb != 0))  // the bf16 engine keeps activations in registers
+      (dtype == 1 && p.act_kb != 0) ||  // the bf16 engine keeps activations in registers
+      p.hand < 0 || (p.hand > 0 && (dtype != 1 || p.hand > p.stages || pre)))  // no kPre with kSplit
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < p.n_ops; ++i) {
     const int np = p.ops[i].n_pad;
     const int slabs = p.ops[i].kb[0] + p.ops[i].kb[1] + p.ops[i].kb[2];
     if ((np != 64 && np != 128 && np != 256) ||
         (dtype == 1 ? np * 128 : tf32::kSlotBytes) > p.slot_bytes || p.ops[i].head_nout > sm90::kMaxHead ||
-        (dtype == 1 && slabs > p.stages))  // both consumers' turns on a layer's slabs fit the ring
+        (dtype == 1 && (p.hand && p.hand < slabs ? p.hand : slabs) > p.stages))  // a turn's slabs fit the ring
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const unsigned grid = static_cast<unsigned>((p.n_rows + sm90::kBM - 1) / sm90::kBM);
   if (dtype == 1) {
-    auto kernel = pre ? fused_mlp_fwd_sm90_kernel<true> : fused_mlp_fwd_sm90_kernel<false>;
+    auto kernel = p.hand ? fused_mlp_fwd_sm90_kernel<false, true>
+                         : (pre ? fused_mlp_fwd_sm90_kernel<true> : fused_mlp_fwd_sm90_kernel<false>);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<grid, sm90::kThreads, smem, stream>>>(

@@ -40,7 +40,11 @@
 // all of a layer's slabs before consumer 1 releases any: the ring holds at
 // least the largest layer's slabs (the plan sees to it), and with no
 // activation tiles beside it, more, so that the producer runs a layer
-// ahead of the consumer that is behind.
+// ahead of the consumer that is behind. A layer of more slabs than the ring
+// holds (a skip join on a lo tile wider than 64: FreeNeRF's 99 channels,
+// whose two lo K blocks leave room for 5 slots) runs in the kSplit
+// instance: a consumer hands the turn on after `hand` = stages slabs and
+// issues the rest under the other's turn, whose releases free their slots.
 //
 // Each layer starts cp.async copies of its bias and, in the hvx layer, of
 // the hvx rows of the consumer's rays into the consumer's staging area
@@ -103,9 +107,12 @@ struct Op {
 // hvx_rays > 0: an hvx layer stages the hvx rows of its consumer's rays
 // (at most hvx_rays) beside the bias; 0: the epilogue reads hvx from global
 // memory. cst_floats: one consumer's staging area (bias, then hvx rows).
+// hand > 0 (bf16, the kSplit instance): a consumer hands the turn on after
+// at most `hand` (= stages) slabs of a layer, for a layer of more slabs
+// than the ring holds; 0: after all of them.
 struct Program {
   int n_ops, n_rows, ns, in_lo, in_hi, lo_kb, hi_kb, act_kb, slot_bytes, stages, head_floats,
-      hvx_rays, cst_floats, reserved;
+      hvx_rays, cst_floats, hand;
   Op ops[kMaxOps];
 };
 
@@ -644,10 +651,10 @@ __device__ __forceinline__ void epilogue(float (&acc)[N / 2], uint32_t (&a)[64],
 // ring (the activation segment with A from the registers a, a lo or hi
 // segment from its tile), the turn handed to the other consumer once
 // `hand` of them are issued (all: handing on after half of them or after
-// the first measured slower, PERF.md; consumer 1's last layer hands on
-// nothing, as nobody waits for it), then the epilogue under the other
-// consumer's products.
-template <int N, bool kPre>
+// the first measured slower, PERF.md; kSplit: at most the program's hand;
+// consumer 1's last layer hands on nothing, as nobody waits for it), then
+// the epilogue under the other consumer's products.
+template <int N, bool kPre, bool kSplit>
 __device__ __forceinline__ void layer(const Op& op, bool last, const Program& p, const Smem& s,
                                       const Tiles& tl, uint32_t (&a)[64],
                                       const float* __restrict__ fpar, const float* __restrict__ hvx,
@@ -661,7 +668,7 @@ __device__ __forceinline__ void layer(const Op& op, bool last, const Program& p,
   int first = 1;
   rg.prev = -1;
   const int slabs = op.kb[0] + op.kb[1] + op.kb[2];
-  const int hand = slabs;
+  const int hand = kSplit ? min(slabs, p.hand) : slabs;
   int n_issued = 0;
   turn_wait(c);
   for (int seg = 0; seg < op.nseg; ++seg) {
@@ -706,7 +713,7 @@ __device__ __forceinline__ void layer(const Op& op, bool last, const Program& p,
 }
 
 // Consumer c (0 or 1) of the block: rows row0 .. row0 + 63.
-template <bool kPre>
+template <bool kPre, bool kSplit>
 __device__ __forceinline__ void consume(const Program& p, unsigned char* base, const Smem& s, int c,
                                         const __nv_bfloat16* __restrict__ lo,
                                         const __nv_bfloat16* __restrict__ hi,
@@ -729,11 +736,11 @@ __device__ __forceinline__ void consume(const Program& p, unsigned char* base, c
     const Op& op = p.ops[i];
     const bool last = i == p.n_ops - 1;
     if (op.n_pad == 256)
-      layer<256, kPre>(op, last, p, s, tl, a, fpar, hvx, out, pre, row0, c, t, rg);
+      layer<256, kPre, kSplit>(op, last, p, s, tl, a, fpar, hvx, out, pre, row0, c, t, rg);
     else if (op.n_pad == 128)
-      layer<128, kPre>(op, last, p, s, tl, a, fpar, hvx, out, pre, row0, c, t, rg);
+      layer<128, kPre, kSplit>(op, last, p, s, tl, a, fpar, hvx, out, pre, row0, c, t, rg);
     else
-      layer<64, kPre>(op, last, p, s, tl, a, fpar, hvx, out, pre, row0, c, t, rg);
+      layer<64, kPre, kSplit>(op, last, p, s, tl, a, fpar, hvx, out, pre, row0, c, t, rg);
     named_sync(1 + c);  // every thread has read the staging area before the next layer's copies
   }
 }

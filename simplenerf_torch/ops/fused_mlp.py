@@ -967,15 +967,20 @@ def sm90_plan(spec) -> Sm90Plan:
 
     # The deepest ring first, then hvx rows staged in shared memory if they
     # fit (float32 with a hi tile at the published widths: two 16 KB slots).
-    # bf16: consumer 0 reads all of a layer's slabs before consumer 1 (their
-    # turns), so the ring holds the largest layer's slabs or deadlocks.
+    # bf16: consumer 0 reads a layer's slabs before consumer 1 (their
+    # turns), so the ring holds the largest layer's slabs, or the turn is
+    # handed on after `hand` = stages of them (a skip join wider than the
+    # ring: FreeNeRF's 99-wide lo, 4 + 2 slabs beside two 16 KB lo tiles).
     least = 0 if f32 else max(sum(op[8:11]) for op in ops)
-    stages, rays = next(((s, r) for s in depths for r in (hvx_rays, 0)
-                         if s >= least and smem(s, r) <= _SMEM_LIMIT), (depths[-1], 0))
-    if stages < least:
-        raise ValueError(f"a layer of {least} weight slabs; the kernel's ring fits at most {stages}")
+    fits = [(s, r) for s in depths for r in (hvx_rays, 0) if smem(s, r) <= _SMEM_LIMIT]
+    if not fits:
+        layer = f" (a layer of {least} weight slabs)" if least else ""
+        raise ValueError(f"a block of {smem(depths[-1], 0)} B of shared memory{layer}; a Hopper "
+                         f"block has {_SMEM_LIMIT}")
+    stages, rays = next(((s, r) for s, r in fits if s >= least), fits[0])
+    hand = stages if stages < least else 0
     header = [len(ops), 0, m0.ns, m0.in_lo, in_hi, lo_kb, hi_kb, act_kb, slot, stages,
-              head_floats, rays, _SM90_BIAS + rays * hvx_w, 0]
+              head_floats, rays, _SM90_BIAS + rays * hvx_w, hand]
     words = np.asarray(header + [w for op in ops for w in op], dtype=np.int32)
     words.setflags(write=False)
     return Sm90Plan(words=words, w_src=tuple(ws.keys), w_index=w_index, f_src=tuple(fs.keys),
@@ -1798,6 +1803,101 @@ def pe_operands(pts: torch.Tensor, d: int, ds: int, cdtype) -> tuple:
 
 pe_operands.launches = 0
 
+_K13, _K415, _K512 = 1.0 / 3.0, 4.0 / 15.0, 5.0 / 12.0  # float32 constants of the frustum moments
+
+
+def frustum_gaussians(rays_o, rays_d, radii, t) -> tuple:
+    """mip-NeRF's Gaussians of the conical frustums between consecutive
+    edges t (nr, ns + 1) of rays o, d (nr, 3) of base radius `radii` (nr, 1)
+    (`conical_frustum_to_gaussian`, stable form; `lift_gaussian`, diagonal):
+    (mean, var), each (nr, ns, 3) float32.
+
+    With mu and h the interval's middle and half width: t_mean = mu + 2 mu
+    h^2 / (3 mu^2 + h^2), t_var = h^2 / 3 - 4/15 h^4 (12 mu^2 - h^2) / (3
+    mu^2 + h^2)^2, r_var = r^2 (mu^2 / 4 + 5/12 h^2 - 4/15 h^4 / (3 mu^2 +
+    h^2)); mean = o + d t_mean, var = t_var d^2 + r_var (1 - d^2 /
+    max(|d|^2, 1e-10)). Each product and sum is one float32 operation in
+    this order (divisions by a constant as products with its float32
+    reciprocal), which the IPE kernel repeats bit for bit."""
+    t0, t1 = t[:, :-1], t[:, 1:]
+    mu, hw = (t0 + t1) * 0.5, (t1 - t0) * 0.5
+    mu2, hw2 = mu * mu, hw * hw
+    den = 3.0 * mu2 + hw2
+    hw4 = hw2 * hw2
+    t_mean = mu + (2.0 * mu * hw2) / den
+    t_var = hw2 * _K13 - _K415 * ((hw4 * (12.0 * mu2 - hw2)) / (den * den))
+    r_var = (radii * radii) * ((mu2 * 0.25 + _K512 * hw2) - (_K415 * hw4) / den)
+    dd = rays_d * rays_d
+    mag = ((dd[:, 0] + dd[:, 1]) + dd[:, 2]).clamp(min=1e-10)
+    mean = rays_o[:, None, :] + rays_d[:, None, :] * t_mean[..., None]
+    var = t_var[..., None] * dd[:, None, :] + r_var[..., None] * (1.0 - dd / mag[:, None])[:, None, :]
+    return mean, var
+
+
+def ipe_operands_reference(rays_o, rays_d, radii, t, deg: int, mask, cdtype) -> torch.Tensor:
+    """Plain version of `ipe_operands`: the frustums' Gaussians
+    (`frustum_gaussians`), their integrated PE in float32, times the mask,
+    cast to cdtype."""
+    mean, var = frustum_gaussians(rays_o, rays_d, radii, t)
+    mean, var = mean.reshape(-1, 3), var.reshape(-1, 3)
+    parts = [mean]
+    if deg:
+        scale = 2.0 ** torch.arange(deg, dtype=torch.float32, device=mean.device)
+        z = (scale[:, None] * mean[:, None, :]).reshape(-1, 3 * deg)
+        damp = torch.exp(-0.5 * ((scale * scale)[:, None] * var[:, None, :]).reshape(-1, 3 * deg))
+        parts += [torch.sin(z) * damp, torch.cos(z) * damp]
+    lo = torch.cat(parts, dim=-1)
+    if mask is not None:
+        lo = lo * mask
+    return lo.to(cdtype).contiguous()
+
+
+def ipe_operands(rays_o, rays_d, radii, t, deg: int, mask, cdtype) -> torch.Tensor:
+    """The points operand lo of the fused field calls of mip-NeRF's field
+    (FreeNeRF): the integrated positional encoding of the conical frustums
+    between consecutive edges t (nr, ns + 1) of rays o, d (nr, 3) with base
+    radii (nr, 1), all float32, as (nr ns, 3 + 6 deg) at cdtype, rows ray
+    major: [mean | sin(2^l mean) exp(-4^l var / 2), l < deg | cos(...)
+    exp(...)], each column times `mask` (3 + 6 deg float32, FreeNeRF's
+    frequency mask) where given. CPU tensors take the plain version
+    (`ipe_operands_reference`); CUDA tensors launch the kernel
+    (csrc/field_pe.cu `snerf_field_ipe`) or raise. No gradient: the
+    frustums hold no parameter."""
+    nr = t.shape[0]
+    ns = t.shape[1] - 1 if t.dim() == 2 else -1
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ipe_operands runs on CPU or CUDA tensors, got {t.device}")
+    shapes = {"rays_o": (rays_o, (nr, 3)), "rays_d": (rays_d, (nr, 3)), "radii": (radii, (nr, 1))}
+    if ns < 1:
+        raise ValueError(f"t: expected (nr, ns + 1) edges, got {tuple(t.shape)}")
+    if mask is not None:
+        shapes["mask"] = (mask, (3 + 6 * deg,))
+    for name, (x, shape) in {"t": (t, (nr, ns + 1)), **shapes}.items():
+        if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != t.device:
+            raise ValueError(f"{name}: expected {shape} float32 on {t.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if cdtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got {cdtype}")
+    if t.device.type == "cpu":
+        return ipe_operands_reference(rays_o, rays_d, radii, t, deg, mask, cdtype)
+    from simplenerf_torch.ops import build
+
+    n = nr * ns
+    lo = torch.empty((n, 3 + 6 * deg), dtype=cdtype, device=t.device)
+    args = [x.contiguous() for x in (rays_o, rays_d, radii, t)]
+    m = mask.contiguous() if mask is not None else None
+    rc = build.load_library("field_pe").snerf_field_ipe(
+        *(_ptr(x) for x in args), _ptr(m), _ptr(lo), n, ns, deg,
+        1 if cdtype == torch.bfloat16 else 0, _stream(t.device))
+    if rc != 0:
+        raise RuntimeError(f"snerf_field_ipe kernel launch failed: CUDA error {rc}")
+    if n:
+        ipe_operands.launches += 1
+    return lo
+
+
+ipe_operands.launches = 0
+
 
 def _stacked_cotangents(n_planes: int, d_planes, nr: int, ns: int, device) -> torch.Tensor:
     if isinstance(d_planes, torch.Tensor):
@@ -1970,10 +2070,13 @@ def fused_apply(spec: FusedSpec, kp: dict, lo, hi, hvx, sec=None) -> tuple:
 def secondary_supported(spec: FusedSpec, device) -> bool:
     """Whether `fused_apply` takes secondary views for `spec` on `device`:
     one views layer with view directions and a visibility channel last in
-    its head; on CUDA the bf16 kernels only (float32 goes unfused)."""
+    its head; on CUDA the bf16 kernels only (float32 goes unfused), and not
+    where the forward's plan hands a turn on (`hand`, header word 13): the
+    forward has no kPre instance with kSplit."""
     ok = (spec.has_hvx and spec.views_depth == 1 and spec.out_v >= 1
           and spec.views_width <= _SEC_MAX_WV)
-    return ok and (torch.device(device).type == "cpu" or spec.cdtype == torch.bfloat16)
+    return ok and (torch.device(device).type == "cpu"
+                   or (spec.cdtype == torch.bfloat16 and not _sm90_on(spec, torch.device("cpu"))[0].words[13]))
 
 
 # The secondary-view kernels (csrc/fused_mlp_sec.cu): the widest views
@@ -2182,7 +2285,7 @@ fused_ens_bwd.own_forward = 0
 
 
 _COUNTED = (fused_apply, fused_bwd, fused_apply_ensemble, fused_ens_bwd, wgrad, column_sums,
-            tf32_split, pe_operands, secondary_fwd, secondary_bwd)
+            tf32_split, pe_operands, secondary_fwd, secondary_bwd, ipe_operands)
 _OWN_FORWARD = (fused_bwd, fused_ens_bwd)  # float32 backward calls that launched their own forward
 
 

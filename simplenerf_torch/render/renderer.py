@@ -7,7 +7,9 @@ reference key grammar `{prefix}{quantity}_{coarse|fine}` with the prefixes
 per-sample outputs when `retraw`. `train=True` adds stratified jitter,
 sigma noise and the augmented models; a level with several members and no
 secondary-view visibility runs them as one ensemble (`_run_level_ensemble`,
-the coarse trio of the published recipe).
+the coarse trio of the published recipe). A config with `shared_mlp`
+renders mip-NeRF's step instead (FreeNeRF: `render.mip`, one MLP at both
+levels, leaves `params["mlp"]`).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Any, Optional
 import torch
 
 from simplenerf_torch.fields import mlp as mlp_lib
-from simplenerf_torch.render import sampling, volume
+from simplenerf_torch.render import mip, sampling, volume
 from simplenerf_torch.utils import profiling
 
 Params = Any
@@ -45,8 +47,12 @@ class RenderConfig:
     # CPU "on" takes its plain version, "auto"/"off" the unfused MLP. The
     # visibility2 path takes the kernels where they have secondary views
     # (`fused_mlp.secondary_supported`: bf16 on the card), else the
-    # unfused MLP.
+    # unfused MLP. mip-NeRF's field ignores it (`fused_apply` always).
     fused_mlp: str = "auto"
+    # mip-NeRF (FreeNeRF): one MLP at both levels, num_samples intervals a
+    # level, its points encoding the integrated PE (`render.mip`); the
+    # other MLPs are None.
+    shared_mlp: Optional[mlp_lib.MLPConfig] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -61,6 +67,8 @@ class RenderConfig:
 
     def mlp_items(self) -> list[tuple[str, mlp_lib.MLPConfig]]:
         """(param_key, cfg) for every MLP present."""
+        if self.shared_mlp is not None:
+            return [("mlp", self.shared_mlp)]
         items = []
         for name in (
             "coarse_mlp",
@@ -247,7 +255,9 @@ def step_draws(cfg: RenderConfig, nr: int, generator: torch.Generator, device,
     kept and take nothing from the generator. Returns render_rays' keywords
     {u_coarse, u_fine, noise}: with a ray-sharded batch, each rank draws at
     the global ray count and keeps its rows, so the job draws the numbers
-    of the one-process step."""
+    of the one-process step. mip-NeRF's draws: `mip.step_draws`."""
+    if cfg.shared_mlp is not None:
+        return mip.step_draws(cfg.shared_mlp, cfg.raw_noise_std, nr, generator, device)
     noise = dict(noise or {})
     ns = 0
 
@@ -282,6 +292,7 @@ def render_rays(
     u_coarse: Optional[torch.Tensor] = None,
     u_fine: Optional[torch.Tensor] = None,
     noise: Optional[dict] = None,
+    freq_mask: Optional[torch.Tensor] = None,
 ) -> dict:
     """Render a batch of rays through the SimpleNeRF hierarchy.
 
@@ -295,8 +306,15 @@ def render_rays(
 
     Returns the reference-keyed output dict. With keep_per_sample=False,
     per-sample tensors (alpha/weights/visibility/z_vals/raw) are dropped to
-    keep full-image renders lean.
+    keep full-image renders lean. With `cfg.shared_mlp`, mip-NeRF's step
+    (`mip.render_rays`, which reads `freq_mask`, FreeNeRF's frequency masks).
     """
+    if cfg.shared_mlp is not None:
+        if train and generator is not None:
+            draws = step_draws(cfg, rays["rays_o"].shape[0], generator, rays["rays_o"].device)
+            u_coarse, u_fine, noise = draws["u_coarse"], draws["u_fine"], draws["noise"]
+        return mip.render_rays(params, cfg, rays, train, keep_per_sample, u_coarse, u_fine, noise,
+                               freq_mask)
     if retraw is None:
         retraw = train
     out: dict = {}

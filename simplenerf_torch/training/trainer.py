@@ -51,7 +51,7 @@ from simplenerf_torch.data.preprocessor import ScenePreprocessor, gather_batch
 from simplenerf_torch.losses import LossComputer, LossContext
 from simplenerf_torch.ops import fused_mlp
 from simplenerf_torch.parallel import mesh as mesh_lib
-from simplenerf_torch.render import renderer
+from simplenerf_torch.render import mip, renderer
 from simplenerf_torch.training import checkpoints
 from simplenerf_torch.training.logger import TrainLogger
 from simplenerf_torch.training.lr_decay import make_lr_schedule
@@ -157,35 +157,42 @@ class StepInputs:
     the body run one body on the same inputs. The ray indices (int32) and
     their masks (bool), the loss weights and Adam's scalars (float32) share
     one byte buffer that one copy fills, non-blocking from pinned memory on
-    a card; the render draws have a buffer each. `counts` are the host ints
-    the loss stack branches on (`losses.common.global_count`).
+    a card, and so do FreeNeRF's frequency masks (`freq_mask`, n_mask
+    float32, None without); the render draws have a buffer each. `counts`
+    are the host ints the loss stack branches on
+    (`losses.common.global_count`).
     """
 
-    def __init__(self, nr: int, n_losses: int, draws: dict, device: torch.device):
-        self.nr, self.n_losses = nr, n_losses
-        nbytes = 4 * (nr + n_losses + 3) + 2 * nr
+    def __init__(self, nr: int, n_losses: int, draws: dict, device: torch.device, n_mask: int = 0):
+        self.nr, self.n_losses, self.n_mask = nr, n_losses, n_mask
+        nbytes = 4 * (nr + n_losses + 3 + n_mask) + 2 * nr
         self.dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
         self.host = (torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
                      if self.dev.is_cuda else self.dev)
         self._copied = None  # an event after the last copy out of `host`
-        self.indices, self.weights, self.adam, self.mask_nerf, self.mask_sd = self._views(self.dev)
+        (self.indices, self.weights, self.adam, self.mask_nerf, self.mask_sd,
+         freq) = self._views(self.dev)
+        self.freq_mask = freq if n_mask else None
         self.draws = _clone_draws(draws)
         self.counts: dict = {}
 
     def _views(self, buf: torch.Tensor) -> tuple:
         a, b, c = 4 * self.nr, 4 * (self.nr + self.n_losses), 4 * (self.nr + self.n_losses + 3)
+        m = c + 4 * self.n_mask
         return (buf[:a].view(torch.int32), buf[a:b].view(torch.float32),
-                buf[b:c].view(torch.float32), buf[c : c + self.nr].view(torch.bool),
-                buf[c + self.nr :].view(torch.bool))
+                buf[b:c].view(torch.float32), buf[m : m + self.nr].view(torch.bool),
+                buf[m + self.nr :].view(torch.bool), buf[c:m].view(torch.float32))
 
-    def write(self, indices, mask_nerf, mask_sd, weights, adam, draws: dict, counts: dict):
+    def write(self, indices, mask_nerf, mask_sd, weights, adam, draws: dict, counts: dict,
+              freq_mask=None):
         """Write a step's numpy arrays and its draws (tensors shaped as the
         buffers) in stream order: the previous copy out of the pinned
         buffer is waited for before the host overwrites it."""
         if self._copied is not None:
             with profiling.span("train.stage.wait"):
                 self._copied.synchronize()
-        for view, a in zip(self._views(self.host), (indices, weights, adam, mask_nerf, mask_sd)):
+        arrays = (indices, weights, adam, mask_nerf, mask_sd, freq_mask)
+        for view, a in zip(self._views(self.host), arrays[: 5 + bool(self.n_mask)]):
             view.copy_(torch.from_numpy(np.ascontiguousarray(a)))
         if self.host is not self.dev:
             self.dev.copy_(self.host, non_blocking=True)
@@ -267,10 +274,17 @@ class Trainer:
         # (`rays_o2`, its frame's other train cameras) so that
         # VisibilityPriorLoss01 trains; off, the step renders none.
         self.train_sec_views = bool(configs["model"].get("train_secondary_views", False))
+        # FreeNeRF: the points and views frequency masks of each step, all
+        # ones from `freq_reg_end` on (`render.mip.step_masks`).
+        self.freq_reg_end = configs["model"].get("freq_reg_end")
         # The last step's secondary visibility by output name
         # (`visibility2_coarse`, `visibility2_fine`: (rows, k)), detached;
         # under a CUDA graph the graph's buffers, which each replay rewrites.
         self.step_visibility2: dict = {}
+        # mip-NeRF's step: its per-interval densities and IPE operands by
+        # output name (`density_coarse`, `density_fine`: (rows, intervals);
+        # `ipe_coarse`, `ipe_fine`: (rows x intervals, channels)), as above.
+        self.step_mip: dict = {}
         self.loss_computer = LossComputer(configs["losses"], loss_context_from_configs(configs))
         opt_cfg = configs["optimizer"]
         self.lr_schedule = make_lr_schedule(opt_cfg, configs.get("num_iterations", 0))
@@ -331,6 +345,13 @@ class Trainer:
         """The step's generator on the device, seeded from (seed, iteration)."""
         return torch.Generator(device=self.device).manual_seed(self.seed * 2**32 + int(iter_num))
 
+    def freq_mask(self, iter_num: int):
+        """The step's frequency masks (numpy float32), or None without."""
+        mcfg = self.render_cfg.shared_mlp
+        if mcfg is None or self.freq_reg_end is None:
+            return None
+        return mip.step_masks(mcfg, iter_num, int(self.freq_reg_end))
+
     def batch(self, indices, mask_nerf, mask_sd) -> dict:
         pp = self.train_pp
         t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
@@ -342,6 +363,9 @@ class Trainer:
         weights of `iter_num`: (total, values). `draws` go to `render_rays`
         (generator or explicit draws)."""
         weights = torch.as_tensor(self.loss_computer.weights_vector(iter_num), device=self.device)
+        freq = self.freq_mask(iter_num)
+        if freq is not None:
+            draws["freq_mask"] = torch.as_tensor(freq, device=self.device)
         outputs = renderer.render_rays(self.params, self.render_cfg, batch, train=True,
                                        sec_views_vis=self.train_sec_views, **draws)
         return self.loss_computer.compute(batch, outputs, weights)
@@ -349,9 +373,10 @@ class Trainer:
     def stage(self, iter_num: int) -> StepInputs:
         """The host stage of step `iter_num`: its global ray indices and
         masks (`next_indices`), its loss weights, Adam's scalars at the
-        current count (then the count advances), its counts and its draws
-        from the step's generator, drawn for the whole batch, written into
-        the step's inputs."""
+        current count (then the count advances), its counts, its draws
+        from the step's generator, drawn for the whole batch, and its
+        frequency masks where the model has them, written into the step's
+        inputs."""
         with profiling.span("train.stage"):
             with profiling.span("train.stage.indices"):
                 indices, mask_nerf, mask_sd = self.train_pp.next_indices(iter_num)
@@ -362,11 +387,14 @@ class Trainer:
             with profiling.span("train.stage.draws"):
                 draws = renderer.step_draws(self.render_cfg, len(indices),
                                             self.step_generator(iter_num), self.device)
+            freq = self.freq_mask(iter_num)
+            n_mask = 0 if freq is None else len(freq)
             if self._inputs is None or self._inputs.nr != len(indices):
                 self._inputs = StepInputs(len(indices), len(self.loss_computer.specs), draws,
-                                          self.device)
+                                          self.device, n_mask)
             self._inputs.write(indices, mask_nerf, mask_sd,
-                               self.loss_computer.weights_vector(iter_num), adam, draws, counts)
+                               self.loss_computer.weights_vector(iter_num), adam, draws, counts,
+                               freq)
             return self._inputs
 
     def body(self, inputs: StepInputs) -> dict:
@@ -380,7 +408,9 @@ class Trainer:
         the sums are no-ops. Four device spans cover it, one after another:
         `step.forward` (gather and render), `step.losses`, `step.backward`
         and `step.adam` (Adam and the stacked loss values). The render's
-        secondary visibility, where it has any, stays in `step_visibility2`."""
+        secondary visibility, where it has any, stays in `step_visibility2`,
+        and mip-NeRF's per-interval densities and IPE operands in
+        `step_mip`."""
         dev = self.device
         with profiling.span("step.forward", device=dev):
             for p in self.leaves:
@@ -389,10 +419,14 @@ class Trainer:
                 self.mesh, (inputs.indices, inputs.mask_nerf, inputs.mask_sd, inputs.draws))
             batch = self.batch(indices, mask_nerf, mask_sd)
             batch["global_counts"] = inputs.counts
+            if inputs.freq_mask is not None:
+                draws = dict(draws, freq_mask=inputs.freq_mask)
             outputs = renderer.render_rays(self.params, self.render_cfg, batch, train=True,
                                            sec_views_vis=self.train_sec_views, **draws)
             self.step_visibility2 = {k: v.detach() for k, v in outputs.items()
                                      if k.startswith("visibility2_")}
+            self.step_mip = {k: v.detach() for k, v in outputs.items()
+                             if k.startswith(("density_", "ipe_"))}
         with profiling.span("step.losses", device=dev):
             total, values = self.loss_computer.compute(batch, outputs, inputs.weights)
         with profiling.span("step.backward", device=dev):

@@ -1078,8 +1078,8 @@ def test_secondary_autograd_matches_plain(cuda_device):
 def test_k0_launches_the_kernels_it_launched_before(cuda_device):
     """Without secondary views a field call and its backward launch the
     forward engine and the row pass in their plain instances (kPre, kSec
-    false), the weight pass and the column sums: no secondary kernel and
-    no column sum of its partials."""
+    and kSplit false), the weight pass and the column sums: no secondary
+    kernel and no column sum of its partials."""
     cfg = mlp.MLPConfig(**{**SMALL, **SEC_CASES["published"]})
     spec, kp, lo, hi, hvx = _operands(cfg, 37, 64, torch.bfloat16, cuda_device)
     kp = {n: t.detach().clone().requires_grad_() for n, t in kp.items()}
@@ -1094,6 +1094,83 @@ def test_k0_launches_the_kernels_it_launched_before(cuda_device):
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     ours = [n for n in names if "fused_mlp" in n or "sec_" in n]
     print("k = 0 kernels:", sorted(set(ours)))
-    assert not [n for n in ours if "sec_" in n or "<true>" in n], ours
-    assert sum("fused_mlp_fwd_sm90_kernel<false>" in n for n in ours) == 1, ours
+    assert not [n for n in ours if "sec_" in n or "true>" in n], ours
+    assert sum("fused_mlp_fwd_sm90_kernel<false, false>" in n for n in ours) == 1, ours
     assert sum("fused_mlp_bwd_rows_sm90_kernel<false>" in n for n in ours) == 1, ours
+
+
+# FreeNeRF (mip-NeRF's field): the IPE operand kernel (csrc/field_pe.cu
+# `field_ipe_kernel`) against its plain version on the card, and the bf16
+# kernels at its 99-wide points operand: the forward's kSplit instance
+# (a skip join of 4 + 2 slabs on a ring of 5, the turn handed on after 5),
+# the row pass and the weight pass.
+FREE = dict(points_net_depth=8, points_net_width=256, views_net_width=128, points_pe_degree=16,
+            views_pe_degree=4, skip_layers=(4,))
+IPE_ULP = 0  # the kernel repeats the plain chain's float32 operations: equal to the bit
+
+
+def _ipe_inputs(nr: int, ns: int, device, seed: int = 0):
+    """NDC-like rays (origins near the plane z = -1, directions with a z
+    part about 2), radii of a pixel and sorted edges in [0, 1]."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    o = torch.cat([0.8 * torch.rand((nr, 2), generator=g, device=device) - 0.4,
+                   -torch.ones((nr, 1), device=device)], -1)
+    d = torch.cat([0.2 * torch.randn((nr, 2), generator=g, device=device),
+                   torch.full((nr, 1), 2.0, device=device)], -1)
+    r = 0.002 + 0.002 * torch.rand((nr, 1), generator=g, device=device)
+    t = torch.sort(torch.rand((nr, ns + 1), generator=g, device=device), dim=-1).values
+    return o, d, r, t
+
+
+@pytest.mark.parametrize(**DTYPES)
+@pytest.mark.parametrize("masked", [False, True], ids=["ones", "mask"])
+@pytest.mark.parametrize("shape", [(4096, 128), (37, 5), (1037, 128)], ids=["step", "37x5", "1037x128"])
+def test_ipe_operands_kernel_matches_plain(cuda_device, shape, masked, dtype):
+    """lo from the IPE kernel against `ipe_operands_reference` on the card:
+    the largest gap in units in the last place of the compute type is at
+    most IPE_ULP, and the launch is counted."""
+    from simplenerf_torch.render import mip
+
+    nr, ns = shape
+    o, d, r, t = _ipe_inputs(nr, ns, cuda_device, seed=nr)
+    mask = (torch.as_tensor(mip.freq_mask(99, 10000, 62791), device=cuda_device) if masked else None)
+    before = fused_mlp.ipe_operands.launches
+    got = fused_mlp.ipe_operands(o, d, r, t, 16, mask, dtype)
+    torch.cuda.synchronize()
+    assert fused_mlp.ipe_operands.launches == before + 1
+    want = fused_mlp.ipe_operands_reference(o, d, r, t, 16, mask, dtype)
+    assert got.shape == want.shape == (nr * ns, 99) and got.dtype == dtype
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    ulp = (got.view(bits).long() - want.view(bits).long()).abs()
+    print(f"ipe {shape} {dtype} masked={masked}: {int((ulp > 0).sum())} of {ulp.numel()} elements "
+          f"differ, at most {int(ulp.max())} ulp")
+    assert int(ulp.max()) <= IPE_ULP
+
+
+@pytest.mark.parametrize("rays", [37, 1037])
+def test_freenerf_bf16_kernels_at_the_wide_join(cuda_device, rays):
+    """The bf16 forward (its kSplit instance: the plan hands the turn on),
+    row pass and weight pass at the 99-wide IPE operand, 128 intervals a
+    ray, against their plain versions."""
+    from simplenerf_torch.render import mip
+
+    cfg = mlp.MLPConfig(**FREE, num_samples=128)
+    ns, dtype = 128, torch.bfloat16
+    g = torch.Generator().manual_seed(rays)
+    params = mlp.init(g, cfg, device=cuda_device)
+    o, d, r, t = _ipe_inputs(rays, ns, cuda_device, seed=rays)
+    mask = torch.as_tensor(mip.step_masks(cfg, 40000, 62791), device=cuda_device)
+    lo = fused_mlp.ipe_operands(o, d, r, t, 16, mask[:99], dtype)
+    field = mip.Field(params, cfg, torch.nn.functional.normalize(d, dim=-1), mask[99:], dtype)
+    spec = fused_mlp.make_spec(cfg, ns, dtype)
+    assert fused_mlp.sm90_plan(spec).words[13] == 5  # the turn handed on within the ring
+    got = fused_mlp.fused_apply(spec, field.kp, lo, None, field.hvx)
+    torch.cuda.synchronize()
+    want = fused_mlp.fused_apply_reference(spec, field.kp, lo, None, field.hvx)
+    for j, (a, b) in enumerate(zip(got, want)):
+        err = (a - b).abs().max().item()
+        print(f"freenerf fwd {rays} x {ns} plane {j}: max abs err {err:.3e}")
+        assert err <= TOL[dtype], f"plane {j}: {err}"
+    kp = {k: v.detach() for k, v in field.kp.items()}
+    _check_bwd(f"freenerf bwd {rays} x {ns}", spec, kp, lo, None, field.hvx.detach(), rays, ns,
+               dtype, cuda_device)

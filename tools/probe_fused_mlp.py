@@ -129,8 +129,10 @@ TIMING_EDITS = {
     "hvx loads": [(_SM90, "  if (op.flags & FLAG_HVX) {\n    // Staged", "  if (false) {\n    // Staged")],
     "lo tile loads": [(_SM90, "  load_rows(tl.lo, lo, p.in_lo,", "  if (0) load_rows(tl.lo, lo, p.in_lo,")],
     # ptxas drops a wgmma whose results nobody reads: one data-dependent store keeps them.
-    "half turns": [(_SM90, "const int hand = slabs;", "const int hand = (slabs + 1) / 2;")],
-    "one-slab turns": [(_SM90, "const int hand = slabs;", "const int hand = 1;")],
+    "half turns": [(_SM90, "const int hand = kSplit ? min(slabs, p.hand) : slabs;",
+                    "const int hand = (slabs + 1) / 2;")],
+    "one-slab turns": [(_SM90, "const int hand = kSplit ? min(slabs, p.hand) : slabs;",
+                        "const int hand = 1;")],
     # What stays of the epilogue is the rounding into the next layer's A
     # registers: without it ptxas serializes the wgmma (register resources).
     "epilogue": [(_SM90, "  epilogue<N, kPre>(acc, a, op, p, s, cst, hvx, out, fpar, pre, row0, t);\n",
